@@ -1,0 +1,155 @@
+"""Core layers on channel-last tensors (B, T, C).
+
+Counterpart of mlx_audio_tpu/nn/layers.py. Activations keep the JAX
+package's channel-last layout, so the port's public functions compare like
+with like; parameters are held in PyTorch's own layouts:
+
+  * Linear:           weight (out, in)
+  * Conv1d:           weight (out, in/groups, width)       [torch Conv1d]
+  * ConvTranspose1d:  weight (in, out/groups, width)       [torch ConvTranspose1d]
+  * Embedding:        weight (vocab, dim)
+
+The JAX package's layouts (WIO convs, pre-flipped transposed-conv kernels)
+are converted once, in `model.load_jax_params`.
+
+Parameters are cast to the activation's dtype at use, as the JAX layers do
+(`params["weight"].astype(x.dtype)`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Padding = Union[int, Tuple[int, int]]
+
+
+# ---------------------------------------------------------------------------
+# Functions
+# ---------------------------------------------------------------------------
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def _cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., in) @ weight (out, in)^T [+ bias] -> (..., out)."""
+    return F.linear(x, weight.to(x.dtype), _cast(bias, x.dtype))
+
+
+def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Normalise over the last axis (biased variance, as apply_layer_norm)."""
+    return F.layer_norm(x, (x.shape[-1],), _cast(weight, x.dtype),
+                        _cast(bias, x.dtype), eps)
+
+
+def conv1d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: int = 1,
+           padding: Padding = 0, dilation: int = 1,
+           groups: int = 1) -> torch.Tensor:
+    """1-D conv on (B, T, C_in) with a torch (O, I/g, W) kernel -> (B, T', O).
+
+    `padding` is symmetric (int) or (left, right)."""
+    left, right = (padding, padding) if isinstance(padding, int) else padding
+    h = x.transpose(1, 2)
+    if left or right:
+        h = F.pad(h, (left, right))
+    y = F.conv1d(h, weight.to(x.dtype), _cast(bias, x.dtype), stride=stride,
+                 dilation=dilation, groups=groups)
+    return y.transpose(1, 2)
+
+
+def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, stride: int = 1,
+                     padding: int = 0, output_padding: int = 0,
+                     groups: int = 1) -> torch.Tensor:
+    """Transposed 1-D conv on (B, T, C_in) with a torch (I, O/g, W) kernel.
+
+    Output length (T-1)*stride - 2*padding + W + output_padding."""
+    y = F.conv_transpose1d(x.transpose(1, 2), weight.to(x.dtype),
+                           _cast(bias, x.dtype), stride=stride,
+                           padding=padding, output_padding=output_padding,
+                           groups=groups)
+    return y.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter holders named after the JAX tree's leaves)
+# ---------------------------------------------------------------------------
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features = in_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = (nn.Parameter(torch.empty(out_features)) if bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(vocab, dim))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Conv1d(nn.Module):
+    """Weights (O, I/g, W); called on channel-last (B, T, C)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, bias: bool = True,
+                 groups: int = 1):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor, stride: int = 1, padding: Padding = 0,
+                dilation: int = 1) -> torch.Tensor:
+        return conv1d(x, self.weight, self.bias, stride=stride,
+                      padding=padding, dilation=dilation, groups=self.groups)
+
+
+class ConvTranspose1d(nn.Module):
+    """Weights (I, O/g, W), torch's own ConvTranspose1d layout."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, bias: bool = True,
+                 groups: int = 1):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(in_ch, out_ch // groups, kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor, stride: int = 1, padding: int = 0,
+                output_padding: int = 0) -> torch.Tensor:
+        return conv_transpose1d(x, self.weight, self.bias, stride=stride,
+                                padding=padding,
+                                output_padding=output_padding,
+                                groups=self.groups)

@@ -1,0 +1,1 @@
+"""TTS model families of the port (so far: kokoro)."""
