@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's Kokoro-82M text -> audio path once on one GPU.
+"""Drive the PyTorch port's main paths once on one GPU: Kokoro-82M text ->
+audio, and Qwen3-TTS text ids -> audio with an 8-bit quantized talker.
 
     python3 chip_smoke.py
 
@@ -8,22 +9,43 @@ the CUDA toolkit. Phases, each of which raises on failure:
 1. device: requires CUDA; prints the card's name and power limit; turns
    TF32 off for matmuls and cuDNN convolutions, so every f32 reference below
    is full f32.
-2. build: compiles the hand-written kernel (csrc/snake_conv.cu) with nvcc
-   into build/kernels/ and reports the seconds it took.
-3. kernel vs plain: the fused AdaIN -> snake -> conv1d kernel against its
+2. build: compiles the hand-written kernels (csrc/snake_conv.cu, K1, and
+   csrc/qmm.cu, K2) with nvcc into build/kernels/, one nvcc per source, all
+   started together, and reports the seconds.
+3. K1 vs plain: the fused AdaIN -> snake -> conv1d kernel against its
    plain PyTorch version at every (C, k, dilation) the generator runs
    (C in {256, 128} x k in {3, 7, 11} x dil in {1, 3, 5}), B=2 with ragged
    valid lengths, at the time lengths of a 1024-frame bucket, in f32 and
    bf16; relative error and median times (CUDA events).
-4. main path: Kokoro at the published dims with seeded random weights.
+4. Kokoro main path at the published dims with seeded random weights.
    First a small-input check, fed the same durations: the CUDA path against
    the same seeded model on the CPU (plain versions) at f32, and the bf16
-   CUDA decoder against that f32 CPU one. Then three
-   `generate()` requests through the pipeline, the built-in G2P and a
-   seeded .npy voice pack, in the default bf16, twice over (cold, then
-   warm): audio length, finiteness, and 48 kernel launches per synth.
+   CUDA decoder against that f32 CPU one. Then three `generate()` requests
+   through the pipeline, the built-in G2P and a seeded .npy voice pack, in
+   the default bf16, twice over (cold, then warm): audio length,
+   finiteness, and 48 K1 launches per synth.
+5. K2 vs plain: the fused dequantize + matmul kernel against
+   `qmatmul_reference` at every linear shape of the Qwen3-TTS slice,
+   M in {1, 64}, bits in {8, 4}, x in f32 and bf16; relative error, median
+   device time per launch over a rotation of weight copies larger than the
+   L2 cache (replayed as one CUDA graph, so host launch cost is left out),
+   and GB/s at M = 1.
+6. Qwen3-TTS checks: on a small config at f32 from one seeded weight set,
+   the CUDA path against the CPU path (prefill logits, the greedy codes of
+   one chunk, decode_full audio); at full dims, the q8 model's prefill
+   logits with K2 against the same model through `qmatmul_reference`.
+7. Qwen3-TTS main path at the published dims of the 1.7B lane (bench.py
+   qwen3_tts_1b7), seeded random bf16 weights quantized to affine 8-bit
+   (group 64): three `generate(text_ids=...)` requests, cold then warm:
+   audio length and finiteness, and K2's launch count against the count
+   the config gives for the steps that ran (722 per decode step; the
+   model must hold exactly the quantized linears the config gives). The
+   (M, out, in) of every K2 launch is recorded on the way.
+8. K2 vs plain at each recorded call shape of the main path (the prefill
+   bucket, the code predictor's first sub-step at M=2, text_projection
+   over the text ids), 8-bit codes, x in f32 and bf16.
 
-The last two lines of stdout are a JSON line about the kernel and the
+The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
 before either is printed.
 """
@@ -91,13 +113,21 @@ def phase_device():
 
 
 def phase_build():
-    from mlx_audio_tpu_torch.ops.cuda_build import library_path
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mlx_audio_tpu_torch.ops.cuda_build import build
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
     from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
 
     t0 = time.perf_counter()
+    names = ("snake_conv", "qmm")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(build, names))
     snake_conv_kernel.build()
-    log(f"[build] snake_conv.cu -> {library_path('snake_conv').name} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    qmm_kernel.build()
+    log(f"[build] {', '.join(f'{n}.cu -> {lib.name}' for n, lib in zip(names, libs))} "
+        f"in {time.perf_counter() - t0:.2f} s")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -323,6 +353,483 @@ def phase_main_path(card: str, voice_dir: Path):
     return total_launches, legs_per_synth, model.istft_cfg
 
 
+# ---------------------------------------------------------------------------
+# Qwen3-TTS with the 8-bit talker (kernel K2)
+# ---------------------------------------------------------------------------
+
+# every linear (out, in) of the slice: q; k, v; o; gate, up, codec_head;
+# down; text_projection fc1 and fc2 (fc2 is o's shape)
+QMM_SHAPES = ((2048, 1024), (1024, 1024), (1024, 2048), (3072, 1024),
+              (1024, 3072), (2048, 2048))
+QMM_ROWS = (1, 64)
+QMM_GROUP = 64
+# quantized linears of one qwen3 layer: q, k, v, o, gate, up, down
+LINEARS_PER_LAYER = 7
+# K2 launches at the qwen3_tts_1b7 dims: a talker pass 28*7 + 1
+# (codec_head); step 0 the code predictor's 15 passes of 5*7; a decode step
+# both (722); a text_projection call fc1 and fc2
+K2_LAUNCHES_FULL_DIMS = {"prefill": 197, "step0": 525, "decode step": 722,
+                         "text_projection": 2}
+# K2 is timed over a rotation of weight copies of at least twice the 50 MB
+# L2, as the decode step finds its weights: each read once per frame
+L2_BYTES = 50 * 2 ** 20
+HBM_GBS = 3350.0
+# small config at f32, CUDA vs CPU: summation order only
+QWEN3_E2E_TOL = 1e-4
+# full-dims q8 prefill logits, K2 vs qmatmul_reference, both bf16: each
+# linear rounds its f32 sum to bf16 (2**-8 relative), in another order, and
+# 28 layers carry the difference on; bound and correlation as the Kokoro
+# bf16 check's style
+Q8_PREFILL_TOL, Q8_PREFILL_CORR = 0.05, 0.999
+# (text ids, max_tokens): the JAX lane's request (bench.py:285) between a
+# short and a long one; temperature 0.9, seed 0
+QWEN3_SEED = 0
+
+
+def qwen3_requests():
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    return ((rng.randint(0, 151936, 20), 60),
+            (np.arange(100, 150), 100),
+            (rng.randint(0, 151936, 120), 200))
+
+
+def qwen3_config():
+    """The qwen3_tts_1b7 lane's dims (bench.py:208-217, equal to the
+    qwen3_tts/config.py defaults); codec decoder at its defaults."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import ModelConfig
+
+    return ModelConfig(talker_config=dict(
+        vocab_size=3072, hidden_size=1024, intermediate_size=3072,
+        num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8,
+        head_dim=128, num_code_groups=16, text_hidden_size=2048,
+        text_vocab_size=151936,
+        code_predictor_config=dict(
+            vocab_size=2048, hidden_size=1024, intermediate_size=3072,
+            num_hidden_layers=5, num_attention_heads=16,
+            num_key_value_heads=8, head_dim=128, num_code_groups=16)))
+
+
+def qwen3_small_config():
+    """tests/test_qwen3_tts.py::tiny_cfg, tts ids inside its text vocab."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import ModelConfig
+
+    return ModelConfig(
+        talker_config=dict(
+            vocab_size=300, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+            head_dim=8, num_code_groups=4, text_hidden_size=48,
+            text_vocab_size=500, codec_eos_token_id=280, codec_think_id=284,
+            codec_nothink_id=285, codec_think_bos_id=286,
+            codec_think_eos_id=287, codec_pad_id=278, codec_bos_id=279,
+            code_predictor_config=dict(
+                vocab_size=256, hidden_size=32, intermediate_size=64,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=8, num_code_groups=4)),
+        tokenizer_config=dict(decoder_config=dict(
+            latent_dim=32, codebook_dim=16, codebook_size=256, decoder_dim=64,
+            hidden_size=24, intermediate_size=48, head_dim=8,
+            num_attention_heads=3, num_hidden_layers=2, num_key_value_heads=3,
+            num_quantizers=4, num_semantic_quantizers=1, sliding_window=16,
+            upsample_rates=[4, 3], upsampling_ratios=[2, 2])),
+        tts_bos_token_id=497, tts_eos_token_id=498, tts_pad_token_id=499)
+
+
+def _time_graph(fns, reps: int) -> float:
+    """Median device ms per call of `fns` run back to back: the round is
+    captured once in a CUDA graph and replayed between CUDA events, so the
+    host's launch cost (tens of us per call here) is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(fns))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase_qmm(card: str, reps: int = 7):
+    """K2 against qmatmul_reference at every shape of the slice. Returns
+    {(dtype, out, in, bits, M): (rel, abs, ms, plain_ms, GB/s)}."""
+    from functools import partial
+
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.quant import qmatmul_reference, quantize_weight
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for n, k in QMM_SHAPES:
+        w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
+        bias = (0.01 * torch.randn(n, generator=g, device=dev)
+                if (n, k) == (2048, 2048) else None)
+        for bits in (8, 4):
+            q = quantize_weight(w, QMM_GROUP, bits)
+            wbytes = n * k + 2 * n * (k // QMM_GROUP) * 4
+            copies = [q] + [{name: v.clone() for name, v in q.items()}
+                            for _ in range(-(-2 * L2_BYTES // wbytes) - 1)]
+            for m in QMM_ROWS:
+                x32 = torch.randn(m, k, generator=g, device=dev)
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = x32.to(dtype)
+                    rel, ab = _qmm_case(x, q, bias, f"({n},{k}) q{bits} M={m}")
+                    ms = _time_graph(
+                        [partial(qmm_kernel, x, c["w_q"], c["scales"],
+                                 c["biases"], bias) for c in copies], reps)
+                    plain_ms = _time_graph(
+                        [partial(qmatmul_reference, x, c["w_q"], c["scales"],
+                                 c["biases"], bias) for c in copies], reps)
+                    gbs = ((wbytes + (m * k + m * n) * x.element_size())
+                           / (ms * 1e-3) / 1e9)
+                    name = str(dtype).split(".")[-1]
+                    results[(name, n, k, bits, m)] = (rel, ab, ms, plain_ms,
+                                                      gbs)
+                    log(f"[qmm] {name:8s} ({n:4d},{k:4d}) q{bits} M={m:2d} "
+                        f"rel={rel:.3e} abs={ab:.3e} (tol {KERNEL_TOL[name]:g}) "
+                        f"kernel {ms * 1e3:8.2f} us ({gbs:7.1f} GB/s, "
+                        f"{100 * gbs / HBM_GBS:5.1f}% of 3.35 TB/s) plain "
+                        f"{plain_ms * 1e3:8.2f} us ({card})")
+            del copies
+    return results
+
+
+def _qmm_case(x, q, bias, label: str):
+    """K2 vs qmatmul_reference on one input: output dtype, shape,
+    finiteness and the relative tolerance of x's dtype. -> (rel, abs)."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.quant import qmatmul_reference
+
+    args = (x, q["w_q"], q["scales"], q["biases"], bias)
+    got, want = qmm_kernel(*args), qmatmul_reference(*args)
+    torch.cuda.synchronize()
+    if got.dtype != x.dtype or got.shape != (x.shape[0], q["w_q"].shape[0]):
+        raise AssertionError(f"K2 {label}: output {got.dtype} "
+                             f"{tuple(got.shape)}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"K2 {label}: output not finite")
+    rel = rel_err(got, want)
+    name = str(x.dtype).split(".")[-1]
+    if not rel <= KERNEL_TOL[name]:
+        raise AssertionError(f"K2 vs plain {name} {label}: rel {rel:.3e} > "
+                             f"{KERNEL_TOL[name]}")
+    return rel, float((got.float() - want.float()).abs().max())
+
+
+def _codes_fed_to_codec(model, **kw):
+    """generate() -> (result, the codes it handed decode_full)."""
+    seen = []
+    hook = model.speech_tokenizer.decoder.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].clone()))
+    try:
+        (r,) = list(model.generate(**kw))
+    finally:
+        hook.remove()
+    return r, seen[0].cpu()
+
+
+def phase_qwen3_reference():
+    """Small config, f32, one seeded q8 weight set: CUDA vs CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.qwen3_tts import FIRST_CHUNK
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    cpu = Model(qwen3_small_config()).init_params(seed=0)
+    apply_quantization(cpu, {"quantization": {"bits": 8, "group_size": 16}},
+                       cpu.model_quant_predicate)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    ids = np.arange(10, 40)[None]
+    logits = []
+    with torch.inference_mode():
+        for m in (cpu, gpu):
+            emb, _, _ = m.prepare_inputs(text_ids=ids)
+            plen = emb.shape[1]
+            logits.append(m._prefill(F.pad(emb, (0, 0, 0, 16 - plen)), plen,
+                                     64)[0].cpu())
+    kw = dict(text_ids=ids, temperature=0.0, max_tokens=1 + FIRST_CHUNK)
+    (rc, cc), (rg, cg) = (_codes_fed_to_codec(m, **kw) for m in (cpu, gpu))
+    with torch.inference_mode():
+        audio_g = gpu.speech_tokenizer.decoder(cc.cuda()).cpu()
+        audio_c = cpu.speech_tokenizer.decoder(cc)
+    errs = {"prefill logits": rel_err(logits[1], logits[0]),
+            "decode_full audio": rel_err(audio_g, audio_c)}
+    log(f"[qwen3 reference] small config f32, q8 gs16: CUDA vs CPU rel err "
+        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tol {QWEN3_E2E_TOL:g}); greedy codes of one chunk "
+        f"({tuple(cc.shape)}) equal: {torch.equal(cc, cg)}")
+    for name, err in errs.items():
+        if not err <= QWEN3_E2E_TOL:
+            raise AssertionError(f"CUDA vs CPU {name}: rel {err:.3e}")
+    if not torch.equal(cc, cg):
+        raise AssertionError(f"greedy codes differ:\n{cc}\n{cg}")
+    if not (np.isfinite(rg.audio).all() and rg.samples == rc.samples):
+        raise AssertionError("CUDA audio not finite or of another length")
+
+
+def build_qwen3():
+    """Full dims, bf16 weights drawn on the card from seed 0, then the AR
+    path quantized to affine 8-bit, group 64 (bench.py:225-279's order)."""
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t0 = time.perf_counter()
+    model = Model(qwen3_config(), device="cuda").astype(torch.bfloat16)
+    model.init_params(seed=0, on_device=True)
+    n_dense = model.num_params()
+    apply_quantization(model, {"quantization": {"bits": 8,
+                                                "group_size": QMM_GROUP}},
+                       model.model_quant_predicate)
+    torch.cuda.synchronize()
+    log(f"[qwen3] {n_dense:,} params, bf16 on cuda, AR path q8 gs{QMM_GROUP}, "
+        f"built in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    return model
+
+
+def phase_qwen3_q8_prefill(model):
+    """Full dims: prefill logits with K2 vs the same q8 model through
+    qmatmul_reference, on the card."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mlx_audio_tpu_torch.ops import quant
+
+    ids = np.arange(100, 150)[None]
+    out = []
+    with torch.inference_mode():
+        emb, _, _ = model.prepare_inputs(text_ids=ids)
+        plen = emb.shape[1]
+        emb = F.pad(emb, (0, 0, 0, 16 - plen))
+        out.append(model._prefill(emb, plen, 256)[0].float())
+        kernel_qmatmul = quant.qmatmul
+        quant.qmatmul = quant.qmatmul_reference
+        try:
+            out.append(model._prefill(emb, plen, 256)[0].float())
+        finally:
+            quant.qmatmul = kernel_qmatmul
+    rel = rel_err(out[0], out[1])
+    corr = float(torch.corrcoef(torch.stack(out)[:, 0].double())[0, 1])
+    log(f"[qwen3 q8 prefill] full dims, bf16: K2 vs qmatmul_reference logits "
+        f"rel err {rel:.3e} (tol {Q8_PREFILL_TOL:g}), corr {corr:.6f} "
+        f"(min {Q8_PREFILL_CORR:g})")
+    if not (torch.isfinite(out[0]).all() and rel <= Q8_PREFILL_TOL
+            and corr >= Q8_PREFILL_CORR):
+        raise AssertionError(f"q8 prefill: rel {rel:.3e}, corr {corr}")
+
+
+def k2_per_pass(model):
+    """K2 launches of (one talker pass, one code-predictor pass, one
+    text_projection call), derived from the config: every qwen3 layer runs
+    LINEARS_PER_LAYER quantized linears, the talker pass adds codec_head,
+    text_projection is fc1 and fc2. Raises unless the model holds exactly
+    that many QuantizedLinear modules in each part: a linear left dense
+    would run through cuBLAS, and the launch count would not see it."""
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+
+    tc = model.tcfg
+    want = (LINEARS_PER_LAYER * tc.num_hidden_layers + 1,
+            LINEARS_PER_LAYER * tc.code_predictor_config.num_hidden_layers,
+            2)
+
+    def count(*modules):
+        return sum(isinstance(m, QuantizedLinear)
+                   for module in modules for m in module.modules())
+
+    t = model.talker
+    have = (count(t.model.layers, t.codec_head), count(t.code_predictor),
+            count(t.text_projection))
+    if have != want or count(model) != sum(want):
+        raise AssertionError(
+            f"quantized linears (talker, code predictor, text_projection) "
+            f"{have}, {count(model)} in all; the config gives {want}")
+    return want
+
+
+def expected_k2_launches(model, run):
+    """K2 launches of one generate(): the prefill is one talker pass; step 0
+    runs the code predictor's G-1 passes; each decode step one talker pass
+    and G-1 code-predictor passes; each text_projection call its two
+    linears."""
+    talker, cp, tp = k2_per_pass(model)
+    g1 = model.tcfg.num_code_groups - 1
+    return (talker + g1 * cp + (talker + g1 * cp) * run["decode_steps"]
+            + tp * run["text_projection_calls"])
+
+
+def expected_decode_steps(frames: int, max_tokens: int) -> int:
+    """Steps the chunk loop runs for `frames` kept frames: FIRST_CHUNK, then
+    CHUNK_TOKENS, each cut to the token budget; a chunk in which EOS fires
+    runs to its end (frames < max_tokens means EOS ended the loop)."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.qwen3_tts import (
+        CHUNK_TOKENS, FIRST_CHUNK)
+
+    total, steps = 1, 0
+    while total < max_tokens:
+        chunk = min(FIRST_CHUNK if total <= 1 else CHUNK_TOKENS,
+                    max_tokens - total)
+        steps += chunk
+        if total + chunk > frames:
+            break
+        total += chunk
+    return steps
+
+
+def phase_qwen3_main(model, card: str):
+    """Three generate(text_ids=...) requests, q8, cold then warm. Returns
+    K2's launch count over the six, and the set of (M, out, in, has bias)
+    K2 was launched with."""
+    from mlx_audio_tpu_torch.ops import quant
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+
+    talker, cp, tp = k2_per_pass(model)
+    g1 = model.tcfg.num_code_groups - 1
+    counts = {"prefill": talker, "step0": g1 * cp,
+              "decode step": talker + g1 * cp, "text_projection": tp}
+    log(f"[qwen3 main] K2 launches per decode step: {talker} (talker) + "
+        f"{g1} x {cp} (code predictor) = {counts['decode step']}")
+    if counts != K2_LAUNCHES_FULL_DIMS:
+        raise AssertionError(f"K2 launches {counts}, want "
+                             f"{K2_LAUNCHES_FULL_DIMS} at full dims")
+
+    shapes = set()
+
+    def recording(x, w_q, scales, biases, bias=None):
+        shapes.add((x.shape[0], *w_q.shape, bias is not None))
+        return qmm_kernel(x, w_q, scales, biases, bias)
+
+    quant.qmm_kernel = recording
+    try:
+        total = _qwen3_requests(model, card)
+    finally:
+        quant.qmm_kernel = qmm_kernel
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    return total, shapes
+
+
+def _qwen3_requests(model, card: str) -> int:
+    """The six requests of phase 7; returns K2's launches over them."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+
+    qmm_kernel.launches = 0
+    total = 0
+    for run in ("cold", "warm"):
+        for ids, max_tokens in qwen3_requests():
+            before = qmm_kernel.launches
+            torch.cuda.reset_peak_memory_stats()
+            (r,) = list(model.generate(text_ids=ids[None], temperature=0.9,
+                                       max_tokens=max_tokens,
+                                       seed=QWEN3_SEED))
+            launches = qmm_kernel.launches - before
+            total += launches
+            frames, steps = r.token_count, model.last_run["decode_steps"]
+            want = expected_k2_launches(model, model.last_run)
+            if launches != want:
+                raise AssertionError(f"{launches} K2 launches, want {want} "
+                                     f"({model.last_run})")
+            if frames > 1 and steps != expected_decode_steps(frames,
+                                                             max_tokens):
+                raise AssertionError(f"{steps} decode steps for {frames} "
+                                     f"frames of {max_tokens}")
+            audio = np.asarray(r.audio)
+            if r.samples != frames * model.total_upsample:
+                raise AssertionError(f"{r.samples} samples for {frames} "
+                                     f"frames")
+            if audio.shape != (r.samples,) or not np.isfinite(audio).all():
+                raise AssertionError("audio has the wrong shape or is not "
+                                     "finite")
+            audio_s = r.samples / r.sample_rate
+            wall = r.processing_time_seconds
+            log(f"[qwen3 main] {run} {len(ids):3d} text ids max_tokens "
+                f"{max_tokens:3d}: {frames:3d} frames ({steps} decode steps) "
+                f"{audio_s:6.2f} s audio: wall {wall * 1e3:9.2f} ms "
+                f"({wall * 1e3 / max(steps + 1, 1):6.2f} ms/frame), xRT "
+                f"{audio_s / wall:6.3f}, {launches} K2 launches, peak "
+                f"{r.peak_memory_usage:.2f} GB ({card})")
+    return total
+
+
+def phase_qmm_path(shapes) -> float:
+    """K2 against qmatmul_reference at every (M, out, in, bias) the main
+    path launched it with (the prefill bucket, the code predictor's first
+    sub-step at M=2, text_projection over the text ids, ...), 8-bit codes,
+    group 64, x in f32 and bf16. Returns the largest bf16 abs error."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    weights = {}
+    worst = 0.0
+    for m, n, k, has_bias in sorted(shapes):
+        if (n, k) not in weights:
+            weights[(n, k)] = quantize_weight(
+                torch.randn(n, k, generator=g, device=dev) * k ** -0.5,
+                QMM_GROUP, 8)
+        q = weights[(n, k)]
+        bias = (0.01 * torch.randn(n, generator=g, device=dev)
+                if has_bias else None)
+        x32 = torch.randn(m, k, generator=g, device=dev)
+        errs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            errs.append(_qmm_case(x32.to(dtype), q, bias,
+                                  f"({n},{k}) q8 M={m}"))
+        worst = max(worst, errs[1][1])
+        log(f"[qmm path] ({n:4d},{k:4d}) q8 M={m:3d} bias={has_bias!s:5s} "
+            f"rel f32 {errs[0][0]:.3e} bf16 {errs[1][0]:.3e}")
+    return worst
+
+
+def frame_linears(model):
+    """(out, in) of every K2 launch of one decode step."""
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+
+    t = model.talker
+
+    def shapes(module):
+        return [tuple(m.w_q.shape) for m in module.modules()
+                if isinstance(m, QuantizedLinear)]
+
+    g1 = model.tcfg.num_code_groups - 1
+    return (shapes(t.model.layers) + shapes(t.codec_head)
+            + g1 * shapes(t.code_predictor))
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -334,18 +841,34 @@ def main() -> int:
     kres = phase_kernels()
     phase_reference_check()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, legs_per_synth, icfg = phase_main_path(card, Path(tmp))
+        k1_launches, legs_per_synth, icfg = phase_main_path(card, Path(tmp))
+    qres = phase_qmm(card)
+    phase_qwen3_reference()
+    model = build_qwen3()
+    phase_qwen3_q8_prefill(model)
+    k2_launches, k2_shapes = phase_qwen3_main(model, card)
+    k2_path_abs = phase_qmm_path(k2_shapes)
 
-    # the kernel's time for the 48 legs of one synth of two rows (B=2) at
-    # the 1024-frame bucket, summed from the per-shape medians of phase 3
-    # (bf16, the main path's dtype)
+    # K1: the 48 legs of one synth of two rows (B=2) at the 1024-frame
+    # bucket, summed from the per-shape medians of phase 3 (bf16, the main
+    # path's dtype)
     legs = synth_legs(icfg)
-    ms = sum(kres[("bfloat16", c, k, d)][2] for c, k, d in legs)
-    plain_ms = sum(kres[("bfloat16", c, k, d)][3] for c, k, d in legs)
-    max_abs = max(v[1] for key, v in kres.items() if key[0] == "bfloat16")
-    log(f"[kernel] the {len(legs)} legs of one B=2 synth at the "
-        f"{KERNEL_FRAMES}-frame bucket, bf16: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms ({card})")
+    k1_ms = sum(kres[("bfloat16", c, k, d)][2] for c, k, d in legs)
+    k1_plain = sum(kres[("bfloat16", c, k, d)][3] for c, k, d in legs)
+    k1_abs = max(v[1] for key, v in kres.items() if key[0] == "bfloat16")
+    log(f"[kernel] K1: the {len(legs)} legs of one B=2 synth at the "
+        f"{KERNEL_FRAMES}-frame bucket, bf16: kernel {k1_ms:.3f} ms, plain "
+        f"{k1_plain:.3f} ms ({card})")
+    # K2: the linears of one decode step at M=1 (bf16 x, 8-bit codes),
+    # summed from the per-shape medians of phase 5
+    step = frame_linears(model)
+    k2_ms = sum(qres[("bfloat16", n, k, 8, 1)][2] for n, k in step)
+    k2_plain = sum(qres[("bfloat16", n, k, 8, 1)][3] for n, k in step)
+    k2_abs = max([k2_path_abs] + [v[1] for key, v in qres.items()
+                                  if key[0] == "bfloat16"])
+    log(f"[kernel] K2: the {len(step)} linears of one decode step, M=1, "
+        f"bf16 x, 8-bit codes: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} "
+        f"ms ({card})")
     import torch
 
     print(json.dumps({"kernels": [{
@@ -353,12 +876,20 @@ def main() -> int:
         "route": "cuda",
         "source": "mlx_audio_tpu_torch/csrc/snake_conv.cu",
         "replaces": "mlx_audio_tpu/ops/snake_conv_pallas.py:159",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "launches": k1_launches,
+        "max_abs_err": k1_abs,
+        "ms": k1_ms,
+        "plain_ms": k1_plain,
+    }, {
+        "name": "qmm_pallas",
+        "route": "cuda",
+        "source": "mlx_audio_tpu_torch/csrc/qmm.cu",
+        "replaces": "mlx_audio_tpu/ops/qmm_pallas.py:82",
+        "launches": k2_launches,
+        "max_abs_err": k2_abs,
+        "ms": k2_ms,
+        "plain_ms": k2_plain,
     }]}))
-    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

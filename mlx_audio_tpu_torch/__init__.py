@@ -6,7 +6,9 @@ has its counterpart at the same relative path. Plain tensor code is PyTorch;
 every Pallas TPU kernel on a ported path is a hand-written CUDA kernel for
 Hopper under `csrc/`, built on first use (see `ops/cuda_build.py`).
 
-Ported so far: Kokoro-82M text -> audio (`tts.models.kokoro`).
+Ported so far: Kokoro-82M text -> audio (`tts.models.kokoro`) and
+Qwen3-TTS text ids -> audio, dense or 8/4-bit quantized
+(`tts.models.qwen3_tts`).
 
 This package never imports jax. Host code that is already jax-free
 (`mlx_audio_tpu.base`, `mlx_audio_tpu.tts.g2p`, `mlx_audio_tpu.audio_io`) is

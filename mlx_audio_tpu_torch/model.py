@@ -17,7 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .nn import BiLSTM, Conv1d, ConvTranspose1d, Embedding, LayerNorm, Linear
+from .nn import (BiLSTM, Conv1d, ConvTranspose1d, Embedding, LayerNorm, Linear,
+                 QuantizedLinear, RMSNorm, StackedTable)
 
 
 def _tensor(v: Any) -> torch.Tensor:
@@ -45,40 +46,65 @@ class TorchModel(nn.Module):
         return self
 
     @torch.no_grad()
-    def init_params(self, seed: int = 0) -> "TorchModel":
+    def init_params(self, seed: int = 0,
+                    on_device: bool = False) -> "TorchModel":
         """Random weights from `seed`, with the JAX package's init
         distributions (nn/layers.py, nn/recurrent.py): uniform
         +-1/sqrt(fan_in) kernels, zero biases, N(0, 0.02) embeddings, unit
-        norms. Drawn on the CPU from one torch.Generator in module order, so
-        a seed gives the same weights on every device."""
-        g = torch.Generator().manual_seed(seed)
+        norms, and the constants a module names in `init_fill`. By default
+        drawn on the CPU in f32 from one torch.Generator in module order, so
+        a seed gives the same weights on every device. `on_device` draws
+        each tensor on its own device in its own dtype from a generator
+        there instead (a full-size model then never has an f32 copy on the
+        host); the numbers then depend on the device."""
+        gens: Dict[torch.device, torch.Generator] = {}
 
-        def uniform(p, bound):
-            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
+        def draw(p, kind, scale):
+            dev, dtype = ((p.device, p.dtype) if on_device
+                          else (torch.device("cpu"), torch.float32))
+            g = gens.get(dev)
+            if g is None:
+                g = gens[dev] = torch.Generator(device=dev).manual_seed(seed)
+            if kind == "normal":
+                t = torch.randn(p.shape, generator=g, device=dev,
+                                dtype=dtype) * scale
+            else:
+                t = torch.empty(p.shape, device=dev, dtype=dtype).uniform_(
+                    -scale, scale, generator=g)
+            p.copy_(t)
 
         for m in self.modules():
             if isinstance(m, Linear):
-                uniform(m.weight, m.in_features ** -0.5)
+                draw(m.weight, "uniform", m.in_features ** -0.5)
             elif isinstance(m, Conv1d):
-                uniform(m.weight, (m.weight.shape[1] * m.weight.shape[2]) ** -0.5)
+                draw(m.weight, "uniform",
+                     (m.weight.shape[1] * m.weight.shape[2]) ** -0.5)
             elif isinstance(m, ConvTranspose1d):
                 i_ch, _, width = m.weight.shape
-                uniform(m.weight, (i_ch // m.groups * width) ** -0.5)
-            elif isinstance(m, Embedding):
-                m.weight.copy_(torch.randn(m.weight.shape, generator=g) * 0.02)
+                draw(m.weight, "uniform", (i_ch // m.groups * width) ** -0.5)
+            elif isinstance(m, (Embedding, StackedTable)):
+                draw(m.weight, "normal", 0.02)
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.fill_(0.0)
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
             elif isinstance(m, BiLSTM):
                 for p in m.parameters():
-                    uniform(p, m.hidden_size ** -0.5)
+                    draw(p, "uniform", m.hidden_size ** -0.5)
             if isinstance(m, (Linear, Conv1d, ConvTranspose1d)) and m.bias is not None:
                 m.bias.fill_(0.0)
+            for name, value in getattr(m, "init_fill", {}).items():
+                getattr(m, name).fill_(value)
         return self
 
     def astype(self, dtype) -> "TorchModel":
-        """Cast floating-point parameters to dtype."""
-        return self.to(dtype)
+        """Cast floating-point parameters to dtype. Buffers keep theirs: a
+        quantized linear's codes stay uint8 and its scales f32."""
+        for p in self.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+        return self
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -96,6 +122,25 @@ def _conv_transpose_from_jax(w: np.ndarray, groups: int) -> np.ndarray:
     return np.transpose(w, (2, 1, 3, 0)).reshape(groups * i_g, o // groups, width)
 
 
+def _unstack(model: TorchModel, flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """Split the leading layer axis of the JAX tree's stacked layer leaves
+    (`model.JAX_STACKED` prefixes) into per-layer names: `p.k` (L, ...) ->
+    `p.0.k`, `p.1.k`, ..."""
+    out = dict(flat)
+    for prefix in getattr(model, "JAX_STACKED", ()):
+        for key in [k for k in out if k.startswith(prefix + ".")]:
+            arr = np.asarray(out.pop(key))
+            rest = key[len(prefix) + 1:]
+            for i in range(arr.shape[0]):
+                out[f"{prefix}.{i}.{rest}"] = arr[i]
+    return out
+
+
+def replace_module(model: nn.Module, name: str, new: nn.Module) -> None:
+    parent, _, child = name.rpartition(".")
+    setattr(model.get_submodule(parent) if parent else model, child, new)
+
+
 def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
     """Fill `model` from the JAX package's parameter tree, given flat
     ({dotted name: numpy array}, e.g. `mlx_audio_tpu.utils.flatten(params)`).
@@ -105,15 +150,30 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
       * ConvTranspose1d: pre-flipped (W, I/g, O)  -> torch (I, O/g, W)
       * BiLSTM:          {forward,backward}.{weight_ih,weight_hh,bias_ih,bias_hh}
                          -> weight_ih_l0[_reverse], ...  (gate order i,f,g,o)
-      * everything else (linear (out,in), embeddings, norms, snake alphas)
-        is copied as is.
+      * stacked layers:  leaves under `model.JAX_STACKED` prefixes lose their
+                         leading L axis to per-layer modules
+      * quantized:       a Linear whose JAX leaf is {w_q, scales, biases[,
+                         bias]} becomes a QuantizedLinear; w_q stays uint8
+      * everything else (linear (out,in), embeddings, norms, snake alphas,
+        stacked tables) is copied as is.
     Raises if a parameter is missing or a JAX leaf is left over."""
+    flat = _unstack(model, flat)
+    for name, m in list(model.named_modules()):
+        if isinstance(m, Linear) and f"{name}.w_q" in flat:
+            w_q = np.asarray(flat[f"{name}.w_q"])
+            gs = w_q.shape[1] // np.asarray(flat[f"{name}.scales"]).shape[1]
+            q = QuantizedLinear(m.in_features, w_q.shape[0], gs,
+                                bias=m.bias is not None)
+            replace_module(model, name, q.to(m.weight.device))
     state: Dict[str, np.ndarray] = {}
     used = set()
 
     def take(key: str) -> np.ndarray:
         used.add(key)
-        return np.asarray(flat[key], dtype=np.float32)
+        arr = np.asarray(flat[key])
+        if arr.dtype.kind in "fV":      # floats (and ml_dtypes bfloat16)
+            return np.asarray(arr, dtype=np.float32)
+        return arr                      # quantized codes stay uint8
 
     for name, m in model.named_modules():
         pre = f"{name}." if name else ""
@@ -131,6 +191,9 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
             if m.bias is not None:
                 state[pre + "bias"] = take(pre + "bias")
         else:
+            if isinstance(m, QuantizedLinear):
+                for bname, _ in m.named_buffers(recurse=False):
+                    state[pre + bname] = take(pre + bname)
             for pname, p in m.named_parameters(recurse=False):
                 state[pre + pname] = take(pre + pname).reshape(p.shape)
     left = sorted(set(flat) - used)

@@ -10,15 +10,21 @@ from .layers import (
     Embedding,
     LayerNorm,
     Linear,
+    QuantizedLinear,
+    RMSNorm,
+    StackedTable,
     conv1d,
     conv_transpose1d,
     layer_norm,
+    gelu,
     leaky_relu,
     linear,
+    rms_norm,
 )
 from .recurrent import BiLSTM
 
 __all__ = [
-    "Linear", "Embedding", "LayerNorm", "Conv1d", "ConvTranspose1d", "BiLSTM",
-    "linear", "layer_norm", "conv1d", "conv_transpose1d", "leaky_relu",
+    "Linear", "QuantizedLinear", "Embedding", "StackedTable", "LayerNorm",
+    "RMSNorm", "Conv1d", "ConvTranspose1d", "BiLSTM", "linear", "layer_norm",
+    "rms_norm", "conv1d", "conv_transpose1d", "leaky_relu", "gelu",
 ]

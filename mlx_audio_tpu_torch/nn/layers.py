@@ -8,6 +8,8 @@ with like; parameters are held in PyTorch's own layouts:
   * Conv1d:           weight (out, in/groups, width)       [torch Conv1d]
   * ConvTranspose1d:  weight (in, out/groups, width)       [torch ConvTranspose1d]
   * Embedding:        weight (vocab, dim)
+  * QuantizedLinear:  buffers w_q uint8 (out, in), scales/biases f32
+                      (out, in/gs); optional bias parameter (out,)
 
 The JAX package's layouts (WIO convs, pre-flipped transposed-conv kernels)
 are converted once, in `model.load_jax_params`.
@@ -24,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
+
 Padding = Union[int, Tuple[int, int]]
 
 
@@ -34,6 +38,11 @@ Padding = Union[int, Tuple[int, int]]
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, as jax.nn.gelu(approximate=False)."""
+    return F.gelu(x, approximate="none")
 
 
 def _cast(p: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -52,6 +61,15 @@ def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     """Normalise over the last axis (biased variance, as apply_layer_norm)."""
     return F.layer_norm(x, (x.shape[-1],), _cast(weight, x.dtype),
                         _cast(bias, x.dtype), eps)
+
+
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMS-normalise the last axis in f32, cast back to x's dtype, then
+    scale (apply_rms_norm, mlx_audio_tpu/nn/layers.py:117-124)."""
+    xf = x.float()
+    y = (xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)).to(x.dtype)
+    return y if weight is None else y * weight
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor,
@@ -99,6 +117,52 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias)
+
+
+class QuantizedLinear(nn.Module):
+    """An affine group-quantized linear (quantize_weight's layout). The codes,
+    their scales/biases and the optional f32 `bias` are buffers, so casting
+    the model's parameters leaves them as K2 takes them; the forward is
+    ops.quant.qmatmul, which on a CUDA tensor launches kernel K2."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 group_size: int = 64, bias: bool = False):
+        super().__init__()
+        if in_features % group_size:
+            raise ValueError(f"in_features {in_features} not a multiple of "
+                             f"group size {group_size}")
+        self.in_features = in_features
+        self.group_size = group_size
+        ng = in_features // group_size
+        self.register_buffer("w_q", torch.zeros(out_features, in_features,
+                                                dtype=torch.uint8))
+        self.register_buffer("scales", torch.zeros(out_features, ng))
+        self.register_buffer("biases", torch.zeros(out_features, ng))
+        self.register_buffer("bias", torch.zeros(out_features) if bias
+                             else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant.qmatmul(x, self.w_q, self.scales, self.biases, self.bias)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)
+
+
+class StackedTable(nn.Module):
+    """n stacked (vocab, dim) tables in one (n, vocab, dim) weight: the code
+    predictor's per-group codec embeddings and heads, kept stacked as the
+    JAX tree keeps them."""
+
+    def __init__(self, n: int, vocab: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n, vocab, dim))
 
 
 class Embedding(nn.Module):

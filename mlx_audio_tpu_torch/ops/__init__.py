@@ -1,7 +1,8 @@
 """Compute ops of the port (counterpart of mlx_audio_tpu/ops).
 
-`snake_conv` holds the port of the Pallas kernel `snake_conv_pallas`;
-its CUDA source is csrc/snake_conv.cu, built on first use by `cuda_build`.
+`snake_conv` holds the port of the Pallas kernel `snake_conv_pallas` (K1,
+csrc/snake_conv.cu) and `qmm` that of `qmm_pallas` (K2, csrc/qmm.cu), which
+`quant.qmatmul` dispatches to; both are built on first use by `cuda_build`.
 """
 
 from .attention import attention

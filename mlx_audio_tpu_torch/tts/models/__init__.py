@@ -1,1 +1,1 @@
-"""TTS model families of the port (so far: kokoro)."""
+"""TTS model families of the port (so far: kokoro, qwen3_tts)."""

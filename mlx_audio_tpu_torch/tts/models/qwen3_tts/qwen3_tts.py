@@ -1,0 +1,414 @@
+"""Qwen3-TTS: autoregressive codec-token TTS (talker + code predictor) with
+a 12.5 Hz codec decoder.
+
+Counterpart of mlx_audio_tpu/tts/models/qwen3_tts/qwen3_tts.py, non-streaming
+text ids -> audio:
+
+* `prepare_inputs` from `text_ids` and `_prompt_static` (language "auto",
+  an optional `spk_id` speaker; no speaker encoder);
+* prefill over the right-padded prompt bucket into a cache sized for the
+  request (:666-691, :1110-1111);
+* `_step0` samples the first frame from the prefill logits (:1440-1476);
+* the AR chunk (:693-775) runs FIRST_CHUNK, then CHUNK_TOKENS steps as a
+  Python loop. No value is read back to the host inside a chunk: the codes
+  and finished flags of a chunk are read once, after it, as the JAX host
+  loop reads them (:1163-1181). A chunk therefore runs all its steps, also
+  those after EOS; their codes are dropped;
+* `decode_full` of the valid codes -> one `GenerationResult`.
+
+Weights: `init_params(seed)` (random, the JAX package's distributions),
+`load_jax_params` (the JAX package's tree, dense or quantized) or `bind`
+(a sanitized torch-layout checkpoint). `utils.apply_quantization` with
+`model_quant_predicate` turns the AR path's linears into quantized ones,
+whose forward on a CUDA tensor is kernel K2.
+
+Not ported yet (they raise NotImplementedError): streaming, voice cloning
+(ICL, speaker encoder), instruct / voice design, batch generation, and text
+given as a string (the HF tokenizer is not available to the port).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from functools import partial
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ....model import TorchModel
+from ....ops.kvcache import KVCache
+from ....ops.sampling import apply_repetition_penalty, sample
+from ..base import GenerationResult, format_duration, peak_memory_gb
+from .config import ModelConfig
+from .speech_tokenizer import SpeechTokenizer, total_upsample
+from .talker import Talker
+
+MAX_CACHE_LEN = 4096
+HISTORY_LEN = 64
+FIRST_CHUNK = 8
+CHUNK_TOKENS = 25
+PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+CACHE_BUCKETS = (256, 512, 1024, 2048, 4096)
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+@dataclass
+class GenCarry:
+    """State carried from one AR step to the next (GenCarry, :70-78). The
+    cache is written in place; offset and trailing_idx are host ints."""
+
+    caches: KVCache
+    embed: torch.Tensor          # (B, 1, D) next talker input
+    offset: int                  # cache write position
+    finished: torch.Tensor       # (B,) bool
+    history: torch.Tensor        # (B, HISTORY_LEN) recent code-0 tokens
+    trailing_idx: int
+
+
+class Model(TorchModel):
+    """Qwen3-TTS (talker + code predictor + codec decoder) on `device`."""
+
+    # JAX layer stacks with a leading L axis, unstacked by load_jax_params
+    JAX_STACKED = ("talker.model.layers", "talker.code_predictor.model.layers")
+
+    def __init__(self, config: ModelConfig, device="cpu"):
+        if isinstance(config, dict):
+            config = ModelConfig.from_dict(config)
+        super().__init__(config)
+        self.tcfg = config.talker_config
+        self.cpcfg = self.tcfg.code_predictor_config
+        self.dcfg = config.tokenizer_config.decoder_config
+        self.total_upsample = total_upsample(self.dcfg)
+        with torch.device(device):
+            self.talker = Talker(self.tcfg)
+            self.speech_tokenizer = SpeechTokenizer(self.dcfg)
+        self.requires_grad_(False)
+        self.eval()
+        self._prompt_cache: Dict[tuple, tuple] = {}
+        self._text_projection_calls = 0
+        # what the last generate() ran, for callers that count launches
+        self.last_run: Dict[str, int] = {}
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def model_quant_predicate(path: str, w=None) -> bool:
+        """Quantize the AR hot path only (:112-129): the talker and code
+        predictor projections, codec_head and text_projection. The codec,
+        norms, embeddings and the gathered code-predictor heads stay
+        dense."""
+        p = path.lower()
+        if not p.startswith("talker"):
+            return False
+        if "lm_head" in p or "norm" in p or "embed" in p:
+            return False
+        leaf = p.rsplit(".", 1)[-1]
+        return (leaf.endswith("_proj") or leaf in (
+            "qkv_proj", "gateup_proj", "linear_fc1", "linear_fc2",
+            "codec_head"))
+
+    def bind(self, state) -> "Model":
+        self._prompt_cache.clear()
+        return super().bind(state)
+
+    def init_params(self, seed: int = 0, on_device: bool = False) -> "Model":
+        self._prompt_cache.clear()
+        return super().init_params(seed, on_device=on_device)
+
+    def sanitize(self, weights: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Map a published torch-layout checkpoint onto this model's names.
+
+        Talker keys are per layer in the checkpoint, as here, and pass
+        through; per-group code-predictor tables are stacked into
+        (G-1, V, D). The codec's convolutions keep their torch layout;
+        its codebooks are rebuilt from embedding_sum / cluster_usage
+        (:165-189). Encoder and speaker-encoder keys are dropped."""
+        import re
+
+        out: Dict[str, np.ndarray] = {}
+        codebooks: Dict[str, dict] = {}
+        groups: Dict[str, Dict[int, np.ndarray]] = {}
+        stacked = re.compile(r"^(talker\.code_predictor\.(?:model\."
+                             r"codec_embedding|lm_head))\.(\d+)\.weight$")
+        for k, w in weights.items():
+            if k.startswith(("encoder.", "speaker_encoder.",
+                             "speech_tokenizer.encoder.")):
+                continue
+            if "_codebook.cluster_usage" in k or "_codebook.embedding_sum" in k:
+                base = k.rsplit("._codebook.", 1)[0]
+                codebooks.setdefault(base, {})[k.rsplit(".", 1)[1]] = w
+                continue
+            if "codebook.initialized" in k:
+                continue
+            m = stacked.match(k)
+            if m:
+                groups.setdefault(m.group(1), {})[int(m.group(2))] = w
+                continue
+            out[k] = w
+        for base, d in codebooks.items():
+            emb = np.asarray(d["embedding_sum"], np.float32) / np.clip(
+                np.asarray(d["cluster_usage"], np.float32)[:, None], 1e-5,
+                None)
+            out[f"{base}.codebook.embed.weight"] = emb
+        for base, table in groups.items():
+            out[f"{base}.weight"] = np.stack([table[i] for i in sorted(table)])
+        return out
+
+    @property
+    def sample_rate(self) -> int:
+        return self.config.sample_rate
+
+    # ------------------------------------------------------------------
+    # prompt assembly (:391-509)
+    # ------------------------------------------------------------------
+
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids), dtype=torch.long,
+                               device=self.device)
+
+    def _embed_text_ids(self, text_ids) -> torch.Tensor:
+        t = self.talker.model.text_embedding(self._ids(text_ids))
+        self._text_projection_calls += 1
+        return self.talker.text_projection(t)
+
+    def _codec_embed(self, ids) -> torch.Tensor:
+        return self.talker.model.codec_embedding(self._ids(ids))
+
+    def prepare_inputs(self, text: Optional[str] = None,
+                       text_ids: Optional[np.ndarray] = None,
+                       language: str = "auto",
+                       speaker: Optional[str] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (input_embeds (1, P, D), trailing text (1, T, D), pad embed).
+
+        The port has no text tokenizer: pass `text_ids` (the chat-templated
+        ids, `<|im_start|>assistant\\n ... <|im_end|>\\n<|im_start|>
+        assistant\\n`)."""
+        if text_ids is None:
+            raise ValueError("No text tokenizer available in the port; pass "
+                             "text_ids")
+        text_ids = np.asarray(text_ids).reshape(1, -1)
+        text_embed = self._embed_text_ids(text_ids)
+        combined, codec_last, tts_eos, tts_pad = self._prompt_static(
+            language, speaker)
+        first_text = text_embed[:, 3:4] + codec_last
+        input_embeds = torch.cat([text_embed[:, :3], combined, first_text],
+                                 dim=1)
+        trailing = torch.cat([text_embed[:, 4:-5], tts_eos], dim=1)
+        return input_embeds, trailing, tts_pad
+
+    def _prompt_static(self, language: str, speaker: Optional[str]):
+        """Text-independent prompt pieces, cached per (language, speaker):
+        (combined (1, C-1, D) codec prefix summed with the tts pad/bos
+        embeds, codec_last (1, 1, D), tts_eos, tts_pad)."""
+        cfg, tcfg = self.config, self.tcfg
+        key = (language.lower(), (speaker or "").lower())
+        hit = self._prompt_cache.get(key)
+        if hit is not None:
+            return hit
+        tts = self._embed_text_ids([[cfg.tts_bos_token_id,
+                                     cfg.tts_eos_token_id,
+                                     cfg.tts_pad_token_id]])
+        tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
+        speaker_embed = None
+        if speaker and speaker.lower() in (tcfg.spk_id or {}):
+            speaker_embed = self._codec_embed(
+                np.asarray(tcfg.spk_id[speaker.lower()]).reshape(1, 1))
+        language_id = None
+        if language.lower() != "auto" and (tcfg.codec_language_id or {}):
+            language_id = tcfg.codec_language_id.get(language.lower())
+        if (language.lower() in ("chinese", "auto") and speaker
+                and (tcfg.spk_is_dialect or {}).get(speaker.lower())):
+            dialect = tcfg.spk_is_dialect[speaker.lower()]
+            if dialect in (tcfg.codec_language_id or {}):
+                language_id = tcfg.codec_language_id[dialect]
+        if language_id is None:
+            prefill = [tcfg.codec_nothink_id, tcfg.codec_think_bos_id,
+                       tcfg.codec_think_eos_id]
+        else:
+            prefill = [tcfg.codec_think_id, tcfg.codec_think_bos_id,
+                       language_id, tcfg.codec_think_eos_id]
+        parts = [self._codec_embed([prefill])]
+        if speaker_embed is not None:
+            parts.append(speaker_embed.reshape(1, 1, -1))
+        parts.append(self._codec_embed([[tcfg.codec_pad_id,
+                                         tcfg.codec_bos_id]]))
+        codec_embed = torch.cat(parts, dim=1)
+        pads = tts_pad.expand(1, codec_embed.shape[1] - 2, -1)
+        combined = torch.cat([pads, tts_bos], dim=1) + codec_embed[:, :-1]
+        out = (combined, codec_embed[:, -1:], tts_eos, tts_pad)
+        self._prompt_cache[key] = out
+        return out
+
+    # ------------------------------------------------------------------
+    # generation
+    # ------------------------------------------------------------------
+
+    def _suppress_mask(self) -> torch.Tensor:
+        """-inf on codec special tokens except EOS (:658-664)."""
+        mask = torch.zeros(self.tcfg.vocab_size, device=self.device)
+        mask[self.dcfg.codebook_size:] = float("-inf")
+        mask[self.tcfg.codec_eos_token_id] = 0.0
+        return mask
+
+    def _prefill(self, embeds: torch.Tensor, plen: int, cache_len: int):
+        """Prompt (B, pb, D), right-padded from plen -> (logits (B, V),
+        hidden (B, D)) at plen-1, and the filled cache (:666-691)."""
+        b, pb, _ = embeds.shape
+        caches = self.talker.make_cache(b, cache_len, embeds.dtype,
+                                        embeds.device)
+        pad = torch.zeros(b, cache_len, device=embeds.device)
+        pad[:, plen:] = float("-inf")
+        logits, hidden = self.talker(embeds, caches, 0,
+                                     lengths_mask=pad[:, None, None, :])
+        return logits[:, plen - 1], hidden[:, plen - 1], caches
+
+    def _code_predictor(self, hidden, tok0, sampler):
+        """Groups 1..G-1 for code 0 `tok0` (B,) -> (all codes (B, G),
+        summed codec embedding of the frame (B, 1, D))."""
+        code0_embed = self.talker.model.codec_embedding(tok0[:, None])
+        cp_codes, cp_emb_sum = self.talker.code_predictor.sample(
+            hidden, code0_embed, sampler)
+        codes = torch.cat([tok0[:, None], cp_codes], dim=-1)
+        return codes, code0_embed + cp_emb_sum
+
+    def _step0(self, logits0, hidden0, caches, trailing, tl, pad_embed, plen,
+               sampler, suppress) -> Tuple[GenCarry, torch.Tensor]:
+        """First frame from the prefill logits (:1440-1476)."""
+        tok0 = sampler(logits0.float() + suppress)
+        codes, codec_e = self._code_predictor(hidden0[:, None], tok0, sampler)
+        text_e = trailing[:, 0:1] if tl > 0 else pad_embed
+        finished = tok0 == self.tcfg.codec_eos_token_id
+        history = torch.full((tok0.shape[0], HISTORY_LEN), -1,
+                             dtype=torch.long, device=tok0.device)
+        history[:, -1] = tok0
+        carry = GenCarry(caches=caches, embed=text_e + codec_e, offset=plen,
+                         finished=finished, history=history, trailing_idx=1)
+        return carry, codes
+
+    def _ar_step(self, c: GenCarry, trailing, tl, pad_embed, sampler,
+                 suppress, repetition_penalty) -> Tuple[GenCarry, torch.Tensor]:
+        """One talker frame + its code-predictor sub-steps (:718-753)."""
+        logits, hidden = self.talker(c.embed, c.caches, c.offset)
+        lg = logits[:, -1].float() + suppress
+        if repetition_penalty != 1.0:
+            lg = apply_repetition_penalty(lg, c.history, repetition_penalty)
+        tok0 = sampler(lg)
+        codes, codec_e = self._code_predictor(hidden[:, -1:], tok0, sampler)
+        text_e = (trailing[:, c.trailing_idx:c.trailing_idx + 1]
+                  if c.trailing_idx < tl else pad_embed)
+        now_finished = c.finished | (tok0 == self.tcfg.codec_eos_token_id)
+        rolled = torch.cat([c.history[:, 1:], tok0[:, None]], dim=1)
+        history = torch.where(c.finished[:, None], c.history, rolled)
+        return GenCarry(caches=c.caches, embed=text_e + codec_e,
+                        offset=c.offset + 1, finished=now_finished,
+                        history=history,
+                        trailing_idx=c.trailing_idx + 1), codes
+
+    def generate(self, text: Optional[str] = None, *,
+                 text_ids: Optional[np.ndarray] = None,
+                 speaker: Optional[str] = None,
+                 language: str = "auto",
+                 instruct: Optional[str] = None,
+                 ref_audio: Optional[np.ndarray] = None,
+                 ref_text: Optional[str] = None,
+                 temperature: float = 0.9, top_k: int = 50,
+                 top_p: float = 1.0, repetition_penalty: float = 1.05,
+                 max_tokens: int = 1200, stream: bool = False,
+                 seed: int = 0):
+        """Yield one GenerationResult for `text_ids` (non-streaming)."""
+        if stream:
+            raise NotImplementedError(
+                "streaming generation (streaming_step and the fused stream "
+                "stepper) is not ported yet; call with stream=False")
+        if ref_audio is not None or ref_text is not None:
+            raise NotImplementedError(
+                "voice cloning (ICL, speaker encoder) is not ported yet")
+        if instruct:
+            raise NotImplementedError(
+                "instruct / voice design prompts need the text tokenizer, "
+                "which the port does not have yet")
+        if text_ids is not None and np.asarray(text_ids).ndim == 2 \
+                and np.asarray(text_ids).shape[0] > 1:
+            raise NotImplementedError(
+                "batch generation (continuous batching) is not ported yet")
+        t_start = time.time()
+        suppress = self._suppress_mask()
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        sampler = partial(sample, temperature=temperature, top_k=top_k,
+                          top_p=top_p, generator=gen)
+        tp_before = self._text_projection_calls
+        with torch.inference_mode():
+            input_embeds, trailing, pad_embed = self.prepare_inputs(
+                text=text, text_ids=text_ids, language=language,
+                speaker=speaker)
+            plen = input_embeds.shape[1]
+            pb = _bucket(plen, PROMPT_BUCKETS)
+            input_embeds = torch.nn.functional.pad(
+                input_embeds, (0, 0, 0, pb - plen))
+            tl = trailing.shape[1]
+            cache_len = min(_bucket(pb + max_tokens + CHUNK_TOKENS,
+                                    CACHE_BUCKETS), MAX_CACHE_LEN)
+            logits0, hidden0, caches = self._prefill(input_embeds, plen,
+                                                     cache_len)
+            carry, first_codes = self._step0(logits0, hidden0, caches,
+                                             trailing, tl, pad_embed, plen,
+                                             sampler, suppress)
+            gen_codes = [first_codes[0].cpu().numpy()[None]]
+            finished = bool(carry.finished.all())
+            total_tokens = 0 if finished else 1
+            steps = 0
+            while not finished and total_tokens < max_tokens:
+                chunk = FIRST_CHUNK if total_tokens <= 1 else CHUNK_TOKENS
+                chunk = min(chunk, max_tokens - total_tokens)
+                codes_seq, fin_seq = [], []
+                for _ in range(chunk):
+                    carry, codes = self._ar_step(carry, trailing, tl,
+                                                 pad_embed, sampler, suppress,
+                                                 repetition_penalty)
+                    codes_seq.append(codes)
+                    fin_seq.append(carry.finished)
+                steps += chunk
+                # the one read of this chunk
+                codes_np = torch.stack(codes_seq).cpu().numpy()[:, 0]
+                fin_np = torch.stack(fin_seq).cpu().numpy()[:, 0]
+                n_new = chunk
+                if fin_np.any():
+                    n_new = int(np.argmax(fin_np))   # EOS frame excluded
+                    finished = True
+                gen_codes.append(codes_np[:n_new])
+                total_tokens += n_new
+            codes = np.concatenate(gen_codes, axis=0).T[None]   # (1, G, T)
+            audio = self.speech_tokenizer.decoder(
+                torch.as_tensor(codes, device=self.device))[0]
+            audio = audio.float().cpu().numpy()
+        self.last_run = {
+            "prompt_bucket": pb, "step0": 1, "decode_steps": steps,
+            "text_projection_calls": self._text_projection_calls - tp_before}
+        n_valid = codes.shape[-1]
+        dur = len(audio) / self.sample_rate
+        elapsed = time.time() - t_start
+        yield GenerationResult(
+            audio=audio, samples=len(audio), sample_rate=self.sample_rate,
+            segment_idx=0, token_count=n_valid,
+            audio_duration=format_duration(dur),
+            real_time_factor=round(dur / elapsed, 3) if elapsed > 0 else 0.0,
+            prompt={"tokens": n_valid,
+                    "tokens-per-sec": round(n_valid / elapsed, 2)
+                    if elapsed > 0 else 0},
+            audio_samples={"samples": len(audio),
+                           "samples-per-sec": round(len(audio) / elapsed, 2)
+                           if elapsed > 0 else 0},
+            processing_time_seconds=elapsed,
+            peak_memory_usage=peak_memory_gb(),
+            is_streaming_chunk=False, is_final_chunk=True)

@@ -1,21 +1,24 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
-checkpoint directories of the families ported so far (Kokoro)."""
+checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Union
 
-from ..utils import load_config, load_weights
+from ..utils import apply_quantization, load_config, load_weights
 
-MODEL_REMAPPING = {"style_tts": "kokoro", "kokoro": "kokoro"}
+MODEL_REMAPPING = {"style_tts": "kokoro", "kokoro": "kokoro",
+                   "qwen3_tts": "qwen3_tts"}
 
 
 def load_model(model_path: Union[str, Path], device="cpu", **config_overrides):
     """Load a local model directory (config.json + weights) onto `device`.
 
     The weights are the published torch-layout checkpoint; the family's
-    `sanitize` maps them onto the port's parameter names."""
+    `sanitize` maps them onto the port's parameter names. Qwen3-TTS also
+    reads the codec from a `speech_tokenizer/` subfolder when there is one,
+    and quantizes its AR path per config["quantization"]."""
     path = Path(model_path).expanduser()
     if not path.is_dir():
         raise FileNotFoundError(f"Local model path not found: {model_path}")
@@ -26,11 +29,29 @@ def load_model(model_path: Union[str, Path], device="cpu", **config_overrides):
     if model_type is None and "kokoro" in path.name.lower():
         model_type = "kokoro"
     family = MODEL_REMAPPING.get(str(model_type).lower())
+    if family == "qwen3_tts":
+        return _load_qwen3_tts(path, config, device)
     if family != "kokoro":
         raise ValueError(f"Model type {model_type!r} is not ported to "
-                         f"mlx_audio_tpu_torch yet (ported: kokoro)")
+                         f"mlx_audio_tpu_torch yet (ported: kokoro, "
+                         f"qwen3_tts)")
     from .models.kokoro import Model, ModelConfig
 
     model = Model(ModelConfig.from_dict(config), device=device)
     return model.bind(model.sanitize(load_weights(path)))
 
+
+def _load_qwen3_tts(path: Path, config: dict, device):
+    from .models.qwen3_tts import Model, ModelConfig
+
+    weights = load_weights(path)
+    if any(k.endswith(".scales") for k in weights):
+        raise NotImplementedError("pre-quantized (MLX-packed) checkpoints are "
+                                  "not ported yet; load the dense one")
+    codec_dir = path / "speech_tokenizer"
+    if codec_dir.is_dir():
+        weights.update({f"speech_tokenizer.{k}": v
+                        for k, v in load_weights(codec_dir).items()})
+    model = Model(ModelConfig.from_dict(config), device=device)
+    model.bind(model.sanitize(weights))
+    return apply_quantization(model, config, model.model_quant_predicate)

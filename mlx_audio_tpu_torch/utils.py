@@ -1,12 +1,13 @@
 """Checkpoint helpers (subset of mlx_audio_tpu/utils.py): flat/nested
-parameter names, config.json, and weight files read with numpy."""
+parameter names, config.json, weight files read with numpy, and on-the-fly
+quantization of a model's linears."""
 
 from __future__ import annotations
 
 import glob
 import json
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 
@@ -64,3 +65,54 @@ def load_weights(model_path: Union[str, Path]) -> Dict[str, np.ndarray]:
             for k in data.files:
                 weights[k] = data[k]
     return weights
+
+
+def apply_quantization(model, config: dict,
+                       predicate: Optional[Callable] = None):
+    """Quantize `model`'s linears per config['quantization'] (affine case
+    of mlx_audio_tpu/utils.py:148-206): each `Linear` whose dotted name
+    passes `predicate(name, weight)` and a per-name entry in the
+    quantization dict (False leaves that linear dense) becomes a
+    `QuantizedLinear` of `bits` and `group_size`. Returns the model;
+    without a quantization entry it is unchanged. The W8A8 `mxu_int8` layout is not
+    ported yet and raises."""
+    import torch
+
+    from .model import replace_module
+    from .nn import Linear, QuantizedLinear
+    from .ops.quant import maybe_quantize_tree
+
+    quantization = config.get("quantization") or config.get(
+        "quantization_config")
+    if quantization is None:
+        return model
+    if quantization.get("mxu_int8"):
+        raise NotImplementedError("mxu_int8 (W8A8 qmatmul_i8) is not ported "
+                                  "yet")
+    group_size = quantization.get("group_size", 64)
+    bits = quantization.get("bits", 4)
+
+    def verdict(path, w):
+        if predicate is not None and not predicate(path, w):
+            return False
+        q = quantization.get(path, True)
+        return bool(q) if isinstance(q, bool) else True
+
+    linears = {name: m for name, m in model.named_modules()
+               if isinstance(m, Linear)}
+    with torch.no_grad():
+        tree = unflatten({f"{name}.weight": m.weight.detach()
+                          for name, m in linears.items()})
+        quantized = flatten(maybe_quantize_tree(tree, group_size, bits,
+                                                verdict))
+        for name, m in linears.items():
+            if f"{name}.w_q" not in quantized:
+                continue
+            q = QuantizedLinear(m.in_features, m.weight.shape[0], group_size,
+                                bias=m.bias is not None).to(m.weight.device)
+            for k in ("w_q", "scales", "biases"):
+                getattr(q, k).copy_(quantized[f"{name}.{k}"])
+            if m.bias is not None:
+                q.bias.copy_(m.bias)
+            replace_module(model, name, q)
+    return model

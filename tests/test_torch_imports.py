@@ -55,9 +55,53 @@ def test_tiny_synth_without_jax():
     assert out.strip() == "False []", out
 
 
+def test_tiny_qwen3_tts_generate_without_jax():
+    """Qwen3-TTS on the CPU at a tiny size, quantized to 8 bits: seeded
+    weights, text ids -> audio, and no jax in sys.modules."""
+    out = _run("""
+        import sys
+        import numpy as np
+        from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model, ModelConfig
+        from mlx_audio_tpu_torch.utils import apply_quantization
+
+        cfg = ModelConfig(
+            talker_config=dict(
+                vocab_size=300, hidden_size=32, intermediate_size=64,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=8, num_code_groups=4,
+                text_hidden_size=48, text_vocab_size=500,
+                codec_eos_token_id=280, codec_think_id=284,
+                codec_nothink_id=285, codec_think_bos_id=286,
+                codec_think_eos_id=287, codec_pad_id=278, codec_bos_id=279,
+                code_predictor_config=dict(
+                    vocab_size=256, hidden_size=32, intermediate_size=64,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, head_dim=8, num_code_groups=4)),
+            tokenizer_config=dict(decoder_config=dict(
+                latent_dim=32, codebook_dim=16, codebook_size=256,
+                decoder_dim=64, hidden_size=24, intermediate_size=48,
+                head_dim=8, num_attention_heads=3, num_hidden_layers=2,
+                num_key_value_heads=3, num_quantizers=4,
+                num_semantic_quantizers=1, sliding_window=16,
+                upsample_rates=[4, 3], upsampling_ratios=[2, 2])),
+            tts_bos_token_id=497, tts_eos_token_id=498, tts_pad_token_id=499)
+        model = Model(cfg).init_params(seed=0)
+        apply_quantization(model, {"quantization": {"bits": 8,
+                                                    "group_size": 16}},
+                           model.model_quant_predicate)
+        (r,) = model.generate(text_ids=np.arange(10, 30)[None],
+                              temperature=0.9, max_tokens=12, seed=0)
+        assert r.samples == r.token_count * model.total_upsample > 0
+        assert np.isfinite(r.audio).all()
+        print("jax" in sys.modules, sorted(
+            m for m in sys.modules if m == "jax" or m.startswith("jax.")))
+    """)
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
-    kernel is built only when first launched."""
+    kernels are built only when first launched."""
     out = _run("""
         import importlib, pkgutil, sys
         import mlx_audio_tpu_torch as pkg
@@ -67,9 +111,11 @@ def test_every_module_imports_without_building():
         for name in names:
             importlib.import_module(name)
         from mlx_audio_tpu_torch.ops import cuda_build
+        from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
         from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
         assert cuda_build._LOADED == {} and snake_conv_kernel._lib is None
-        assert snake_conv_kernel.launches == 0
+        assert qmm_kernel._lib is None
+        assert snake_conv_kernel.launches == 0 and qmm_kernel.launches == 0
         print(len(names), "jax" in sys.modules)
     """)
     n, has_jax = out.split()

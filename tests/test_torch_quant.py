@@ -1,0 +1,270 @@
+"""The port's affine quantization (ops/quant.py, nn QuantizedLinear,
+utils.apply_quantization) against the JAX package's, and kernel K2
+(csrc/qmm.cu) against its plain version where a GPU is present.
+
+On the CPU the quantized linear takes K2's plain version
+(`qmatmul_reference`); it is held to the JAX `qmatmul` and to
+x @ dequantize_weight(q).T, the plain reference the JAX package's own K2
+test uses (tests/test_llama_backbone.py:193-202). Tolerance: both sides in
+f32, summation order only, 1e-5 relative. Codes, scales and biases must be
+exactly JAX's.
+
+JAX is imported inside the tests that use it, so on a GPU machine without
+JAX the CUDA tests (marker `requires_cuda`, skipped without a GPU) run
+alone: `python -m pytest --noconftest -m requires_cuda
+tests/test_torch_quant.py`.
+Their tolerances are chip_smoke.py's: 1e-4 relative in f32 (summation
+order), 1e-2 in bf16 (the output rounds to 8 mantissa bits).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REL = 1e-5
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / (np.abs(b).max() + 1e-30)
+
+
+def _w(shape, seed=0):
+    return (np.random.RandomState(seed).randn(*shape) * 0.05).astype(np.float32)
+
+
+@pytest.mark.parametrize("bits,gs", [(8, 64), (4, 64), (8, 16), (4, 32)])
+def test_quantize_weight_equals_jax(bits, gs):
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu.ops.quant import quantize_weight as jq
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    w = _w((96, 256), bits)
+    want = jq(jnp.asarray(w), group_size=gs, bits=bits)
+    got = quantize_weight(torch.from_numpy(w), group_size=gs, bits=bits)
+    assert got["w_q"].dtype == torch.uint8
+    assert int(got["w_q"].max()) <= (1 << bits) - 1
+    for k in ("w_q", "scales", "biases"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+def test_dequantize_weight_matches_jax_stacked():
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu.ops.quant import dequantize_weight as jdq
+    from mlx_audio_tpu.ops.quant import quantize_weight as jq
+    from mlx_audio_tpu_torch.ops.quant import dequantize_weight
+
+    layers = [jq(jnp.asarray(_w((32, 64), i)), 16, 8) for i in range(3)]
+    stacked = {k: jnp.stack([p[k] for p in layers]) for k in layers[0]}
+    want = jdq(stacked)
+    got = dequantize_weight({k: torch.from_numpy(np.array(v))
+                             for k, v in stacked.items()})
+    assert got.shape == (3, 32, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("bits,bias,lead", [(8, False, (1,)), (8, True, (2, 5)),
+                                            (4, True, (7,))])
+def test_qmatmul_reference_matches_jax(bits, bias, lead):
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu.ops.quant import qmatmul as jqmm
+    from mlx_audio_tpu.ops.quant import quantize_weight as jq
+    from mlx_audio_tpu_torch.ops.quant import (dequantize_weight, qmatmul,
+                                               qmatmul_reference)
+
+    q = jq(jnp.asarray(_w((48, 128), 3)), group_size=64, bits=bits)
+    if bias:
+        q["bias"] = jnp.asarray(_w((48,), 4))
+    x = np.random.RandomState(5).randn(*lead, 128).astype(np.float32)
+    want = np.asarray(jqmm(q, jnp.asarray(x)))
+    t = {k: torch.from_numpy(np.array(v)) for k, v in q.items()}
+    xt = torch.from_numpy(x)
+    got = qmatmul_reference(xt, t["w_q"], t["scales"], t["biases"],
+                            t.get("bias"))
+    assert got.shape == lead + (48,) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= REL
+    dense = xt @ dequantize_weight(t).T + (t["bias"] if bias else 0)
+    assert _rel(got.numpy(), dense.numpy()) <= REL
+    # the dispatcher takes the plain version for a CPU tensor
+    np.testing.assert_array_equal(
+        qmatmul(xt, t["w_q"], t["scales"], t["biases"], t.get("bias")).numpy(),
+        got.numpy())
+
+
+def test_qmatmul_reference_rounds_once_to_bf16():
+    from mlx_audio_tpu_torch.ops.quant import (dequantize_weight,
+                                               qmatmul_reference,
+                                               quantize_weight)
+
+    q = quantize_weight(torch.from_numpy(_w((64, 128), 6)), 64, 8)
+    x = torch.from_numpy(np.random.RandomState(7).randn(3, 128)
+                         .astype(np.float32)).to(torch.bfloat16)
+    got = qmatmul_reference(x, q["w_q"], q["scales"], q["biases"])
+    want = (x.float() @ dequantize_weight(q).T).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+
+
+def _tree(seed=0):
+    return {
+        "blk": {"q_proj": {"weight": _w((32, 64), seed)},
+                "o_proj": {"weight": _w((64, 32), seed + 1),
+                           "bias": _w((64,), seed + 2)},
+                "norm": {"weight": np.ones(64, np.float32)}},
+        "stack": {"up_proj": {"weight": _w((3, 48, 64), seed + 3)}},
+        "embed_tokens": {"weight": _w((100, 64), seed + 4)},
+        "odd": {"weight": _w((8, 40), seed + 5)},
+    }
+
+
+def _flat(tree, cast):
+    from mlx_audio_tpu.utils import flatten
+
+    return {k: cast(v) for k, v in flatten(tree).items()}
+
+
+@pytest.mark.parametrize("predicate", ["none", "explicit", "int_bits"])
+def test_maybe_quantize_tree_matches_jax(predicate):
+    """Same leaves quantized to the same codes: 2-D linears, 3-D stacked
+    leaves only under an explicit predicate, an int verdict overriding the
+    width, embeddings and widths not divisible by the group left dense."""
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu.ops.quant import maybe_quantize_tree as jmq
+    from mlx_audio_tpu.utils import unflatten
+    from mlx_audio_tpu_torch.ops.quant import maybe_quantize_tree
+
+    pred = {"none": None,
+            "explicit": lambda p, w: "norm" not in p,
+            "int_bits": lambda p, w: 4 if p.endswith("up_proj") else True
+            }[predicate]
+    tree = _tree()
+    want = _flat(jmq(unflatten(_flat(tree, jnp.asarray)), 16, 8, pred),
+                 np.asarray)
+    got = _flat(maybe_quantize_tree(
+        unflatten(_flat(tree, torch.from_numpy)), 16, 8, pred),
+        lambda t: t.numpy())
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert ("stack.up_proj.w_q" in got) == (predicate != "none")
+    assert "embed_tokens.weight" in got and "odd.weight" in got
+
+
+def test_quantized_linear_cpu_takes_plain_version():
+    from mlx_audio_tpu_torch.nn import Linear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.quant import qmatmul_reference
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    holder = torch.nn.Module()
+    holder.fc = Linear(128, 32, bias=True)
+    holder.fc.weight.data = torch.from_numpy(_w((32, 128), 8))
+    holder.fc.bias.data = torch.from_numpy(_w((32,), 9))
+    apply_quantization(holder, {"quantization": {"bits": 8,
+                                                 "group_size": 64}})
+    q = holder.fc
+    assert type(q).__name__ == "QuantizedLinear"
+    assert q.w_q.dtype == torch.uint8 and q.scales.dtype == torch.float32
+    assert q.bias.dtype == torch.float32
+    assert not any(n in dict(q.named_parameters())
+                   for n in ("w_q", "scales", "bias"))
+    x = torch.from_numpy(np.random.RandomState(10).randn(4, 128)
+                         .astype(np.float32))
+    before = qmm_kernel.launches
+    with torch.no_grad():
+        y = q(x)
+        want = qmatmul_reference(x, q.w_q, q.scales, q.biases, q.bias)
+    assert qmm_kernel.launches == before
+    np.testing.assert_array_equal(y.numpy(), want.numpy())
+    with pytest.raises(ValueError, match="CUDA"):
+        qmm_kernel(x, q.w_q, q.scales, q.biases)
+
+
+def test_apply_quantization_options():
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    def holder():
+        h = torch.nn.Module()
+        h.a_proj = Linear(64, 16, bias=False)
+        h.b_proj = Linear(64, 16, bias=False)
+        h.c = Linear(40, 16, bias=False)       # 40 % 16 != 0: stays dense
+        for m in (h.a_proj, h.b_proj, h.c):
+            m.weight.data.normal_()
+        return h
+
+    h = holder()
+    assert apply_quantization(h, {}) is h and isinstance(h.a_proj, Linear)
+    apply_quantization(h, {"quantization": {"bits": 4, "group_size": 16,
+                                            "b_proj": False}})
+    assert isinstance(h.a_proj, QuantizedLinear)
+    assert int(h.a_proj.w_q.max()) <= 15
+    assert isinstance(h.b_proj, Linear) and isinstance(h.c, Linear)
+    h = holder()
+    apply_quantization(h, {"quantization": {"bits": 8, "group_size": 16}},
+                       lambda path, w: path.startswith("b"))
+    assert isinstance(h.a_proj, Linear)
+    assert isinstance(h.b_proj, QuantizedLinear)
+    with pytest.raises(NotImplementedError, match="mxu_int8"):
+        apply_quantization(holder(), {"quantization": {"bits": 8,
+                                                       "mxu_int8": True}})
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernel has no "
+                    "CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("m,bits,bias", [(1, 8, False), (5, 4, True),
+                                         (64, 8, True)])
+def test_kernel_matches_reference_on_cuda(dtype, tol, m, bits, bias):
+    """K2 against its plain version at a talker-like shape (3072, 1024),
+    relative error max|a-b|/max|b|; one launch counted per call."""
+    _cuda()
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.quant import qmatmul_reference, quantize_weight
+
+    q = {k: v.cuda() for k, v in quantize_weight(
+        torch.from_numpy(_w((3072, 1024), 11)), 64, bits).items()}
+    b = torch.from_numpy(_w((3072,), 12)).cuda() if bias else None
+    x = torch.from_numpy(np.random.RandomState(13).randn(m, 1024)
+                         .astype(np.float32)).cuda().to(getattr(torch, dtype))
+    before = qmm_kernel.launches
+    got = qmm_kernel(x, q["w_q"], q["scales"], q["biases"], b)
+    want = qmatmul_reference(x, q["w_q"], q["scales"], q["biases"], b)
+    torch.cuda.synchronize()
+    assert qmm_kernel.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == (m, 3072)
+    rel = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert rel <= tol, rel
+
+
+@pytest.mark.requires_cuda
+def test_kernel_refuses_what_it_does_not_take():
+    _cuda()
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    q = {k: v.cuda() for k, v in quantize_weight(
+        torch.from_numpy(_w((64, 128), 14)), 64, 8).items()}
+    x = torch.ones(2, 128, device="cuda")
+    with pytest.raises(ValueError, match="empty"):
+        qmm_kernel(x[:0], q["w_q"], q["scales"], q["biases"])
+    with pytest.raises(TypeError):
+        qmm_kernel(x.half(), q["w_q"], q["scales"], q["biases"])
+    with pytest.raises(ValueError):
+        qmm_kernel(x[:, :64], q["w_q"], q["scales"], q["biases"])
+    with pytest.raises(TypeError):
+        qmm_kernel(x, q["w_q"], q["scales"].double(), q["biases"])
