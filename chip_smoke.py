@@ -26,10 +26,12 @@ the CUDA toolkit. Phases, each of which raises on failure:
    finiteness, and 48 K1 launches per synth.
 5. K2 vs plain: the fused dequantize + matmul kernel against
    `qmatmul_reference` at every linear shape of the Qwen3-TTS slice,
-   M in {1, 64}, bits in {8, 4}, x in f32 and bf16; relative error, median
-   device time per launch over a rotation of weight copies larger than the
-   L2 cache (replayed as one CUDA graph, so host launch cost is left out),
-   and GB/s at M = 1.
+   M in {1, 2, 16, 64, 120}, bits in {8, 4}, x in f32 and bf16, by every
+   path of K2 that takes the case (gemv at M = 1, mma for bf16, the
+   first design, simt, for all); relative error, median device time per launch over a
+   rotation of weight copies larger than the L2 cache (replayed as one CUDA
+   graph, so host launch cost is left out), and GB/s; then one line per
+   M > 1 path with its times summed over the shapes.
 6. Qwen3-TTS checks: on a small config at f32 from one seeded weight set,
    the CUDA path against the CPU path (prefill logits, the greedy codes of
    one chunk, decode_full audio); at full dims, the q8 model's prefill
@@ -39,11 +41,13 @@ the CUDA toolkit. Phases, each of which raises on failure:
    (group 64): three `generate(text_ids=...)` requests, cold then warm:
    audio length and finiteness, and K2's launch count against the count
    the config gives for the steps that ran (722 per decode step; the
-   model must hold exactly the quantized linears the config gives). The
+   model must hold exactly the quantized linears the config gives), and
+   the decode steps against the chunk schedule with its early exit. The
    (M, out, in) of every K2 launch is recorded on the way.
-8. K2 vs plain at each recorded call shape of the main path (the prefill
-   bucket, the code predictor's first sub-step at M=2, text_projection
-   over the text ids), 8-bit codes, x in f32 and bf16.
+8. K2 (the dispatched path) vs plain at each recorded call shape of the
+   main path (the prefill bucket, the code predictor's first sub-step at
+   M=2, text_projection over the text ids), 8-bit codes, x in f32 and
+   bf16.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -361,7 +365,7 @@ def phase_main_path(card: str, voice_dir: Path):
 # down; text_projection fc1 and fc2 (fc2 is o's shape)
 QMM_SHAPES = ((2048, 1024), (1024, 1024), (1024, 2048), (3072, 1024),
               (1024, 3072), (2048, 2048))
-QMM_ROWS = (1, 64)
+QMM_ROWS = (1, 2, 16, 64, 120)
 QMM_GROUP = 64
 # quantized linears of one qwen3 layer: q, k, v, o, gate, up, down
 LINEARS_PER_LAYER = 7
@@ -467,9 +471,24 @@ def _time_graph(fns, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def qmm_paths(dtype, m: int):
+    """The paths of K2 that take x of `dtype` with `m` rows at group 64,
+    the dispatched one first."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import PATHS, choose_path
+
+    chosen = choose_path(dtype, m, QMM_GROUP)
+    takes = [p for p in PATHS if (p != "gemv" or m == 1)
+             and (p != "mma" or dtype == torch.bfloat16)]
+    return [chosen] + [p for p in takes if p != chosen]
+
+
 def phase_qmm(card: str, reps: int = 7):
-    """K2 against qmatmul_reference at every shape of the slice. Returns
-    {(dtype, out, in, bits, M): (rel, abs, ms, plain_ms, GB/s)}."""
+    """K2 against qmatmul_reference at every shape of the slice, by every
+    path that takes the shape. Returns {(dtype, out, in, bits, M, path):
+    (rel, abs, ms, plain_ms, GB/s)}; the dispatched path is
+    qmm_paths(...)[0]."""
     from functools import partial
 
     import torch
@@ -493,37 +512,51 @@ def phase_qmm(card: str, reps: int = 7):
                 x32 = torch.randn(m, k, generator=g, device=dev)
                 for dtype in (torch.float32, torch.bfloat16):
                     x = x32.to(dtype)
-                    rel, ab = _qmm_case(x, q, bias, f"({n},{k}) q{bits} M={m}")
-                    ms = _time_graph(
-                        [partial(qmm_kernel, x, c["w_q"], c["scales"],
-                                 c["biases"], bias) for c in copies], reps)
+                    name = str(dtype).split(".")[-1]
                     plain_ms = _time_graph(
                         [partial(qmatmul_reference, x, c["w_q"], c["scales"],
                                  c["biases"], bias) for c in copies], reps)
-                    gbs = ((wbytes + (m * k + m * n) * x.element_size())
-                           / (ms * 1e-3) / 1e9)
-                    name = str(dtype).split(".")[-1]
-                    results[(name, n, k, bits, m)] = (rel, ab, ms, plain_ms,
-                                                      gbs)
-                    log(f"[qmm] {name:8s} ({n:4d},{k:4d}) q{bits} M={m:2d} "
-                        f"rel={rel:.3e} abs={ab:.3e} (tol {KERNEL_TOL[name]:g}) "
-                        f"kernel {ms * 1e3:8.2f} us ({gbs:7.1f} GB/s, "
-                        f"{100 * gbs / HBM_GBS:5.1f}% of 3.35 TB/s) plain "
-                        f"{plain_ms * 1e3:8.2f} us ({card})")
+                    for path in qmm_paths(dtype, m):
+                        rel, ab = _qmm_case(
+                            x, q, bias, f"({n},{k}) q{bits} M={m} {path}",
+                            path)
+                        ms = _time_graph(
+                            [partial(qmm_kernel, x, c["w_q"], c["scales"],
+                                     c["biases"], bias, path=path)
+                             for c in copies], reps)
+                        gbs = ((wbytes + (m * k + m * n) * x.element_size())
+                               / (ms * 1e-3) / 1e9)
+                        results[(name, n, k, bits, m, path)] = (
+                            rel, ab, ms, plain_ms, gbs)
+                        log(f"[qmm] {name:8s} ({n:4d},{k:4d}) q{bits} "
+                            f"M={m:3d} {path:4s} rel={rel:.3e} abs={ab:.3e} "
+                            f"(tol {KERNEL_TOL[name]:g}) kernel "
+                            f"{ms * 1e3:8.2f} us ({gbs:7.1f} GB/s, "
+                            f"{100 * gbs / HBM_GBS:5.1f}% of 3.35 TB/s) plain "
+                            f"{plain_ms * 1e3:8.2f} us ({card})")
             del copies
+    rows = [m for m in QMM_ROWS if m > 1]
+    for path in ("mma", "simt"):
+        ms, plain = (sum(results[("bfloat16", n, k, 8, m, path)][i]
+                         for n, k in QMM_SHAPES for m in rows)
+                     for i in (2, 3))
+        log(f"[qmm] path {path}: bf16 x, 8-bit codes, M in {rows} at the "
+            f"{len(QMM_SHAPES)} shapes, summed: kernel {ms * 1e3:.2f} us, "
+            f"plain {plain * 1e3:.2f} us ({card})")
     return results
 
 
-def _qmm_case(x, q, bias, label: str):
-    """K2 vs qmatmul_reference on one input: output dtype, shape,
-    finiteness and the relative tolerance of x's dtype. -> (rel, abs)."""
+def _qmm_case(x, q, bias, label: str, path=None):
+    """K2 (by `path`, default the dispatched one) vs qmatmul_reference on
+    one input: output dtype, shape, finiteness and the relative tolerance
+    of x's dtype. -> (rel, abs)."""
     import torch
 
     from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
     from mlx_audio_tpu_torch.ops.quant import qmatmul_reference
 
     args = (x, q["w_q"], q["scales"], q["biases"], bias)
-    got, want = qmm_kernel(*args), qmatmul_reference(*args)
+    got, want = qmm_kernel(*args, path=path), qmatmul_reference(*args)
     torch.cuda.synchronize()
     if got.dtype != x.dtype or got.shape != (x.shape[0], q["w_q"].shape[0]):
         raise AssertionError(f"K2 {label}: output {got.dtype} "
@@ -689,20 +722,21 @@ def expected_k2_launches(model, run):
 
 def expected_decode_steps(frames: int, max_tokens: int) -> int:
     """Steps the chunk loop runs for `frames` kept frames: FIRST_CHUNK, then
-    CHUNK_TOKENS, each cut to the token budget; a chunk in which EOS fires
-    runs to its end (frames < max_tokens means EOS ended the loop)."""
+    CHUNK_TOKENS, each cut to the token budget; EOS at decode step s (then
+    frames == s < max_tokens) stops the loop STEPS_AFTER_EOS steps later,
+    or at the end of its chunk if that comes first."""
     from mlx_audio_tpu_torch.tts.models.qwen3_tts.qwen3_tts import (
-        CHUNK_TOKENS, FIRST_CHUNK)
+        CHUNK_TOKENS, FIRST_CHUNK, STEPS_AFTER_EOS)
 
-    total, steps = 1, 0
+    total, end = 1, 0
     while total < max_tokens:
         chunk = min(FIRST_CHUNK if total <= 1 else CHUNK_TOKENS,
                     max_tokens - total)
-        steps += chunk
-        if total + chunk > frames:
-            break
+        end += chunk
+        if total + chunk > frames:      # EOS in this chunk, at step frames
+            return min(frames + STEPS_AFTER_EOS, end)
         total += chunk
-    return steps
+    return end
 
 
 def phase_qwen3_main(model, card: str):
@@ -860,16 +894,21 @@ def main() -> int:
         f"{KERNEL_FRAMES}-frame bucket, bf16: kernel {k1_ms:.3f} ms, plain "
         f"{k1_plain:.3f} ms ({card})")
     # K2: the linears of one decode step at M=1 (bf16 x, 8-bit codes),
-    # summed from the per-shape medians of phase 5
-    step = frame_linears(model)
-    k2_ms = sum(qres[("bfloat16", n, k, 8, 1)][2] for n, k in step)
-    k2_plain = sum(qres[("bfloat16", n, k, 8, 1)][3] for n, k in step)
-    k2_abs = max([k2_path_abs] + [v[1] for key, v in qres.items()
-                                  if key[0] == "bfloat16"])
-    log(f"[kernel] K2: the {len(step)} linears of one decode step, M=1, "
-        f"bf16 x, 8-bit codes: kernel {k2_ms:.3f} ms, plain {k2_plain:.3f} "
-        f"ms ({card})")
+    # summed from the per-shape medians of phase 5, by the dispatched path
+    # and by the first design (simt); the error over every dispatched case
     import torch
+
+    step = frame_linears(model)
+    m1 = qmm_paths(torch.bfloat16, 1)[0]
+    k2_ms, k2_plain, simt_ms = (
+        sum(qres[("bfloat16", n, k, 8, 1, path)][i] for n, k in step)
+        for path, i in ((m1, 2), (m1, 3), ("simt", 2)))
+    k2_abs = max([k2_path_abs] + [
+        v[1] for (name, _, _, _, m, path), v in qres.items()
+        if name == "bfloat16" and path == qmm_paths(torch.bfloat16, m)[0]])
+    log(f"[kernel] K2: the {len(step)} linears of one decode step, M=1, "
+        f"bf16 x, 8-bit codes: kernel ({m1}) {k2_ms:.3f} ms, simt "
+        f"{simt_ms:.3f} ms, plain {k2_plain:.3f} ms ({card})")
 
     print(json.dumps({"kernels": [{
         "name": "adain_snake_conv1d",

@@ -10,10 +10,12 @@ text ids -> audio:
   request (:666-691, :1110-1111);
 * `_step0` samples the first frame from the prefill logits (:1440-1476);
 * the AR chunk (:693-775) runs FIRST_CHUNK, then CHUNK_TOKENS steps as a
-  Python loop. No value is read back to the host inside a chunk: the codes
-  and finished flags of a chunk are read once, after it, as the JAX host
-  loop reads them (:1163-1181). A chunk therefore runs all its steps, also
-  those after EOS; their codes are dropped;
+  Python loop. The codes of a chunk are read once, after it, as the JAX host
+  loop reads them (:1163-1181). Each step's finished flag is copied to the
+  host without blocking; before step i+1 the loop waits for step i-1's flag
+  only, so the host still runs ahead of the device, and a chunk stops at
+  most STEPS_AFTER_EOS steps after the step that sampled EOS (the JAX
+  `while_loop` stops at once, :759-772). The kept codes are the same;
 * `decode_full` of the valid codes -> one `GenerationResult`.
 
 Weights: `init_params(seed)` (random, the JAX package's distributions),
@@ -51,6 +53,9 @@ FIRST_CHUNK = 8
 CHUNK_TOKENS = 25
 PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 CACHE_BUCKETS = (256, 512, 1024, 2048, 4096)
+# steps a chunk may launch after the one whose finished flag is set: the
+# loop reads the flag of step i-1 before launching step i+1
+STEPS_AFTER_EOS = 1
 
 
 def _bucket(n: int, buckets) -> int:
@@ -71,6 +76,30 @@ class GenCarry:
     finished: torch.Tensor       # (B,) bool
     history: torch.Tensor        # (B, HISTORY_LEN) recent code-0 tokens
     trailing_idx: int
+
+
+class _FinishedFlags:
+    """The finished flags of a chunk's steps, copied to the host without
+    blocking (pinned memory and one event per step on a GPU), so that the
+    loop can test a step's flag without a synchronous read."""
+
+    def __init__(self, finished: torch.Tensor):
+        cuda = finished.device.type == "cuda"
+        self.host = torch.empty((CHUNK_TOKENS,) + tuple(finished.shape),
+                                dtype=torch.bool, pin_memory=cuda)
+        self.events = ([torch.cuda.Event() for _ in range(CHUNK_TOKENS)]
+                       if cuda else None)
+
+    def record(self, i: int, finished: torch.Tensor) -> None:
+        self.host[i].copy_(finished, non_blocking=True)
+        if self.events is not None:
+            self.events[i].record()
+
+    def read(self, i: int) -> torch.Tensor:
+        """Step i's flags (B,), once the device has written them."""
+        if self.events is not None:
+            self.events[i].synchronize()
+        return self.host[i]
 
 
 class Model(TorchModel):
@@ -368,21 +397,27 @@ class Model(TorchModel):
             finished = bool(carry.finished.all())
             total_tokens = 0 if finished else 1
             steps = 0
+            flags = _FinishedFlags(carry.finished)
+            lag = STEPS_AFTER_EOS + 1
             while not finished and total_tokens < max_tokens:
                 chunk = FIRST_CHUNK if total_tokens <= 1 else CHUNK_TOKENS
                 chunk = min(chunk, max_tokens - total_tokens)
-                codes_seq, fin_seq = [], []
-                for _ in range(chunk):
+                codes_seq = []
+                for i in range(chunk):
+                    if i >= lag and bool(flags.read(i - lag).all()):
+                        break
                     carry, codes = self._ar_step(carry, trailing, tl,
                                                  pad_embed, sampler, suppress,
                                                  repetition_penalty)
                     codes_seq.append(codes)
-                    fin_seq.append(carry.finished)
-                steps += chunk
-                # the one read of this chunk
+                    flags.record(i, carry.finished)
+                n_run = len(codes_seq)
+                steps += n_run
+                # the one read of this chunk's codes
                 codes_np = torch.stack(codes_seq).cpu().numpy()[:, 0]
-                fin_np = torch.stack(fin_seq).cpu().numpy()[:, 0]
-                n_new = chunk
+                fin_np = np.array([bool(flags.read(i)[0])
+                                   for i in range(n_run)])
+                n_new = n_run
                 if fin_np.any():
                     n_new = int(np.argmax(fin_np))   # EOS frame excluded
                     finished = True

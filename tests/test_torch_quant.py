@@ -1,6 +1,8 @@
 """The port's affine quantization (ops/quant.py, nn QuantizedLinear,
-utils.apply_quantization) against the JAX package's, and kernel K2
-(csrc/qmm.cu) against its plain version where a GPU is present.
+utils.apply_quantization) against the JAX package's, the arithmetic K2's
+tensor-core path rests on (the per-group factored sum, codes exact in
+bf16) and its dispatch rule, and kernel K2 (csrc/qmm.cu, each of its
+paths) against its plain version where a GPU is present.
 
 On the CPU the quantized linear takes K2's plain version
 (`qmatmul_reference`); it is held to the JAX `qmatmul` and to
@@ -109,6 +111,77 @@ def test_qmatmul_reference_rounds_once_to_bf16():
     want = (x.float() @ dequantize_weight(q).T).to(torch.bfloat16)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_per_group_factored_form_equals_reference(bits, gs, bias):
+    """The sum K2's tensor-core path takes, per group g of gs columns:
+    y = sum_g s[n,g] * (x . q)_g + sum_g b[n,g] * (sum of x)_g [+ bias],
+    with its k order permuted inside each 16-column step as the kernel
+    permutes it (columns 4t..4t+3 in fragment order 2t, 2t+1, 2t+8, 2t+9),
+    equals qmatmul_reference in f32."""
+    from mlx_audio_tpu_torch.ops.quant import qmatmul_reference, quantize_weight
+
+    n, k = 48, 256
+    q = quantize_weight(torch.from_numpy(_w((n, k), bits + gs)), gs, bits)
+    b = torch.from_numpy(_w((n,), 15)) if bias else None
+    x = torch.from_numpy(np.random.RandomState(16).randn(5, k)
+                         .astype(np.float32))
+    frag = np.array([4 * t + j for t in range(4) for j in range(4)])
+    perm = torch.from_numpy((np.arange(k // 16)[:, None] * 16
+                             + frag[None]).reshape(-1))
+    xp, qp = x[:, perm], q["w_q"][:, perm].float()
+    ng = k // gs
+    xq = torch.einsum("mgk,ngk->mng", xp.reshape(5, ng, gs),
+                      qp.reshape(n, ng, gs))
+    xsum = xp.reshape(5, ng, gs).sum(-1)
+    y = (xq * q["scales"]).sum(-1) + xsum @ q["biases"].T
+    if bias:
+        y = y + b
+    want = qmatmul_reference(x, q["w_q"], q["scales"], q["biases"], b)
+    assert _rel(y.numpy(), want.numpy()) <= REL
+
+
+def test_codes_are_exact_in_bf16():
+    """Every 8-bit code (so every 4-bit one) survives bf16 exactly, and the
+    kernels' conversion (the bytes into 0x4b0000cc = 2^23 + c, minus 2^23)
+    gives the code as an exact f32."""
+    codes = torch.arange(256, dtype=torch.uint8)
+    assert torch.equal(codes.to(torch.bfloat16).to(torch.uint8), codes)
+    assert torch.equal(codes.float().to(torch.bfloat16).float(),
+                       codes.float())
+    magic = (np.uint32(0x4B000000) | np.arange(256, dtype=np.uint32))
+    got = magic.view(np.float32) - np.float32(2 ** 23)
+    np.testing.assert_array_equal(got, np.arange(256, dtype=np.float32))
+
+
+def test_dispatch_rule_and_tuning():
+    """choose_path is a static rule on (dtype, M, group size); the gemv's
+    warps per row and the mma path's K ranges are valid for every linear
+    shape of the Qwen3-TTS slice."""
+    from mlx_audio_tpu_torch.ops.qmm import (MMA_MIN_ROWS, choose_path,
+                                             gemv_ksplit, mma_splits)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert choose_path(f32, 1, 64) == choose_path(bf16, 1, 32) == "gemv"
+    assert choose_path(bf16, MMA_MIN_ROWS, 64) == "mma"
+    assert choose_path(bf16, 120, 16) == choose_path(bf16, 16, 128) == "mma"
+    assert choose_path(f32, 64, 64) == choose_path(f32, 2, 64) == "simt"
+    assert choose_path(bf16, 1, 8) == choose_path(bf16, 16, 48) == "simt"
+    shapes = [(2048, 1024), (1024, 1024), (1024, 2048), (3072, 1024),
+              (1024, 3072), (2048, 2048), (96, 32)]
+    for n, k in shapes:
+        assert gemv_ksplit(n, k) in (1, 2, 4, 8)
+        for gs in (16, 32, 64, 128):
+            if k % gs:
+                continue
+            units = -(-k // max(gs, 64))
+            for m in (2, 16, 64, 120, 4096):
+                s = mma_splits(m, n, k, gs)
+                per = -(-units // s)
+                assert 1 <= s <= units and per * (s - 1) < units
 
 
 def _tree(seed=0):
@@ -224,31 +297,56 @@ def _cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
-@pytest.mark.parametrize("m,bits,bias", [(1, 8, False), (5, 4, True),
-                                         (64, 8, True)])
-def test_kernel_matches_reference_on_cuda(dtype, tol, m, bits, bias):
-    """K2 against its plain version at a talker-like shape (3072, 1024),
-    relative error max|a-b|/max|b|; one launch counted per call."""
-    _cuda()
+def _kernel_case(m, n, bits, bias, gs, dtype, path=None):
+    """K2 (by `path`, default the dispatched one) and its plain version on
+    one seeded input, K = 1024 -> (got, want); one launch counted."""
     from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
     from mlx_audio_tpu_torch.ops.quant import qmatmul_reference, quantize_weight
 
     q = {k: v.cuda() for k, v in quantize_weight(
-        torch.from_numpy(_w((3072, 1024), 11)), 64, bits).items()}
-    b = torch.from_numpy(_w((3072,), 12)).cuda() if bias else None
+        torch.from_numpy(_w((n, 1024), 11)), gs, bits).items()}
+    b = torch.from_numpy(_w((n,), 12)).cuda() if bias else None
     x = torch.from_numpy(np.random.RandomState(13).randn(m, 1024)
                          .astype(np.float32)).cuda().to(getattr(torch, dtype))
     before = qmm_kernel.launches
-    got = qmm_kernel(x, q["w_q"], q["scales"], q["biases"], b)
+    got = qmm_kernel(x, q["w_q"], q["scales"], q["biases"], b, path=path)
     want = qmatmul_reference(x, q["w_q"], q["scales"], q["biases"], b)
     torch.cuda.synchronize()
     assert qmm_kernel.launches == before + 1
-    assert got.dtype == x.dtype and got.shape == (m, 3072)
-    rel = ((got.float() - want.float()).abs().max()
-           / want.float().abs().max()).item()
-    assert rel <= tol, rel
+    assert got.dtype == x.dtype and got.shape == (m, n)
+    return got, want
+
+
+def _rel_cuda(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("m,bits,bias,n,gs", [
+    (1, 8, False, 3072, 64), (5, 4, True, 3072, 64), (64, 8, True, 3072, 64),
+    (2, 8, False, 3072, 64), (16, 4, True, 3072, 64), (17, 8, False, 1000, 64),
+    (120, 8, True, 2048, 32), (130, 4, False, 1000, 32), (1, 4, True, 1000, 32)])
+def test_kernel_matches_reference_on_cuda(dtype, tol, m, bits, bias, n, gs):
+    """K2's dispatched path against its plain version at talker-like shapes
+    (K = 1024), ragged N (1000) and group 32 among them, relative error
+    max|a-b|/max|b|; one launch counted per call."""
+    _cuda()
+    got, want = _kernel_case(m, n, bits, bias, gs, dtype)
+    assert _rel_cuda(got, want) <= tol
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("path,dtype,m", [
+    ("gemv", "float32", 1), ("gemv", "bfloat16", 1), ("mma", "bfloat16", 1),
+    ("mma", "bfloat16", 2), ("mma", "bfloat16", 130), ("simt", "float32", 17),
+    ("simt", "bfloat16", 1), ("simt", "bfloat16", 120)])
+def test_each_path_matches_reference_on_cuda(path, dtype, m):
+    """Every path of K2, named explicitly, at a ragged N and group 32."""
+    _cuda()
+    got, want = _kernel_case(m, 1000, 8, True, 32, dtype, path)
+    assert _rel_cuda(got, want) <= {"float32": 1e-4, "bfloat16": 1e-2}[dtype]
 
 
 @pytest.mark.requires_cuda
@@ -268,3 +366,9 @@ def test_kernel_refuses_what_it_does_not_take():
         qmm_kernel(x[:, :64], q["w_q"], q["scales"], q["biases"])
     with pytest.raises(TypeError):
         qmm_kernel(x, q["w_q"], q["scales"].double(), q["biases"])
+    with pytest.raises(ValueError, match="gemv path takes M = 1"):
+        qmm_kernel(x, q["w_q"], q["scales"], q["biases"], path="gemv")
+    with pytest.raises(TypeError, match="bfloat16"):
+        qmm_kernel(x, q["w_q"], q["scales"], q["biases"], path="mma")
+    with pytest.raises(ValueError, match="unknown"):
+        qmm_kernel(x, q["w_q"], q["scales"], q["biases"], path="wgmma")

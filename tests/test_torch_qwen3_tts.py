@@ -389,13 +389,26 @@ def test_generate_greedy_codes_match_jax(variant):
     assert np.isfinite(got.audio).all()
 
 
-def test_generate_chunk_schedule_and_counts():
-    """The chunk loop runs FIRST_CHUNK then CHUNK_TOKENS steps without
-    reading back inside a chunk; text_projection runs once for the text and,
-    the first time, once for the cached tts ids; sampling is seeded."""
+def _decode_steps(frames, max_tokens):
+    """Steps the chunk loop runs for `frames` kept frames: FIRST_CHUNK, then
+    CHUNK_TOKENS, cut to the token budget; EOS at decode step s (then
+    frames == s) stops it STEPS_AFTER_EOS steps later, or at the end of the
+    chunk if that comes first."""
     from mlx_audio_tpu_torch.tts.models.qwen3_tts.qwen3_tts import (
-        CHUNK_TOKENS, FIRST_CHUNK)
+        CHUNK_TOKENS, FIRST_CHUNK, STEPS_AFTER_EOS)
 
+    ends = np.cumsum([FIRST_CHUNK] + [CHUNK_TOKENS] * max_tokens)
+    ends = np.minimum(ends, max_tokens - 1)
+    if frames >= max_tokens:
+        return max_tokens - 1
+    return int(min(frames + STEPS_AFTER_EOS, ends[ends >= frames][0]))
+
+
+def test_generate_chunk_schedule_and_counts():
+    """The chunk loop runs FIRST_CHUNK then CHUNK_TOKENS steps, reading the
+    codes once per chunk and stopping at most STEPS_AFTER_EOS steps after
+    EOS; text_projection runs once for the text and, the first time, once
+    for the cached tts ids; sampling is seeded."""
     pm = _port("tiny-q8")
     kw = dict(text_ids=np.arange(10, 30)[None], temperature=0.9,
               max_tokens=40, seed=3)
@@ -408,8 +421,53 @@ def test_generate_chunk_schedule_and_counts():
     assert run1["prompt_bucket"] == 16 and run1["step0"] == 1
     if r1.token_count == kw["max_tokens"]:       # no EOS: every step kept
         assert run1["decode_steps"] == kw["max_tokens"] - 1
-    assert run1["decode_steps"] in {
-        FIRST_CHUNK + CHUNK_TOKENS * n for n in range(3)} | {39}
+    assert run1["decode_steps"] == _decode_steps(r1.token_count,
+                                                 kw["max_tokens"])
+
+
+@pytest.mark.parametrize("eos_step", [15, 32, 33])
+def test_generate_stops_after_eos(monkeypatch, eos_step):
+    """EOS forced at a known decode step (inside the second, 25-step chunk;
+    at its last step but one; at its last step): the loop runs at most
+    STEPS_AFTER_EOS more steps, and keeps the codes of the same request
+    with EOS suppressed, cut at EOS."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import qwen3_tts as qmod
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.qwen3_tts import (
+        STEPS_AFTER_EOS)
+
+    pm = _port("tiny-q8")
+    eos, vocab = pm.tcfg.codec_eos_token_id, pm.tcfg.vocab_size
+    assert pm.cpcfg.vocab_size != vocab
+    plain_sample = qmod.sample
+
+    def run(force_at):
+        talker_calls = []
+
+        def sample(logits, *args, **kw):
+            if logits.shape[-1] != vocab:            # a code-predictor group
+                return plain_sample(logits, *args, **kw)
+            logits = logits.clone()
+            logits[:, eos] = float("-inf")
+            tok = plain_sample(logits, *args, **kw)  # same random draws
+            if len(talker_calls) == force_at:        # call 0 is step 0
+                tok = torch.full_like(tok, eos)
+            talker_calls.append(int(tok[0]))
+            return tok
+
+        monkeypatch.setattr(qmod, "sample", sample)
+        r, codes = _port_codes(pm, text_ids=np.arange(10, 30)[None],
+                               temperature=0.9, max_tokens=50, seed=5)
+        return r, codes, pm.last_run["decode_steps"], talker_calls
+
+    r, codes, steps, calls = run(eos_step)
+    r_free, codes_free, steps_free, _ = run(None)
+    assert calls[eos_step] == eos and eos not in calls[:eos_step]
+    assert r.token_count == codes.shape[-1] == eos_step
+    assert steps <= eos_step + STEPS_AFTER_EOS
+    assert steps == _decode_steps(eos_step, 50) == len(calls) - 1
+    assert steps_free == 49 and r_free.token_count == 50
+    np.testing.assert_array_equal(codes, codes_free[..., :eos_step])
+    assert r.samples == eos_step * pm.total_upsample
 
 
 def test_load_model_reads_a_torch_layout_checkpoint(tmp_path):
