@@ -15,15 +15,21 @@ the CUDA toolkit. Phases, each of which raises on failure:
 3. K1 vs plain: the fused AdaIN -> snake -> conv1d kernel against its
    plain PyTorch version at every (C, k, dilation) the generator runs
    (C in {256, 128} x k in {3, 7, 11} x dil in {1, 3, 5}), B=2 with ragged
-   valid lengths, at the time lengths of a 1024-frame bucket, in f32 and
-   bf16; relative error and median times (CUDA events).
+   valid lengths, at the time lengths of a 1024-frame bucket, by each path:
+   f32 on f32 x, wgmma (the dispatched bf16 path) and wmma (the first
+   design) on bf16 x; relative error, device time per launch (CUDA graph
+   replay, so the host's launch cost is left out), the plain version's
+   time (CUDA events), and beside each bf16 shape its bound and the time of
+   cuDNN `F.conv1d` alone on a precomputed bf16 h (a yardstick: the conv
+   without the affine, snake and masks). wgmma must beat wmma at every
+   shape. Then wgmma where alpha*u reaches about 1e4 (its reduced sine).
 4. Kokoro main path at the published dims with seeded random weights.
    First a small-input check, fed the same durations: the CUDA path against
    the same seeded model on the CPU (plain versions) at f32, and the bf16
    CUDA decoder against that f32 CPU one. Then three `generate()` requests
    through the pipeline, the built-in G2P and a seeded .npy voice pack, in
    the default bf16, twice over (cold, then warm): audio length,
-   finiteness, and 48 K1 launches per synth.
+   finiteness, and 48 K1 launches per synth, all by the wgmma path.
 5. K2 vs plain: the fused dequantize + matmul kernel against
    `qmatmul_reference` at every linear shape of the Qwen3-TTS slice,
    M in {1, 2, 16, 64, 120}, bits in {8, 4}, x in f32 and bf16, by every
@@ -81,6 +87,9 @@ BF16_TOL, BF16_CORR = 0.15, 0.999
 # the generator's legs at the 1024-frame bucket: stage 0 runs 2F*10 rows at
 # C=256, stage 1 2F*60+1 rows at C=128 (istftnet.py reflection pad)
 KERNEL_FRAMES = 1024
+# the H100 SXM's dense bf16 tensor-core rate and device-memory bandwidth at
+# its full 700 W (NVIDIA's data sheet), for the kernels' bounds
+PEAK_BF16, HBM_BPS = 989e12, 3.35e12
 TEXTS = (
     "Hello world.",
     "The quick brown fox jumps over the lazy dog near the river bank.",
@@ -135,6 +144,8 @@ def phase_build():
 
 
 def _time_ms(fn, reps: int) -> float:
+    """Median ms of one call of `fn` between CUDA events (host cost
+    included: for calls far longer than their launch, the plain version)."""
     import torch
 
     fn()
@@ -152,17 +163,43 @@ def _time_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def phase_kernels(reps: int = 5):
-    """Every (C, k, dil) of the main path, f32 and bf16. Returns per-shape
-    results {(dtype, C, k, dil): (rel, abs, ms, plain_ms)}."""
+def k1_bound(c: int, k: int, t: int, vlen) -> tuple:
+    """(ms, "operations" or "bytes") the card needs at least for one leg:
+    the bf16 products of the rows this run's valid lengths keep, against
+    989 TFLOP/s, or the bytes (those rows of x read once, w read once, all
+    of out written once) against 3.35 TB/s, whichever is larger."""
+    rows = sum(min(max(int(v), 0), t) for v in vlen)
+    ops_ms = 2.0 * rows * c * c * k / PEAK_BF16 * 1e3
+    bytes_ms = 2.0 * (rows * c + k * c * c + len(vlen) * t * c) / HBM_BPS * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def k1_bound_full(c: int, k: int) -> float:
+    """k1_bound's ms for a leg of phase 3's shapes were every row valid."""
+    t = 2 * KERNEL_FRAMES * (10 if c == 256 else 60) + (c == 128)
+    return k1_bound(c, k, t, [t, t])[0]
+
+
+def phase_kernels(card: str, reps: int = 5):
+    """Every (C, k, dil) of the main path, by each path of K1 (f32 on f32
+    x; wgmma, the dispatched bf16 path, and wmma, the first design, on bf16
+    x) against the plain version, B=2 with ragged valid lengths. Kernel
+    times are device times per launch from a CUDA graph replay (the host's
+    launch cost left out); the plain version is timed by events. Beside
+    each bf16 shape: the leg's bound and cuDNN `F.conv1d` alone on a
+    precomputed bf16 h (the conv without the affine, snake and masks; a
+    yardstick the port never calls). Returns ({(path, C, k, dil): (rel,
+    abs, ms, plain_ms)}, {(C, k, dil): (cudnn_ms, bound_ms, bound_by)})."""
     import torch
+    import torch.nn.functional as F
 
     from mlx_audio_tpu_torch.ops.snake_conv import (
-        adain_snake_conv1d_reference, snake_conv_kernel)
+        adain_snake_conv1d_reference, choose_path, kernel_weight,
+        snake_conv_kernel)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    results = {}
+    results, extra = {}, {}
     for c, t in ((256, 2 * KERNEL_FRAMES * 10), (128, 2 * KERNEL_FRAMES * 60 + 1)):
         vlen = torch.tensor([t, (t * 3) // 5], dtype=torch.int32, device=dev)
         x32 = torch.randn(2, t, c, generator=g, device=dev)
@@ -170,16 +207,22 @@ def phase_kernels(reps: int = 5):
         shift = 0.1 * torch.randn(2, c, generator=g, device=dev)
         alpha = torch.rand(c, generator=g, device=dev) + 0.5
         bias = 0.05 * torch.randn(c, generator=g, device=dev)
+        h16 = torch.randn(2, c, t, generator=g, device=dev).to(torch.bfloat16)
+        if choose_path(torch.bfloat16, c) != "wgmma":
+            raise AssertionError(f"bf16 C={c} dispatches to "
+                                 f"{choose_path(torch.bfloat16, c)}")
         for k in (3, 7, 11):
             w32 = torch.randn(k, c, c, generator=g, device=dev) / (k * c) ** 0.5
             for dil in (1, 3, 5):
-                for dtype in (torch.float32, torch.bfloat16):
+                for path in ("f32", "wgmma", "wmma"):
+                    dtype = torch.float32 if path == "f32" else torch.bfloat16
                     x, w = x32.to(dtype), w32.to(dtype).contiguous()
+                    kw = kernel_weight(w, path)
 
                     def kern():
-                        return snake_conv_kernel(x, scale, shift, alpha, w,
+                        return snake_conv_kernel(x, scale, shift, alpha, kw,
                                                  bias, dilation=dil,
-                                                 valid_len=vlen)
+                                                 valid_len=vlen, path=path)
 
                     def plain():
                         return adain_snake_conv1d_reference(
@@ -196,19 +239,70 @@ def phase_kernels(reps: int = 5):
                     rel = rel_err(got, want)
                     ab = float((got.float() - want.float()).abs().max())
                     name = str(dtype).split(".")[-1]
-                    ms = _time_ms(kern, reps)
-                    plain_ms = _time_ms(plain, reps)
-                    results[(name, c, k, dil)] = (rel, ab, ms, plain_ms)
-                    flop = 2.0 * 2 * t * c * c * k
-                    log(f"[kernel] {name:8s} C={c} k={k:2d} dil={dil} T={t} "
-                        f"rel={rel:.3e} abs={ab:.3e} (tol {KERNEL_TOL[name]:g}) "
-                        f"kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s) "
-                        f"plain {plain_ms:.3f} ms")
+                    ms = _time_graph([kern] * 5, reps)
+                    plain_ms = (results[("wgmma", c, k, dil)][3]
+                                if path == "wmma" else _time_ms(plain, reps))
+                    results[(path, c, k, dil)] = (rel, ab, ms, plain_ms)
+                    line = (f"[kernel] {path:5s} C={c} k={k:2d} dil={dil} "
+                            f"T={t} rel={rel:.3e} abs={ab:.3e} (tol "
+                            f"{KERNEL_TOL[name]:g}) kernel {ms:.4f} ms, "
+                            f"plain {plain_ms:.3f} ms")
+                    if path == "wgmma":
+                        wt = w.permute(2, 1, 0).contiguous()
+                        b16 = bias.to(torch.bfloat16)
+                        pad = (k - 1) // 2 * dil
+                        lib_ms = _time_graph([lambda: F.conv1d(
+                            h16, wt, b16, padding=pad, dilation=dil)] * 5,
+                            reps)
+                        bound_ms, by = k1_bound(c, k, t, vlen.tolist())
+                        extra[(c, k, dil)] = (lib_ms, bound_ms, by)
+                        line += (f", cuDNN conv1d alone {lib_ms:.4f} ms, "
+                                 f"bound {bound_ms:.4f} ms ({by}), "
+                                 f"{100 * bound_ms / ms:.1f}% of it")
+                    log(line + f" ({card})")
                     if not rel <= KERNEL_TOL[name]:
                         raise AssertionError(
-                            f"kernel vs plain {name} C={c} k={k} dil={dil}: "
+                            f"kernel vs plain {path} C={c} k={k} dil={dil}: "
                             f"rel {rel:.3e} > {KERNEL_TOL[name]}")
-    return results
+                fast, slow = (results[(p, c, k, dil)][2]
+                              for p in ("wgmma", "wmma"))
+                if not fast < slow:
+                    raise AssertionError(f"wgmma {fast:.4f} ms not faster "
+                                         f"than wmma {slow:.4f} ms at C={c} "
+                                         f"k={k} dil={dil}")
+    _k1_large_arguments()
+    return results, extra
+
+
+def _k1_large_arguments():
+    """The wgmma path's reduced sine (csrc/snake_conv.cu::sin_sq) against
+    the plain version's torch.sin where alpha*u reaches about 1e4."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.snake_conv import (
+        adain_snake_conv1d_reference, kernel_weight, snake_conv_kernel)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    c, t, k = 256, 1000, 3
+    x = torch.randn(2, t, c, generator=g, device=dev).to(torch.bfloat16)
+    scale = 2500.0 * (1.0 + 0.5 * torch.rand(2, c, generator=g, device=dev))
+    shift = torch.zeros(2, c, device=dev)
+    alpha = torch.rand(c, generator=g, device=dev) + 0.5
+    w = (torch.randn(k, c, c, generator=g, device=dev) / (k * c) ** 0.5
+         ).to(torch.bfloat16)
+    vlen = torch.tensor([t, 601], dtype=torch.int32, device=dev)
+    got = snake_conv_kernel(x, scale, shift, alpha, kernel_weight(w, "wgmma"),
+                            None, valid_len=vlen, path="wgmma")
+    want = adain_snake_conv1d_reference(x, scale, shift, alpha, w,
+                                        valid_len=vlen)
+    u = float((x.float() * scale[:, None]).abs().max() * alpha.max())
+    rel = rel_err(got, want)
+    log(f"[kernel] wgmma C={c} k={k}, |alpha*u| up to {u:.3g}: rel={rel:.3e} "
+        f"(tol {KERNEL_TOL['bfloat16']:g})")
+    if not (rel <= KERNEL_TOL["bfloat16"] and u >= 1e4):
+        raise AssertionError(f"wgmma at large arguments: rel {rel:.3e}, "
+                             f"|alpha*u| {u:.3g}")
 
 
 def synth_legs(cfg):
@@ -327,12 +421,16 @@ def phase_main_path(card: str, voice_dir: Path):
     legs_per_synth = len(synth_legs(model.istft_cfg))
 
     snake_conv_kernel.launches = 0
+    snake_conv_kernel.path_launches = dict.fromkeys(
+        snake_conv_kernel.path_launches, 0)
     total_launches = 0
     for run in ("cold", "warm"):
         for text in TEXTS:
             before = snake_conv_kernel.launches
+            by_path = dict(snake_conv_kernel.path_launches)
             results = list(model.generate(text, voice="af_smoke"))
             launches = snake_conv_kernel.launches - before
+            wgmma = snake_conv_kernel.path_launches["wgmma"] - by_path["wgmma"]
             total_launches += launches
             if len(results) != 1:
                 raise AssertionError(f"{len(results)} segments for one line")
@@ -343,14 +441,15 @@ def phase_main_path(card: str, voice_dir: Path):
                 raise AssertionError(f"{r.samples} samples for {frames} frames")
             if audio.shape != (r.samples,) or not np.isfinite(audio).all():
                 raise AssertionError("audio has the wrong shape or is not finite")
-            if launches != legs_per_synth:
-                raise AssertionError(f"{launches} kernel launches, want "
-                                     f"{legs_per_synth}")
+            if launches != legs_per_synth or wgmma != legs_per_synth:
+                raise AssertionError(f"{launches} kernel launches, {wgmma} "
+                                     f"by wgmma; want {legs_per_synth}")
             audio_s = r.samples / r.sample_rate
             wall = r.processing_time_seconds
             log(f"[main] {run} {r.token_count:3d} phonemes {frames:5d} frames "
                 f"{audio_s:7.2f} s audio: wall {wall * 1e3:9.2f} ms, "
-                f"xRT {audio_s / wall:8.2f}, {launches} kernel launches, "
+                f"xRT {audio_s / wall:8.2f}, {launches} K1 launches "
+                f"({wgmma} wgmma), "
                 f"peak {r.peak_memory_usage:.2f} GB ({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -524,15 +623,16 @@ def phase_qmm(card: str, reps: int = 7):
                             [partial(qmm_kernel, x, c["w_q"], c["scales"],
                                      c["biases"], bias, path=path)
                              for c in copies], reps)
-                        gbs = ((wbytes + (m * k + m * n) * x.element_size())
-                               / (ms * 1e-3) / 1e9)
+                        nbytes = wbytes + (m * k + m * n) * x.element_size()
+                        gbs = nbytes / (ms * 1e-3) / 1e9
                         results[(name, n, k, bits, m, path)] = (
                             rel, ab, ms, plain_ms, gbs)
                         log(f"[qmm] {name:8s} ({n:4d},{k:4d}) q{bits} "
                             f"M={m:3d} {path:4s} rel={rel:.3e} abs={ab:.3e} "
                             f"(tol {KERNEL_TOL[name]:g}) kernel "
                             f"{ms * 1e3:8.2f} us ({gbs:7.1f} GB/s, "
-                            f"{100 * gbs / HBM_GBS:5.1f}% of 3.35 TB/s) plain "
+                            f"{100 * gbs / HBM_GBS:5.1f}% of 3.35 TB/s, bound "
+                            f"{nbytes / HBM_BPS * 1e6:.3f} us) plain "
                             f"{plain_ms * 1e3:8.2f} us ({card})")
             del copies
     rows = [m for m in QMM_ROWS if m > 1]
@@ -595,7 +695,7 @@ def phase_qwen3_reference():
     from mlx_audio_tpu_torch.tts.models.qwen3_tts.qwen3_tts import FIRST_CHUNK
     from mlx_audio_tpu_torch.utils import apply_quantization
 
-    cpu = Model(qwen3_small_config()).init_params(seed=0)
+    cpu = Model(qwen3_small_config(), device="cpu").init_params(seed=0)
     apply_quantization(cpu, {"quantization": {"bits": 8, "group_size": 16}},
                        cpu.model_quant_predicate)
     gpu = copy.deepcopy(cpu).to("cuda")
@@ -872,7 +972,7 @@ def main() -> int:
     card = phase_device()
     log(card)
     phase_build()
-    kres = phase_kernels()
+    kres, kextra = phase_kernels(card)
     phase_reference_check()
     with tempfile.TemporaryDirectory() as tmp:
         k1_launches, legs_per_synth, icfg = phase_main_path(card, Path(tmp))
@@ -884,15 +984,26 @@ def main() -> int:
     k2_path_abs = phase_qmm_path(k2_shapes)
 
     # K1: the 48 legs of one synth of two rows (B=2) at the 1024-frame
-    # bucket, summed from the per-shape medians of phase 3 (bf16, the main
-    # path's dtype)
+    # bucket, summed from the per-shape times of phase 3, by the dispatched
+    # bf16 path (wgmma) and the first design (wmma)
     legs = synth_legs(icfg)
-    k1_ms = sum(kres[("bfloat16", c, k, d)][2] for c, k, d in legs)
-    k1_plain = sum(kres[("bfloat16", c, k, d)][3] for c, k, d in legs)
-    k1_abs = max(v[1] for key, v in kres.items() if key[0] == "bfloat16")
+    k1_ms, k1_plain, k1_wmma = (
+        sum(kres[(path, c, k, d)][i] for c, k, d in legs)
+        for path, i in (("wgmma", 2), ("wgmma", 3), ("wmma", 2)))
+    k1_lib, k1_bound = (sum(kextra[leg][i] for leg in legs) for i in (0, 1))
+    k1_ops = sum(kextra[leg][1] for leg in legs
+                 if kextra[leg][2] == "operations")
+    k1_abs = max(v[1] for key, v in kres.items() if key[0] == "wgmma")
+    full_bound = sum(k1_bound_full(c, k) for c, k, _ in legs)
     log(f"[kernel] K1: the {len(legs)} legs of one B=2 synth at the "
-        f"{KERNEL_FRAMES}-frame bucket, bf16: kernel {k1_ms:.3f} ms, plain "
-        f"{k1_plain:.3f} ms ({card})")
+        f"{KERNEL_FRAMES}-frame bucket, bf16: wgmma {k1_ms:.3f} ms, wmma "
+        f"{k1_wmma:.3f} ms, plain {k1_plain:.3f} ms, cuDNN conv1d alone "
+        f"{k1_lib:.3f} ms; bound {k1_bound:.3f} ms for this run's rows "
+        f"({100 * k1_bound / k1_ms:.1f}% of it reached), {full_bound:.3f} ms "
+        f"were every row valid ({card})")
+    if not k1_ms < k1_wmma:
+        raise AssertionError(f"wgmma {k1_ms:.3f} ms not faster than wmma "
+                             f"{k1_wmma:.3f} ms over the 48 legs")
     # K2: the linears of one decode step at M=1 (bf16 x, 8-bit codes),
     # summed from the per-shape medians of phase 5, by the dispatched path
     # and by the first design (simt); the error over every dispatched case
@@ -906,9 +1017,14 @@ def main() -> int:
     k2_abs = max([k2_path_abs] + [
         v[1] for (name, _, _, _, m, path), v in qres.items()
         if name == "bfloat16" and path == qmm_paths(torch.bfloat16, m)[0]])
+    # bytes of one M=1 launch: the codes, their f32 scales and biases, the
+    # bf16 row of x in and of y out (and an f32 bias where there is one)
+    k2_bound = sum(n * k + 2 * n * (k // QMM_GROUP) * 4 + 2 * (k + n)
+                   for n, k in step) / HBM_BPS * 1e3
     log(f"[kernel] K2: the {len(step)} linears of one decode step, M=1, "
         f"bf16 x, 8-bit codes: kernel ({m1}) {k2_ms:.3f} ms, simt "
-        f"{simt_ms:.3f} ms, plain {k2_plain:.3f} ms ({card})")
+        f"{simt_ms:.3f} ms, plain {k2_plain:.3f} ms; bound {k2_bound:.3f} ms "
+        f"(bytes) ({card})")
 
     print(json.dumps({"kernels": [{
         "name": "adain_snake_conv1d",
@@ -919,6 +1035,9 @@ def main() -> int:
         "max_abs_err": k1_abs,
         "ms": k1_ms,
         "plain_ms": k1_plain,
+        "bound_ms": k1_bound,
+        "bound_by": "operations" if 2 * k1_ops >= k1_bound else "bytes",
+        "library_ms": k1_lib,
     }, {
         "name": "qmm_pallas",
         "route": "cuda",
@@ -928,6 +1047,9 @@ def main() -> int:
         "max_abs_err": k2_abs,
         "ms": k2_ms,
         "plain_ms": k2_plain,
+        "bound_ms": k2_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,13 @@ Ported so far: Kokoro-82M text -> audio (`tts.models.kokoro`) and
 Qwen3-TTS text ids -> audio, dense or 8/4-bit quantized
 (`tts.models.qwen3_tts`).
 
-This package never imports jax. Host code that is already jax-free
-(`mlx_audio_tpu.base`, `mlx_audio_tpu.tts.g2p`, `mlx_audio_tpu.audio_io`) is
-imported from the JAX package rather than copied.
+This package never imports jax, nor anything of the JAX package, not even
+its jax-free host code: it keeps its own copies (`base.py`, `tts/g2p.py`,
+`tts/textnorm.py`), each of which names the module it mirrors.
+
+The entry points (`load_model`, each family's `Model`) build on the card
+(`device="cuda"`) unless the caller passes another device, and raise
+without CUDA: pass `device="cpu"` to run on the CPU.
 """
 
 __all__ = ["load_model"]

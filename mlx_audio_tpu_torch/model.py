@@ -30,6 +30,18 @@ def _tensor(v: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))  # a writable copy
 
 
+def check_device(device) -> torch.device:
+    """`device` as a torch.device. The port's entry points default to the
+    card and never fall back to the CPU: a CUDA device on a machine
+    without CUDA raises here, before any parameter is built."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: CUDA is not available. The port runs "
+            f"on the GPU by default; pass device=\"cpu\" to run on the CPU.")
+    return dev
+
+
 class TorchModel(nn.Module):
     """Base for model families: a config plus parameters in nn.Modules."""
 

@@ -1,17 +1,33 @@
 """Fused AdaIN -> Snake -> dilated conv1d (ISTFTNet generator legs).
 
-Counterpart of mlx_audio_tpu/ops/snake_conv_pallas.py. Three pieces:
+Counterpart of mlx_audio_tpu/ops/snake_conv_pallas.py. Pieces:
 
 * `fold_adain`: instance-norm statistics and the AdaIN affine folded into
   one per-(batch, channel) scale/shift pair.
 * `adain_snake_conv1d_reference`: the plain PyTorch version (snake in f32,
   rounded to x.dtype, conv with f32 accumulation, f32 bias, masks in and
   out), the composition of tests/test_snake_conv_pallas.py:83-102.
-* `snake_conv_kernel`: the binding of the hand-written CUDA kernel
-  csrc/snake_conv.cu, with its launch count.
+* `snake_conv_kernel`: the binding of the hand-written CUDA kernel K1
+  (csrc/snake_conv.cu), with its launch counts.
+* `pack_weight` / `kernel_weight`: the weight layout each kernel path
+  takes, made once when a model binds its weights (the generator's
+  `AdaINResBlock1.pack_kernel_weights`), never per call.
 
-`adain_snake_conv1d` dispatches on the device of `x`: a CPU tensor takes the
-plain version; any other tensor goes to the kernel, which raises on a
+K1 has three paths (csrc/snake_conv.cu says how each is built), and
+`choose_path` picks one by a static rule on (dtype, C):
+
+* "wgmma": bf16 x with C a multiple of 64 up to 256 (Kokoro's 128 and
+  256): warp-specialised wgmma over all C output channels per block, w
+  streamed as pre-packed tiles (`pack_weight`);
+* "wmma": the first design, for other bf16 C (a multiple of 32);
+* "f32": f32 x, CUDA-core FMAs.
+
+A caller may name a path (`path=`) to time or test it; the path then
+raises on what it does not take. Every path takes a halo (k-1)/2*dil of at
+most MAX_HALO.
+
+`adain_snake_conv1d` dispatches on the device of `x`: a CPU tensor takes
+the plain version; any other tensor goes to the kernel, which raises on a
 device, dtype or shape it does not take. There is no fallback from the
 kernel to the plain version.
 """
@@ -25,13 +41,58 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["fold_adain", "adain_snake_conv1d", "adain_snake_conv1d_reference",
-           "snake_conv_kernel", "SnakeConvKernel"]
+           "snake_conv_kernel", "SnakeConvKernel", "choose_path",
+           "pack_weight", "unpack_weight", "kernel_weight", "PATHS"]
 
-# Largest (k-1)/2*dilation the kernel's shared-memory slab holds
+PATHS = ("wgmma", "wmma", "f32")
+# Largest (k-1)/2*dilation the kernels' shared-memory slabs hold
 # (MAX_HALO in csrc/snake_conv.cu). Kokoro's largest is k=11, dil=5: 25.
 MAX_HALO = 32
-# Input channels per chunk in the kernel (CK in csrc/snake_conv.cu).
+# wmma and f32: input channels per chunk (CK in csrc/snake_conv.cu)
 CHANNEL_CHUNK = 32
+# wgmma: input channels per weight tile and slab chunk, and the widest C
+# one block holds (the wgmma's N)
+WGMMA_CHUNK, WGMMA_MAX_C = 64, 256
+
+
+def choose_path(dtype: torch.dtype, c: int) -> str:
+    """The path K1 takes for x of `dtype` with `c` channels."""
+    if dtype == torch.float32:
+        return "f32"
+    if c % WGMMA_CHUNK == 0 and c <= WGMMA_MAX_C:
+        return "wgmma"
+    return "wmma"
+
+
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """WIO (k, C, C) -> the wgmma path's tiles (C/64, k, 8, C, 8):
+    packed[cc, j, q, o, e] = w[j, cc*64 + q*8 + e, o]. Each (cc, j) tile is
+    one contiguous copy into shared memory, in the wgmma's no-swizzle
+    K-major form (16-byte core-matrix rows of 8 input channels, output
+    channels 16 bytes apart)."""
+    k, c, o = w.shape
+    if c != o or c % WGMMA_CHUNK:
+        raise ValueError(f"w must be (k, C, C) with C a multiple of "
+                         f"{WGMMA_CHUNK}, got {tuple(w.shape)}")
+    return (w.reshape(k, c // 64, 8, 8, o).permute(1, 0, 2, 4, 3)
+            .contiguous())
+
+
+def unpack_weight(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of `pack_weight`: (C/64, k, 8, C, 8) -> WIO (k, C, C)."""
+    nch, k, _, c, _ = packed.shape
+    return packed.permute(1, 0, 2, 4, 3).reshape(k, nch * 64, c)
+
+
+def kernel_weight(w: torch.Tensor, path: str) -> torch.Tensor:
+    """The weight `path` takes, from WIO `w` (k, C, C): packed tiles for
+    wgmma, WIO contiguous for wmma and f32. A copy: callers on the main
+    path make it once, when the weights are bound."""
+    if path == "wgmma":
+        return pack_weight(w)
+    if path not in PATHS:
+        raise ValueError(f"unknown snake_conv path {path!r}; one of {PATHS}")
+    return w.contiguous()
 
 
 def fold_adain(mean, var, gamma, beta, eps: float = 1e-5):
@@ -82,15 +143,18 @@ def adain_snake_conv1d_reference(
 class SnakeConvKernel:
     """ctypes binding of csrc/snake_conv.cu.
 
-    `launches` counts kernel launches (a plain int; callers may reset it).
-    The library is built with nvcc on the first call."""
+    `launches` counts kernel launches and `path_launches` counts them by
+    path (plain ints; callers may reset them). The library is built with
+    nvcc on the first call."""
 
-    _FUNCS = {torch.float32: "snake_conv1d_f32",
-              torch.bfloat16: "snake_conv1d_bf16"}
+    _FUNCS = {"f32": "snake_conv1d_f32", "wmma": "snake_conv1d_bf16",
+              "wgmma": "snake_conv1d_wgmma"}
 
     def __init__(self):
         self.launches = 0
+        self.path_launches = dict.fromkeys(PATHS, 0)
         self._lib = None
+        self._devices = set()   # devices whose snake_conv_init has run
 
     def build(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -102,28 +166,42 @@ class SnakeConvKernel:
                 fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                                + [ctypes.c_void_p])
                 fn.restype = ctypes.c_int
+            lib.snake_conv_init.argtypes = []
+            lib.snake_conv_init.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
+    def _lib_on(self, device: torch.device) -> ctypes.CDLL:
+        """The library, with snake_conv_init run once on `device`
+        (current)."""
+        lib = self.build()
+        idx = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        if idx not in self._devices:
+            rc = lib.snake_conv_init()
+            if rc != 0:
+                raise RuntimeError(f"snake_conv_init failed: CUDA error {rc}")
+            self._devices.add(idx)
+        return lib
+
     def __call__(self, x, scale, shift, alpha, w, bias=None, *,
-                 dilation: int = 1, valid_len=None) -> torch.Tensor:
+                 dilation: int = 1, valid_len=None,
+                 path: Optional[str] = None) -> torch.Tensor:
+        """K1 by `path` (default: `choose_path`); `w` in that path's layout
+        (`kernel_weight`)."""
         if x.device.type != "cuda":
             raise ValueError(f"snake_conv kernel needs a CUDA tensor, got "
                              f"{x.device}")
-        if x.dtype not in self._FUNCS:
+        if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"snake_conv kernel takes float32 or bfloat16, "
                             f"got {x.dtype}")
         if x.ndim != 3:
             raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
         b, t, c = x.shape
-        if c % CHANNEL_CHUNK:
-            raise ValueError(f"channels {c} not a multiple of {CHANNEL_CHUNK}")
+        path = choose_path(x.dtype, c) if path is None else path
+        k = self._check(path, x.dtype, c, w)
         if not 1 <= b <= 65535:
             raise ValueError(f"batch {b} outside [1, 65535]")
-        if w.ndim != 3 or w.shape[1:] != (c, c) or w.shape[0] % 2 == 0:
-            raise ValueError(f"w must be (k, {c}, {c}) with odd k, got "
-                             f"{tuple(w.shape)}")
-        k = w.shape[0]
         if (k - 1) // 2 * dilation > MAX_HALO or dilation < 1:
             raise ValueError(f"k={k}, dilation={dilation}: halo above "
                              f"{MAX_HALO}")
@@ -134,7 +212,7 @@ class SnakeConvKernel:
         want = {"scale": (scale, torch.float32, (b, c)),
                 "shift": (shift, torch.float32, (b, c)),
                 "alpha": (alpha, torch.float32, (c,)),
-                "w": (w, x.dtype, (k, c, c)),
+                "w": (w, x.dtype, tuple(w.shape)),
                 "bias": (bias, torch.float32, (c,)),
                 "valid_len": (valid_len, torch.int32, (b,))}
         for name, (v, dtype, shape) in want.items():
@@ -152,36 +230,69 @@ class SnakeConvKernel:
         for v in (x, w, out):
             if v.data_ptr() % 16:
                 raise ValueError("x, w and out must be 16-byte aligned")
-        fn = getattr(self.build(), self._FUNCS[x.dtype])
         with torch.cuda.device(x.device):
+            fn = getattr(self._lib_on(x.device), self._FUNCS[path])
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
                     alpha.data_ptr(), w.data_ptr(), bias.data_ptr(),
                     valid_len.data_ptr(), out.data_ptr(), b, t, c, k,
                     dilation, stream)
         if rc != 0:
-            raise RuntimeError(f"snake_conv kernel launch failed: CUDA error "
-                               f"{rc}")
+            raise RuntimeError(f"snake_conv kernel ({path}) launch failed: "
+                               f"CUDA error {rc}")
         self.launches += 1
+        self.path_launches[path] += 1
         return out
+
+    @staticmethod
+    def _check(path: str, dtype: torch.dtype, c: int, w) -> int:
+        """Raise unless `path` takes (dtype, C) and `w` is in its layout;
+        -> k."""
+        if path not in PATHS:
+            raise ValueError(f"unknown snake_conv path {path!r}; one of "
+                             f"{PATHS}")
+        if (path == "f32") != (dtype == torch.float32):
+            raise TypeError(f"the {path} path does not take {dtype}")
+        if path == "wgmma":
+            if c % WGMMA_CHUNK or c > WGMMA_MAX_C:
+                raise ValueError(f"the wgmma path takes C a multiple of "
+                                 f"{WGMMA_CHUNK} up to {WGMMA_MAX_C}, got {c}")
+            if (w.ndim != 5 or w.shape[0] != c // 64
+                    or w.shape[2:] != (8, c, 8) or w.shape[1] % 2 == 0):
+                raise ValueError(f"w must be pack_weight's (C/64, k, 8, C, "
+                                 f"8) with odd k, got {tuple(w.shape)}")
+            return w.shape[1]
+        if c % CHANNEL_CHUNK:
+            raise ValueError(f"channels {c} not a multiple of {CHANNEL_CHUNK}")
+        if w.ndim != 3 or w.shape[1:] != (c, c) or w.shape[0] % 2 == 0:
+            raise ValueError(f"w must be (k, {c}, {c}) with odd k, got "
+                             f"{tuple(w.shape)}")
+        return w.shape[0]
 
 
 snake_conv_kernel = SnakeConvKernel()
 
 
 def adain_snake_conv1d(x, scale, shift, alpha, w, bias=None, *,
-                       dilation: int = 1, valid_len=None) -> torch.Tensor:
-    """Same contract as `adain_snake_conv1d_reference`.
+                       dilation: int = 1, valid_len=None,
+                       kernel_w: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Same contract as `adain_snake_conv1d_reference`, with w in WIO.
 
     A CPU tensor takes the plain version; any other device launches the
-    CUDA kernel or raises."""
+    CUDA kernel by `choose_path` or raises. `kernel_w` is w already in that
+    path's layout (`kernel_weight`), as the generator keeps it; without it
+    the layout is made here, a copy per call."""
     if x.device.type == "cpu":
         return adain_snake_conv1d_reference(
             x, scale, shift, alpha, w, bias, dilation=dilation,
             valid_len=valid_len)
+    path = choose_path(x.dtype, x.shape[-1])
+    if kernel_w is None:
+        kernel_w = kernel_weight(w.to(x.dtype), path)
     return snake_conv_kernel(
         x.contiguous(), scale.float().contiguous(), shift.float().contiguous(),
-        alpha.float().reshape(-1).contiguous(), w.to(x.dtype).contiguous(),
+        alpha.float().reshape(-1).contiguous(), kernel_w,
         None if bias is None else bias.float().contiguous(),
-        dilation=dilation,
+        dilation=dilation, path=path,
         valid_len=None if valid_len is None else valid_len.to(torch.int32))

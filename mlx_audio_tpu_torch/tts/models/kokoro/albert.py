@@ -13,8 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mlx_audio_tpu.base import BaseModelArgs
-
+from ....base import BaseModelArgs
 from ....nn import Embedding, LayerNorm, Linear
 from ....ops.attention import attention
 

@@ -5,8 +5,10 @@ the JAX package's validity masks, so a bucket-padded run gives the same
 samples in the valid region as a tight one.
 
 The generator's residual legs (AdaIN -> snake -> dilated conv) go through
-`ops.snake_conv.adain_snake_conv1d`: the hand-written CUDA kernel for a
-CUDA tensor, its plain PyTorch version for a CPU tensor. The instance-norm
+`ops.snake_conv.adain_snake_conv1d`: the hand-written CUDA kernel K1 for a
+CUDA tensor, its plain PyTorch version for a CPU tensor. K1's operands
+(the weight in its path's layout, alpha and bias in f32) are made once per
+weight load (`AdaINResBlock1.pack_kernel_weights`), not per call. The instance-norm
 statistics stay a plain torch reduction (`_masked_stats`) and are folded
 into the leg's scale/shift, as in the JAX package's fused path.
 """
@@ -26,7 +28,8 @@ from ....dsp import (_pad_center, _window_envelope_np, _window_np,
                      frame_signal, irfft_pair, overlap_add, rdft_pair)
 from ....nn import Conv1d, ConvTranspose1d, Linear, leaky_relu
 from ....ops.interpolate import interpolate1d
-from ....ops.snake_conv import adain_snake_conv1d, fold_adain
+from ....ops.snake_conv import (adain_snake_conv1d, choose_path, fold_adain,
+                                kernel_weight)
 
 
 def fold_weight_norm(g, v) -> np.ndarray:
@@ -155,25 +158,81 @@ class AdaINResBlock1(nn.Module):
                                        for _ in range(n))
         self.alpha2 = nn.ParameterList(nn.Parameter(torch.ones(channels))
                                        for _ in range(n))
+        # leg -> (stamp, kernel weight, alpha, bias) for K1; leg 2i is
+        # convs1[i], leg 2i+1 convs2[i]
+        self._kernel_ops: dict = {}
+
+    @torch.no_grad()
+    def pack_kernel_weights(self) -> None:
+        """Lay out each leg's operands as K1 takes them: the conv weight
+        (O, I, k) as `kernel_weight` of WIO for the path `choose_path` gives
+        its dtype and width, alpha and bias in f32. Called once per bind,
+        init_params or load_jax_params (Kokoro's `_cast_decoder`); a leg
+        whose parameters have changed since is laid out again on its next
+        CUDA call."""
+        self._kernel_ops.clear()
+        for i in range(len(self.dilations)):
+            self._kernel_ops[2 * i] = self._layout(self.convs1[i],
+                                                   self.alpha1[i])
+            self._kernel_ops[2 * i + 1] = self._layout(self.convs2[i],
+                                                       self.alpha2[i])
 
     @staticmethod
-    def _leg(adain: AdaIN, conv: Conv1d, alpha, x, s, dilation, valid, vlen):
+    def _layout(conv: Conv1d, alpha) -> tuple:
+        w = conv.weight
+        path = choose_path(w.dtype, w.shape[0])
+        bias = (torch.zeros(w.shape[0], device=w.device) if conv.bias is None
+                else conv.bias.float())
+        return (_stamp(w, alpha, conv.bias),
+                kernel_weight(w.permute(2, 1, 0), path),
+                alpha.float().reshape(-1).contiguous(), bias.contiguous())
+
+    def _operands(self, leg: int, conv: Conv1d, alpha) -> tuple:
+        """(kernel weight, alpha, bias) of one leg, laid out again only if
+        its parameters changed since `pack_kernel_weights`."""
+        ops = self._kernel_ops.get(leg)
+        if ops is None or ops[0] != _stamp(conv.weight, alpha, conv.bias):
+            ops = self._kernel_ops[leg] = self._layout(conv, alpha)
+        return ops[1:]
+
+    def _leg(self, leg: int, adain: AdaIN, conv: Conv1d, alpha, x, s,
+             dilation, valid, vlen):
         mean, var = _masked_stats(x, valid)
         gamma, beta = adain.affine(s)
         scale, shift = fold_adain(mean, var, gamma, beta)
-        return adain_snake_conv1d(
-            x, scale, shift, alpha, conv.weight.permute(2, 1, 0), conv.bias,
-            dilation=dilation, valid_len=vlen)
+        w = conv.weight.permute(2, 1, 0)
+        if x.device.type == "cpu":
+            return adain_snake_conv1d(x, scale, shift, alpha, w, conv.bias,
+                                      dilation=dilation, valid_len=vlen)
+        kw, alpha32, bias32 = self._operands(leg, conv, alpha)
+        return adain_snake_conv1d(x, scale, shift, alpha32, w, bias32,
+                                  dilation=dilation, valid_len=vlen,
+                                  kernel_w=kw)
 
     def forward(self, x, s, valid=None):
         vlen = None if valid is None else valid.sum(-1).to(torch.int32)
         for i, d in enumerate(self.dilations):
-            h = self._leg(self.adain1[i], self.convs1[i], self.alpha1[i],
-                          x, s, d, valid, vlen)
-            h = self._leg(self.adain2[i], self.convs2[i], self.alpha2[i],
-                          h, s, 1, valid, vlen)
+            h = self._leg(2 * i, self.adain1[i], self.convs1[i],
+                          self.alpha1[i], x, s, d, valid, vlen)
+            h = self._leg(2 * i + 1, self.adain2[i], self.convs2[i],
+                          self.alpha2[i], h, s, 1, valid, vlen)
             x = _mask(h + x, valid)
         return x
+
+
+def _stamp(*tensors) -> tuple:
+    """Identity and in-place version of each tensor (None stays None)."""
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        try:
+            version = t._version
+        except RuntimeError:     # inference tensors keep no version counter
+            version = -1
+        out.append((t.data_ptr(), t.device, t.dtype, version))
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

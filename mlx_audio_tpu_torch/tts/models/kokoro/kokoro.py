@@ -29,13 +29,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from mlx_audio_tpu.base import BaseModelArgs
-
-from ....model import TorchModel
+from ....base import BaseModelArgs
+from ....model import TorchModel, check_device
 from ....nn import Linear
 from ..base import GenerationResult, format_duration, peak_memory_gb
 from .albert import Albert, AlbertModelArgs
-from .istftnet import Decoder, fold_weight_norm
+from .istftnet import AdaINResBlock1, Decoder, fold_weight_norm
 from .modules import (ProsodyPredictor, TextEncoder, build_alignment,
                       f0n_train, predict_durations)
 
@@ -91,14 +90,18 @@ def _bucket(n: int, buckets) -> int:
 class Model(TorchModel):
     """Kokoro TTS model (language-blind; G2P lives in pipeline.py).
 
-    Parameters are built on `device`; call `init_params(seed)` for seeded
-    random weights, `load_jax_params` to carry over the JAX package's, or
-    `bind` for a sanitized torch-layout checkpoint."""
+    Parameters are built on `device` (the card by default; without CUDA
+    the constructor raises unless given `device="cpu"`); call
+    `init_params(seed)` for seeded random weights, `load_jax_params` to
+    carry over the JAX package's, or `bind` for a sanitized torch-layout
+    checkpoint. Each of the three also lays out K1's weights for the
+    kernel once (`_cast_decoder`)."""
 
     REPO_ID = "prince-canuma/Kokoro-82M"
 
     def __init__(self, config: ModelConfig, repo_id: Optional[str] = None,
-                 device="cpu"):
+                 device="cuda"):
+        device = check_device(device)
         super().__init__(config)
         self.repo_id = repo_id
         self.vocab = config.vocab
@@ -141,7 +144,12 @@ class Model(TorchModel):
         return getattr(torch, self.config.compute_dtype)
 
     def _cast_decoder(self) -> "Model":
+        """Cast the decoder to the compute dtype, then lay out K1's operands
+        for it (once per weight load, not per call)."""
         self.decoder.to(self.compute_dtype)
+        for m in self.decoder.modules():
+            if isinstance(m, AdaINResBlock1):
+                m.pack_kernel_weights()
         return self
 
     def bind(self, state) -> "Model":

@@ -1,8 +1,8 @@
 """KokoroPipeline: G2P + voice packs + segmentation.
 
 Counterpart of mlx_audio_tpu/tts/models/kokoro/pipeline.py. G2P is `misaki`
-when installed, else the built-in English rules of mlx_audio_tpu.tts.g2p
-(jax-free, imported rather than copied). Voice packs are read from
+when installed, else the built-in English rules of the port's `tts/g2p.py`
+(its own copy of mlx_audio_tpu/tts/g2p.py). Voice packs are read from
 `<model dir>/voices/<name>.safetensors` (when safetensors is installed) or
 `<name>.npy`, and kept as float32 numpy arrays of shape (510, 1, 256).
 """
@@ -67,7 +67,7 @@ class KokoroPipeline:
     def phonemize(self, text: str) -> str:
         if self._misaki is not None:
             return self._misaki(text)
-        from mlx_audio_tpu.tts.g2p import g2p
+        from ...g2p import g2p
 
         return g2p(text)
 

@@ -3,7 +3,7 @@
 Counterpart of mlx_audio_tpu/tts/models/qwen3_tts/config.py, whose values
 and defaults it repeats: that package's `qwen3_tts/__init__.py` imports the
 JAX model, so its config cannot be imported without jax. `BaseModelArgs`
-comes from the jax-free `mlx_audio_tpu.base`.
+is the port's own copy (`mlx_audio_tpu_torch/base.py`).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional, Type, TypeVar
 
-from mlx_audio_tpu.base import BaseModelArgs
+from ....base import BaseModelArgs
 
 T = TypeVar("T")
 

@@ -39,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ....model import TorchModel
+from ....model import TorchModel, check_device
 from ....ops.kvcache import KVCache
 from ....ops.sampling import apply_repetition_penalty, sample
 from ..base import GenerationResult, format_duration, peak_memory_gb
@@ -103,12 +103,15 @@ class _FinishedFlags:
 
 
 class Model(TorchModel):
-    """Qwen3-TTS (talker + code predictor + codec decoder) on `device`."""
+    """Qwen3-TTS (talker + code predictor + codec decoder) on `device`: the
+    card by default; without CUDA the constructor raises unless given
+    `device="cpu"`."""
 
     # JAX layer stacks with a leading L axis, unstacked by load_jax_params
     JAX_STACKED = ("talker.model.layers", "talker.code_predictor.model.layers")
 
-    def __init__(self, config: ModelConfig, device="cpu"):
+    def __init__(self, config: ModelConfig, device="cuda"):
+        device = check_device(device)
         if isinstance(config, dict):
             config = ModelConfig.from_dict(config)
         super().__init__(config)

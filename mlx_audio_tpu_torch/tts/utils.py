@@ -6,19 +6,23 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Union
 
+from ..model import check_device
 from ..utils import apply_quantization, load_config, load_weights
 
 MODEL_REMAPPING = {"style_tts": "kokoro", "kokoro": "kokoro",
                    "qwen3_tts": "qwen3_tts"}
 
 
-def load_model(model_path: Union[str, Path], device="cpu", **config_overrides):
-    """Load a local model directory (config.json + weights) onto `device`.
+def load_model(model_path: Union[str, Path], device="cuda", **config_overrides):
+    """Load a local model directory (config.json + weights) onto `device`:
+    the card by default; without CUDA it raises, before reading the
+    weights, unless given `device="cpu"`.
 
     The weights are the published torch-layout checkpoint; the family's
     `sanitize` maps them onto the port's parameter names. Qwen3-TTS also
     reads the codec from a `speech_tokenizer/` subfolder when there is one,
     and quantizes its AR path per config["quantization"]."""
+    device = check_device(device)
     path = Path(model_path).expanduser()
     if not path.is_dir():
         raise FileNotFoundError(f"Local model path not found: {model_path}")

@@ -1,9 +1,16 @@
 """The PyTorch port stands without JAX and builds nothing at import.
 
-Each check runs in a fresh interpreter, so nothing the test process has
-already imported (the test suite imports jax) can hide an import.
+The port imports neither jax nor anything of the JAX package
+`mlx_audio_tpu`, not even its jax-free host code (it keeps its own copies):
+a static check reads every import of its sources, and the runtime checks
+run in a fresh interpreter, so nothing the test process has already
+imported (the test suite imports jax) can hide an import. Its entry points
+build on the card by default and raise without CUDA.
 """
 
+import ast
+import glob
+import inspect
 import os
 import subprocess
 import sys
@@ -14,6 +21,42 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port's sources: its package, chip_smoke.py and its profiling tool
+PORT_SOURCES = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "mlx_audio_tpu_torch", "**", "*.py"),
+              recursive=True)
+    + [os.path.join(REPO, "chip_smoke.py"),
+       os.path.join(REPO, "tools", "profile_torch_qwen3_tts.py")])
+# modules of the port's fresh-interpreter runs that must stay unimported
+FORBIDDEN = """sorted(m for m in sys.modules if m in ("jax", "mlx_audio_tpu")
+                or m.startswith(("jax.", "mlx_audio_tpu.")))"""
+
+
+def _forbidden(module: str) -> bool:
+    return (module in ("jax", "mlx_audio_tpu")
+            or module.startswith(("jax.", "mlx_audio_tpu.")))
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_source_imports_nothing_of_jax(path):
+    """No import statement of the port names jax or the JAX package."""
+    tree = ast.parse(open(os.path.join(REPO, path), encoding="utf-8").read())
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            if _forbidden(node.args[0].value):
+                bad.append(node.args[0].value)
+    assert not bad, f"{path} imports {bad}"
 
 
 def _run(code: str) -> str:
@@ -44,14 +87,13 @@ def test_tiny_synth_without_jax():
                         hidden_size=24, intermediate_size=32,
                         max_position_embeddings=128, embedding_size=12),
             vocab={c: i + 1 for i, c in enumerate("abcdefgh ")})
-        model = Model(cfg).init_params(seed=0)
+        model = Model(cfg, device="cpu").init_params(seed=0)
         audio, dur = model("abc def", np.zeros((1, 32), np.float32),
                            deterministic_noise=True)
         assert audio.shape == (int(dur.sum()) * model.samples_per_frame,)
         assert np.isfinite(audio).all()
-        print("jax" in sys.modules, sorted(
-            m for m in sys.modules if m == "jax" or m.startswith("jax.")))
-    """)
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
     assert out.strip() == "False []", out
 
 
@@ -85,7 +127,7 @@ def test_tiny_qwen3_tts_generate_without_jax():
                 num_semantic_quantizers=1, sliding_window=16,
                 upsample_rates=[4, 3], upsampling_ratios=[2, 2])),
             tts_bos_token_id=497, tts_eos_token_id=498, tts_pad_token_id=499)
-        model = Model(cfg).init_params(seed=0)
+        model = Model(cfg, device="cpu").init_params(seed=0)
         apply_quantization(model, {"quantization": {"bits": 8,
                                                     "group_size": 16}},
                            model.model_quant_predicate)
@@ -93,9 +135,8 @@ def test_tiny_qwen3_tts_generate_without_jax():
                               temperature=0.9, max_tokens=12, seed=0)
         assert r.samples == r.token_count * model.total_upsample > 0
         assert np.isfinite(r.audio).all()
-        print("jax" in sys.modules, sorted(
-            m for m in sys.modules if m == "jax" or m.startswith("jax.")))
-    """)
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
     assert out.strip() == "False []", out
 
 
@@ -116,7 +157,67 @@ def test_every_module_imports_without_building():
         assert cuda_build._LOADED == {} and snake_conv_kernel._lib is None
         assert qmm_kernel._lib is None
         assert snake_conv_kernel.launches == 0 and qmm_kernel.launches == 0
-        print(len(names), "jax" in sys.modules)
-    """)
-    n, has_jax = out.split()
-    assert int(n) >= 15 and has_jax == "False", out
+        print(len(names), "jax" in sys.modules, not %s)
+    """ % FORBIDDEN)
+    n, has_jax, clean = out.split()
+    assert int(n) >= 15 and has_jax == "False" and clean == "True", out
+
+
+G2P_TEXTS = [
+    "Hello world.",
+    "",
+    "   ",
+    "The 7B model costs $2.5M, not $1,200.",
+    "It's 10:30 am on Jan. 5th, 2024!",
+    "Dr. Smith lives at 221B Baker St.",
+    "Call 555-1234 or mail me@example.com today.",
+    "3.14 is roughly pi; 1/2 is a half.",
+    "Chapter IV covers the 1990s.",
+    "Wait... what?! (Really?)",
+    "50% of 1,200 people said \"no\" - twice.",
+    "I'm sure you'll see the U.S.A. in 2030.",
+]
+
+
+@pytest.mark.parametrize("text", G2P_TEXTS)
+def test_g2p_copy_matches_the_jax_package(text):
+    """The port's copy of the built-in G2P (and the text normalisation it
+    runs) gives the JAX package's phonemes."""
+    from mlx_audio_tpu.tts.g2p import g2p as jax_g2p
+    from mlx_audio_tpu_torch.tts.g2p import g2p
+
+    assert g2p(text) == jax_g2p(text)
+
+
+def _entry_points():
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.tts import utils
+    from mlx_audio_tpu_torch.tts.models import kokoro, qwen3_tts
+
+    return {
+        "kokoro.Model": (kokoro.Model.__init__,
+                         lambda p: kokoro.Model(kokoro.ModelConfig())),
+        "qwen3_tts.Model": (qwen3_tts.Model.__init__,
+                            lambda p: qwen3_tts.Model(qwen3_tts.ModelConfig())),
+        "tts.utils.load_model": (utils.load_model,
+                                 lambda p: utils.load_model(p)),
+        "mlx_audio_tpu_torch.load_model": (
+            utils.load_model, lambda p: mlx_audio_tpu_torch.load_model(p)),
+    }
+
+
+@pytest.mark.parametrize("name", ["kokoro.Model", "qwen3_tts.Model",
+                                  "tts.utils.load_model",
+                                  "mlx_audio_tpu_torch.load_model"])
+def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
+                                                            monkeypatch):
+    """Each entry point defaults to device="cuda"; on a machine without
+    CUDA it raises, naming device="cpu", before building anything (the
+    model directory given here does not even exist)."""
+    import torch
+
+    fn, call = _entry_points()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call(tmp_path / "missing")

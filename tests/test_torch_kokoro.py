@@ -44,7 +44,8 @@ def _port_model(flat, **overrides):
 
     cfg = dataclasses.asdict(tiny_kokoro_config())
     cfg.update(overrides)
-    return load_jax_params(Model(ModelConfig.from_dict(cfg)), flat)
+    return load_jax_params(Model(ModelConfig.from_dict(cfg), device="cpu"),
+                           flat)
 
 
 @pytest.fixture(scope="module")
@@ -184,7 +185,7 @@ def test_generate_through_pipeline(port, tmp_path):
     vdir.mkdir()
     pack = np.random.RandomState(1).randn(510, 1, 32).astype(np.float32)
     np.save(vdir / "af_test.npy", pack)
-    model = Model(port.config)
+    model = Model(port.config, device="cpu")
     model.load_state_dict(port.state_dict())
     model.config = dataclasses.replace(port.config, model_path=str(tmp_path))
     results = list(model.generate("Hello world. This is a test.",
@@ -250,7 +251,7 @@ def test_load_model_matches_jax_loader(jax_model, port, ref_s, tmp_path):
     jm = jax_load(tmp_path)
     # reuse the fixture model's compiled stages (the params are arguments)
     jm._frontend_jit, jm._acoustic_jit = jax_model._get_jits()
-    tm = load_model(tmp_path)
+    tm = load_model(tmp_path, device="cpu")
     ref_state = port.state_dict()
     for name, p in tm.state_dict().items():
         np.testing.assert_allclose(p.numpy(), ref_state[name].numpy(),

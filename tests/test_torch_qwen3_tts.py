@@ -91,7 +91,7 @@ def _port(variant):
 
     jm, flat = _jax_model(variant)
     cfg = ModelConfig.from_dict(dataclasses.asdict(jm.config))
-    return load_jax_params(Model(cfg), flat)
+    return load_jax_params(Model(cfg, device="cpu"), flat)
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +506,7 @@ def test_load_model_reads_a_torch_layout_checkpoint(tmp_path):
     np.savez(tmp_path / "speech_tokenizer" / "model.npz", **codec)
     (tmp_path / "config.json").write_text(json.dumps(cfg))
 
-    loaded = load_model(tmp_path)
+    loaded = load_model(tmp_path, device="cpu")
     ref = apply_quantization(pm, cfg, pm.model_quant_predicate)
     n_q = sum(type(m).__name__ == "QuantizedLinear" for m in loaded.modules())
     # talker and code-predictor projections and codec_head; text_projection
@@ -535,7 +535,8 @@ def test_quantized_tree_loads_as_uint8_codes():
 def test_init_params_sets_the_decoder_constants():
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model, ModelConfig
 
-    pm = Model(ModelConfig.from_dict(dataclasses.asdict(_jax_cfg("tiny"))))
+    pm = Model(ModelConfig.from_dict(dataclasses.asdict(_jax_cfg("tiny"))),
+               device="cpu")
     pm.init_params(seed=0)
     d = pm.speech_tokenizer.decoder
     assert torch.all(d.decoder[1].block[0].alpha == 0)
