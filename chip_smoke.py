@@ -1,5 +1,7 @@
 """Drive the PyTorch port's main paths once on one GPU: Kokoro-82M text ->
-audio, and Qwen3-TTS text ids -> audio with an 8-bit quantized talker.
+audio, and Qwen3-TTS text ids -> audio with an 8-bit quantized talker, one
+request at a time (whole and streamed) and through the continuous-batching
+session and its broker.
 
     python3 chip_smoke.py
 
@@ -32,28 +34,51 @@ the CUDA toolkit. Phases, each of which raises on failure:
    finiteness, and 48 K1 launches per synth, all by the wgmma path.
 5. K2 vs plain: the fused dequantize + matmul kernel against
    `qmatmul_reference` at every linear shape of the Qwen3-TTS slice,
-   M in {1, 2, 16, 64, 120}, bits in {8, 4}, x in f32 and bf16, by every
-   path of K2 that takes the case (gemv at M = 1, mma for bf16, the
-   first design, simt, for all); relative error, median device time per launch over a
+   M in {1, 2, 8, 16, 64, 120} (8 and 16: the b = 8 session's decode
+   frame), bits in {8, 4}, x in f32 and bf16, by every path of K2 that
+   takes the case (gemv at M = 1, mma for bf16, the first design, simt,
+   for all); relative error, median device time per launch over a
    rotation of weight copies larger than the L2 cache (replayed as one CUDA
-   graph, so host launch cost is left out), and GB/s; then one line per
-   M > 1 path with its times summed over the shapes.
+   graph, so host launch cost is left out), GB/s and the byte bound; then
+   one line per M > 1 path with its times summed over the shapes.
 6. Qwen3-TTS checks: on a small config at f32 from one seeded weight set,
    the CUDA path against the CPU path (prefill logits, the greedy codes of
    one chunk, decode_full audio); at full dims, the q8 model's prefill
    logits with K2 against the same model through `qmatmul_reference`.
 7. Qwen3-TTS main path at the published dims of the 1.7B lane (bench.py
    qwen3_tts_1b7), seeded random bf16 weights quantized to affine 8-bit
-   (group 64): three `generate(text_ids=...)` requests, cold then warm:
-   audio length and finiteness, and K2's launch count against the count
-   the config gives for the steps that ran (722 per decode step; the
-   model must hold exactly the quantized linears the config gives), and
-   the decode steps against the chunk schedule with its early exit. The
-   (M, out, in) of every K2 launch is recorded on the way.
-8. K2 (the dispatched path) vs plain at each recorded call shape of the
-   main path (the prefill bucket, the code predictor's first sub-step at
-   M=2, text_projection over the text ids), 8-bit codes, x in f32 and
-   bf16.
+   (group 64): two `generate(text_ids=...)` requests (20 ids / 60 frames,
+   the JAX lane's 50 ids / 100 frames), cold then warm: audio length and
+   finiteness, and K2's launch count against the count the config gives
+   for the steps that ran (722 per decode step; the model must hold
+   exactly the quantized linears the config gives), and the decode steps
+   against the chunk schedule with its early exit. (Until the streaming
+   phases came, a third request of 120 ids / 200 frames ran here; it was
+   dropped to keep the run's time.)
+8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
+   10 and 11 launched it with (the prefill bucket, the code predictor's
+   first sub-step, text_projection over the text ids, the session's M = 8
+   and 16 decode frame and its burst prefill at M = 8 x 16), 8-bit codes,
+   x in f32 and bf16.
+9. Qwen3-TTS streaming on the small config at f32 from one seeded q8
+   weight set, CUDA against the CPU path: the greedy streamed chunks (same
+   chunk sizes, audio), `streaming_step` over uneven chunks against
+   `decode_full` on the card, and a greedy two-slot session with a request
+   admitted mid-stream (same codes, audio).
+10. Full dims q8, `generate(stream=True)`: the JAX lane's streamed request
+   (`np.arange(100, 150)`, max_tokens 100, streaming_interval 2.0, seed 1;
+   bench.py:303-305), cold then warm: time to first audio, wall, xRT,
+   chunks, reads and the host's wait in them, finite audio of whole
+   frames, and K2's launches against the config's count.
+11. Full dims q8, the continuous-batching session at b = 8 (bench.py:
+   761-803: 100 frames, streaming_interval 0.4, max_cache_len 1024,
+   `warmup()` first) with a cold burst of 8 requests
+   `np.arange(100 + i, 150 + i)`: aggregate xRT, time to first audio p50
+   and max, wall per `step()`, K2's launches per step (against the
+   config's count) and per path; every request ends `done` with finite
+   audio of whole frames. Then three requests through the port's
+   `InferenceBroker` and an adapter that routes TTS to the session as the
+   server's does (mlx_audio_tpu/server.py:117-146).
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -464,7 +489,7 @@ def phase_main_path(card: str, voice_dir: Path):
 # down; text_projection fc1 and fc2 (fc2 is o's shape)
 QMM_SHAPES = ((2048, 1024), (1024, 1024), (1024, 2048), (3072, 1024),
               (1024, 3072), (2048, 2048))
-QMM_ROWS = (1, 2, 16, 64, 120)
+QMM_ROWS = (1, 2, 8, 16, 64, 120)
 QMM_GROUP = 64
 # quantized linears of one qwen3 layer: q, k, v, o, gate, up, down
 LINEARS_PER_LAYER = 7
@@ -484,8 +509,8 @@ QWEN3_E2E_TOL = 1e-4
 # 28 layers carry the difference on; bound and correlation as the Kokoro
 # bf16 check's style
 Q8_PREFILL_TOL, Q8_PREFILL_CORR = 0.05, 0.999
-# (text ids, max_tokens): the JAX lane's request (bench.py:285) between a
-# short and a long one; temperature 0.9, seed 0
+# (text ids, max_tokens) of phase 7: a short request and the JAX lane's
+# (bench.py:285); temperature 0.9, seed 0
 QWEN3_SEED = 0
 
 
@@ -494,8 +519,7 @@ def qwen3_requests():
 
     rng = np.random.RandomState(1)
     return ((rng.randint(0, 151936, 20), 60),
-            (np.arange(100, 150), 100),
-            (rng.randint(0, 151936, 120), 200))
+            (np.arange(100, 150), 100))
 
 
 def qwen3_config():
@@ -839,13 +863,39 @@ def expected_decode_steps(frames: int, max_tokens: int) -> int:
     return end
 
 
-def phase_qwen3_main(model, card: str):
-    """Three generate(text_ids=...) requests, q8, cold then warm. Returns
-    K2's launch count over the six, and the set of (M, out, in, has bias)
-    K2 was launched with."""
-    from mlx_audio_tpu_torch.ops import quant
-    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+class K2Recorder:
+    """While active, counts K2's launches through `ops.quant.qmatmul` by
+    (M, out, in, has bias) and by the path `choose_path` gives them."""
 
+    def __init__(self):
+        from collections import Counter
+
+        self.calls, self.paths = Counter(), Counter()
+
+    def __enter__(self):
+        from mlx_audio_tpu_torch.ops import quant
+        from mlx_audio_tpu_torch.ops.qmm import choose_path, qmm_kernel
+
+        def recording(x, w_q, scales, biases, bias=None):
+            self.calls[(x.shape[0], *w_q.shape, bias is not None)] += 1
+            self.paths[choose_path(x.dtype, x.shape[0],
+                                   w_q.shape[1] // scales.shape[1])] += 1
+            return qmm_kernel(x, w_q, scales, biases, bias)
+
+        quant.qmm_kernel = recording
+        return self
+
+    def __exit__(self, *exc):
+        from mlx_audio_tpu_torch.ops import quant
+        from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+
+        quant.qmm_kernel = qmm_kernel
+
+
+def phase_qwen3_main(model, card: str, recorder: K2Recorder) -> int:
+    """Two generate(text_ids=...) requests, q8, cold then warm. Returns
+    K2's launch count over the four; `recorder` gathers the (M, out, in,
+    has bias) K2 was launched with."""
     talker, cp, tp = k2_per_pass(model)
     g1 = model.tcfg.num_code_groups - 1
     counts = {"prefill": talker, "step0": g1 * cp,
@@ -855,25 +905,15 @@ def phase_qwen3_main(model, card: str):
     if counts != K2_LAUNCHES_FULL_DIMS:
         raise AssertionError(f"K2 launches {counts}, want "
                              f"{K2_LAUNCHES_FULL_DIMS} at full dims")
-
-    shapes = set()
-
-    def recording(x, w_q, scales, biases, bias=None):
-        shapes.add((x.shape[0], *w_q.shape, bias is not None))
-        return qmm_kernel(x, w_q, scales, biases, bias)
-
-    quant.qmm_kernel = recording
-    try:
+    with recorder:
         total = _qwen3_requests(model, card)
-    finally:
-        quant.qmm_kernel = qmm_kernel
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    return total, shapes
+    return total
 
 
 def _qwen3_requests(model, card: str) -> int:
-    """The six requests of phase 7; returns K2's launches over them."""
+    """The four requests of phase 7; returns K2's launches over them."""
     import numpy as np
     import torch
 
@@ -919,9 +959,10 @@ def _qwen3_requests(model, card: str) -> int:
 
 def phase_qmm_path(shapes) -> float:
     """K2 against qmatmul_reference at every (M, out, in, bias) the main
-    path launched it with (the prefill bucket, the code predictor's first
-    sub-step at M=2, text_projection over the text ids, ...), 8-bit codes,
-    group 64, x in f32 and bf16. Returns the largest bf16 abs error."""
+    paths launched it with (the prefill bucket, the code predictor's first
+    sub-step at M=2, text_projection over the text ids, the session's
+    frame at M=8 and 16 and its burst prefill, ...), 8-bit codes, group
+    64, x in f32 and bf16. Returns the largest bf16 abs error."""
     import torch
 
     from mlx_audio_tpu_torch.ops.quant import quantize_weight
@@ -949,19 +990,459 @@ def phase_qmm_path(shapes) -> float:
     return worst
 
 
-def frame_linears(model):
-    """(out, in) of every K2 launch of one decode step."""
+# ---------------------------------------------------------------------------
+# Qwen3-TTS streaming and continuous batching (phases 9-11)
+# ---------------------------------------------------------------------------
+
+# phase 10: the JAX lane's streamed request (bench.py:303-305)
+STREAM_IDS, STREAM_TOKENS, STREAM_INTERVAL, STREAM_SEED = (100, 150), 100, \
+    2.0, 1
+# phase 11: the JAX lane's batched session (bench.py:761-803)
+SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 100, 0.4, \
+    1024
+# the broker's three requests: frames each, and the session's slots (the
+# server's default MLX_AUDIO_TTS_MAX_BATCH_SIZE)
+BROKER_TOKENS, BROKER_SLOTS = 40, 4
+# streamed against one-shot decode on the card, f32: the CPU tests' bound
+STREAM_FULL_ATOL = 2e-4
+
+
+def _small_pair():
+    """The small config at f32 from one seeded q8 weight set: (CPU model,
+    the same weights on the card)."""
+    import copy
+
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    cpu = Model(qwen3_small_config(), device="cpu").init_params(seed=0)
+    apply_quantization(cpu, {"quantization": {"bits": 8, "group_size": 16}},
+                       cpu.model_quant_predicate)
+    return cpu, copy.deepcopy(cpu).to("cuda")
+
+
+def _session_run(model, options, requests, admit_after=()):
+    """Submit `requests` (text-id ranges) to a new session of `model`, the
+    ones whose index is in `admit_after` after the first step; step until
+    idle. -> ({slot: codes}, [audio of each request])."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.server_inference import InferenceRequest
+
+    sess = model.create_tts_batch_session(options)
+    seen = {}
+    decode = type(sess)._decode_batch.__get__(sess)
+
+    def recording(rows):
+        for slot, _ in rows:
+            seen[slot] = np.concatenate(sess.codes[slot], axis=0).copy()
+        return decode(rows)
+
+    sess._decode_batch = recording
+    reqs = [InferenceRequest(endpoint_kind="tts", model_name="smoke",
+                             payload=None,
+                             normalized_kwargs={"text_ids": np.arange(*r)[None]})
+            for r in requests]
+    for i, r in enumerate(reqs):
+        if i not in admit_after:
+            sess.submit(r)
+    sess.step()
+    for i in admit_after:
+        sess.submit(reqs[i])
+    for _ in range(200):
+        if sess.idle:
+            break
+        sess.step()
+    if not sess.idle:
+        raise AssertionError("session did not finish")
+    audio = []
+    for r in reqs:
+        kinds, parts = [], []
+        while not r.result_queue.empty():
+            c = r.result_queue.get()
+            kinds.append(c.kind)
+            if c.kind == "data":
+                parts.append(c.payload["audio"])
+        if kinds[-1:] != ["done"] or "error" in kinds:
+            raise AssertionError(f"request ended {kinds}")
+        audio.append(np.concatenate(parts) if parts else np.zeros(0))
+    return seen, audio
+
+
+def phase_qwen3_streaming_reference():
+    """Small config, f32, one seeded q8 weight set: the streaming path and
+    the session on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.tts.continuous import TTSBatchOptions
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.speech_tokenizer import (
+        init_stream_state)
+
+    cpu, gpu = _small_pair()
+    kw = dict(text_ids=np.arange(10, 40)[None], temperature=0.0,
+              max_tokens=30, stream=True, streaming_interval=0.4)
+    rc, rg = (list(m.generate(**kw)) for m in (cpu, gpu))
+    sizes = [r.samples for r in rc]
+    if [r.samples for r in rg] != sizes or not rc[-1].is_final_chunk \
+            or not rg[-1].is_final_chunk:
+        raise AssertionError(f"streamed chunks differ: "
+                             f"{[r.samples for r in rg]} vs {sizes}")
+    ac, ag = (np.concatenate([r.audio for r in rs]) for rs in (rc, rg))
+    stream_rel = rel_err(torch.from_numpy(ag), torch.from_numpy(ac))
+    # the streaming codec on the card against its one-shot decode
+    dec = gpu.speech_tokenizer.decoder
+    codes = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (2, 4, 24))).to(gpu.device)
+    with torch.inference_mode():
+        full = dec(codes)
+        state = init_stream_state(gpu.dcfg, 2, device=gpu.device)
+        parts = []
+        for a, b in ((0, 5), (5, 6), (6, 14), (14, 24)):
+            state, chunk = dec.streaming_step(state, codes[:, :, a:b])
+            parts.append(chunk)
+    codec_abs = float((torch.cat(parts, -1) - full).abs().max())
+    opts = dict(max_batch_size=2, max_tokens=16, temperature=0.0,
+                repetition_penalty=1.0, streaming_interval=0.4,
+                max_cache_len=256)
+    (cc, sa_c), (cg, sa_g) = (
+        _session_run(m, TTSBatchOptions(**opts), [(10, 25), (30, 42)],
+                     admit_after=(1,)) for m in (cpu, gpu))
+    codes_equal = sorted(cc) == sorted(cg) and all(
+        np.array_equal(cc[s], cg[s]) for s in cc)
+    sess_rel = max(rel_err(torch.from_numpy(g), torch.from_numpy(c))
+                   for g, c in zip(sa_g, sa_c))
+    log(f"[qwen3 stream reference] small config f32, q8 gs16, CUDA vs CPU: "
+        f"greedy stream chunks {sizes} equal, audio rel {stream_rel:.3e} "
+        f"(tol {QWEN3_E2E_TOL:g}); streaming_step over uneven chunks vs "
+        f"decode_full on the card abs {codec_abs:.3e} (tol "
+        f"{STREAM_FULL_ATOL:g}); two-slot session, one admitted mid-stream: "
+        f"codes equal {codes_equal}, audio rel {sess_rel:.3e}")
+    if not (stream_rel <= QWEN3_E2E_TOL and codec_abs <= STREAM_FULL_ATOL
+            and codes_equal and sess_rel <= QWEN3_E2E_TOL):
+        raise AssertionError("streaming or session: CUDA vs CPU")
+    if not all(len(a) > 0 and np.isfinite(a).all() for a in sa_g + [ag]):
+        raise AssertionError("CUDA streamed audio empty or not finite")
+
+
+def phase_qwen3_stream(model, card: str, recorder: K2Recorder) -> int:
+    """The JAX lane's streamed request, cold then warm. Returns K2's
+    launches over the two."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+
+    spf = model.total_upsample
+    qmm_kernel.launches = 0
+    total = 0
+    with recorder:
+        for run in ("cold", "warm"):
+            before = qmm_kernel.launches
+            t0 = time.perf_counter()
+            ttfa, results = None, []
+            for r in model.generate(text_ids=np.arange(*STREAM_IDS)[None],
+                                    temperature=0.9, max_tokens=STREAM_TOKENS,
+                                    stream=True,
+                                    streaming_interval=STREAM_INTERVAL,
+                                    seed=STREAM_SEED):
+                if ttfa is None and r.samples > 0:
+                    ttfa = time.perf_counter() - t0
+                results.append(r)
+            wall = time.perf_counter() - t0
+            launches = qmm_kernel.launches - before
+            total += launches
+            run_info = model.last_run
+            want = expected_k2_launches(model, run_info)
+            if launches != want:
+                raise AssertionError(f"{launches} K2 launches, want {want} "
+                                     f"({run_info})")
+            frames = results[-1].token_count
+            samples = sum(r.samples for r in results)
+            audio = np.concatenate([r.audio for r in results])
+            if not (results[-1].is_final_chunk and samples == frames * spf
+                    and 0 < frames <= STREAM_TOKENS
+                    and np.isfinite(audio).all()):
+                raise AssertionError(f"stream: {samples} samples for "
+                                     f"{frames} frames, final "
+                                     f"{results[-1].is_final_chunk}")
+            if frames == STREAM_TOKENS and \
+                    run_info["decode_steps"] != STREAM_TOKENS - 1:
+                raise AssertionError(f"{run_info['decode_steps']} decode "
+                                     f"steps for {frames} frames")
+            stats = model._last_stream_stats
+            audio_s = samples / model.sample_rate
+            log(f"[qwen3 stream] {run} {STREAM_IDS[1] - STREAM_IDS[0]} ids "
+                f"max_tokens {STREAM_TOKENS} interval {STREAM_INTERVAL}: "
+                f"{frames} frames {audio_s:.2f} s audio in "
+                f"{sum(r.samples > 0 for r in results)} chunks: time to "
+                f"first audio {ttfa * 1e3:.2f} ms, wall {wall * 1e3:.2f} ms "
+                f"({wall * 1e3 / frames:.2f} ms/frame), xRT "
+                f"{audio_s / wall:.3f}; {stats['n_fetches']} reads, host "
+                f"wait {stats['stall_s'] * 1e3:.2f} ms; "
+                f"{run_info['decode_steps']} decode steps, "
+                f"{run_info['codec_blocks']} codec blocks run; {launches} K2 "
+                f"launches ({card})")
+    return total
+
+
+class _SessionCounts:
+    """Counts the frames a session's chunks ran and its admission groups,
+    by wrapping the session class's methods while active."""
+
+    def __enter__(self):
+        from mlx_audio_tpu_torch.tts.models.qwen3_tts.continuous_batching \
+            import Qwen3TTSBatchSession as S
+
+        self.frames = self.groups = 0
+        self._orig = (S._chunk, S._admit_many)
+        chunk, admit = self._orig
+
+        def counting_chunk(sess, k):
+            self.frames += k
+            return chunk(sess, k)
+
+        def counting_admit(sess, group):
+            self.groups += 1
+            return admit(sess, group)
+
+        S._chunk, S._admit_many = counting_chunk, counting_admit
+        return self
+
+    def __exit__(self, *exc):
+        from mlx_audio_tpu_torch.tts.models.qwen3_tts.continuous_batching \
+            import Qwen3TTSBatchSession as S
+
+        S._chunk, S._admit_many = self._orig
+
+
+def session_k2_launches(model, frames: int, groups: int, tp_calls: int):
+    """K2 launches the config gives for a session: a decode frame and an
+    admission group (its prefill and batched step 0) are each one talker
+    pass and G-1 code-predictor passes; each text_projection call is two."""
+    talker, cp, tp = k2_per_pass(model)
+    per_frame = talker + (model.tcfg.num_code_groups - 1) * cp
+    return per_frame * (frames + groups) + tp * tp_calls
+
+
+def phase_qwen3_session(model, card: str, recorder: K2Recorder) -> int:
+    """One session at b = 8 and a cold burst of 8 requests; then three
+    requests through the broker. Returns K2's launches over both."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.server_inference import InferenceRequest
+    from mlx_audio_tpu_torch.tts.continuous import TTSBatchOptions
+
+    spf = model.total_upsample
+    t0 = time.perf_counter()
+    sess = model.create_tts_batch_session(TTSBatchOptions(
+        max_batch_size=SESSION_B, max_tokens=SESSION_TOKENS,
+        streaming_interval=SESSION_INTERVAL, max_cache_len=SESSION_CACHE))
+    sess.warmup()
+    k = sess.frames_per_step
+    log(f"[qwen3 session] b={SESSION_B}, {k} frames a step, timeline "
+        f"{SESSION_CACHE}, codec stream KV "
+        f"{sess.codec_state['tf_caches'][0].k.shape[1]} frames: built and "
+        f"warmed up in {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    reqs = [InferenceRequest(
+        endpoint_kind="tts", model_name="smoke", payload=None,
+        normalized_kwargs={"text_ids": np.arange(100 + i, 150 + i)[None]})
+        for i in range(SESSION_B)]
+    ttfa, audio, kinds = {}, [[] for _ in reqs], [[] for _ in reqs]
+    step_walls, per_path = [], {}
+    qmm_kernel.launches = 0
+    tp0 = model._text_projection_calls
+    with recorder, _SessionCounts() as counts:
+        t0 = time.perf_counter()
+        for r in reqs:
+            sess.submit(r)
+        want = session_k2_launches(model, 0, 0,
+                                   model._text_projection_calls - tp0)
+        if qmm_kernel.launches != want:
+            raise AssertionError(f"submit: {qmm_kernel.launches} K2 "
+                                 f"launches, want {want}")
+        for step in range(4 * SESSION_TOKENS):
+            if sess.idle:
+                break
+            before = (qmm_kernel.launches, counts.frames, counts.groups,
+                      dict(recorder.paths))
+            ts = time.perf_counter()
+            sess.step()
+            now = time.perf_counter()
+            step_walls.append(now - ts)
+            for i, r in enumerate(reqs):
+                while not r.result_queue.empty():
+                    c = r.result_queue.get()
+                    kinds[i].append(c.kind)
+                    if c.kind == "data":
+                        ttfa.setdefault(i, now - t0)
+                        audio[i].append(c.payload["audio"])
+            launches = qmm_kernel.launches - before[0]
+            want = session_k2_launches(model, counts.frames - before[1],
+                                       counts.groups - before[2], 0)
+            if launches != want:
+                raise AssertionError(f"step {step}: {launches} K2 launches, "
+                                     f"want {want}")
+            paths = {p: n - before[3].get(p, 0)
+                     for p, n in recorder.paths.items()
+                     if n != before[3].get(p, 0)}
+            per_path[tuple(sorted(paths.items()))] = \
+                per_path.get(tuple(sorted(paths.items())), 0) + 1
+        wall = time.perf_counter() - t0
+    launches = qmm_kernel.launches
+    if not sess.idle:
+        raise AssertionError("the b=8 session did not finish")
+    total_s = 0.0
+    for i in range(SESSION_B):
+        a = np.concatenate(audio[i]) if audio[i] else np.zeros(0)
+        if kinds[i][-1:] != ["done"] or "error" in kinds[i] or not len(a) \
+                or len(a) % spf or not np.isfinite(a).all():
+            raise AssertionError(f"request {i}: {kinds[i]}, {len(a)} "
+                                 f"samples")
+        total_s += len(a) / model.sample_rate
+    if "mma" not in recorder.paths or not any(
+            m == 8 for m, *_ in recorder.calls):
+        raise AssertionError(f"no mma launch at M = 8: {recorder.paths}")
+    tt = sorted(ttfa.values())
+    walls = sorted(step_walls)
+    log(f"[qwen3 session] cold burst of {SESSION_B} x {SESSION_TOKENS} "
+        f"frames: {total_s:.2f} s of audio in {wall * 1e3:.2f} ms, aggregate "
+        f"xRT {total_s / wall:.3f}; time to first audio p50 "
+        f"{tt[len(tt) // 2] * 1e3:.2f} ms, max {tt[-1] * 1e3:.2f} ms; "
+        f"{len(walls)} steps, wall per step median "
+        f"{walls[len(walls) // 2] * 1e3:.2f} ms, max {walls[-1] * 1e3:.2f} "
+        f"ms ({wall * 1e3 / counts.frames:.2f} ms per frame of all rows); "
+        f"{launches} K2 launches ({card})")
+    for paths, n in sorted(per_path.items(), key=lambda kv: -kv[1]):
+        log(f"[qwen3 session] K2 launches per path in {n} step(s): "
+            f"{dict(paths)}")
+    launches += _broker_requests(model, card, recorder)
+    return launches
+
+
+class SmokeTTSAdapter:
+    """The continuous-batch routing of the server's TTS adapter
+    (mlx_audio_tpu/server.py:117-146) for one model: every request the
+    model can batch goes to a session made from the request's options,
+    warmed up before the first request joins it."""
+
+    max_batch_size = 1
+
+    def __init__(self, model):
+        self.model = model
+
+    def supports_batch(self, request) -> bool:
+        return False
+
+    def batch_key(self, request):
+        return None
+
+    def supports_continuous_batch(self, request) -> bool:
+        checker = getattr(self.model, "supports_tts_continuous_batch", None)
+        return bool(checker and checker())
+
+    def continuous_batch_key(self, request):
+        return None
+
+    def create_continuous_batch_session(self, request):
+        from mlx_audio_tpu_torch.tts.continuous import TTSBatchOptions
+
+        kw = request.normalized_kwargs
+        sess = self.model.create_tts_batch_session(TTSBatchOptions(
+            max_batch_size=BROKER_SLOTS,
+            temperature=float(kw.get("temperature", 0.9)),
+            top_k=int(kw.get("top_k", 50)),
+            max_tokens=int(kw.get("max_tokens", 1200)),
+            streaming_interval=float(kw.get("streaming_interval", 2.0)),
+            max_cache_len=SESSION_CACHE))
+        sess.warmup()
+        return sess
+
+    def run_serial(self, request) -> None:
+        raise AssertionError("a TTS request took the serial path")
+
+
+def _broker_requests(model, card: str, recorder: K2Recorder) -> int:
+    """Three requests through the port's InferenceBroker; its worker thread
+    creates the session, steps it and answers them. Returns K2's
+    launches."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.server_inference import InferenceBroker
+
+    qmm_kernel.launches = 0
+    tp0 = model._text_projection_calls
+    with recorder, _SessionCounts() as counts:
+        t0 = time.perf_counter()
+        broker = InferenceBroker(idle_poll_s=0.01)
+        try:
+            broker.register_adapter("tts", SmokeTTSAdapter(model))
+            handles = [broker.submit(
+                endpoint_kind="tts", model_name="smoke", payload=None,
+                normalized_kwargs={
+                    "text_ids": np.arange(100 + i, 130 + i)[None],
+                    "max_tokens": BROKER_TOKENS,
+                    "streaming_interval": SESSION_INTERVAL})
+                for i in range(3)]
+            done = []
+            for h in handles:
+                kinds, parts = [], []
+                while kinds[-1:] != ["done"]:
+                    c = h.result_queue.get(timeout=300)
+                    kinds.append(c.kind)
+                    if c.kind == "data":
+                        parts.append(c.payload["audio"])
+                    elif c.kind == "error":
+                        raise AssertionError(f"broker request: {c.error!r}")
+                a = np.concatenate(parts) if parts else np.zeros(0)
+                if not len(a) or len(a) % model.total_upsample \
+                        or not np.isfinite(a).all():
+                    raise AssertionError(f"broker audio {len(a)} samples")
+                done.append(len(a) / model.sample_rate)
+                wall = time.perf_counter() - t0
+        finally:
+            broker.stop_and_join(timeout=60)
+        launches = qmm_kernel.launches
+    want = session_k2_launches(model, counts.frames, counts.groups,
+                               model._text_projection_calls - tp0)
+    if launches != want:
+        raise AssertionError(f"broker: {launches} K2 launches, want {want}")
+    log(f"[qwen3 broker] 3 requests x {BROKER_TOKENS} frames through "
+        f"InferenceBroker (a session of {BROKER_SLOTS} slots, warmed up on "
+        f"the broker thread): all done, {sum(done):.2f} s of audio, last "
+        f"answered {wall * 1e3:.2f} ms after submit; {launches} K2 launches "
+        f"({counts.frames} session frames, {counts.groups} admissions, warm-up "
+        f"included) ({card})")
+    return launches
+
+
+def _qlinear_shapes(module):
+    """(out, in) of each quantized linear in `module`, in module order."""
     from mlx_audio_tpu_torch.nn import QuantizedLinear
 
+    return [tuple(m.w_q.shape) for m in module.modules()
+            if isinstance(m, QuantizedLinear)]
+
+
+def frame_linears(model):
+    """(out, in) of every K2 launch of one decode step."""
     t = model.talker
-
-    def shapes(module):
-        return [tuple(m.w_q.shape) for m in module.modules()
-                if isinstance(m, QuantizedLinear)]
-
     g1 = model.tcfg.num_code_groups - 1
-    return (shapes(t.model.layers) + shapes(t.codec_head)
-            + g1 * shapes(t.code_predictor))
+    return (_qlinear_shapes(t.model.layers) + _qlinear_shapes(t.codec_head)
+            + g1 * _qlinear_shapes(t.code_predictor))
+
+
+def session_frame_linears(model, b: int):
+    """(M, out, in) of every K2 launch of one decode frame of a session of
+    b slots: the talker's linears at M = b, the code predictor's first
+    sub-step ([hidden, code 0]) at M = 2b and its other sub-steps at b."""
+    t = model.talker
+    talker = _qlinear_shapes(t.model.layers) + _qlinear_shapes(t.codec_head)
+    cp = _qlinear_shapes(t.code_predictor)
+    g1 = model.tcfg.num_code_groups - 1
+    return ([(b, n, k) for n, k in talker] + [(2 * b, n, k) for n, k in cp]
+            + (g1 - 1) * [(b, n, k) for n, k in cp])
 
 
 def main() -> int:
@@ -980,8 +1461,14 @@ def main() -> int:
     phase_qwen3_reference()
     model = build_qwen3()
     phase_qwen3_q8_prefill(model)
-    k2_launches, k2_shapes = phase_qwen3_main(model, card)
-    k2_path_abs = phase_qmm_path(k2_shapes)
+    recorder = K2Recorder()
+    k2_launches = phase_qwen3_main(model, card, recorder)
+    phase_qwen3_streaming_reference()
+    k2_launches += phase_qwen3_stream(model, card, recorder)
+    k2_launches += phase_qwen3_session(model, card, recorder)
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    k2_path_abs = phase_qmm_path(set(recorder.calls))
 
     # K1: the 48 legs of one synth of two rows (B=2) at the 1024-frame
     # bucket, summed from the per-shape times of phase 3, by the dispatched
@@ -1025,6 +1512,18 @@ def main() -> int:
         f"bf16 x, 8-bit codes: kernel ({m1}) {k2_ms:.3f} ms, simt "
         f"{simt_ms:.3f} ms, plain {k2_plain:.3f} ms; bound {k2_bound:.3f} ms "
         f"(bytes) ({card})")
+    # the same frame in the b = 8 session (phase 11): M = 8 and 16
+    frame8 = session_frame_linears(model, SESSION_B)
+    b8_ms, b8_plain = (
+        sum(qres[("bfloat16", n, k, 8, m, qmm_paths(torch.bfloat16, m)[0])][i]
+            for m, n, k in frame8) for i in (2, 3))
+    b8_bound = sum(n * k + 2 * n * (k // QMM_GROUP) * 4 + 2 * m * (k + n)
+                   for m, n, k in frame8) / HBM_BPS * 1e3
+    log(f"[kernel] K2: the {len(frame8)} linears of one b={SESSION_B} "
+        f"session frame (M = {SESSION_B} and {2 * SESSION_B}, mma), bf16 x, "
+        f"8-bit codes: kernel {b8_ms:.3f} ms, plain {b8_plain:.3f} ms; bound "
+        f"{b8_bound:.3f} ms (bytes); {b8_ms / k2_ms:.2f}x the M=1 frame "
+        f"({card})")
 
     print(json.dumps({"kernels": [{
         "name": "adain_snake_conv1d",

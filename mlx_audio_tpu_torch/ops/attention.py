@@ -10,7 +10,7 @@ the product with V, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -52,18 +52,31 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, length: int,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     v_cache: torch.Tensor,
+                     length: Union[int, torch.Tensor],
+                     scale: Optional[float] = None,
+                     lengths_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """One query step against a fixed-size cache.
 
     q (B, 1, Hq, D); k_cache, v_cache (B, max_len, Hkv, D); the first
-    `length` entries of every row are valid. The whole buffer is read and
-    the invalid tail masked, so the shapes do not change from step to
+    `length` entries (an int, or a (B,) tensor: one count per row) are
+    valid, unless `lengths_mask` (B, max_len) bool names the valid entries
+    of each row instead (continuous batching: each row attends to its own
+    columns of a shared timeline). The whole buffer is read and the
+    invalid entries masked, so the shapes do not change from step to
     step."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = _scores(q * scale, k_cache)
-    valid = torch.arange(k_cache.shape[1], device=q.device) < length
+    if lengths_mask is not None:
+        valid = lengths_mask[:, None, None, :]
+    else:
+        pos = torch.arange(k_cache.shape[1], device=q.device)
+        if isinstance(length, torch.Tensor) and length.ndim == 1:
+            valid = (pos[None, :] < length[:, None])[:, None, None, :]
+        else:
+            valid = pos < length
     scores = scores.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _weighted(probs, v_cache)

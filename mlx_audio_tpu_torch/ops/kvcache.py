@@ -1,10 +1,11 @@
 """Fixed-capacity KV caches for autoregressive decoding.
 
-Counterpart of `KVCache` and `kv_update` in mlx_audio_tpu/ops/kvcache.py
-(:27-47). The buffers are preallocated (B, max_len, n_kv_heads, head_dim)
-and, unlike the JAX package's functional update, written in place: a
-decode step allocates nothing for its cache. A stacked cache (leading layer
-axis) hands each layer a view, so per-layer writes land in the one buffer.
+Counterpart of `KVCache`, `kv_update`, `kv_update_rows` and `kv_update_row`
+in mlx_audio_tpu/ops/kvcache.py (:27-72). The buffers are preallocated
+(B, max_len, n_kv_heads, head_dim) and, unlike the JAX package's functional
+update, written in place: a decode step allocates nothing for its cache. A
+stacked cache (leading layer axis) hands each layer a view, so per-layer
+writes land in the one buffer.
 """
 
 from __future__ import annotations
@@ -41,4 +42,30 @@ def kv_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     s = k_new.shape[1]
     cache.k[:, offset:offset + s] = k_new
     cache.v[:, offset:offset + s] = v_new
+    return cache
+
+
+def kv_update_rows(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                   offsets: torch.Tensor) -> KVCache:
+    """Write k_new/v_new (B, S, H, D) at per-row time offsets (B,), in
+    place: one indexed write per tensor, with no read of the offsets on the
+    host. Rows admitted at different steps decode through one batched
+    streaming codec step, each at its own stream age."""
+    b, s = k_new.shape[:2]
+    idx = offsets.long()[:, None] + torch.arange(s, device=offsets.device)
+    rows = torch.arange(b, device=offsets.device)[:, None]
+    cache.k[rows, idx] = k_new.to(cache.k.dtype)
+    cache.v[rows, idx] = v_new.to(cache.v.dtype)
+    return cache
+
+
+def kv_update_row(cache: KVCache, row: int, k_new: torch.Tensor,
+                  v_new: torch.Tensor, offset: int) -> KVCache:
+    """Write one batch row's new kv (..., S, H, D) at (row, offset), in
+    place: the continuous-batching admission splices a prompt's prefill
+    into a live batch. Works on a layer's cache (B, T, H, D) and on a
+    stacked one (L, B, T, H, D) with k_new (L, S, H, D)."""
+    s = k_new.shape[-3]
+    cache.k[..., row, offset:offset + s, :, :] = k_new.to(cache.k.dtype)
+    cache.v[..., row, offset:offset + s, :, :] = v_new.to(cache.v.dtype)
     return cache

@@ -1,8 +1,8 @@
 """Qwen3-TTS: autoregressive codec-token TTS (talker + code predictor) with
 a 12.5 Hz codec decoder.
 
-Counterpart of mlx_audio_tpu/tts/models/qwen3_tts/qwen3_tts.py, non-streaming
-text ids -> audio:
+Counterpart of mlx_audio_tpu/tts/models/qwen3_tts/qwen3_tts.py, text ids ->
+audio:
 
 * `prepare_inputs` from `text_ids` and `_prompt_static` (language "auto",
   an optional `spk_id` speaker; no speaker encoder);
@@ -10,13 +10,27 @@ text ids -> audio:
   request (:666-691, :1110-1111);
 * `_step0` samples the first frame from the prefill logits (:1440-1476);
 * the AR chunk (:693-775) runs FIRST_CHUNK, then CHUNK_TOKENS steps as a
-  Python loop. The codes of a chunk are read once, after it, as the JAX host
-  loop reads them (:1163-1181). Each step's finished flag is copied to the
-  host without blocking; before step i+1 the loop waits for step i-1's flag
-  only, so the host still runs ahead of the device, and a chunk stops at
-  most STEPS_AFTER_EOS steps after the step that sampled EOS (the JAX
+  Python loop. Each step's finished flag is copied to the host without
+  blocking; before step i+1 the loop waits for step i-1's flag only, so the
+  host still runs ahead of the device, and a chunk stops at most
+  STEPS_AFTER_EOS steps after the step that sampled EOS (the JAX
   `while_loop` stops at once, :759-772). The kept codes are the same;
-* `decode_full` of the valid codes -> one `GenerationResult`.
+* `stream=False`: the codes of a chunk are read once, after it, as the JAX
+  host loop reads them (:1163-1181); `decode_full` of the valid codes ->
+  one `GenerationResult`;
+* `stream=True`: the fused AR + codec superstep (`_make_stream_stepper`,
+  :787-858, and `_stream_generate`, :1209-1314). Each chunk appends its
+  valid codes to a pending ring on the device, decodes every full BLOCK of
+  it through the streaming codec (all of it when every row has finished or
+  on the final chunk), and copies its audio and a meta triple (frames
+  generated, frames decoded, all finished) into pinned host memory without
+  blocking. The host reads chunk N only once chunk N+1 is enqueued: one
+  read per chunk. The number of blocks a chunk decodes is known on the
+  device only, so the host runs as many as the chunk can need (its
+  no-EOS bound, ceil for a flush) and each block's state update is taken
+  only if the device's count reaches it;
+* `create_tts_batch_session` -> the fixed-slot continuous-batching session
+  (continuous_batching.py).
 
 Weights: `init_params(seed)` (random, the JAX package's distributions),
 `load_jax_params` (the JAX package's tree, dense or quantized) or `bind`
@@ -24,9 +38,9 @@ Weights: `init_params(seed)` (random, the JAX package's distributions),
 `model_quant_predicate` turns the AR path's linears into quantized ones,
 whose forward on a CUDA tensor is kernel K2.
 
-Not ported yet (they raise NotImplementedError): streaming, voice cloning
-(ICL, speaker encoder), instruct / voice design, batch generation, and text
-given as a string (the HF tokenizer is not available to the port).
+Not ported yet (they raise NotImplementedError): voice cloning (ICL,
+speaker encoder), instruct / voice design, batch generation from strings,
+and text given as a string (the HF tokenizer is not available to the port).
 """
 
 from __future__ import annotations
@@ -44,7 +58,8 @@ from ....ops.kvcache import KVCache
 from ....ops.sampling import apply_repetition_penalty, sample
 from ..base import GenerationResult, format_duration, peak_memory_gb
 from .config import ModelConfig
-from .speech_tokenizer import SpeechTokenizer, total_upsample
+from .speech_tokenizer import (STREAM_CACHE_LEN, SpeechTokenizer,
+                               init_stream_state, total_upsample)
 from .talker import Talker
 
 MAX_CACHE_LEN = 4096
@@ -56,6 +71,20 @@ CACHE_BUCKETS = (256, 512, 1024, 2048, 4096)
 # steps a chunk may launch after the one whose finished flag is set: the
 # loop reads the flag of step i-1 before launching step i+1
 STEPS_AFTER_EOS = 1
+# streaming (:90-92): frames per codec decode block, the pending ring, and
+# the most blocks one chunk decodes
+BLOCK = 8
+PEND = CHUNK_TOKENS + BLOCK
+MAX_DEC_BLOCKS = PEND // BLOCK
+
+
+def _run(steps):
+    """Run a generator to its end; -> the value it returns."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
 
 
 def _bucket(n: int, buckets) -> int:
@@ -76,6 +105,42 @@ class GenCarry:
     finished: torch.Tensor       # (B,) bool
     history: torch.Tensor        # (B, HISTORY_LEN) recent code-0 tokens
     trailing_idx: int
+
+
+@dataclass
+class StreamCarry:
+    """GenCarry plus the streaming codec's device state (StreamCarry,
+    :81-88)."""
+
+    gen: GenCarry
+    pending: torch.Tensor        # (PEND, G) codes not yet decoded
+    n_pending: torch.Tensor      # 0-dim int64
+    n_generated: torch.Tensor    # 0-dim int64, frames sampled before EOS
+    codec: dict                  # speech_tokenizer.init_stream_state
+
+
+class _HostCopy:
+    """Device tensors copied into host memory without blocking (pinned
+    memory and an event on a GPU); `read` waits for the copy only."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        cuda = tensors[0].device.type == "cuda"
+        self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+                     for t in tensors]
+        for h, t in zip(self.host, tensors):
+            h.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event() if cuda else None
+        if cuda:
+            self.event.record()
+
+    def ready(self) -> bool:
+        """Whether the copy has landed (never waits)."""
+        return self.event is None or self.event.query()
+
+    def read(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
 
 
 class _FinishedFlags:
@@ -347,6 +412,49 @@ class Model(TorchModel):
                         history=history,
                         trailing_idx=c.trailing_idx + 1), codes
 
+    def _ar_steps(self, carry: GenCarry, n_steps: int, flags: "_FinishedFlags",
+                  trailing, tl, pad_embed, sampler, suppress,
+                  repetition_penalty):
+        """Up to n_steps AR steps; before step i (i > STEPS_AFTER_EOS) the
+        loop waits for step i-1-STEPS_AFTER_EOS's finished flags and stops
+        if every row had finished. A generator that yields after each step
+        launched (so that a caller can do host work between steps) and
+        returns (carry, [codes (B, G)], [finished (B,)]) of the steps that
+        ran."""
+        codes_seq, fins = [], []
+        lag = STEPS_AFTER_EOS + 1
+        for i in range(n_steps):
+            if i >= lag and bool(flags.read(i - lag).all()):
+                break
+            carry, codes = self._ar_step(carry, trailing, tl, pad_embed,
+                                         sampler, suppress,
+                                         repetition_penalty)
+            codes_seq.append(codes)
+            fins.append(carry.finished)
+            flags.record(i, carry.finished)
+            yield
+        return carry, codes_seq, fins
+
+    def _begin(self, text, text_ids, language, speaker, max_tokens, sampler,
+               suppress):
+        """Prompt, prefill and step 0 -> (carry, first codes (1, G),
+        trailing, tl, pad_embed, prompt bucket)."""
+        input_embeds, trailing, pad_embed = self.prepare_inputs(
+            text=text, text_ids=text_ids, language=language, speaker=speaker)
+        plen = input_embeds.shape[1]
+        pb = _bucket(plen, PROMPT_BUCKETS)
+        input_embeds = torch.nn.functional.pad(input_embeds,
+                                               (0, 0, 0, pb - plen))
+        tl = trailing.shape[1]
+        cache_len = min(_bucket(pb + max_tokens + CHUNK_TOKENS,
+                                CACHE_BUCKETS), MAX_CACHE_LEN)
+        logits0, hidden0, caches = self._prefill(input_embeds, plen,
+                                                 cache_len)
+        carry, first_codes = self._step0(logits0, hidden0, caches, trailing,
+                                         tl, pad_embed, plen, sampler,
+                                         suppress)
+        return carry, first_codes, trailing, tl, pad_embed, pb
+
     def generate(self, text: Optional[str] = None, *,
                  text_ids: Optional[np.ndarray] = None,
                  speaker: Optional[str] = None,
@@ -357,12 +465,10 @@ class Model(TorchModel):
                  temperature: float = 0.9, top_k: int = 50,
                  top_p: float = 1.0, repetition_penalty: float = 1.05,
                  max_tokens: int = 1200, stream: bool = False,
-                 seed: int = 0):
-        """Yield one GenerationResult for `text_ids` (non-streaming)."""
-        if stream:
-            raise NotImplementedError(
-                "streaming generation (streaming_step and the fused stream "
-                "stepper) is not ported yet; call with stream=False")
+                 streaming_interval: float = 2.0, seed: int = 0):
+        """Yield GenerationResults for `text_ids`: one, or with
+        `stream=True` one per decoded chunk (FIRST_CHUNK frames first, then
+        round(streaming_interval * 12.5)), the last with is_final_chunk."""
         if ref_audio is not None or ref_text is not None:
             raise NotImplementedError(
                 "voice cloning (ICL, speaker encoder) is not ported yet")
@@ -373,47 +479,39 @@ class Model(TorchModel):
         if text_ids is not None and np.asarray(text_ids).ndim == 2 \
                 and np.asarray(text_ids).shape[0] > 1:
             raise NotImplementedError(
-                "batch generation (continuous batching) is not ported yet")
+                "batch generation takes one request per row of a "
+                "continuous-batching session (create_tts_batch_session)")
+        if stream and -(-max_tokens // BLOCK) * BLOCK > STREAM_CACHE_LEN:
+            raise ValueError(
+                f"max_tokens={max_tokens}: a stream decodes at most "
+                f"{STREAM_CACHE_LEN} frames (its codec KV buffer); the JAX "
+                f"package would corrupt the audio past them")
         t_start = time.time()
         suppress = self._suppress_mask()
         gen = torch.Generator(device=self.device).manual_seed(seed)
         sampler = partial(sample, temperature=temperature, top_k=top_k,
                           top_p=top_p, generator=gen)
         tp_before = self._text_projection_calls
+        if stream:
+            yield from self._stream_generate(
+                text, text_ids, language, speaker, max_tokens, sampler,
+                suppress, repetition_penalty, streaming_interval, tp_before)
+            return
         with torch.inference_mode():
-            input_embeds, trailing, pad_embed = self.prepare_inputs(
-                text=text, text_ids=text_ids, language=language,
-                speaker=speaker)
-            plen = input_embeds.shape[1]
-            pb = _bucket(plen, PROMPT_BUCKETS)
-            input_embeds = torch.nn.functional.pad(
-                input_embeds, (0, 0, 0, pb - plen))
-            tl = trailing.shape[1]
-            cache_len = min(_bucket(pb + max_tokens + CHUNK_TOKENS,
-                                    CACHE_BUCKETS), MAX_CACHE_LEN)
-            logits0, hidden0, caches = self._prefill(input_embeds, plen,
-                                                     cache_len)
-            carry, first_codes = self._step0(logits0, hidden0, caches,
-                                             trailing, tl, pad_embed, plen,
-                                             sampler, suppress)
+            carry, first_codes, trailing, tl, pad_embed, pb = self._begin(
+                text, text_ids, language, speaker, max_tokens, sampler,
+                suppress)
             gen_codes = [first_codes[0].cpu().numpy()[None]]
             finished = bool(carry.finished.all())
             total_tokens = 0 if finished else 1
             steps = 0
             flags = _FinishedFlags(carry.finished)
-            lag = STEPS_AFTER_EOS + 1
             while not finished and total_tokens < max_tokens:
                 chunk = FIRST_CHUNK if total_tokens <= 1 else CHUNK_TOKENS
                 chunk = min(chunk, max_tokens - total_tokens)
-                codes_seq = []
-                for i in range(chunk):
-                    if i >= lag and bool(flags.read(i - lag).all()):
-                        break
-                    carry, codes = self._ar_step(carry, trailing, tl,
-                                                 pad_embed, sampler, suppress,
-                                                 repetition_penalty)
-                    codes_seq.append(codes)
-                    flags.record(i, carry.finished)
+                carry, codes_seq, _ = _run(self._ar_steps(
+                    carry, chunk, flags, trailing, tl, pad_embed, sampler,
+                    suppress, repetition_penalty))
                 n_run = len(codes_seq)
                 steps += n_run
                 # the one read of this chunk's codes
@@ -433,20 +531,211 @@ class Model(TorchModel):
         self.last_run = {
             "prompt_bucket": pb, "step0": 1, "decode_steps": steps,
             "text_projection_calls": self._text_projection_calls - tp_before}
-        n_valid = codes.shape[-1]
         dur = len(audio) / self.sample_rate
-        elapsed = time.time() - t_start
-        yield GenerationResult(
+        yield self._result(audio, 0, codes.shape[-1], time.time() - t_start,
+                           dur, final=True)
+
+    @torch.inference_mode()
+    def _stream_generate(self, text, text_ids, language, speaker, max_tokens,
+                         sampler, suppress, repetition_penalty,
+                         streaming_interval, tp_before):
+        """Streaming decode over the fused AR + codec superstep
+        (_stream_generate, :1209-1314): one dispatch and one read per
+        chunk. The JAX host reads chunk N once chunk N+1 is enqueued, which
+        takes it no time; here enqueueing a chunk is the host's launches of
+        its AR steps, seconds at full size, so between those steps the host
+        also hands out every earlier chunk whose copy has landed (an event
+        query, no wait), and reads the oldest with a wait only where the
+        JAX host reads it. `_last_stream_stats` records the reads and the
+        host's total wait in them."""
+        spf = self.total_upsample
+        t_seg = time.time()
+        carry, first_codes, trailing, tl, pad_embed, pb = self._begin(
+            text, text_ids, language, speaker, max_tokens, sampler, suppress)
+        dec = self.speech_tokenizer.decoder
+        dtype = next(dec.parameters()).dtype
+        pending = torch.zeros(PEND, self.tcfg.num_code_groups,
+                              dtype=torch.long, device=self.device)
+        pending[0] = first_codes[0]
+        n_pend0 = (~carry.finished[0]).long()
+        sc = StreamCarry(carry, pending, n_pend0, n_pend0.clone(),
+                         init_stream_state(self.dcfg, 1, dtype, self.device))
+        chunk_frames = max(1, min(int(round(streaming_interval * 12.5)),
+                                  CHUNK_TOKENS))
+        stats = {"n_fetches": 0, "stall_s": 0.0}
+        self._last_stream_stats = stats
+        host = {"tokens": 1, "fin": False, "pend_ub": 1, "ar_fin": False,
+                "steps": 0, "blocks": 0}
+        inflight = []                  # [(_HostCopy, frames it can hold)]
+        seg = {"start": t_seg, "idx": 0}
+        flags = _FinishedFlags(carry.finished)
+
+        def dispatch(sc, n_steps, final):
+            """Enqueue one chunk; yields the results of earlier chunks
+            whose copies land meanwhile; returns the new carry."""
+            # the host's no-EOS bound on pending frames (an EOS only ever
+            # leaves fewer); a flush may come on any chunk, so the blocks
+            # run and the fetch use the ceil bound (fix 6ec2fe7, :1248-1259)
+            pend = host["pend_ub"] + n_steps
+            nb_fetch = min(-(-pend // BLOCK), MAX_DEC_BLOCKS)
+            nb = nb_fetch if final else pend // BLOCK
+            host["pend_ub"] = max(pend - nb * BLOCK, 0)
+            step = self._stream_superstep(
+                sc, 0 if host["ar_fin"] else n_steps, final, nb_fetch, flags,
+                trailing, tl, pad_embed, sampler, suppress,
+                repetition_penalty, host)
+            while True:
+                try:
+                    next(step)
+                except StopIteration as done:
+                    sc, audio, meta = done.value
+                    break
+                while inflight and inflight[0][0].ready():
+                    audio_np = fetch()
+                    if len(audio_np):
+                        yield result(audio_np)
+            inflight.append((_HostCopy(audio, meta), nb_fetch * BLOCK))
+            return sc
+
+        def fetch():
+            copy, cap = inflight.pop(0)
+            t0 = time.perf_counter()
+            audio, meta = copy.read()
+            stats["stall_s"] += time.perf_counter() - t0
+            stats["n_fetches"] += 1
+            host["tokens"] = max(host["tokens"], int(meta[0]))
+            host["fin"] = host["fin"] or bool(meta[2])
+            if int(meta[1]) > cap:
+                raise RuntimeError(f"the stream decoded {int(meta[1])} "
+                                   f"frames; the host ran {cap}")
+            return audio[:int(meta[1]) * spf]
+
+        def result(audio, final=False):
+            now = time.time()
+            r = self._result(audio, seg["idx"], host["tokens"],
+                             now - seg["start"],
+                             len(audio) / self.sample_rate, streaming=True,
+                             final=final)
+            seg["start"] = now
+            seg["idx"] += 1
+            return r
+
+        remaining = max_tokens - 1
+        if remaining <= 0:
+            # budget fully consumed by step 0: flush-only superstep
+            sc = yield from dispatch(sc, 0, True)
+        first = True
+        while remaining > 0 and not host["fin"]:
+            chunk = min(FIRST_CHUNK if first else chunk_frames, remaining)
+            final = chunk == remaining
+            sc = yield from dispatch(sc, chunk, final)
+            remaining -= chunk
+            first = False
+            if final:
+                break
+            if len(inflight) >= 2:
+                audio = fetch()
+                if len(audio):
+                    yield result(audio)
+        # drain: the EOS or final chunk flushed every pending frame; chunks
+        # dispatched after it decode nothing
+        tail = np.zeros((0,), np.float32)
+        while inflight:
+            audio = fetch()
+            if len(audio) and inflight:
+                yield result(audio)
+            elif len(audio):
+                tail = audio
+        self.last_run = {
+            "prompt_bucket": pb, "step0": 1, "decode_steps": host["steps"],
+            "codec_blocks": host["blocks"],
+            "text_projection_calls": self._text_projection_calls - tp_before}
+        yield result(tail, final=True)
+
+    def _stream_superstep(self, sc: StreamCarry, n_steps: int, final: bool,
+                          n_decode: int, flags, trailing, tl, pad_embed,
+                          sampler, suppress, repetition_penalty, host):
+        """One chunk of the fused superstep (stream_chunk, :808-856): up to
+        n_steps AR steps, their valid codes appended to the pending ring,
+        then the codec over every full BLOCK of it (every frame of it on a
+        flush: all rows finished, or `final`). The block count is a device
+        value; the host runs `n_decode` blocks, and block i's state is kept
+        only where the count exceeds i. No read of a device value. A
+        generator that yields after each AR step (`_ar_steps`) and returns
+        (carry, audio (n_decode * BLOCK * spf,) f32, meta [frames
+        generated, frames decoded, all finished])."""
+        dev = sc.pending.device
+        gen, codes_seq, fins = yield from self._ar_steps(
+            sc.gen, n_steps, flags, trailing, tl, pad_embed, sampler,
+            suppress, repetition_penalty)
+        host["steps"] += len(codes_seq)
+        host["ar_fin"] = host["ar_fin"] or len(codes_seq) < n_steps
+        pending, n_pending, n_generated = sc.pending, sc.n_pending, \
+            sc.n_generated
+        if codes_seq:
+            fin_run = torch.stack(fins)[:, 0]
+            n_new = (~fin_run).sum()
+            ar = torch.arange(len(codes_seq), device=dev)
+            # steps after EOS go to a scratch row past the ring
+            idx = torch.where(ar < n_new, n_pending + ar,
+                              torch.full_like(ar, PEND)).clamp(max=PEND)
+            ring = torch.cat([pending, pending.new_zeros(1, pending.shape[1])])
+            ring[idx] = torch.stack(codes_seq)[:, 0]
+            pending = ring[:PEND]
+            n_pending = n_pending + n_new
+            n_generated = n_generated + n_new
+        all_fin = gen.finished.all()
+        flush = all_fin | final
+        n_blocks = torch.where(flush, (n_pending + BLOCK - 1) // BLOCK,
+                               n_pending // BLOCK)
+        n_out = torch.where(flush, n_pending, n_blocks * BLOCK)
+        rows = torch.arange(PEND, device=dev)
+        codes_dec = torch.where(rows[:, None] < n_pending, pending, 0)
+        codes_dec = codes_dec.T[None]                     # (1, G, PEND)
+        state, audio = sc.codec, []
+        dec = self.speech_tokenizer.decoder
+        for i in range(n_decode):
+            state, a = dec.streaming_step(
+                state, codes_dec[:, :, i * BLOCK:(i + 1) * BLOCK],
+                mask=(n_blocks > i).reshape(1))
+            audio.append(a[0].float())
+        host["blocks"] += n_decode
+        consumed = n_blocks * BLOCK
+        pending = pending[(rows + consumed).clamp(max=PEND - 1)]
+        n_pending = (n_pending - consumed).clamp(min=0)
+        meta = torch.stack([n_generated, n_out, all_fin.long()])
+        audio = (torch.cat(audio) if audio
+                 else torch.zeros(0, device=dev))
+        return StreamCarry(gen, pending, n_pending, n_generated, state), \
+            audio, meta
+
+    def _result(self, audio, segment_idx, token_count, seg_time, dur,
+                streaming=False, final=False) -> GenerationResult:
+        return GenerationResult(
             audio=audio, samples=len(audio), sample_rate=self.sample_rate,
-            segment_idx=0, token_count=n_valid,
+            segment_idx=segment_idx, token_count=token_count,
             audio_duration=format_duration(dur),
-            real_time_factor=round(dur / elapsed, 3) if elapsed > 0 else 0.0,
-            prompt={"tokens": n_valid,
-                    "tokens-per-sec": round(n_valid / elapsed, 2)
-                    if elapsed > 0 else 0},
+            real_time_factor=round(dur / seg_time, 3) if seg_time > 0
+            else 0.0,
+            prompt={"tokens": token_count,
+                    "tokens-per-sec": round(token_count / seg_time, 2)
+                    if seg_time > 0 else 0},
             audio_samples={"samples": len(audio),
-                           "samples-per-sec": round(len(audio) / elapsed, 2)
-                           if elapsed > 0 else 0},
-            processing_time_seconds=elapsed,
+                           "samples-per-sec": round(len(audio) / seg_time, 2)
+                           if seg_time > 0 else 0},
+            processing_time_seconds=seg_time,
             peak_memory_usage=peak_memory_gb(),
-            is_streaming_chunk=False, is_final_chunk=True)
+            is_streaming_chunk=streaming, is_final_chunk=final)
+
+    # ------------------------------------------------------------------
+    # continuous batching (server path, :375-382)
+    # ------------------------------------------------------------------
+
+    def supports_tts_continuous_batch(self, **kwargs) -> bool:
+        return True
+
+    def create_tts_batch_session(self, options=None):
+        from ...continuous import TTSBatchOptions
+        from .continuous_batching import Qwen3TTSBatchSession
+
+        return Qwen3TTSBatchSession(self, options or TTSBatchOptions())

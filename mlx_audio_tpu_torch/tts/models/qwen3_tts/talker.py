@@ -67,7 +67,7 @@ class Qwen3Layer(nn.Module):
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         """`mask`: additive, for a multi-token step (with or without a
         cache); a one-token step against a cache reads `offset + 1` valid
-        entries instead."""
+        entries, or the (B, S) bool `mask` of valid entries if given."""
         b, t, _ = x.shape
         a = self.self_attn
         h = self.input_layernorm(x)
@@ -79,7 +79,8 @@ class Qwen3Layer(nn.Module):
         if cache is not None:
             kv_update(cache, k, v, offset)
             if t == 1:
-                out = decode_attention(q, cache.k, cache.v, offset + 1)
+                out = decode_attention(q, cache.k, cache.v, offset + 1,
+                                       lengths_mask=mask)
             else:
                 out = attention(q, cache.k, cache.v, mask=mask)
         else:
@@ -103,26 +104,36 @@ class LayerStack(nn.Module):
                              persistent=False)
 
     def run(self, x: torch.Tensor, caches: Optional[KVCache], offset: int,
-            lengths_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Causal pass over x (B, T, D) at positions offset.., writing the
-        stacked cache (if any) at `offset`; returns the normed hidden.
+            lengths_mask: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Causal pass over x (B, T, D), writing the stacked cache (if any)
+        at column `offset`; returns the normed hidden. RoPE rotates at
+        offset.. unless `positions` (B, T) says otherwise (scan_layers,
+        :214-278; continuous batching writes every row at the shared
+        column `offset` and rotates each at its own length).
 
         With a cache and T > 1 the additive mask spans the whole buffer:
         keys after the query or past offset+T are masked, plus
-        `lengths_mask` (B, 1, 1, S) if given (the prefill's pad mask)."""
+        `lengths_mask` (B, 1, 1, S) if given (the prefill's pad mask). With
+        a cache and T = 1, `lengths_mask` is the (B, S) bool of each row's
+        valid columns, which then replaces the first offset+1."""
         b, t, _ = x.shape
-        positions = offset + torch.arange(t, device=x.device)[None, :]
+        if positions is None:
+            positions = offset + torch.arange(t, device=x.device)[None, :]
         cos, sin = rope_cos_sin(positions, self.inv_freq)
         mask = None
         if t > 1:
             s = caches.k.shape[2] if caches is not None else t
             pos_s = torch.arange(s, device=x.device)[None, None, None, :]
-            q_pos = positions[:, None, :, None]
+            q_pos = (offset + torch.arange(t, device=x.device))[
+                None, None, :, None]
             ok = (pos_s <= q_pos) & (pos_s < offset + t)
             mask = torch.zeros(ok.shape, device=x.device).masked_fill(
                 ~ok, float("-inf"))
             if lengths_mask is not None:
                 mask = mask + lengths_mask
+        elif caches is not None:
+            mask = lengths_mask
         for i, layer in enumerate(self.layers):
             cache = caches.layer(i) if caches is not None else None
             x = layer(x, cos, sin, cache, offset, mask)
@@ -230,11 +241,13 @@ class Talker(nn.Module):
                                             cfg.hidden_size)
 
     def forward(self, embeds: torch.Tensor, caches: Optional[KVCache],
-                offset: int, lengths_mask: Optional[torch.Tensor] = None
+                offset: int, lengths_mask: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (codec logits (B, T, V), hidden (B, T, D)) (talker_forward,
-        :321-346)."""
-        h = self.model.run(embeds, caches, offset, lengths_mask)
+        :321-346). `offset` is the cache write column; `positions` (B, T)
+        overrides the RoPE positions (LayerStack.run)."""
+        h = self.model.run(embeds, caches, offset, lengths_mask, positions)
         return self.codec_head(h), h
 
     def make_cache(self, batch: int, max_len: int, dtype,

@@ -99,7 +99,8 @@ def test_tiny_synth_without_jax():
 
 def test_tiny_qwen3_tts_generate_without_jax():
     """Qwen3-TTS on the CPU at a tiny size, quantized to 8 bits: seeded
-    weights, text ids -> audio, and no jax in sys.modules."""
+    weights, text ids -> audio, streamed, and one continuous-batching
+    session step, with no jax in sys.modules."""
     out = _run("""
         import sys
         import numpy as np
@@ -135,6 +136,21 @@ def test_tiny_qwen3_tts_generate_without_jax():
                               temperature=0.9, max_tokens=12, seed=0)
         assert r.samples == r.token_count * model.total_upsample > 0
         assert np.isfinite(r.audio).all()
+        chunks = list(model.generate(text_ids=np.arange(10, 30)[None],
+                                     temperature=0.9, max_tokens=12,
+                                     stream=True, streaming_interval=0.4))
+        assert chunks[-1].is_final_chunk
+        assert sum(c.samples for c in chunks) %% model.total_upsample == 0
+        from mlx_audio_tpu_torch.server_inference import InferenceRequest
+        from mlx_audio_tpu_torch.tts.continuous import TTSBatchOptions
+        assert model.supports_tts_continuous_batch()
+        sess = model.create_tts_batch_session(TTSBatchOptions(
+            max_batch_size=2, max_tokens=12, streaming_interval=0.4))
+        sess.submit(InferenceRequest(
+            endpoint_kind="tts", model_name="m", payload=None,
+            normalized_kwargs={"text_ids": np.arange(10, 30)[None]}))
+        sess.step()
+        assert sess.t > 0 and len(sess.codes[0]) > 0
         print("jax" in sys.modules, %s)
     """ % FORBIDDEN)
     assert out.strip() == "False []", out

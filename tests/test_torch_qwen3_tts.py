@@ -550,7 +550,7 @@ def test_init_params_sets_the_decoder_constants():
     assert np.isfinite(r.audio).all()
 
 
-@pytest.mark.parametrize("kw", [dict(stream=True), dict(ref_audio=np.zeros(8)),
+@pytest.mark.parametrize("kw", [dict(ref_audio=np.zeros(8)),
                                 dict(instruct="calm"),
                                 dict(text_ids=np.ones((2, 20), int))])
 def test_unported_paths_raise(kw):
