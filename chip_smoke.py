@@ -1,7 +1,8 @@
 """Drive the PyTorch port's main paths once on one GPU: Kokoro-82M text ->
-audio, and Qwen3-TTS text ids -> audio with an 8-bit quantized talker, one
+audio; Qwen3-TTS text ids -> audio with an 8-bit quantized talker, one
 request at a time (whole and streamed) and through the continuous-batching
-session and its broker.
+session and its broker; and Whisper large-v3-turbo speech -> text, through
+`generate`, its streaming session, `load_model` and the STT CLI.
 
     python3 chip_smoke.py
 
@@ -79,6 +80,26 @@ the CUDA toolkit. Phases, each of which raises on failure:
    audio of whole frames. Then three requests through the port's
    `InferenceBroker` and an adapter that routes TTS to the session as the
    server's does (mlx_audio_tpu/server.py:117-146).
+12. Whisper, the small config of tests/test_whisper.py at f32 from one
+   seeded weight set, CUDA against the CPU: the whole-file log-mel (cuFFT
+   against the CPU's FFT, within 1e-4) and greedy `generate()` on 6 s of
+   seeded noise with timestamps and word timestamps (tokens, segment and
+   word times equal).
+13. Whisper large-v3-turbo at full width (the JAX lane's dims, bench.py:
+   892-895; 807 M parameters drawn on the card from seed 0 in f32, then
+   cast to bf16): the bf16 encoder against f32 on one 30-s window (relative
+   Frobenius error under 2e-2), the encoder's time a window (CUDA events)
+   and its share of 989 TFLOP/s, the JAX lane's workload (600 s of
+   `randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
+   bench.py:898-905) cold then warm (wall, xRT, windows, segments, tokens,
+   decode steps, ms a step), and the streaming session over ten 1-s chunks
+   then `close()` (step latency p50 and max; a final event must arrive).
+   Neither K1 nor K2 may launch in phases 12-14.
+14. The STT entry points on the card: a small checkpoint written with HF
+   names and config (npz) and a 5-s WAV written with the port's audio_io;
+   `python -m mlx_audio_tpu_torch.stt.generate --format json` in a
+   subprocess must equal `mlx_audio_tpu_torch.load_model(...).generate()`
+   in process (text and segments).
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -1445,6 +1466,298 @@ def session_frame_linears(model, b: int):
             + (g1 - 1) * [(b, n, k) for n, k in cp])
 
 
+# ---------------------------------------------------------------------------
+# Whisper (phases 12-14)
+# ---------------------------------------------------------------------------
+
+# tests/test_whisper.py:14-17: the small config of the CUDA-vs-CPU check
+WHISPER_SMALL = dict(n_mels=80, n_audio_ctx=100, n_audio_state=32,
+                     n_audio_head=2, n_audio_layer=2, n_vocab=51865,
+                     n_text_ctx=64, n_text_state=32, n_text_head=2,
+                     n_text_layer=2)
+# large-v3-turbo, the JAX lane's dims (bench.py:892-895)
+WHISPER_TURBO = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280,
+                     n_audio_head=20, n_audio_layer=32, n_vocab=51866,
+                     n_text_ctx=448, n_text_state=1280, n_text_head=20,
+                     n_text_layer=4)
+# the JAX lane's workload (bench.py:898-905): 600 s of randn * 0.1, seed 0
+WHISPER_SECONDS = 600
+WHISPER_KW = dict(language="en", temperature=0.0,
+                  compression_ratio_threshold=None, logprob_threshold=None,
+                  no_speech_threshold=None, return_timestamps=True,
+                  sample_len=100)
+# CUDA against the CPU at f32: log-mel (cuFFT against the CPU's FFT, f64)
+MEL_ATOL = 1e-4
+# bf16 encoder against f32 on one 30-s window, relative Frobenius error
+WHISPER_BF16_REL = 2e-2
+WHISPER_HF_NAMES = (
+    (".blocks.", ".layers."),
+    (".cross_attn.query.", ".encoder_attn.q_proj."),
+    (".cross_attn.key.", ".encoder_attn.k_proj."),
+    (".cross_attn.value.", ".encoder_attn.v_proj."),
+    (".cross_attn.out.", ".encoder_attn.out_proj."),
+    (".cross_attn_ln.", ".encoder_attn_layer_norm."),
+    (".attn.query.", ".self_attn.q_proj."), (".attn.key.", ".self_attn.k_proj."),
+    (".attn.value.", ".self_attn.v_proj."), (".attn.out.", ".self_attn.out_proj."),
+    (".attn_ln.", ".self_attn_layer_norm."), (".mlp_ln.", ".final_layer_norm."),
+    (".mlp1.", ".fc1."), (".mlp2.", ".fc2."),
+    ("encoder.ln_post.", "encoder.layer_norm."),
+    ("decoder.ln.", "decoder.layer_norm."),
+    ("decoder.token_embedding.", "decoder.embed_tokens."),
+    ("decoder.positional_embedding", "decoder.embed_positions.weight"))
+
+
+def _whisper(dims: dict, device: str, like=None):
+    """A Whisper model on `device`: seeded (seed 0, drawn on the CPU) or
+    with the parameters of `like`."""
+    from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+
+    model = Model(ModelDimensions(**dims), device=device)
+    if like is None:
+        return model.init_params(seed=0)
+    model.load_state_dict(like.state_dict())
+    return model
+
+
+def _segments_equal(a, b, what: str) -> None:
+    """Tokens, texts, seeks, segment times and word times equal."""
+    if a.text != b.text or len(a.segments) != len(b.segments):
+        raise AssertionError(f"{what}: texts or segment counts differ")
+    for x, y in zip(a.segments, b.segments):
+        for k in ("seek", "tokens", "text", "start", "end"):
+            if x[k] != y[k]:
+                raise AssertionError(f"{what}: segment {k} {x[k]!r} != "
+                                     f"{y[k]!r}")
+        wx = [(w["word"], w["start"], w["end"]) for w in x.get("words", [])]
+        wy = [(w["word"], w["start"], w["end"]) for w in y.get("words", [])]
+        if wx != wy:
+            raise AssertionError(f"{what}: word times differ: {wx} != {wy}")
+
+
+def phase_whisper_reference() -> None:
+    """The small config at f32 from one seeded weight set, CUDA against the
+    CPU: the whole-file log-mel, then greedy generate() on 6 s of seeded
+    noise with timestamps and word timestamps."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.whisper.audio import (
+        log_mel_spectrogram)
+
+    cpu = _whisper(WHISPER_SMALL, "cpu")
+    gpu = _whisper(WHISPER_SMALL, "cuda", like=cpu)
+    audio = (np.random.RandomState(0).randn(16000 * 6) * 0.05).astype(
+        np.float32)
+    mel_c = log_mel_spectrogram(audio, 80, padding=cpu.window_samples)
+    mel_g = log_mel_spectrogram(audio, 80, padding=cpu.window_samples,
+                                device="cuda")
+    mel_err = float((mel_g.cpu() - mel_c).abs().max())
+    if not mel_err <= MEL_ATOL:
+        raise AssertionError(f"log-mel CUDA vs CPU {mel_err:.3e} > {MEL_ATOL}")
+    kw = dict(language="en", temperature=0.0, word_timestamps=True)
+    want = cpu.generate(audio, **kw)
+    got = gpu.generate(audio, **kw)
+    _segments_equal(got, want, "small Whisper CUDA vs CPU")
+    n_words = sum(len(s["words"]) for s in got.segments)
+    if not got.segments or not n_words:
+        raise AssertionError("small Whisper: no segments or no words")
+    log(f"[whisper-ref] small config f32, 6 s: log-mel CUDA vs CPU "
+        f"{mel_err:.2e} abs (tol {MEL_ATOL}); {len(got.segments)} segments, "
+        f"{sum(len(s['tokens']) for s in got.segments)} tokens, {n_words} "
+        f"words: tokens, segment and word times equal; "
+        f"{gpu.last_run['windows']} windows, {gpu.last_run['decode_steps']} "
+        f"decode steps on the card")
+
+
+def whisper_encoder_flops(d: dict) -> float:
+    """Operations (2 per multiply-add) of one window through the encoder:
+    the two stem convs, then per layer q, k, v, out, the two attention
+    products and the MLP."""
+    t, c, w = d["n_audio_ctx"], d["n_audio_state"], 2 * d["n_audio_ctx"]
+    stem = 2 * w * d["n_mels"] * c * 3 + 2 * t * c * c * 3
+    layer = 4 * 2 * t * c * c + 2 * 2 * t * t * c + 2 * 2 * t * c * 4 * c
+    return stem + d["n_audio_layer"] * layer
+
+
+def build_whisper_turbo():
+    """(f32, bf16) large-v3-turbo models on the card with one weight set:
+    drawn there in f32 from seed 0, the bf16 copy cast from it."""
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+
+    f32 = Model(ModelDimensions(**WHISPER_TURBO), device="cuda").init_params(
+        seed=0, on_device=True)
+    return f32, _whisper(WHISPER_TURBO, "cuda", like=f32).astype(
+        torch.bfloat16)
+
+
+def phase_whisper_turbo(card: str) -> dict:
+    """Whisper large-v3-turbo at full width on the card: the bf16 encoder
+    against f32 on one window, the encoder's time per window, the JAX
+    lane's 600-s transcription cold then warm, and the streaming session
+    over ten 1-s chunks."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.whisper.audio import pad_or_trim
+
+    t0 = time.perf_counter()
+    f32, model = build_whisper_turbo()
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    log(f"[whisper] large-v3-turbo dims (32 x d1280 encoder, 4-layer "
+        f"decoder, 128 mels): {n_params / 1e6:.1f} M parameters drawn on the "
+        f"card from seed 0, cast to bf16 ({time.perf_counter() - t0:.2f} s)")
+    audio = (np.random.RandomState(0).randn(WHISPER_SECONDS * 16000) * 0.1
+             ).astype(np.float32)
+
+    # one 30-s window, bf16 against f32
+    mel, _ = model._prepare_audio(audio[:model.window_samples], padding=0)
+    win = pad_or_trim(mel, model.window_frames)[None]
+    with torch.inference_mode():
+        ref = f32.embed_audio(win).float()
+        got = model.embed_audio(win).float()
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    if not rel < WHISPER_BF16_REL:
+        raise AssertionError(f"bf16 encoder vs f32: {rel:.3e} >= "
+                             f"{WHISPER_BF16_REL}")
+    del f32, ref
+    torch.cuda.empty_cache()
+    enc_ms = _time_ms(lambda: model.embed_audio(win), 10)
+    flops = whisper_encoder_flops(WHISPER_TURBO)
+    bound_ms = flops / PEAK_BF16 * 1e3
+    log(f"[whisper] bf16 encoder vs f32 on one 30-s window: relative "
+        f"Frobenius {rel:.3e} (limit {WHISPER_BF16_REL}); encoder "
+        f"{enc_ms:.3f} ms a window (CUDA events, median of 10), "
+        f"{flops / 1e12:.3f} TFLOP: {flops / enc_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound_ms / enc_ms:.1f}% of 989 TFLOP/s ({card})")
+
+    out = {}
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = model.generate(audio, **WHISPER_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        run = dict(model.last_run)
+        n_tok = sum(len(s["tokens"]) for s in res.segments)
+        if not res.segments or not all(
+                np.isfinite([s["start"], s["end"], s["avg_logprob"]]).all()
+                for s in res.segments):
+            raise AssertionError("turbo transcription: no segments, or "
+                                 "non-finite times or log-probabilities")
+        if run["decodes"] != run["windows"]:
+            raise AssertionError(f"{run}: a fallback ran with every "
+                                 f"threshold off")
+        step_ms = (wall * 1e3 - run["windows"] * enc_ms) / run["decode_steps"]
+        log(f"[whisper] {label}: {WHISPER_SECONDS} s in {wall:.3f} s, xRT "
+            f"{WHISPER_SECONDS / wall:.2f}; {run['windows']} windows, "
+            f"{len(res.segments)} segments, {n_tok} tokens; "
+            f"{run['decode_steps']} decode steps, {step_ms:.3f} ms a step "
+            f"(wall less the windows' encoder time, per step); encoder "
+            f"{run['windows'] * enc_ms / 1e3:.3f} s of it ({card})")
+        out[label] = (wall, run, res)
+    if out["warm"][2].text != out["cold"][2].text:
+        raise AssertionError("turbo: warm transcription differs from cold")
+
+    # the streaming session: ten 1-s chunks, then close()
+    sess = model.create_streaming_session(language="en")
+    lat, events = [], []
+    chunks = [audio[i * 16000:(i + 1) * 16000] for i in range(10)]
+    for chunk in chunks + [None]:
+        if chunk is None:
+            sess.close()
+        else:
+            sess.feed(chunk)
+        while True:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            evs = sess.step()
+            lat.append(time.perf_counter() - t1)
+            events += evs
+            if chunk is not None or sess.done:
+                break
+    lat_ms = sorted(1e3 * v for v in lat)
+    if not events or events[-1].kind != "final":
+        raise AssertionError(f"streaming session: no final event "
+                             f"({[e.kind for e in events]})")
+    log(f"[whisper] streaming session, ten 1-s chunks then close(): "
+        f"{len(lat)} steps, p50 {lat_ms[len(lat_ms) // 2]:.2f} ms, max "
+        f"{lat_ms[-1]:.2f} ms a step; {len(events)} events, the last "
+        f"'final' ({len(events[-1].text)} chars) ({card})")
+    del model
+    torch.cuda.empty_cache()
+    return {"enc_ms": enc_ms, "rel": rel, "warm": out["warm"][:2]}
+
+
+def write_whisper_checkpoint(model, path: Path) -> None:
+    """`model` as an HF-style checkpoint directory: config.json in HF keys
+    and the weights under HF names in one npz (no safetensors needed)."""
+    import numpy as np
+
+    d = model.dims
+    state = {}
+    for k, v in model.state_dict().items():
+        for a, b in WHISPER_HF_NAMES:
+            k = k.replace(a, b)
+        state["model." + k] = v.float().cpu().numpy()
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez(path / "weights.npz", **state)
+    (path / "config.json").write_text(json.dumps(dict(
+        model_type="whisper", d_model=d.n_audio_state,
+        encoder_layers=d.n_audio_layer, decoder_layers=d.n_text_layer,
+        encoder_attention_heads=d.n_audio_head,
+        decoder_attention_heads=d.n_text_head, num_mel_bins=d.n_mels,
+        vocab_size=d.n_vocab, max_source_positions=d.n_audio_ctx,
+        max_target_positions=d.n_text_ctx)))
+
+
+def phase_whisper_cli(tmp: Path) -> None:
+    """The normal entry points on the card: a small checkpoint (HF names,
+    npz) and a 5-s WAV written with the port's audio_io, the STT CLI in a
+    subprocess, and its JSON against load_model(...).generate(...) here."""
+    import numpy as np
+
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch import audio_io
+
+    ckpt, wav, out = tmp / "whisper-small", tmp / "speech.wav", tmp / "out"
+    write_whisper_checkpoint(_whisper(WHISPER_SMALL, "cpu"), ckpt)
+    audio_io.write(wav, (np.random.RandomState(5).randn(16000 * 5) * 0.05
+                         ).astype(np.float32), 16000)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
+         str(ckpt), "--audio", str(wav), "--format", "json", "--output-path",
+         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"STT CLI failed: {proc.stderr[-2000:]}")
+    got = json.loads((out / "transcription.json").read_text())
+    model = mlx_audio_tpu_torch.load_model(ckpt)
+    if model.device.type != "cuda":
+        raise AssertionError("load_model did not load onto the card")
+    want = model.generate(str(wav), temperature=0.0)
+    want_segs = json.loads(json.dumps(want.segments))
+    if got["text"] != want.text or got["language"] != want.language:
+        raise AssertionError("STT CLI text differs from load_model(...)")
+    if len(got["segments"]) != len(want_segs) or not want_segs:
+        raise AssertionError("STT CLI segment count differs")
+    for a, b in zip(got["segments"], want_segs):
+        for k in b:
+            same = (abs(a[k] - b[k]) <= 1e-6 if isinstance(b[k], float)
+                    else a[k] == b[k])
+            if not same:
+                raise AssertionError(f"STT CLI segment {k}: {a[k]!r} != "
+                                     f"{b[k]!r}")
+    log(f"[whisper-cli] python -m mlx_audio_tpu_torch.stt.generate --format "
+        f"json on a small HF-named npz checkpoint and a 5-s WAV, on the card "
+        f"({cli_s:.2f} s with its start-up): language {got['language']}, "
+        f"{len(got['segments'])} segments, equal to "
+        f"mlx_audio_tpu_torch.load_model(...).generate(...) in process")
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1466,6 +1779,17 @@ def main() -> int:
     phase_qwen3_streaming_reference()
     k2_launches += phase_qwen3_stream(model, card, recorder)
     k2_launches += phase_qwen3_session(model, card, recorder)
+    # Whisper: dense bf16 products, neither K1 nor K2 on its path
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    phase_whisper_reference()
+    phase_whisper_turbo(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_whisper_cli(Path(tmp))
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the Whisper phases launched K1 or K2")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     k2_path_abs = phase_qmm_path(set(recorder.calls))

@@ -1,19 +1,31 @@
-"""DSP helpers for the ISTFTNet heads (subset of mlx_audio_tpu/dsp.py).
+"""DSP helpers (subset of mlx_audio_tpu/dsp.py).
 
-Framing, the small real DFT as a basis matmul, its inverse, overlap-add and
-the window envelope: what Kokoro's harmonic-source STFT and final inverse
-STFT use. The DFT keeps the JAX package's basis-matmul form (not
-`torch.fft`) so the harmonic spectrum's phase, fed raw into the noise
-convs, sees the same rounding near the arctan2 branch cut.
+* The ISTFTNet heads' pieces: framing, the small real DFT as a basis
+  matmul, its inverse, overlap-add and the window envelope (what Kokoro's
+  harmonic-source STFT and final inverse STFT use). That DFT keeps the JAX
+  package's basis-matmul form (not `torch.fft`) so the harmonic spectrum's
+  phase, fed raw into the noise convs, sees the same rounding near the
+  arctan2 branch cut.
+* The shared log-mel front end of Whisper-style STT (`mel_filters`,
+  `log_mel_spectrogram`, `STR_TO_WINDOW_FN`). Its DFT is `torch.fft.rfft`
+  where the JAX package multiplies by a DFT basis at `Precision.HIGHEST`
+  (a TPU workaround). The windowed frames, the DFT, the power and the mel
+  product run in float64 and the mel is rounded to float32 before the log:
+  in f32 both forms err by up to about 7e-5 of log-mel on low-power bins,
+  in different directions, so an f32 rfft would stray 1.2e-4 from the JAX
+  package; in f64 the port is within the JAX package's own error. No TF32
+  applies to f64.
 
-Windows, DFT bases and envelopes are built on the host in float64, cast to
-float32 and cached, exactly as in the JAX package.
+Windows, DFT bases, filterbanks and envelopes are built on the host in
+float64 (float32 for a filterbank's non-`precise` build), cast to float32
+and cached, exactly as in the JAX package.
 """
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -40,6 +52,38 @@ def _window_np(kind: str, size: int, periodic: bool) -> np.ndarray:
     else:
         raise ValueError(f"Unknown window kind: {kind}")
     return w.astype(np.float32)
+
+
+def hanning(size: int, periodic: bool = False) -> torch.Tensor:
+    """Hann window (dsp.hanning)."""
+    return torch.from_numpy(_window_np("hann", size, periodic).copy())
+
+
+def hamming(size: int, periodic: bool = False) -> torch.Tensor:
+    return torch.from_numpy(_window_np("hamming", size, periodic).copy())
+
+
+def blackman(size: int, periodic: bool = False) -> torch.Tensor:
+    return torch.from_numpy(_window_np("blackman", size, periodic).copy())
+
+
+def bartlett(size: int, periodic: bool = False) -> torch.Tensor:
+    return torch.from_numpy(_window_np("bartlett", size, periodic).copy())
+
+
+def povey(size: int, periodic: bool = False) -> torch.Tensor:
+    """Kaldi 'povey' window (hann**0.85)."""
+    return torch.from_numpy(_window_np("povey", size, periodic).copy())
+
+
+STR_TO_WINDOW_FN = {
+    "hann": hanning,
+    "hanning": hanning,
+    "hamming": hamming,
+    "blackman": blackman,
+    "bartlett": bartlett,
+    "povey": povey,
+}
 
 
 def frame_signal(x: torch.Tensor, frame_length: int,
@@ -162,3 +206,158 @@ def _window_envelope_np(window_key, num_frames: int, hop_length: int,
            + np.arange(win_length)[None, :])
     np.add.at(env, idx.ravel(), np.tile(wn, num_frames))
     return env.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Mel filterbank (dsp.py:515-608)
+# ---------------------------------------------------------------------------
+
+
+def _hz_to_mel_np(freq, mel_scale: str):
+    freq = np.asarray(freq, dtype=np.float64)
+    if mel_scale == "htk":
+        return 2595.0 * np.log10(1.0 + freq / 700.0)
+    # slaney
+    f_sp = 200.0 / 3
+    mels = freq / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = math.log(6.4) / 27.0
+    with np.errstate(divide="ignore"):
+        return np.where(
+            freq >= min_log_hz, min_log_mel + np.log(freq / min_log_hz) / logstep, mels
+        )
+
+
+def _mel_to_hz_np(mels, mel_scale: str):
+    mels = np.asarray(mels, dtype=np.float64)
+    if mel_scale == "htk":
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_sp = 200.0 / 3
+    freqs = f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = math.log(6.4) / 27.0
+    return np.where(
+        mels >= min_log_mel, min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs
+    )
+
+
+@lru_cache(maxsize=None)
+def _mel_filters_np(
+    sample_rate: int,
+    n_fft: int,
+    n_mels: int,
+    f_min: float,
+    f_max: Optional[float],
+    norm: Optional[str],
+    mel_scale: str,
+    precise: bool,
+) -> np.ndarray:
+    """The (n_mels, n_fft//2+1) triangular filterbank, built on the host in
+    float32, or in float64 when `precise` (the JAX package's two builds)."""
+    f_max = f_max or sample_rate / 2
+    build_dtype = np.float64 if precise else np.float32
+
+    n_freqs = n_fft // 2 + 1
+    all_freqs = np.linspace(0, sample_rate // 2, n_freqs, dtype=build_dtype)
+
+    m_min = float(_hz_to_mel_np(f_min, mel_scale))
+    m_max = float(_hz_to_mel_np(f_max, mel_scale))
+    m_pts = np.linspace(m_min, m_max, n_mels + 2, dtype=build_dtype)
+    f_pts = _mel_to_hz_np(m_pts, mel_scale).astype(build_dtype)
+
+    f_diff = f_pts[1:] - f_pts[:-1]
+    slopes = f_pts[None, :] - all_freqs[:, None]
+
+    down_slopes = (-slopes[:, :-2]) / f_diff[:-1]
+    up_slopes = slopes[:, 2:] / f_diff[1:]
+    fb = np.maximum(0.0, np.minimum(down_slopes, up_slopes)).astype(build_dtype)
+
+    if norm == "slaney":
+        enorm = 2.0 / (f_pts[2 : n_mels + 2] - f_pts[:n_mels])
+        fb = fb * enorm[None, :].astype(build_dtype)
+
+    return np.moveaxis(fb, 0, 1).astype(np.float32)
+
+
+def mel_filters(
+    sample_rate: int,
+    n_fft: int,
+    n_mels: int,
+    f_min: float = 0,
+    f_max: Optional[float] = None,
+    norm: Optional[str] = None,
+    mel_scale: str = "htk",
+    precise: bool = False,
+) -> torch.Tensor:
+    """Triangular mel filterbank, shape (n_mels, n_fft // 2 + 1), f32 on the
+    CPU (dsp.mel_filters, including the float64 `precise` build)."""
+    return torch.from_numpy(_mel_filters_np(
+        sample_rate, n_fft, n_mels, float(f_min), f_max, norm, mel_scale,
+        precise).copy())
+
+
+@lru_cache(maxsize=None)
+def _filters_on(device: torch.device, sample_rate: int, n_fft: int,
+                n_mels: int, norm: Optional[str], mel_scale: str,
+                precise: bool) -> torch.Tensor:
+    """The filterbank, transposed to (n_fft//2+1, n_mels), on `device`
+    (copied there once)."""
+    return mel_filters(sample_rate, n_fft, n_mels, 0.0, None, norm, mel_scale,
+                       precise).T.contiguous().to(device)
+
+
+# ---------------------------------------------------------------------------
+# Log-mel spectrogram, the shared STT feature front end (dsp.py:631-705)
+# ---------------------------------------------------------------------------
+
+
+def log_mel_spectrogram(
+    audio,
+    n_fft: int = 400,
+    hop_length: int = 160,
+    n_mels: int = 80,
+    sample_rate: int = 16000,
+    padding: int = 0,
+    window: Union[str, torch.Tensor] = "hann",
+    periodic_window: bool = True,
+    log_base: str = "log10_whisper",
+    mel_norm: Optional[str] = None,
+    mel_scale: str = "htk",
+    precise: bool = False,
+    log_floor_mode: str = "clip",
+    device=None,
+) -> torch.Tensor:
+    """Log-mel spectrogram: (..., T) -> (..., frames, n_mels), f32.
+
+    Pad `padding` zeros at the end, reflect-pad n_fft//2 on both sides,
+    frame, window, |rfft|^2, mel (these four in f64), log. `log_base`: "log10_whisper" (clamp
+    at 1e-10, log10, floor at the maximum of the WHOLE array less 8, then
+    (x + 4) / 4), else natural log with `log_floor_mode` "clip"
+    (log(max(mel, 1e-5))) or "log" (log(mel + 1e-6)). Runs on `device`
+    (default: the audio's, the CPU for numpy input); the defaults
+    reproduce Whisper's front end."""
+    audio = torch.as_tensor(audio, dtype=torch.float32, device=device)
+    if isinstance(window, str):
+        fn = STR_TO_WINDOW_FN[window.lower()]
+        w = fn(n_fft + 1)[:-1] if periodic_window else fn(n_fft)
+    else:
+        w = torch.as_tensor(window, dtype=torch.float32)
+    w = w.to(audio.device, torch.float64)
+    if padding > 0:
+        audio = torch.nn.functional.pad(audio, (0, padding))
+    audio = _pad_center(audio, n_fft // 2, "reflect")
+    frames = frame_signal(audio, n_fft, hop_length).double() * w
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    power = spec.real ** 2 + spec.imag ** 2
+    fb = _filters_on(audio.device, sample_rate, n_fft, n_mels, mel_norm,
+                     mel_scale, precise)
+    mel = (power @ fb.double()).float()
+    if log_base == "log10_whisper":
+        logspec = torch.log10(torch.clamp(mel, min=1e-10))
+        logspec = torch.maximum(logspec, logspec.max() - 8.0)
+        return (logspec + 4.0) / 4.0
+    if log_floor_mode == "clip":
+        return torch.log(torch.clamp(mel, min=1e-5))
+    return torch.log(mel + 1e-6)

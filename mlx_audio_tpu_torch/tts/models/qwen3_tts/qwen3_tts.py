@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ....model import TorchModel, check_device
+from ....ops.host_flags import FinishedFlags
 from ....ops.kvcache import KVCache
 from ....ops.sampling import apply_repetition_penalty, sample
 from ..base import GenerationResult, format_duration, peak_memory_gb
@@ -141,30 +142,6 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return [h.numpy() for h in self.host]
-
-
-class _FinishedFlags:
-    """The finished flags of a chunk's steps, copied to the host without
-    blocking (pinned memory and one event per step on a GPU), so that the
-    loop can test a step's flag without a synchronous read."""
-
-    def __init__(self, finished: torch.Tensor):
-        cuda = finished.device.type == "cuda"
-        self.host = torch.empty((CHUNK_TOKENS,) + tuple(finished.shape),
-                                dtype=torch.bool, pin_memory=cuda)
-        self.events = ([torch.cuda.Event() for _ in range(CHUNK_TOKENS)]
-                       if cuda else None)
-
-    def record(self, i: int, finished: torch.Tensor) -> None:
-        self.host[i].copy_(finished, non_blocking=True)
-        if self.events is not None:
-            self.events[i].record()
-
-    def read(self, i: int) -> torch.Tensor:
-        """Step i's flags (B,), once the device has written them."""
-        if self.events is not None:
-            self.events[i].synchronize()
-        return self.host[i]
 
 
 class Model(TorchModel):
@@ -412,7 +389,7 @@ class Model(TorchModel):
                         history=history,
                         trailing_idx=c.trailing_idx + 1), codes
 
-    def _ar_steps(self, carry: GenCarry, n_steps: int, flags: "_FinishedFlags",
+    def _ar_steps(self, carry: GenCarry, n_steps: int, flags: FinishedFlags,
                   trailing, tl, pad_embed, sampler, suppress,
                   repetition_penalty):
         """Up to n_steps AR steps; before step i (i > STEPS_AFTER_EOS) the
@@ -446,6 +423,12 @@ class Model(TorchModel):
         input_embeds = torch.nn.functional.pad(input_embeds,
                                                (0, 0, 0, pb - plen))
         tl = trailing.shape[1]
+        if pb + max_tokens > MAX_CACHE_LEN:
+            raise ValueError(
+                f"max_tokens={max_tokens}: with a {pb}-position prompt "
+                f"bucket it does not fit the talker's {MAX_CACHE_LEN}-column "
+                f"KV cache (at most {MAX_CACHE_LEN - pb}); the JAX package "
+                f"would clamp the writes and corrupt the late audio")
         cache_len = min(_bucket(pb + max_tokens + CHUNK_TOKENS,
                                 CACHE_BUCKETS), MAX_CACHE_LEN)
         logits0, hidden0, caches = self._prefill(input_embeds, plen,
@@ -501,11 +484,15 @@ class Model(TorchModel):
             carry, first_codes, trailing, tl, pad_embed, pb = self._begin(
                 text, text_ids, language, speaker, max_tokens, sampler,
                 suppress)
-            gen_codes = [first_codes[0].cpu().numpy()[None]]
             finished = bool(carry.finished.all())
+            # a first frame whose code 0 is EOS ends the request with no
+            # audio (EOS lies past the codec's codebooks), as the stream
+            # and the session do
+            gen_codes = ([] if finished
+                         else [first_codes[0].cpu().numpy()[None]])
             total_tokens = 0 if finished else 1
             steps = 0
-            flags = _FinishedFlags(carry.finished)
+            flags = FinishedFlags(CHUNK_TOKENS, carry.finished)
             while not finished and total_tokens < max_tokens:
                 chunk = FIRST_CHUNK if total_tokens <= 1 else CHUNK_TOKENS
                 chunk = min(chunk, max_tokens - total_tokens)
@@ -524,10 +511,14 @@ class Model(TorchModel):
                     finished = True
                 gen_codes.append(codes_np[:n_new])
                 total_tokens += n_new
-            codes = np.concatenate(gen_codes, axis=0).T[None]   # (1, G, T)
-            audio = self.speech_tokenizer.decoder(
-                torch.as_tensor(codes, device=self.device))[0]
-            audio = audio.float().cpu().numpy()
+            if gen_codes:
+                codes = np.concatenate(gen_codes, axis=0).T[None]  # (1, G, T)
+                audio = self.speech_tokenizer.decoder(
+                    torch.as_tensor(codes, device=self.device))[0]
+                audio = audio.float().cpu().numpy()
+            else:
+                codes = np.zeros((1, self.tcfg.num_code_groups, 0), np.int64)
+                audio = np.zeros((0,), np.float32)
         self.last_run = {
             "prompt_bucket": pb, "step0": 1, "decode_steps": steps,
             "text_projection_calls": self._text_projection_calls - tp_before}
@@ -568,7 +559,7 @@ class Model(TorchModel):
                 "steps": 0, "blocks": 0}
         inflight = []                  # [(_HostCopy, frames it can hold)]
         seg = {"start": t_seg, "idx": 0}
-        flags = _FinishedFlags(carry.finished)
+        flags = FinishedFlags(CHUNK_TOKENS, carry.finished)
 
         def dispatch(sc, n_steps, final):
             """Enqueue one chunk; yields the results of earlier chunks

@@ -1,6 +1,7 @@
-"""Checkpoint helpers (subset of mlx_audio_tpu/utils.py): flat/nested
-parameter names, config.json, weight files read with numpy, and on-the-fly
-quantization of a model's linears."""
+"""Checkpoint and audio helpers (subset of mlx_audio_tpu/utils.py): flat/
+nested parameter names, config.json, weight files read with numpy,
+on-the-fly quantization of a model's linears, and audio files read into
+numpy (mono mix, polyphase resample)."""
 
 from __future__ import annotations
 
@@ -116,3 +117,34 @@ def apply_quantization(model, config: dict,
                 q.bias.copy_(m.bias)
             replace_module(model, name, q)
     return model
+
+
+def resample_audio(audio: np.ndarray, orig_sr: int,
+                   target_sr: int) -> np.ndarray:
+    """Polyphase resampling (scipy `resample_poly`, kaiser window), as
+    mlx_audio_tpu/utils.py:541-556."""
+    if orig_sr == target_sr:
+        return np.asarray(audio)
+    from math import gcd
+
+    from scipy.signal import resample_poly
+
+    g = gcd(int(orig_sr), int(target_sr))
+    up, down = target_sr // g, orig_sr // g
+    return resample_poly(np.asarray(audio, dtype=np.float64), up, down).astype(
+        np.float32)
+
+
+def load_audio(path: Union[str, Path],
+               sample_rate: Optional[int] = None) -> np.ndarray:
+    """Read an audio file, mix it to mono and resample it to `sample_rate`
+    -> float32 numpy (mlx_audio_tpu/utils.py:555-579, which returns a jax
+    array; its segment and loudness options are not ported)."""
+    from . import audio_io
+
+    audio, sr = audio_io.read(path, dtype="float32")
+    if audio.ndim > 1:
+        audio = audio.mean(axis=1)
+    if sample_rate is not None and sr != sample_rate:
+        audio = resample_audio(audio, sr, sample_rate)
+    return np.asarray(audio, dtype=np.float32)

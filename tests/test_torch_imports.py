@@ -21,13 +21,14 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the port's sources: its package, chip_smoke.py and its profiling tool
+# the port's sources: its package, chip_smoke.py and its profiling tools
 PORT_SOURCES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "mlx_audio_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(REPO, "chip_smoke.py"),
-       os.path.join(REPO, "tools", "profile_torch_qwen3_tts.py")])
+       os.path.join(REPO, "tools", "profile_torch_qwen3_tts.py"),
+       os.path.join(REPO, "tools", "profile_torch_whisper.py")])
 # modules of the port's fresh-interpreter runs that must stay unimported
 FORBIDDEN = """sorted(m for m in sys.modules if m in ("jax", "mlx_audio_tpu")
                 or m.startswith(("jax.", "mlx_audio_tpu.")))"""
@@ -156,6 +157,62 @@ def test_tiny_qwen3_tts_generate_without_jax():
     assert out.strip() == "False []", out
 
 
+def test_tiny_whisper_generate_and_cli_without_jax(tmp_path):
+    """Whisper on the CPU at a tiny size from seeded weights: a WAV through
+    `generate` with word timestamps, the streaming session, and a
+    checkpoint directory (HF names, npz, written by chip_smoke.py's
+    writer) through the STT CLI in a second fresh interpreter, with no jax
+    in either's sys.modules."""
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import numpy as np
+        from mlx_audio_tpu_torch import audio_io
+        from mlx_audio_tpu_torch.stt.models.whisper import Model, ModelDimensions
+
+        dims = ModelDimensions(n_mels=80, n_audio_ctx=100, n_audio_state=32,
+                               n_audio_head=2, n_audio_layer=2, n_vocab=51865,
+                               n_text_ctx=64, n_text_state=32, n_text_head=2,
+                               n_text_layer=2)
+        model = Model(dims, device="cpu").init_params(seed=0)
+        tmp = Path(%r)
+        audio_io.write(tmp / "a.wav", (np.random.RandomState(0).randn(48000)
+                                       * 0.05).astype(np.float32), 16000)
+        out = model.generate(str(tmp / "a.wav"), language="en",
+                             temperature=0.0, word_timestamps=True)
+        assert out.segments and all("words" in s for s in out.segments)
+        streamed = list(model.generate_streaming(str(tmp / "a.wav")))
+        assert streamed
+        from chip_smoke import write_whisper_checkpoint
+
+        write_whisper_checkpoint(model, tmp / "whisper-tiny")
+        (tmp / "want.json").write_text(json.dumps(model.generate(
+            str(tmp / "a.wav"), language="en", temperature=0.0).text))
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+    # the CLI loads on the card by default: here it is pointed at the CPU
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import mlx_audio_tpu_torch.stt.utils as stt_utils
+        from mlx_audio_tpu_torch.stt import generate
+
+        real = stt_utils.load_model
+        stt_utils.load_model = lambda p: real(p, device="cpu")
+        tmp = Path(%r)
+        generate.main(["--model", str(tmp / "whisper-tiny"), "--audio",
+                       str(tmp / "a.wav"), "--format", "json",
+                       "--output-path", str(tmp / "out"), "--language", "en",
+                       "--no-verbose"])
+        got = json.loads((tmp / "out" / "transcription.json").read_text())
+        assert got["text"] == json.loads((tmp / "want.json").read_text())
+        assert got["segments"]
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
     kernels are built only when first launched."""
@@ -207,6 +264,8 @@ def test_g2p_copy_matches_the_jax_package(text):
 
 def _entry_points():
     import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.stt import utils as stt_utils
+    from mlx_audio_tpu_torch.stt.models import whisper
     from mlx_audio_tpu_torch.tts import utils
     from mlx_audio_tpu_torch.tts.models import kokoro, qwen3_tts
 
@@ -215,15 +274,21 @@ def _entry_points():
                          lambda p: kokoro.Model(kokoro.ModelConfig())),
         "qwen3_tts.Model": (qwen3_tts.Model.__init__,
                             lambda p: qwen3_tts.Model(qwen3_tts.ModelConfig())),
+        "whisper.Model": (whisper.Model.__init__,
+                          lambda p: whisper.Model(whisper.ModelDimensions())),
         "tts.utils.load_model": (utils.load_model,
                                  lambda p: utils.load_model(p)),
+        "stt.utils.load_model": (stt_utils.load_model,
+                                 lambda p: stt_utils.load_model(p)),
         "mlx_audio_tpu_torch.load_model": (
-            utils.load_model, lambda p: mlx_audio_tpu_torch.load_model(p)),
+            mlx_audio_tpu_torch.load_model,
+            lambda p: mlx_audio_tpu_torch.load_model(p)),
     }
 
 
 @pytest.mark.parametrize("name", ["kokoro.Model", "qwen3_tts.Model",
-                                  "tts.utils.load_model",
+                                  "whisper.Model", "tts.utils.load_model",
+                                  "stt.utils.load_model",
                                   "mlx_audio_tpu_torch.load_model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):

@@ -470,6 +470,63 @@ def test_generate_stops_after_eos(monkeypatch, eos_step):
     assert r.samples == eos_step * pm.total_upsample
 
 
+def test_first_frame_eos_ends_the_request_with_no_audio(monkeypatch):
+    """EOS sampled at step 0 (from the prefill logits): the whole request
+    ends with a zero-length final result and decodes nothing (EOS lies past
+    the codec's codebooks: an index error on the CPU, a device-side assert
+    on the card), as the stream and the session do; last_run is filled."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import qwen3_tts as qmod
+
+    pm = _port("tiny-q8")
+    eos, vocab = pm.tcfg.codec_eos_token_id, pm.tcfg.vocab_size
+    plain_sample = qmod.sample
+
+    def sample(logits, *args, **kw):
+        tok = plain_sample(logits, *args, **kw)
+        return torch.full_like(tok, eos) if logits.shape[-1] == vocab else tok
+
+    monkeypatch.setattr(qmod, "sample", sample)
+    decoded = []
+    hook = pm.speech_tokenizer.decoder.register_forward_pre_hook(
+        lambda mod, args: decoded.append(1))
+    try:
+        (r,) = list(pm.generate(text_ids=np.arange(10, 30)[None],
+                                temperature=0.9, max_tokens=20, seed=0))
+    finally:
+        hook.remove()
+    assert decoded == []
+    assert r.is_final_chunk and r.samples == 0 and r.token_count == 0
+    assert r.audio.shape == (0,)
+    assert pm.last_run["step0"] == 1 and pm.last_run["decode_steps"] == 0
+    assert pm.last_run["prompt_bucket"] == 16
+
+
+def test_max_tokens_past_the_kv_cap_raises_before_the_prefill(monkeypatch):
+    """The prompt bucket plus max_tokens must fit MAX_CACHE_LEN: past it,
+    generate() raises ValueError before any prefill (the JAX package clamps
+    the KV writes and corrupts the late audio; the port's in-place write
+    would fail mid-request). A request that just fits runs, whole and
+    streamed. The cap is cut to 64 here so that the fit runs quickly."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import qwen3_tts as qmod
+
+    pm = _port("tiny-q8")
+    monkeypatch.setattr(qmod, "MAX_CACHE_LEN", 64)
+    calls = []
+    real = pm._prefill
+    monkeypatch.setattr(pm, "_prefill",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    kw = dict(text_ids=np.arange(10, 30)[None], temperature=0.9, seed=0)
+    for stream in (False, True):
+        with pytest.raises(ValueError, match="KV cache"):
+            list(pm.generate(max_tokens=64 - 16 + 1, stream=stream, **kw))
+    assert calls == []
+    (r,) = list(pm.generate(max_tokens=64 - 16, **kw))
+    assert calls == [1] and 0 < r.token_count <= 48
+    chunks = list(pm.generate(max_tokens=64 - 16, stream=True,
+                              streaming_interval=0.4, **kw))
+    assert chunks[-1].is_final_chunk and calls == [1, 1]
+
+
 def test_load_model_reads_a_torch_layout_checkpoint(tmp_path):
     """A checkpoint directory in the published layout (per-group code-
     predictor tables, codebooks as embedding_sum / cluster_usage, the codec
