@@ -1,8 +1,11 @@
 """Drive the PyTorch port's main paths once on one GPU: Kokoro-82M text ->
 audio; Qwen3-TTS text ids -> audio with an 8-bit quantized talker, one
 request at a time (whole and streamed) and through the continuous-batching
-session and its broker; and Whisper large-v3-turbo speech -> text, through
-`generate`, its streaming session, `load_model` and the STT CLI.
+session and its broker; Whisper large-v3-turbo speech -> text, through
+`generate`, its streaming session, `load_model` and the STT CLI; and
+Voxtral-Mini-3B-Realtime streaming speech -> text (the model behind the
+server's /v1/realtime), through its live session, offline `generate`,
+`load_model` and the STT CLI.
 
     python3 chip_smoke.py
 
@@ -99,7 +102,27 @@ the CUDA toolkit. Phases, each of which raises on failure:
    names and config (npz) and a 5-s WAV written with the port's audio_io;
    `python -m mlx_audio_tpu_torch.stt.generate --format json` in a
    subprocess must equal `mlx_audio_tpu_torch.load_model(...).generate()`
-   in process (text and segments).
+   in process (text and segments). Then the same for a small Voxtral
+   Realtime checkpoint (mistral's consolidated names, torch conv layout,
+   npz, a tekken.json) and a 3-s WAV.
+15. Voxtral Realtime, the small config of tests/test_voxtral_realtime.py
+   with a 2-layer encoder, at f32 from one seeded weight set, CUDA against
+   the CPU: offline adapter frames (relative error within 1e-4) at 1 s,
+   whose mel bucket's padding lies past the encoder's window (the JAX
+   package's encoder gives NaN there), and at 4.5 s; greedy offline tokens
+   equal; on the card the session fed in uneven pieces gives the offline
+   tokens and text; everything finite.
+16. Voxtral-Mini-3B-Realtime at full width (`ModelConfig()`, as bench.py:
+   701; 4.43 B parameters drawn on the card in f32 from seed 0, then cast
+   to bf16 in place): one ENC_CHUNK encoder step in bf16 against f32
+   (relative Frobenius under 2e-2) and its time; the JAX lane's workload
+   (bench.py:708-747: 30 s of `randn * 0.1` at seed 0 after a 6-s warm
+   drive, 1-s feeds each followed by `step(max_decode_tokens=16)`, then
+   `close()` and `step(32)` until done): step p50, p95 and max, EOT to
+   final, xRT, decoded tokens, p95 < 1 s, peak device memory; a final
+   event must arrive. Then an offline `generate()` of 20 s, a length where
+   the JAX package's encoder gives NaN: its adapter frames must be finite.
+   Neither K1 nor K2 may launch in phases 15-16.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -1758,11 +1781,347 @@ def phase_whisper_cli(tmp: Path) -> None:
         f"mlx_audio_tpu_torch.load_model(...).generate(...) in process")
 
 
+# ---------------------------------------------------------------------------
+# Voxtral Realtime (phases 15-16, and the checkpoint of phase 14)
+# ---------------------------------------------------------------------------
+
+# tests/test_voxtral_realtime.py:17-28 with a 2-layer encoder: its window of
+# 64 conv frames ends inside a 512-frame mel bucket's padding for inputs
+# under about 3.8 s, where the JAX package's bucketed encoder gives NaN
+VOXTRAL_SMALL = dict(
+    model_type="voxtral_realtime",
+    encoder_args=dict(dim=16, n_layers=2, n_heads=2, head_dim=8,
+                      hidden_dim=32, n_kv_heads=2, sliding_window=64,
+                      downsample_factor=4,
+                      audio_encoding_args=dict(num_mel_bins=16)),
+    decoder=dict(dim=16, n_layers=1, n_heads=2, n_kv_heads=2, head_dim=8,
+                 hidden_dim=32, vocab_size=64, ada_rms_norm_t_cond_dim=4),
+    transcription_delay_ms=160, n_left_pad_tokens=2)
+# CUDA against the CPU at f32: adapter frames, relative error max|a-b|/max|b|
+VOXTRAL_REL = 1e-4
+# the JAX lane's workload (bench.py:708-747): 30 s of randn * 0.1 at seed
+# 0 after a 6-s warm drive, 1-s feeds each followed by step(16), then
+# close() and step(32) until done; then an offline generate() of 20 s, a
+# length in the band where the JAX package's 32-layer bucketed encoder
+# gives NaN
+VOXTRAL_SECONDS, VOXTRAL_WARM_SECONDS, VOXTRAL_OFFLINE_SECONDS = 30, 6, 20
+# the published consolidated checkpoint's prefixes (voxtral_realtime.py:609)
+VOXTRAL_ENC = "mm_streams_embeddings.embedding_module.whisper_encoder"
+VOXTRAL_AD = "mm_streams_embeddings.embedding_module"
+
+
+def voxtral_consolidated_names(flat: dict) -> dict:
+    """A flat tree under the port's names (the JAX tree's) -> mistral's
+    consolidated-checkpoint names, which `_remap_consolidated` maps back."""
+    out = {}
+    for key, v in flat.items():
+        part, rest = key.split(".", 1)
+        rest = rest.replace("feed_forward_w", "feed_forward.w")
+        if key == "decoder.tok_embeddings.weight":
+            key = f"{VOXTRAL_AD}.tok_embeddings.weight"
+        elif key == "decoder.norm.weight":
+            key = "norm.weight"
+        elif part == "decoder":         # layers.N...
+            key = rest.replace(".ada_down.", ".0.").replace(".ada_up.", ".2.")
+        elif rest.startswith("conv_layers_"):       # conv_layers_I_conv.conv.p
+            key = f"{VOXTRAL_ENC}.conv_layers.{rest[12]}.{rest[19:]}"
+        elif rest.startswith("transformer_layers."):
+            key = f"{VOXTRAL_ENC}.transformer.layers.{rest[19:]}"
+        elif rest.startswith("transformer_norm."):
+            key = f"{VOXTRAL_ENC}.transformer.norm.{rest[17:]}"
+        else:                           # audio_language_projection_I.p
+            key = f"{VOXTRAL_AD}.audio_language_projection.{rest[26:]}"
+        out[key] = v
+    return out
+
+
+def write_tekken(path: Path, n_special: int, n_vocab: int) -> None:
+    """A tekken.json (the format voxtral_realtime.py:155-176 reads): ids
+    below `n_special` are special, id i above them decodes to f"{i} "."""
+    import base64
+
+    vocab = [{"token_bytes": base64.b64encode(f"{i} ".encode()).decode()}
+             for i in range(n_special, n_vocab)]
+    path.write_text(json.dumps({
+        "vocab": vocab, "config": {"default_num_special_tokens": n_special},
+        "special_tokens": [{"rank": 1}, {"rank": 2}, {"rank": 32}]}))
+
+
+def write_voxtral_checkpoint(model, path: Path) -> None:
+    """`model` as a checkpoint directory: config.json (audio_encoding_args
+    nested in encoder_args, as published), the weights under the
+    consolidated names in one npz with the convs in torch's (O, I, k)
+    layout, and a tekken.json of 3 special ids (random weights favour low
+    ids)."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = dataclasses.asdict(model.config)
+    cfg["encoder_args"]["audio_encoding_args"] = cfg.pop(
+        "audio_encoding_args")
+    del cfg["model_path"]
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez(path / "consolidated.npz", **voxtral_consolidated_names(
+        {k: v.float().cpu().numpy() for k, v in model.state_dict().items()}))
+    (path / "config.json").write_text(json.dumps(cfg))
+    write_tekken(path / "tekken.json", 3, model.config.decoder.vocab_size)
+
+
+def _voxtral_tokens(model, audio) -> list:
+    """The offline decode's kept tokens."""
+    return [t for new, _, _ in model._run(audio, 4096, None) for t in new]
+
+
+def phase_voxtral_reference(tmp: Path) -> None:
+    """The small config at f32 from one seeded weight set, CUDA against the
+    CPU: the offline adapter frames (1 s, whose bucket padding lies past
+    the window, and 4.5 s), the greedy offline tokens, and on the card the
+    session's tokens and text from uneven feeds against the offline ones;
+    everything finite."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.voxtral_realtime import (
+        Model, ModelConfig, TekkenTokenizer, voxtral_realtime as vr)
+
+    cfg = ModelConfig.from_dict(VOXTRAL_SMALL)
+    cpu = Model(cfg, device="cpu").init_params(seed=0)
+    gpu = Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    write_tekken(tmp / "tekken.json", 3, 64)
+    for m in (cpu, gpu):
+        m._tokenizer = TekkenTokenizer(str(tmp / "tekken.json"))
+    n_delay = vr._num_delay_tokens(cfg.transcription_delay_ms)
+    errs = []
+    for seconds in (1.0, 4.5):
+        audio = (np.random.RandomState(0).randn(int(16000 * seconds))
+                 ).astype(np.float32)
+        padded = vr._pad_audio_streaming(audio, cfg.n_left_pad_tokens,
+                                         n_delay + 11)
+        (want, n), (got, n_g) = cpu.encode(padded), gpu.encode(padded)
+        if n_g != n or not torch.isfinite(got).all():
+            raise AssertionError(f"Voxtral {seconds} s: adapter frames not "
+                                 f"finite or counts differ ({n_g}, {n})")
+        errs.append(rel_err(got.cpu(), want))
+        if not errs[-1] <= VOXTRAL_REL:
+            raise AssertionError(f"Voxtral adapter CUDA vs CPU "
+                                 f"{errs[-1]:.3e} > {VOXTRAL_REL}")
+        toks = _voxtral_tokens(gpu, audio)
+        if toks != _voxtral_tokens(cpu, audio) or not toks:
+            raise AssertionError(f"Voxtral {seconds} s: offline tokens "
+                                 f"differ between CUDA and the CPU, or none")
+        sess = gpu.create_streaming_session()
+        for i in range(0, len(audio), 3001):
+            sess.feed(audio[i:i + 3001])
+        sess.close()
+        events = []
+        while not sess.done:
+            events += sess.step(max_decode_tokens=8)
+        s_text = "".join(e.text for e in events if e.kind == "delta")
+        text = gpu.generate(audio).text
+        if events[-1].kind != "final" or not text:
+            raise AssertionError("Voxtral session: no final event, or no "
+                                 "text")
+        if sess.generated != toks or s_text.strip() != text:
+            raise AssertionError(f"Voxtral {seconds} s: session tokens or "
+                                 f"text differ from offline on the card")
+    log(f"[voxtral-ref] small config (2-layer encoder, window 64) f32: "
+        f"adapter frames CUDA vs CPU {max(errs):.2e} relative (tol "
+        f"{VOXTRAL_REL}), finite at 1 s (bucket padding past the window) "
+        f"and 4.5 s; offline tokens equal ({len(toks)} at 4.5 s); the "
+        f"session's tokens and text from uneven feeds equal offline")
+
+
+def voxtral_bytes(model) -> tuple:
+    """(encoder step, decode token) bytes of bf16 weights read: the
+    encoder's transformer layers per ENC_CHUNK step; the decoder's layers
+    and the tied embeddings (the logits) per token."""
+    enc = sum(p.numel() for p in model.encoder.transformer_layers.parameters())
+    dec = sum(p.numel() for p in model.decoder.parameters())
+    return 2 * enc, 2 * dec
+
+
+def build_voxtral_full():
+    """Voxtral-Mini-3B-Realtime (ModelConfig() defaults) on the card, its
+    4.43 B parameters drawn there in f32 from seed 0."""
+    from mlx_audio_tpu_torch.stt.models.voxtral_realtime import (
+        Model, ModelConfig)
+
+    return Model(ModelConfig(), device="cuda").init_params(seed=0,
+                                                          on_device=True)
+
+
+def phase_voxtral_full(card: str, tmp: Path) -> dict:
+    """Voxtral-Mini-3B-Realtime at full width (ModelConfig() defaults, as
+    bench.py:701), 4.43 B parameters drawn on the card in f32 from seed 0:
+    one ENC_CHUNK encoder step in bf16 against f32, then in bf16 the JAX
+    lane's workload and an offline generate() of 20 s."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.kvcache import KVCache
+    from mlx_audio_tpu_torch.stt.models.voxtral_realtime import (
+        TekkenTokenizer, voxtral_realtime as vr)
+    from mlx_audio_tpu_torch.stt.models.voxtral_realtime.streaming import (
+        ENC_CHUNK, RING_CAP, encoder_stream_step)
+
+    base = torch.cuda.memory_allocated()       # what earlier phases hold
+    t0 = time.perf_counter()
+    model = build_voxtral_full()
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    log(f"[voxtral] Voxtral-Mini-3B-Realtime dims (encoder 32 x d1280, "
+        f"decoder 26 x d3072 GQA 32/8, vocabulary 131,072 tied): "
+        f"{n_params / 1e9:.3f} B parameters drawn on the card in f32 from "
+        f"seed 0 ({time.perf_counter() - t0:.2f} s)")
+    e = model.config.encoder_args
+    audio = (np.random.RandomState(0).randn(VOXTRAL_SECONDS * 16000) * 0.1
+             ).astype(np.float32)
+
+    # one ENC_CHUNK encoder step, bf16 against f32, on the conv stem's
+    # frames of the workload's first 2 s
+    def enc_step(x):
+        caches = KVCache.init(1, RING_CAP, e.n_heads, e.head_dim,
+                              dtype=torch.float32, device=x.device,
+                              n_layers=e.n_layers)
+        return encoder_stream_step(model, x, caches, 0, ENC_CHUNK)
+
+    with torch.inference_mode():
+        mel = vr.voxtral_mel(torch.from_numpy(audio[:32000]).to(model.device),
+                             model.config.audio_encoding_args)
+        x = vr.conv_stem(model.encoder, mel[None])[:, :ENC_CHUNK]
+        ref = enc_step(x).float()
+        model.astype(torch.bfloat16)
+        torch.cuda.empty_cache()
+        got = enc_step(x.to(torch.bfloat16)).float()
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    if not rel < WHISPER_BF16_REL:
+        raise AssertionError(f"Voxtral bf16 encoder step vs f32: {rel:.3e} "
+                             f">= {WHISPER_BF16_REL}")
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        enc_ms = _time_ms(lambda: enc_step(xb), 10)
+    enc_b, dec_b = voxtral_bytes(model)
+    ring_b = 2 * e.n_layers * RING_CAP * e.n_heads * e.head_dim * 4
+    log(f"[voxtral] bf16 ENC_CHUNK encoder step vs f32: relative Frobenius "
+        f"{rel:.3e} (limit {WHISPER_BF16_REL}); {enc_ms:.3f} ms a step "
+        f"(CUDA events, median of 10), bound {(enc_b + ring_b) / HBM_BPS * 1e3:.3f}"
+        f" ms (weights and f32 ring caches read once) ({card})")
+
+    write_tekken(tmp / "tekken.json", 1000, model.config.decoder.vocab_size)
+    model._tokenizer = TekkenTokenizer(str(tmp / "tekken.json"))
+
+    def drive(seconds: int):
+        sess = model.create_streaming_session(max_tokens=4096)
+        lat, events = [], []
+        for i in range(seconds):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sess.feed(audio[i * 16000:(i + 1) * 16000])
+            events += sess.step(max_decode_tokens=16)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        sess.close()
+        for _ in range(500):
+            events += sess.step(max_decode_tokens=32)
+            if sess.done:
+                break
+        torch.cuda.synchronize()
+        eot = time.perf_counter() - t1
+        if not events or events[-1].kind != "final":
+            raise AssertionError(f"Voxtral session: no final event "
+                                 f"({[ev.kind for ev in events][-3:]})")
+        return lat, eot, sess
+
+    t1 = time.perf_counter()
+    drive(VOXTRAL_WARM_SECONDS)
+    warm_s = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    lat, eot, sess = drive(VOXTRAL_SECONDS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ls = sorted(lat)
+    p50, p95 = ls[len(ls) // 2], ls[min(len(ls) - 1, int(len(ls) * 0.95))]
+    xrt = VOXTRAL_SECONDS / (sum(lat) + eot)
+    n_tok = len(sess.generated)
+    log(f"[voxtral] realtime_stt lane: {VOXTRAL_SECONDS} x 1-s feeds, each "
+        f"then step(16), after a {VOXTRAL_WARM_SECONDS}-s warm drive "
+        f"({warm_s:.2f} s): step p50 {p50 * 1e3:.2f} ms, p95 "
+        f"{p95 * 1e3:.2f} ms, max {ls[-1] * 1e3:.2f} ms; EOT to final "
+        f"{eot * 1e3:.2f} ms; xRT {xrt:.3f}; {n_tok} tokens decoded "
+        f"({(sum(lat) + eot) * 1e3 / n_tok:.2f} ms a token, the encoder "
+        f"included); realtime (p95 < 1 s): {p95 < 1.0}; peak device memory "
+        f"{peak_gb:.2f} GB, {peak_gb - base / 1e9:.2f} GB of it this phase's "
+        f"(model and session); weights read a token {dec_b / 1e9:.3f} GB, "
+        f"bound {dec_b / HBM_BPS * 1e3:.3f} ms ({card})")
+
+    # offline generate() of 20 s: a length where JAX's encoder gives NaN
+    off = audio[:VOXTRAL_OFFLINE_SECONDS * 16000]
+    n_delay = vr._num_delay_tokens(model.config.transcription_delay_ms)
+    adapter, n_audio = model.encode(vr._pad_audio_streaming(
+        off, model.config.n_left_pad_tokens, n_delay + 11))
+    if not torch.isfinite(adapter).all():
+        raise AssertionError("Voxtral offline adapter frames not finite")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = model.generate(off)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    log(f"[voxtral] offline generate() of {VOXTRAL_OFFLINE_SECONDS} s: "
+        f"{n_audio} adapter frames, all finite; {res.generation_tokens} "
+        f"tokens in {wall:.3f} s, xRT {VOXTRAL_OFFLINE_SECONDS / wall:.2f} "
+        f"({card})")
+    del model, sess
+    torch.cuda.empty_cache()
+    return {"p95": p95, "xrt": xrt}
+
+
+def phase_voxtral_cli(tmp: Path) -> None:
+    """A small Voxtral checkpoint (consolidated names, npz, tekken.json)
+    and a 3-s WAV: the STT CLI in a subprocess on the card, its JSON
+    against load_model(...).generate(...) here."""
+    import numpy as np
+
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.stt.models.voxtral_realtime import (
+        Model, ModelConfig)
+
+    ckpt, wav, out = tmp / "voxtral-small", tmp / "speech.wav", tmp / "out"
+    write_voxtral_checkpoint(Model(ModelConfig.from_dict(VOXTRAL_SMALL),
+                                   device="cpu").init_params(seed=0), ckpt)
+    audio_io.write(wav, (np.random.RandomState(6).randn(16000 * 3) * 0.1
+                         ).astype(np.float32), 16000)
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
+         str(ckpt), "--audio", str(wav), "--format", "json", "--output-path",
+         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"STT CLI on Voxtral failed: "
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads((out / "transcription.json").read_text())
+    model = mlx_audio_tpu_torch.load_model(ckpt)
+    if model.device.type != "cuda" or not isinstance(model, Model):
+        raise AssertionError("load_model did not load Voxtral on the card")
+    want = model.generate(str(wav))
+    if (got["text"], got["language"], got["segments"]) != (
+            want.text, want.language, json.loads(json.dumps(want.segments))):
+        raise AssertionError("STT CLI on Voxtral differs from load_model")
+    if not want.text:
+        raise AssertionError("Voxtral CLI check: empty transcript")
+    log(f"[voxtral-cli] python -m mlx_audio_tpu_torch.stt.generate --format "
+        f"json on a small consolidated-name npz checkpoint with tekken.json "
+        f"and a 3-s WAV, on the card: {len(want.text.split())} words, equal "
+        f"to mlx_audio_tpu_torch.load_model(...).generate(...) in process")
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
                          "(mlx_audio_tpu_torch/ not found beside this script)")
     sys.path.insert(0, str(ROOT))
+    t_start = time.perf_counter()
     card = phase_device()
     log(card)
     phase_build()
@@ -1788,8 +2147,16 @@ def main() -> int:
     phase_whisper_turbo(card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_whisper_cli(Path(tmp))
+        phase_voxtral_cli(Path(tmp))
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Whisper phases launched K1 or K2")
+    # Voxtral Realtime: dense bf16 products, neither K1 nor K2 on its path
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_voxtral_reference(Path(tmp))
+        phase_voxtral_full(card, Path(tmp))
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the Voxtral phases launched K1 or K2")
+    log(f"[time] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     k2_path_abs = phase_qmm_path(set(recorder.calls))

@@ -11,13 +11,15 @@ Qwen3-TTS text ids -> audio, dense or 8/4-bit quantized, whole, streamed
 or continuously batched (`tts.models.qwen3_tts`); Whisper speech -> text
 with timestamps, word timestamps and a streaming session
 (`stt.models.whisper`), its log-mel front end (`dsp.py`), WAV I/O
-(`audio_io.py`) and the STT CLI (`python -m mlx_audio_tpu_torch.stt.generate`).
+(`audio_io.py`) and the STT CLI (`python -m mlx_audio_tpu_torch.stt.generate`);
+Voxtral Mini Realtime live and offline speech -> text
+(`stt.models.voxtral_realtime`).
 
 This package never imports jax, nor anything of the JAX package, not even
 its jax-free host code: it keeps its own copies (`base.py`, `audio_io.py`,
 `tts/g2p.py`, `tts/textnorm.py`, `stt/models/base.py`,
-`stt/models/whisper/tokenizer.py`, ...), each of which names the module it
-mirrors.
+`stt/models/whisper/tokenizer.py`, the tekken tokenizer, ...), each of
+which names the module it mirrors.
 
 The entry points (`load_model`, each family's `Model`) build on the card
 (`device="cuda"`) unless the caller passes another device, and raise

@@ -6,6 +6,8 @@
   package's basis-matmul form (not `torch.fft`) so the harmonic spectrum's
   phase, fed raw into the noise convs, sees the same rounding near the
   arctan2 branch cut.
+* `stft` and `spec_abs` (Voxtral Realtime's mel), with the DFT taken in
+  float64 for the reason below and the spectrum returned in complex64.
 * The shared log-mel front end of Whisper-style STT (`mel_filters`,
   `log_mel_spectrogram`, `STR_TO_WINDOW_FN`). Its DFT is `torch.fft.rfft`
   where the JAX package multiplies by a DFT basis at `Precision.HIGHEST`
@@ -107,6 +109,52 @@ def _pad_center(x: torch.Tensor, padding: int, pad_mode: str) -> torch.Tensor:
         suffix = torch.flip(x[..., -(padding + 1): -1], dims=(-1,))
         return torch.cat([prefix, x, suffix], dim=-1)
     raise ValueError(f"Invalid pad_mode {pad_mode}")
+
+
+def _resolve_window(window, win_length: int, n_fft: int) -> torch.Tensor:
+    """A window spec (name or array) as f32, zero-padded at the end to n_fft
+    (dsp._resolve_window)."""
+    if isinstance(window, str):
+        fn = STR_TO_WINDOW_FN.get(window.lower())
+        if fn is None:
+            raise ValueError(f"Unknown window function: {window}")
+        w = fn(win_length)
+    else:
+        w = torch.as_tensor(window, dtype=torch.float32)
+    if w.shape[0] < n_fft:
+        w = torch.nn.functional.pad(w, (0, n_fft - w.shape[0]))
+    return w
+
+
+def _rfft64(x: torch.Tensor, w: torch.Tensor, n_fft: int, hop_length: int,
+            center: bool, pad_mode: str) -> torch.Tensor:
+    """The frames of f32 x (centre-padded if `center`), windowed by w and
+    transformed in float64: (..., num_frames, n_fft // 2 + 1) complex128."""
+    if center:
+        x = _pad_center(x, n_fft // 2, pad_mode)
+    frames = frame_signal(x, n_fft, hop_length).double() \
+        * w.to(x.device, torch.float64)
+    return torch.fft.rfft(frames, n=n_fft, dim=-1)
+
+
+def stft(x, n_fft: int = 800, hop_length: Optional[int] = None,
+         win_length: Optional[int] = None,
+         window: Union[str, torch.Tensor, np.ndarray] = "hann",
+         center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
+    """Short-time Fourier transform (dsp.stft): (..., T) ->
+    (..., num_frames, n_fft // 2 + 1) complex64, on x's device (the CPU
+    for numpy input). The windowed frames and the DFT run in float64, as in
+    `log_mel_spectrogram`."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    w = _resolve_window(window, n_fft if win_length is None else win_length,
+                        n_fft)
+    return _rfft64(x, w, n_fft, n_fft // 4 if hop_length is None
+                   else hop_length, center, pad_mode).to(torch.complex64)
+
+
+def spec_abs(spec: torch.Tensor) -> torch.Tensor:
+    """Magnitude of an `stft` result (dsp.spec_abs), f32."""
+    return spec.abs()
 
 
 @lru_cache(maxsize=None)
@@ -299,13 +347,14 @@ def mel_filters(
 
 
 @lru_cache(maxsize=None)
-def _filters_on(device: torch.device, sample_rate: int, n_fft: int,
-                n_mels: int, norm: Optional[str], mel_scale: str,
-                precise: bool) -> torch.Tensor:
-    """The filterbank, transposed to (n_fft//2+1, n_mels), on `device`
-    (copied there once)."""
-    return mel_filters(sample_rate, n_fft, n_mels, 0.0, None, norm, mel_scale,
-                       precise).T.contiguous().to(device)
+def filters_on(device: torch.device, sample_rate: int, n_fft: int,
+               n_mels: int, norm: Optional[str], mel_scale: str,
+               precise: bool = False,
+               f_max: Optional[float] = None) -> torch.Tensor:
+    """The filterbank (f_min 0), transposed to (n_fft//2+1, n_mels), on
+    `device` (copied there once)."""
+    return mel_filters(sample_rate, n_fft, n_mels, 0.0, f_max, norm,
+                       mel_scale, precise).T.contiguous().to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -344,15 +393,12 @@ def log_mel_spectrogram(
         w = fn(n_fft + 1)[:-1] if periodic_window else fn(n_fft)
     else:
         w = torch.as_tensor(window, dtype=torch.float32)
-    w = w.to(audio.device, torch.float64)
     if padding > 0:
         audio = torch.nn.functional.pad(audio, (0, padding))
-    audio = _pad_center(audio, n_fft // 2, "reflect")
-    frames = frame_signal(audio, n_fft, hop_length).double() * w
-    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    spec = _rfft64(audio, w, n_fft, hop_length, True, "reflect")
     power = spec.real ** 2 + spec.imag ** 2
-    fb = _filters_on(audio.device, sample_rate, n_fft, n_mels, mel_norm,
-                     mel_scale, precise)
+    fb = filters_on(audio.device, sample_rate, n_fft, n_mels, mel_norm,
+                    mel_scale, precise)
     mel = (power @ fb.double()).float()
     if log_base == "log10_whisper":
         logspec = torch.log10(torch.clamp(mel, min=1e-10))

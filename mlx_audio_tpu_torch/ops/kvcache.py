@@ -1,11 +1,11 @@
 """Fixed-capacity KV caches for autoregressive decoding.
 
-Counterpart of `KVCache`, `kv_update`, `kv_update_rows` and `kv_update_row`
-in mlx_audio_tpu/ops/kvcache.py (:27-72). The buffers are preallocated
-(B, max_len, n_kv_heads, head_dim) and, unlike the JAX package's functional
-update, written in place: a decode step allocates nothing for its cache. A
-stacked cache (leading layer axis) hands each layer a view, so per-layer
-writes land in the one buffer.
+Counterpart of `KVCache`, `kv_update`, `kv_update_rows`, `kv_update_row`,
+`ring_update` and `ring_mask` in mlx_audio_tpu/ops/kvcache.py (:27-111).
+The buffers are preallocated (B, max_len, n_kv_heads, head_dim) and, unlike
+the JAX package's functional update, written in place: a decode step
+allocates nothing for its cache. A stacked cache (leading layer axis) hands
+each layer a view, so per-layer writes land in the one buffer.
 """
 
 from __future__ import annotations
@@ -69,3 +69,36 @@ def kv_update_row(cache: KVCache, row: int, k_new: torch.Tensor,
     cache.k[..., row, offset:offset + s, :, :] = k_new.to(cache.k.dtype)
     cache.v[..., row, offset:offset + s, :, :] = v_new.to(cache.v.dtype)
     return cache
+
+
+def ring_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                offset: int) -> KVCache:
+    """Ring-buffer write, in place: positions offset..offset+S-1 of
+    k_new/v_new (B, S, H, D) land at slot pos % cap (S <= cap, so the slots
+    are distinct). A sliding-window cache of fixed size for a session of
+    any length; cap >= window + S, or this write evicts keys still inside
+    an earlier query's window."""
+    cap, s = cache.k.shape[1], k_new.shape[1]
+    slots = (torch.arange(s, device=cache.k.device) + offset) % cap
+    cache.k[:, slots] = k_new.to(cache.k.dtype)
+    cache.v[:, slots] = v_new.to(cache.v.dtype)
+    return cache
+
+
+def ring_mask(cap: int, window: int, offset: int, n_valid: int, q_len: int,
+              device=None) -> torch.Tensor:
+    """Additive f32 (1, 1, q_len, cap) mask for ring-cache attention.
+
+    Queries sit at absolute positions offset..offset+q_len-1; slot s holds
+    the latest position congruent to s of the offset + n_valid written so
+    far, or a negative one when none was (the division floors, as jnp's
+    does). A key is visible iff it was written, is not after the query and
+    lies inside the sliding window."""
+    total = offset + n_valid
+    s = torch.arange(cap, device=device)
+    key_abs = s + torch.div(total - 1 - s, cap, rounding_mode="floor") * cap
+    q_abs = offset + torch.arange(q_len, device=device)
+    d = q_abs[:, None] - key_abs[None, :]
+    allow = (d >= 0) & (d < window) & (key_abs >= 0)[None, :]
+    return torch.zeros(allow.shape, device=device).masked_fill(
+        ~allow, float("-inf"))[None, None]

@@ -1,10 +1,12 @@
-"""Rotary position embeddings (split-half RoPE).
+"""Rotary position embeddings: split-half and interleaved.
 
-Counterpart of `rope_freqs` and `apply_rope` in mlx_audio_tpu/ops/rope.py
-(:18-57). Qwen3-TTS's interleaved MRoPE is plain RoPE here, because its
+Counterpart of `rope_freqs`, `apply_rope` and `apply_rope_interleaved` in
+mlx_audio_tpu/ops/rope.py (:18-57, :87-106). Qwen3-TTS's interleaved MRoPE is plain RoPE here, because its
 three position streams are equal for TTS (talker.py:8-11). `rope_cos_sin`
 splits the angle tables out so a model computes them once per forward and
-not once per layer; the numbers are the same.
+not once per layer; the numbers are the same. `rope_cis` does the same for
+the interleaved layout, whose pairs (2j, 2j+1) rotate as one complex number
+each.
 """
 
 from __future__ import annotations
@@ -41,3 +43,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                inv_freq: torch.Tensor) -> torch.Tensor:
     """Rotate q/k: x (..., T, H, D), positions (..., T)."""
     return apply_rotary(x, *rope_cos_sin(positions, inv_freq))
+
+
+def rope_cis(positions: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
+    """positions (..., T) -> exp(i * angle) (..., T, 1, rot/2), complex64:
+    the interleaved layout's table."""
+    angles = positions[..., None].float() * inv_freq
+    return torch.polar(torch.ones_like(angles), angles)[..., None, :]
+
+
+def apply_rotary_interleaved(x: torch.Tensor, cis: torch.Tensor) -> torch.Tensor:
+    """Rotate x (..., T, H, D) by a `rope_cis` table: pair (2j, 2j+1) by
+    angle j, i.e. (x1 cos - x2 sin, x2 cos + x1 sin); dimensions past
+    2 * cis.shape[-1] pass through. f32 math, result in x's dtype."""
+    rot = 2 * cis.shape[-1]
+    xr = x[..., :rot].float().reshape(*x.shape[:-1], rot // 2, 2)
+    out = torch.view_as_real(torch.view_as_complex(xr) * cis).flatten(-2)
+    out = out.to(x.dtype)
+    return out if rot == x.shape[-1] else torch.cat([out, x[..., rot:]], -1)
+
+
+def apply_rope_interleaved(x: torch.Tensor, positions: torch.Tensor,
+                           inv_freq: torch.Tensor) -> torch.Tensor:
+    """Interleaved partial RoPE (GPT-J pairs): x (B, T, H, D), positions
+    (T,) or (B, T), inv_freq (rot/2,)."""
+    return apply_rotary_interleaved(x, rope_cis(positions, inv_freq))

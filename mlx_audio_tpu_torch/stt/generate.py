@@ -11,6 +11,9 @@ package's `maybe_profile`, a `jax.profiler` trace hook around the call.
 `--stream` on Whisper runs its streaming session (`Model.generate` with
 `stream=True` returns the `generate_streaming` generator), where the JAX
 package's Whisper returns one result that the CLI then fails to iterate.
+A streamed chunk may be a plain text delta (Voxtral Realtime's
+`generate(stream=True)` yields strings): it is taken as an STTOutput of
+that text, where the JAX package's CLI fails on it.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ def generate_transcription(
 
     Returns the STTOutput (reference stt/generate.py:243-385).
     """
+    from .models.base import STTOutput
     from .utils import load_model
 
     if model is None:
@@ -110,6 +114,8 @@ def generate_transcription(
         # streaming accumulation (reference stt/generate.py:293-332)
         output = None
         for chunk in model.generate(audio, stream=True, **gen_kwargs):
+            if isinstance(chunk, str):
+                chunk = STTOutput(text=chunk)
             if verbose and chunk.text:
                 print(chunk.text, end="", flush=True)
             if output is None:

@@ -1,11 +1,12 @@
 """STT loader of the port (subset of mlx_audio_tpu/stt/utils.py).
 
 `MODEL_REMAPPING` is the JAX package's registry of STT model types, kept
-whole so that a type the port does not have yet is named as such; only
-`whisper` (and `distil`) is ported. `load_model` reads a local checkpoint
+whole so that a type the port does not have yet is named as such; the
+families in `PORTED` are ported. `load_model` reads a local checkpoint
 directory (config.json + npz or safetensors weights), maps its names onto
-the JAX tree's with the family's `sanitize` and fills the model through
-`model.load_jax_params`, the one place where layouts are converted.
+the JAX tree's with the family's `sanitize`, fills the model through
+`model.load_jax_params`, the one place where layouts are converted, and
+runs the family's `post_load_hook` (Voxtral's reads `tekken.json`).
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("whisper",)
+PORTED = ("whisper", "voxtral_realtime")
 
 
 def model_family(config: dict, path: Path):
@@ -100,7 +101,14 @@ def load_model(model_path: Union[str, Path], device="cuda",
             f"STT model type {config.get('model_type')!r} (family "
             f"{family!r}) is not ported to mlx_audio_tpu_torch yet (ported: "
             f"{', '.join(PORTED)})")
-    from .models.whisper import Model, ModelDimensions
+    if family == "whisper":
+        from .models.whisper import Model, ModelDimensions
 
-    model = Model(ModelDimensions.from_dict(config), device=device)
-    return load_jax_params(model, model.sanitize(load_weights(path)))
+        model = Model(ModelDimensions.from_dict(config), device=device)
+    else:
+        from .models.voxtral_realtime import Model, ModelConfig
+
+        model = Model(ModelConfig.from_dict(config), device=device)
+    model = load_jax_params(model, model.sanitize(load_weights(path)))
+    post_load_hook = getattr(type(model), "post_load_hook", None)
+    return model if post_load_hook is None else post_load_hook(model, path)

@@ -28,7 +28,8 @@ PORT_SOURCES = sorted(
               recursive=True)
     + [os.path.join(REPO, "chip_smoke.py"),
        os.path.join(REPO, "tools", "profile_torch_qwen3_tts.py"),
-       os.path.join(REPO, "tools", "profile_torch_whisper.py")])
+       os.path.join(REPO, "tools", "profile_torch_whisper.py"),
+       os.path.join(REPO, "tools", "profile_torch_voxtral.py")])
 # modules of the port's fresh-interpreter runs that must stay unimported
 FORBIDDEN = """sorted(m for m in sys.modules if m in ("jax", "mlx_audio_tpu")
                 or m.startswith(("jax.", "mlx_audio_tpu.")))"""
@@ -213,6 +214,62 @@ def test_tiny_whisper_generate_and_cli_without_jax(tmp_path):
     assert out.strip() == "False []", out
 
 
+def test_tiny_voxtral_generate_and_cli_without_jax(tmp_path):
+    """Voxtral Realtime on the CPU at a tiny size from seeded weights:
+    offline `generate` (whole and streamed), a live session, and a
+    checkpoint directory (consolidated names, npz, tekken.json, written by
+    chip_smoke.py's writer) through `load_model` and the STT CLI in a second
+    fresh interpreter, with no jax in either's sys.modules."""
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import numpy as np
+        from mlx_audio_tpu_torch import audio_io
+        from mlx_audio_tpu_torch.stt.models.voxtral_realtime import (
+            Model, ModelConfig, TekkenTokenizer)
+        from chip_smoke import VOXTRAL_SMALL, write_voxtral_checkpoint
+
+        model = Model(ModelConfig.from_dict(VOXTRAL_SMALL),
+                      device="cpu").init_params(seed=0)
+        tmp = Path(%r)
+        write_voxtral_checkpoint(model, tmp / "voxtral-tiny")
+        model._tokenizer = TekkenTokenizer(str(tmp / "voxtral-tiny"
+                                               / "tekken.json"))
+        audio = (np.random.RandomState(0).randn(24000) * 0.1).astype(
+            np.float32)
+        audio_io.write(tmp / "a.wav", audio, 16000)
+        out = model.generate(str(tmp / "a.wav"))
+        assert out.text and "".join(model.generate(
+            str(tmp / "a.wav"), stream=True)).strip() == out.text
+        sess = model.create_streaming_session()
+        sess.feed(audio)
+        sess.close()
+        while not sess.done:
+            sess.step(max_decode_tokens=8)
+        assert sess.text.strip() == out.text
+        (tmp / "want.json").write_text(json.dumps(out.text))
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import mlx_audio_tpu_torch.stt.utils as stt_utils
+        from mlx_audio_tpu_torch.stt import generate
+
+        real = stt_utils.load_model
+        stt_utils.load_model = lambda p: real(p, device="cpu")
+        tmp = Path(%r)
+        generate.main(["--model", str(tmp / "voxtral-tiny"), "--audio",
+                       str(tmp / "a.wav"), "--format", "json",
+                       "--output-path", str(tmp / "out"), "--no-verbose"])
+        got = json.loads((tmp / "out" / "transcription.json").read_text())
+        assert got["text"] == json.loads((tmp / "want.json").read_text())
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
     kernels are built only when first launched."""
@@ -265,7 +322,7 @@ def test_g2p_copy_matches_the_jax_package(text):
 def _entry_points():
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.stt import utils as stt_utils
-    from mlx_audio_tpu_torch.stt.models import whisper
+    from mlx_audio_tpu_torch.stt.models import voxtral_realtime, whisper
     from mlx_audio_tpu_torch.tts import utils
     from mlx_audio_tpu_torch.tts.models import kokoro, qwen3_tts
 
@@ -276,6 +333,9 @@ def _entry_points():
                             lambda p: qwen3_tts.Model(qwen3_tts.ModelConfig())),
         "whisper.Model": (whisper.Model.__init__,
                           lambda p: whisper.Model(whisper.ModelDimensions())),
+        "voxtral_realtime.Model": (
+            voxtral_realtime.Model.__init__,
+            lambda p: voxtral_realtime.Model(voxtral_realtime.ModelConfig())),
         "tts.utils.load_model": (utils.load_model,
                                  lambda p: utils.load_model(p)),
         "stt.utils.load_model": (stt_utils.load_model,
@@ -287,7 +347,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["kokoro.Model", "qwen3_tts.Model",
-                                  "whisper.Model", "tts.utils.load_model",
+                                  "whisper.Model", "voxtral_realtime.Model",
+                                  "tts.utils.load_model",
                                   "stt.utils.load_model",
                                   "mlx_audio_tpu_torch.load_model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,

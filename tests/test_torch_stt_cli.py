@@ -1,13 +1,17 @@
 """The port's STT entry points against the JAX package, on the CPU: its
 copy of `audio_io`, `stt.utils.load_model` and the category routing of
-`mlx_audio_tpu_torch.load_model`, and the STT CLI (`stt/generate.py`).
+`mlx_audio_tpu_torch.load_model`, and the STT CLI (`stt/generate.py`), on
+Whisper and on Voxtral Realtime.
 
 A tiny Whisper checkpoint (`tests/test_whisper.py::DIMS`, the JAX model's
 random parameters under HF names, config.json in HF keys, npz) is written
 once and loaded by both packages. Text, srt and vtt outputs must be equal
 byte for byte; the json output equal but for the float fields that carry
 the two packages' f32 rounding (`avg_logprob`, `no_speech_prob`), held to
-1e-4.
+1e-4. A tiny Voxtral Realtime checkpoint (tests/test_voxtral_realtime.py's
+config, the JAX model's random parameters under mistral's consolidated
+names, a tekken.json; `chip_smoke.py::write_voxtral_checkpoint`) is loaded
+by both packages too: its transcription files must be equal byte for byte.
 """
 
 import io
@@ -186,7 +190,7 @@ def test_top_level_load_model_routes_stt_types(checkpoint, tmp_path):
                       Model)
 
 
-@pytest.mark.parametrize("model_type", ["parakeet", "voxtral_realtime",
+@pytest.mark.parametrize("model_type", ["parakeet", "cohere_asr",
                                         "wav2vec2"])
 def test_unported_stt_type_raises_a_clear_error(tmp_path, model_type):
     import mlx_audio_tpu_torch
@@ -195,7 +199,8 @@ def test_unported_stt_type_raises_a_clear_error(tmp_path, model_type):
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": model_type}))
     for load in (load_model, mlx_audio_tpu_torch.load_model):
-        with pytest.raises(ValueError, match="not ported.*ported: whisper"):
+        with pytest.raises(ValueError, match="not ported.*ported: whisper, "
+                           "voxtral_realtime"):
             load(tmp_path, device="cpu")
 
 
@@ -328,3 +333,83 @@ def test_cli_stream_runs_the_streaming_session(checkpoint, wav, capsys,
           "--language", "en"])
     printed = capsys.readouterr().out
     assert final and final in printed
+
+
+# ---------------------------------------------------------------------------
+# Voxtral Realtime
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def voxtral_checkpoint(tmp_path_factory):
+    """A tiny Voxtral Realtime checkpoint directory and the JAX package's
+    model loaded from it."""
+    from chip_smoke import write_voxtral_checkpoint
+    from mlx_audio_tpu.stt.utils import load_model as jax_load_model
+    from test_torch_voxtral_realtime import config_dict, model_pair
+
+    _, pm = model_pair(config_dict())
+    path = tmp_path_factory.mktemp("voxtral-tiny")
+    write_voxtral_checkpoint(pm, path)
+    return path, jax_load_model(path)
+
+
+def test_load_voxtral_matches_jax(voxtral_checkpoint, wav):
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.stt.models.voxtral_realtime import Model
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    path, jm = voxtral_checkpoint
+    for load in (load_model, mlx_audio_tpu_torch.load_model):
+        pm = load(path, device="cpu")
+        assert isinstance(pm, Model) and pm.device.type == "cpu"
+        assert pm._tokenizer is not None
+    got, want = pm.generate(str(wav)), jm.generate(str(wav))
+    assert got.text and got.text == want.text
+    assert got.generation_tokens == want.generation_tokens
+    audio = np.random.RandomState(0).randn(16000 * 2).astype(np.float32)
+    np.testing.assert_allclose(pm.encode(audio)[0].numpy(),
+                               jm.encode(audio)[0], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("fmt", ["txt", "srt", "vtt", "json"])
+def test_voxtral_transcription_files_match_jax(voxtral_checkpoint, wav,
+                                               tmp_path, fmt):
+    from mlx_audio_tpu.stt.generate import (
+        generate_transcription as jax_generate_transcription)
+    from mlx_audio_tpu_torch.stt.generate import generate_transcription
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    path, jm = voxtral_checkpoint
+    kw = dict(format=fmt, verbose=False, max_tokens=64)
+    jax_generate_transcription(str(path), str(wav), model=jm,
+                               output_path=str(tmp_path / "jax"), **kw)
+    generate_transcription(str(path), str(wav),
+                           model=load_model(path, device="cpu"),
+                           output_path=str(tmp_path / "port"), **kw)
+    g = (tmp_path / "port" / f"transcription.{fmt}").read_text("utf-8")
+    assert g == (tmp_path / "jax" / f"transcription.{fmt}").read_text("utf-8")
+    assert len(g.strip()) > 0
+
+
+def test_voxtral_cli_stream_prints_the_deltas(voxtral_checkpoint, wav,
+                                              capsys, monkeypatch):
+    """`--stream` on Voxtral accumulates the text deltas of
+    `generate(stream=True)` (JAX's deltas); the JAX package's CLI fails
+    on them (they are strings, not STTOutputs)."""
+    import mlx_audio_tpu_torch.stt.utils as stt_utils
+    from mlx_audio_tpu.stt.generate import (
+        generate_transcription as jax_generate_transcription)
+    from mlx_audio_tpu_torch.stt.generate import main
+
+    path, jm = voxtral_checkpoint
+    want = "".join(jm.generate(str(wav), stream=True))
+    with pytest.raises(AttributeError):
+        jax_generate_transcription(str(path), str(wav), model=jm,
+                                   verbose=False, stream=True)
+    real = stt_utils.load_model
+    monkeypatch.setattr(stt_utils, "load_model",
+                        lambda p: real(p, device="cpu"))
+    main(["--model", str(path), "--audio", str(wav), "--stream"])
+    printed = capsys.readouterr().out
+    assert want.strip() and want in printed
