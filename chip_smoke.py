@@ -5,6 +5,8 @@ session and its broker; Whisper large-v3-turbo speech -> text, through
 `generate`, its streaming session, `load_model` and the STT CLI; and
 Voxtral-Mini-3B-Realtime streaming speech -> text (the model behind the
 server's /v1/realtime), through its live session, offline `generate`,
+`load_model` and the STT CLI; and Cohere ASR long-file speech -> text
+(a FastConformer encoder and a Canary decoder), through `generate`,
 `load_model` and the STT CLI.
 
     python3 chip_smoke.py
@@ -104,7 +106,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    subprocess must equal `mlx_audio_tpu_torch.load_model(...).generate()`
    in process (text and segments). Then the same for a small Voxtral
    Realtime checkpoint (mistral's consolidated names, torch conv layout,
-   npz, a tekken.json) and a 3-s WAV.
+   npz, a tekken.json) and a 3-s WAV, and for a small Cohere ASR checkpoint
+   (NeMo's names, torch conv layouts, npz with the preprocessor's
+   filterbank and window, a tokens.json) and a 5-s WAV.
 15. Voxtral Realtime, the small config of tests/test_voxtral_realtime.py
    with a 2-layer encoder, at f32 from one seeded weight set, CUDA against
    the CPU: offline adapter frames (relative error within 1e-4) at 1 s,
@@ -123,6 +127,23 @@ the CUDA toolkit. Phases, each of which raises on failure:
    event must arrive. Then an offline `generate()` of 20 s, a length where
    the JAX package's encoder gives NaN: its adapter frames must be finite.
    Neither K1 nor K2 may launch in phases 15-16.
+17. Cohere ASR, the small config of tests/test_cohere_asr.py at f32 from
+   one seeded weight set, CUDA against the CPU: the encoder rows of a
+   ragged batch with a row of length 0 (relative error within 1e-4, all
+   finite; the JAX package's length-0 row is NaN) and greedy `generate()`
+   on 5 s of seeded noise (3 segments, a partial last batch): texts and
+   segments equal.
+18. Cohere ASR at the cohere_asr_10min lane's dims (bench.py:831-842:
+   FastConformer 48 x d1280, decoder 8 x d1024, vocabulary 16,384; 2.07 B
+   parameters drawn on the card in f32 from seed 0, then cast in place to
+   bf16): the bf16 encoder against f32 on one 8-row batch of the 3,584-
+   frame bucket (relative Frobenius under 2e-2), the encoder's time a
+   batch (CUDA events) and its share of 989 TFLOP/s; the lane's workload
+   (bench.py:856-869: 600 s of `randn * 0.1` at seed 0, language "en",
+   max_tokens 150) cold, then warm best of 3: wall, xRT, segments (19),
+   tokens, decode steps and ms a step, the host mel's time, peak device
+   memory; every batch's encoder rows finite, the runs' texts equal.
+   Neither K1 nor K2 may launch in phases 17-18.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -2116,6 +2137,335 @@ def phase_voxtral_cli(tmp: Path) -> None:
         f"to mlx_audio_tpu_torch.load_model(...).generate(...) in process")
 
 
+# ---------------------------------------------------------------------------
+# Cohere ASR (phases 17-18, and the checkpoint of phase 14)
+# ---------------------------------------------------------------------------
+
+# tests/test_cohere_asr.py:21-36: 2 conformer layers at d32, a 2-layer
+# decoder at d24 (so `encoder_proj` runs), 2-s clips and batches of 2
+COHERE_SMALL = dict(
+    model_type="cohere_asr", vocab_size=64,
+    encoder=dict(feat_in=20, n_layers=2, d_model=32, n_heads=4,
+                 ff_expansion_factor=2, subsampling_factor=8,
+                 subsampling_conv_channels=8, conv_kernel_size=9),
+    transf_decoder=dict(config_dict=dict(
+        hidden_size=24, inner_size=48, num_attention_heads=4, num_layers=2,
+        max_sequence_length=128)),
+    head=dict(hidden_size=24, num_classes=64, log_softmax=True),
+    preprocessor=dict(features=20, n_fft=128, window_size=0.008,
+                      window_stride=0.004),
+    max_audio_clip_s=2.0, overlap_chunk_second=0.5,
+    min_energy_window_samples=160, batch_size=2)
+# the cohere_asr_10min lane's dims (bench.py:831-842): FastConformer 48 x
+# d1280, 8 heads, FF x4, subsampling 8 with 256 channels, kernel 9; decoder
+# 8 x d1024, 8 heads, inner 4096, max length 1024; vocabulary 16384
+COHERE_FULL = dict(
+    model_type="cohere_asr", vocab_size=16384,
+    encoder=dict(feat_in=128, n_layers=48, d_model=1280, n_heads=8,
+                 ff_expansion_factor=4, subsampling_factor=8,
+                 subsampling_conv_channels=256, conv_kernel_size=9),
+    transf_decoder=dict(config_dict=dict(
+        hidden_size=1024, inner_size=4096, num_attention_heads=8,
+        num_layers=8, max_sequence_length=1024)),
+    head=dict(hidden_size=1024, num_classes=16384), batch_size=8)
+# the lane's prompt pieces (bench.py:845-849); the ids after them decode to
+# "▁<id>"
+COHERE_SPECIALS = ("<|startofcontext|>", "<|startoftranscript|>",
+                   "<|emo:undefined|>", "<|en|>", "<|pnc|>", "<|nopnc|>",
+                   "<|noitn|>", "<|notimestamp|>", "<|nodiarize|>",
+                   "<|endoftext|>")
+# the lane's workload (bench.py:856-869): 600 s of randn * 0.1 at seed 0,
+# language "en", max_tokens 150, cold then warm best of 3
+COHERE_SECONDS, COHERE_MAX_TOKENS, COHERE_SEGMENTS = 600, 150, 19
+# CUDA against the CPU at f32: encoder rows, max|a-b| / max|b|
+COHERE_REL = 1e-4
+# NeMo's subsampling indices (torch.nn.Sequential, ReLUs between) of the
+# JAX tree's named layers
+COHERE_PRE_ENCODE = {"00_conv": 0, "01_dw": 2, "02_pw": 3, "03_dw": 5,
+                     "04_pw": 6}
+# the port's names (the JAX tree's) outside the encoder -> NeMo's, which
+# `sanitize` maps back
+COHERE_NEMO_NAMES = (
+    ("decoder.blocks.", "transf_decoder._decoder.layers."),
+    ("decoder.final_norm.", "transf_decoder._decoder.final_layer_norm."),
+    ("decoder.embedding_layer_norm.", "transf_decoder._embedding.layer_norm."),
+    ("decoder.embedding.", "transf_decoder._embedding.token_embedding."),
+    (".self_attn_norm.", ".layer_norm_1."),
+    (".cross_attn_norm.", ".layer_norm_2."), (".ff_norm.", ".layer_norm_3."),
+    (".self_attn.", ".first_sub_layer."), (".cross_attn.", ".second_sub_layer."),
+    (".q_proj.", ".query_net."), (".k_proj.", ".key_net."),
+    (".v_proj.", ".value_net."), (".out_proj.", ".out_projection."),
+    (".ff1.", ".third_sub_layer.dense_in."),
+    (".ff2.", ".third_sub_layer.dense_out."),
+    ("decoder.output_proj.", "log_softmax.mlp.layer0."),
+    ("encoder_proj.", "encoder_decoder_proj."))
+
+
+def cohere_pieces(vocab: int) -> list:
+    """A tokens.json piece list: COHERE_SPECIALS, then "▁<id>"."""
+    return list(COHERE_SPECIALS) + [f"▁{i}" for i in
+                                    range(len(COHERE_SPECIALS), vocab)]
+
+
+def cohere_nemo_names(state: dict) -> dict:
+    """A flat tree under the port's names -> NeMo's checkpoint names."""
+    out = {}
+    pre = "encoder.pre_encode.layers."
+    for k, v in state.items():
+        if k.startswith(pre):
+            name, rest = k[len(pre):].split(".", 1)
+            k = f"encoder.pre_encode.conv.{COHERE_PRE_ENCODE[name]}.{rest}"
+        elif not k.startswith("encoder."):
+            for a, b in COHERE_NEMO_NAMES:
+                k = k.replace(a, b)
+        out[k] = v
+    return out
+
+
+def write_cohere_checkpoint(model, path: Path) -> None:
+    """`model` as a checkpoint directory: config.json, the weights under
+    NeMo's names in torch's conv layouts in one npz (with a
+    num_batches_tracked and the preprocessor's filterbank and window, as
+    NeMo saves them), and a tokens.json piece list."""
+    import dataclasses
+
+    import numpy as np
+
+    from mlx_audio_tpu_torch.dsp import hanning
+
+    state = {k: v.float().cpu().numpy() for k, v in model.state_dict().items()}
+    state = cohere_nemo_names(state)
+    state["encoder.layers.0.conv.batch_norm.num_batches_tracked"] = np.zeros(
+        (), np.int64)
+    state["preprocessor.featurizer.fb"] = model._fb()[None]
+    pp = model.config.preprocessor
+    state["preprocessor.featurizer.window"] = hanning(pp.win_length).numpy()
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez(path / "model.npz", **state)
+    (path / "config.json").write_text(json.dumps(
+        dataclasses.asdict(model.config)))
+    (path / "tokens.json").write_text(json.dumps(
+        cohere_pieces(model.config.head.num_classes)))
+
+
+def _cohere_small(device: str, like=None):
+    """The small Cohere model on `device`: seeded (seed 0, drawn on the
+    CPU) or with the parameters of `like`; a piece-list tokenizer."""
+    from mlx_audio_tpu_torch.stt.models.canary import CanaryTokenizer
+    from mlx_audio_tpu_torch.stt.models.cohere_asr import Model, ModelConfig
+
+    model = Model(ModelConfig.from_dict(COHERE_SMALL), device=device)
+    if like is None:
+        model.init_params(seed=0)
+    else:
+        model.load_state_dict(like.state_dict())
+    model._tokenizer = CanaryTokenizer(piece_list=cohere_pieces(64))
+    return model
+
+
+def phase_cohere_reference() -> None:
+    """The small config at f32 from one seeded weight set, CUDA against the
+    CPU: the encoder rows of a ragged batch with a row of length 0, and
+    greedy generate() on 5 s of seeded noise (3 segments, a partial last
+    batch): texts and segments equal, everything finite."""
+    import numpy as np
+    import torch
+
+    cpu = _cohere_small("cpu")
+    gpu = _cohere_small("cuda", like=cpu)
+    audio = (np.random.RandomState(0).randn(16000 * 5) * 0.5).astype(
+        np.float32)
+    segs, _ = cpu._prepare_segments([audio])
+    feats, lens = cpu.features(segs + [audio[:0]])
+    want, _ = cpu.encode(feats, lens)
+    got, _ = gpu.encode(feats.cuda(), lens.cuda())
+    err = rel_err(got.cpu(), want)
+    if not torch.isfinite(got).all() or not err <= COHERE_REL:
+        raise AssertionError(f"Cohere encoder CUDA vs CPU {err:.3e} > "
+                             f"{COHERE_REL}, or rows not finite")
+    kw = dict(language="en", max_tokens=24)
+    want, got = cpu.generate(audio, **kw), gpu.generate(audio, **kw)
+    if (got.text, got.segments) != (want.text, want.segments) or not got.text:
+        raise AssertionError("small Cohere generate: CUDA differs from the "
+                             "CPU, or no text")
+    if len(got.segments) < 3 or gpu.last_run["batches"] < 2:
+        raise AssertionError(f"small Cohere: {gpu.last_run}, wanted 3+ "
+                             f"segments in 2+ batches")
+    log(f"[cohere-ref] small config f32, 5 s: encoder rows CUDA vs CPU "
+        f"{err:.2e} relative (tol {COHERE_REL}) over {len(segs)} segments "
+        f"and a row of length 0, all finite; {len(got.segments)} segments "
+        f"in {gpu.last_run['batches']} batches, {got.generation_tokens} "
+        f"tokens, {gpu.last_run['decode_steps']} decode steps: texts and "
+        f"segments equal")
+
+
+def cohere_encoder_flops(cfg: dict, rows: int, frames: int) -> float:
+    """Operations (2 per multiply-add) of `rows` rows of `frames` mel frames
+    through the encoder: the subsampling convs and `out`, then per layer
+    the two FFs, q/k/v/out, linear_pos over the 2T-1 positions, the three
+    attention products and the conv module; then `encoder_proj` if any."""
+    e = cfg["encoder"]
+    d, ch, ff = e["d_model"], e["subsampling_conv_channels"], \
+        e["d_model"] * e["ff_expansion_factor"]
+    t, f = frames, e["feat_in"]
+    sub = 0
+    for stage in range(3):
+        t, f = (t - 1) // 2 + 1, (f - 1) // 2 + 1
+        sub += 2 * t * f * ch * 9 + (2 * t * f * ch * ch if stage else 0)
+    sub += 2 * t * f * ch * d
+    per_frame = (2 * 2 * 2 * d * ff + 4 * 2 * d * d + 2 * d * 2 * d
+                 + 2 * d * e["conv_kernel_size"] + 2 * d * d
+                 + 2 * (t + (2 * t - 1) + t) * d)
+    layer = rows * t * per_frame + 2 * (2 * t - 1) * d * d
+    hidden = cfg["transf_decoder"]["config_dict"]["hidden_size"]
+    proj = 2 * rows * t * d * hidden if hidden != d else 0
+    return rows * sub + e["n_layers"] * layer + proj
+
+
+def phase_cohere_full(card: str) -> dict:
+    """Cohere ASR at the cohere_asr_10min lane's dims (2.05 B parameters
+    drawn on the card in f32 from seed 0, then cast in place to bf16): the
+    bf16 encoder against f32 on one 8-row batch of the 3,584-frame bucket,
+    the encoder's time a batch, then the lane's 600-s file cold and warm
+    (best of 3)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.canary import CanaryTokenizer
+    from mlx_audio_tpu_torch.stt.models.cohere_asr import Model, ModelConfig
+
+    base = torch.cuda.memory_allocated()       # what earlier phases hold
+    t0 = time.perf_counter()
+    model = Model(ModelConfig.from_dict(COHERE_FULL), device="cuda")
+    model.init_params(seed=0, on_device=True)
+    torch.cuda.synchronize()
+    log(f"[cohere] cohere_asr_10min dims (FastConformer 48 x d1280, decoder "
+        f"8 x d1024, vocabulary 16,384): {model.num_params() / 1e9:.3f} B "
+        f"parameters drawn on the card in f32 from seed 0 "
+        f"({time.perf_counter() - t0:.2f} s)")
+    audio = (np.random.RandomState(0).randn(COHERE_SECONDS * 16000) * 0.1
+             ).astype(np.float32)
+
+    # the 8 longest segments, one batch of the 3,584-frame bucket
+    segs, _ = model._prepare_segments([audio])
+    batch = sorted(segs, key=len, reverse=True)[:8]
+    feats, lens = model.features(batch)
+    if feats.shape[:2] != (8, 3584):
+        raise AssertionError(f"Cohere batch {tuple(feats.shape)}: not 8 rows "
+                             f"of the 3,584-frame bucket")
+    ref = model.encode(feats, lens)[0].float()
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    got = model.encode(feats, lens)[0].float()
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    if not torch.isfinite(got).all() or not rel < WHISPER_BF16_REL:
+        raise AssertionError(f"Cohere bf16 encoder vs f32: {rel:.3e} >= "
+                             f"{WHISPER_BF16_REL}, or not finite")
+    del ref, got
+    torch.cuda.empty_cache()
+    enc_ms = _time_ms(lambda: model.encode(feats, lens), 5)
+    flops = cohere_encoder_flops(COHERE_FULL, 8, 3584)
+    log(f"[cohere] bf16 encoder vs f32 on one 8-row batch of the 3,584-frame "
+        f"bucket: relative Frobenius {rel:.3e} (limit {WHISPER_BF16_REL}); "
+        f"{enc_ms:.3f} ms a batch (CUDA events, median of 5), "
+        f"{flops / 1e12:.3f} TFLOP: {flops / enc_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / PEAK_BF16 * 1e3 / enc_ms:.1f}% of 989 TFLOP/s "
+        f"({card})")
+
+    model._tokenizer = CanaryTokenizer(piece_list=cohere_pieces(
+        model.config.head.num_classes))
+    t1 = time.perf_counter()
+    for s in segs:
+        model._log_mel(s)
+    mel_s = time.perf_counter() - t1
+    encode, finite = model.encode, []
+
+    def checked_encode(f, n):              # every batch's rows finite
+        enc, mask = encode(f, n)
+        finite.append(bool(torch.isfinite(enc).all()))
+        return enc, mask
+
+    kw = dict(language="en", max_tokens=COHERE_MAX_TOKENS)
+    walls, outs = [], []
+    for i in range(4):
+        model.encode = checked_encode if i == 0 else encode
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs.append(model.generate(audio, **kw))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    del model.encode
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run, res = dict(model.last_run), outs[-1]
+    if len(res.segments) != COHERE_SEGMENTS or not all(finite) \
+            or len(finite) != run["batches"]:
+        raise AssertionError(f"Cohere lane: {len(res.segments)} segments "
+                             f"(want {COHERE_SEGMENTS}), encoder rows finite "
+                             f"{finite}")
+    if any(o.text != res.text for o in outs) or not res.text:
+        raise AssertionError("Cohere lane: the runs' texts differ, or none")
+    warm = min(walls[1:])
+    for label, wall in (("cold", walls[0]), ("warm (best of 3)", warm)):
+        enc_s = run["batches"] * enc_ms / 1e3
+        log(f"[cohere] {label}: {COHERE_SECONDS} s in {wall:.3f} s, xRT "
+            f"{COHERE_SECONDS / wall:.2f}; {len(res.segments)} segments in "
+            f"{run['batches']} batches, {res.generation_tokens} tokens, "
+            f"{run['decode_steps']} decode steps, "
+            f"{(wall - mel_s - enc_s) * 1e3 / run['decode_steps']:.3f} ms a "
+            f"step (wall less the host mel's {mel_s:.3f} s and the batches' "
+            f"encoder time at 8 rows, {enc_s:.3f} s) ({card})")
+    log(f"[cohere] warm walls {[round(w, 3) for w in walls[1:]]} s; peak "
+        f"device memory {peak_gb:.2f} GB in the warm runs, "
+        f"{peak_gb - base / 1e9:.2f} GB of it this phase's (bf16 weights "
+        f"{2 * model.num_params() / 1e9:.2f} GB); every batch's encoder rows "
+        f"finite ({card})")
+    del model
+    torch.cuda.empty_cache()
+    return {"warm": warm, "enc_ms": enc_ms, "rel": rel}
+
+
+def phase_cohere_cli(tmp: Path) -> None:
+    """A small Cohere checkpoint (NeMo names, torch conv layouts, npz with
+    the preprocessor buffers, tokens.json) and a 5-s WAV: the STT CLI in a
+    subprocess on the card, its JSON against load_model(...).generate(...)
+    here."""
+    import numpy as np
+
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.stt.models.cohere_asr import Model
+
+    ckpt, wav, out = tmp / "cohere-small", tmp / "speech.wav", tmp / "out"
+    write_cohere_checkpoint(_cohere_small("cpu"), ckpt)
+    audio_io.write(wav, (np.random.RandomState(7).randn(16000 * 5) * 0.5
+                         ).astype(np.float32), 16000)
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
+         str(ckpt), "--audio", str(wav), "--format", "json", "--output-path",
+         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"STT CLI on Cohere failed: "
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads((out / "transcription.json").read_text())
+    model = mlx_audio_tpu_torch.load_model(ckpt)
+    if model.device.type != "cuda" or not isinstance(model, Model):
+        raise AssertionError("load_model did not load Cohere on the card")
+    want = model.generate(str(wav))
+    if (got["text"], got["language"], got["segments"]) != (
+            want.text, want.language, json.loads(json.dumps(want.segments))):
+        raise AssertionError("STT CLI on Cohere differs from load_model")
+    if not want.text or len(want.segments) < 3:
+        raise AssertionError("Cohere CLI check: empty transcript or fewer "
+                             "than 3 segments")
+    log(f"[cohere-cli] python -m mlx_audio_tpu_torch.stt.generate --format "
+        f"json on a small NeMo-name npz checkpoint with tokens.json and a "
+        f"5-s WAV, on the card: {len(want.segments)} segments, "
+        f"{len(want.text.split())} words, equal to "
+        f"mlx_audio_tpu_torch.load_model(...).generate(...) in process")
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -2148,15 +2498,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_whisper_cli(Path(tmp))
         phase_voxtral_cli(Path(tmp))
+        phase_cohere_cli(Path(tmp))
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
-        raise AssertionError("the Whisper phases launched K1 or K2")
+        raise AssertionError("the Whisper phases or the CLI launched K1 or "
+                             "K2")
     # Voxtral Realtime: dense bf16 products, neither K1 nor K2 on its path
     with tempfile.TemporaryDirectory() as tmp:
         phase_voxtral_reference(Path(tmp))
         phase_voxtral_full(card, Path(tmp))
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Voxtral phases launched K1 or K2")
-    log(f"[time] phases 1-16 in {time.perf_counter() - t_start:.1f} s")
+    # Cohere ASR: dense bf16 products, neither K1 nor K2 on its path
+    phase_cohere_reference()
+    phase_cohere_full(card)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the Cohere phases launched K1 or K2")
+    log(f"[time] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     k2_path_abs = phase_qmm_path(set(recorder.calls))

@@ -13,13 +13,16 @@ with timestamps, word timestamps and a streaming session
 (`stt.models.whisper`), its log-mel front end (`dsp.py`), WAV I/O
 (`audio_io.py`) and the STT CLI (`python -m mlx_audio_tpu_torch.stt.generate`);
 Voxtral Mini Realtime live and offline speech -> text
-(`stt.models.voxtral_realtime`).
+(`stt.models.voxtral_realtime`); Cohere ASR long-file speech -> text
+(`stt.models.cohere_asr`) with the FastConformer encoder
+(`stt.models.parakeet.conformer`) and the Canary decoder
+(`stt.models.canary`) it shares with Parakeet and Canary.
 
 This package never imports jax, nor anything of the JAX package, not even
 its jax-free host code: it keeps its own copies (`base.py`, `audio_io.py`,
 `tts/g2p.py`, `tts/textnorm.py`, `stt/models/base.py`,
-`stt/models/whisper/tokenizer.py`, the tekken tokenizer, ...), each of
-which names the module it mirrors.
+`stt/models/whisper/tokenizer.py`, the tekken and Canary tokenizers, ...),
+each of which names the module it mirrors.
 
 The entry points (`load_model`, each family's `Model`) build on the card
 (`device="cuda"`) unless the caller passes another device, and raise

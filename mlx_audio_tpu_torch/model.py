@@ -17,8 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .nn import (BiLSTM, Conv1d, ConvTranspose1d, Embedding, LayerNorm, Linear,
-                 QuantizedLinear, RMSNorm, StackedTable)
+from .nn import (BatchNorm, BiLSTM, Conv1d, Conv2d, ConvTranspose1d, Embedding,
+                 LayerNorm, Linear, QuantizedLinear, RMSNorm, StackedTable)
 
 
 def _tensor(v: Any) -> torch.Tensor:
@@ -63,7 +63,8 @@ class TorchModel(nn.Module):
         """Random weights from `seed`, with the JAX package's init
         distributions (nn/layers.py, nn/recurrent.py): uniform
         +-1/sqrt(fan_in) kernels, zero biases, N(0, 0.02) embeddings, unit
-        norms, and the constants a module names in `init_fill`. By default
+        norms, batch norms at weight 1, bias 0, mean 0 and variance 1, and
+        the constants a module names in `init_fill`. By default
         drawn on the CPU in f32 from one torch.Generator in module order, so
         a seed gives the same weights on every device. `on_device` draws
         each tensor on its own device in its own dtype from a generator
@@ -91,20 +92,27 @@ class TorchModel(nn.Module):
             elif isinstance(m, Conv1d):
                 draw(m.weight, "uniform",
                      (m.weight.shape[1] * m.weight.shape[2]) ** -0.5)
+            elif isinstance(m, Conv2d):
+                _, i_g, kh, kw = m.weight.shape
+                draw(m.weight, "uniform", (i_g * kh * kw) ** -0.5)
             elif isinstance(m, ConvTranspose1d):
                 i_ch, _, width = m.weight.shape
                 draw(m.weight, "uniform", (i_ch // m.groups * width) ** -0.5)
             elif isinstance(m, (Embedding, StackedTable)):
                 draw(m.weight, "normal", 0.02)
-            elif isinstance(m, LayerNorm):
+            elif isinstance(m, (LayerNorm, BatchNorm)):
                 m.weight.fill_(1.0)
                 m.bias.fill_(0.0)
+                if isinstance(m, BatchNorm):
+                    m.running_mean.fill_(0.0)
+                    m.running_var.fill_(1.0)
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
             elif isinstance(m, BiLSTM):
                 for p in m.parameters():
                     draw(p, "uniform", m.hidden_size ** -0.5)
-            if isinstance(m, (Linear, Conv1d, ConvTranspose1d)) and m.bias is not None:
+            if isinstance(m, (Linear, Conv1d, Conv2d, ConvTranspose1d)) \
+                    and m.bias is not None:
                 m.bias.fill_(0.0)
             for name, value in getattr(m, "init_fill", {}).items():
                 getattr(m, name).fill_(value)
@@ -112,7 +120,8 @@ class TorchModel(nn.Module):
 
     def astype(self, dtype) -> "TorchModel":
         """Cast floating-point parameters to dtype. Buffers keep theirs: a
-        quantized linear's codes stay uint8 and its scales f32."""
+        quantized linear's codes stay uint8 and its scales f32, a batch
+        norm's running statistics f32."""
         for p in self.parameters():
             if p.is_floating_point():
                 p.data = p.data.to(dtype)
@@ -159,6 +168,7 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
 
     All layout conversion between the two packages sits here:
       * Conv1d:          WIO (k, I/g, O)          -> (O, I/g, k)
+      * Conv2d:          HWIO (kh, kw, I/g, O)    -> OIHW (O, I/g, kh, kw)
       * ConvTranspose1d: pre-flipped (W, I/g, O)  -> torch (I, O/g, W)
       * BiLSTM:          {forward,backward}.{weight_ih,weight_hh,bias_ih,bias_hh}
                          -> weight_ih_l0[_reverse], ...  (gate order i,f,g,o)
@@ -166,6 +176,8 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
                          leading L axis to per-layer modules
       * quantized:       a Linear whose JAX leaf is {w_q, scales, biases[,
                          bias]} becomes a QuantizedLinear; w_q stays uint8
+      * buffers:         a QuantizedLinear's codes, scales and biases and a
+                         BatchNorm's running_mean/running_var are taken too
       * everything else (linear (out,in), embeddings, norms, snake alphas,
         stacked tables) is copied as is.
     Raises if a parameter is missing or a JAX leaf is left over."""
@@ -198,12 +210,14 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
                 take(pre + "weight"), m.groups)
             if m.bias is not None:
                 state[pre + "bias"] = take(pre + "bias")
-        elif isinstance(m, Conv1d):
-            state[pre + "weight"] = np.transpose(take(pre + "weight"), (2, 1, 0))
+        elif isinstance(m, (Conv1d, Conv2d)):
+            state[pre + "weight"] = np.transpose(
+                take(pre + "weight"),
+                (2, 1, 0) if isinstance(m, Conv1d) else (3, 2, 0, 1))
             if m.bias is not None:
                 state[pre + "bias"] = take(pre + "bias")
         else:
-            if isinstance(m, QuantizedLinear):
+            if isinstance(m, (QuantizedLinear, BatchNorm)):
                 for bname, _ in m.named_buffers(recurse=False):
                     state[pre + bname] = take(pre + bname)
             for pname, p in m.named_parameters(recurse=False):

@@ -5,7 +5,9 @@ live in `nn.Module`s in PyTorch's layouts (see layers.py).
 """
 
 from .layers import (
+    BatchNorm,
     Conv1d,
+    Conv2d,
     ConvTranspose1d,
     Embedding,
     LayerNorm,
@@ -14,6 +16,7 @@ from .layers import (
     RMSNorm,
     StackedTable,
     conv1d,
+    conv2d,
     conv_transpose1d,
     layer_norm,
     gelu,
@@ -25,6 +28,7 @@ from .recurrent import BiLSTM
 
 __all__ = [
     "Linear", "QuantizedLinear", "Embedding", "StackedTable", "LayerNorm",
-    "RMSNorm", "Conv1d", "ConvTranspose1d", "BiLSTM", "linear", "layer_norm",
-    "rms_norm", "conv1d", "conv_transpose1d", "leaky_relu", "gelu",
+    "RMSNorm", "Conv1d", "Conv2d", "ConvTranspose1d", "BatchNorm", "BiLSTM",
+    "linear", "layer_norm", "rms_norm", "conv1d", "conv2d", "conv_transpose1d",
+    "leaky_relu", "gelu",
 ]

@@ -7,12 +7,17 @@ with like; parameters are held in PyTorch's own layouts:
   * Linear:           weight (out, in)
   * Conv1d:           weight (out, in/groups, width)       [torch Conv1d]
   * ConvTranspose1d:  weight (in, out/groups, width)       [torch ConvTranspose1d]
+  * Conv2d:           weight (out, in/groups, kh, kw)       [torch Conv2d]
+  * BatchNorm:        weight, bias (dim,); buffers running_mean and
+                      running_var f32 (dim,)
   * Embedding:        weight (vocab, dim)
   * QuantizedLinear:  buffers w_q uint8 (out, in), scales/biases f32
                       (out, in/gs); optional bias parameter (out,)
 
-The JAX package's layouts (WIO convs, pre-flipped transposed-conv kernels)
-are converted once, in `model.load_jax_params`.
+The JAX package's layouts (WIO and HWIO convs, pre-flipped transposed-conv
+kernels) are converted once, in `model.load_jax_params`. Conv2d is the one
+layer called channel-first, on torch's (B, C, H, W): the FastConformer's
+subsampling runs five of them in a row.
 
 Parameters are cast to the activation's dtype at use, as the JAX layers do
 (`params["weight"].astype(x.dtype)`).
@@ -86,6 +91,16 @@ def conv1d(x: torch.Tensor, weight: torch.Tensor,
     y = F.conv1d(h, weight.to(x.dtype), _cast(bias, x.dtype), stride=stride,
                  dilation=dilation, groups=groups)
     return y.transpose(1, 2)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: int = 1,
+           padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """2-D conv on (B, C_in, H, W) with a torch (O, I/g, kh, kw) kernel ->
+    (B, O, H', W'); apply_conv2d (mlx_audio_tpu/nn/layers.py:304-317) on
+    channel-first activations."""
+    return F.conv2d(x, weight.to(x.dtype), _cast(bias, x.dtype),
+                    stride=stride, padding=padding, groups=groups)
 
 
 def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
@@ -217,3 +232,42 @@ class ConvTranspose1d(nn.Module):
                                 padding=padding,
                                 output_padding=output_padding,
                                 groups=self.groups)
+
+
+class Conv2d(nn.Module):
+    """Weights (O, I/g, kh, kw); called on channel-first (B, C, H, W)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, bias: bool = True,
+                 groups: int = 1):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel,
+                                               kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor, stride: int = 1,
+                padding: int = 0) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, stride=stride,
+                      padding=padding, groups=self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm over the last axis from running statistics
+    (apply_batch_norm, mlx_audio_tpu/codec/models/ecapa_tdnn/ecapa_tdnn.py:
+    35-43). The statistics are f32 buffers, which `TorchModel.astype` leaves
+    in f32; the norm runs in f32, as JAX's promotes against them, and returns
+    x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = ((x.float() - self.running_mean)
+             * torch.rsqrt(self.running_var + self.eps)
+             * self.weight.float() + self.bias.float())
+        return y.to(x.dtype)

@@ -1,1 +1,2 @@
-"""STT model families of the port (so far: whisper)."""
+"""STT model families of the port: whisper, voxtral_realtime and
+cohere_asr, with the shared parakeet encoder and canary decoder."""

@@ -6,7 +6,8 @@ families in `PORTED` are ported. `load_model` reads a local checkpoint
 directory (config.json + npz or safetensors weights), maps its names onto
 the JAX tree's with the family's `sanitize`, fills the model through
 `model.load_jax_params`, the one place where layouts are converted, and
-runs the family's `post_load_hook` (Voxtral's reads `tekken.json`).
+runs the family's `post_load_hook` (Voxtral's reads `tekken.json`, Cohere
+ASR's its tokenizer and mel filterbank).
 """
 
 from __future__ import annotations
@@ -70,7 +71,7 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("whisper", "voxtral_realtime")
+PORTED = ("whisper", "voxtral_realtime", "cohere_asr")
 
 
 def model_family(config: dict, path: Path):
@@ -105,6 +106,10 @@ def load_model(model_path: Union[str, Path], device="cuda",
         from .models.whisper import Model, ModelDimensions
 
         model = Model(ModelDimensions.from_dict(config), device=device)
+    elif family == "cohere_asr":
+        from .models.cohere_asr import Model, ModelConfig
+
+        model = Model(ModelConfig.from_dict(config), device=device)
     else:
         from .models.voxtral_realtime import Model, ModelConfig
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 import glob
 import json
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 
@@ -43,10 +43,13 @@ def load_config(model_path: Union[str, Path]) -> dict:
     return json.loads(config_file.read_text(encoding="utf-8"))
 
 
-def load_weights(model_path: Union[str, Path]) -> Dict[str, np.ndarray]:
+def load_weights(model_path: Union[str, Path],
+                 keys: Optional[Iterable[str]] = None) -> Dict[str, np.ndarray]:
     """All *.safetensors (read with safetensors, imported only here) or,
-    failing those, *.npz under model_path, as one flat {name: array}."""
+    failing those, *.npz under model_path, as one flat {name: array}. With
+    `keys`, only those of them that the files hold are read."""
     model_path = Path(model_path)
+    wanted = None if keys is None else set(keys)
     weights: Dict[str, np.ndarray] = {}
     files = sorted(glob.glob(str(model_path / "*.safetensors")))
     if files:
@@ -55,7 +58,8 @@ def load_weights(model_path: Union[str, Path]) -> Dict[str, np.ndarray]:
         for wf in files:
             with safe_open(wf, framework="numpy") as f:
                 for k in f.keys():
-                    weights[k] = f.get_tensor(k)
+                    if wanted is None or k in wanted:
+                        weights[k] = f.get_tensor(k)
         return weights
     files = sorted(glob.glob(str(model_path / "*.npz")))
     if not files:
@@ -64,7 +68,8 @@ def load_weights(model_path: Union[str, Path]) -> Dict[str, np.ndarray]:
     for wf in files:
         with np.load(wf) as data:
             for k in data.files:
-                weights[k] = data[k]
+                if wanted is None or k in wanted:
+                    weights[k] = data[k]
     return weights
 
 

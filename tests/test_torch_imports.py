@@ -29,7 +29,8 @@ PORT_SOURCES = sorted(
     + [os.path.join(REPO, "chip_smoke.py"),
        os.path.join(REPO, "tools", "profile_torch_qwen3_tts.py"),
        os.path.join(REPO, "tools", "profile_torch_whisper.py"),
-       os.path.join(REPO, "tools", "profile_torch_voxtral.py")])
+       os.path.join(REPO, "tools", "profile_torch_voxtral.py"),
+       os.path.join(REPO, "tools", "profile_torch_cohere.py")])
 # modules of the port's fresh-interpreter runs that must stay unimported
 FORBIDDEN = """sorted(m for m in sys.modules if m in ("jax", "mlx_audio_tpu")
                 or m.startswith(("jax.", "mlx_audio_tpu.")))"""
@@ -270,6 +271,53 @@ def test_tiny_voxtral_generate_and_cli_without_jax(tmp_path):
     assert out.strip() == "False []", out
 
 
+def test_tiny_cohere_generate_and_cli_without_jax(tmp_path):
+    """Cohere ASR on the CPU at a tiny size from seeded weights: `generate`
+    and `transcribe`, and a checkpoint directory (NeMo names, npz,
+    tokens.json, written by chip_smoke.py's writer) through `load_model`
+    and the STT CLI in a second fresh interpreter, with no jax in either's
+    sys.modules."""
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import numpy as np
+        from mlx_audio_tpu_torch import audio_io
+        from chip_smoke import _cohere_small, write_cohere_checkpoint
+
+        model = _cohere_small("cpu")
+        tmp = Path(%r)
+        write_cohere_checkpoint(model, tmp / "cohere-tiny")
+        audio = (np.random.RandomState(0).randn(16000 * 3) * 0.5).astype(
+            np.float32)
+        audio_io.write(tmp / "a.wav", audio, 16000)
+        out = model.generate(str(tmp / "a.wav"), max_tokens=12)
+        assert out.text and len(out.segments) == 2
+        assert model.transcribe(language="en", audio_files=[tmp / "a.wav"],
+                                max_tokens=12) == [out.text]
+        (tmp / "want.json").write_text(json.dumps(out.text))
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import mlx_audio_tpu_torch.stt.utils as stt_utils
+        from mlx_audio_tpu_torch.stt import generate
+
+        real = stt_utils.load_model
+        stt_utils.load_model = lambda p: real(p, device="cpu")
+        tmp = Path(%r)
+        generate.main(["--model", str(tmp / "cohere-tiny"), "--audio",
+                       str(tmp / "a.wav"), "--format", "json",
+                       "--output-path", str(tmp / "out"), "--no-verbose",
+                       "--max-tokens", "12"])
+        got = json.loads((tmp / "out" / "transcription.json").read_text())
+        assert got["text"] == json.loads((tmp / "want.json").read_text())
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
     kernels are built only when first launched."""
@@ -322,7 +370,8 @@ def test_g2p_copy_matches_the_jax_package(text):
 def _entry_points():
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.stt import utils as stt_utils
-    from mlx_audio_tpu_torch.stt.models import voxtral_realtime, whisper
+    from mlx_audio_tpu_torch.stt.models import (cohere_asr, voxtral_realtime,
+                                                whisper)
     from mlx_audio_tpu_torch.tts import utils
     from mlx_audio_tpu_torch.tts.models import kokoro, qwen3_tts
 
@@ -336,6 +385,8 @@ def _entry_points():
         "voxtral_realtime.Model": (
             voxtral_realtime.Model.__init__,
             lambda p: voxtral_realtime.Model(voxtral_realtime.ModelConfig())),
+        "cohere_asr.Model": (cohere_asr.Model.__init__,
+                             lambda p: cohere_asr.Model(cohere_asr.ModelConfig())),
         "tts.utils.load_model": (utils.load_model,
                                  lambda p: utils.load_model(p)),
         "stt.utils.load_model": (stt_utils.load_model,
@@ -348,6 +399,7 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["kokoro.Model", "qwen3_tts.Model",
                                   "whisper.Model", "voxtral_realtime.Model",
+                                  "cohere_asr.Model",
                                   "tts.utils.load_model",
                                   "stt.utils.load_model",
                                   "mlx_audio_tpu_torch.load_model"])

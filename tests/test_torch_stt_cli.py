@@ -1,7 +1,7 @@
 """The port's STT entry points against the JAX package, on the CPU: its
 copy of `audio_io`, `stt.utils.load_model` and the category routing of
 `mlx_audio_tpu_torch.load_model`, and the STT CLI (`stt/generate.py`), on
-Whisper and on Voxtral Realtime.
+Whisper, on Voxtral Realtime and on Cohere ASR.
 
 A tiny Whisper checkpoint (`tests/test_whisper.py::DIMS`, the JAX model's
 random parameters under HF names, config.json in HF keys, npz) is written
@@ -12,6 +12,9 @@ the two packages' f32 rounding (`avg_logprob`, `no_speech_prob`), held to
 config, the JAX model's random parameters under mistral's consolidated
 names, a tekken.json; `chip_smoke.py::write_voxtral_checkpoint`) is loaded
 by both packages too: its transcription files must be equal byte for byte.
+So must a tiny Cohere ASR checkpoint's (tests/test_cohere_asr.py's config,
+the JAX model's random parameters under NeMo's names in torch's conv
+layouts, npz, a tokens.json; `chip_smoke.py::write_cohere_checkpoint`).
 """
 
 import io
@@ -190,7 +193,7 @@ def test_top_level_load_model_routes_stt_types(checkpoint, tmp_path):
                       Model)
 
 
-@pytest.mark.parametrize("model_type", ["parakeet", "cohere_asr",
+@pytest.mark.parametrize("model_type", ["parakeet", "canary",
                                         "wav2vec2"])
 def test_unported_stt_type_raises_a_clear_error(tmp_path, model_type):
     import mlx_audio_tpu_torch
@@ -200,7 +203,7 @@ def test_unported_stt_type_raises_a_clear_error(tmp_path, model_type):
         {"model_type": model_type}))
     for load in (load_model, mlx_audio_tpu_torch.load_model):
         with pytest.raises(ValueError, match="not ported.*ported: whisper, "
-                           "voxtral_realtime"):
+                           "voxtral_realtime, cohere_asr"):
             load(tmp_path, device="cpu")
 
 
@@ -413,3 +416,81 @@ def test_voxtral_cli_stream_prints_the_deltas(voxtral_checkpoint, wav,
     main(["--model", str(path), "--audio", str(wav), "--stream"])
     printed = capsys.readouterr().out
     assert want.strip() and want in printed
+
+
+# ---------------------------------------------------------------------------
+# Cohere ASR
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cohere_checkpoint(tmp_path_factory):
+    """A tiny Cohere ASR checkpoint directory and the JAX package's model
+    loaded from it."""
+    from chip_smoke import write_cohere_checkpoint
+    from mlx_audio_tpu.stt.utils import load_model as jax_load_model
+    from test_torch_cohere_asr import model_pair
+
+    _, pm = model_pair()
+    path = tmp_path_factory.mktemp("cohere-tiny")
+    write_cohere_checkpoint(pm, path)
+    return path, jax_load_model(path)
+
+
+def test_load_cohere_matches_jax(cohere_checkpoint, wav):
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.stt.models.cohere_asr import Model
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    path, jm = cohere_checkpoint
+    for load in (load_model, mlx_audio_tpu_torch.load_model):
+        pm = load(path, device="cpu")
+        assert isinstance(pm, Model) and pm.device.type == "cpu"
+        assert pm._tokenizer is not None
+    got, want = pm.generate(str(wav)), jm.generate(str(wav))
+    assert got.text and (got.text, got.segments) == (want.text, want.segments)
+    assert got.generation_tokens == want.generation_tokens
+    assert len(got.segments) >= 3
+
+
+@pytest.mark.parametrize("fmt", ["txt", "srt", "vtt", "json"])
+def test_cohere_transcription_files_match_jax(cohere_checkpoint, wav,
+                                              tmp_path, fmt):
+    from mlx_audio_tpu.stt.generate import (
+        generate_transcription as jax_generate_transcription)
+    from mlx_audio_tpu_torch.stt.generate import generate_transcription
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    path, jm = cohere_checkpoint
+    kw = dict(format=fmt, verbose=False, max_tokens=24)
+    jax_generate_transcription(str(path), str(wav), model=jm,
+                               output_path=str(tmp_path / "jax"), **kw)
+    generate_transcription(str(path), str(wav),
+                           model=load_model(path, device="cpu"),
+                           output_path=str(tmp_path / "port"), **kw)
+    g = (tmp_path / "port" / f"transcription.{fmt}").read_text("utf-8")
+    assert g == (tmp_path / "jax" / f"transcription.{fmt}").read_text("utf-8")
+    assert len(g.strip()) > 0
+
+
+def test_cohere_cli_defaults_the_language(cohere_checkpoint, wav, tmp_path,
+                                          monkeypatch):
+    """The CLI drops the --language it was not given, so generate() takes
+    its "en"; the CLI's options that Cohere has no use for land in its
+    **kwargs. The json output equals generate() in process."""
+    import mlx_audio_tpu_torch.stt.utils as stt_utils
+    from mlx_audio_tpu_torch.stt.generate import main
+
+    path, _ = cohere_checkpoint
+    real = stt_utils.load_model
+    monkeypatch.setattr(stt_utils, "load_model",
+                        lambda p: real(p, device="cpu"))
+    main(["--model", str(path), "--audio", str(wav), "--format", "json",
+          "--output-path", str(tmp_path), "--no-verbose",
+          "--max-tokens", "16", "--max-parallel-segments", "1"])
+    got = json.loads((tmp_path / "transcription.json").read_text())
+    want = real(path, device="cpu").generate(str(wav), max_tokens=16,
+                                             batch_size=1)
+    assert got["language"] == "en"
+    assert (got["text"], got["segments"]) == (
+        want.text, json.loads(json.dumps(want.segments)))
