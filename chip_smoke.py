@@ -5,9 +5,12 @@ session and its broker; Whisper large-v3-turbo speech -> text, through
 `generate`, its streaming session, `load_model` and the STT CLI; and
 Voxtral-Mini-3B-Realtime streaming speech -> text (the model behind the
 server's /v1/realtime), through its live session, offline `generate`,
-`load_model` and the STT CLI; and Cohere ASR long-file speech -> text
+`load_model` and the STT CLI; Cohere ASR long-file speech -> text
 (a FastConformer encoder and a Canary decoder), through `generate`,
-`load_model` and the STT CLI.
+`load_model` and the STT CLI; and Higgs Audio v2 text -> audio with its
+acoustic codec, in bf16, in W8A8 (`qmatmul_i8`) and on an affine-q8
+backbone (kernel K2), through its frame loop, `generate` and
+`load_model`.
 
     python3 chip_smoke.py
 
@@ -62,10 +65,11 @@ the CUDA toolkit. Phases, each of which raises on failure:
    phases came, a third request of 120 ids / 200 frames ran here; it was
    dropped to keep the run's time.)
 8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
-   10 and 11 launched it with (the prefill bucket, the code predictor's
-   first sub-step, text_projection over the text ids, the session's M = 8
-   and 16 decode frame and its burst prefill at M = 8 x 16), 8-bit codes,
-   x in f32 and bf16.
+   10, 11 and 21 launched it with, run after phase 21 (the prefill bucket,
+   the code predictor's first sub-step, text_projection over the text
+   ids, the session's M = 8 and 16 decode frame and its burst prefill at
+   M = 8 x 16, Higgs's four shapes at M = 1 and 512), 8-bit codes, x in
+   f32 and bf16.
 9. Qwen3-TTS streaming on the small config at f32 from one seeded q8
    weight set, CUDA against the CPU path: the greedy streamed chunks (same
    chunk sizes, audio), `streaming_step` over uneven chunks against
@@ -108,7 +112,11 @@ the CUDA toolkit. Phases, each of which raises on failure:
    Realtime checkpoint (mistral's consolidated names, torch conv layout,
    npz, a tekken.json) and a 3-s WAV, and for a small Cohere ASR checkpoint
    (NeMo's names, torch conv layouts, npz with the preprocessor's
-   filterbank and window, a tokens.json) and a 5-s WAV.
+   filterbank and window, a tokens.json) and a 5-s WAV. Last, a small
+   Higgs Audio v2 checkpoint (HF names, config.json with model_type
+   "higgs_audio", npz, no text head): `load_model(...)` on the card must
+   tie the text head to embed_tokens and give the in-process model's
+   greedy frames.
 15. Voxtral Realtime, the small config of tests/test_voxtral_realtime.py
    with a 2-layer encoder, at f32 from one seeded weight set, CUDA against
    the CPU: offline adapter frames (relative error within 1e-4) at 1 s,
@@ -144,6 +152,43 @@ the CUDA toolkit. Phases, each of which raises on failure:
    tokens, decode steps and ms a step, the host mel's time, peak device
    memory; every batch's encoder rows finite, the runs' texts equal.
    Neither K1 nor K2 may launch in phases 17-18.
+19. Higgs Audio v2, the small config of tests/test_higgs_audio_v2.py at
+   f32 from one seeded weight set, CUDA against the CPU: the cached
+   prefill's hidden states of a mixed text/audio prompt (within 1e-4),
+   greedy `generate_frames` with the EOS rows of the audio head scaled so
+   that EOS comes after the delay ramp-in and the ramp-out runs (frames
+   equal), and a greedy `generate()` through a small bound codec (same
+   length, audio within 1e-4). Then `qmatmul_i8` on the card
+   (`torch._int_mm`, rows padded where it refuses few) against its plain
+   version at M in {1, 17, 512} and the four Higgs shapes: int32
+   accumulators equal, the output within 1e-5.
+20. Higgs Audio v2 at `ModelConfig()` dims (5.771 B parameters drawn
+   N(0, 0.02) on the card in f32 from seed 0, as bench.py:369-390 draws
+   every floating leaf, then cast in place to bf16): bf16 against f32 on
+   the lane's 512-bucket prefill (relative Frobenius under 2e-2); the
+   `higgs_v2_3b_bf16` workload (bench.py:428-464: 480 embeds of
+   `randn * 0.02` at seed 0, cache 1,024, temperature 0.7, top_p 0.95, RAS
+   7/2; 250 frames in 16-frame chunks through `prefill` and `chunk`
+   whatever `done` says, then the codec at `CodecConfig()` dims in bf16 on
+   the first 242 frames mod 1,024), a warm-up then best of 3: wall, ms a
+   frame, xRT over 10 s, the prefill's and the codec's time, peak device
+   memory, and from one profiled chunk the kernels a frame, device time
+   and busy share against the frame's byte bound (1.72 ms). Then, after
+   phase 21, the same model's affine codes converted in place to W8A8
+   (`tree_to_i8_layout`, as bench.py:414-426), its audio logits on the
+   prefill's last row against bf16 (relative Frobenius under 1e-1), and
+   the `higgs_v2_3b_q8` workload the same way against its int8 bound.
+   Audio finite and 232,320 samples in each. Neither K1 nor K2 may launch.
+21. On phase 20's weights, between its two lanes: the backbone quantized
+   through `apply_quantization` to affine 8 bits (group 64, no mxu_int8),
+   one 32-frame request through `generate_frames` with a voice-clone-like
+   mask. K2's launches must equal 28 x (4 + 3 + 3) = 280 for the prefill
+   (both paths) plus 196 (28 layers x 7, the audio path) for each decode
+   step run; every quantized linear the config gives must be one. Then K2
+   (checked against `qmatmul_reference`), W8A8 and dense bf16 cuBLAS at
+   the four Higgs shapes at M = 1 and 512, by CUDA graph replay, with the
+   sums over one decode frame's 196 linears. These launches join K2's
+   count in the `kernels` line, and the shapes phase 8's final check.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -2466,6 +2511,620 @@ def phase_cohere_cli(tmp: Path) -> None:
         f"mlx_audio_tpu_torch.load_model(...).generate(...) in process")
 
 
+# ---------------------------------------------------------------------------
+# Higgs Audio v2 (phases 19-21, and the checkpoint of phase 14)
+# ---------------------------------------------------------------------------
+
+# tests/test_higgs_audio_v2.py:20-32: 2 dual-FFN layers at d32, GQA 4/2,
+# llama3 RoPE scaling, 4 codebooks of 64
+HIGGS_SMALL = dict(
+    text_config=dict(hidden_size=32, num_hidden_layers=2,
+                     num_attention_heads=4, num_key_value_heads=2,
+                     intermediate_size=64, vocab_size=300,
+                     rope_theta=500000.0,
+                     rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                                   "low_freq_factor": 1.0,
+                                   "high_freq_factor": 4.0,
+                                   "original_max_position_embeddings": 8192}),
+    audio_num_codebooks=4, audio_codebook_size=64, audio_stream_bos_id=64,
+    audio_stream_eos_id=65)
+# a codec with the small model's 4 books of 64 (hop 6)
+HIGGS_CODEC_SMALL = dict(
+    codebook_size=64, codebook_dim=4, dac_num_codebooks=4,
+    dac_encoder_ratios=[2, 3], dac_encoder_hidden=4, dac_decoder_hidden=16,
+    latent_dim=24, fusion_dim=8, downsample_factor=20)
+# the small model's EOS rows of audio_lm_head scaled by this make greedy
+# decoding sample EOS at frame 4 (seed 0), after the delay ramp-in, and run
+# the ramp-out
+HIGGS_EOS_SCALE = 2.5
+HIGGS_TEXT = "hello world, this is a check"
+# small config at f32, CUDA vs CPU: summation order only
+HIGGS_REL = 1e-4
+# W8A8 on the card: the int32 product is exact, the two f32 scale products
+# round alike
+I8_REL = 1e-5
+I8_ROWS = (1, 17, 512)
+# the linear shapes (out, in) of a layer at ModelConfig() dims: q and o; k
+# and v; gate and up; down. A decode frame runs 28 x (2, 2, 2, 1) of them
+HIGGS_SHAPES = ((3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192))
+HIGGS_FRAME_LINEARS = (2, 2, 2, 1)
+# the higgs_v2_3b_* lanes (bench.py:428-464): a 480-token prompt of
+# randn * 0.02 embeds (seed 0) in the 512 bucket, a 1,024-column cache,
+# temperature 0.7, top_p 0.95, RAS 7/2; 250 frames (10 s at 25 frames a
+# second) in 16-frame chunks, then the first 242 delayed frames mod 1,024
+# through the codec at CodecConfig() dims in bf16
+HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 250, 25, 242
+HIGGS_BF16_REL = 2e-2
+# W8A8 against bf16 audio logits on the prefill's last row (per-channel
+# int8 weights and per-token int8 activations, 28 layers deep)
+HIGGS_I8_LOGITS_REL = 1e-1
+# phase 21: one request of 32 frames on the affine-q8 backbone, with a
+# voice-clone-like mask (rows 100-299 audio), so the prefill runs both paths
+HIGGS_K2_FRAMES = 32
+HIGGS_AUDIO_ROWS = (100, 300)
+
+
+class HiggsTok:
+    """A stand-in text tokenizer (tests/test_higgs_audio_v2.py's FakeTok):
+    the HF tokenizer is not in the repository."""
+
+    def encode(self, text, add_special_tokens=False):
+        return [ord(c) % 290 for c in text][:80]
+
+
+def _higgs_small(device: str, eos_scale=None):
+    from mlx_audio_tpu_torch.tts.models.higgs_audio import Model
+
+    import torch
+
+    model = Model(HIGGS_SMALL, device=device).init_params(seed=0)
+    model.tokenizer = HiggsTok()
+    if eos_scale is not None:
+        cfg = model.config
+        rows = (torch.arange(cfg.audio_num_codebooks, device=device)
+                * cfg.stride + cfg.audio_stream_eos_id)
+        model.audio_decoder_proj.audio_lm_head.weight[rows] *= eos_scale
+    return model
+
+
+def _higgs_codec_small(device: str):
+    from mlx_audio_tpu_torch.codec.models.higgs_audio import Model
+
+    return Model(HIGGS_CODEC_SMALL, device=device).init_params(seed=1)
+
+
+def _frames(gen):
+    import numpy as np
+
+    return np.concatenate(list(gen), axis=0)
+
+
+def phase_higgs_reference() -> None:
+    """Phase 19: the small configs at f32 from one seeded weight set, CUDA
+    against the CPU: the cached prefill's hidden states, greedy frames with
+    EOS reached and its ramp-out run, a generate() through a bound small
+    codec; then qmatmul_i8 (torch._int_mm) against its plain version at the
+    four Higgs shapes."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.kvcache import KVCache
+    from mlx_audio_tpu_torch.ops.quant import (int_mm, int_mm_reference,
+                                               qmatmul_i8,
+                                               qmatmul_i8_reference)
+    from mlx_audio_tpu_torch.tts.models.higgs_audio.higgs_audio import \
+        higgs_forward
+
+    t0 = time.perf_counter()
+    models = [_higgs_small(d, HIGGS_EOS_SCALE) for d in ("cpu", "cuda")]
+    cfg = models[0].config
+    t = cfg.text
+    rs = np.random.RandomState(0)
+    emb = (rs.randn(1, 64, t.hidden_size) * 0.5).astype(np.float32)
+    mask = np.zeros((1, 64), bool)
+    mask[0, 10:40] = True
+    plen, cache_len = 60, 128
+    hidden = []
+    for m in models:
+        dev = m.device
+        caches = KVCache.init(1, cache_len, t.num_key_value_heads,
+                              t.head_dim, torch.float32, dev,
+                              n_layers=t.num_hidden_layers)
+        pad = torch.zeros(cache_len, device=dev).masked_fill(
+            torch.arange(cache_len, device=dev) >= plen,
+            float("-inf"))[None, None, None, :]
+        h, _ = higgs_forward(m, torch.from_numpy(emb).to(dev),
+                             torch.from_numpy(mask).to(dev), caches, 0,
+                             pad_mask=pad)
+        hidden.append(h[:, :plen].cpu())
+    rel = rel_err(hidden[1], hidden[0])
+    if not (torch.isfinite(hidden[1]).all() and rel <= HIGGS_REL):
+        raise AssertionError(f"Higgs prefill hidden CUDA vs CPU rel {rel:.3e}")
+    frames = [_frames(m.generate_frames(*m.build_prompt(HIGGS_TEXT),
+                                        max_new_frames=64, temperature=0.0))
+              for m in models]
+    eos, k = cfg.audio_stream_eos_id, cfg.audio_num_codebooks
+    if frames[0].shape != frames[1].shape or (frames[0] != frames[1]).any():
+        raise AssertionError("Higgs greedy frames differ CUDA vs CPU")
+    first_eos = int(np.argmax((frames[1] == eos).any(axis=1)))
+    if not ((frames[1][-1] == eos).all() and len(frames[1]) < 65
+            and first_eos >= k):
+        raise AssertionError(f"Higgs frames: EOS at {first_eos} of "
+                             f"{len(frames[1])}, no ramp-out seen")
+    plain = [_higgs_small(d) for d in ("cpu", "cuda")]
+    for m, d in zip(plain, ("cpu", "cuda")):
+        m.codec = _higgs_codec_small(d)
+    res = [next(m.generate(HIGGS_TEXT, temperature=0.0, max_new_frames=48))
+           for m in plain]
+    a_rel = rel_err(torch.from_numpy(res[1].audio),
+                    torch.from_numpy(res[0].audio))
+    if not (res[0].samples == res[1].samples > 0 and a_rel <= HIGGS_REL
+            and np.isfinite(res[1].audio).all()):
+        raise AssertionError(f"Higgs generate() audio CUDA vs CPU: "
+                             f"{res[1].samples} vs {res[0].samples} samples, "
+                             f"rel {a_rel:.3e}")
+    log(f"[higgs small] f32 CUDA vs CPU: prefill hidden rel {rel:.3e} (tol "
+        f"{HIGGS_REL:g}); greedy frames equal ({len(frames[1])}, EOS at "
+        f"frame {first_eos}, ramp-out run); generate() through a small codec "
+        f"{res[1].samples} samples, rel {a_rel:.3e}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    for n, kin in HIGGS_SHAPES:
+        w = torch.randint(-127, 128, (n, kin), dtype=torch.int8, device=dev,
+                          generator=g)
+        scale = torch.rand(n, device=dev, generator=g) * 1e-3
+        for m in I8_ROWS:
+            xq = torch.randint(-127, 128, (m, kin), dtype=torch.int8,
+                               device=dev, generator=g)
+            if not torch.equal(int_mm(xq, w), int_mm_reference(xq, w)):
+                raise AssertionError(f"_int_mm ({n},{kin}) M={m}: int32 "
+                                     f"accumulators differ")
+            x = torch.randn(m, kin, device=dev, generator=g)
+            r = rel_err(qmatmul_i8(x, w, scale),
+                        qmatmul_i8_reference(x, w, scale))
+            worst = max(worst, r)
+            if not r <= I8_REL:
+                raise AssertionError(f"qmatmul_i8 ({n},{kin}) M={m}: rel "
+                                     f"{r:.3e}")
+    log(f"[higgs w8a8] torch._int_mm at {len(HIGGS_SHAPES)} shapes x M in "
+        f"{I8_ROWS}: int32 accumulators equal to the exact plain product; "
+        f"qmatmul_i8 rel <= {worst:.3e} (tol {I8_REL:g}); phase 19 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def write_higgs_checkpoint(model, path: Path) -> None:
+    """`model` as a checkpoint directory: config.json with model_type
+    "higgs_audio" and the weights under their HF names in one npz, without
+    the text head (tied to embed_tokens) and with a rotary buffer that
+    sanitize drops."""
+    import dataclasses
+
+    import numpy as np
+
+    state = {k: v.float().cpu().numpy() for k, v in model.state_dict().items()
+             if k != "audio_decoder_proj.text_lm_head.weight"}
+    state["layers.0.self_attn.rotary_emb.inv_freq"] = \
+        model.inv_freq.cpu().numpy()
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez(path / "model.npz", **state)
+    cfg = dataclasses.asdict(model.config)
+    cfg.pop("model_path")
+    (path / "config.json").write_text(json.dumps(cfg))
+
+
+def phase_higgs_load(tmp: Path) -> None:
+    """Phase 14's Higgs checkpoint: load_model(...) on the card gives the
+    in-process model's greedy frames."""
+    import numpy as np
+    import torch
+
+    import mlx_audio_tpu_torch
+
+    ckpt = tmp / "higgs-small"
+    here = _higgs_small("cuda")
+    write_higgs_checkpoint(here, ckpt)
+    loaded = mlx_audio_tpu_torch.load_model(ckpt)
+    if loaded.device.type != "cuda":
+        raise AssertionError("load_model did not load Higgs onto the card")
+    head = loaded.audio_decoder_proj.text_lm_head.weight
+    if not torch.equal(head, loaded.embed_tokens.weight):
+        raise AssertionError("Higgs text head not tied to embed_tokens")
+    loaded.tokenizer = HiggsTok()
+    want, got = (_frames(m.generate_frames(*m.build_prompt(HIGGS_TEXT),
+                                           max_new_frames=32,
+                                           temperature=0.0))
+                 for m in (here, loaded))
+    if want.shape != got.shape or (want != got).any():
+        raise AssertionError("Higgs load_model frames differ from the "
+                             "in-process model's")
+    log(f"[higgs-load] mlx_audio_tpu_torch.load_model on a small Higgs "
+        f"checkpoint (HF names, npz, tied text head): {len(got)} greedy "
+        f"frames on the card, equal to the in-process model's "
+        f"({np.count_nonzero(got == HIGGS_SMALL['audio_stream_eos_id'])} "
+        f"EOS codes)")
+
+
+def build_higgs_full():
+    """Higgs Audio v2 at ModelConfig() dims on the card, every floating
+    parameter drawn N(0, 0.02) there in f32 from seed 0, as the lane draws
+    them (bench.py:369-390)."""
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.higgs_audio import Model, ModelConfig
+
+    model = Model(ModelConfig(), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    return model
+
+
+def higgs_frame_bytes(model, kv_cols: float) -> float:
+    """Bytes a decode frame must read: per layer the attention, the audio
+    norms and the audio MLP (parameters and quantized buffers), then the
+    final norm and the audio head, and the K/V of the kv_cols cache columns
+    it attends to."""
+    t = model.config.text
+    mods = [model.norm, model.audio_decoder_proj.audio_lm_head]
+    for lp in model.layers:
+        mods += [lp.self_attn, lp.audio_input_layernorm,
+                 lp.audio_post_attention_layernorm, lp.audio_mlp]
+    weights = sum(v.numel() * v.element_size() for m in mods
+                  for v in list(m.parameters()) + list(m.buffers()))
+    kv = (2 * t.num_hidden_layers * kv_cols * t.num_key_value_heads
+          * t.head_dim * model.embed_tokens.weight.element_size())
+    return weights + kv
+
+
+def _higgs_run(model, emb, mask, sampling, cache_len: int):
+    """The lane's generation: prefill, then HIGGS_FRAMES frames in chunks
+    of 16 (the last 10), each chunk's frames copied to the host once.
+    -> (frames (N, K), prefill s, generation s)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.higgs_audio.higgs_audio import \
+        CHUNK_FRAMES
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, _ = model.prefill(emb, mask, HIGGS_PLEN, cache_len, seed=0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    blocks, left = [], HIGGS_FRAMES
+    while left:
+        frames, _ = model.chunk(carry, sampling, min(CHUNK_FRAMES, left))
+        blocks.append(frames.cpu().numpy())
+        left -= len(blocks[-1])
+    return np.concatenate(blocks), t1 - t0, time.perf_counter() - t0
+
+
+def _profile_chunk(model, emb, mask, sampling, cache_len: int) -> tuple:
+    """One 16-frame chunk under torch.profiler after a prefill. -> (kernels
+    a frame, device ms a frame, wall ms a frame unprofiled, busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    carry, _ = model.prefill(emb, mask, HIGGS_PLEN, cache_len, seed=0)
+    model.chunk(carry, sampling)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.chunk(carry, sampling)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 16
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.chunk(carry, sampling)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    device = sum(dev_us(e) for e in kernels) / 1e3 / 16
+    launches = sum(e.count for e in kernels) / 16
+    return launches, device, wall, device / wall
+
+
+def _higgs_lane(model, codec, name: str, emb, mask, card: str,
+                bytes_frame: float) -> dict:
+    """The lane's workload: a warm-up, then best of 3 (generation and the
+    codec, as bench.py:438-475), and one profiled chunk. Returns the
+    numbers it logs."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.higgs_audio.higgs_audio import (
+        Sampling, cache_length, prompt_bucket)
+
+    sampling = Sampling(0.7, 0.95, 0, 7, 2, 0)
+    k = model.config.audio_num_codebooks
+    cache_len = cache_length(prompt_bucket(HIGGS_PLEN), HIGGS_FRAMES, k)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _higgs_run(model, emb, mask, sampling, cache_len)          # warm-up
+    runs = [_higgs_run(model, emb, mask, sampling, cache_len)
+            for _ in range(3)]
+    frames, prefill_s, gen_s = min(runs, key=lambda r: r[2])
+    if frames.shape != (HIGGS_FRAMES, k):
+        raise AssertionError(f"{name}: frames {frames.shape}")
+    codes = np.ascontiguousarray(frames.T)[:, :HIGGS_CODEC_FRAMES] % 1024
+    codec.decode(codes.T)                                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio = codec.decode(codes.T)
+    codec_s = time.perf_counter() - t0
+    want = HIGGS_CODEC_FRAMES * codec.config.acoustic_hop
+    if audio.shape != (want,) or not np.isfinite(audio).all():
+        raise AssertionError(f"{name}: audio {audio.shape}, want ({want},), "
+                             f"or not finite")
+    peak = torch.cuda.max_memory_allocated()
+    launches, device_ms, wall_ms, busy = _profile_chunk(
+        model, emb, mask, sampling, cache_len)
+    frame_ms = gen_s / HIGGS_FRAMES * 1e3
+    bound_ms = bytes_frame / HBM_BPS * 1e3
+    audio_s = HIGGS_FRAMES / HIGGS_FPS
+    out = dict(wall_s=gen_s + codec_s, frame_ms=frame_ms,
+               xrt=audio_s / (gen_s + codec_s), codec_s=codec_s,
+               prefill_ms=prefill_s * 1e3, peak_gb=peak / 1e9,
+               own_gb=(peak - base) / 1e9, launches=launches,
+               device_ms=device_ms, busy=busy, bound_ms=bound_ms,
+               walls=[r[2] for r in runs])
+    log(f"[higgs {name}] {HIGGS_FRAMES} frames (the lane's {audio_s:.0f} s) + "
+        f"codec of {HIGGS_CODEC_FRAMES} frames -> {want} samples: wall "
+        f"{out['wall_s']:.3f} s best of 3 (generation "
+        f"{', '.join(f'{w:.3f}' for w in out['walls'])} s), "
+        f"{frame_ms:.2f} ms a frame, xRT {out['xrt']:.3f}; prefill "
+        f"{out['prefill_ms']:.2f} ms, codec {codec_s * 1e3:.2f} ms; peak "
+        f"device memory {out['peak_gb']:.2f} GB ({out['own_gb']:.2f} GB "
+        f"above the model and what earlier phases hold); profiled chunk: "
+        f"{launches:.0f} kernels a frame, {device_ms:.3f} ms of device time "
+        f"a frame against {wall_ms:.2f} ms of wall ({100 * busy:.1f}% busy); "
+        f"bound {bound_ms:.3f} ms a frame ({bytes_frame / 1e9:.3f} GB), "
+        f"{100 * bound_ms / frame_ms:.1f}% of it reached ({card})")
+    return out
+
+
+def phase_higgs_full(card: str):
+    """Phase 20, first half: Higgs v2 at ModelConfig() dims (5.771 B
+    parameters drawn on the card in f32 from seed 0, then cast in place to
+    bf16): bf16 against f32 on the lane's 512-bucket prefill, then the
+    higgs_v2_3b_bf16 workload. -> (model, codec, lane inputs, bf16 audio
+    logits of the prefill's last row, the lane's numbers)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.higgs_audio import (
+        Model as Codec, ModelConfig as CodecConfig)
+    from mlx_audio_tpu_torch.ops.kvcache import KVCache
+    from mlx_audio_tpu_torch.tts.models.higgs_audio.higgs_audio import (
+        higgs_forward, prompt_bucket)
+
+    t0 = time.perf_counter()
+    model = build_higgs_full()
+    torch.cuda.synchronize()
+    t = model.config.text
+    n_params = model.num_params()
+    log(f"[higgs] Higgs Audio v2 ModelConfig() dims (28 dual-FFN layers x "
+        f"d3072, GQA 24/8 of 128, FFN 8192, 8 books of 1,026): "
+        f"{n_params / 1e9:.3f} B parameters drawn N(0, 0.02) on the card in "
+        f"f32 from seed 0 ({time.perf_counter() - t0:.2f} s)")
+    pb = prompt_bucket(HIGGS_PLEN)
+    emb32 = torch.from_numpy((np.random.RandomState(0).randn(
+        1, pb, t.hidden_size) * 0.02).astype(np.float32)).cuda()
+    mask = torch.zeros(1, pb, dtype=torch.bool, device="cuda")
+    pad = torch.zeros(1024, device="cuda").masked_fill(
+        torch.arange(1024, device="cuda") >= HIGGS_PLEN,
+        float("-inf"))[None, None, None, :]
+
+    def prefill_hidden(emb):
+        dtype = model.embed_tokens.weight.dtype
+        caches = KVCache.init(1, 1024, t.num_key_value_heads, t.head_dim,
+                              dtype, "cuda", n_layers=t.num_hidden_layers)
+        h, _ = higgs_forward(model, emb.to(dtype), mask, caches, 0,
+                             pad_mask=pad)
+        return h[:, :HIGGS_PLEN].float()
+
+    ref = prefill_hidden(emb32)
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    got = prefill_hidden(emb32)
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    del ref
+    logits = model._audio_logits(got[0, -1].to(torch.bfloat16)).float()
+    if not (torch.isfinite(got).all() and rel < HIGGS_BF16_REL):
+        raise AssertionError(f"Higgs bf16 vs f32 prefill hidden: relative "
+                             f"Frobenius {rel:.3e}")
+    log(f"[higgs] bf16 vs f32 on the lane's 512-bucket prefill ({HIGGS_PLEN} "
+        f"rows): relative Frobenius {rel:.3e} (limit {HIGGS_BF16_REL:g})")
+    codec = Codec(CodecConfig(), device="cuda").init_params(seed=0,
+                                                            on_device=True)
+    codec.astype(torch.bfloat16)
+    emb = emb32.to(torch.bfloat16)
+    lane = _higgs_lane(model, codec, "higgs_v2_3b_bf16", emb, mask, card,
+                       higgs_frame_bytes(model, HIGGS_PLEN + 1
+                                         + HIGGS_FRAMES / 2))
+    return model, codec, emb, mask, logits, lane
+
+
+def higgs_k2_launches(model, mask) -> tuple:
+    """K2 launches of (the prefill, a decode frame) on the affine-q8
+    backbone, from the config and the prompt's mask: each layer runs q, k,
+    v, o and, for each path some row takes, gate, up and down (28 x (4 +
+    3 + 3) = 280 with both, 196 with one); a decode frame runs the audio
+    path only (196). The audio head stays dense, the text head never runs.
+    Raises unless the model holds exactly the quantized linears the config
+    gives (28 x 10 + the text head)."""
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+
+    layers = model.config.text.num_hidden_layers
+    have = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if have != layers * 10 + 1:
+        raise AssertionError(f"{have} quantized linears, the config gives "
+                             f"{layers * 10 + 1}")
+    paths = int(bool(mask.any())) + int(bool((~mask).any()))
+    return layers * (4 + 3 * paths), layers * 7
+
+
+def phase_higgs_k2(model, emb, mask, card: str, recorder) -> int:
+    """Phase 21, on phase 20's weights: the backbone quantized to affine 8
+    bits (group 64, the model's predicate, no mxu_int8) through
+    apply_quantization, one 32-frame request through generate_frames with
+    K2's launches against the count higgs_k2_launches gives, then K2 at the
+    four Higgs shapes, M = 1 (gemv) and 512 (mma), against
+    qmatmul_reference, timed beside W8A8 (torch._int_mm) and dense bf16
+    cuBLAS. Returns K2's launches in the request."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t0 = time.perf_counter()
+    apply_quantization(model, {"quantization": {"bits": 8, "group_size": 64}},
+                       model.model_quant_predicate)
+    torch.cuda.empty_cache()
+    mask = mask.clone()
+    mask[0, HIGGS_AUDIO_ROWS[0]:HIGGS_AUDIO_ROWS[1]] = True
+    prefill, frame = higgs_k2_launches(model, mask[:, :HIGGS_PLEN])
+    before = qmm_kernel.launches
+    with recorder:
+        t1 = time.perf_counter()
+        frames = _frames(model.generate_frames(
+            emb[:, :HIGGS_PLEN], mask[:, :HIGGS_PLEN],
+            max_new_frames=HIGGS_K2_FRAMES, temperature=0.7, top_p=0.95,
+            seed=0))
+        wall = time.perf_counter() - t1
+    launches = qmm_kernel.launches - before
+    steps = 16 * model.last_run["chunks"]
+    want = prefill + frame * steps
+    if launches != want:
+        raise AssertionError(f"Higgs q8: {launches} K2 launches, want "
+                             f"{prefill} + {frame} x {steps} = {want}")
+    want_calls = {(m, n, k, False) for n, k in HIGGS_SHAPES for m in (1, 512)}
+    if not want_calls <= set(recorder.calls):
+        raise AssertionError(f"K2 not launched at {want_calls}")
+    log(f"[higgs q8 K2] affine 8-bit backbone (group 64): one request, "
+        f"{len(frames)} frames ({steps} decode steps) in {wall * 1e3:.1f} ms "
+        f"({wall * 1e3 / (steps + 1):.2f} ms a step), {launches} K2 launches "
+        f"= {prefill} (prefill, both paths) + {frame} x {steps} ({card})")
+    _higgs_linear_times(card)
+    log(f"[higgs q8 K2] phase 21 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _higgs_linear_times(card: str, reps: int = 7) -> None:
+    """Each Higgs linear shape at M = 1 and 512: K2 (dispatched path,
+    checked against qmatmul_reference), W8A8 qmatmul_i8 and dense bf16
+    F.linear, each timed by CUDA graph replay over a rotation of weight
+    copies larger than the L2 cache; then the sums over one decode frame's
+    196 linears with their byte bounds."""
+    from functools import partial
+
+    import torch
+    import torch.nn.functional as F
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.quant import (qmatmul_i8, quantize_weight,
+                                               to_i8_layout)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    frame = {"K2": 0.0, "W8A8": 0.0, "bf16": 0.0}
+    bounds = {"K2": 0.0, "W8A8": 0.0, "bf16": 0.0}
+    layers = 28
+    for (n, k), per_layer in zip(HIGGS_SHAPES, HIGGS_FRAME_LINEARS):
+        w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
+        q = quantize_weight(w, QMM_GROUP, 8)
+        i8 = to_i8_layout(q)
+        wb = w.to(torch.bfloat16)
+        sizes = {"K2": n * k + 2 * n * (k // QMM_GROUP) * 4,
+                 "W8A8": n * k + 4 * n, "bf16": 2 * n * k}
+        reps_of = {name: -(-2 * L2_BYTES // size)
+                   for name, size in sizes.items()}
+        qs = [q] + [{a: v.clone() for a, v in q.items()}
+                    for _ in range(reps_of["K2"] - 1)]
+        i8s = [i8] + [{a: v.clone() for a, v in i8.items()}
+                      for _ in range(reps_of["W8A8"] - 1)]
+        wbs = [wb] + [wb.clone() for _ in range(reps_of["bf16"] - 1)]
+        for m in (1, 512):
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            rel, _ = _qmm_case(x, q, None, f"higgs ({n},{k}) q8 M={m}")
+            ms = {"K2": _time_graph([partial(qmm_kernel, x, c["w_q"],
+                                             c["scales"], c["biases"])
+                                     for c in qs], reps),
+                  "W8A8": _time_graph([partial(qmatmul_i8, x, c["w_i8"],
+                                               c["scale"]) for c in i8s],
+                                      reps),
+                  "bf16": _time_graph([partial(F.linear, x, c)
+                                       for c in wbs], reps)}
+            bound = {name: (size + 2 * m * (n + k)) / HBM_BPS * 1e3
+                     for name, size in sizes.items()}
+            log(f"[higgs linear] ({n:4d},{k:4d}) M={m:3d} bf16 x: K2 "
+                f"{ms['K2'] * 1e3:8.2f} us (rel {rel:.2e}), W8A8 "
+                f"{ms['W8A8'] * 1e3:8.2f} us, dense bf16 "
+                f"{ms['bf16'] * 1e3:8.2f} us; byte bounds "
+                f"{bound['K2'] * 1e3:.2f} / {bound['W8A8'] * 1e3:.2f} / "
+                f"{bound['bf16'] * 1e3:.2f} us ({card})")
+            if m == 1:
+                for name in frame:
+                    frame[name] += layers * per_layer * ms[name]
+                    bounds[name] += layers * per_layer * bound[name]
+        del qs, i8s, wbs
+    n_frame = layers * sum(HIGGS_FRAME_LINEARS)
+    log(f"[higgs linear] one decode frame's {n_frame} linears at M = 1, "
+        f"summed: " + ", ".join(
+            f"{name} {frame[name]:.3f} ms (bound {bounds[name]:.3f} ms, "
+            f"{100 * bounds[name] / frame[name]:.1f}%)" for name in frame)
+        + f" ({card})")
+
+
+def phase_higgs_w8a8(model, codec, emb, mask, logits_bf16, card: str):
+    """Phase 20, second half: the same model's affine codes converted in
+    place to W8A8 (tree_to_i8_layout, as bench.py:414-426), its audio
+    logits on the prefill's last row against bf16, then the higgs_v2_3b_q8
+    workload."""
+    import torch
+
+    from mlx_audio_tpu_torch.model import replace_module
+    from mlx_audio_tpu_torch.nn import Int8Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.kvcache import KVCache
+    from mlx_audio_tpu_torch.tts.models.higgs_audio.higgs_audio import \
+        higgs_forward
+
+    for name, m in list(model.named_modules()):
+        if isinstance(m, QuantizedLinear):
+            replace_module(model, name, Int8Linear.from_quantized(m))
+    torch.cuda.empty_cache()
+    t = model.config.text
+    caches = KVCache.init(1, 1024, t.num_key_value_heads, t.head_dim,
+                          torch.bfloat16, "cuda", n_layers=t.num_hidden_layers)
+    pad = torch.zeros(1024, device="cuda").masked_fill(
+        torch.arange(1024, device="cuda") >= HIGGS_PLEN,
+        float("-inf"))[None, None, None, :]
+    h, _ = higgs_forward(model, emb, mask, caches, 0, pad_mask=pad)
+    logits = model._audio_logits(h[0, HIGGS_PLEN - 1]).float()
+    del caches
+    rel = float(torch.linalg.norm(logits - logits_bf16)
+                / torch.linalg.norm(logits_bf16))
+    if not (torch.isfinite(logits).all() and rel < HIGGS_I8_LOGITS_REL):
+        raise AssertionError(f"W8A8 vs bf16 audio logits: relative Frobenius "
+                             f"{rel:.3e}")
+    log(f"[higgs] W8A8 vs bf16 audio logits on the prefill's last row: "
+        f"relative Frobenius {rel:.3e} (limit {HIGGS_I8_LOGITS_REL:g}); "
+        f"{sum(isinstance(m, Int8Linear) for m in model.modules())} W8A8 "
+        f"linears")
+    return _higgs_lane(model, codec, "higgs_v2_3b_q8", emb, mask, card,
+                       higgs_frame_bytes(model, HIGGS_PLEN + 1
+                                         + HIGGS_FRAMES / 2))
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -2499,6 +3158,7 @@ def main() -> int:
         phase_whisper_cli(Path(tmp))
         phase_voxtral_cli(Path(tmp))
         phase_cohere_cli(Path(tmp))
+        phase_higgs_load(Path(tmp))
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Whisper phases or the CLI launched K1 or "
                              "K2")
@@ -2514,6 +3174,29 @@ def main() -> int:
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Cohere phases launched K1 or K2")
     log(f"[time] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    # Higgs Audio v2: dense bf16 and W8A8 (torch._int_mm) products in
+    # phases 19-20, neither K1 nor K2; K2 in phase 21, on the affine-q8
+    # backbone between phase 20's two lanes
+    t_higgs = time.perf_counter()
+    phase_higgs_reference()
+    model_h, codec_h, emb_h, mask_h, logits_h, bf16_lane = \
+        phase_higgs_full(card)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the Higgs bf16 phases launched K1 or K2")
+    k2_launches += phase_higgs_k2(model_h, emb_h, mask_h, card, recorder)
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    q8_lane = phase_higgs_w8a8(model_h, codec_h, emb_h, mask_h, logits_h,
+                               card)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the W8A8 lane launched K1 or K2")
+    del model_h, codec_h
+    log(f"[higgs] W8A8 against bf16 on this card: {q8_lane['frame_ms']:.2f} "
+        f"vs {bf16_lane['frame_ms']:.2f} ms a frame, xRT "
+        f"{q8_lane['xrt']:.3f} vs {bf16_lane['xrt']:.3f}, "
+        f"{q8_lane['launches']:.0f} vs {bf16_lane['launches']:.0f} kernels a "
+        f"frame ({card})")
+    log(f"[time] phases 19-21 in {time.perf_counter() - t_higgs:.1f} s; "
+        f"phases 1-21 in {time.perf_counter() - t_start:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     k2_path_abs = phase_qmm_path(set(recorder.calls))

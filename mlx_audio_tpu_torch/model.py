@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 from .nn import (BatchNorm, BiLSTM, Conv1d, Conv2d, ConvTranspose1d, Embedding,
-                 LayerNorm, Linear, QuantizedLinear, RMSNorm, StackedTable)
+                 Int8Linear, LayerNorm, Linear, QuantizedLinear, RMSNorm,
+                 StackedTable)
 
 
 def _tensor(v: Any) -> torch.Tensor:
@@ -157,6 +158,15 @@ def _unstack(model: TorchModel, flat: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def holder(**children: nn.Module) -> nn.Module:
+    """An nn.Module with `children` under their names: a node of the JAX
+    tree that has parameters below it and no computation of its own."""
+    m = nn.Module()
+    for name, child in children.items():
+        setattr(m, name, child)
+    return m
+
+
 def replace_module(model: nn.Module, name: str, new: nn.Module) -> None:
     parent, _, child = name.rpartition(".")
     setattr(model.get_submodule(parent) if parent else model, child, new)
@@ -175,8 +185,10 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
       * stacked layers:  leaves under `model.JAX_STACKED` prefixes lose their
                          leading L axis to per-layer modules
       * quantized:       a Linear whose JAX leaf is {w_q, scales, biases[,
-                         bias]} becomes a QuantizedLinear; w_q stays uint8
-      * buffers:         a QuantizedLinear's codes, scales and biases and a
+                         bias]} becomes a QuantizedLinear (w_q stays uint8),
+                         one whose leaf is {w_i8, scale[, bias]} (W8A8) an
+                         Int8Linear
+      * buffers:         a quantized linear's codes, scales and biases and a
                          BatchNorm's running_mean/running_var are taken too
       * everything else (linear (out,in), embeddings, norms, snake alphas,
         stacked tables) is copied as is.
@@ -189,6 +201,11 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
             q = QuantizedLinear(m.in_features, w_q.shape[0], gs,
                                 bias=m.bias is not None)
             replace_module(model, name, q.to(m.weight.device))
+        elif isinstance(m, Linear) and f"{name}.w_i8" in flat:
+            w_i8 = np.asarray(flat[f"{name}.w_i8"])
+            q = Int8Linear(m.in_features, w_i8.shape[0],
+                           bias=m.bias is not None)
+            replace_module(model, name, q.to(m.weight.device))
     state: Dict[str, np.ndarray] = {}
     used = set()
 
@@ -197,7 +214,7 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
         arr = np.asarray(flat[key])
         if arr.dtype.kind in "fV":      # floats (and ml_dtypes bfloat16)
             return np.asarray(arr, dtype=np.float32)
-        return arr                      # quantized codes stay uint8
+        return arr                      # quantized codes stay (u)int8
 
     for name, m in model.named_modules():
         pre = f"{name}." if name else ""
@@ -217,7 +234,7 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
             if m.bias is not None:
                 state[pre + "bias"] = take(pre + "bias")
         else:
-            if isinstance(m, (QuantizedLinear, BatchNorm)):
+            if isinstance(m, (QuantizedLinear, Int8Linear, BatchNorm)):
                 for bname, _ in m.named_buffers(recurse=False):
                     state[pre + bname] = take(pre + bname)
             for pname, p in m.named_parameters(recurse=False):

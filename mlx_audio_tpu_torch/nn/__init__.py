@@ -10,6 +10,7 @@ from .layers import (
     Conv2d,
     ConvTranspose1d,
     Embedding,
+    Int8Linear,
     LayerNorm,
     Linear,
     QuantizedLinear,
@@ -27,7 +28,7 @@ from .layers import (
 from .recurrent import BiLSTM
 
 __all__ = [
-    "Linear", "QuantizedLinear", "Embedding", "StackedTable", "LayerNorm",
+    "Linear", "QuantizedLinear", "Int8Linear", "Embedding", "StackedTable", "LayerNorm",
     "RMSNorm", "Conv1d", "Conv2d", "ConvTranspose1d", "BatchNorm", "BiLSTM",
     "linear", "layer_norm", "rms_norm", "conv1d", "conv2d", "conv_transpose1d",
     "leaky_relu", "gelu",

@@ -12,7 +12,9 @@ with like; parameters are held in PyTorch's own layouts:
                       running_var f32 (dim,)
   * Embedding:        weight (vocab, dim)
   * QuantizedLinear:  buffers w_q uint8 (out, in), scales/biases f32
-                      (out, in/gs); optional bias parameter (out,)
+                      (out, in/gs); optional bias buffer (out,)
+  * Int8Linear:       buffers w_i8 int8 (out, in), scale f32 (out,);
+                      optional bias buffer (out,)
 
 The JAX package's layouts (WIO and HWIO convs, pre-flipped transposed-conv
 kernels) are converted once, in `model.load_jax_params`. Conv2d is the one
@@ -158,6 +160,39 @@ class QuantizedLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return quant.qmatmul(x, self.w_q, self.scales, self.biases, self.bias)
+
+
+class Int8Linear(nn.Module):
+    """A W8A8 linear (to_i8_layout's layout): per-output-channel symmetric
+    int8 codes and their f32 scales, held as buffers. It stands where the
+    JAX package's `apply_linear` dispatches on "w_i8" (nn/layers.py:63-66);
+    the forward is ops.quant.qmatmul_i8."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = False):
+        super().__init__()
+        self.in_features = in_features
+        self.register_buffer("w_i8", torch.zeros(out_features, in_features,
+                                                 dtype=torch.int8))
+        self.register_buffer("scale", torch.zeros(out_features))
+        self.register_buffer("bias", torch.zeros(out_features) if bias
+                             else None)
+
+    @classmethod
+    def from_quantized(cls, q: QuantizedLinear) -> "Int8Linear":
+        """The W8A8 form of an affine-quantized linear."""
+        conv = quant.to_i8_layout({"w_q": q.w_q, "scales": q.scales,
+                                   "biases": q.biases})
+        m = cls(q.in_features, q.w_q.shape[0], bias=q.bias is not None)
+        m = m.to(q.w_q.device)
+        m.w_i8.copy_(conv["w_i8"])
+        m.scale.copy_(conv["scale"])
+        if q.bias is not None:
+            m.bias.copy_(q.bias)
+        return m
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant.qmatmul_i8(x, self.w_i8, self.scale, self.bias)
 
 
 class RMSNorm(nn.Module):

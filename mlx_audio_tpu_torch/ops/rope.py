@@ -1,7 +1,7 @@
 """Rotary position embeddings: split-half and interleaved.
 
-Counterpart of `rope_freqs`, `apply_rope` and `apply_rope_interleaved` in
-mlx_audio_tpu/ops/rope.py (:18-57, :87-106). Qwen3-TTS's interleaved MRoPE is plain RoPE here, because its
+Counterpart of `rope_freqs`, `apply_rope`, `apply_rope_interleaved` and
+`rope_freqs_llama3` in mlx_audio_tpu/ops/rope.py (:18-57, :87-125). Qwen3-TTS's interleaved MRoPE is plain RoPE here, because its
 three position streams are equal for TTS (talker.py:8-11). `rope_cos_sin`
 splits the angle tables out so a model computes them once per forward and
 not once per layer; the numbers are the same. `rope_cis` does the same for
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -20,6 +21,27 @@ def rope_freqs(head_dim: int, theta: float = 10000.0) -> torch.Tensor:
     """Inverse frequencies (head_dim // 2,), f32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
     return 1.0 / (theta ** exps)
+
+
+def rope_freqs_llama3(dim: int, theta: float, factor: float = 8.0,
+                      low_freq_factor: float = 1.0,
+                      high_freq_factor: float = 4.0,
+                      original_max_position: int = 8192) -> torch.Tensor:
+    """Llama-3 frequency scaling (HF rope_type="llama3"): wavelengths past
+    original_max_position / low_freq_factor are divided by `factor`, those
+    under original_max_position / high_freq_factor kept, and the band
+    between interpolated. Computed in f64 with numpy as the JAX package
+    does, returned (dim // 2,) f32."""
+    inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    wavelen = 2 * np.pi / inv
+    low_wl = original_max_position / low_freq_factor
+    high_wl = original_max_position / high_freq_factor
+    smooth = (original_max_position / wavelen - low_freq_factor) \
+        / (high_freq_factor - low_freq_factor)
+    smoothed = (1 - smooth) * inv / factor + smooth * inv
+    out = np.where(wavelen < high_wl, inv,
+                   np.where(wavelen > low_wl, inv / factor, smoothed))
+    return torch.from_numpy(out.astype(np.float32))
 
 
 def rope_cos_sin(positions: torch.Tensor,

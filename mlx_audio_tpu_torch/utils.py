@@ -1,12 +1,13 @@
 """Checkpoint and audio helpers (subset of mlx_audio_tpu/utils.py): flat/
 nested parameter names, config.json, weight files read with numpy,
-on-the-fly quantization of a model's linears, and audio files read into
-numpy (mono mix, polyphase resample)."""
+on-the-fly quantization of a model's linears (affine, and the W8A8 opt-in),
+and audio files read into numpy (mono mix, polyphase resample)."""
 
 from __future__ import annotations
 
 import glob
 import json
+import os
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, Optional, Union
 
@@ -74,29 +75,37 @@ def load_weights(model_path: Union[str, Path],
 
 
 def apply_quantization(model, config: dict,
-                       predicate: Optional[Callable] = None):
-    """Quantize `model`'s linears per config['quantization'] (affine case
-    of mlx_audio_tpu/utils.py:148-206): each `Linear` whose dotted name
+                       predicate: Optional[Callable] = None,
+                       i8_predicate: Optional[Callable] = None):
+    """Quantize `model`'s linears per config['quantization']
+    (mlx_audio_tpu/utils.py:148-206): each `Linear` whose dotted name
     passes `predicate(name, weight)` and a per-name entry in the
     quantization dict (False leaves that linear dense) becomes a
-    `QuantizedLinear` of `bits` and `group_size`. Returns the model;
-    without a quantization entry it is unchanged. The W8A8 `mxu_int8` layout is not
-    ported yet and raises."""
+    `QuantizedLinear` of `bits` and `group_size`. With bits 8 and the W8A8
+    opt-in (the quantization dict's `mxu_int8`, else the environment
+    variable MLX_AUDIO_TPU_MXU_INT8 set to 1, true or yes, as
+    mlx_audio_tpu/utils.py:195-199 reads it), each of those whose name passes
+    `i8_predicate(name)` (all when it is None; JAX's model_i8_predicate)
+    then becomes an `Int8Linear`. One linear at a time, so the model never
+    holds a second copy of its weights. Returns the model; without a
+    quantization entry it is unchanged."""
     import torch
 
     from .model import replace_module
-    from .nn import Linear, QuantizedLinear
+    from .nn import Int8Linear, Linear, QuantizedLinear
     from .ops.quant import maybe_quantize_tree
 
     quantization = config.get("quantization") or config.get(
         "quantization_config")
     if quantization is None:
         return model
-    if quantization.get("mxu_int8"):
-        raise NotImplementedError("mxu_int8 (W8A8 qmatmul_i8) is not ported "
-                                  "yet")
     group_size = quantization.get("group_size", 64)
     bits = quantization.get("bits", 4)
+    mxu_int8 = quantization.get("mxu_int8")
+    if mxu_int8 is None:
+        mxu_int8 = os.environ.get("MLX_AUDIO_TPU_MXU_INT8",
+                                  "").strip().lower() in ("1", "true", "yes")
+    to_i8 = bits == 8 and bool(mxu_int8)
 
     def verdict(path, w):
         if predicate is not None and not predicate(path, w):
@@ -104,22 +113,22 @@ def apply_quantization(model, config: dict,
         q = quantization.get(path, True)
         return bool(q) if isinstance(q, bool) else True
 
-    linears = {name: m for name, m in model.named_modules()
-               if isinstance(m, Linear)}
+    linears = [(name, m) for name, m in model.named_modules()
+               if isinstance(m, Linear)]
     with torch.no_grad():
-        tree = unflatten({f"{name}.weight": m.weight.detach()
-                          for name, m in linears.items()})
-        quantized = flatten(maybe_quantize_tree(tree, group_size, bits,
-                                                verdict))
-        for name, m in linears.items():
-            if f"{name}.w_q" not in quantized:
+        for name, m in linears:
+            quantized = maybe_quantize_tree({"weight": m.weight.detach()},
+                                            group_size, bits, verdict, name)
+            if "w_q" not in quantized:
                 continue
             q = QuantizedLinear(m.in_features, m.weight.shape[0], group_size,
                                 bias=m.bias is not None).to(m.weight.device)
             for k in ("w_q", "scales", "biases"):
-                getattr(q, k).copy_(quantized[f"{name}.{k}"])
+                getattr(q, k).copy_(quantized[k])
             if m.bias is not None:
                 q.bias.copy_(m.bias)
+            if to_i8 and (i8_predicate is None or i8_predicate(name)):
+                q = Int8Linear.from_quantized(q)
             replace_module(model, name, q)
     return model
 

@@ -100,6 +100,50 @@ def test_tiny_synth_without_jax():
     assert out.strip() == "False []", out
 
 
+def test_tiny_higgs_generate_without_jax():
+    """Higgs Audio v2 on the CPU at a tiny size with a bound tiny codec:
+    a greedy smart-voice request, a voice clone from audio (the codec's
+    encode through the wav2vec2/HuBERT branch) and the W8A8 layout, with no
+    jax in sys.modules."""
+    out = _run("""
+        import sys
+        import numpy as np
+        from chip_smoke import HIGGS_SMALL, HiggsTok
+        from mlx_audio_tpu_torch.codec.models.higgs_audio import Model as Codec
+        from mlx_audio_tpu_torch.tts.models.higgs_audio import Model
+        from mlx_audio_tpu_torch.utils import apply_quantization
+
+        cfg = dict(HIGGS_SMALL)
+        cfg["text_config"] = dict(cfg["text_config"], hidden_size=64,
+                                  intermediate_size=128)
+        model = Model(cfg, device="cpu").init_params(seed=0)
+        model.tokenizer = HiggsTok()
+        model.codec = Codec(dict(
+            codebook_size=64, codebook_dim=4, dac_num_codebooks=4,
+            dac_encoder_ratios=[2, 3], dac_encoder_hidden=4,
+            dac_decoder_hidden=16, latent_dim=24, fusion_dim=8,
+            downsample_factor=20, semantic_model_config=dict(
+                hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                intermediate_size=32, conv_dim=[16, 16], conv_kernel=[10, 8],
+                conv_stride=[5, 4], num_feat_extract_layers=2)),
+            device="cpu").init_params(seed=1)
+        r = next(model.generate("hello", temperature=0.0, max_new_frames=16))
+        assert r.samples == r.token_count * 6 > 0
+        assert np.isfinite(r.audio).all()
+        ref = np.random.RandomState(0).randn(4800).astype(np.float32) * 0.1
+        r = next(model.generate("clone", ref_audio=ref, temperature=0.0,
+                                max_new_frames=16))
+        assert np.isfinite(r.audio).all()
+        apply_quantization(model, {"quantization": {
+            "bits": 8, "group_size": 64, "mxu_int8": True}},
+            model.model_quant_predicate)
+        r = next(model.generate("hello", temperature=0.7, max_new_frames=16))
+        assert np.isfinite(r.audio).all()
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
+    assert out.strip() == "False []", out
+
+
 def test_tiny_qwen3_tts_generate_without_jax():
     """Qwen3-TTS on the CPU at a tiny size, quantized to 8 bits: seeded
     weights, text ids -> audio, streamed, and one continuous-batching

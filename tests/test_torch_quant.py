@@ -1,5 +1,7 @@
 """The port's affine quantization (ops/quant.py, nn QuantizedLinear,
-utils.apply_quantization) against the JAX package's, the arithmetic K2's
+utils.apply_quantization) and its W8A8 layout (to_i8_layout, qmatmul_i8,
+tree_to_i8_layout, nn Int8Linear, the mxu_int8 opt-in) against the JAX
+package's, the arithmetic K2's
 tensor-core path rests on (the per-group factored sum, codes exact in
 bf16) and its dispatch rule, and kernel K2 (csrc/qmm.cu, each of its
 paths) against its plain version where a GPU is present.
@@ -16,7 +18,10 @@ JAX the CUDA tests (marker `requires_cuda`, skipped without a GPU) run
 alone: `python -m pytest --noconftest -m requires_cuda
 tests/test_torch_quant.py`.
 Their tolerances are chip_smoke.py's: 1e-4 relative in f32 (summation
-order), 1e-2 in bf16 (the output rounds to 8 mantissa bits).
+order), 1e-2 in bf16 (the output rounds to 8 mantissa bits). W8A8: codes
+equal, weight scales within 1e-7 relative, qmatmul_i8 within 1e-6 (the
+int32 product is exact; the two f32 scale products round alike), and on
+the card `torch._int_mm` equal to the exact plain product.
 """
 
 import numpy as np
@@ -261,7 +266,7 @@ def test_quantized_linear_cpu_takes_plain_version():
 
 
 def test_apply_quantization_options():
-    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.nn import Int8Linear, Linear, QuantizedLinear
     from mlx_audio_tpu_torch.utils import apply_quantization
 
     def holder():
@@ -285,9 +290,181 @@ def test_apply_quantization_options():
                        lambda path, w: path.startswith("b"))
     assert isinstance(h.a_proj, Linear)
     assert isinstance(h.b_proj, QuantizedLinear)
-    with pytest.raises(NotImplementedError, match="mxu_int8"):
-        apply_quantization(holder(), {"quantization": {"bits": 8,
-                                                       "mxu_int8": True}})
+    # the W8A8 opt-in: bits 8 with mxu_int8 gives Int8Linear, and a name
+    # the i8 predicate refuses stays on the affine per-group path
+    h = apply_quantization(holder(), {"quantization": {
+        "bits": 8, "group_size": 16, "mxu_int8": True}},
+        i8_predicate=lambda path: path != "b_proj")
+    assert isinstance(h.a_proj, Int8Linear)
+    assert isinstance(h.b_proj, QuantizedLinear)
+    assert isinstance(h.c, Linear)
+
+
+# ---------------------------------------------------------------------------
+# W8A8 (qmatmul_i8)
+# ---------------------------------------------------------------------------
+
+
+def _affine(shape, gs, bias=False, seed=20):
+    """(torch affine 8-bit params, the same as a JAX dict)."""
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    q = quantize_weight(torch.from_numpy(_w(shape, seed)).reshape(
+        -1, shape[-1]), gs, 8)
+    q = {k: v.reshape(shape[:-1] + v.shape[1:]) for k, v in q.items()}
+    if bias:
+        q["bias"] = torch.from_numpy(_w(shape[:-1], seed + 1))
+    return q, {k: jnp.asarray(v.numpy()) for k, v in q.items()}
+
+
+@pytest.mark.parametrize("shape,gs,bias", [((48, 128), 64, False),
+                                           ((40, 64), 16, True),
+                                           ((3, 16, 64), 32, False)])
+def test_to_i8_layout_equals_jax(shape, gs, bias):
+    """Per-channel symmetric codes equal and scales within 1e-7; a stacked
+    (L, out, in) leaf converts layer by layer; other keys pass through."""
+    from mlx_audio_tpu.ops.quant import to_i8_layout as jto
+    from mlx_audio_tpu_torch.ops.quant import to_i8_layout
+
+    q, jq = _affine(shape, gs, bias)
+    want = jto(jq)
+    got = to_i8_layout(q)
+    assert set(got) == set(want)
+    assert got["w_i8"].dtype == torch.int8 and got["scale"].dtype == \
+        torch.float32
+    np.testing.assert_array_equal(got["w_i8"].numpy(),
+                                  np.asarray(want["w_i8"]))
+    np.testing.assert_allclose(got["scale"].numpy(), np.asarray(want["scale"]),
+                               rtol=1e-7)
+    assert int(got["w_i8"].abs().max()) == 127
+
+
+def test_activation_quantization_rounds_half_to_even():
+    """The per-token scale and round are JAX's: ties go to even, the clip
+    is +-127, and a zero row keeps the 1e-12 floor."""
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu_torch.ops.quant import quantize_activation_i8
+
+    x = np.array([[127.0, 0.5, 1.5, 2.5, -0.5, -3.5, 126.5, -127.0],
+                  [0.0] * 8, [1e-3, -2e-3, 5e-4, 0, 0, 0, 0, 7e-4]],
+                 np.float32)
+    xq, sx = quantize_activation_i8(torch.from_numpy(x))
+    xf = jnp.asarray(x)
+    jsx = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True) / 127.0,
+                      1e-12)
+    jq = jnp.clip(jnp.round(xf / jsx), -127, 127).astype(jnp.int8)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+    assert xq[0].tolist() == [127, 0, 2, 2, 0, -4, 126, -127]
+
+
+@pytest.mark.parametrize("lead,bias,dtype", [((5,), False, "float32"),
+                                             ((2, 3), True, "float32"),
+                                             ((1,), False, "bfloat16")])
+def test_qmatmul_i8_equals_jax(lead, bias, dtype):
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu.ops.quant import qmatmul_i8 as jmm
+    from mlx_audio_tpu.ops.quant import to_i8_layout as jto
+    from mlx_audio_tpu_torch.ops.quant import (int_mm, int_mm_reference,
+                                               qmatmul_i8, to_i8_layout)
+
+    q, jq = _affine((96, 128), 64, bias)
+    p8 = to_i8_layout(q)
+    x = np.random.RandomState(21).randn(*lead, 128).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = jmm(jto(jq), jnp.asarray(xt.float().numpy()).astype(dtype))
+    got = qmatmul_i8(xt, p8["w_i8"], p8["scale"], p8.get("bias"))
+    assert got.dtype == xt.dtype and got.shape == lead + (96,)
+    assert _rel(got.float().numpy(), np.asarray(want, np.float32)) <= (
+        1e-6 if dtype == "float32" else 8e-3)
+    xq = torch.randint(-127, 128, (7, 128), dtype=torch.int8)
+    exact = xq.numpy().astype(np.int64) @ p8["w_i8"].numpy().astype(
+        np.int64).T
+    np.testing.assert_array_equal(int_mm(xq, p8["w_i8"]).numpy(), exact)
+    assert int_mm_reference(xq, p8["w_i8"]).dtype == torch.int32
+
+
+def test_tree_to_i8_layout_equals_jax():
+    """Every affine leaf the predicate passes converts; the rest (a refused
+    quantized leaf, a dense one) stay as they were."""
+    from mlx_audio_tpu.ops.quant import tree_to_i8_layout as jtree
+    from mlx_audio_tpu_torch.ops.quant import tree_to_i8_layout
+
+    a, ja = _affine((32, 64), 16, seed=22)
+    b, jb = _affine((32, 64), 16, True, seed=23)
+    dense = torch.from_numpy(_w((8, 8), 24))
+    tree = {"layers": {"0": {"q_proj": a, "head": b}},
+            "norm": {"weight": dense}}
+    jtree_in = {"layers": {"0": {"q_proj": ja, "head": jb}},
+                "norm": {"weight": dense.numpy()}}
+    keep = lambda path: not path.endswith("head")  # noqa: E731
+    want = jtree(jtree_in, predicate=keep)
+    got = tree_to_i8_layout(tree, predicate=keep)
+    assert set(got["layers"]["0"]["q_proj"]) == {"w_i8", "scale"}
+    np.testing.assert_array_equal(got["layers"]["0"]["q_proj"]["w_i8"],
+                                  np.asarray(want["layers"]["0"]["q_proj"]
+                                             ["w_i8"]))
+    assert got["layers"]["0"]["head"] is b
+    assert set(want["layers"]["0"]["head"]) == set(b)
+    assert got["norm"]["weight"] is dense
+
+
+@pytest.mark.parametrize("opt_in", ["config", "env", "config-off", "bits4"])
+def test_apply_quantization_w8a8_opt_in(monkeypatch, opt_in):
+    """mxu_int8 from the quantization dict, else MLX_AUDIO_TPU_MXU_INT8 (as
+    the JAX package reads them); only with bits 8. The Int8Linear's output
+    equals the JAX package's apply_linear on its apply_quantization tree."""
+    import jax.numpy as jnp
+
+    from mlx_audio_tpu.nn import apply_linear
+    from mlx_audio_tpu.utils import apply_quantization as japply
+    from mlx_audio_tpu_torch.nn import Int8Linear, Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    h = torch.nn.Module()
+    h.proj = Linear(64, 24, bias=True).requires_grad_(False)
+    h.proj.weight.copy_(torch.from_numpy(_w((24, 64), 25)))
+    h.proj.bias.copy_(torch.from_numpy(_w((24,), 26)))
+    jparams = {"proj": {"weight": jnp.asarray(_w((24, 64), 25)),
+                        "bias": jnp.asarray(_w((24,), 26))}}
+    quant = {"bits": 4 if opt_in == "bits4" else 8, "group_size": 16}
+    if opt_in != "env":
+        quant["mxu_int8"] = opt_in != "config-off"
+    monkeypatch.setenv("MLX_AUDIO_TPU_MXU_INT8", "1" if opt_in in (
+        "env", "config-off") else "")
+    apply_quantization(h, {"quantization": quant})
+    jp = japply(jparams, {"quantization": dict(quant)})
+    want_i8 = opt_in in ("config", "env")
+    assert isinstance(h.proj, Int8Linear if want_i8 else QuantizedLinear)
+    assert ("w_i8" in jp["proj"]) == want_i8
+    x = np.random.RandomState(27).randn(3, 64).astype(np.float32)
+    want = np.asarray(apply_linear(jp["proj"], jnp.asarray(x)))
+    assert _rel(h.proj(torch.from_numpy(x)).numpy(), want) <= 1e-5
+
+
+def test_int8_linear_from_jax_tree_takes_plain_version_on_cpu():
+    """load_jax_params makes an Int8Linear of a {w_i8, scale, bias} leaf; on
+    the CPU its forward is qmatmul_i8_reference, bit for bit."""
+    from mlx_audio_tpu.ops.quant import to_i8_layout as jto
+    from mlx_audio_tpu_torch.model import TorchModel, load_jax_params
+    from mlx_audio_tpu_torch.nn import Int8Linear, Linear
+    from mlx_audio_tpu_torch.ops.quant import qmatmul_i8_reference
+
+    _, jq = _affine((32, 64), 16, True, seed=28)
+    m = TorchModel(None)
+    m.proj = Linear(64, 32, bias=True)
+    load_jax_params(m, {f"proj.{k}": np.asarray(v)
+                        for k, v in jto(jq).items()})
+    assert isinstance(m.proj, Int8Linear)
+    x = torch.from_numpy(np.random.RandomState(29).randn(4, 64)
+                         .astype(np.float32))
+    np.testing.assert_array_equal(
+        m.proj(x).numpy(), qmatmul_i8_reference(
+            x, m.proj.w_i8, m.proj.scale, m.proj.bias).numpy())
 
 
 def _cuda():
@@ -372,3 +549,34 @@ def test_kernel_refuses_what_it_does_not_take():
         qmm_kernel(x, q["w_q"], q["scales"], q["biases"], path="mma")
     with pytest.raises(ValueError, match="unknown"):
         qmm_kernel(x, q["w_q"], q["scales"], q["biases"], path="wgmma")
+
+
+# the four W8A8 linear shapes (out, in) of a Higgs v2 layer at its published
+# dims: q and o; k and v; gate and up; down
+HIGGS_I8_SHAPES = [(3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m", [1, 17, 512])
+@pytest.mark.parametrize("n,k", HIGGS_I8_SHAPES)
+def test_int_mm_matches_reference_on_cuda(m, n, k):
+    """torch._int_mm (rows padded where it refuses few) against the plain
+    product (exact in float64), and qmatmul_i8 on the card against its
+    plain version."""
+    _cuda()
+    from mlx_audio_tpu_torch.ops.quant import (int_mm, int_mm_reference,
+                                               qmatmul_i8,
+                                               qmatmul_i8_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(m + n + k)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda",
+                      generator=g)
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda",
+                       generator=g)
+    got = int_mm(xq, w)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, int_mm_reference(xq, w))
+    scale = torch.rand(n, device="cuda", generator=g) * 1e-3
+    x = torch.randn(m, k, device="cuda", generator=g)
+    y = qmatmul_i8(x, w, scale)
+    assert _rel_cuda(y, qmatmul_i8_reference(x, w, scale)) <= 1e-5
