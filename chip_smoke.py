@@ -10,7 +10,11 @@ server's /v1/realtime), through its live session, offline `generate`,
 `load_model` and the STT CLI; and Higgs Audio v2 text -> audio with its
 acoustic codec, in bf16, in W8A8 (`qmatmul_i8`) and on an affine-q8
 backbone (kernel K2), through its frame loop, `generate` and
-`load_model`.
+`load_model`; and KugelAudio-7B text -> audio (a Qwen2.5-7B LM on the
+llama backbone, an SDE-DPM-Solver++ diffusion head under classifier-free
+guidance, the VibeVoice causal VAE decoder) in bf16, W8A8 and on an
+affine-q8 LM (K2), and VibeVoice on the same stack, through `generate`
+and `load_model`.
 
     python3 chip_smoke.py
 
@@ -65,11 +69,12 @@ the CUDA toolkit. Phases, each of which raises on failure:
    phases came, a third request of 120 ids / 200 frames ran here; it was
    dropped to keep the run's time.)
 8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
-   10, 11 and 21 launched it with, run after phase 21 (the prefill bucket,
-   the code predictor's first sub-step, text_projection over the text
-   ids, the session's M = 8 and 16 decode frame and its burst prefill at
-   M = 8 x 16, Higgs's four shapes at M = 1 and 512), 8-bit codes, x in
-   f32 and bf16.
+   10, 11, 21 and 24 launched it with, run after phase 25 (the prefill
+   bucket, the code predictor's first sub-step, text_projection over the
+   text ids, the session's M = 8 and 16 decode frame and its burst prefill
+   at M = 8 x 16, Higgs's four shapes at M = 1 and 512, KugelAudio's five
+   at M = 2 and 1,024), 8-bit codes, x in f32 and bf16 (f32 at K =
+   18,944 by the simt path's K tiles).
 9. Qwen3-TTS streaming on the small config at f32 from one seeded q8
    weight set, CUDA against the CPU path: the greedy streamed chunks (same
    chunk sizes, audio), `streaming_step` over uneven chunks against
@@ -116,7 +121,10 @@ the CUDA toolkit. Phases, each of which raises on failure:
    Higgs Audio v2 checkpoint (HF names, config.json with model_type
    "higgs_audio", npz, no text head): `load_model(...)` on the card must
    tie the text head to embed_tokens and give the in-process model's
-   greedy frames.
+   greedy frames. Then small KugelAudio and VibeVoice checkpoints (HF
+   names, torch conv layouts, npz, config.json with model_type
+   "kugelaudio" and "vibevoice_streaming"): `load_model(...)` on the card
+   must give the in-process models' audio.
 15. Voxtral Realtime, the small config of tests/test_voxtral_realtime.py
    with a 2-layer encoder, at f32 from one seeded weight set, CUDA against
    the CPU: offline adapter frames (relative error within 1e-4) at 1 s,
@@ -189,6 +197,48 @@ the CUDA toolkit. Phases, each of which raises on failure:
    the four Higgs shapes at M = 1 and 512, by CUDA graph replay, with the
    sums over one decode frame's 196 linears. These launches join K2's
    count in the `kernels` line, and the shapes phase 8's final check.
+
+22. KugelAudio and VibeVoice, the small configs of tests/test_kugelaudio.py
+   and tests/test_vibevoice.py at f32 from one seeded weight set, CUDA
+   against the CPU: KugelAudio's CFG prefill (hidden rows and the K cache's
+   written columns within 1e-4), a generate() with every frame forced to
+   diffusion (the lanes' +1e4 lm_head bias), cfg_scale 3.0 and one noise
+   tensor on both devices (equal frames, audio within 1e-4), and VibeVoice's
+   generate() the same way with its EOS classifier biased off.
+23. KugelAudio at the kugelaudio_7b lane's dims (bench.py:533-547: 8.642 B
+   parameters drawn N(0, 0.02) on the card in f32 from seed 0, as the lane
+   draws every floating leaf): bf16 against f32 on the lane's CFG prefill
+   hidden rows and one head pass (relative Frobenius under 2e-2), then cast
+   in place to bf16 and the lane's workload (bench.py:589-642: the stand-in
+   tokenizer, the +1e4 bias on SPEECH_DIFFUSION_ID, its text, 64 frames of
+   10 SDE steps at cfg_scale 3.0; a warm-up, then the best of seeds 1 and
+   2): wall, xRT over 8.53 s, ms a frame, the prefill's, frame loop's and
+   VAE decode's seconds, peak device memory, and from one profiled chunk
+   of 4 frames the kernels a frame, device time and busy share against
+   the frame's byte bound (bench.py:645-656). After phase 24, the same
+   weights in W8A8 (the LM's affine codes through to_i8_layout, every
+   prediction_head linear quantized and converted the same way, as
+   bench.py:559-579): prefill hidden and head pass against bf16 (under
+   1e-1), then the workload again. 204,800 finite samples each; neither K1
+   nor K2 may launch in phases 22, 23 and 25.
+24. On phase 23's bf16 weights, between its two lanes: the LM quantized
+   through `apply_quantization` with KugelAudio's predicate (affine 8 bits,
+   group 64, no mxu_int8) and one 16-frame request; K2's launches must
+   equal 28 x 7 = 196 a LM step, the prefill's (M = 1,024) included. Then
+   K2 (checked against `qmatmul_reference`), W8A8 and dense bf16 cuBLAS at
+   the LM's four shapes at M = 2 and 1,024 by CUDA graph replay, with the
+   sums over one step's 196 linears. Last, `load_model` on a small f32
+   checkpoint with the lane's FFN width (down_proj K = 18,944) whose
+   config.json asks for affine 8 bits: on the card its LM runs through
+   K2's simt path (f32 x at M = 2 and 2 x bucket, stepping over K), and
+   its audio must be the same checkpoint's loaded on the CPU. These
+   launches join K2's count in the `kernels` line, and the shapes phase
+   8's final check.
+25. VibeVoice at `ModelConfig()` dims (a 24-layer Qwen2 split 4 + 20 at
+   d896, a 4-layer head, 20 DPM steps; drawn as phase 23, in bf16), no
+   voice, its EOS classifier biased off: 48 latents (wall, xRT, ms a
+   latent) and a profiled request of one speech window (kernels a latent,
+   busy share).
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -1095,7 +1145,7 @@ def phase_qmm_path(shapes) -> float:
             errs.append(_qmm_case(x32.to(dtype), q, bias,
                                   f"({n},{k}) q8 M={m}"))
         worst = max(worst, errs[1][1])
-        log(f"[qmm path] ({n:4d},{k:4d}) q8 M={m:3d} bias={has_bias!s:5s} "
+        log(f"[qmm path] ({n:5d},{k:5d}) q8 M={m:4d} bias={has_bias!s:5s} "
             f"rel f32 {errs[0][0]:.3e} bf16 {errs[1][0]:.3e}")
     return worst
 
@@ -3014,32 +3064,37 @@ def phase_higgs_k2(model, emb, mask, card: str, recorder) -> int:
         f"{len(frames)} frames ({steps} decode steps) in {wall * 1e3:.1f} ms "
         f"({wall * 1e3 / (steps + 1):.2f} ms a step), {launches} K2 launches "
         f"= {prefill} (prefill, both paths) + {frame} x {steps} ({card})")
-    _higgs_linear_times(card)
+    _linear_times(card, "higgs", HIGGS_SHAPES, HIGGS_FRAME_LINEARS, 28,
+                  (1, 512))
     log(f"[higgs q8 K2] phase 21 in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
-def _higgs_linear_times(card: str, reps: int = 7) -> None:
-    """Each Higgs linear shape at M = 1 and 512: K2 (dispatched path,
+def _linear_times(card: str, tag: str, shapes, per_layer, layers: int,
+                  rows, reps: int = 7) -> dict:
+    """Each linear shape (out, in) at each M of `rows`: K2 (dispatched path,
     checked against qmatmul_reference), W8A8 qmatmul_i8 and dense bf16
     F.linear, each timed by CUDA graph replay over a rotation of weight
-    copies larger than the L2 cache; then the sums over one decode frame's
-    196 linears with their byte bounds."""
+    copies larger than the L2 cache, and K2's plain version
+    (qmatmul_reference) by CUDA events; then the sums over one decode
+    step's linears (layers x per_layer of each shape) at M = rows[0] with
+    their byte bounds. Returns {M: {"K2"|"W8A8"|"bf16"|"plain": ms}}
+    summed over one step's linears at each M."""
     from functools import partial
 
     import torch
     import torch.nn.functional as F
 
     from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
-    from mlx_audio_tpu_torch.ops.quant import (qmatmul_i8, quantize_weight,
-                                               to_i8_layout)
+    from mlx_audio_tpu_torch.ops.quant import (qmatmul_i8, qmatmul_reference,
+                                               quantize_weight, to_i8_layout)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    frame = {"K2": 0.0, "W8A8": 0.0, "bf16": 0.0}
+    sums = {m: {"K2": 0.0, "W8A8": 0.0, "bf16": 0.0} for m in rows}
+    plain = {m: 0.0 for m in rows}
     bounds = {"K2": 0.0, "W8A8": 0.0, "bf16": 0.0}
-    layers = 28
-    for (n, k), per_layer in zip(HIGGS_SHAPES, HIGGS_FRAME_LINEARS):
+    for (n, k), count in zip(shapes, per_layer):
         w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
         q = quantize_weight(w, QMM_GROUP, 8)
         i8 = to_i8_layout(q)
@@ -3053,9 +3108,9 @@ def _higgs_linear_times(card: str, reps: int = 7) -> None:
         i8s = [i8] + [{a: v.clone() for a, v in i8.items()}
                       for _ in range(reps_of["W8A8"] - 1)]
         wbs = [wb] + [wb.clone() for _ in range(reps_of["bf16"] - 1)]
-        for m in (1, 512):
+        for m in rows:
             x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-            rel, _ = _qmm_case(x, q, None, f"higgs ({n},{k}) q8 M={m}")
+            rel, _ = _qmm_case(x, q, None, f"{tag} ({n},{k}) q8 M={m}")
             ms = {"K2": _time_graph([partial(qmm_kernel, x, c["w_q"],
                                              c["scales"], c["biases"])
                                      for c in qs], reps),
@@ -3064,25 +3119,33 @@ def _higgs_linear_times(card: str, reps: int = 7) -> None:
                                       reps),
                   "bf16": _time_graph([partial(F.linear, x, c)
                                        for c in wbs], reps)}
+            plain_ms = _time_ms(partial(qmatmul_reference, x, q["w_q"],
+                                        q["scales"], q["biases"]), 3)
             bound = {name: (size + 2 * m * (n + k)) / HBM_BPS * 1e3
                      for name, size in sizes.items()}
-            log(f"[higgs linear] ({n:4d},{k:4d}) M={m:3d} bf16 x: K2 "
+            log(f"[{tag} linear] ({n:5d},{k:5d}) M={m:4d} bf16 x: K2 "
                 f"{ms['K2'] * 1e3:8.2f} us (rel {rel:.2e}), W8A8 "
                 f"{ms['W8A8'] * 1e3:8.2f} us, dense bf16 "
-                f"{ms['bf16'] * 1e3:8.2f} us; byte bounds "
+                f"{ms['bf16'] * 1e3:8.2f} us, K2's plain version "
+                f"{plain_ms * 1e3:8.2f} us; byte bounds "
                 f"{bound['K2'] * 1e3:.2f} / {bound['W8A8'] * 1e3:.2f} / "
                 f"{bound['bf16'] * 1e3:.2f} us ({card})")
-            if m == 1:
-                for name in frame:
-                    frame[name] += layers * per_layer * ms[name]
-                    bounds[name] += layers * per_layer * bound[name]
+            for name in ms:
+                sums[m][name] += layers * count * ms[name]
+                if m == rows[0]:
+                    bounds[name] += layers * count * bound[name]
+            plain[m] += layers * count * plain_ms
         del qs, i8s, wbs
-    n_frame = layers * sum(HIGGS_FRAME_LINEARS)
-    log(f"[higgs linear] one decode frame's {n_frame} linears at M = 1, "
-        f"summed: " + ", ".join(
+    n_step = layers * sum(per_layer)
+    frame = sums[rows[0]]
+    log(f"[{tag} linear] one decode step's {n_step} linears at M = "
+        f"{rows[0]}, summed: " + ", ".join(
             f"{name} {frame[name]:.3f} ms (bound {bounds[name]:.3f} ms, "
             f"{100 * bounds[name] / frame[name]:.1f}%)" for name in frame)
-        + f" ({card})")
+        + f", K2's plain version {plain[rows[0]]:.3f} ms ({card})")
+    for m in rows:
+        sums[m]["plain"] = plain[m]
+    return sums
 
 
 def phase_higgs_w8a8(model, codec, emb, mask, logits_bf16, card: str):
@@ -3125,6 +3188,627 @@ def phase_higgs_w8a8(model, codec, emb, mask, logits_bf16, card: str):
                                          + HIGGS_FRAMES / 2))
 
 
+# ---------------------------------------------------------------------------
+# KugelAudio and VibeVoice (phases 22-25, and the checkpoints of phase 14)
+# ---------------------------------------------------------------------------
+
+# the kugelaudio_7b lane (bench.py:533-547, 589-642): KugelAudio-0-open at
+# its published dims (a Qwen2.5-7B LM, a 4-layer head of 3584, hop 3,200),
+# the lane's text, 64 frames of 10 SDE steps at cfg_scale 3.0, every frame
+# forced to diffusion by a +1e4 lm_head bias on SPEECH_DIFFUSION_ID
+KUGEL_LANE = dict(
+    acoustic_tokenizer_config=dict(
+        vae_dim=64, channels=1, causal=True, encoder_n_filters=32,
+        encoder_ratios=[8, 5, 5, 4, 2, 2], encoder_depths="3-3-3-3-3-3-8"),
+    decoder_config=dict(
+        hidden_size=3584, intermediate_size=18944, num_attention_heads=28,
+        num_hidden_layers=28, num_key_value_heads=4, vocab_size=152064,
+        rope_theta=1000000.0),
+    diffusion_head_config=dict(
+        hidden_size=3584, head_layers=4, head_ffn_ratio=3.0, latent_size=64,
+        ddpm_num_steps=1000, ddpm_num_inference_steps=10),
+    acoustic_vae_dim=64, tie_word_embeddings=False)
+KUGEL_TEXT = ("Machine learning systems now synthesize natural speech in "
+              "real time on a single accelerator chip, streaming audio to "
+              "listeners across the planet.")
+KUGEL_FRAMES, KUGEL_STEPS, KUGEL_CFG, KUGEL_HOP = 64, 10, 3.0, 3200
+# small configs at f32, CUDA vs CPU: summation order only
+KUGEL_SMALL_REL = 1e-4
+# bf16 against f32 on the lane's prefill hidden and one head pass (28
+# layers, as Higgs's 2e-2); W8A8 against bf16 (per-channel int8 weights and
+# per-token int8 activations, as Higgs's 1e-1)
+KUGEL_BF16_REL, KUGEL_I8_REL = 2e-2, 1e-1
+# the Qwen2.5-7B linear shapes (out, in): q and o; k and v; gate and up;
+# down, 28 x (2, 2, 2, 1) a LM step
+KUGEL_SHAPES = ((3584, 3584), (512, 3584), (18944, 3584), (3584, 18944))
+KUGEL_LAYER_LINEARS = (2, 2, 2, 1)
+# phase 24: one 16-frame request on the affine-q8 LM
+KUGEL_K2_FRAMES = 16
+# phase 24's checkpoint: the small config at d64 with the lane's FFN width,
+# so the f32 LM's down_proj (K = 18,944) goes through K2's simt path
+KUGEL_LONG_K = dict(
+    acoustic_tokenizer_config=dict(vae_dim=8, decoder_n_filters=4,
+                                   encoder_ratios=[2, 2],
+                                   encoder_depths="1-1-1", channels=1),
+    decoder_config=dict(hidden_size=64, num_hidden_layers=2,
+                        intermediate_size=18944, num_attention_heads=4,
+                        num_key_value_heads=2, vocab_size=151700),
+    diffusion_head_config=dict(hidden_size=64, head_layers=2,
+                               head_ffn_ratio=2.0, latent_size=8,
+                               ddpm_num_steps=1000,
+                               ddpm_num_inference_steps=4),
+    acoustic_vae_dim=8, tie_word_embeddings=False)
+# frames of the profiled chunk (W8A8 launches about 8,600 kernels a frame;
+# the profiler's own cost grows with the events it records)
+KUGEL_PROFILE_FRAMES = 4
+# phase 25: VibeVoice at ModelConfig() dims, 48 latents with the EOS
+# classifier biased off, cfg_scale 1.5 (its default); a request of one
+# speech window (6 latents) warms up, and is timed and profiled
+VIBE_LATENTS, VIBE_WINDOW = 48, 6
+
+
+def tts_fixtures():
+    """tests/torch_tts_fixtures.py, the CPU tests' small KugelAudio and
+    VibeVoice models, stand-in tokenizers and checkpoint writers (torch
+    only), loaded from its file."""
+    import importlib.util
+
+    name = "torch_tts_fixtures"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "tests" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+class LaneTok:
+    """bench.py:581-585's stand-in for the lanes: ids in the real
+    vocabulary, a real prompt length."""
+
+    def encode(self, s, **kwargs):
+        return [1000 + (ord(c) % 5000) for c in s]
+
+
+def phase_kugel_reference(card: str) -> None:
+    """Phase 22: the small KugelAudio and VibeVoice at f32 from one seeded
+    weight set, CUDA against the CPU: KugelAudio's CFG prefill (hidden
+    rows and the caches' written columns), a forced-diffusion generate()
+    at cfg_scale 3.0 with one noise tensor on both devices (frame counts
+    equal, audio within 1e-4), and VibeVoice's generate() the same way
+    with its EOS classifier biased off."""
+    import numpy as np
+    import torch
+
+    fx = tts_fixtures()
+    t0 = time.perf_counter()
+    models = [fx.force_diffusion(fx.kugel_small(d)) for d in ("cpu", "cuda")]
+    prompt = models[0]._build_prompt_tokens("hello world, this is a check")
+    plen = len(prompt)
+    ids = torch.zeros((2, 256), dtype=torch.int64)
+    ids[0, :plen] = torch.tensor(prompt)
+    ids[1, 0] = prompt[-1]
+    carries = [m.prefill(ids.to(m.device), plen, 512) for m in models]
+    rel_h = rel_err(carries[1].hidden.cpu(), carries[0].hidden)
+    rel_k = rel_err(carries[1].caches.k[:, 0, :plen].cpu(),
+                    carries[0].caches.k[:, 0, :plen])
+    if not (rel_h <= KUGEL_SMALL_REL and rel_k <= KUGEL_SMALL_REL
+            and torch.isfinite(carries[1].hidden).all()):
+        raise AssertionError(f"KugelAudio prefill CUDA vs CPU: hidden rel "
+                             f"{rel_h:.3e}, K cache rel {rel_k:.3e}")
+    g = torch.Generator().manual_seed(4)
+    table = torch.randn((8, 5, 8), generator=g)
+    res = [next(fx.fixed_draws(m, table).generate(
+        "hello world", cfg_scale=3.0, max_tokens=8, ddpm_steps=4, seed=3))
+        for m in models]
+    a_rel = rel_err(torch.from_numpy(res[1].audio),
+                    torch.from_numpy(res[0].audio))
+    if not (res[0].token_count == res[1].token_count
+            and res[0].samples == res[1].samples == 8 * 4
+            and a_rel <= KUGEL_SMALL_REL and np.isfinite(res[1].audio).all()):
+        raise AssertionError(f"KugelAudio generate() CUDA vs CPU: "
+                             f"{res[1].samples} vs {res[0].samples} samples, "
+                             f"rel {a_rel:.3e}")
+    vv = [fx.fixed_draws(fx.vibevoice_small(d), table[:, :1])
+          for d in ("cpu", "cuda")]
+    vres = [next(m.generate("hello world from the card", max_tokens=8,
+                            seed=3)) for m in vv]
+    v_rel = rel_err(torch.from_numpy(vres[1].audio),
+                    torch.from_numpy(vres[0].audio))
+    if not (vres[0].samples == vres[1].samples == 8 * 4
+            and v_rel <= KUGEL_SMALL_REL
+            and np.isfinite(vres[1].audio).all()):
+        raise AssertionError(f"VibeVoice generate() CUDA vs CPU: "
+                             f"{vres[1].samples} vs {vres[0].samples} "
+                             f"samples, rel {v_rel:.3e}")
+    log(f"[kugel small] f32 CUDA vs CPU: CFG prefill hidden rel {rel_h:.3e}, "
+        f"K cache rel {rel_k:.3e} (tol {KUGEL_SMALL_REL:g}); forced-diffusion "
+        f"generate() at cfg_scale 3.0, one noise: {res[1].token_count} tokens "
+        f"and {res[1].samples} samples on both, audio rel {a_rel:.3e}; "
+        f"VibeVoice generate() {vres[1].samples} samples on both, audio rel "
+        f"{v_rel:.3e}; phase 22 in {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def phase_tts_loads(tmp: Path) -> None:
+    """Phase 14's KugelAudio and VibeVoice checkpoints: HF names, torch
+    conv layouts, npz, config.json with model_type "kugelaudio" (and the
+    `acostic_vae_dim` alias) and "vibevoice_streaming"; load_model(...) on
+    the card gives the in-process model's audio."""
+    import torch
+
+    import mlx_audio_tpu_torch
+
+    fx = tts_fixtures()
+    cases = [("kugelaudio", fx.kugel_small("cuda"), fx.kugel_hf_state,
+              dict(cfg_scale=3.0, max_tokens=6, ddpm_steps=4, seed=1)),
+             ("vibevoice_streaming", fx.vibevoice_small("cuda"),
+              fx.vibevoice_hf_state, dict(max_tokens=6, seed=1))]
+    lines = []
+    for model_type, here, hf_state, kw in cases:
+        ckpt = tmp / f"{model_type}-small"
+        fx.write_tts_checkpoint(here, hf_state(here), model_type, ckpt)
+        loaded = mlx_audio_tpu_torch.load_model(ckpt)
+        if loaded.device.type != "cuda" or loaded.tokenizer is not None:
+            raise AssertionError(f"{model_type}: load_model did not load "
+                                 f"onto the card, or found a tokenizer")
+        loaded.tokenizer = here.tokenizer
+        if model_type == "kugelaudio":     # the same bias on both, after
+            fx.force_diffusion(here)       # the checkpoint was written
+            fx.force_diffusion(loaded)
+        want, got = (next(m.generate("hello there", **kw))
+                     for m in (here, loaded))
+        rel = rel_err(torch.from_numpy(got.audio),
+                      torch.from_numpy(want.audio))
+        if not got.samples == want.samples == 6 * 4 or rel > 1e-5:
+            raise AssertionError(f"{model_type}: load_model audio differs "
+                                 f"({got.samples} vs {want.samples} samples, "
+                                 f"rel {rel:.3e})")
+        lines.append(f"{model_type} {got.samples} samples, rel {rel:.1e}")
+    log(f"[tts-load] mlx_audio_tpu_torch.load_model on small KugelAudio and "
+        f"VibeVoice checkpoints (HF names, torch conv layouts, npz) on the "
+        f"card gives the in-process models' audio: {'; '.join(lines)}")
+
+
+def build_kugel_full():
+    """KugelAudio at the kugelaudio_7b lane's dims on the card, every
+    floating parameter drawn N(0, 0.02) there in f32 from seed 0, as the
+    lane draws every floating leaf (bench.py:559-566)."""
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.kugelaudio import Model
+
+    model = Model(KUGEL_LANE, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    model.tokenizer = LaneTok()
+    return model
+
+
+def kugel_frame_bytes(model, cache_len: int) -> float:
+    """Bytes a frame must read, as bench.py:645-656 counts them: the LM's
+    layers once (both CFG rows share the read), the diffusion head once per
+    SDE step, and the two rows' f32 K/V of the whole cache."""
+    cfg = model.language_model.config
+
+    def size(m):
+        return sum(v.numel() * v.element_size()
+                   for v in list(m.parameters()) + list(m.buffers()))
+
+    kv = (2 * cfg.num_hidden_layers * 2 * cache_len * cfg.num_key_value_heads
+          * cfg.resolved_head_dim * 4)
+    return (size(model.language_model.model.layers)
+            + KUGEL_STEPS * size(model.prediction_head) + kv)
+
+
+def _kugel_inputs(model):
+    """The lane's prompt bucket ids (2, pb), plen and cache length."""
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.kugelaudio.kugelaudio import (
+        CACHE_BUCKETS, PROMPT_BUCKETS, SPEECH_START_ID, _bucket)
+
+    prompt = model._build_prompt_tokens(KUGEL_TEXT)
+    plen = len(prompt)
+    pb = _bucket(plen, PROMPT_BUCKETS)
+    ids = torch.zeros((2, pb), dtype=torch.int64)
+    ids[0, :plen] = torch.tensor(prompt)
+    ids[1, 0] = SPEECH_START_ID
+    return (ids.cuda(), plen,
+            _bucket(plen + KUGEL_FRAMES + 1, CACHE_BUCKETS))
+
+
+def _kugel_probe(model):
+    """The lane's prefill hidden rows (2, H) and one head pass on row 0
+    (a seeded noisy latent at t = 999), in f32."""
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.vibevoice.vibevoice import \
+        head_forward
+
+    ids, plen, cache_len = _kugel_inputs(model)
+    hidden = model.prefill(ids, plen, cache_len).hidden
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((1, 64), generator=g, device="cuda")
+    t = torch.full((1,), 999.0, device="cuda")
+    with torch.no_grad():
+        v = head_forward(model.prediction_head, x, t, hidden[0:1])
+    return hidden.float(), v.float()
+
+
+def _frob(a, b) -> float:
+    import torch
+
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def _profile_kugel_chunk(model) -> tuple:
+    """KUGEL_PROFILE_FRAMES frames of the frame loop after a prefill, under
+    torch.profiler. -> (kernels a frame, device ms a frame, wall ms a frame
+    unprofiled, busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlx_audio_tpu_torch.tts.models.vibevoice.scheduler import \
+        sde_dpm_tables
+
+    n = KUGEL_PROFILE_FRAMES
+    ids, plen, cache_len = _kugel_inputs(model)
+    carry = model.prefill(ids, plen, cache_len)
+    tables = sde_dpm_tables(1000, KUGEL_STEPS)
+    temb = model.prediction_head.t_embed(
+        torch.from_numpy(tables["t"]).cuda())
+    g = torch.Generator(device="cuda").manual_seed(6)
+    draws = torch.randn((n, 1 + KUGEL_STEPS, 64), generator=g, device="cuda")
+
+    def run():
+        return model.chunk(carry, n, draws, int(carry.n_lat), tables, temb,
+                           KUGEL_CFG)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+
+    def dev_us(e):
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                return float(getattr(e, name))
+        return 0.0
+
+    device = sum(dev_us(e) for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in kernels) / n
+    return launches, device, wall, device / wall
+
+
+def _kugel_lane(model, name: str, card: str) -> dict:
+    """The lane's workload: a warm-up (seed 0), then the best of seeds 1
+    and 2 (bench.py:621-631), and one profiled chunk. Returns the numbers
+    it logs."""
+    import numpy as np
+    import torch
+
+    def run(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = next(model.generate(KUGEL_TEXT, cfg_scale=KUGEL_CFG,
+                                max_tokens=KUGEL_FRAMES,
+                                ddpm_steps=KUGEL_STEPS, seed=seed))
+        return r, time.perf_counter() - t0, dict(model.last_run)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run(0)
+    runs = [run(seed) for seed in (1, 2)]
+    r, wall, stats = min(runs, key=lambda x: x[1])
+    want = KUGEL_FRAMES * KUGEL_HOP
+    if not (r.samples == want and np.isfinite(r.audio).all()
+            and stats["frames"] == stats["latents"] == KUGEL_FRAMES):
+        raise AssertionError(f"{name}: {r.samples} samples (want {want}), "
+                             f"{stats['frames']} frames, {stats['latents']} "
+                             f"latents, or audio not finite")
+    peak = torch.cuda.max_memory_allocated()
+    launches, device_ms, wall_ms, busy = _profile_kugel_chunk(model)
+    bytes_frame = kugel_frame_bytes(model, stats["cache_len"])
+    bound_ms = bytes_frame / HBM_BPS * 1e3
+    audio_s = want / model.sample_rate
+    frame_ms = stats["frames_s"] / KUGEL_FRAMES * 1e3
+    out = dict(wall_s=wall, xrt=audio_s / wall, frame_ms=frame_ms,
+               prefill_s=stats["prefill_s"], frames_s=stats["frames_s"],
+               vae_s=stats["vae_s"], peak_gb=peak / 1e9,
+               own_gb=(peak - base) / 1e9, launches=launches,
+               device_ms=device_ms, busy=busy, bound_ms=bound_ms,
+               walls=[w for _, w, _ in runs])
+    log(f"[kugel {name}] {KUGEL_FRAMES} frames x {KUGEL_STEPS} SDE steps at "
+        f"cfg_scale {KUGEL_CFG} -> {want} samples ({audio_s:.2f} s): wall "
+        f"{wall:.3f} s best of 2 ({', '.join(f'{w:.3f}' for w in out['walls'])}"
+        f" s), xRT {out['xrt']:.3f}, {frame_ms:.2f} ms a frame; prefill "
+        f"{out['prefill_s'] * 1e3:.1f} ms (bucket {stats['prompt_bucket']}, "
+        f"{stats['prompt_len']} tokens), frame loop {out['frames_s']:.3f} s "
+        f"in {stats['chunks']} chunks, VAE decode {out['vae_s'] * 1e3:.1f} "
+        f"ms; peak device memory {out['peak_gb']:.2f} GB "
+        f"({out['own_gb']:.2f} GB above the model); profiled chunk of "
+        f"{KUGEL_PROFILE_FRAMES}: {launches:.0f} kernels a frame, "
+        f"{device_ms:.3f} ms of device time a frame against {wall_ms:.2f} ms "
+        f"of wall ({100 * busy:.1f}% busy); bound {bound_ms:.3f} ms a frame "
+        f"({bytes_frame / 1e9:.3f} GB), {100 * bound_ms / frame_ms:.1f}% of "
+        f"it reached ({card})")
+    return out
+
+
+def phase_kugel_full(card: str):
+    """Phase 23, first half: KugelAudio at the kugelaudio_7b lane's dims
+    (8.64 B parameters drawn on the card in f32 from seed 0), bf16 against
+    f32 on the lane's prefill hidden rows and one head pass, then cast in
+    place to bf16 and the lane's workload. -> (model, the bf16 probe, the
+    lane's numbers)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = build_kugel_full()
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    log(f"[kugel] KugelAudio kugelaudio_7b dims (Qwen2.5-7B LM 28 x d3584, "
+        f"GQA 28/4 of 128, FFN 18944, vocab 152,064; head 4 x 3584; VAE hop "
+        f"{KUGEL_HOP}): {n_params / 1e9:.3f} B parameters drawn N(0, 0.02) on "
+        f"the card in f32 from seed 0 ({time.perf_counter() - t0:.2f} s)")
+    if not 8.6e9 < n_params < 8.7e9:
+        raise AssertionError(f"{n_params} parameters, the lane has 8.64 B")
+    with torch.no_grad():
+        ref_h, ref_v = _kugel_probe(model)
+        model.astype(torch.bfloat16)
+        torch.cuda.empty_cache()
+        got_h, got_v = _kugel_probe(model)
+    rel_h, rel_v = _frob(got_h, ref_h), _frob(got_v, ref_v)
+    del ref_h, ref_v
+    if not (torch.isfinite(got_h).all() and rel_h < KUGEL_BF16_REL
+            and rel_v < KUGEL_BF16_REL):
+        raise AssertionError(f"KugelAudio bf16 vs f32: prefill hidden "
+                             f"{rel_h:.3e}, head pass {rel_v:.3e}")
+    log(f"[kugel] bf16 vs f32, relative Frobenius: the lane's CFG prefill "
+        f"hidden rows {rel_h:.3e}, one head pass on row 0 {rel_v:.3e} (limit "
+        f"{KUGEL_BF16_REL:g}; {card})")
+    tts_fixtures().force_diffusion(model)
+    lane = _kugel_lane(model, "kugelaudio_7b bf16", card)
+    return model, (got_h, got_v), lane
+
+
+def phase_kugel_k2(model, card: str, recorder) -> int:
+    """Phase 24, on phase 23's bf16 weights: the LM quantized to affine 8
+    bits through apply_quantization with KugelAudio's predicate (group 64,
+    no mxu_int8), one 16-frame request with K2's launches against 196 a LM
+    step (the prefill's included), then K2 at the LM's four shapes, M = 2
+    (a CFG frame) and the prefill's M, against qmatmul_reference, timed
+    beside W8A8 and dense bf16 cuBLAS. Returns K2's launches in the
+    request."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t0 = time.perf_counter()
+    apply_quantization(model, {"quantization": {"bits": 8, "group_size": 64}},
+                       model.model_quant_predicate)
+    torch.cuda.empty_cache()
+    layers = model.language_model.config.num_hidden_layers
+    per_step = layers * LINEARS_PER_LAYER
+    have = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if have != per_step:
+        raise AssertionError(f"{have} quantized linears, the config gives "
+                             f"{per_step}")
+    before = qmm_kernel.launches
+    with recorder:
+        t1 = time.perf_counter()
+        r = next(model.generate(KUGEL_TEXT, cfg_scale=KUGEL_CFG,
+                                max_tokens=KUGEL_K2_FRAMES,
+                                ddpm_steps=KUGEL_STEPS, seed=1))
+        wall = time.perf_counter() - t1
+    launches = qmm_kernel.launches - before
+    run = model.last_run
+    want = per_step * (1 + run["frames"])
+    pm = 2 * run["prompt_bucket"]
+    if launches != want or run["frames"] != KUGEL_K2_FRAMES:
+        raise AssertionError(f"KugelAudio q8: {launches} K2 launches over "
+                             f"{run['frames']} frames, want {per_step} x (1 + "
+                             f"{KUGEL_K2_FRAMES}) = {want}")
+    want_calls = {(m, n, k, b) for m in (2, pm)
+                  for n, k, b in ((3584, 3584, True), (512, 3584, True),
+                                  (3584, 3584, False), (18944, 3584, False),
+                                  (3584, 18944, False))}
+    if not want_calls <= set(recorder.calls):
+        raise AssertionError(f"K2 not launched at {want_calls}")
+    if not (r.samples == KUGEL_K2_FRAMES * KUGEL_HOP
+            and np.isfinite(r.audio).all()):
+        raise AssertionError(f"KugelAudio q8: {r.samples} samples")
+    log(f"[kugel q8 K2] affine 8-bit LM (group 64): one request of "
+        f"{run['frames']} frames in {wall:.3f} s ({run['frames_s'] * 1e3 / run['frames']:.2f} "
+        f"ms a frame, prefill {run['prefill_s'] * 1e3:.1f} ms at M = {pm}), "
+        f"{launches} K2 launches = {per_step} x (1 + {run['frames']}) ({card})")
+    _linear_times(card, "kugel", KUGEL_SHAPES, KUGEL_LAYER_LINEARS, layers,
+                  (2, pm))
+    log(f"[kugel q8 K2] phase 24 in {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return launches
+
+
+def phase_kugel_q8_load(tmp: Path, card: str, recorder) -> int:
+    """Phase 24, last: a small f32 KugelAudio checkpoint whose LM has the
+    lane's FFN width (KUGEL_LONG_K) and whose config.json asks for affine 8
+    bits. load_model on the card quantizes the LM, whose f32 x at M = 2
+    (a CFG step) and 2 x the prompt bucket (the prefill) take K2's simt
+    path, stepping over down_proj's K = 18,944; its audio must be that of
+    the same checkpoint loaded on the CPU (plain versions), one noise on
+    both. Returns K2's launches."""
+    import torch
+
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import choose_path, qmm_kernel
+
+    fx = tts_fixtures()
+    ckpt = tmp / "kugelaudio-q8-long-k"
+    here = fx.kugel_small("cpu", KUGEL_LONG_K)
+    fx.write_tts_checkpoint(here, fx.kugel_hf_state(here), "kugelaudio", ckpt,
+                            quantization={"bits": 8, "group_size": 64})
+    del here
+    dec = KUGEL_LONG_K["decoder_config"]
+    per_step = dec["num_hidden_layers"] * LINEARS_PER_LAYER
+    table = torch.randn((8, 5, 8), generator=torch.Generator().manual_seed(5))
+    models = []
+    for dev in ("cpu", "cuda"):
+        m = mlx_audio_tpu_torch.load_model(ckpt, device=dev)
+        have = sum(isinstance(x, QuantizedLinear) for x in m.modules())
+        if have != per_step or m.device.type != dev:
+            raise AssertionError(f"load_model on {dev}: {have} quantized "
+                                 f"linears, the config gives {per_step}")
+        m.tokenizer = fx.CharTok()
+        models.append(fx.fixed_draws(fx.force_diffusion(m), table))
+    kw = dict(cfg_scale=3.0, max_tokens=6, ddpm_steps=4, seed=1)
+    want = next(models[0].generate("hello there", **kw))
+    before = qmm_kernel.launches
+    with recorder:
+        got = next(models[1].generate("hello there", **kw))
+    launches = qmm_kernel.launches - before
+    run = models[1].last_run
+    pm = 2 * run["prompt_bucket"]
+    long_k = {(m, dec["hidden_size"], dec["intermediate_size"], False)
+              for m in (2, pm)}
+    rel = rel_err(torch.from_numpy(got.audio), torch.from_numpy(want.audio))
+    if launches != per_step * (1 + run["frames"]) or \
+            not long_k <= set(recorder.calls):
+        raise AssertionError(f"q8 KugelAudio from load_model: {launches} K2 "
+                             f"launches over {run['frames']} frames, want "
+                             f"{per_step} x (1 + frames), down_proj at "
+                             f"{sorted(long_k)}")
+    if any(choose_path(torch.float32, m, 64) != "simt" for m in (2, pm)):
+        raise AssertionError("f32 x at M > 1 no longer takes the simt path")
+    if not (got.samples == want.samples == 6 * 4 and rel <= KUGEL_SMALL_REL):
+        raise AssertionError(f"q8 KugelAudio from load_model: card vs CPU "
+                             f"{got.samples} vs {want.samples} samples, rel "
+                             f"{rel:.3e}")
+    log(f"[kugel q8 load] load_model on a small f32 checkpoint with "
+        f"quantization {{bits 8, group 64}} and FFN {dec['intermediate_size']}"
+        f": {launches} K2 launches = {per_step} x (1 + {run['frames']}), "
+        f"down_proj f32 at M = 2 and {pm} by the simt path's K tiles; audio "
+        f"against the CPU load rel {rel:.3e} (tol {KUGEL_SMALL_REL:g}) "
+        f"({card})")
+    return launches
+
+
+def phase_kugel_w8a8(model, probe_bf16, card: str) -> dict:
+    """Phase 23, second half: the LM's affine codes converted in place to
+    W8A8 (to_i8_layout) and every prediction_head linear quantized to 8
+    bits and converted the same way, as the lane's leaves are
+    (bench.py:559-579); the prefill hidden and the head pass against bf16,
+    then the lane's workload."""
+    import torch
+
+    from mlx_audio_tpu_torch.model import replace_module
+    from mlx_audio_tpu_torch.nn import Int8Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    for name, m in list(model.named_modules()):
+        if isinstance(m, QuantizedLinear):
+            replace_module(model, name, Int8Linear.from_quantized(m))
+    apply_quantization(
+        model, {"quantization": {"bits": 8, "group_size": 64,
+                                 "mxu_int8": True}},
+        lambda path, w: path.startswith("prediction_head"))
+    torch.cuda.empty_cache()
+    n_i8 = sum(isinstance(m, Int8Linear) for m in model.modules())
+    with torch.no_grad():
+        got_h, got_v = _kugel_probe(model)
+    rel_h, rel_v = _frob(got_h, probe_bf16[0]), _frob(got_v, probe_bf16[1])
+    if not (torch.isfinite(got_h).all() and rel_h < KUGEL_I8_REL
+            and rel_v < KUGEL_I8_REL):
+        raise AssertionError(f"KugelAudio W8A8 vs bf16: prefill hidden "
+                             f"{rel_h:.3e}, head pass {rel_v:.3e}")
+    log(f"[kugel] W8A8 vs bf16, relative Frobenius: prefill hidden rows "
+        f"{rel_h:.3e}, head pass {rel_v:.3e} (limit {KUGEL_I8_REL:g}); "
+        f"{n_i8} W8A8 linears (196 in the LM, 22 in the head) ({card})")
+    if n_i8 != 218:
+        raise AssertionError(f"{n_i8} W8A8 linears, the lane has 218")
+    return _kugel_lane(model, "kugelaudio_7b W8A8", card)
+
+
+def phase_vibevoice_full(card: str) -> dict:
+    """Phase 25: VibeVoice at ModelConfig() dims (a 24-layer Qwen2 split 4
+    + 20 at d896, a 4-layer head, 20 DPM steps; every floating parameter
+    drawn N(0, 0.02) on the card in f32 from seed 0, then cast in place to
+    bf16), no voice, its EOS classifier biased off: a warm-up, then one
+    request of 48 latents (wall, xRT, ms a latent), and one of a speech
+    window timed and then profiled (kernels a latent, device time over the
+    unprofiled wall)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlx_audio_tpu_torch.tts.models.vibevoice import Model, ModelConfig
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    model.astype(torch.bfloat16)
+    model.tts_eos_classifier.fc2.bias.fill_(tts_fixtures().VIBE_EOS_OFF)
+    model.tokenizer = LaneTok()
+    n_params = model.num_params()
+    next(model.generate(KUGEL_TEXT, max_tokens=VIBE_WINDOW, seed=0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r = next(model.generate(KUGEL_TEXT, max_tokens=VIBE_LATENTS, seed=1))
+    wall = time.perf_counter() - t1
+    want = VIBE_LATENTS * model.config.acoustic_tokenizer_config.hop_length
+    if not (r.samples == want and np.isfinite(r.audio).all()
+            and model.last_run["latents"] == VIBE_LATENTS):
+        raise AssertionError(f"VibeVoice: {r.samples} samples, want {want}")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    next(model.generate(KUGEL_TEXT, max_tokens=VIBE_WINDOW, seed=2))
+    wall_w = time.perf_counter() - t2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        next(model.generate(KUGEL_TEXT, max_tokens=VIBE_WINDOW, seed=2))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_s = sum(float(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0)))
+                   for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels) / VIBE_WINDOW
+    audio_s = want / model.sample_rate
+    log(f"[vibevoice] ModelConfig() dims ({n_params / 1e9:.3f} B parameters, "
+        f"bf16; 4 + 20 Qwen2 layers at d896, head 4 x 896, 20 DPM steps, "
+        f"cfg_scale 1.5, no voice, EOS off): {VIBE_LATENTS} latents -> "
+        f"{want} samples ({audio_s:.2f} s) in {wall:.3f} s, xRT "
+        f"{audio_s / wall:.3f}, {wall * 1e3 / VIBE_LATENTS:.2f} ms a latent "
+        f"(text and speech windows and the VAE included); a request of "
+        f"{VIBE_WINDOW} latents, profiled: {launches:.0f} kernels a latent, "
+        f"{device_s * 1e3:.1f} ms of device time against {wall_w * 1e3:.1f} "
+        f"ms of wall unprofiled ({100 * device_s / wall_w:.1f}% busy); phase "
+        f"25 in {time.perf_counter() - t0:.1f} s ({card})")
+    return dict(wall_s=wall, xrt=audio_s / wall,
+                latent_ms=wall * 1e3 / VIBE_LATENTS,
+                busy=device_s / wall_w)
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -3159,6 +3843,7 @@ def main() -> int:
         phase_voxtral_cli(Path(tmp))
         phase_cohere_cli(Path(tmp))
         phase_higgs_load(Path(tmp))
+        phase_tts_loads(Path(tmp))
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Whisper phases or the CLI launched K1 or "
                              "K2")
@@ -3197,6 +3882,35 @@ def main() -> int:
         f"frame ({card})")
     log(f"[time] phases 19-21 in {time.perf_counter() - t_higgs:.1f} s; "
         f"phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    # KugelAudio and VibeVoice: dense bf16 and W8A8 products in phases 22,
+    # 23 and 25, neither K1 nor K2; K2 in phase 24, on the affine-q8 LM
+    # between phase 23's two lanes
+    import torch
+
+    t_kugel = time.perf_counter()
+    torch.cuda.empty_cache()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    phase_kugel_reference(card)
+    model_k, probe_k, bf16_k = phase_kugel_full(card)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the KugelAudio bf16 phases launched K1 or K2")
+    k2_launches += phase_kugel_k2(model_k, card, recorder)
+    with tempfile.TemporaryDirectory() as tmp:
+        k2_launches += phase_kugel_q8_load(Path(tmp), card, recorder)
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    w8_k = phase_kugel_w8a8(model_k, probe_k, card)
+    del model_k, probe_k
+    torch.cuda.empty_cache()
+    phase_vibevoice_full(card)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the KugelAudio W8A8 lane or VibeVoice launched "
+                             "K1 or K2")
+    log(f"[kugel] W8A8 against bf16 on this card: {w8_k['frame_ms']:.2f} vs "
+        f"{bf16_k['frame_ms']:.2f} ms a frame, xRT {w8_k['xrt']:.3f} vs "
+        f"{bf16_k['xrt']:.3f}, {w8_k['launches']:.0f} vs "
+        f"{bf16_k['launches']:.0f} kernels a frame ({card})")
+    log(f"[time] phases 22-25 in {time.perf_counter() - t_kugel:.1f} s; "
+        f"phases 1-25 in {time.perf_counter() - t_start:.1f} s ({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     k2_path_abs = phase_qmm_path(set(recorder.calls))

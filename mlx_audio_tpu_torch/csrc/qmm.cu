@@ -51,8 +51,10 @@
 // simt (the first design; f32 x at M > 1, and any gs not a multiple of 16).
 // One warp per output row, x tile of MT rows in shared memory as f32, four
 // 4-byte code words per lane in flight; M > 1 runs over tiles of MT = 4 rows
-// of x, re-reading the weight once per tile. It keeps the f32 contract
-// exact, which the bf16 tensor cores cannot.
+// of x, re-reading the weight once per tile. Where MT rows of K columns do
+// not fit in shared memory (K > 14,528 at MT = 4), the block steps over K in
+// tiles of whole 512-column strides. It keeps the f32 contract exact, which
+// the bf16 tensor cores cannot.
 //
 // Plain C interface for ctypes (mlx_audio_tpu_torch/ops/qmm.py). qmm_init
 // sets the dynamic shared-memory limits once per device; each other entry
@@ -104,60 +106,70 @@ __global__ void __launch_bounds__(WARPS * 32)
 simt_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
             const float* __restrict__ scales, const float* __restrict__ biases,
             const float* __restrict__ bias, T* __restrict__ y, int M, int N,
-            int K, int gs) {
-  extern __shared__ float xs[];  // [MT][K], f32
+            int K, int gs, int kt) {
+  extern __shared__ float xs[];  // [MT][kt], f32: columns k0 .. k0 + kt - 1
   const int m0 = blockIdx.y * MT;
-  for (int i = threadIdx.x; i < MT * K; i += blockDim.x) {
-    const int m = m0 + i / K;
-    xs[i] = m < M ? to_f32(x[(size_t)m * K + (i % K)]) : 0.f;
-  }
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * WARPS + warp;
-  if (n >= N) return;  // no barrier follows
+  const bool active = n < N;  // every warp reaches each tile's barriers
   const int ng = K / gs;
-  const uint32_t* qrow = reinterpret_cast<const uint32_t*>(q + (size_t)n * K);
-  const float* srow = scales + (size_t)n * ng;
-  const float* brow = biases + (size_t)n * ng;
+  const uint32_t* qrow =
+      reinterpret_cast<const uint32_t*>(q + (size_t)(active ? n : 0) * K);
+  const float* srow = scales + (size_t)(active ? n : 0) * ng;
+  const float* brow = biases + (size_t)(active ? n : 0) * ng;
 
   float acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0.f;
 
-  // word w covers columns 4w..4w+3; gs % 4 == 0, so one group per word
-  const int words = K / 4;
-  for (int w0 = lane; w0 < words; w0 += 32 * UNROLL) {
-    uint32_t code[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int w = w0 + u * 32;
-      code[u] = w < words ? __ldg(qrow + w) : 0u;
+  // word w covers columns 4w..4w+3; gs % 4 == 0, so one group per word. A
+  // tile of kt columns (all of K, or a multiple of 4 * 32 * UNROLL) keeps
+  // each lane's words, and so its sums, in the order of one whole-K pass.
+  for (int k0 = 0; k0 < K; k0 += kt) {
+    const int kw = min(kt, K - k0);
+    if (k0 > 0) __syncthreads();  // the last tile's reads are done
+    for (int i = threadIdx.x; i < MT * kw; i += blockDim.x) {
+      const int m = m0 + i / kw;
+      xs[(i / kw) * kt + i % kw] =
+          m < M ? to_f32(x[(size_t)m * K + k0 + i % kw]) : 0.f;
     }
+    __syncthreads();
+    if (!active) continue;
+    const int wbeg = k0 / 4, wend = (k0 + kw) / 4;
+    for (int w0 = wbeg + lane; w0 < wend; w0 += 32 * UNROLL) {
+      uint32_t code[UNROLL];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int w = w0 + u * 32;
-      if (w < words) {
-        const int k = 4 * w;
-        const int g = k / gs;
-        const float s = __ldg(srow + g);
-        const float b = __ldg(brow + g);
-        float wt[4];
+      for (int u = 0; u < UNROLL; ++u) {
+        const int w = w0 + u * 32;
+        code[u] = w < wend ? __ldg(qrow + w) : 0u;
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wt[j] = fmaf((float)((code[u] >> (8 * j)) & 0xffu), s, b);
+      for (int u = 0; u < UNROLL; ++u) {
+        const int w = w0 + u * 32;
+        if (w < wend) {
+          const int k = 4 * w;
+          const int g = k / gs;
+          const float s = __ldg(srow + g);
+          const float b = __ldg(brow + g);
+          float wt[4];
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float4 xv = *reinterpret_cast<const float4*>(xs + m * K + k);
-          acc[m] = fmaf(wt[0], xv.x, acc[m]);
-          acc[m] = fmaf(wt[1], xv.y, acc[m]);
-          acc[m] = fmaf(wt[2], xv.z, acc[m]);
-          acc[m] = fmaf(wt[3], xv.w, acc[m]);
+          for (int j = 0; j < 4; ++j)
+            wt[j] = fmaf((float)((code[u] >> (8 * j)) & 0xffu), s, b);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            const float4 xv =
+                *reinterpret_cast<const float4*>(xs + m * kt + (k - k0));
+            acc[m] = fmaf(wt[0], xv.x, acc[m]);
+            acc[m] = fmaf(wt[1], xv.y, acc[m]);
+            acc[m] = fmaf(wt[2], xv.z, acc[m]);
+            acc[m] = fmaf(wt[3], xv.w, acc[m]);
+          }
         }
       }
     }
   }
+  if (!active) return;  // no barrier follows
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -172,16 +184,27 @@ simt_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
   }
 }
 
+// Columns of x a simt block holds at once: all of K where MT rows of it fit
+// in shared memory, else the most whole multiples of 4 * 32 * UNROLL that
+// do.
+template <int MT>
+int simt_tile(int K) {
+  constexpr int step = 4 * 32 * UNROLL;
+  if ((size_t)MT * K * sizeof(float) <= (size_t)MAX_SMEM) return K;
+  return (int)(MAX_SMEM / (MT * sizeof(float))) / step * step;
+}
+
 template <typename T, int MT>
 int launch_simt(const void* x, const void* q, const void* scales,
                 const void* biases, const void* bias, void* y, int M, int N,
                 int K, int gs, void* stream) {
-  const size_t smem = (size_t)MT * K * sizeof(float);
+  const int kt = simt_tile<MT>(K);
+  const size_t smem = (size_t)MT * kt * sizeof(float);
   dim3 grid((N + WARPS - 1) / WARPS, (M + MT - 1) / MT);
   simt_kernel<T, MT><<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(scales), static_cast<const float*>(biases),
-      static_cast<const float*>(bias), static_cast<T*>(y), M, N, K, gs);
+      static_cast<const float*>(bias), static_cast<T*>(y), M, N, K, gs, kt);
   return (int)cudaGetLastError();
 }
 
@@ -595,8 +618,7 @@ int qmm_init(void) {
 }
 
 // Shapes are checked by the Python wrapper. simt: M >= 1, K % gs == 0,
-// gs % 4 == 0, q 4-byte aligned, MT * K * 4 bytes of shared memory at most
-// 227 KB (MT = 1 at M = 1, else 4).
+// gs % 4 == 0, q 4-byte aligned.
 int qmm_simt_f32(const void* x, const void* q, const void* scales,
                  const void* biases, const void* bias, void* y, int M, int N,
                  int K, int gs, void* stream) {

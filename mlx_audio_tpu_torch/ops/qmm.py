@@ -36,10 +36,8 @@ PATHS = ("gemv", "mma", "simt")
 # 4.89-11.03, hence M = 1 goes to the gemv.
 MMA_MIN_ROWS = 2
 # Rows of x per block of the simt path when M > 1 (MT in csrc/qmm.cu); the
-# block holds them in shared memory as f32.
+# block holds them in shared memory as f32, all of K or tiles of it.
 SIMT_ROWS = 4
-# Dynamic shared memory one block may use on Hopper.
-MAX_SMEM = 227 * 1024
 # gemv and simt: warps per block; mma: weight rows per block, k columns per
 # stage, tokens per block tile
 WARPS, MMA_ROWS, MMA_STAGE_K, MMA_TOKENS = 8, 64, 64, 64
@@ -211,11 +209,7 @@ class QmmKernel:
                k: int, gs: int) -> tuple:
         """Raise unless `path` takes this call; -> its tuning arguments."""
         if path == "simt":
-            tile = 1 if m == 1 else SIMT_ROWS
-            if tile * k * 4 > MAX_SMEM:
-                raise ValueError(f"K={k}: {tile} rows of x do not fit in "
-                                 f"shared memory")
-            if _cdiv(m, tile) > 65535:
+            if _cdiv(m, 1 if m == 1 else SIMT_ROWS) > 65535:
                 raise ValueError(f"M={m} exceeds the grid")
             if w_q.data_ptr() % 4:
                 raise ValueError("w_q must be 4-byte aligned")

@@ -4,6 +4,7 @@ mlx_audio_tpu/tts/models/base.py)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -23,6 +24,21 @@ def peak_memory_gb() -> float:
     if not torch.cuda.is_available():
         return 0.0
     return torch.cuda.max_memory_allocated() / 1e9
+
+
+def local_tokenizer(model_path):
+    """The HF tokenizer saved in `model_path`, never downloaded: None when
+    the directory holds no tokenizer files or `transformers` is not
+    installed; any other failure to read the files raises."""
+    path = Path(model_path)
+    if not any((path / f).exists() for f in (
+            "tokenizer.json", "tokenizer_config.json", "tokenizer.model")):
+        return None
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        return None
+    return AutoTokenizer.from_pretrained(str(path))
 
 
 @dataclass

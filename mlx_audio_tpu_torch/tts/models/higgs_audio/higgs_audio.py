@@ -65,7 +65,8 @@ from ....ops.kvcache import KVCache, kv_update
 from ....ops.rope import (apply_rotary, rope_cos_sin, rope_freqs,
                           rope_freqs_llama3)
 from ....ops.sampling import top_k_top_p_filter
-from ..base import GenerationResult, format_duration, peak_memory_gb
+from ..base import (GenerationResult, format_duration, local_tokenizer,
+                    peak_memory_gb)
 
 MAX_CACHE_LEN = 4096
 CHUNK_FRAMES = 16
@@ -426,17 +427,7 @@ class Model(TorchModel):
         """The HF text tokenizer. `tokenizer` stays None when `transformers`
         is not installed or the directory holds no tokenizer files; any
         other failure to read them raises."""
-        path = Path(model_path)
-        model.tokenizer = None
-        if not any((path / f).exists() for f in (
-                "tokenizer.json", "tokenizer_config.json",
-                "tokenizer.model")):
-            return model
-        try:
-            from transformers import AutoTokenizer
-        except ImportError:
-            return model
-        model.tokenizer = AutoTokenizer.from_pretrained(str(path))
+        model.tokenizer = local_tokenizer(model_path)
         return model
 
     # -------------------------------------------------------- embeddings

@@ -1,6 +1,6 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
 checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS,
-Higgs Audio v2)."""
+Higgs Audio v2, KugelAudio, VibeVoice)."""
 
 from __future__ import annotations
 
@@ -13,8 +13,11 @@ from ..utils import apply_quantization, load_config, load_weights
 MODEL_REMAPPING = {"style_tts": "kokoro", "kokoro": "kokoro",
                    "qwen3_tts": "qwen3_tts", "higgs_audio": "higgs_audio",
                    "higgs": "higgs_audio_v3",
-                   "higgs_audio_v3": "higgs_audio_v3"}
-PORTED = ("kokoro", "qwen3_tts", "higgs_audio")
+                   "higgs_audio_v3": "higgs_audio_v3",
+                   "kugelaudio": "kugelaudio", "kugel": "kugelaudio",
+                   "vibevoice": "vibevoice",
+                   "vibevoice_streaming": "vibevoice"}
+PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice")
 
 
 def load_model(model_path: Union[str, Path], device="cuda", **config_overrides):
@@ -24,8 +27,11 @@ def load_model(model_path: Union[str, Path], device="cuda", **config_overrides):
 
     The weights are the published torch-layout checkpoint; the family's
     `sanitize` maps them onto the port's parameter names. Qwen3-TTS also
-    reads the codec from a `speech_tokenizer/` subfolder when there is one,
-    and quantizes its AR path per config["quantization"]."""
+    reads the codec from a `speech_tokenizer/` subfolder when there is one.
+    Qwen3-TTS, Higgs, KugelAudio and VibeVoice quantize per
+    config["quantization"] (each family's predicate; W8A8 with the opt-in);
+    Higgs, KugelAudio and VibeVoice read an HF tokenizer from the
+    directory."""
     device = check_device(device)
     path = Path(model_path).expanduser()
     if not path.is_dir():
@@ -43,8 +49,8 @@ def load_model(model_path: Union[str, Path], device="cuda", **config_overrides):
                          f"{', '.join(PORTED)})")
     if family == "qwen3_tts":
         return _load_qwen3_tts(path, config, device)
-    if family == "higgs_audio":
-        return _load_higgs_audio(path, config, device)
+    if family in ("higgs_audio", "kugelaudio", "vibevoice"):
+        return _load_quantizable(family, path, config, device)
     from .models.kokoro import Model, ModelConfig
 
     model = Model(ModelConfig.from_dict(config), device=device)
@@ -67,15 +73,21 @@ def _load_qwen3_tts(path: Path, config: dict, device):
     return apply_quantization(model, config, model.model_quant_predicate)
 
 
-def _load_higgs_audio(path: Path, config: dict, device):
-    from .models.higgs_audio import Model, ModelConfig
+def _load_quantizable(family: str, path: Path, config: dict, device):
+    """Higgs, KugelAudio or VibeVoice: the weights through the family's
+    `sanitize`, its linears quantized per config["quantization"] with its
+    predicates, then its `post_load_hook` (the local HF tokenizer)."""
+    import importlib
 
+    module = importlib.import_module(f".models.{family}", __package__)
+    Model, ModelConfig = module.Model, module.ModelConfig
     weights = load_weights(path)
     if any(k.endswith(".scales") for k in weights):
         raise NotImplementedError("pre-quantized (MLX-packed) checkpoints are "
                                   "not ported yet; load the dense one")
     model = Model(ModelConfig.from_dict(config), device=device)
     model.bind(model.sanitize(weights))
-    apply_quantization(model, config, model.model_quant_predicate,
+    apply_quantization(model, config,
+                       getattr(model, "model_quant_predicate", None),
                        getattr(model, "model_i8_predicate", None))
     return Model.post_load_hook(model, path)

@@ -21,16 +21,19 @@ import pytest
 pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the port's sources: its package, chip_smoke.py and its profiling tools
+# the port's sources: its package, chip_smoke.py, the test fixtures it
+# loads and its profiling tools
 PORT_SOURCES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "mlx_audio_tpu_torch", "**", "*.py"),
               recursive=True)
     + [os.path.join(REPO, "chip_smoke.py"),
+       os.path.join(REPO, "tests", "torch_tts_fixtures.py"),
        os.path.join(REPO, "tools", "profile_torch_qwen3_tts.py"),
        os.path.join(REPO, "tools", "profile_torch_whisper.py"),
        os.path.join(REPO, "tools", "profile_torch_voxtral.py"),
-       os.path.join(REPO, "tools", "profile_torch_cohere.py")])
+       os.path.join(REPO, "tools", "profile_torch_cohere.py"),
+       os.path.join(REPO, "tools", "kugel_chunk_sweep.py")])
 # modules of the port's fresh-interpreter runs that must stay unimported
 FORBIDDEN = """sorted(m for m in sys.modules if m in ("jax", "mlx_audio_tpu")
                 or m.startswith(("jax.", "mlx_audio_tpu.")))"""
@@ -362,6 +365,40 @@ def test_tiny_cohere_generate_and_cli_without_jax(tmp_path):
     assert out.strip() == "False []", out
 
 
+def test_tiny_kugelaudio_and_vibevoice_generate_without_jax():
+    """KugelAudio on the CPU at a tiny size (tests/test_kugelaudio.py's
+    config, the lanes' forced-diffusion bias): a generate() at cfg_scale
+    3.0 and one on the W8A8 LM; then VibeVoice's with its EOS classifier
+    biased off; no jax in sys.modules."""
+    out = _run("""
+        import sys
+        import numpy as np
+        sys.path.insert(0, "tests")
+        from torch_tts_fixtures import (force_diffusion, kugel_small,
+                                        vibevoice_small)
+        from mlx_audio_tpu_torch.nn import Int8Linear
+        from mlx_audio_tpu_torch.utils import apply_quantization
+
+        model = force_diffusion(kugel_small("cpu"))
+        r = next(model.generate("hello there", cfg_scale=3.0, max_tokens=6,
+                                ddpm_steps=4, seed=1))
+        assert r.samples == 6 * 4 and np.isfinite(r.audio).all()
+        apply_quantization(model, {"quantization": {
+            "bits": 8, "group_size": 32, "mxu_int8": True}},
+            model.model_quant_predicate)
+        assert isinstance(model.language_model.model.layers[0].mlp.up_proj,
+                          Int8Linear)
+        r = next(model.generate("hello there", cfg_scale=3.0, max_tokens=4,
+                                ddpm_steps=4, seed=1))
+        assert r.samples == 4 * 4 and np.isfinite(r.audio).all()
+        vv = vibevoice_small("cpu")
+        r = next(vv.generate("hello there", max_tokens=6, seed=1))
+        assert r.samples == 6 * 4 and np.isfinite(r.audio).all()
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
     kernels are built only when first launched."""
@@ -417,7 +454,8 @@ def _entry_points():
     from mlx_audio_tpu_torch.stt.models import (cohere_asr, voxtral_realtime,
                                                 whisper)
     from mlx_audio_tpu_torch.tts import utils
-    from mlx_audio_tpu_torch.tts.models import kokoro, qwen3_tts
+    from mlx_audio_tpu_torch.tts.models import (kokoro, kugelaudio, llama,
+                                                qwen3_tts, vibevoice)
 
     return {
         "kokoro.Model": (kokoro.Model.__init__,
@@ -431,6 +469,13 @@ def _entry_points():
             lambda p: voxtral_realtime.Model(voxtral_realtime.ModelConfig())),
         "cohere_asr.Model": (cohere_asr.Model.__init__,
                              lambda p: cohere_asr.Model(cohere_asr.ModelConfig())),
+        "llama.Model": (llama.Model.__init__,
+                        lambda p: llama.Model(llama.ModelConfig())),
+        "kugelaudio.Model": (kugelaudio.Model.__init__,
+                             lambda p: kugelaudio.Model(
+                                 kugelaudio.ModelConfig())),
+        "vibevoice.Model": (vibevoice.Model.__init__,
+                            lambda p: vibevoice.Model(vibevoice.ModelConfig())),
         "tts.utils.load_model": (utils.load_model,
                                  lambda p: utils.load_model(p)),
         "stt.utils.load_model": (stt_utils.load_model,
@@ -443,7 +488,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["kokoro.Model", "qwen3_tts.Model",
                                   "whisper.Model", "voxtral_realtime.Model",
-                                  "cohere_asr.Model",
+                                  "cohere_asr.Model", "llama.Model",
+                                  "kugelaudio.Model", "vibevoice.Model",
                                   "tts.utils.load_model",
                                   "stt.utils.load_model",
                                   "mlx_audio_tpu_torch.load_model"])

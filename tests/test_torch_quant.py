@@ -527,6 +527,28 @@ def test_each_path_matches_reference_on_cuda(path, dtype, m):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k", [(2, 18944), (5, 14592), (1, 60416)])
+def test_simt_steps_over_a_long_k_on_cuda(m, k):
+    """The simt path at a K whose rows of x do not fit in shared memory at
+    once (KugelAudio's down_proj, K = 18,944, at the f32 CFG step), so the
+    block steps over K in tiles: f32 x against the plain version."""
+    _cuda()
+    from mlx_audio_tpu_torch.ops.qmm import choose_path, qmm_kernel
+    from mlx_audio_tpu_torch.ops.quant import qmatmul_reference, quantize_weight
+
+    q = {name: v.cuda() for name, v in quantize_weight(
+        torch.from_numpy(_w((96, k), 15)), 64, 8).items()}
+    b = torch.from_numpy(_w((96,), 16)).cuda()
+    x = torch.from_numpy(np.random.RandomState(17).randn(m, k)
+                         .astype(np.float32)).cuda()
+    path = "simt" if m == 1 else choose_path(x.dtype, m, 64)
+    assert path == "simt"
+    got = qmm_kernel(x, q["w_q"], q["scales"], q["biases"], b, path=path)
+    want = qmatmul_reference(x, q["w_q"], q["scales"], q["biases"], b)
+    assert _rel_cuda(got, want) <= 1e-4
+
+
+@pytest.mark.requires_cuda
 def test_kernel_refuses_what_it_does_not_take():
     _cuda()
     from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
