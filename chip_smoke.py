@@ -14,7 +14,12 @@ backbone (kernel K2), through its frame loop, `generate` and
 llama backbone, an SDE-DPM-Solver++ diffusion head under classifier-free
 guidance, the VibeVoice causal VAE decoder) in bf16, W8A8 and on an
 affine-q8 LM (K2), and VibeVoice on the same stack, through `generate`
-and `load_model`.
+and `load_model`; and the OpenAI-style server's request core (the code
+behind every route, without aiohttp): Kokoro speech from a checkpoint
+loaded by directory through the `load_model` router, a burst of Qwen3-TTS
+requests through the broker's continuous-batching session, a Whisper
+transcription, and `/v1/realtime` with Silero's `server_vad` turn
+detection over Voxtral Realtime.
 
     python3 chip_smoke.py
 
@@ -60,8 +65,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    logits with K2 against the same model through `qmatmul_reference`.
 7. Qwen3-TTS main path at the published dims of the 1.7B lane (bench.py
    qwen3_tts_1b7), seeded random bf16 weights quantized to affine 8-bit
-   (group 64): two `generate(text_ids=...)` requests (20 ids / 60 frames,
-   the JAX lane's 50 ids / 100 frames), cold then warm: audio length and
+   (group 64): `generate(text_ids=...)` requests of 20 ids / 60 frames
+   (cold) and the JAX lane's 50 ids / 100 frames (cold, then warm; the
+   short one ran warm too until phase 26 came): audio length and
    finiteness, and K2's launch count against the count the config gives
    for the steps that ran (722 per decode step; the model must hold
    exactly the quantized linears the config gives), and the decode steps
@@ -69,7 +75,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    phases came, a third request of 120 ids / 200 frames ran here; it was
    dropped to keep the run's time.)
 8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
-   10, 11, 21 and 24 launched it with, run after phase 25 (the prefill
+   10, 11, 21, 24 and 26 launched it with, run after phase 25 (the prefill
    bucket, the code predictor's first sub-step, text_projection over the
    text ids, the session's M = 8 and 16 decode frame and its burst prefill
    at M = 8 x 16, Higgs's four shapes at M = 1 and 512, KugelAudio's five
@@ -91,9 +97,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    `np.arange(100 + i, 150 + i)`: aggregate xRT, time to first audio p50
    and max, wall per `step()`, K2's launches per step (against the
    config's count) and per path; every request ends `done` with finite
-   audio of whole frames. Then three requests through the port's
-   `InferenceBroker` and an adapter that routes TTS to the session as the
-   server's does (mlx_audio_tpu/server.py:117-146).
+   audio of whole frames. (Requests through the `InferenceBroker` and
+   the server's own TTS adapter run in phase 26; until the server was
+   ported, three ran here through a stand-in adapter.)
 12. Whisper, the small config of tests/test_whisper.py at f32 from one
    seeded weight set, CUDA against the CPU: the whole-file log-mel (cuFFT
    against the CPU's FFT, within 1e-4) and greedy `generate()` on 6 s of
@@ -108,7 +114,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    bench.py:898-905) cold then warm (wall, xRT, windows, segments, tokens,
    decode steps, ms a step), and the streaming session over ten 1-s chunks
    then `close()` (step latency p50 and max; a final event must arrive).
-   Neither K1 nor K2 may launch in phases 12-14.
+   Neither K1 nor K2 may launch in phases 12-14 (phase 26 runs between
+   16 and 17, and launches both).
 14. The STT entry points on the card: a small checkpoint written with HF
    names and config (npz) and a 5-s WAV written with the port's audio_io;
    `python -m mlx_audio_tpu_torch.stt.generate --format json` in a
@@ -178,7 +185,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    `randn * 0.02` at seed 0, cache 1,024, temperature 0.7, top_p 0.95, RAS
    7/2; 250 frames in 16-frame chunks through `prefill` and `chunk`
    whatever `done` says, then the codec at `CodecConfig()` dims in bf16 on
-   the first 242 frames mod 1,024), a warm-up then best of 3: wall, ms a
+   the first 242 frames mod 1,024), a warm-up then best of 2 (3 until
+   the server phase came; cut to keep the run's time): wall, ms a
    frame, xRT over 10 s, the prefill's and the codec's time, peak device
    memory, and from one profiled chunk the kernels a frame, device time
    and busy share against the frame's byte bound (1.72 ms). Then, after
@@ -239,6 +247,26 @@ the CUDA toolkit. Phases, each of which raises on failure:
    voice, its EOS classifier biased off: 48 latents (wall, xRT, ms a
    latent) and a profiled request of one speech window (kernels a latent,
    busy share).
+26. The server, run after phase 16 on models earlier phases built
+   (`mlx_audio_tpu_torch.server.AudioServer` on the card, its request
+   core called directly: the card machine has no aiohttp): a seeded
+   Kokoro-82M checkpoint at the published dims (npz, no model_type, in a
+   directory named for the family) loaded through `ModelProvider` and the
+   `load_model` router with no category; a whole wav and a streamed pcm
+   speech request (48 K1 launches each; the WAV and PCM of the model's
+   own `generate()` for the same request, to 1 LSB); the q8 Qwen3-TTS of
+   phases 6-11 with a stand-in tokenizer: 8 concurrent streamed requests
+   to a cold server (the broker makes and warms up its session, timed; no
+   error may be logged; time to first audio p50 and max, aggregate xRT,
+   K2's launches against 722 a frame and admission); a json and an NDJSON
+   transcription by phase 13's Whisper turbo (the text of its own
+   `generate()`); `/v1/realtime` with `server_vad`: Silero at its
+   published dims (seed 0) against the CPU on 8 s of seeded audio (within
+   1e-4), the session fed 200-ms messages, its turn events equal to the
+   CPU detector's over the card's probabilities, phase 16's Voxtral
+   transcribing each turn (step latency p50 and p95), then one
+   manual-commit turn. These launches join K1's and K2's counts in the
+   `kernels` line.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -1053,9 +1081,9 @@ class K2Recorder:
 
 
 def phase_qwen3_main(model, card: str, recorder: K2Recorder) -> int:
-    """Two generate(text_ids=...) requests, q8, cold then warm. Returns
-    K2's launch count over the four; `recorder` gathers the (M, out, in,
-    has bias) K2 was launched with."""
+    """Three generate(text_ids=...) requests, q8: the short one cold, the
+    JAX lane's cold then warm. Returns K2's launch count over them;
+    `recorder` gathers the (M, out, in, has bias) K2 was launched with."""
     talker, cp, tp = k2_per_pass(model)
     g1 = model.tcfg.num_code_groups - 1
     counts = {"prefill": talker, "step0": g1 * cp,
@@ -1073,7 +1101,7 @@ def phase_qwen3_main(model, card: str, recorder: K2Recorder) -> int:
 
 
 def _qwen3_requests(model, card: str) -> int:
-    """The four requests of phase 7; returns K2's launches over them."""
+    """The three requests of phase 7; returns K2's launches over them."""
     import numpy as np
     import torch
 
@@ -1081,39 +1109,40 @@ def _qwen3_requests(model, card: str) -> int:
 
     qmm_kernel.launches = 0
     total = 0
-    for run in ("cold", "warm"):
-        for ids, max_tokens in qwen3_requests():
-            before = qmm_kernel.launches
-            torch.cuda.reset_peak_memory_stats()
-            (r,) = list(model.generate(text_ids=ids[None], temperature=0.9,
-                                       max_tokens=max_tokens,
-                                       seed=QWEN3_SEED))
-            launches = qmm_kernel.launches - before
-            total += launches
-            frames, steps = r.token_count, model.last_run["decode_steps"]
-            want = expected_k2_launches(model, model.last_run)
-            if launches != want:
-                raise AssertionError(f"{launches} K2 launches, want {want} "
-                                     f"({model.last_run})")
-            if frames > 1 and steps != expected_decode_steps(frames,
-                                                             max_tokens):
-                raise AssertionError(f"{steps} decode steps for {frames} "
-                                     f"frames of {max_tokens}")
-            audio = np.asarray(r.audio)
-            if r.samples != frames * model.total_upsample:
-                raise AssertionError(f"{r.samples} samples for {frames} "
-                                     f"frames")
-            if audio.shape != (r.samples,) or not np.isfinite(audio).all():
-                raise AssertionError("audio has the wrong shape or is not "
-                                     "finite")
-            audio_s = r.samples / r.sample_rate
-            wall = r.processing_time_seconds
-            log(f"[qwen3 main] {run} {len(ids):3d} text ids max_tokens "
-                f"{max_tokens:3d}: {frames:3d} frames ({steps} decode steps) "
-                f"{audio_s:6.2f} s audio: wall {wall * 1e3:9.2f} ms "
-                f"({wall * 1e3 / max(steps + 1, 1):6.2f} ms/frame), xRT "
-                f"{audio_s / wall:6.3f}, {launches} K2 launches, peak "
-                f"{r.peak_memory_usage:.2f} GB ({card})")
+    short, lane = qwen3_requests()
+    for run, (ids, max_tokens) in (("cold", short), ("cold", lane),
+                                   ("warm", lane)):
+        before = qmm_kernel.launches
+        torch.cuda.reset_peak_memory_stats()
+        (r,) = list(model.generate(text_ids=ids[None], temperature=0.9,
+                                   max_tokens=max_tokens,
+                                   seed=QWEN3_SEED))
+        launches = qmm_kernel.launches - before
+        total += launches
+        frames, steps = r.token_count, model.last_run["decode_steps"]
+        want = expected_k2_launches(model, model.last_run)
+        if launches != want:
+            raise AssertionError(f"{launches} K2 launches, want {want} "
+                                 f"({model.last_run})")
+        if frames > 1 and steps != expected_decode_steps(frames,
+                                                         max_tokens):
+            raise AssertionError(f"{steps} decode steps for {frames} "
+                                 f"frames of {max_tokens}")
+        audio = np.asarray(r.audio)
+        if r.samples != frames * model.total_upsample:
+            raise AssertionError(f"{r.samples} samples for {frames} "
+                                 f"frames")
+        if audio.shape != (r.samples,) or not np.isfinite(audio).all():
+            raise AssertionError("audio has the wrong shape or is not "
+                                 "finite")
+        audio_s = r.samples / r.sample_rate
+        wall = r.processing_time_seconds
+        log(f"[qwen3 main] {run} {len(ids):3d} text ids max_tokens "
+            f"{max_tokens:3d}: {frames:3d} frames ({steps} decode steps) "
+            f"{audio_s:6.2f} s audio: wall {wall * 1e3:9.2f} ms "
+            f"({wall * 1e3 / max(steps + 1, 1):6.2f} ms/frame), xRT "
+            f"{audio_s / wall:6.3f}, {launches} K2 launches, peak "
+            f"{r.peak_memory_usage:.2f} GB ({card})")
     return total
 
 
@@ -1160,9 +1189,6 @@ STREAM_IDS, STREAM_TOKENS, STREAM_INTERVAL, STREAM_SEED = (100, 150), 100, \
 # phase 11: the JAX lane's batched session (bench.py:761-803)
 SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 100, 0.4, \
     1024
-# the broker's three requests: frames each, and the session's slots (the
-# server's default MLX_AUDIO_TTS_MAX_BATCH_SIZE)
-BROKER_TOKENS, BROKER_SLOTS = 40, 4
 # streamed against one-shot decode on the card, f32: the CPU tests' bound
 STREAM_FULL_ATOL = 2e-4
 
@@ -1385,8 +1411,8 @@ def session_k2_launches(model, frames: int, groups: int, tp_calls: int):
 
 
 def phase_qwen3_session(model, card: str, recorder: K2Recorder) -> int:
-    """One session at b = 8 and a cold burst of 8 requests; then three
-    requests through the broker. Returns K2's launches over both."""
+    """One session at b = 8 and a cold burst of 8 requests. Returns K2's
+    launches over them."""
     import numpy as np
 
     from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
@@ -1476,104 +1502,6 @@ def phase_qwen3_session(model, card: str, recorder: K2Recorder) -> int:
     for paths, n in sorted(per_path.items(), key=lambda kv: -kv[1]):
         log(f"[qwen3 session] K2 launches per path in {n} step(s): "
             f"{dict(paths)}")
-    launches += _broker_requests(model, card, recorder)
-    return launches
-
-
-class SmokeTTSAdapter:
-    """The continuous-batch routing of the server's TTS adapter
-    (mlx_audio_tpu/server.py:117-146) for one model: every request the
-    model can batch goes to a session made from the request's options,
-    warmed up before the first request joins it."""
-
-    max_batch_size = 1
-
-    def __init__(self, model):
-        self.model = model
-
-    def supports_batch(self, request) -> bool:
-        return False
-
-    def batch_key(self, request):
-        return None
-
-    def supports_continuous_batch(self, request) -> bool:
-        checker = getattr(self.model, "supports_tts_continuous_batch", None)
-        return bool(checker and checker())
-
-    def continuous_batch_key(self, request):
-        return None
-
-    def create_continuous_batch_session(self, request):
-        from mlx_audio_tpu_torch.tts.continuous import TTSBatchOptions
-
-        kw = request.normalized_kwargs
-        sess = self.model.create_tts_batch_session(TTSBatchOptions(
-            max_batch_size=BROKER_SLOTS,
-            temperature=float(kw.get("temperature", 0.9)),
-            top_k=int(kw.get("top_k", 50)),
-            max_tokens=int(kw.get("max_tokens", 1200)),
-            streaming_interval=float(kw.get("streaming_interval", 2.0)),
-            max_cache_len=SESSION_CACHE))
-        sess.warmup()
-        return sess
-
-    def run_serial(self, request) -> None:
-        raise AssertionError("a TTS request took the serial path")
-
-
-def _broker_requests(model, card: str, recorder: K2Recorder) -> int:
-    """Three requests through the port's InferenceBroker; its worker thread
-    creates the session, steps it and answers them. Returns K2's
-    launches."""
-    import numpy as np
-
-    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
-    from mlx_audio_tpu_torch.server_inference import InferenceBroker
-
-    qmm_kernel.launches = 0
-    tp0 = model._text_projection_calls
-    with recorder, _SessionCounts() as counts:
-        t0 = time.perf_counter()
-        broker = InferenceBroker(idle_poll_s=0.01)
-        try:
-            broker.register_adapter("tts", SmokeTTSAdapter(model))
-            handles = [broker.submit(
-                endpoint_kind="tts", model_name="smoke", payload=None,
-                normalized_kwargs={
-                    "text_ids": np.arange(100 + i, 130 + i)[None],
-                    "max_tokens": BROKER_TOKENS,
-                    "streaming_interval": SESSION_INTERVAL})
-                for i in range(3)]
-            done = []
-            for h in handles:
-                kinds, parts = [], []
-                while kinds[-1:] != ["done"]:
-                    c = h.result_queue.get(timeout=300)
-                    kinds.append(c.kind)
-                    if c.kind == "data":
-                        parts.append(c.payload["audio"])
-                    elif c.kind == "error":
-                        raise AssertionError(f"broker request: {c.error!r}")
-                a = np.concatenate(parts) if parts else np.zeros(0)
-                if not len(a) or len(a) % model.total_upsample \
-                        or not np.isfinite(a).all():
-                    raise AssertionError(f"broker audio {len(a)} samples")
-                done.append(len(a) / model.sample_rate)
-                wall = time.perf_counter() - t0
-        finally:
-            broker.stop_and_join(timeout=60)
-        launches = qmm_kernel.launches
-    want = session_k2_launches(model, counts.frames, counts.groups,
-                               model._text_projection_calls - tp0)
-    if launches != want:
-        raise AssertionError(f"broker: {launches} K2 launches, want {want}")
-    log(f"[qwen3 broker] 3 requests x {BROKER_TOKENS} frames through "
-        f"InferenceBroker (a session of {BROKER_SLOTS} slots, warmed up on "
-        f"the broker thread): all done, {sum(done):.2f} s of audio, last "
-        f"answered {wall * 1e3:.2f} ms after submit; {launches} K2 launches "
-        f"({counts.frames} session frames, {counts.groups} admissions, warm-up "
-        f"included) ({card})")
     return launches
 
 
@@ -1825,9 +1753,8 @@ def phase_whisper_turbo(card: str) -> dict:
         f"{len(lat)} steps, p50 {lat_ms[len(lat_ms) // 2]:.2f} ms, max "
         f"{lat_ms[-1]:.2f} ms a step; {len(events)} events, the last "
         f"'final' ({len(events[-1].text)} chars) ({card})")
-    del model
-    torch.cuda.empty_cache()
-    return {"enc_ms": enc_ms, "rel": rel, "warm": out["warm"][:2]}
+    return {"enc_ms": enc_ms, "rel": rel, "warm": out["warm"][:2],
+            "model": model}
 
 
 def write_whisper_checkpoint(model, path: Path) -> None:
@@ -2188,9 +2115,9 @@ def phase_voxtral_full(card: str, tmp: Path) -> dict:
         f"{n_audio} adapter frames, all finite; {res.generation_tokens} "
         f"tokens in {wall:.3f} s, xRT {VOXTRAL_OFFLINE_SECONDS / wall:.2f} "
         f"({card})")
-    del model, sess
+    del sess
     torch.cuda.empty_cache()
-    return {"p95": p95, "xrt": xrt}
+    return {"p95": p95, "xrt": xrt, "model": model}
 
 
 def phase_voxtral_cli(tmp: Path) -> None:
@@ -2612,6 +2539,9 @@ HIGGS_I8_LOGITS_REL = 1e-1
 # voice-clone-like mask (rows 100-299 audio), so the prefill runs both paths
 HIGGS_K2_FRAMES = 32
 HIGGS_AUDIO_ROWS = (100, 300)
+# timed runs of each Higgs lane after its warm-up (3 until phase 26 came;
+# cut to keep the whole run near half its time limit)
+HIGGS_RUNS = 2
 
 
 class HiggsTok:
@@ -2885,9 +2815,9 @@ def _profile_chunk(model, emb, mask, sampling, cache_len: int) -> tuple:
 
 def _higgs_lane(model, codec, name: str, emb, mask, card: str,
                 bytes_frame: float) -> dict:
-    """The lane's workload: a warm-up, then best of 3 (generation and the
-    codec, as bench.py:438-475), and one profiled chunk. Returns the
-    numbers it logs."""
+    """The lane's workload: a warm-up, then best of HIGGS_RUNS (generation
+    and the codec, as bench.py:438-475), and one profiled chunk. Returns
+    the numbers it logs."""
     import numpy as np
     import torch
 
@@ -2901,7 +2831,7 @@ def _higgs_lane(model, codec, name: str, emb, mask, card: str,
     base = torch.cuda.memory_allocated()
     _higgs_run(model, emb, mask, sampling, cache_len)          # warm-up
     runs = [_higgs_run(model, emb, mask, sampling, cache_len)
-            for _ in range(3)]
+            for _ in range(HIGGS_RUNS)]
     frames, prefill_s, gen_s = min(runs, key=lambda r: r[2])
     if frames.shape != (HIGGS_FRAMES, k):
         raise AssertionError(f"{name}: frames {frames.shape}")
@@ -2929,7 +2859,7 @@ def _higgs_lane(model, codec, name: str, emb, mask, card: str,
                walls=[r[2] for r in runs])
     log(f"[higgs {name}] {HIGGS_FRAMES} frames (the lane's {audio_s:.0f} s) + "
         f"codec of {HIGGS_CODEC_FRAMES} frames -> {want} samples: wall "
-        f"{out['wall_s']:.3f} s best of 3 (generation "
+        f"{out['wall_s']:.3f} s best of {HIGGS_RUNS} (generation "
         f"{', '.join(f'{w:.3f}' for w in out['walls'])} s), "
         f"{frame_ms:.2f} ms a frame, xRT {out['xrt']:.3f}; prefill "
         f"{out['prefill_ms']:.2f} ms, codec {codec_s * 1e3:.2f} ms; peak "
@@ -3809,6 +3739,475 @@ def phase_vibevoice_full(card: str) -> dict:
                 busy=device_s / wall_w)
 
 
+# ---------------------------------------------------------------------------
+# The server (phase 26, run after phase 16)
+# ---------------------------------------------------------------------------
+
+# Kokoro: one whole wav request and one streamed pcm request of this text
+SERVER_TEXT = TEXTS[1]
+# Qwen3-TTS: concurrent streamed requests through the broker's session,
+# frames each, streaming interval (the b = 8 session's, phase 11)
+SERVER_QWEN3_REQUESTS, SERVER_QWEN3_TOKENS = 8, 100
+SERVER_QWEN3_TEXT = ("Request {} of the burst: the server streams this "
+                     "sentence as audio.")
+# Whisper turbo: seconds of seeded noise a transcription
+SERVER_STT_SECONDS = 3
+# /v1/realtime: seconds of seeded audio, 200 ms per WS message
+SERVER_RT_SECONDS, SERVER_RT_PIECE = 8, 3200
+# Silero's probabilities on the card against the CPU, f32 on both sides:
+# cuDNN's and the CPU's convolutions sum in other orders, and the LSTM
+# carries the difference over the chunks
+SILERO_ATOL = 1e-4
+
+
+class Qwen3Tok:
+    """A stand-in for Qwen3-TTS's Qwen2 tokenizer (not in the repository),
+    as tests/test_qwen3_tts_icl.py's FakeTokenizer: one id per character,
+    inside the text vocabulary."""
+
+    def encode(self, text):
+        return [ord(c) % 400 for c in text]
+
+
+def write_kokoro_checkpoint(path: Path) -> None:
+    """Kokoro-82M at the published dims, seeded (seed 0), as a checkpoint
+    directory: config.json without a model_type (the router reads the
+    family from the directory's name), the weights under the published
+    torch names in f32 in one npz, and a seeded voices/af_smoke.npy."""
+    import dataclasses
+
+    import numpy as np
+
+    from mlx_audio_tpu_torch.tts.models.kokoro import Model
+
+    model = Model(kokoro_config(), device="cpu").init_params(seed=0)
+    path.mkdir(parents=True)
+    np.savez(path / "model.npz", **{k: v.float().numpy() for k, v in
+                                    model.state_dict().items()})
+    cfg = dataclasses.asdict(model.config)
+    cfg.pop("model_type", None)
+    (path / "config.json").write_text(json.dumps(cfg))
+    (path / "voices").mkdir()
+    np.save(path / "voices" / "af_smoke.npy",
+            (np.random.RandomState(0).randn(510, 1, 256) * 0.1).astype(
+                np.float32))
+
+
+def _percentile(values, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(len(v) * q))]
+
+
+def phase_server(card: str, qwen3, whisper, voxtral, tmp: Path,
+                 recorder: K2Recorder):
+    """The port's server core (`mlx_audio_tpu_torch.server.AudioServer`,
+    the code behind every route, called without aiohttp) on the card.
+    Returns (K1 launches, K2 launches) of its requests; `recorder` gathers
+    the (M, out, in, has bias) K2 was launched with."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    with recorder:
+        k1, k2 = asyncio.run(_server_phase(card, qwen3, whisper, voxtral,
+                                           tmp))
+    log(f"[server] phase 26 in {time.perf_counter() - t0:.1f} s ({card})")
+    return k1, k2
+
+
+async def _server_phase(card, qwen3, whisper, voxtral, tmp):
+    import logging
+    import os
+
+    from mlx_audio_tpu_torch.server import AudioServer
+
+    errors = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            errors.append(record)
+
+    handler = Collect(level=logging.ERROR)
+    logging.getLogger("mlx_audio_tpu_torch.server").addHandler(handler)
+    os.environ["MLX_AUDIO_TTS_MAX_BATCH_SIZE"] = str(SERVER_QWEN3_REQUESTS)
+    server = AudioServer()          # device="cuda"
+    try:
+        k1 = await _server_kokoro(server, card, tmp)
+        k2 = await _server_qwen3(server, card, qwen3)
+        if errors:
+            raise AssertionError(f"the server logged errors: "
+                                 f"{[r.getMessage() for r in errors]}")
+        await _server_stt(server, card, whisper)
+        await _server_realtime(server, card, voxtral)
+    finally:
+        logging.getLogger("mlx_audio_tpu_torch.server").removeHandler(
+            handler)
+        os.environ.pop("MLX_AUDIO_TTS_MAX_BATCH_SIZE", None)
+        os.environ.pop("MLX_AUDIO_VAD_MODEL", None)
+        server.close()
+    if errors:
+        raise AssertionError(f"the server logged errors: "
+                             f"{[r.getMessage() for r in errors]}")
+    if "jax" in sys.modules or "aiohttp" in sys.modules:
+        raise AssertionError("jax or aiohttp was imported")
+    return k1, k2
+
+
+async def _server_kokoro(server, card, tmp):
+    """Kokoro-82M from a seeded checkpoint, loaded by directory with no
+    category (POST /v1/models through the router); a whole wav request and
+    a streamed pcm one, 48 K1 launches a synth, the audio of the model's
+    own generate() for the same request."""
+    import io
+
+    import numpy as np
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.tts.models.kokoro import Model
+
+    ckpt = tmp / "kokoro-82m-smoke"
+    write_kokoro_checkpoint(ckpt)
+    t0 = time.perf_counter()
+    reply = await server.load_model({"model": str(ckpt)})
+    if reply.status != 200:
+        raise AssertionError(f"POST /v1/models: {reply.json}")
+    model = server.provider.get_cached(str(ckpt))
+    if type(model) is not Model or \
+            model.device.type != server.provider.device.type:
+        raise AssertionError(f"the router loaded {type(model)} on "
+                             f"{model.device}")
+    log(f"[server] Kokoro-82M checkpoint loaded by directory through "
+        f"ModelProvider and the router (no category): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    legs = len(synth_legs(model.istft_cfg))
+    total = 0
+    bodies = {}
+    for fmt, stream in (("wav", False), ("pcm", True)):
+        before = snake_conv_kernel.launches
+        t1 = time.perf_counter()
+        reply = await server.speech({"model": str(ckpt), "input": SERVER_TEXT,
+                                     "voice": "af_smoke",
+                                     "response_format": fmt,
+                                     "stream": stream})
+        body = await reply.read()
+        wall = time.perf_counter() - t1
+        launches = snake_conv_kernel.launches - before
+        total += launches
+        if reply.status != 200 or launches != legs:
+            raise AssertionError(f"Kokoro {fmt}: status {reply.status}, "
+                                 f"{launches} K1 launches, want {legs}")
+        bodies[fmt] = body
+        log(f"[server] Kokoro speech {fmt} ({'streamed' if stream else 'whole'}"
+            f"): {len(body)} bytes, wall {wall * 1e3:.2f} ms, {launches} K1 "
+            f"launches ({card})")
+    before = snake_conv_kernel.launches
+    (r,) = list(model.generate(SERVER_TEXT, voice="af_smoke"))
+    total += snake_conv_kernel.launches - before
+    buf = io.BytesIO()
+    audio_io.write(buf, np.asarray(r.audio), r.sample_rate, format="wav")
+    want_wav = buf.getvalue()
+    want_pcm = np.clip(np.round(np.asarray(r.audio) * 32768.0), -32768,
+                       32767).astype("<i2").tobytes()
+    got, _ = audio_io.read(io.BytesIO(bodies["wav"]), dtype="float32")
+    diff = np.abs(np.frombuffer(bodies["wav"][44:], "<i2").astype(int)
+                  - np.frombuffer(want_wav[44:], "<i2").astype(int))
+    if bodies["wav"][:44] != want_wav[:44] or len(bodies["wav"]) != \
+            len(want_wav) or diff.max() > 1 or not np.isfinite(got).all():
+        raise AssertionError(f"served WAV differs from generate(): "
+                             f"{len(bodies['wav'])} vs {len(want_wav)} bytes, "
+                             f"max diff {diff.max()} LSB")
+    if len(bodies["pcm"]) != len(want_pcm):
+        raise AssertionError("served PCM has the wrong length")
+    log(f"[server] Kokoro: the served WAV against in-process generate() of "
+        f"the same request: same header and length, bytes equal "
+        f"{bodies['wav'] == want_wav}, max difference {diff.max()} LSB; the "
+        f"streamed PCM's bytes equal {bodies['pcm'] == want_pcm}; "
+        f"{legs} K1 launches a synth")
+    server.provider.unload(str(ckpt))
+    return total
+
+
+async def _server_qwen3(server, card, qwen3):
+    """SERVER_QWEN3_REQUESTS concurrent streamed speech requests (text,
+    through the stand-in tokenizer) to the q8 Qwen3-TTS of phases 6-11:
+    the broker's continuous-batching session takes them all; time to
+    first audio, aggregate xRT, and K2's launches against the config's
+    count (722 a frame)."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.continuous_batching \
+        import Qwen3TTSBatchSession
+
+    qwen3.tokenizer = Qwen3Tok()
+    server.provider._models["qwen3-tts-1.7b-q8"] = qwen3
+    spf = qwen3.total_upsample
+    before, tp0 = qmm_kernel.launches, qwen3._text_projection_calls
+
+    async def one(i):
+        t1 = time.perf_counter()
+        reply = await server.speech({
+            "model": "qwen3-tts-1.7b-q8",
+            "input": SERVER_QWEN3_TEXT.format(i + 1), "stream": True,
+            "response_format": "pcm", "max_tokens": SERVER_QWEN3_TOKENS,
+            "streaming_interval": SESSION_INTERVAL, "temperature": 0.9})
+        ttfa = time.perf_counter() - t1
+        if reply.status != 200:
+            raise AssertionError(f"Qwen3 speech: {reply.status} "
+                                 f"{reply.json}")
+        body = await reply.read()
+        if body[:1] == b"{":
+            raise AssertionError(f"Qwen3 stream error: {body[:200]}")
+        return ttfa, time.perf_counter() - t1, body
+
+    # the burst finds no session: the broker makes one for its first
+    # request and warms it up before any request joins it (timed here)
+    S = Qwen3TTSBatchSession
+    warmup, warm_s = S.warmup, []
+
+    def timed_warmup(sess):
+        t1 = time.perf_counter()
+        warmup(sess)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t1)
+
+    S.warmup = timed_warmup
+    try:
+        with _SessionCounts() as counts:
+            t0 = time.perf_counter()
+            results = await asyncio.gather(*[one(i) for i in range(
+                SERVER_QWEN3_REQUESTS)])
+            wall = time.perf_counter() - t0
+            # the broker's worker thread has answered every request; wait
+            # for its idle loop so that the counts are final
+            await asyncio.sleep(0.5)
+    finally:
+        S.warmup = warmup
+    launches = qmm_kernel.launches - before
+    want = session_k2_launches(qwen3, counts.frames, counts.groups,
+                               qwen3._text_projection_calls - tp0)
+    if launches != want:
+        raise AssertionError(f"server Qwen3: {launches} K2 launches, want "
+                             f"{want} ({counts.frames} frames, "
+                             f"{counts.groups} admissions)")
+    audio_s = 0.0
+    for _, _, body in results:
+        pcm = np.frombuffer(body, "<i2")
+        if not len(pcm) or len(pcm) % spf:
+            raise AssertionError(f"Qwen3 served {len(pcm)} samples")
+        audio_s += len(pcm) / qwen3.sample_rate
+    ttfa = [r[0] for r in results]
+    if len(warm_s) != 1:
+        raise AssertionError(f"{len(warm_s)} session warm-ups")
+    log(f"[server] Qwen3-TTS q8, {SERVER_QWEN3_REQUESTS} concurrent "
+        f"streamed pcm requests of {SERVER_QWEN3_TOKENS} frames to a cold "
+        f"server: the broker made the continuous-batching session and "
+        f"warmed it up in {warm_s[0] * 1e3:.2f} ms (no error logged), then "
+        f"all joined it: {audio_s:.2f} s of audio in "
+        f"{wall * 1e3:.2f} ms, aggregate xRT {audio_s / wall:.3f}; time to "
+        f"first audio p50 {_percentile(ttfa, 0.5) * 1e3:.2f} ms, max "
+        f"{max(ttfa) * 1e3:.2f} ms (the warm-up included); {launches} K2 "
+        f"launches = 722 x "
+        f"({counts.frames} frames + {counts.groups} admissions) + text "
+        f"projections ({card})")
+    server.provider.unload("qwen3-tts-1.7b-q8")
+    return launches
+
+
+async def _server_stt(server, card, whisper):
+    """One transcription as json and one streamed as NDJSON through the
+    STT adapter, on the large-v3-turbo model of phase 13; the text of
+    the model's own generate() for the same audio."""
+    import io
+
+    import numpy as np
+
+    from mlx_audio_tpu_torch import audio_io
+
+    server.provider._models["whisper-large-v3-turbo"] = whisper
+    buf = io.BytesIO()
+    audio_io.write(buf, (np.random.RandomState(3).randn(
+        SERVER_STT_SECONDS * 16000) * 0.1).astype(np.float32), 16000)
+    wav = buf.getvalue()
+    audio, _ = audio_io.read(io.BytesIO(wav), dtype="float32")
+    fields = {"model": "whisper-large-v3-turbo", "language": "en",
+              "temperature": "0.0"}
+    t0 = time.perf_counter()
+    reply = await server.transcribe(dict(fields), wav)
+    wall = time.perf_counter() - t0
+    want = whisper.generate(audio, language="en", temperature=0.0)
+    if reply.status != 200 or reply.json["text"] != want.text:
+        raise AssertionError(f"transcription {reply.status}: "
+                             f"{reply.json} vs {want.text!r}")
+    t0 = time.perf_counter()
+    reply = await server.transcribe(
+        {**fields, "stream": "true", "response_format": "ndjson"}, wav)
+    lines = [json.loads(ln) for ln in
+             (await reply.read()).decode().splitlines()]
+    swall = time.perf_counter() - t0
+    want_s = [o.text for o in whisper.generate(audio, language="en",
+                                               temperature=0.0, stream=True)]
+    if [ln.get("text") for ln in lines] != want_s:
+        raise AssertionError(f"NDJSON {lines} vs {want_s}")
+    log(f"[server] transcription of {SERVER_STT_SECONDS} s through the STT "
+        f"adapter (Whisper large-v3-turbo, bf16): json {wall * 1e3:.2f} ms "
+        f"({len(want.text)} chars, equal to generate()); NDJSON streamed "
+        f"{swall * 1e3:.2f} ms, {len(lines)} lines equal to "
+        f"generate(stream=True) ({card})")
+    server.provider.unload("whisper-large-v3-turbo")
+
+
+async def _server_realtime(server, card, voxtral):
+    """/v1/realtime with server_vad: Voxtral-Mini-3B-Realtime (phase 16's
+    model) and Silero at its published dims (seed 0), fed seeded audio in
+    200-ms messages. Silero's probabilities on the card against the CPU;
+    the session's turn events against the CPU turn detector over the
+    card's probabilities; then one manual-commit turn."""
+    import base64
+    import os
+
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.realtime_vad import (VAD_FRAME_MS,
+                                                  ServerVadConfig,
+                                                  TurnDetector)
+    from mlx_audio_tpu_torch.vad.models.silero_vad import Model, ModelConfig
+
+    silero = Model(ModelConfig(), device="cuda").init_params(seed=0)
+    cpu = Model(ModelConfig(), device="cpu").init_params(seed=0)
+    rs = np.random.RandomState(4)
+    n = SERVER_RT_SECONDS * 16000
+    env = np.repeat(rs.rand(n // 8000 + 1) > 0.4, 8000)[:n] * 0.5 + 0.02
+    audio = np.clip(rs.randn(n) * env, -1, 1).astype(np.float32)
+    pcm16 = (audio * 32767).astype("<i2")
+    heard = pcm16.astype(np.float32) / 32768.0     # what the server decodes
+    t0 = time.perf_counter()
+    probs = silero.predict_proba(heard)
+    torch.cuda.synchronize()
+    off_ms = (time.perf_counter() - t0) * 1e3
+    ref = cpu.predict_proba(heard)
+    err = float(np.abs(probs - ref).max())
+    if not err <= SILERO_ATOL:
+        raise AssertionError(f"Silero card vs CPU: {err:.3e}")
+    # random weights: pick the threshold (a quantile of this audio's
+    # probabilities) whose turns the CPU detector counts most
+    def turns(p, cfg):
+        det = TurnDetector(cfg)
+        return [(e.kind.value, e.audio_ms) for x in p
+                for e in det.push(float(x), VAD_FRAME_MS)]
+
+    cands = [ServerVadConfig(threshold=float(np.quantile(probs, q)),
+                             prefix_padding_ms=100, silence_duration_ms=320)
+             for q in (0.3, 0.4, 0.5, 0.6, 0.7)]
+    cfg = max(cands, key=lambda c: sum(k == "speech_stopped"
+                                       for k, _ in turns(probs, c)))
+    log(f"[server] Silero ({sum(p.numel() for p in silero.parameters()):,} "
+        f"parameters, seed 0) over {SERVER_RT_SECONDS} s: "
+        f"{len(probs)} chunks in {off_ms:.2f} ms on the card, against the "
+        f"CPU max |diff| {err:.3e} (tol {SILERO_ATOL:g}); threshold "
+        f"{cfg.threshold:.6f}")
+
+    seen = []                       # the card's per-frame probabilities
+    feed = silero.feed
+
+    def recording_feed(chunk, state=None, sample_rate=16000):
+        p, state = feed(chunk, state, sample_rate=sample_rate)
+        seen.append(float(p.reshape(-1)[0]))
+        return p, state
+
+    silero.feed = recording_feed
+    lat = []
+    make = voxtral.create_streaming_session
+
+    def timed_session(**kw):
+        sess = make(**kw)
+        step = sess.step
+
+        def timed_step(*a, **k):
+            t1 = time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+            return out
+
+        sess.step = timed_step
+        return sess
+
+    voxtral.create_streaming_session = timed_session
+    server.provider._models.update(voxtral=voxtral, silero=silero)
+    os.environ["MLX_AUDIO_VAD_MODEL"] = "silero"
+    events = []
+
+    async def send(event):
+        events.append(event)
+
+    try:
+        session = await server.open_realtime("voxtral", send)
+        await session.on_event({"type": "session.update", "session": {
+            "turn_detection": {**cfg.to_dict()}}})
+        t0 = time.perf_counter()
+        for off in range(0, n, SERVER_RT_PIECE):
+            await session.on_event({
+                "type": "input_audio_buffer.append",
+                "audio": base64.b64encode(
+                    pcm16[off:off + SERVER_RT_PIECE].tobytes()).decode()})
+        vad_wall = time.perf_counter() - t0
+        vad_events = [(e["type"].rsplit(".", 1)[-1],
+                       e.get("audio_start_ms", e.get("audio_end_ms")))
+                      for e in events if e["type"].startswith(
+                          "input_audio_buffer.speech_")]
+        want = turns(seen, cfg)
+        if vad_events != want or not want:
+            raise AssertionError(f"turn events {vad_events} vs the CPU "
+                                 f"detector's {want}")
+        seen_err = float(np.abs(np.asarray(seen) - ref[:len(seen)]).max())
+        if len(seen) != len(probs) or seen_err > SILERO_ATOL:
+            raise AssertionError(f"streamed Silero: {len(seen)} frames, "
+                                 f"{seen_err:.3e} from the CPU's")
+        n_done = sum(e["type"].endswith("transcription.completed")
+                     for e in events)
+        n_delta = sum(e["type"].endswith("transcription.delta")
+                      for e in events)
+        # one manual-commit turn
+        await session.on_event({"type": "session.update", "session": {
+            "turn_detection": None}})
+        mark = len(events)
+        for off in range(0, 2 * 16000, SERVER_RT_PIECE):
+            await session.on_event({
+                "type": "input_audio_buffer.append",
+                "audio": base64.b64encode(
+                    pcm16[off:off + SERVER_RT_PIECE].tobytes()).decode()})
+        await session.on_event({"type": "input_audio_buffer.commit"})
+        kinds = [e["type"] for e in events[mark:]]
+        if kinds[-3:] != ["input_audio_buffer.committed",
+                          "conversation.item.added",
+                          "conversation.item.input_audio_transcription."
+                          "completed"]:
+            raise AssertionError(f"manual commit: {kinds}")
+    finally:
+        del voxtral.create_streaming_session
+        del silero.feed
+    n_turns = sum(k == "speech_stopped" for k, _ in vad_events)
+    log(f"[server] /v1/realtime server_vad: {SERVER_RT_SECONDS} s in "
+        f"{n // SERVER_RT_PIECE} messages of 200 ms ({vad_wall:.2f} s of "
+        f"wall): {len(seen)} Silero frames on the card (max |diff| from the "
+        f"CPU {seen_err:.3e}), {len(vad_events)} turn events (the first "
+        f"{vad_events[:4]}) equal to the CPU detector's over the card's "
+        f"probabilities, {n_turns} turns "
+        f"completed by the VAD ({n_done} transcripts, {n_delta} deltas); "
+        f"then a manual-commit turn of 2 s: committed, item added, "
+        f"transcript; Voxtral step latency p50 "
+        f"{_percentile(lat, 0.5) * 1e3:.2f} ms, p95 "
+        f"{_percentile(lat, 0.95) * 1e3:.2f} ms over {len(lat)} steps "
+        f"({card})")
+    server.provider.unload("voxtral")
+    server.provider.unload("silero")
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -3832,12 +4231,14 @@ def main() -> int:
     k2_launches += phase_qwen3_stream(model, card, recorder)
     k2_launches += phase_qwen3_session(model, card, recorder)
     # Whisper: dense bf16 products, neither K1 nor K2 on its path
+    import torch
+
     from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
     from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
 
     before = (snake_conv_kernel.launches, qmm_kernel.launches)
     phase_whisper_reference()
-    phase_whisper_turbo(card)
+    whisper = phase_whisper_turbo(card)["model"]
     with tempfile.TemporaryDirectory() as tmp:
         phase_whisper_cli(Path(tmp))
         phase_voxtral_cli(Path(tmp))
@@ -3850,15 +4251,24 @@ def main() -> int:
     # Voxtral Realtime: dense bf16 products, neither K1 nor K2 on its path
     with tempfile.TemporaryDirectory() as tmp:
         phase_voxtral_reference(Path(tmp))
-        phase_voxtral_full(card, Path(tmp))
-    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
-        raise AssertionError("the Voxtral phases launched K1 or K2")
+        voxtral = phase_voxtral_full(card, Path(tmp))["model"]
+        if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+            raise AssertionError("the Voxtral phases launched K1 or K2")
+        # the server: Kokoro (K1), Qwen3-TTS q8 (K2), Whisper, Voxtral and
+        # Silero through its request core
+        k1_server, k2_server = phase_server(card, model, whisper, voxtral,
+                                            Path(tmp), recorder)
+    k1_launches += k1_server
+    k2_launches += k2_server
+    del whisper, voxtral
+    torch.cuda.empty_cache()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
     # Cohere ASR: dense bf16 products, neither K1 nor K2 on its path
     phase_cohere_reference()
     phase_cohere_full(card)
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Cohere phases launched K1 or K2")
-    log(f"[time] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[time] phases 1-18 and 26 in {time.perf_counter() - t_start:.1f} s")
     # Higgs Audio v2: dense bf16 and W8A8 (torch._int_mm) products in
     # phases 19-20, neither K1 nor K2; K2 in phase 21, on the affine-q8
     # backbone between phase 20's two lanes

@@ -16,7 +16,12 @@ Voxtral Mini Realtime live and offline speech -> text
 (`stt.models.voxtral_realtime`); Cohere ASR long-file speech -> text
 (`stt.models.cohere_asr`) with the FastConformer encoder
 (`stt.models.parakeet.conformer`) and the Canary decoder
-(`stt.models.canary`) it shares with Parakeet and Canary.
+(`stt.models.canary`) it shares with Parakeet and Canary; Higgs Audio
+v2, KugelAudio and VibeVoice text -> audio; the Silero VAD
+(`vad.models.silero_vad`) with the realtime turn detection
+(`realtime_vad.py`); the OpenAI-style server (`server.py`, its studio UI in
+`ui/`, the voice library `voice_store.py`) and the TTS CLI
+(`python -m mlx_audio_tpu_torch.tts.generate`).
 
 This package never imports jax, nor anything of the JAX package, not even
 its jax-free host code: it keeps its own copies (`base.py`, `audio_io.py`,
@@ -32,26 +37,11 @@ without CUDA: pass `device="cpu"` to run on the CPU.
 __all__ = ["load_model"]
 
 
-def load_model(model_path, device="cuda", **kwargs):
+def load_model(model_path, category=None, device="cuda", **kwargs):
     """Load a local checkpoint directory into the port, routed by category
-    as mlx_audio_tpu.utils.load_model does: a config whose model_type (or
-    directory name) is an STT type goes to `stt.utils.load_model`, anything
-    else to `tts.utils.load_model`. Without CUDA it raises before reading
-    anything unless given `device="cpu"`."""
-    from pathlib import Path
+    as mlx_audio_tpu.load_model does (`utils.load_model`): tts, stt or vad
+    by the config's model_type or the directory name. Without CUDA it
+    raises before reading anything unless given `device="cpu"`."""
+    from .utils import load_model as _load
 
-    from .model import check_device
-    from .stt.utils import model_family
-    from .utils import load_config
-
-    device = check_device(device)
-    path = Path(model_path).expanduser()
-    try:
-        config = load_config(path)
-    except FileNotFoundError:
-        config = {}
-    if model_family(config, path) is not None:
-        from .stt.utils import load_model as _load
-    else:
-        from .tts.utils import load_model as _load
-    return _load(model_path, device=device, **kwargs)
+    return _load(model_path, category=category, device=device, **kwargs)

@@ -18,8 +18,8 @@ import torch
 from torch import nn
 
 from .nn import (BatchNorm, BiLSTM, Conv1d, Conv2d, ConvTranspose1d, Embedding,
-                 Int8Linear, LayerNorm, Linear, QuantizedLinear, RMSNorm,
-                 StackedTable)
+                 Int8Linear, LayerNorm, Linear, LSTMCell, QuantizedLinear,
+                 RMSNorm, StackedTable)
 
 
 def _tensor(v: Any) -> torch.Tensor:
@@ -109,7 +109,7 @@ class TorchModel(nn.Module):
                     m.running_var.fill_(1.0)
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
-            elif isinstance(m, BiLSTM):
+            elif isinstance(m, (BiLSTM, LSTMCell)):
                 for p in m.parameters():
                     draw(p, "uniform", m.hidden_size ** -0.5)
             if isinstance(m, (Linear, Conv1d, Conv2d, ConvTranspose1d)) \

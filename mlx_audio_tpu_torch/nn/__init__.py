@@ -25,11 +25,12 @@ from .layers import (
     linear,
     rms_norm,
 )
-from .recurrent import BiLSTM
+from .recurrent import BiLSTM, LSTMCell
 
 __all__ = [
     "Linear", "QuantizedLinear", "Int8Linear", "Embedding", "StackedTable", "LayerNorm",
     "RMSNorm", "Conv1d", "Conv2d", "ConvTranspose1d", "BatchNorm", "BiLSTM",
+    "LSTMCell",
     "linear", "layer_norm", "rms_norm", "conv1d", "conv2d", "conv_transpose1d",
     "leaky_relu", "gelu",
 ]

@@ -1,4 +1,4 @@
-"""Masked bidirectional LSTM.
+"""Masked bidirectional LSTM, and the LSTM cell a recurrent step carries.
 
 Counterpart of mlx_audio_tpu/nn/recurrent.py (`apply_lstm`, :72-107), which
 scans with a validity mask: on masked steps the carry passes through, so a
@@ -15,7 +15,12 @@ emits zeros. Every caller masks or discards them.
 Packing needs the lengths on the host, so each call with a mask syncs once
 on `mask.sum(-1)`.
 
-Parameter names are torch's (`weight_ih_l0`, `weight_ih_l0_reverse`, ...),
+`LSTMCell` is the unidirectional single step (the JAX package's
+`init_lstm` leaf, whose names `weight_ih`, `weight_hh`, `bias_ih`,
+`bias_hh` are torch's `nn.LSTMCell`'s): a caller that carries (h, c)
+across calls, as a streaming model does, steps it itself.
+
+BiLSTM's parameter names are torch's (`weight_ih_l0`, `weight_ih_l0_reverse`, ...),
 the names the published checkpoint uses; the JAX tree's `forward`/`backward`
 sub-trees map onto them in `model.load_jax_params`. Gate order (i, f, g, o)
 is the same in both.
@@ -49,3 +54,8 @@ class BiLSTM(nn.LSTM):
                                       enforce_sorted=False)
         out, _ = super().forward(packed)
         return pad_packed_sequence(out, batch_first=True, total_length=t)[0]
+
+
+class LSTMCell(nn.LSTMCell):
+    """One LSTM step (B, I), (h, c) (B, H) each -> (h, c); gate order
+    (i, f, g, o), as the JAX package's cell step."""

@@ -16,7 +16,8 @@ from pathlib import Path
 from typing import Union
 
 from ..model import check_device, load_jax_params
-from ..utils import load_audio, load_config, load_weights
+from ..utils import (get_model_name_parts, load_audio, load_config,
+                     load_weights, resolve_family)
 
 __all__ = ["MODEL_REMAPPING", "PORTED", "load_model", "load_audio"]
 
@@ -74,18 +75,17 @@ MODEL_REMAPPING = {
 PORTED = ("whisper", "voxtral_realtime", "cohere_asr")
 
 
-def model_family(config: dict, path: Path):
+def model_family(config: dict, path: Path, name_parts=None):
     """The STT family of a checkpoint: config's model_type (or
-    architecture), else the directory name's first part, through
-    MODEL_REMAPPING; None when it is no STT type."""
+    architecture), else the first of the directory name's parts, through
+    MODEL_REMAPPING; None when none is an STT type."""
     model_type = config.get("model_type") or config.get("architecture")
-    if model_type is None:
-        model_type = path.name.lower().replace("_", "-").split("-")[0]
-    return MODEL_REMAPPING.get(str(model_type).lower())
+    return resolve_family(model_type, name_parts or get_model_name_parts(path),
+                          MODEL_REMAPPING)
 
 
 def load_model(model_path: Union[str, Path], device="cuda",
-               **config_overrides):
+               model_name_parts=None, **config_overrides):
     """Load a local STT model directory onto `device`: the card by
     default; without CUDA it raises, before reading anything, unless given
     `device="cpu"`. Weights load as f32; `model.astype` casts them."""
@@ -96,7 +96,7 @@ def load_model(model_path: Union[str, Path], device="cuda",
     config = load_config(path)
     config["model_path"] = str(path)
     config.update(config_overrides)
-    family = model_family(config, path)
+    family = model_family(config, path, model_name_parts)
     if family not in PORTED:
         raise ValueError(
             f"STT model type {config.get('model_type')!r} (family "

@@ -138,7 +138,8 @@ class Qwen3TTSBatchSession:
             text_ids=kwargs.get("text_ids")
             if not isinstance(text, str) else None,
             language=kwargs.get("language", "auto"),
-            speaker=kwargs.get("voice") or kwargs.get("speaker"))
+            speaker=kwargs.get("voice") or kwargs.get("speaker"),
+            instruct=kwargs.get("instruct"))
         self.requests[slot] = request
         self.codes[slot] = []
         self.decoded[slot] = 0

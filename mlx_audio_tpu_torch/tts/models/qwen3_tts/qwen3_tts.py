@@ -1,11 +1,14 @@
 """Qwen3-TTS: autoregressive codec-token TTS (talker + code predictor) with
 a 12.5 Hz codec decoder.
 
-Counterpart of mlx_audio_tpu/tts/models/qwen3_tts/qwen3_tts.py, text ids ->
+Counterpart of mlx_audio_tpu/tts/models/qwen3_tts/qwen3_tts.py, text ->
 audio:
 
-* `prepare_inputs` from `text_ids` and `_prompt_static` (language "auto",
-  an optional `spk_id` speaker; no speaker encoder);
+* `prepare_inputs` from `text` (chat-templated through the model
+  directory's tokenizer, bound by `post_load_hook`) or `text_ids`, an
+  optional `instruct` (a user-role prompt before the assistant's: instruct,
+  CustomVoice and VoiceDesign) and `_prompt_static` (language, an optional
+  `spk_id` speaker; no speaker encoder);
 * prefill over the right-padded prompt bucket into a cache sized for the
   request (:666-691, :1110-1111);
 * `_step0` samples the first frame from the prefill logits (:1440-1476);
@@ -30,7 +33,7 @@ audio:
   no-EOS bound, ceil for a flush) and each block's state update is taken
   only if the device's count reaches it;
 * `create_tts_batch_session` -> the fixed-slot continuous-batching session
-  (continuous_batching.py).
+  (continuous_batching.py), which `batch_generate` also runs.
 
 Weights: `init_params(seed)` (random, the JAX package's distributions),
 `load_jax_params` (the JAX package's tree, dense or quantized) or `bind`
@@ -38,9 +41,10 @@ Weights: `init_params(seed)` (random, the JAX package's distributions),
 `model_quant_predicate` turns the AR path's linears into quantized ones,
 whose forward on a CUDA tensor is kernel K2.
 
-Not ported yet (they raise NotImplementedError): voice cloning (ICL,
-speaker encoder), instruct / voice design, batch generation from strings,
-and text given as a string (the HF tokenizer is not available to the port).
+Not ported yet (it raises NotImplementedError): voice cloning (ICL,
+speaker encoder). Text without a tokenizer raises ValueError: the
+tokenizer is read from the model directory only (`local_tokenizer`), never
+downloaded.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 from functools import partial
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +61,8 @@ from ....model import TorchModel, check_device
 from ....ops.host_flags import FinishedFlags
 from ....ops.kvcache import KVCache
 from ....ops.sampling import apply_repetition_penalty, sample
-from ..base import GenerationResult, format_duration, peak_memory_gb
+from ..base import (BatchGenerationResult, GenerationResult, format_duration,
+                    local_tokenizer, peak_memory_gb)
 from .config import ModelConfig
 from .speech_tokenizer import (STREAM_CACHE_LEN, SpeechTokenizer,
                                init_stream_state, total_upsample)
@@ -168,6 +173,8 @@ class Model(TorchModel):
         self.eval()
         self._prompt_cache: Dict[tuple, tuple] = {}
         self._text_projection_calls = 0
+        # the text tokenizer, bound by post_load_hook (None: text_ids only)
+        self.tokenizer = None
         # what the last generate() ran, for callers that count launches
         self.last_run: Dict[str, int] = {}
 
@@ -238,9 +245,22 @@ class Model(TorchModel):
             out[f"{base}.weight"] = np.stack([table[i] for i in sorted(table)])
         return out
 
+    @classmethod
+    def post_load_hook(cls, model: "Model", model_path) -> "Model":
+        """Bind the text tokenizer saved in the model directory (None
+        without tokenizer files or `transformers`; never downloaded)."""
+        model.tokenizer = local_tokenizer(model_path)
+        return model
+
     @property
     def sample_rate(self) -> int:
         return self.config.sample_rate
+
+    def get_supported_speakers(self) -> List[str]:
+        return sorted((self.tcfg.spk_id or {}).keys())
+
+    def get_supported_languages(self) -> List[str]:
+        return sorted((self.tcfg.codec_language_id or {}).keys())
 
     # ------------------------------------------------------------------
     # prompt assembly (:391-509)
@@ -258,26 +278,39 @@ class Model(TorchModel):
     def _codec_embed(self, ids) -> torch.Tensor:
         return self.talker.model.codec_embedding(self._ids(ids))
 
+    def _encode(self, text: str) -> np.ndarray:
+        if self.tokenizer is None:
+            raise ValueError(
+                "No text tokenizer: the model directory holds no tokenizer "
+                "files (or transformers is not installed); pass text_ids, or "
+                "set model.tokenizer")
+        return np.asarray(self.tokenizer.encode(text)).reshape(1, -1)
+
     def prepare_inputs(self, text: Optional[str] = None,
                        text_ids: Optional[np.ndarray] = None,
                        language: str = "auto",
-                       speaker: Optional[str] = None
+                       speaker: Optional[str] = None,
+                       instruct: Optional[str] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (input_embeds (1, P, D), trailing text (1, T, D), pad embed).
 
-        The port has no text tokenizer: pass `text_ids` (the chat-templated
-        ids, `<|im_start|>assistant\\n ... <|im_end|>\\n<|im_start|>
-        assistant\\n`)."""
+        `text` goes through the chat template
+        (`<|im_start|>assistant\\n ... <|im_end|>\\n<|im_start|>assistant\\n`)
+        and the tokenizer; `text_ids` are such ids already. `instruct`
+        prepends a user-role prompt (instruct, CustomVoice, VoiceDesign)."""
         if text_ids is None:
-            raise ValueError("No text tokenizer available in the port; pass "
-                             "text_ids")
+            text_ids = self._encode(f"<|im_start|>assistant\n{text}<|im_end|>\n"
+                                    f"<|im_start|>assistant\n")
         text_ids = np.asarray(text_ids).reshape(1, -1)
         text_embed = self._embed_text_ids(text_ids)
         combined, codec_last, tts_eos, tts_pad = self._prompt_static(
             language, speaker)
+        parts = [text_embed[:, :3], combined]
+        if instruct:
+            parts.insert(0, self._embed_text_ids(self._encode(
+                f"<|im_start|>user\n{instruct}<|im_end|>\n")))
         first_text = text_embed[:, 3:4] + codec_last
-        input_embeds = torch.cat([text_embed[:, :3], combined, first_text],
-                                 dim=1)
+        input_embeds = torch.cat(parts + [first_text], dim=1)
         trailing = torch.cat([text_embed[:, 4:-5], tts_eos], dim=1)
         return input_embeds, trailing, tts_pad
 
@@ -412,12 +445,13 @@ class Model(TorchModel):
             yield
         return carry, codes_seq, fins
 
-    def _begin(self, text, text_ids, language, speaker, max_tokens, sampler,
-               suppress):
+    def _begin(self, text, text_ids, language, speaker, instruct, max_tokens,
+               sampler, suppress):
         """Prompt, prefill and step 0 -> (carry, first codes (1, G),
         trailing, tl, pad_embed, prompt bucket)."""
         input_embeds, trailing, pad_embed = self.prepare_inputs(
-            text=text, text_ids=text_ids, language=language, speaker=speaker)
+            text=text, text_ids=text_ids, language=language, speaker=speaker,
+            instruct=instruct)
         plen = input_embeds.shape[1]
         pb = _bucket(plen, PROMPT_BUCKETS)
         input_embeds = torch.nn.functional.pad(input_embeds,
@@ -440,30 +474,54 @@ class Model(TorchModel):
 
     def generate(self, text: Optional[str] = None, *,
                  text_ids: Optional[np.ndarray] = None,
+                 voice: Optional[str] = None,
                  speaker: Optional[str] = None,
                  language: str = "auto",
+                 lang_code: Optional[str] = None,
+                 speed: float = 1.0,
+                 split_pattern: Optional[str] = "\n",
                  instruct: Optional[str] = None,
                  ref_audio: Optional[np.ndarray] = None,
                  ref_text: Optional[str] = None,
                  temperature: float = 0.9, top_k: int = 50,
                  top_p: float = 1.0, repetition_penalty: float = 1.05,
                  max_tokens: int = 1200, stream: bool = False,
-                 streaming_interval: float = 2.0, seed: int = 0):
-        """Yield GenerationResults for `text_ids`: one, or with
+                 streaming_interval: float = 2.0, seed: int = 0, **kwargs):
+        """Yield GenerationResults for `text` (or `text_ids`): one, or with
         `stream=True` one per decoded chunk (FIRST_CHUNK frames first, then
-        round(streaming_interval * 12.5)), the last with is_final_chunk."""
+        round(streaming_interval * 12.5)), the last with is_final_chunk.
+        `voice` aliases `speaker` and `lang_code` `language`; text with
+        several `split_pattern` segments yields each segment's results in
+        turn (seed + segment index); `speed` is accepted and not used, as
+        in the JAX package."""
         if ref_audio is not None or ref_text is not None:
             raise NotImplementedError(
                 "voice cloning (ICL, speaker encoder) is not ported yet")
-        if instruct:
-            raise NotImplementedError(
-                "instruct / voice design prompts need the text tokenizer, "
-                "which the port does not have yet")
         if text_ids is not None and np.asarray(text_ids).ndim == 2 \
                 and np.asarray(text_ids).shape[0] > 1:
             raise NotImplementedError(
                 "batch generation takes one request per row of a "
                 "continuous-batching session (create_tts_batch_session)")
+        if lang_code is not None:
+            language = lang_code
+        speaker = speaker or voice
+        if text is not None and text_ids is None and split_pattern:
+            segments = [t.strip() for t in text.split(split_pattern)
+                        if t.strip()]
+            if len(segments) > 1:
+                for seg_idx, seg in enumerate(segments):
+                    for r in self.generate(
+                            seg, speaker=speaker, language=language,
+                            split_pattern=None, instruct=instruct,
+                            temperature=temperature, top_k=top_k,
+                            top_p=top_p,
+                            repetition_penalty=repetition_penalty,
+                            max_tokens=max_tokens, stream=stream,
+                            streaming_interval=streaming_interval,
+                            seed=seed + seg_idx):
+                        r.segment_idx = seg_idx
+                        yield r
+                return
         if stream and -(-max_tokens // BLOCK) * BLOCK > STREAM_CACHE_LEN:
             raise ValueError(
                 f"max_tokens={max_tokens}: a stream decodes at most "
@@ -477,13 +535,14 @@ class Model(TorchModel):
         tp_before = self._text_projection_calls
         if stream:
             yield from self._stream_generate(
-                text, text_ids, language, speaker, max_tokens, sampler,
-                suppress, repetition_penalty, streaming_interval, tp_before)
+                text, text_ids, language, speaker, instruct, max_tokens,
+                sampler, suppress, repetition_penalty, streaming_interval,
+                tp_before)
             return
         with torch.inference_mode():
             carry, first_codes, trailing, tl, pad_embed, pb = self._begin(
-                text, text_ids, language, speaker, max_tokens, sampler,
-                suppress)
+                text, text_ids, language, speaker, instruct, max_tokens,
+                sampler, suppress)
             finished = bool(carry.finished.all())
             # a first frame whose code 0 is EOS ends the request with no
             # audio (EOS lies past the codec's codebooks), as the stream
@@ -527,8 +586,8 @@ class Model(TorchModel):
                            dur, final=True)
 
     @torch.inference_mode()
-    def _stream_generate(self, text, text_ids, language, speaker, max_tokens,
-                         sampler, suppress, repetition_penalty,
+    def _stream_generate(self, text, text_ids, language, speaker, instruct,
+                         max_tokens, sampler, suppress, repetition_penalty,
                          streaming_interval, tp_before):
         """Streaming decode over the fused AR + codec superstep
         (_stream_generate, :1209-1314): one dispatch and one read per
@@ -542,7 +601,8 @@ class Model(TorchModel):
         spf = self.total_upsample
         t_seg = time.time()
         carry, first_codes, trailing, tl, pad_embed, pb = self._begin(
-            text, text_ids, language, speaker, max_tokens, sampler, suppress)
+            text, text_ids, language, speaker, instruct, max_tokens, sampler,
+            suppress)
         dec = self.speech_tokenizer.decoder
         dtype = next(dec.parameters()).dtype
         pending = torch.zeros(PEND, self.tcfg.num_code_groups,
@@ -721,6 +781,97 @@ class Model(TorchModel):
     # ------------------------------------------------------------------
     # continuous batching (server path, :375-382)
     # ------------------------------------------------------------------
+
+    def generate_custom_voice(self, text: str, speaker: str,
+                              language: str = "auto",
+                              instruct: Optional[str] = None, **kwargs):
+        """CustomVoice checkpoints: a predefined speaker and an optional
+        style instruction (the 0.6B ones take none)."""
+        if self.config.tts_model_type != "custom_voice":
+            raise ValueError(
+                f"model type '{self.config.tts_model_type}' does not "
+                "support generate_custom_voice (need a CustomVoice "
+                "checkpoint)")
+        speakers = [s.lower() for s in self.get_supported_speakers()]
+        if speaker.lower() not in speakers:
+            raise ValueError(f"Speaker '{speaker}' not supported. "
+                             f"Available: {self.get_supported_speakers()}")
+        if self.config.tts_model_size == "0b6":
+            instruct = None
+        yield from self.generate(text, speaker=speaker, language=language,
+                                 instruct=instruct, **kwargs)
+
+    def generate_voice_design(self, text: str, instruct: str,
+                              language: str = "auto", **kwargs):
+        """VoiceDesign checkpoints: the voice described in words."""
+        if self.config.tts_model_type != "voice_design":
+            raise ValueError(
+                f"model type '{self.config.tts_model_type}' does not "
+                "support generate_voice_design (need a VoiceDesign "
+                "checkpoint)")
+        yield from self.generate(text, language=language, instruct=instruct,
+                                 **kwargs)
+
+    def batch_generate(self, texts: List[str], *,
+                       speakers: Optional[List[Optional[str]]] = None,
+                       language: str = "auto", temperature: float = 0.9,
+                       top_k: int = 50, top_p: float = 1.0,
+                       repetition_penalty: float = 1.05,
+                       max_tokens: int = 1200, seed: int = 0, **kwargs):
+        """Generate `texts` together through a continuous-batching session
+        of len(texts) slots (:1351-1419); yields one BatchGenerationResult
+        per text, in input order. `seed` is accepted and not used (the
+        session's sampler has its own generator), as in the JAX package."""
+        from ...continuous import TTSBatchOptions
+        from .continuous_batching import Qwen3TTSBatchSession
+
+        t0 = time.time()
+
+        class _Req:
+            def __init__(self, idx):
+                self.request_id = f"batch-{idx}"
+                self.normalized_kwargs = {
+                    "language": language,
+                    "speaker": speakers[idx] if speakers else None}
+                self.chunks: List[np.ndarray] = []
+                self.error = None
+                self.payload = texts[idx]
+
+            def emit_data(self, data):
+                self.chunks.append(np.asarray(data["audio"]))
+
+            def emit_error(self, err):
+                self.error = err
+
+            def emit_done(self):
+                pass
+
+        options = TTSBatchOptions(
+            max_batch_size=len(texts), temperature=temperature, top_k=top_k,
+            top_p=top_p, repetition_penalty=repetition_penalty,
+            max_tokens=max_tokens)
+        session = Qwen3TTSBatchSession(self, options)
+        reqs = [_Req(i) for i in range(len(texts))]
+        for r in reqs:
+            session.submit(r)
+        steps = 0
+        while not session.idle and steps < max_tokens + 4:
+            session.step()
+            steps += 1
+        elapsed = time.time() - t0
+        for i, r in enumerate(reqs):
+            if r.error is not None:
+                raise r.error
+            audio = (np.concatenate(r.chunks)
+                     if r.chunks else np.zeros((0,), np.float32))
+            dur = len(audio) / self.sample_rate
+            yield BatchGenerationResult(
+                audio=audio, sequence_idx=i, samples=len(audio),
+                sample_rate=self.sample_rate,
+                token_count=int(round(dur * 12.5)),
+                audio_duration=format_duration(dur),
+                processing_time_seconds=elapsed,
+                peak_memory_usage=peak_memory_gb())
 
     def supports_tts_continuous_batch(self, **kwargs) -> bool:
         return True

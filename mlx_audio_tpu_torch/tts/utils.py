@@ -1,6 +1,12 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
 checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS,
-Higgs Audio v2, KugelAudio, VibeVoice)."""
+Higgs Audio v2, KugelAudio, VibeVoice).
+
+`MODEL_REMAPPING` is the JAX package's registry of TTS model types, kept
+whole so that a type the port does not have yet is named as such; the
+families in `PORTED` are ported. A checkpoint's family comes from its
+config's model_type, else from its directory name's parts, as the JAX
+package's `get_model_class` finds it."""
 
 from __future__ import annotations
 
@@ -8,19 +14,87 @@ from pathlib import Path
 from typing import Union
 
 from ..model import check_device
-from ..utils import apply_quantization, load_config, load_weights
+from ..utils import (apply_quantization, get_model_name_parts, load_config,
+                     load_weights, resolve_family)
 
-MODEL_REMAPPING = {"style_tts": "kokoro", "kokoro": "kokoro",
-                   "qwen3_tts": "qwen3_tts", "higgs_audio": "higgs_audio",
-                   "higgs": "higgs_audio_v3",
-                   "higgs_audio_v3": "higgs_audio_v3",
-                   "kugelaudio": "kugelaudio", "kugel": "kugelaudio",
-                   "vibevoice": "vibevoice",
-                   "vibevoice_streaming": "vibevoice"}
+MODEL_REMAPPING = {
+    "style_tts": "kokoro",
+    "kokoro": "kokoro",
+    "kitten": "kitten_tts",
+    "kittentts": "kitten_tts",
+    "qwen3_tts": "qwen3_tts",
+    "qwen3tts": "qwen3_tts",
+    "csm": "sesame",
+    "sesame": "sesame",
+    "higgs": "higgs_audio_v3",
+    "higgs_audio_v3": "higgs_audio_v3",
+    "higgs_audio": "higgs_audio",
+    "bark": "bark",
+    "dia": "dia",
+    "spark": "spark",
+    "llama": "llama",
+    "orpheus": "llama",
+    "svara": "llama",
+    "outetts": "outetts",
+    "soprano": "soprano",
+    "vibevoice": "vibevoice",
+    "vibevoice_streaming": "vibevoice",
+    "chatterbox": "chatterbox",
+    "chatterbox_turbo": "chatterbox_turbo",
+    "chatterboxturbo": "chatterbox_turbo",
+    "melotts": "melotts",
+    "vits": "melotts",
+    "pocket_tts": "pocket_tts",
+    "pocket": "pocket_tts",
+    "moss_tts": "moss_tts",
+    "moss_tts_delay": "moss_tts_delay",
+    "moss_ttsd": "moss_tts_delay",
+    "moss_tts_local": "moss_tts_local",
+    "moss_tts_nano": "moss_tts_nano",
+    "mosstts": "moss_tts",
+    "qwen3": "qwen3",
+    "vyvo": "qwen3",
+    "vyvotts": "qwen3",
+    "bailingmm": "bailingmm",
+    "ming_omni_tts": "bailingmm",
+    "ming_omni": "bailingmm",
+    "dense": "dense",
+    "kugelaudio": "kugelaudio",
+    "kugel": "kugelaudio",
+    "voxcpm": "voxcpm",
+    "voxcpm2": "voxcpm2",
+    "tada": "tada",
+    "fish_speech": "fish_qwen3_omni",
+    "fish_qwen3_omni": "fish_qwen3_omni",
+    "fishspeech": "fish_qwen3_omni",
+    "confucius4": "confucius4",
+    "confucius": "confucius4",
+    "echo_tts": "echo_tts",
+    "echo": "echo_tts",
+    "echotts": "echo_tts",
+    "indextts": "indextts",
+    "index_tts": "indextts",
+    "index-tts": "indextts",
+    "omnivoice": "omnivoice",
+    "omni_voice": "omnivoice",
+    "voxtral_tts": "voxtral_tts",
+    "voxtral": "voxtral_tts",
+    "audiodit": "longcat_audiodit",
+    "longcat_audiodit": "longcat_audiodit",
+    "longcat": "longcat_audiodit",
+    "zonos2": "zonos2",
+    "zonos": "zonos2",
+    "irodori_tts": "irodori_tts",
+    "irodori": "irodori_tts",
+    "dramabox-tts": "dramabox",
+    "dramabox": "dramabox",
+}
+# families of MODEL_REMAPPING's values that the port has
 PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice")
 
 
-def load_model(model_path: Union[str, Path], device="cuda", **config_overrides):
+def load_model(model_path: Union[str, Path], device="cuda",
+               model_name_parts=None, **config_overrides):
     """Load a local model directory (config.json + weights) onto `device`:
     the card by default; without CUDA it raises, before reading the
     weights, unless given `device="cpu"`.
@@ -29,9 +103,10 @@ def load_model(model_path: Union[str, Path], device="cuda", **config_overrides):
     `sanitize` maps them onto the port's parameter names. Qwen3-TTS also
     reads the codec from a `speech_tokenizer/` subfolder when there is one.
     Qwen3-TTS, Higgs, KugelAudio and VibeVoice quantize per
-    config["quantization"] (each family's predicate; W8A8 with the opt-in);
-    Higgs, KugelAudio and VibeVoice read an HF tokenizer from the
-    directory."""
+    config["quantization"] (each family's predicate; W8A8 with the opt-in),
+    and read an HF tokenizer from the directory. The family comes from the
+    config's model_type, else from the directory name's parts
+    (`model_name_parts`, which the router passes)."""
     device = check_device(device)
     path = Path(model_path).expanduser()
     if not path.is_dir():
@@ -40,9 +115,8 @@ def load_model(model_path: Union[str, Path], device="cuda", **config_overrides):
     config["model_path"] = str(path)
     config.update(config_overrides)
     model_type = config.get("model_type") or config.get("architecture")
-    if model_type is None and "kokoro" in path.name.lower():
-        model_type = "kokoro"
-    family = MODEL_REMAPPING.get(str(model_type).lower())
+    family = resolve_family(model_type, model_name_parts
+                            or get_model_name_parts(path), MODEL_REMAPPING)
     if family not in PORTED:
         raise ValueError(f"Model type {model_type!r} (family {family!r}) is "
                          f"not ported to mlx_audio_tpu_torch yet (ported: "
@@ -70,7 +144,8 @@ def _load_qwen3_tts(path: Path, config: dict, device):
                         for k, v in load_weights(codec_dir).items()})
     model = Model(ModelConfig.from_dict(config), device=device)
     model.bind(model.sanitize(weights))
-    return apply_quantization(model, config, model.model_quant_predicate)
+    apply_quantization(model, config, model.model_quant_predicate)
+    return Model.post_load_hook(model, path)
 
 
 def _load_quantizable(family: str, path: Path, config: dict, device):

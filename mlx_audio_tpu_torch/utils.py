@@ -1,15 +1,22 @@
 """Checkpoint and audio helpers (subset of mlx_audio_tpu/utils.py): flat/
 nested parameter names, config.json, weight files read with numpy,
 on-the-fly quantization of a model's linears (affine, and the W8A8 opt-in),
-and audio files read into numpy (mono mix, polyphase resample)."""
+audio files read into numpy (mono mix, polyphase resample), and the
+category auto-router `load_model` (mlx_audio_tpu/utils.py:413-481) with
+its name-part and category guessing (:246-285, :418-448).
+
+Paths are local only: where the JAX package's `get_model_path` downloads a
+Hugging Face snapshot (:52-80), the port raises FileNotFoundError."""
 
 from __future__ import annotations
 
 import glob
+import importlib
 import json
 import os
+import re
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 
@@ -162,3 +169,165 @@ def load_audio(path: Union[str, Path],
     if sample_rate is not None and sr != sample_rate:
         audio = resample_audio(audio, sr, sample_rate)
     return np.asarray(audio, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Category auto-router (mlx_audio_tpu/utils.py:246-285, 413-481)
+# ---------------------------------------------------------------------------
+
+# the JAX package's categories, in its order of precedence; the port has
+# loaders for the first two and the last
+CATEGORIES = ("tts", "stt", "sts", "lid", "vad")
+PORTED_CATEGORIES = ("tts", "stt", "vad")
+# the registries of the categories the port has no loader for yet (copies
+# of mlx_audio_tpu/sts/utils.py:14-23 and lid/utils.py:10-15), so that such
+# a checkpoint is named as what it is
+UNPORTED_REMAPPING = {
+    "sts": {"sam_audio": "sam_audio", "moshi": "moshi",
+            "deepfilternet": "deepfilternet",
+            "mossformer2": "mossformer2_se",
+            "mossformer2_se": "mossformer2_se",
+            "mel_roformer": "mel_roformer",
+            "mel_band_roformer": "mel_roformer", "lfm_audio": "lfm_audio"},
+    "lid": {"ecapa": "ecapa_tdnn", "ecapa_tdnn": "ecapa_tdnn",
+            "wav2vec2": "wav2vec2", "mms_lid": "wav2vec2"},
+}
+
+
+def is_valid_module_name(name: Optional[str]) -> bool:
+    return bool(name) and bool(re.fullmatch(r"[a-zA-Z_][a-zA-Z0-9_]*", name))
+
+
+def get_model_name_parts(model_path: Union[str, Path]) -> List[str]:
+    """Fuzzy name parts of a checkpoint's directory name, for guessing its
+    architecture: dash parts, their underscore sub-parts, alphanumeric
+    forms and joined n-grams ("qwen3-tts-..." -> "qwen3_tts")."""
+    if isinstance(model_path, str):
+        model_name = model_path.lower().split("/")[-1]
+    elif isinstance(model_path, Path):
+        try:
+            index = model_path.parts.index("hub")
+            model_name = model_path.parts[index + 1].lower().split("--")[-1]
+        except ValueError:
+            model_name = model_path.name.lower()
+    else:
+        raise ValueError(f"Invalid model path type: {type(model_path)}")
+
+    parts: List[str] = []
+    seen = set()
+    dash_parts = [p for p in model_name.split("-") if p]
+    for part in dash_parts:
+        if part in seen:
+            continue
+        parts.append(part)
+        seen.add(part)
+        if "_" in part:
+            for sub in part.split("_"):
+                if sub and sub not in seen:
+                    parts.append(sub)
+                    seen.add(sub)
+        norm = re.sub(r"[^a-z0-9]+", "", part)
+        if norm and norm not in seen:
+            parts.append(norm)
+            seen.add(norm)
+    for start in range(len(dash_parts)):
+        for end in range(start + 2, len(dash_parts) + 1):
+            joined = "_".join(dash_parts[start:end])
+            joined = re.sub(r"[^a-z0-9_]+", "", joined)
+            if joined and joined not in seen:
+                parts.append(joined)
+                seen.add(joined)
+    return parts
+
+
+def category_remapping(category: str) -> Dict[str, str]:
+    """The JAX package's registry {model type: family} of `category`."""
+    if category in UNPORTED_REMAPPING:
+        return UNPORTED_REMAPPING[category]
+    module = importlib.import_module(f".{category}.utils", __package__)
+    return module.MODEL_REMAPPING
+
+
+def resolve_family(model_type: Optional[str], name_parts: Iterable[str],
+                   remapping: Dict[str, str]) -> Optional[str]:
+    """The family that `model_type`, else the first of `name_parts`, names
+    through `remapping` (a key, or a family itself), as the JAX package's
+    `get_model_class` resolves it (utils.py:220-243); None when none does."""
+    families = set(remapping.values())
+    for hint in [model_type, *name_parts]:
+        if hint is None:
+            continue
+        hint = str(hint).lower()
+        family = remapping.get(hint, hint)
+        if family in families:
+            return family
+    return None
+
+
+def get_model_category(model_type: Optional[str],
+                       model_name: List[str]) -> Optional[str]:
+    """The category of a checkpoint, from its model_type and name parts.
+
+    A model_type that a category's registry names (as a key or a family)
+    decides. Otherwise the JAX package's precedence (utils.py:418-448)
+    over the name parts: a category word among them, then a registry key,
+    then a family name. (The JAX package lets a name part outrank the
+    model_type: a Voxtral Realtime checkpoint in a directory whose name
+    holds "voxtral", a TTS key, goes to its TTS loader and fails there.)"""
+    cats = [(c, category_remapping(c)) for c in CATEGORIES]
+    if model_type:
+        for category, remap in cats:
+            if model_type in remap or model_type in set(remap.values()):
+                return category
+    candidates = ([model_type] if model_type else []) + list(model_name or [])
+    for category, remap in cats:
+        if category in candidates and resolve_family(
+                None, candidates, remap) is not None:
+            return category
+    for category, remap in cats:
+        if any(hint in remap for hint in candidates):
+            return category
+    families = [(c, set(remap.values())) for c, remap in cats]
+    for category, fams in families:
+        if any(is_valid_module_name(h) and h in fams for h in candidates):
+            return category
+    return None
+
+
+def load_model(model_path: Union[str, Path], category: Optional[str] = None,
+               device="cuda", **kwargs):
+    """Load a local checkpoint directory into the port, its category found
+    as mlx_audio_tpu.utils.load_model finds it (config's model_type, then
+    the directory name's parts) unless `category` is given, then its
+    family by that category's loader (`tts.utils`, `stt.utils` or
+    `vad.utils`). Without CUDA it raises before reading anything unless
+    given `device="cpu"`. A path that is not a local directory raises
+    FileNotFoundError (the port never downloads); a category or family the
+    port lacks raises ValueError naming it."""
+    from .model import check_device
+
+    device = check_device(device)
+    path = Path(model_path).expanduser()
+    if not path.is_dir():
+        raise FileNotFoundError(
+            f"Local model path not found: {model_path} (the port loads local "
+            f"checkpoint directories only; it never downloads)")
+    name_parts = get_model_name_parts(path)
+    model_type = kwargs.get("model_type")
+    if model_type is None and (path / "config.json").is_file():
+        config = load_config(path)
+        model_type = config.get("model_type") or config.get("architecture")
+    category = category or get_model_category(model_type, name_parts)
+    if category is None:
+        raise ValueError(f"Could not determine model category for "
+                         f"'{model_path}' (model_type={model_type})")
+    if category not in PORTED_CATEGORIES:
+        family = resolve_family(model_type, name_parts,
+                                category_remapping(category))
+        raise ValueError(
+            f"Model category {category!r} (family {family!r}) is not ported "
+            f"to mlx_audio_tpu_torch yet (ported categories: "
+            f"{', '.join(PORTED_CATEGORIES)})")
+    loader = importlib.import_module(f".{category}.utils", __package__)
+    return loader.load_model(path, device=device, model_name_parts=name_parts,
+                             **kwargs)

@@ -450,12 +450,15 @@ def test_g2p_copy_matches_the_jax_package(text):
 
 def _entry_points():
     import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch import server
     from mlx_audio_tpu_torch.stt import utils as stt_utils
     from mlx_audio_tpu_torch.stt.models import (cohere_asr, voxtral_realtime,
                                                 whisper)
-    from mlx_audio_tpu_torch.tts import utils
+    from mlx_audio_tpu_torch.tts import generate, utils
     from mlx_audio_tpu_torch.tts.models import (kokoro, kugelaudio, llama,
                                                 qwen3_tts, vibevoice)
+    from mlx_audio_tpu_torch.vad import utils as vad_utils
+    from mlx_audio_tpu_torch.vad.models import silero_vad
 
     return {
         "kokoro.Model": (kokoro.Model.__init__,
@@ -483,6 +486,18 @@ def _entry_points():
         "mlx_audio_tpu_torch.load_model": (
             mlx_audio_tpu_torch.load_model,
             lambda p: mlx_audio_tpu_torch.load_model(p)),
+        "silero_vad.Model": (silero_vad.Model.__init__,
+                             lambda p: silero_vad.Model(
+                                 silero_vad.ModelConfig())),
+        "vad.utils.load_model": (vad_utils.load_model,
+                                 lambda p: vad_utils.load_model(p)),
+        "server.ModelProvider": (server.ModelProvider.__init__,
+                                 lambda p: server.ModelProvider()),
+        "server.AudioServer": (server.AudioServer.__init__,
+                               lambda p: server.AudioServer()),
+        "tts.generate.generate_audio": (
+            generate.generate_audio,
+            lambda p: generate.generate_audio("hi", model_path=str(p))),
     }
 
 
@@ -492,7 +507,11 @@ def _entry_points():
                                   "kugelaudio.Model", "vibevoice.Model",
                                   "tts.utils.load_model",
                                   "stt.utils.load_model",
-                                  "mlx_audio_tpu_torch.load_model"])
+                                  "mlx_audio_tpu_torch.load_model",
+                                  "silero_vad.Model", "vad.utils.load_model",
+                                  "server.ModelProvider",
+                                  "server.AudioServer",
+                                  "tts.generate.generate_audio"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without
@@ -505,3 +524,122 @@ def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call(tmp_path / "missing")
+
+
+def test_server_core_runs_without_aiohttp_or_jax():
+    """The server's request core in a fresh interpreter on the CPU: a
+    speech request to a fake model, a transcription, and a /v1/realtime
+    session with server_vad over the port's Silero, called directly. Neither
+    aiohttp, jax nor mlx_audio_tpu is imported."""
+    out = _run("""
+        import asyncio, base64, sys
+        import numpy as np
+        from mlx_audio_tpu_torch.server import AudioServer
+        from mlx_audio_tpu_torch.stt.models.base import STTOutput
+        from mlx_audio_tpu_torch.vad.models.silero_vad import (Model,
+                                                               ModelConfig)
+
+        class Result:
+            audio = np.full(480, 0.25, np.float32)
+            sample_rate = 24000
+
+        class TTS:
+            def generate(self, text, **kw):
+                yield Result()
+
+        class STT:
+            def generate(self, audio, **kw):
+                return STTOutput(text=f"{len(audio)} samples")
+
+        async def go():
+            server = AudioServer(device="cpu")
+            vad = Model(ModelConfig(), device="cpu").init_params(0)
+            server.provider._models.update(tts=TTS(), stt=STT(), vad=vad)
+            sent = []
+
+            async def send(event):
+                sent.append(event["type"])
+
+            reply = await server.speech({"model": "tts", "input": "hi",
+                                         "response_format": "pcm"})
+            body = await reply.read()
+            reply = await server.transcribe({"model": "stt"}, None)
+            assert reply.status == 400
+            import os
+            os.environ["MLX_AUDIO_VAD_MODEL"] = "vad"
+            session = await server.open_realtime("stt", send)
+            pcm = (np.random.RandomState(0).randn(16000) * 3000).astype("<i2")
+            await session.on_event({"type": "input_audio_buffer.append",
+                                    "audio": base64.b64encode(
+                                        pcm.tobytes()).decode()})
+            await session.on_event({"type": "input_audio_buffer.commit"})
+            server.close()
+            return len(body), sent
+
+        n, sent = asyncio.run(go())
+        assert n == 960 and sent[0] == "session.created", (n, sent)
+        assert sent[-1].endswith("transcription.completed"), sent
+        print(sorted(m for m in sys.modules if m.split(".")[0] == "aiohttp"),
+              %s)
+    """ % FORBIDDEN)
+    assert out.strip() == "[] []", out
+
+
+def test_tts_cli_runs_without_jax(tmp_path):
+    """python -m mlx_audio_tpu_torch.tts.generate --device cpu on a tiny
+    Kokoro checkpoint (npz, torch's names) in a fresh interpreter: it
+    writes the WAV, and neither jax nor mlx_audio_tpu is imported."""
+    ckpt = tmp_path / "kokoro-tiny"
+    _run("""
+        import dataclasses, json, pathlib
+        import numpy as np
+        from mlx_audio_tpu_torch.tts.models.kokoro import Model, ModelConfig
+
+        cfg = ModelConfig(
+            istftnet=dict(resblock_kernel_sizes=[3], upsample_rates=[4, 4],
+                          upsample_initial_channel=16,
+                          resblock_dilation_sizes=[[1, 3, 5]],
+                          upsample_kernel_sizes=[8, 8], gen_istft_n_fft=12,
+                          gen_istft_hop_size=3),
+            dim_in=16, hidden_dim=32, n_layer=2, n_mels=20, n_token=40,
+            style_dim=16, decoder_bottleneck=24, decoder_res_dim=8,
+            plbert=dict(num_hidden_layers=2, num_attention_heads=2,
+                        hidden_size=24, intermediate_size=32,
+                        max_position_embeddings=128, embedding_size=12),
+            vocab={c: i + 1 for i, c in enumerate("abcdefghijklmnopqrstuvwxyz ")},
+            compute_dtype="float32", transfer_dtype="float32")
+        model = Model(cfg, device="cpu").init_params(seed=0)
+        d = pathlib.Path(%r)
+        (d / "voices").mkdir(parents=True)
+        np.savez(d / "model.npz", **{k: v.numpy() for k, v in
+                                     model.state_dict().items()})
+        (d / "config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+        np.save(d / "voices" / "af_test.npy",
+                np.random.RandomState(0).randn(510, 1, 32).astype(np.float32))
+    """ % str(ckpt))
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent("""
+            import runpy, sys
+            sys.argv = ["generate", "--model", %r, "--text", "hello there",
+                        "--voice", "af_test", "--output_path", %r,
+                        "--device", "cpu", "--no-verbose"]
+            runpy.run_module("mlx_audio_tpu_torch.tts.generate",
+                             run_name="__main__")
+            print(%s)
+        """ % (str(ckpt), str(tmp_path / "out"), FORBIDDEN))],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]", proc.stdout
+    assert (tmp_path / "out" / "audio_000.wav").stat().st_size > 44
+
+
+def test_ui_copy_equals_the_jax_package():
+    """The port's studio UI files are the JAX package's, byte for byte."""
+    jax_dir = os.path.join(REPO, "mlx_audio_tpu", "ui", "static")
+    port_dir = os.path.join(REPO, "mlx_audio_tpu_torch", "ui", "static")
+    names = sorted(os.listdir(jax_dir))
+    assert names == sorted(os.listdir(port_dir)) and "index.html" in names
+    for name in names:
+        with open(os.path.join(jax_dir, name), "rb") as a, \
+                open(os.path.join(port_dir, name), "rb") as b:
+            assert a.read() == b.read(), name

@@ -608,10 +608,220 @@ def test_init_params_sets_the_decoder_constants():
 
 
 @pytest.mark.parametrize("kw", [dict(ref_audio=np.zeros(8)),
-                                dict(instruct="calm"),
+                                dict(ref_audio=np.zeros(8), ref_text="hi"),
                                 dict(text_ids=np.ones((2, 20), int))])
 def test_unported_paths_raise(kw):
     pm = _port("tiny")
     kw = {"text_ids": np.arange(10, 30)[None], **kw}
     with pytest.raises(NotImplementedError):
         list(pm.generate(**kw))
+
+
+# ---------------------------------------------------------------------------
+# text input (tests/test_qwen3_tts_icl.py::TestInstructModes and
+# TestBatchGenerate, against the JAX package under its FakeTokenizer)
+# ---------------------------------------------------------------------------
+
+
+def _with_tokenizer(variant="tiny"):
+    """(JAX model, port model) of one weight set, each with
+    tests/test_qwen3_tts_icl.py's FakeTokenizer (one id per character)."""
+    from test_qwen3_tts_icl import FakeTokenizer
+
+    jm, _ = _jax_model(variant)
+    pm = _port(variant)
+    jm.tokenizer = FakeTokenizer()
+    pm.tokenizer = FakeTokenizer()
+    return jm, pm
+
+
+class TestInstructModes:
+    def test_instruct_prepended(self):
+        jm, pm = _with_tokenizer()
+        base, _, _ = pm.prepare_inputs(text="hello")
+        instr, trailing, pad = pm.prepare_inputs(text="hello",
+                                                 instruct="angry")
+        assert instr.shape[1] > base.shape[1]
+        want = jm.prepare_inputs(text="hello", instruct="angry")
+        for got, ref in zip((instr, trailing, pad), want):
+            np.testing.assert_allclose(_np(got), np.asarray(ref), atol=ATOL)
+
+    def test_custom_voice_requires_model_type(self):
+        _, pm = _with_tokenizer()
+        with pytest.raises(ValueError, match="custom_voice"):
+            list(pm.generate_custom_voice("hi", speaker="vivian"))
+
+    def test_voice_design_path(self):
+        """A VoiceDesign checkpoint: greedy audio equal to JAX's."""
+        from mlx_audio_tpu.tts.models.qwen3_tts import Model as JaxModel
+        from mlx_audio_tpu_torch.tts.models.qwen3_tts import (Model,
+                                                              ModelConfig,
+                                                              load_jax_params)
+        from test_qwen3_tts_icl import FakeTokenizer
+
+        _, flat = _jax_model("tiny")
+        cfg = dataclasses.replace(_jax_cfg("tiny"),
+                                  tts_model_type="voice_design")
+        jm = JaxModel(cfg).init_and_bind(jax.random.PRNGKey(0))
+        pm = load_jax_params(Model(ModelConfig.from_dict(
+            dataclasses.asdict(cfg)), device="cpu"), flat)
+        jm.tokenizer = pm.tokenizer = FakeTokenizer()
+        kw = dict(instruct="a deep calm voice", temperature=0.0,
+                  max_tokens=4)
+        (want,) = list(jm.generate_voice_design("hello", **kw))
+        (got,) = list(pm.generate_voice_design("hello", **kw))
+        assert got.samples == want.samples >= 0
+        assert _rel(got.audio, np.asarray(want.audio)) <= AUDIO_REL
+        with pytest.raises(ValueError, match="voice_design"):
+            list(_port("tiny").generate_voice_design("x", instruct="y"))
+
+    def test_custom_voice_speaker_and_instruct_match_jax(self):
+        """A CustomVoice checkpoint with a speaker id: the speaker's codec
+        embedding and the instruct prompt, greedy audio equal to JAX's."""
+        from mlx_audio_tpu.tts.models.qwen3_tts import Model as JaxModel
+        from mlx_audio_tpu_torch.tts.models.qwen3_tts import (Model,
+                                                              ModelConfig,
+                                                              load_jax_params)
+        from test_qwen3_tts_icl import FakeTokenizer
+
+        _, flat = _jax_model("tiny")
+        d = dataclasses.asdict(_jax_cfg("tiny"))
+        d["tts_model_type"] = "custom_voice"
+        d["tts_model_size"] = "1b7"
+        d["talker_config"]["spk_id"] = {"vivian": 250}
+        cfg = type(_jax_cfg("tiny")).from_dict(d)
+        jm = JaxModel(cfg).init_and_bind(jax.random.PRNGKey(0))
+        pm = load_jax_params(Model(ModelConfig.from_dict(d), device="cpu"),
+                             flat)
+        jm.tokenizer = pm.tokenizer = FakeTokenizer()
+        assert pm.get_supported_speakers() == ["vivian"]
+        kw = dict(speaker="Vivian", instruct="cheerful", temperature=0.0,
+                  max_tokens=6)
+        (want,) = list(jm.generate_custom_voice("hi there", **kw))
+        (got,) = list(pm.generate_custom_voice("hi there", **kw))
+        assert got.samples == want.samples
+        assert _rel(got.audio, np.asarray(want.audio)) <= AUDIO_REL
+        with pytest.raises(ValueError, match="not supported"):
+            list(pm.generate_custom_voice("hi", speaker="nobody"))
+
+
+class TestBatchGenerate:
+    def test_batch_generate_order_and_shapes(self):
+        jm, pm = _with_tokenizer()
+        texts = ["first text", "second slightly longer text", "third"]
+        kw = dict(temperature=0.0, max_tokens=6)
+        got = list(pm.batch_generate(texts, **kw))
+        want = list(jm.batch_generate(texts, **kw))
+        assert [r.sequence_idx for r in got] == [0, 1, 2]
+        for r, w in zip(got, want):
+            assert r.sample_rate == pm.sample_rate
+            assert np.isfinite(r.audio).all()
+            assert r.samples == w.samples
+            assert _rel(r.audio, np.asarray(w.audio)) <= AUDIO_REL
+
+    def test_batch_matches_single_greedy(self):
+        """Greedy batch rows equal the serial greedy generation, and JAX's
+        serial generation of the same text."""
+        jm, pm = _with_tokenizer()
+        text = "parity check"
+        single = list(pm.generate(text, temperature=0.0, max_tokens=6))
+        batch = list(pm.batch_generate([text], temperature=0.0,
+                                       max_tokens=6))
+        (want,) = list(jm.generate(text, temperature=0.0, max_tokens=6))
+        a, b = single[-1].audio, batch[0].audio
+        n = min(len(a), len(b))
+        assert n >= 4 * pm.total_upsample
+        np.testing.assert_allclose(a[:n], b[:n], atol=2e-3)
+        assert _rel(a, np.asarray(want.audio)) <= AUDIO_REL
+
+
+class TestTextInput:
+    def test_text_generate_matches_jax_greedy_codes(self):
+        """generate(text) through the chat template and the tokenizer:
+        JAX's greedy codes (the port's codes through JAX's decoder give
+        JAX's audio), whole and streamed."""
+        from mlx_audio_tpu.tts.models.qwen3_tts.speech_tokenizer import (
+            decode_full)
+
+        jm, pm = _with_tokenizer("tiny-q8")
+        kw = dict(temperature=0.0, max_tokens=11)
+        (want,) = list(jm.generate("speak this text", **kw))
+        got, codes = _port_codes(pm, text="speak this text", **kw)
+        assert got.token_count == want.token_count == codes.shape[-1]
+        audio = decode_full(jm.params["speech_tokenizer"]["decoder"], jm.dcfg,
+                            jnp.asarray(codes))[0]
+        assert _rel(np.asarray(audio), np.asarray(want.audio)) <= 1e-6
+        chunks = list(pm.generate("speak this text", stream=True,
+                                  streaming_interval=0.4, **kw))
+        streamed = np.concatenate([c.audio for c in chunks])
+        assert _rel(streamed, got.audio) <= AUDIO_REL
+
+    def test_split_pattern_yields_each_segment(self):
+        jm, pm = _with_tokenizer()
+        kw = dict(temperature=0.0, max_tokens=5, voice=None, lang_code="auto")
+        want = list(jm.generate("one line\nanother line", **kw))
+        got = list(pm.generate("one line\nanother line", **kw))
+        assert [r.segment_idx for r in got] == [0, 1]
+        for r, w in zip(got, want):
+            assert _rel(r.audio, np.asarray(w.audio)) <= AUDIO_REL
+
+    def test_text_without_a_tokenizer_raises(self):
+        pm = _port("tiny")
+        with pytest.raises(ValueError, match="holds no tokenizer"):
+            list(pm.generate("hello", max_tokens=4))
+        with pytest.raises(ValueError, match="holds no tokenizer"):
+            pm.prepare_inputs(text_ids=np.arange(10, 30)[None],
+                              instruct="calm")
+
+    def test_post_load_hook_reads_only_the_local_directory(self, tmp_path,
+                                                           monkeypatch):
+        """post_load_hook binds the tokenizer saved in the model directory
+        (`local_tokenizer`), None without tokenizer files."""
+        from mlx_audio_tpu_torch.tts.models import base
+        from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model
+
+        pm = _port("tiny")
+        assert Model.post_load_hook(pm, tmp_path).tokenizer is None
+        (tmp_path / "tokenizer.json").write_text("{}")
+        seen = []
+
+        class Auto:
+            @staticmethod
+            def from_pretrained(path):
+                seen.append(path)
+                return "tok"
+
+        import types
+        monkeypatch.setitem(__import__("sys").modules, "transformers",
+                            types.SimpleNamespace(AutoTokenizer=Auto))
+        assert base.local_tokenizer(tmp_path) == "tok"
+        assert Model.post_load_hook(pm, tmp_path).tokenizer == "tok"
+        assert seen == [str(tmp_path)] * 2
+
+    def test_session_takes_a_text_payload(self):
+        """The continuous-batching session admits a request whose payload
+        is text: its greedy audio equals the model's own greedy request."""
+        from mlx_audio_tpu_torch.server_inference import InferenceRequest
+        from mlx_audio_tpu_torch.tts.continuous import TTSBatchOptions
+
+        _, pm = _with_tokenizer()
+        sess = pm.create_tts_batch_session(TTSBatchOptions(
+            max_batch_size=2, temperature=0.0, max_tokens=6,
+            streaming_interval=0.4))
+        req = InferenceRequest(endpoint_kind="tts", model_name="m",
+                               payload="parity check", normalized_kwargs={})
+        sess.submit(req)
+        while not sess.idle:
+            sess.step()
+        chunks = []
+        while not req.result_queue.empty():
+            c = req.result_queue.get()
+            assert c.kind != "error", c.error
+            if c.kind == "data":
+                chunks.append(c.payload["audio"])
+        audio = np.concatenate(chunks)
+        (want,) = list(pm.generate("parity check", temperature=0.0,
+                                   max_tokens=6))
+        n = min(len(audio), len(want.audio))
+        assert n >= 4 * pm.total_upsample
+        np.testing.assert_allclose(audio[:n], want.audio[:n], atol=2e-3)

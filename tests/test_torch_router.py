@@ -1,0 +1,192 @@
+"""The port's `load_model` router (`mlx_audio_tpu_torch/utils.py`) against
+the JAX package's (`mlx_audio_tpu/utils.py:246-481`), on the CPU: the
+category registries equal JAX's for every ported family, the name parts
+and the category guessed as JAX guesses them, a `qwen3tts` config and a
+directory named only by its family reaching their loaders, and the port's
+own errors (local paths only; a category or family it lacks named).
+Nothing here is numeric.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+NAMES = ["Kokoro-82M", "prince-canuma/Kokoro-82M",
+         "Qwen3-TTS-12Hz-1.7B-Base", "Qwen3-TTS-12Hz-0.6B-CustomVoice-8bit",
+         "whisper-large-v3-turbo", "Voxtral-Mini-3B-Realtime-2602",
+         "cohere-transcribe-03-2026", "higgs-audio-v2-generation-3B-base",
+         "kugelaudio-0-open", "VibeVoice-Realtime-0.5B", "silero-vad",
+         "silero_vad", "mel-band-roformer-vocals", "ecapa-tdnn-lid",
+         "sortformer-4spk", "bark-small", "my_dir", "tts-tiny", "stt-x",
+         "parakeet-tdt-0.6b-v2", "canary-1b-flash", "smart-turn-v3"]
+
+MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
+               "voxtral_realtime", "cohere_asr", "higgs_audio", "kugelaudio",
+               "vibevoice_streaming", "silero_vad", "mel_band_roformer",
+               "ecapa_tdnn", "sortformer", "bark", "llama", "nonsense"]
+
+
+@pytest.mark.parametrize("category", ["tts", "stt", "vad"])
+def test_remappings_equal_jax_for_every_ported_family(category):
+    """Every JAX registry key whose family the port has maps the same in
+    the port's registry; the port's registries are JAX's, whole."""
+    import importlib
+
+    jax_map = importlib.import_module(
+        f"mlx_audio_tpu.{category}.utils").MODEL_REMAPPING
+    port = importlib.import_module(f"mlx_audio_tpu_torch.{category}.utils")
+    ported = {k: v for k, v in jax_map.items() if v in port.PORTED}
+    assert ported and all(port.MODEL_REMAPPING[k] == v
+                          for k, v in ported.items())
+    assert port.MODEL_REMAPPING == jax_map
+    assert set(port.PORTED) <= set(jax_map.values())
+
+
+def test_unported_category_registries_equal_jax():
+    from mlx_audio_tpu.lid.utils import MODEL_REMAPPING as LID
+    from mlx_audio_tpu.sts.utils import MODEL_REMAPPING as STS
+    from mlx_audio_tpu_torch.utils import UNPORTED_REMAPPING
+
+    assert UNPORTED_REMAPPING == {"sts": STS, "lid": LID}
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_name_parts_equal_jax(name):
+    from pathlib import Path
+
+    from mlx_audio_tpu.utils import get_model_name_parts as jax_parts
+    from mlx_audio_tpu_torch.utils import get_model_name_parts
+
+    assert get_model_name_parts(name) == jax_parts(name)
+    assert get_model_name_parts(Path("/x") / name.split("/")[-1]) == \
+        jax_parts(Path("/x") / name.split("/")[-1])
+
+
+def _registered(model_type):
+    """The first category whose JAX registry names `model_type`."""
+    import importlib
+
+    for category in ("tts", "stt", "sts", "lid", "vad"):
+        remap = importlib.import_module(
+            f"mlx_audio_tpu.{category}.utils").MODEL_REMAPPING
+        if model_type in remap or model_type in remap.values():
+            return category
+    return None
+
+
+@pytest.mark.parametrize("model_type", MODEL_TYPES)
+def test_category_equals_jax(model_type):
+    """Over every name above: the category JAX's `get_model_category`
+    finds, among the categories both packages know, except that a
+    model_type some registry names decides (the port's departure)."""
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu.utils import get_model_name_parts
+    from mlx_audio_tpu_torch.utils import get_model_category
+
+    for name in NAMES:
+        parts = get_model_name_parts(name)
+        want = _registered(model_type) or jax_category(model_type, parts)
+        assert get_model_category(model_type, parts) == want, \
+            (model_type, name)
+
+
+def test_model_type_outranks_the_directory_name():
+    """A Voxtral Realtime checkpoint in a directory named for it: JAX's
+    `get_model_category` lets the name part "voxtral" (a TTS key) win and
+    sends it to the TTS loader; the port's goes by the model_type."""
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu.utils import get_model_name_parts
+    from mlx_audio_tpu_torch.utils import get_model_category
+
+    parts = get_model_name_parts("Voxtral-Mini-3B-Realtime-2602")
+    assert jax_category("voxtral_realtime", parts) == "tts"
+    assert get_model_category("voxtral_realtime", parts) == "stt"
+    assert get_model_category(None, parts) == jax_category(None, parts)
+
+
+def _config_only(path, **config):
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(config))
+    return path
+
+
+@pytest.mark.parametrize("how", ["model_type", "directory name"])
+def test_qwen3tts_reaches_the_qwen3_loader(tmp_path, monkeypatch, how):
+    """A config-only directory whose model_type is JAX's alias "qwen3tts",
+    or whose config has no model_type and whose name starts with the
+    family, reaches the Qwen3-TTS loader through the router (before this,
+    the port raised "not ported" for the alias and read only "kokoro" from
+    a directory name). As in the JAX package, the first name part that
+    names a family wins: "Qwen3-TTS-12Hz-..." alone would name "qwen3"."""
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.tts import utils
+
+    seen = []
+    monkeypatch.setattr(utils, "_load_qwen3_tts",
+                        lambda path, config, device: seen.append(path) or
+                        "qwen3")
+    if how == "model_type":
+        d = _config_only(tmp_path / "ckpt", model_type="qwen3tts")
+    else:
+        d = _config_only(tmp_path / "qwen3_tts-12hz-tiny")
+    assert load_model(d, device="cpu") == "qwen3"
+    assert seen == [d]
+
+
+def test_directory_named_only_by_its_family_loads(tmp_path):
+    """A Kokoro checkpoint whose config.json has no model_type, in a
+    directory named "kokoro-82m", loads through the router with no
+    category given, and gives the model it was written from."""
+    import dataclasses
+
+    import torch
+
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.tts.models.kokoro import Model, ModelConfig
+    from tiny_configs import tiny_kokoro_config
+
+    cfg = dataclasses.asdict(tiny_kokoro_config())
+    model = Model(ModelConfig.from_dict(cfg), device="cpu").init_params(1)
+    d = _config_only(tmp_path / "kokoro-82m", **cfg)
+    np.savez(d / "model.npz", **{k: v.numpy() for k, v in
+                                 model.state_dict().items()})
+    loaded = load_model(d, device="cpu")
+    assert type(loaded) is Model
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+
+
+def test_unported_category_and_family_are_named(tmp_path):
+    from mlx_audio_tpu_torch import load_model
+
+    sts = _config_only(tmp_path / "a", model_type="mel_band_roformer")
+    with pytest.raises(ValueError, match="'sts'.*'mel_roformer'"):
+        load_model(sts, device="cpu")
+    lid = _config_only(tmp_path / "b", model_type="ecapa_tdnn")
+    with pytest.raises(ValueError, match="'lid'"):
+        load_model(lid, device="cpu")
+    bark = _config_only(tmp_path / "c", model_type="bark")
+    with pytest.raises(ValueError, match="'bark'.*not ported"):
+        load_model(bark, device="cpu")
+    turn = _config_only(tmp_path / "d", model_type="smart_turn")
+    with pytest.raises(ValueError, match="'smart_turn'.*not ported"):
+        load_model(turn, device="cpu")
+    with pytest.raises(ValueError, match="category"):
+        load_model(_config_only(tmp_path / "e", model_type="nonsense"),
+                   device="cpu")
+    # an explicit category the port lacks
+    with pytest.raises(ValueError, match="'sts'"):
+        load_model(bark, category="sts", device="cpu")
+
+
+def test_paths_are_local_only(tmp_path):
+    """The JAX package downloads a name it cannot find locally; the port
+    raises, saying it never downloads."""
+    from mlx_audio_tpu_torch import load_model
+
+    for name in ("prince-canuma/Kokoro-82M", str(tmp_path / "missing")):
+        with pytest.raises(FileNotFoundError, match="never downloads"):
+            load_model(name, device="cpu")

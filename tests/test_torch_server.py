@@ -1,0 +1,1052 @@
+"""The PyTorch port's server (`mlx_audio_tpu_torch/server.py`) on the CPU,
+case for case against tests/test_server.py: every endpoint, the studio UI,
+the server config, the concurrent-speech TTFA case and the voice library,
+with fake models as there; the aiohttp app (`create_app`) over the
+server's request core, driven by aiohttp's TestClient. Then what the port
+adds: a tiny Kokoro checkpoint on disk served by both packages' servers
+(the port's WAV held to the JAX server's), `/v1/realtime` with `server_vad`
+over scripted probabilities (the same events as the JAX server's), the
+session warm-up error logged, Qwen3-TTS voice cloning answered 501, the
+tensor-parallel refusal and the CPU device.
+
+Tolerances: the served Kokoro audio within 1e-4 relative to its largest
+value (f32 on both sides, summation order only, as
+tests/test_torch_kokoro.py), then written as 16-bit PCM by both servers.
+"""
+
+import asyncio
+import base64
+import io
+import json
+import logging
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+pytest.importorskip("aiohttp")
+
+AUDIO_REL = 1e-4
+
+
+@dataclass
+class _FakeResult:
+    audio: np.ndarray
+    sample_rate: int = 24000
+    is_final_chunk: bool = False
+
+
+class FakeTTS:
+    sample_rate = 24000
+
+    def generate(self, text, **kwargs):
+        t = np.linspace(0, 0.2, 4800)
+        yield _FakeResult(audio=(0.3 * np.sin(2 * np.pi * 440 * t)).astype(
+            np.float32))
+
+
+class FakeSTT:
+    def generate(self, audio, **kwargs):
+        from mlx_audio_tpu_torch.stt.models.base import STTOutput
+
+        return STTOutput(text=f"heard {len(audio)} samples", language="en",
+                         segments=[{"start": 0.0, "end": 1.0,
+                                    "text": "heard"}])
+
+
+def _make_server():
+    from mlx_audio_tpu_torch.server import AudioServer
+
+    server = AudioServer(device="cpu")
+    server.provider._models["fake-tts"] = FakeTTS()
+    server.provider._models["fake-stt"] = FakeSTT()
+
+    async def _noload(name, category=None):
+        m = server.provider._models.get(name)
+        if m is None:
+            raise FileNotFoundError(name)
+        return m
+
+    server.provider.load = _noload
+    return server
+
+
+def _client(server):
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from mlx_audio_tpu_torch.server import create_app
+
+    return TestClient(TestServer(create_app(server=server)))
+
+
+def _run(coro):
+    return asyncio.run(coro)
+
+
+def _wav(audio, sr):
+    from mlx_audio_tpu_torch import audio_io
+
+    buf = io.BytesIO()
+    audio_io.write(buf, audio, sr)
+    return buf.getvalue()
+
+
+def _read(data):
+    from mlx_audio_tpu_torch import audio_io
+
+    return audio_io.read(io.BytesIO(data), dtype="float32")
+
+
+def _form(**fields):
+    import aiohttp
+
+    form = aiohttp.FormData()
+    for k, v in fields.items():
+        if k == "file":
+            form.add_field("file", v, filename="a.wav")
+        else:
+            form.add_field(k, v)
+    return form
+
+
+class TestEndpoints:
+    def test_health_and_models(self):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                r = await client.get("/health")
+                assert (await r.json())["status"] == "ok"
+                r = await client.get("/v1/models")
+                ids = [m["id"] for m in (await r.json())["data"]]
+                assert "fake-tts" in ids and "fake-stt" in ids
+                r = await client.delete("/v1/models/fake-stt")
+                assert r.status == 200
+                r = await client.delete("/v1/models/fake-stt")
+                assert r.status == 404
+
+        _run(go())
+
+    def test_tts_speech_wav(self):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "fake-tts", "input": "hello"})
+                assert r.status == 200
+                audio, sr = _read(await r.read())
+                assert sr == 24000 and len(audio) == 4800
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "missing-model", "input": "x"})
+                assert r.status == 404
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "fake-tts"})
+                assert r.status == 400
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "fake-tts", "input": "x",
+                    "response_format": "mp3"})
+                assert r.status == 400
+
+        _run(go())
+
+    def test_stt_transcription_formats(self):
+        async def go():
+            server = _make_server()
+            wav = _wav(np.zeros(16000, np.float32), 16000)
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="fake-stt"))
+                assert r.status == 200
+                assert "heard" in (await r.json())["text"]
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="fake-stt",
+                    response_format="verbose_json"))
+                data = await r.json()
+                assert data["language"] == "en" and data["segments"]
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="fake-stt", response_format="srt"))
+                assert "-->" in (await r.text())
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="fake-stt", response_format="vtt"))
+                assert (await r.text()).startswith("WEBVTT")
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="fake-stt", response_format="text"))
+                assert (await r.text()) == "heard 16000 samples"
+
+        _run(go())
+
+    def test_tts_extended_request_fields(self):
+        async def go():
+            server = _make_server()
+            seen = {}
+
+            class KnobTTS:
+                sample_rate = 24000
+
+                def generate(self, text, instruct=None, ref_audio=None,
+                             ref_text=None, **kwargs):
+                    seen.update(instruct=instruct, ref_text=ref_text,
+                                ref_audio_len=None if ref_audio is None
+                                else len(ref_audio))
+                    yield _FakeResult(audio=np.zeros(100, np.float32))
+
+            server.provider._models["knob-tts"] = KnobTTS()
+            b64 = base64.b64encode(_wav(np.zeros(2400, np.float32),
+                                        24000)).decode()
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "knob-tts", "input": "x",
+                    "instruct": "whisper softly", "gender": "female",
+                    "pitch": 1.2, "ref_audio": b64, "ref_text": "hi"})
+                assert r.status == 200
+                await r.read()
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "knob-tts", "input": "x",
+                    "ref_audio": "/nonexistent/voice.wav"})
+                assert r.status == 404
+            assert seen["instruct"] == "whisper softly"
+            assert seen["ref_text"] == "hi"
+            assert seen["ref_audio_len"] == 2400
+
+        _run(go())
+
+    def test_tts_pcm_streaming_with_sample_rate_header(self):
+        async def go():
+            server = _make_server()
+
+            class ChunkTTS:
+                sample_rate = 22050
+
+                def generate(self, text, stream=False, **kwargs):
+                    assert stream
+                    for i in range(3):
+                        t = np.linspace(0, 0.1, 2205)
+                        yield _FakeResult(audio=(0.2 * np.sin(
+                            2 * np.pi * (300 + 100 * i) * t)).astype(
+                                np.float32), sample_rate=22050)
+
+            server.provider._models["chunk-tts"] = ChunkTTS()
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "chunk-tts", "input": "stream me",
+                    "stream": True, "response_format": "pcm"})
+                assert r.status == 200
+                assert r.headers["X-Sample-Rate"] == "22050"
+                assert r.headers["Content-Type"] == \
+                    "application/octet-stream"
+                body = await r.read()
+                assert len(body) == 3 * 2205 * 2
+                pcm = np.frombuffer(body, "<i2").astype(np.float32) / 32768
+                assert np.abs(pcm).max() > 0.1
+                # streamed wav: one WAV per chunk
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "chunk-tts", "input": "stream me",
+                    "stream": True})
+                assert r.headers["Content-Type"] == "audio/wav"
+                body = await r.read()
+                assert body.count(b"RIFF") == 3
+
+        _run(go())
+
+    def test_stt_ndjson_streaming(self):
+        async def go():
+            from mlx_audio_tpu_torch.stt.models.base import STTOutput
+
+            server = _make_server()
+
+            class StreamSTT:
+                def generate(self, audio, stream=False, **kwargs):
+                    assert stream
+                    yield STTOutput(text="hello ")
+                    yield STTOutput(text="world", language="en")
+
+            server.provider._models["stream-stt"] = StreamSTT()
+            wav = _wav(np.zeros(16000, np.float32), 16000)
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="stream-stt", stream="true",
+                    response_format="ndjson"))
+                assert r.status == 200
+                lines = [json.loads(ln) for ln in
+                         (await r.text()).strip().splitlines()]
+                assert [ln["text"] for ln in lines] == ["hello ", "world"]
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="stream-stt", stream="true",
+                    response_format="text"))
+                assert (await r.text()).strip() == "hello world"
+
+        _run(go())
+
+    def test_stt_extended_fields_filtered(self):
+        async def go():
+            from mlx_audio_tpu_torch.stt.models.base import STTOutput
+
+            server = _make_server()
+            seen = {}
+
+            class KnobSTT:
+                def generate(self, audio, language=None,
+                             chunk_duration=30.0, context=None):
+                    seen.update(language=language,
+                                chunk_duration=chunk_duration,
+                                context=context)
+                    return STTOutput(text="ok")
+
+            server.provider._models["knob-stt"] = KnobSTT()
+            wav = _wav(np.zeros(16000, np.float32), 16000)
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/transcriptions", data=_form(
+                    file=wav, model="knob-stt", language="de",
+                    chunk_duration="20.5", context="hotwords here",
+                    frame_threshold="25", max_tokens="64"))
+                assert r.status == 200
+            assert seen == {"language": "de", "chunk_duration": 20.5,
+                            "context": "hotwords here"}
+
+        _run(go())
+
+    def test_separations_endpoint(self):
+        async def go():
+            class _Res:
+                def __init__(self, vocals, sr):
+                    self.vocals = vocals
+                    self.sample_rate = sr
+
+            class _Cfg:
+                sample_rate = 16000
+
+            class FakeSeparator:
+                config = _Cfg()
+
+                def separate(self, audio):
+                    return _Res(np.asarray(audio) * 0.5, 16000)
+
+            server = _make_server()
+            server.provider._models["fake-sep"] = FakeSeparator()
+            wav = _wav(np.ones(8000, np.float32) * 0.2, 16000)
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/separations", data=_form(
+                    file=wav, model="fake-sep"))
+                assert r.status == 200
+                data = await r.json()
+                assert data["sample_rate"] == 16000
+                tgt, _ = _read(base64.b64decode(data["target"]))
+                res, _ = _read(base64.b64decode(data["residual"]))
+                assert abs(float(np.abs(tgt).mean()) - 0.1) < 0.01
+                assert abs(float(np.abs(res).mean()) - 0.1) < 0.01
+                r = await client.post("/v1/audio/separations",
+                                      data=_form(model="fake-sep"))
+                assert r.status == 400
+                r = await client.post("/v1/audio/separations", data=_form(
+                    file=wav, model="nope"))
+                assert r.status == 404
+
+        _run(go())
+
+    def test_realtime_ws_manual_commit(self):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                ws = await client.ws_connect("/v1/realtime?model=fake-stt")
+                created = json.loads((await ws.receive()).data)
+                assert created["type"] == "session.created"
+                await ws.send_json({"type": "session.update", "session": {
+                    "turn_detection": None}})
+                updated = json.loads((await ws.receive()).data)
+                assert updated["type"] == "session.updated"
+                pcm = np.zeros(8000).astype("<i2").tobytes()
+                await ws.send_json({
+                    "type": "input_audio_buffer.append",
+                    "audio": base64.b64encode(pcm).decode()})
+                await ws.send_json({"type": "input_audio_buffer.commit"})
+                msg = json.loads((await ws.receive()).data)
+                assert msg["type"] == "input_audio_buffer.committed"
+                msg = json.loads((await ws.receive()).data)
+                assert msg["type"] == "conversation.item.added"
+                assert msg["item"]["role"] == "user"
+                msg = json.loads((await ws.receive()).data)
+                assert msg["type"].endswith("transcription.completed")
+                assert "heard" in msg["transcript"]
+                await ws.send_json({"type": "session.close"})
+                await ws.close()
+
+        _run(go())
+
+    def test_transcriptions_ws(self):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                ws = await client.ws_connect(
+                    "/v1/audio/transcriptions/realtime?model=fake-stt")
+                await ws.send_bytes(np.zeros(4000, dtype="<i2").tobytes())
+                await ws.send_json({"type": "commit"})
+                msg = json.loads((await ws.receive()).data)
+                assert msg == {"type": "transcription",
+                               "text": "heard 4000 samples"}
+                await ws.send_json({"type": "close"})
+                await ws.close()
+
+        _run(go())
+
+
+class TestStudioUI:
+    def test_index_and_assets(self):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                r = await client.get("/")
+                assert r.status == 200
+                assert "MLX Audio TPU Studio" in await r.text()
+                for asset, marker in (("style.css", "--accent"),
+                                      ("app.js", "/v1/audio/speech")):
+                    r = await client.get(f"/ui/{asset}")
+                    assert r.status == 200
+                    assert marker in await r.text()
+
+        _run(go())
+
+    def test_traversal_blocked(self):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                r = await client.get("/ui/%2e%2e/%2e%2e/server.py")
+                assert r.status == 404
+                r = await client.get("/ui/nope.js")
+                assert r.status == 404
+
+        _run(go())
+
+
+class TestServerConfig:
+    def test_cli_env_bridge(self, monkeypatch):
+        from mlx_audio_tpu_torch.server import _bridge_cli_env, parse_args
+
+        for var in ("MLX_AUDIO_ALLOWED_ORIGINS", "MLX_AUDIO_REALTIME_MODEL",
+                    "MLX_AUDIO_REALTIME_TRANSCRIPTION_DELAY_MS",
+                    "MLX_AUDIO_VAD_MODEL", "MLX_AUDIO_TTS_MAX_BATCH_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        args = parse_args([
+            "--allowed-origins", "https://a.com", "https://b.com",
+            "--realtime-model", "voxtral-rt",
+            "--realtime-transcription-delay-ms", "240",
+            "--vad-model", "silero", "--tts-max-batch-size", "8"])
+        assert args.device == "cuda"
+        _bridge_cli_env(args)
+        assert os.environ["MLX_AUDIO_ALLOWED_ORIGINS"] == \
+            "https://a.com,https://b.com"
+        assert os.environ["MLX_AUDIO_REALTIME_MODEL"] == "voxtral-rt"
+        assert os.environ[
+            "MLX_AUDIO_REALTIME_TRANSCRIPTION_DELAY_MS"] == "240"
+        assert os.environ["MLX_AUDIO_VAD_MODEL"] == "silero"
+        assert os.environ["MLX_AUDIO_TTS_MAX_BATCH_SIZE"] == "8"
+
+    def test_realtime_delay_forwarded_to_session(self, monkeypatch):
+        """The delay reaches create_streaming_session, on every turn's
+        session."""
+        async def go():
+            server = _make_server()
+            seen = []
+
+            class Session:
+                input_sample_rate = 16000
+                text = "x"
+                done = True
+
+                def feed(self, *a):
+                    pass
+
+                def step(self):
+                    return []
+
+                def close(self):
+                    pass
+
+            class RTModel:
+                def generate(self, audio, **kw):
+                    from mlx_audio_tpu_torch.stt.models.base import STTOutput
+
+                    return STTOutput(text="x")
+
+                def create_streaming_session(self, **kwargs):
+                    seen.append(kwargs)
+                    return Session()
+
+            server.provider._models["rt"] = RTModel()
+            monkeypatch.setenv(
+                "MLX_AUDIO_REALTIME_TRANSCRIPTION_DELAY_MS", "240")
+            async with _client(server) as client:
+                ws = await client.ws_connect("/v1/realtime?model=rt")
+                msg = await ws.receive_json()
+                assert msg["type"] == "session.created"
+                await ws.send_json({"type": "input_audio_buffer.commit"})
+                for _ in range(3):
+                    await ws.receive_json()
+                await ws.close()
+            assert seen == [{"transcription_delay_ms": 240}] * 2
+
+        _run(go())
+
+    def test_cors_headers(self, monkeypatch):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                r = await client.get(
+                    "/health", headers={"Origin": "http://studio.local"})
+                assert r.headers.get("Access-Control-Allow-Origin") == \
+                    "http://studio.local"
+                r2 = await client.get(
+                    "/health", headers={"Origin": "http://evil.example"})
+                assert "Access-Control-Allow-Origin" not in r2.headers
+                r3 = await client.options(
+                    "/v1/audio/speech",
+                    headers={"Origin": "http://studio.local"})
+                assert r3.status == 204
+
+        monkeypatch.setenv("MLX_AUDIO_ALLOWED_ORIGINS", "http://studio.local")
+        _run(go())
+
+    def test_tensor_parallel_refused(self, monkeypatch):
+        """The JAX server shards over N devices; the port refuses N > 1,
+        naming the ROADMAP item, rather than serve on one device."""
+        from mlx_audio_tpu_torch.server import AudioServer, ModelProvider
+
+        with pytest.raises(ValueError, match="queue 1, item 9"):
+            AudioServer(tensor_parallel=2, device="cpu")
+        monkeypatch.setenv("MLX_AUDIO_TPU_TENSOR_PARALLEL", "4")
+        with pytest.raises(ValueError, match="queue 1, item 9"):
+            ModelProvider(device="cpu")
+        monkeypatch.setenv("MLX_AUDIO_TPU_TENSOR_PARALLEL", "1")
+        assert ModelProvider(device="cpu").device.type == "cpu"
+
+    def test_unload_via_body(self):
+        async def go():
+            server = _make_server()
+            async with _client(server) as client:
+                r = await client.delete("/v1/models",
+                                        json={"model": "fake-tts"})
+                assert r.status == 200
+                assert (await r.json())["deleted"] is True
+                r2 = await client.delete("/v1/models?model=fake-tts")
+                assert r2.status == 404
+                r3 = await client.delete("/v1/models")
+                assert r3.status == 400
+
+        _run(go())
+
+    def test_server_defaults_to_cuda_and_raises_without_it(self, monkeypatch):
+        import torch
+
+        from mlx_audio_tpu_torch.server import AudioServer, main
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            AudioServer()
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            main(["--port", "0"])
+
+
+class TestServerLoadTTFA:
+    """8 concurrent streamed speech requests against a continuous-batching
+    model: all join the broker's session and the p50 time to first audio
+    stays under 0.5 s (tests/test_server.py::TestServerLoadTTFA)."""
+
+    def test_concurrent_speech_p50_ttfa(self, monkeypatch):
+        async def go():
+            import time as _t
+
+            server = _make_server()
+
+            class PacedSession:
+                def __init__(self, opts):
+                    self.opts = opts
+                    self.reqs = {}
+                    self.emitted = {}
+
+                @property
+                def idle(self):
+                    return not self.reqs
+
+                @property
+                def available_slots(self):
+                    return self.opts.max_batch_size - len(self.reqs)
+
+                def submit(self, request):
+                    self.reqs[request.request_id] = request
+                    self.emitted[request.request_id] = 0
+
+                def cancel(self, request_id):
+                    self.reqs.pop(request_id, None)
+
+                def fail(self, error):
+                    for r in self.reqs.values():
+                        r.emit_error(error)
+                        r.emit_done()
+                    self.reqs.clear()
+
+                def step(self):
+                    _t.sleep(0.02)
+                    done = []
+                    for rid, r in self.reqs.items():
+                        r.emit_data({"audio": np.zeros(4800, np.float32),
+                                     "sample_rate": 24000,
+                                     "is_final": False})
+                        self.emitted[rid] += 1
+                        if self.emitted[rid] >= 5:
+                            r.emit_done()
+                            done.append(rid)
+                    for rid in done:
+                        self.reqs.pop(rid)
+                    return []
+
+            class ContTTS:
+                sample_rate = 24000
+
+                def supports_tts_continuous_batch(self, **kwargs):
+                    return True
+
+                def create_tts_batch_session(self, opts):
+                    return PacedSession(opts)
+
+                def generate(self, text, **kwargs):
+                    yield _FakeResult(audio=np.zeros(4800, np.float32))
+
+            server.provider._models["cont-tts"] = ContTTS()
+            async with _client(server) as client:
+                async def one():
+                    t0 = _t.perf_counter()
+                    r = await client.post("/v1/audio/speech", json={
+                        "model": "cont-tts", "input": "load test",
+                        "stream": True, "response_format": "pcm"})
+                    assert r.status == 200
+                    ttfa, total = None, 0
+                    async for chunk in r.content.iter_chunked(4096):
+                        if ttfa is None and chunk:
+                            ttfa = _t.perf_counter() - t0
+                        total += len(chunk)
+                    return ttfa, total
+
+                results = await asyncio.gather(*[one() for _ in range(8)])
+            ttfas = sorted(t for t, _ in results)
+            assert all(total >= 5 * 4800 * 2 for _, total in results), results
+            p50 = ttfas[len(ttfas) // 2]
+            assert p50 < 0.5, f"p50 TTFA {p50:.3f}s (all: {ttfas})"
+
+        monkeypatch.setenv("MLX_AUDIO_TTS_MAX_BATCH_SIZE", "8")
+        _run(go())
+
+
+# ---------------------------------------------------------------------------
+# Real checkpoints, no fake models
+# ---------------------------------------------------------------------------
+
+
+def write_kokoro_checkpoint(path):
+    """A tiny Kokoro checkpoint in the published torch layout (weight-norm
+    pairs, LSTM suffixes, (1, C, 1) alphas, LayerNorm gamma/beta) that both
+    packages' loaders read, plus a voices/af_heart.safetensors pack."""
+    import dataclasses
+
+    from safetensors.numpy import save_file
+
+    from mlx_audio_tpu.tts.models.kokoro import Model
+    from mlx_audio_tpu.utils import flatten
+    from tiny_configs import tiny_kokoro_config
+
+    jm = Model(tiny_kokoro_config()).init_and_bind()
+    fake = {}
+    for k, v in flatten(jm.params).items():
+        v = np.asarray(v)
+        if ".forward." in k or ".backward." in k:
+            base, direction, name = k.rsplit(".", 2)
+            suffix = name + "_l0" + ("_reverse" if direction == "backward"
+                                     else "")
+            fake[f"{base}.{suffix}"] = v
+        elif k.endswith(".weight") and v.ndim == 3:
+            if ".pool." in k:
+                torch_w = np.transpose(np.flip(v, 0), (2, 1, 0))
+            elif "generator.ups" in k:
+                torch_w = np.transpose(np.flip(v, 0), (1, 2, 0))
+            else:
+                torch_w = np.transpose(v, (2, 1, 0))
+            if "noise_convs" in k or "F0_proj" in k or "N_proj" in k:
+                fake[k] = np.ascontiguousarray(torch_w)
+            else:
+                base = k[: -len(".weight")]
+                norm = np.sqrt((torch_w ** 2).sum(axis=(1, 2), keepdims=True))
+                fake[base + ".weight_v"] = np.ascontiguousarray(torch_w)
+                fake[base + ".weight_g"] = norm
+        elif ("alpha1" in k or "alpha2" in k) and v.ndim == 1:
+            fake[k] = v.reshape(1, -1, 1)
+        elif k.endswith("LayerNorm.weight"):
+            fake[k[: -len(".weight")] + ".gamma"] = v
+        elif k.endswith("LayerNorm.bias"):
+            fake[k[: -len(".bias")] + ".beta"] = v
+        else:
+            fake[k] = v
+    cfg = dataclasses.asdict(tiny_kokoro_config())
+    cfg["model_type"] = "kokoro"
+    (path / "config.json").write_text(json.dumps(cfg))
+    save_file(fake, str(path / "model.safetensors"))
+    (path / "voices").mkdir()
+    pack = (np.random.RandomState(0).randn(510, 1, 32) * 0.1).astype(
+        np.float32)
+    save_file({"af_heart": pack}, str(path / "voices" / "af_heart.safetensors"))
+
+
+@pytest.fixture(scope="module")
+def kokoro_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("kokoro_ckpt")
+    write_kokoro_checkpoint(d)
+    return str(d)
+
+
+class TestRealCheckpointE2E:
+    def test_speech_from_disk_checkpoint_matches_jax_server(self, kokoro_dir,
+                                                            monkeypatch):
+        """The same request to both packages' servers, each loading the
+        checkpoint through its own loader: the port's WAV decodes to the
+        JAX server's audio (noise off in both, their random streams
+        differ)."""
+        from mlx_audio_tpu.tts.models.kokoro import Model as JaxKokoro
+        from mlx_audio_tpu_torch.tts.models.kokoro import Model as Kokoro
+
+        for cls in (JaxKokoro, Kokoro):
+            call = cls.__call__
+            monkeypatch.setattr(
+                cls, "__call__",
+                lambda self, *a, _c=call, **k: _c(
+                    self, *a, **{**k, "deterministic_noise": True}))
+        request = {"model": kokoro_dir, "input": "end to end test",
+                   "voice": "af_heart", "response_format": "wav"}
+
+        async def go():
+            from aiohttp.test_utils import TestClient, TestServer
+
+            from mlx_audio_tpu.server import AudioServer as JaxServer
+            from mlx_audio_tpu_torch.server import AudioServer, create_app
+
+            bodies = []
+            jax_server = JaxServer()
+            for app in (jax_server.app,
+                        create_app(server=AudioServer(device="cpu"))):
+                async with TestClient(TestServer(app)) as client:
+                    r = await client.post("/v1/audio/speech", json=request)
+                    assert r.status == 200, await r.text()
+                    bodies.append(await r.read())
+            jax_server.broker.stop_and_join()
+            return bodies
+
+        want, got = _run(go())
+        assert got[:44] == want[:44]        # the same WAV header
+        (a, sr), (b, _) = _read(got), _read(want)
+        assert sr == 24000 and len(a) == len(b) > 1000
+        assert np.isfinite(a).all()
+        assert np.abs(a - b).max() <= AUDIO_REL * np.abs(b).max() + 2 / 32768
+
+    def test_router_loads_the_checkpoint_by_directory(self, kokoro_dir):
+        """Load by directory with no category (POST /v1/models), then list
+        its voices."""
+        async def go():
+            from mlx_audio_tpu_torch.server import AudioServer
+
+            server = AudioServer(device="cpu")
+            async with _client(server) as client:
+                r = await client.post("/v1/models",
+                                      json={"model": kokoro_dir})
+                assert r.status == 200
+                r = await client.get("/v1/audio/voices")
+                assert (await r.json())["voices"] == {
+                    kokoro_dir: ["af_heart"]}
+                r = await client.post("/v1/models",
+                                      json={"model": kokoro_dir + "-missing"})
+                assert r.status == 404
+                assert "never downloads" in (await r.json())["error"]
+            assert type(server.provider.get_cached(kokoro_dir)).__module__ \
+                .startswith("mlx_audio_tpu_torch.tts.models.kokoro")
+
+        _run(go())
+
+
+class TestPortServing:
+    """What the port's server adds to the JAX server's cases."""
+
+    def test_realtime_server_vad_events_match_jax(self, monkeypatch):
+        """/v1/realtime with server_vad, a scripted VAD and a streaming STT
+        session: both servers send the same events for the same audio
+        (speech_started, the pre-roll flushed into the session, deltas,
+        speech_stopped, the committed turn)."""
+        from test_vad import _FakeVad
+
+        probs = [0.1] * 4 + [0.9] * 8 + [0.0] * 20
+
+        class Ev:
+            def __init__(self, kind, text):
+                self.kind, self.text = kind, text
+
+        class Session:
+            def __init__(self):
+                self.fed = 0
+                self.closed = False
+
+            @property
+            def text(self):
+                return f"fed {self.fed}"
+
+            @property
+            def done(self):
+                return self.closed
+
+            def feed(self, pcm):
+                self.fed += len(pcm)
+
+            def step(self):
+                return [Ev("delta", f"+{self.fed}")] + (
+                    [Ev("final", f"final {self.fed}")] if self.closed
+                    else [])
+
+            def close(self):
+                self.closed = True
+
+        class RTModel:
+            def create_streaming_session(self):
+                return Session()
+
+        audio = (np.random.RandomState(0).randn(512 * len(probs)) * 3000
+                 ).astype("<i2")
+        monkeypatch.setenv("MLX_AUDIO_VAD_MODEL", "vad")
+
+        async def drive(server, app):
+            from aiohttp.test_utils import TestClient, TestServer
+
+            server.provider._models["rt"] = RTModel()
+            server.provider._models["vad"] = _FakeVad(probs)
+
+            async def _noload(name, category=None):
+                return server.provider._models[name]
+
+            server.provider.load = _noload
+            events = []
+            async with TestClient(TestServer(app)) as client:
+                ws = await client.ws_connect("/v1/realtime?model=rt")
+                events.append(await ws.receive_json())
+                for off in range(0, len(audio), 1600):
+                    await ws.send_json({
+                        "type": "input_audio_buffer.append",
+                        "audio": base64.b64encode(
+                            audio[off:off + 1600].tobytes()).decode()})
+                await ws.send_json({"type": "input_audio_buffer.clear"})
+                while True:
+                    events.append(await ws.receive_json())
+                    if events[-1]["type"] == "input_audio_buffer.cleared":
+                        break
+                await ws.close()
+            return events
+
+        async def go():
+            from mlx_audio_tpu.server import AudioServer as JaxServer
+            from mlx_audio_tpu_torch.server import AudioServer, create_app
+
+            jax_server = JaxServer()
+            want = await drive(jax_server, jax_server.app)
+            jax_server.broker.stop_and_join()
+            server = AudioServer(device="cpu")
+            got = await drive(server, create_app(server=server))
+            return want, got
+
+        want, got = _run(go())
+        for ev in want + got:
+            ev.get("session", {}).pop("id", None)
+        assert got == want
+        kinds = [e["type"] for e in got]
+        assert kinds.index("input_audio_buffer.speech_started") < \
+            kinds.index("input_audio_buffer.speech_stopped")
+        assert any(k.endswith("transcription.completed") for k in kinds)
+
+    def test_session_warmup_error_is_logged(self, caplog):
+        """A session whose warm-up raises still serves, and the error is
+        logged with its traceback (the JAX server swallows it)."""
+        from mlx_audio_tpu_torch.server import TTSExecutionAdapter
+        from mlx_audio_tpu_torch.server_inference import InferenceRequest
+
+        class Sess:
+            def warmup(self):
+                raise RuntimeError("warm-up broke")
+
+        class Model:
+            def create_tts_batch_session(self, opts):
+                return Sess()
+
+        server = _make_server()
+        server.provider._models["m"] = Model()
+        adapter = TTSExecutionAdapter(server.provider)
+        with caplog.at_level(logging.ERROR, "mlx_audio_tpu_torch.server"):
+            sess = adapter.create_continuous_batch_session(InferenceRequest(
+                endpoint_kind="tts", model_name="m", payload="x"))
+        server.close()
+        assert isinstance(sess, Sess)
+        (rec,) = caplog.records
+        assert "warm-up failed" in rec.getMessage() and rec.exc_info
+
+    def test_unported_option_answers_501(self):
+        """Qwen3-TTS voice cloning is not ported: a request with
+        ref_audio goes to the model's serial generate (never the session,
+        which would drop it) and answers 501 with the model's message."""
+        async def go():
+            from test_torch_qwen3_tts import _port
+
+            server = _make_server()
+            server.provider._models["q3"] = _port("tiny")
+            b64 = base64.b64encode(_wav(np.zeros(2400, np.float32),
+                                        24000)).decode()
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "q3", "input": "x", "ref_audio": b64})
+                assert r.status == 501
+                assert "voice cloning" in (await r.json())["error"]
+
+        _run(go())
+
+    def test_qwen3_speech_through_the_session(self):
+        """A text request to a Qwen3-TTS model with a tokenizer runs in the
+        broker's continuous-batching session and returns its audio."""
+        async def go():
+            from test_qwen3_tts_icl import FakeTokenizer
+            from test_torch_qwen3_tts import _port
+
+            server = _make_server()
+            model = _port("tiny")
+            model.tokenizer = FakeTokenizer()
+            server.provider._models["q3"] = model
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "q3", "input": "hello there", "max_tokens": 6,
+                    "temperature": 0.9, "response_format": "pcm"})
+                assert r.status == 200
+                body = await r.read()
+                assert [key[1] for key in server.broker._sessions] == ["q3"]
+            assert len(body) % (2 * model.total_upsample) == 0 and body
+
+        _run(go())
+
+    def test_core_answers_without_aiohttp(self):
+        """The request core on its own: the same speech and transcription
+        code that the routes wrap, called directly."""
+        async def go():
+            server = _make_server()
+            reply = await server.speech({"model": "fake-tts",
+                                         "input": "hello"})
+            audio, sr = _read(await reply.read())
+            reply = await server.transcribe(
+                {"model": "fake-stt", "response_format": "ndjson"},
+                _wav(np.zeros(800, np.float32), 16000))
+            lines = (await reply.read()).decode().splitlines()
+            server.close()
+            return audio, sr, lines
+
+        audio, sr, lines = _run(go())
+        assert sr == 24000 and len(audio) == 4800
+        assert json.loads(lines[0])["text"] == "heard 800 samples"
+
+
+# ---------------------------------------------------------------------------
+# Voice library
+# ---------------------------------------------------------------------------
+
+
+class TestVoiceLibrary:
+    def test_store_crud(self, tmp_path):
+        from mlx_audio_tpu_torch.voice_store import VoiceStore, VoiceStoreError
+
+        store = VoiceStore(tmp_path)
+        assert store.list() == []
+        wav = (0.1 * np.sin(np.linspace(0, 40, 24000))).astype(np.float32)
+        meta = store.save("Narrator A", wav, 24000, ref_text="hello there")
+        assert meta["duration_s"] == 1.0 and meta["ref_text"] == "hello there"
+        assert [v["name"] for v in store.list()] == ["Narrator A"]
+        got = store.load("Narrator A")
+        np.testing.assert_allclose(got, wav, atol=2e-4)
+        up = store.load("Narrator A", sample_rate=48000)
+        assert abs(len(up) - 48000) <= 4
+        assert store.resolve_ref("voice:Narrator A") == "Narrator A"
+        assert store.resolve_ref("/some/path.wav") is None
+        with pytest.raises(VoiceStoreError):
+            store.save("../evil", wav, 24000)
+        with pytest.raises(VoiceStoreError):
+            store.load("nope")
+        with pytest.raises(VoiceStoreError):
+            store.save("too short", wav[:100], 24000)
+        assert store.delete("Narrator A") and not store.delete("Narrator A")
+        assert store.list() == []
+
+    def test_store_files_match_jax_store(self, tmp_path):
+        """The port's store writes the JAX store's WAV bytes and metadata
+        keys, and each reads the other's voice back."""
+        from mlx_audio_tpu.voice_store import VoiceStore as JaxStore
+        from mlx_audio_tpu_torch.voice_store import VoiceStore
+
+        wav = (0.1 * np.sin(np.linspace(0, 40, 16000))).astype(np.float32)
+        JaxStore(tmp_path / "j").save("v", wav, 16000, ref_text="t")
+        VoiceStore(tmp_path / "p").save("v", wav, 16000, ref_text="t")
+        assert (tmp_path / "j" / "v.wav").read_bytes() == \
+            (tmp_path / "p" / "v.wav").read_bytes()
+        mj, mp = (json.loads((tmp_path / d / "v.json").read_text())
+                  for d in ("j", "p"))
+        assert mj.keys() == mp.keys() and mj["duration_s"] == mp["duration_s"]
+        np.testing.assert_array_equal(
+            VoiceStore(tmp_path / "j").load("v", sample_rate=24000),
+            np.asarray(JaxStore(tmp_path / "p").load("v", sample_rate=24000)))
+
+    def test_save_clone_replay_endpoints(self, tmp_path):
+        async def go():
+            from mlx_audio_tpu_torch.voice_store import VoiceStore
+
+            server = _make_server()
+            server.voices = VoiceStore(tmp_path)
+            seen = {}
+
+            class CloningTTS(FakeTTS):
+                def generate(self, text, ref_audio=None, ref_text=None,
+                             **kw):
+                    seen["ref_audio"] = ref_audio
+                    seen["ref_text"] = ref_text
+                    yield from FakeTTS.generate(self, text)
+
+            server.provider._models["fake-tts"] = CloningTTS()
+            ref = (0.2 * np.sin(np.linspace(0, 60, 16000))).astype(
+                np.float32)
+            b64 = base64.b64encode(_wav(ref, 16000)).decode()
+            async with _client(server) as client:
+                r = await client.post("/v1/audio/voices", json={
+                    "name": "my-voice", "audio": b64,
+                    "ref_text": "reference words"})
+                assert r.status == 201
+                assert (await r.json())["name"] == "my-voice"
+                r = await client.get("/v1/audio/voices")
+                names = [v["name"] for v in (await r.json())["custom"]]
+                assert names == ["my-voice"]
+                r = await client.get("/v1/audio/voices/my-voice")
+                assert r.status == 200
+                wav, sr = _read(await r.read())
+                assert sr == 16000 and len(wav) == 16000
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "fake-tts", "input": "clone me",
+                    "ref_audio": "voice:my-voice"})
+                assert r.status == 200
+                assert seen["ref_text"] == "reference words"
+                assert abs(len(seen["ref_audio"]) - 24000) <= 6
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "fake-tts", "input": "x",
+                    "ref_audio": "voice:ghost"})
+                assert r.status == 404
+                r = await client.post("/v1/audio/voices", json={"name": "x"})
+                assert r.status == 400
+                r = await client.post("/v1/audio/voices", json={
+                    "name": "x", "audio": "!!!notb64"})
+                assert r.status == 400
+                r = await client.delete("/v1/audio/voices/my-voice")
+                assert r.status == 200
+                r = await client.delete("/v1/audio/voices/my-voice")
+                assert r.status == 404
+
+        _run(go())
