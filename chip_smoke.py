@@ -19,7 +19,10 @@ behind every route, without aiohttp): Kokoro speech from a checkpoint
 loaded by directory through the `load_model` router, a burst of Qwen3-TTS
 requests through the broker's continuous-batching session, a Whisper
 transcription, and `/v1/realtime` with Silero's `server_vad` turn
-detection over Voxtral Realtime.
+detection over Voxtral Realtime; and voice cloning on the Mimi stack:
+Qwen3-TTS by ICL (a reference clip's Mimi codes in the prompt) and by the
+ECAPA x-vector, whole, streamed and through the server's voice library,
+and Sesame CSM-1B cloning a reference segment, whole and streamed.
 
     python3 chip_smoke.py
 
@@ -75,11 +78,12 @@ the CUDA toolkit. Phases, each of which raises on failure:
    phases came, a third request of 120 ids / 200 frames ran here; it was
    dropped to keep the run's time.)
 8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
-   10, 11, 21, 24 and 26 launched it with, run after phase 25 (the prefill
-   bucket, the code predictor's first sub-step, text_projection over the
-   text ids, the session's M = 8 and 16 decode frame and its burst prefill
-   at M = 8 x 16, Higgs's four shapes at M = 1 and 512, KugelAudio's five
-   at M = 2 and 1,024), 8-bit codes, x in f32 and bf16 (f32 at K =
+   10, 11, 21, 24, 26 and 28 launched it with, run after phase 25 (the
+   prefill bucket, the code predictor's first sub-step, text_projection
+   over the text ids, the session's M = 8 and 16 decode frame and its
+   burst prefill at M = 8 x 16, Higgs's four shapes at M = 1 and 512,
+   KugelAudio's five at M = 2 and 1,024, the ICL prefill at M = 512),
+   8-bit codes, x in f32 and bf16 (f32 at K =
    18,944 by the simt path's K tiles).
 9. Qwen3-TTS streaming on the small config at f32 from one seeded q8
    weight set, CUDA against the CPU path: the greedy streamed chunks (same
@@ -185,8 +189,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    `randn * 0.02` at seed 0, cache 1,024, temperature 0.7, top_p 0.95, RAS
    7/2; 250 frames in 16-frame chunks through `prefill` and `chunk`
    whatever `done` says, then the codec at `CodecConfig()` dims in bf16 on
-   the first 242 frames mod 1,024), a warm-up then best of 2 (3 until
-   the server phase came; cut to keep the run's time): wall, ms a
+   the first 242 frames mod 1,024), a warm-up then one timed run (best
+   of 3 until the server phase came, of 2 until the cloning phases came;
+   cut to keep the run's time): wall, ms a
    frame, xRT over 10 s, the prefill's and the codec's time, peak device
    memory, and from one profiled chunk the kernels a frame, device time
    and busy share against the frame's byte bound (1.72 ms). Then, after
@@ -267,6 +272,34 @@ the CUDA toolkit. Phases, each of which raises on failure:
    transcribing each turn (step latency p50 and p95), then one
    manual-commit turn. These launches join K1's and K2's counts in the
    `kernels` line.
+27. Voice cloning, run after phase 18, on the small configs at f32 from
+   one seeded weight set, CUDA against the CPU: Mimi (tests/test_codecs.py's
+   config) codes equal, whole and streamed decode within 1e-4; the ECAPA
+   x-vector (tests/test_qwen3_tts_icl.py's small encoders on phase 6's
+   Qwen3-TTS, dense); a greedy Qwen3-TTS ICL request (the [reference;
+   generated] codes handed to the codec equal, audio within 1e-4); a
+   greedy Sesame request cloning a reference segment
+   (tests/test_sesame_cloning.py's config; frames equal, audio whole and
+   streamed within 1e-4).
+28. Qwen3-TTS voice cloning on the q8 model of phases 6-11: the reference
+   encoder at `encoder_mimi_config(None)`'s published dims (32 quantizers
+   of 2,048 x 256, 16 valid) and the ECAPA at its default config, seeded,
+   f32. The encoder's latents and codes on a 2-s clip against the same
+   weights on the CPU, and the share of a 10-s clip's codes that TF32
+   would flip; the 10-s reference's encode and x-vector (cold, warm); the
+   ICL prefill alone at its 512-row bucket (120-character stand-in texts);
+   100 frames by ICL whole and streamed (time to first audio), 30 by the
+   x-vector alone, and one `AudioServer` speech request with
+   ref_audio="voice:clone" from its voice library (serial path, no
+   session; its WAV equal to generate()'s to 1 LSB). K2's launches each
+   against the config's count (the prefill's 197, then 722 a frame), K1
+   none; then K2, W8A8 and dense bf16 at the talker's shapes at M = 512.
+29. Sesame CSM-1B at `ModelConfig()` (bf16; its Mimi at mimi_202407(32) in
+   f32; codebook 0's EOS row zeroed so that the frames run): a 10-s
+   reference segment, 64 frames whole and streamed every 0.5 s (the same
+   frames; streamed audio within 1e-4 of whole): ms a frame, xRT, time to
+   first audio, and from two profiled frames the kernels and device time
+   a frame. Neither K1 nor K2 may launch in phases 27 and 29.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -316,7 +349,10 @@ def log(msg: str) -> None:
 
 
 def rel_err(a, b) -> float:
-    a, b = a.float(), b.float()
+    """max|a - b| / max|b| of two tensors or numpy arrays."""
+    import torch
+
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
@@ -2539,9 +2575,10 @@ HIGGS_I8_LOGITS_REL = 1e-1
 # voice-clone-like mask (rows 100-299 audio), so the prefill runs both paths
 HIGGS_K2_FRAMES = 32
 HIGGS_AUDIO_ROWS = (100, 300)
-# timed runs of each Higgs lane after its warm-up (3 until phase 26 came;
-# cut to keep the whole run near half its time limit)
-HIGGS_RUNS = 2
+# timed runs of each Higgs lane after its warm-up (3 until phase 26 came,
+# 2 until phases 27-29 came; cut to keep the whole run near half its time
+# limit)
+HIGGS_RUNS = 1
 
 
 class HiggsTok:
@@ -4208,6 +4245,527 @@ async def _server_realtime(server, card, voxtral):
     server.provider.unload("silero")
 
 
+
+# ---------------------------------------------------------------------------
+# Voice cloning on the Mimi stack (phases 27-29)
+# ---------------------------------------------------------------------------
+
+# tests/test_codecs.py::TestMimi's config (frame rate 1 kHz: 24 samples a
+# frame)
+MIMI_SMALL = dict(
+    seanet=dict(dimension=32, channels=1, causal=True, nfilters=4,
+                nresidual_layers=1, ratios=[4, 3], ksize=7, residual_ksize=3,
+                last_ksize=3, dilation_base=2, pad_mode="constant",
+                true_skip=True, compress=2),
+    transformer=dict(d_model=32, num_heads=4, num_layers=2, layer_scale=0.01,
+                     context=16, dim_feedforward=64),
+    quantizer_nq=4, quantizer_bins=64, quantizer_dim=16, sample_rate=24000,
+    frame_rate=1000.0)
+# tests/test_qwen3_tts_icl.py's TINY_ENCODER_CFG and TINY_SPK_CFG
+QWEN3_ENCODER_SMALL = dict(
+    hidden_size=16, num_filters=4, num_residual_layers=1,
+    upsampling_ratios=[4, 3], kernel_size=3, residual_kernel_size=3,
+    last_kernel_size=3, num_attention_heads=2, num_hidden_layers=1,
+    intermediate_size=32, sliding_window=16, num_quantizers=4,
+    codebook_size=64, codebook_dim=8, sampling_rate=24000,
+    frame_rate=24000 / (4 * 3 * 2))
+QWEN3_SPK_SMALL = dict(
+    mel_dim=128, enc_dim=32, enc_channels=[8, 8, 8, 16],
+    enc_kernel_sizes=[3, 3, 3, 1], enc_dilations=[1, 2, 3, 1],
+    enc_attention_channels=8, enc_res2net_scale=4, enc_se_channels=8)
+# tests/test_sesame_cloning.py's model (its Mimi: MIMI_SMALL at 40 bins)
+SESAME_SMALL = dict(
+    text_vocab_size=128, audio_vocab_size=40, audio_num_codebooks=4,
+    backbone_config=dict(hidden_size=32, num_hidden_layers=2,
+                         intermediate_size=64, num_attention_heads=4,
+                         num_key_value_heads=2, head_dim=8),
+    depth_decoder_config=dict(hidden_size=24, num_hidden_layers=1,
+                              intermediate_size=48, num_attention_heads=4,
+                              num_key_value_heads=2, head_dim=8))
+# CUDA against the CPU at f32 on the small configs: summation order only
+CLONE_REL = 1e-4
+# phase 28: a seeded 10-s reference clip and 120-character stand-in texts
+# (one id a character: a 512-row ICL prompt bucket); 100 frames whole and
+# streamed, fewer for the x-vector and the server's voice-library request
+ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 100, 30
+ICL_REF_TEXT = ("This reference clip was recorded for the voice cloning "
+                "check; its words are read back as the prompt's transcript.")
+ICL_TEXT = ("The cloned voice now reads a different sentence, long enough "
+            "to fill the prompt bucket the chip run is meant to measure.")
+ICL_STREAM_INTERVAL = 2.0
+ICL_SEED = 5
+# the Mimi reference encoder's codes on a 2-s clip, card against CPU
+ICL_CHECK_SECONDS = 2
+# phase 29: Sesame CSM-1B, 64 frames (5.12 s) whole and streamed every 0.5 s
+SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 64, 0.5, 3
+# frames under the profiler (about 9,000 kernels each)
+SESAME_PROFILE_FRAMES = 2
+SESAME_REF_TEXT = "A ten second reference segment for the cloned voice."
+SESAME_TEXT = "Sesame reads this sentence in the reference speaker's voice."
+
+
+class CharTok:
+    """A stand-in text tokenizer (none is in the repository): one id a
+    character, inside every text vocabulary here, as the tests' fakes."""
+
+    def encode(self, text):
+        return [ord(c) % 100 + 3 for c in text]
+
+
+def _clone_audio(seconds: float, seed: int):
+    import numpy as np
+
+    return (np.random.RandomState(seed).randn(int(seconds * 24000))
+            * 0.1).astype(np.float32)
+
+
+def _qwen3_clone_small(device: str):
+    """The small Qwen3-TTS of phase 6 with the small reference and speaker
+    encoders attached, dense f32 (no K2), seed 0."""
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.config import \
+        Qwen3TTSSpeakerEncoderConfig
+
+    cfg = qwen3_small_config()
+    cfg.tokenizer_config.encoder_config = dict(QWEN3_ENCODER_SMALL)
+    cfg.tokenizer_config.encoder_valid_num_quantizers = 4
+    cfg.speaker_encoder_config = Qwen3TTSSpeakerEncoderConfig(
+        **QWEN3_SPK_SMALL)
+    model = Model(cfg, device=device)
+    model.attach_ref_encoder()
+    model.attach_speaker_encoder()
+    model.init_params(seed=0)
+    model.tokenizer = Qwen3Tok()
+    return model
+
+
+def phase_clone_reference():
+    """Phase 27: the small configs at f32 from one seeded weight set, CUDA
+    against the CPU: Mimi codes (equal) and audio, whole and streamed; the
+    ECAPA x-vector; a greedy Qwen3-TTS ICL request (the codes handed to the
+    codec equal, audio); a greedy Sesame request cloning a reference
+    segment (frames equal, audio whole and streamed)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.mimi import Mimi, MimiConfig
+    from mlx_audio_tpu_torch.tts.models.sesame import Model as Sesame
+    from mlx_audio_tpu_torch.tts.models.sesame import ModelConfig as SCfg
+
+    t0 = time.perf_counter()
+    errs = {}
+    cpu = Mimi(MimiConfig(**MIMI_SMALL), device="cpu").init_params(seed=0)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    audio = _clone_audio(0.1, 1)[None]
+    codes = [m.encode(audio).cpu() for m in (cpu, gpu)]
+    if not torch.equal(*codes):
+        raise AssertionError(f"Mimi codes differ: "
+                             f"{(codes[0] != codes[1]).float().mean():.3%}")
+    whole = [m.decode(codes[0]).cpu() for m in (cpu, gpu)]
+    errs["Mimi decode"] = rel_err(whole[1], whole[0])
+    state = gpu.init_decode_stream_state(
+        1, codes[0].shape[-1] * gpu.downsample_stride)
+    parts = []
+    for a, b in ((0, 3), (3, 7), (7, codes[0].shape[-1])):
+        state, piece = gpu.decode_step(state, codes[0][:, :, a:b])
+        parts.append(piece.cpu())
+    errs["Mimi streamed decode"] = rel_err(torch.cat(parts, -1), whole[0])
+
+    q_cpu = _qwen3_clone_small("cpu")
+    q_gpu = copy.deepcopy(q_cpu).to("cuda")
+    q_gpu.tokenizer = Qwen3Tok()
+    ref = _clone_audio(0.2, 2)
+    xv = [m.extract_speaker_embedding(ref).cpu() for m in (q_cpu, q_gpu)]
+    errs["ECAPA x-vector"] = rel_err(xv[1], xv[0])
+    kw = dict(text="clone me", ref_audio=ref, ref_text="a reference",
+              temperature=0.0, max_tokens=12)
+    (rc, cc), (rg, cg) = (_codes_fed_to_codec(m, **kw)
+                          for m in (q_cpu, q_gpu))
+    if not torch.equal(cc, cg):
+        raise AssertionError(f"Qwen3 ICL codes differ:\n{cc}\n{cg}")
+    errs["Qwen3 ICL audio"] = rel_err(rg.audio, rc.audio)
+
+    s_cpu = Sesame(SCfg(**SESAME_SMALL), device="cpu").init_params(seed=0)
+    s_cpu.tokenizer = CharTok()
+    s_cpu.set_codec(Mimi(MimiConfig(**dict(MIMI_SMALL, quantizer_bins=40)),
+                         device="cpu").init_params(seed=1))
+    s_gpu = copy.deepcopy(s_cpu).to("cuda")
+    s_gpu.set_codec(copy.deepcopy(s_cpu._mimi).to("cuda"))
+    kw = dict(text="hello there", ref_audio=_clone_audio(0.05, 3),
+              ref_text="a reference", temperature=0.0,
+              max_audio_length_ms=1600)
+    (sc,), (sg,) = (list(m.generate(**kw)) for m in (s_cpu, s_gpu))
+    if not np.array_equal(sc.prompt["codes"], sg.prompt["codes"]):
+        raise AssertionError("Sesame greedy frames differ")
+    errs["Sesame audio"] = rel_err(sg.audio, sc.audio)
+    streamed = list(s_gpu.generate(stream=True, streaming_interval=0.2,
+                                   **kw))
+    errs["Sesame streamed audio"] = rel_err(
+        np.concatenate([r.audio for r in streamed]), sc.audio)
+    log(f"[clone reference] small configs f32, CUDA vs CPU: Mimi codes "
+        f"{tuple(codes[0].shape)} equal, Qwen3 ICL codes "
+        f"{tuple(cc.shape)} equal, Sesame frames "
+        f"{sc.prompt['codes'].shape} equal; rel err "
+        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+        + f" (tol {CLONE_REL:g}); {time.perf_counter() - t0:.1f} s")
+    for name, err in errs.items():
+        if not err <= CLONE_REL:
+            raise AssertionError(f"CUDA vs CPU {name}: rel {err:.3e}")
+
+
+def _tf32(on: bool):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def _sync_s(fn):
+    """(fn(), seconds with the card synchronised after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_qwen3_clone(model, card: str, recorder: K2Recorder,
+                      tmp: Path) -> int:
+    """Phase 28: voice cloning on the q8 Qwen3-TTS of phases 6-11 at the
+    qwen3_tts_1b7 lane's dims. Returns K2's launches; `recorder` gathers
+    the (M, out, in, has bias) they ran at."""
+    import asyncio
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.qwen3_tts import (
+        CACHE_BUCKETS, CHUNK_TOKENS, PROMPT_BUCKETS, _bucket)
+
+    t_phase = time.perf_counter()
+    k1_before = snake_conv_kernel.launches
+    enc = model.attach_ref_encoder().init_params(seed=1, on_device=True)
+    spk = model.attach_speaker_encoder().init_params(seed=2, on_device=True)
+    model.tokenizer = Qwen3Tok()
+    c = enc.config
+    log(f"[qwen3 clone] reference encoder: Mimi encoder at "
+        f"encoder_mimi_config(None) ({c.quantizer_nq} quantizers of "
+        f"{c.quantizer_bins} x {c.quantizer_dim}, "
+        f"{model.config.tokenizer_config.encoder_valid_num_quantizers} "
+        f"valid; {enc.num_params():,} params), ECAPA at the default "
+        f"config ({spk.num_params():,} params), both f32, seeded")
+    # the full-width encoder on the card against the same weights on the
+    # CPU, then the share of codes TF32 would flip
+    clip2 = _clone_audio(ICL_CHECK_SECONDS, 11)
+    enc_cpu = copy.deepcopy(enc).to("cpu")
+    got, want = enc.encode(clip2).cpu(), enc_cpu.encode(clip2)
+    lat = rel_err(enc.encode_to_latent(clip2).cpu(),
+                  enc_cpu.encode_to_latent(clip2))
+    del enc_cpu
+    same = float((got == want).float().mean())
+    clip = _clone_audio(ICL_REF_SECONDS, 12)
+    exact = enc.encode(clip)
+    _tf32(True)
+    try:
+        with torch.inference_mode():
+            loose = enc.quantizer_encode(enc._latent(clip))
+    finally:
+        _tf32(False)
+    flipped = float((loose != exact).float().mean())
+    flipped0 = float((loose[:, 0] != exact[:, 0]).float().mean())
+    log(f"[qwen3 clone] reference encoder on a {ICL_CHECK_SECONDS}-s clip, "
+        f"card (TF32 off in its scope) against the CPU: latents rel err "
+        f"{lat:.3e}, codes {tuple(got.shape)} equal {same:.2%}; on the "
+        f"{ICL_REF_SECONDS}-s clip with TF32 on, {flipped:.2%} of its codes "
+        f"differ ({flipped0:.2%} of book 0)")
+    if not (lat <= CLONE_REL and torch.equal(got, want)):
+        raise AssertionError(f"reference encoder card vs CPU: latents rel "
+                             f"{lat:.3e}, codes equal {same:.2%}")
+    # the 10-s reference's encode and x-vector, cold then warm
+    times = {}
+    for run in ("cold", "warm"):
+        codes, times[f"Mimi encode {run}"] = _sync_s(
+            lambda: model.encode_ref_audio(clip))
+        _, times[f"x-vector {run}"] = _sync_s(
+            lambda: model.extract_speaker_embedding(clip))
+    if codes.shape != (1, 16, ICL_REF_SECONDS * 25 // 2):
+        raise AssertionError(f"reference codes {tuple(codes.shape)}")
+
+    qmm_kernel.launches = 0
+    total = 0
+    results = {}
+    with recorder:
+        # the ICL prefill alone at its bucket, cold and warm
+        emb, _, _, _ = model.prepare_icl_inputs(ICL_TEXT, clip, ICL_REF_TEXT)
+        plen = emb.shape[1]
+        pb = _bucket(plen, PROMPT_BUCKETS)
+        cache_len = min(_bucket(pb + ICL_FRAMES + CHUNK_TOKENS,
+                                CACHE_BUCKETS), 4096)
+        emb = F.pad(emb, (0, 0, 0, pb - plen))
+        with torch.inference_mode():
+            for run in ("cold", "warm"):
+                _, times[f"prefill {run}"] = _sync_s(
+                    lambda: model._prefill(emb, plen, cache_len))
+        talker = k2_per_pass(model)[0]
+        total += 2 * talker + 3 * k2_per_pass(model)[2]
+        if pb != 512:
+            raise AssertionError(f"ICL prompt of {plen} rows: bucket {pb}")
+        # whole, streamed, x-vector only
+        runs = (("ICL whole", dict(ref_text=ICL_REF_TEXT), ICL_FRAMES, False),
+                ("ICL streamed", dict(ref_text=ICL_REF_TEXT), ICL_FRAMES,
+                 True),
+                ("x-vector", {}, ICL_SHORT_FRAMES, False))
+        for name, extra, frames, stream in runs:
+            before = qmm_kernel.launches
+            t1 = time.perf_counter()
+            out, ttfa = [], None
+            for r in model.generate(ICL_TEXT, ref_audio=clip,
+                                    temperature=0.9, max_tokens=frames,
+                                    seed=ICL_SEED, stream=stream,
+                                    streaming_interval=ICL_STREAM_INTERVAL,
+                                    **extra):
+                ttfa = ttfa or time.perf_counter() - t1
+                out.append(np.asarray(r.audio))
+            wall = time.perf_counter() - t1
+            launches = qmm_kernel.launches - before
+            total += launches
+            run = model.last_run
+            want = expected_k2_launches(model, run)
+            audio = np.concatenate(out)
+            n_frames = len(audio) // model.total_upsample
+            if launches != want or len(audio) % model.total_upsample or \
+                    not np.isfinite(audio).all() or not len(audio):
+                raise AssertionError(
+                    f"{name}: {launches} K2 launches (want {want}), "
+                    f"{len(audio)} samples, finite "
+                    f"{np.isfinite(audio).all()} ({run})")
+            results[name] = dict(wall=wall, ttfa=ttfa, frames=n_frames,
+                                 steps=run["decode_steps"],
+                                 bucket=run["prompt_bucket"],
+                                 launches=launches)
+            log(f"[qwen3 clone] {name}: prompt bucket "
+                f"{run['prompt_bucket']}, reference {run['ref_frames']} "
+                f"frames, {n_frames} frames generated ({run['decode_steps']} "
+                f"decode steps), {len(audio) / 24000:.2f} s of audio in "
+                f"{wall * 1e3:.2f} ms (xRT {len(audio) / 24000 / wall:.3f}, "
+                f"{wall * 1e3 / (run['decode_steps'] + 1):.2f} ms a frame"
+                + (f", first audio {ttfa * 1e3:.2f} ms" if stream else "")
+                + f"), {launches} K2 launches = config's count ({card})")
+        total += asyncio.run(_server_clone(model, card, clip, tmp))
+    if qmm_kernel.launches != total:
+        raise AssertionError(f"K2 launched {qmm_kernel.launches} times in "
+                             f"phase 28; the requests account for {total}")
+    if snake_conv_kernel.launches != k1_before:
+        raise AssertionError("K1 launched in phase 28")
+    log(f"[qwen3 clone] the {ICL_REF_SECONDS}-s reference's "
+        + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in times.items())
+        + f"; the ICL prefill runs {talker} K2 launches at M = {pb} ({card})")
+    # K2 against dense bf16 cuBLAS at the prefill's M, per talker shape
+    _linear_times(card, "qwen3 icl prefill", QWEN3_TALKER_SHAPES,
+                  QWEN3_TALKER_LINEARS, model.tcfg.num_hidden_layers,
+                  (pb,))
+    log(f"[time] phase 28 in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+# the talker layer's quantized linears by shape (out, in): q; k and v; o;
+# gate and up; down
+QWEN3_TALKER_SHAPES = ((2048, 1024), (1024, 1024), (1024, 2048),
+                       (3072, 1024), (1024, 3072))
+QWEN3_TALKER_LINEARS = (1, 2, 1, 2, 1)
+
+
+async def _server_clone(model, card, clip, tmp) -> int:
+    """One speech request through `AudioServer` with ref_audio
+    "voice:<name>" from its voice library (stored with its ref_text): the
+    adapter's serial generate, never the session; the WAV equal, to 1 LSB,
+    to the model's own generate() of the same request. -> K2 launches."""
+    import io
+
+    import numpy as np
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.voice_store import VoiceStore
+
+    server = AudioServer()          # device="cuda"
+    try:
+        server.voices = VoiceStore(tmp / "voices")
+        server.voices.save("clone", clip, 24000, ref_text=ICL_REF_TEXT)
+        server.provider._models["qwen3-clone"] = model
+        before = qmm_kernel.launches
+        t0 = time.perf_counter()
+        reply = await server.speech({
+            "model": "qwen3-clone", "input": ICL_TEXT,
+            "ref_audio": "voice:clone", "max_tokens": ICL_SHORT_FRAMES,
+            "temperature": 0.9, "seed": ICL_SEED})
+        body = await reply.read()
+        wall = time.perf_counter() - t0
+        launches = qmm_kernel.launches - before
+        if reply.status != 200:
+            raise AssertionError(f"clone speech: {reply.status} {body[:200]}")
+        if launches != expected_k2_launches(model, model.last_run) or \
+                server.broker._sessions:
+            raise AssertionError(f"clone speech: {launches} K2 launches, "
+                                 f"sessions {list(server.broker._sessions)}")
+    finally:
+        server.close()
+    ref = server.voices.load("clone", sample_rate=24000)
+    before = qmm_kernel.launches
+    (r,) = list(model.generate(ICL_TEXT, ref_audio=ref,
+                               ref_text=ICL_REF_TEXT,
+                               max_tokens=ICL_SHORT_FRAMES, temperature=0.9,
+                               seed=ICL_SEED))
+    launches += qmm_kernel.launches - before
+    buf = io.BytesIO()
+    audio_io.write(buf, np.asarray(r.audio), r.sample_rate, format="wav")
+    want = buf.getvalue()
+    diff = np.abs(np.frombuffer(body[44:], "<i2").astype(int)
+                  - np.frombuffer(want[44:], "<i2").astype(int))
+    if len(body) != len(want) or diff.max() > 1:
+        raise AssertionError(f"served clone WAV: {len(body)} vs {len(want)} "
+                             f"bytes, max diff {diff.max()} LSB")
+    log(f"[qwen3 clone] AudioServer speech with ref_audio=\"voice:clone\" "
+        f"(its stored ref_text): 200, {len(body) - 44} bytes of WAV in "
+        f"{wall * 1e3:.2f} ms through the serial path (no session), equal "
+        f"to generate() of the same request to {diff.max()} LSB ({card})")
+    return launches
+
+
+def build_sesame_full():
+    """Sesame CSM-1B at `ModelConfig()` (llama-1B backbone, llama-100M
+    depth decoder, 32 codebooks), drawn on the card from seed 0 and cast to
+    bf16; its Mimi at mimi_202407(32) in f32 from seed 1."""
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.mimi import Mimi, mimi_202407
+    from mlx_audio_tpu_torch.tts.models.sesame import Model, ModelConfig
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(), device="cuda").astype(torch.bfloat16)
+    model.init_params(seed=0, on_device=True)
+    mimi = Mimi(mimi_202407(32), device="cuda").init_params(seed=1,
+                                                             on_device=True)
+    model.set_codec(mimi)
+    model.tokenizer = CharTok()
+    with torch.no_grad():
+        # codebook 0's EOS row zeroed: its logit 0 stays out of the top 50
+        # of 2,051 random logits, so the frames run to the request's end
+        model.codebook0_head.weight[model.config.codebook_eos_token_id] = 0
+    torch.cuda.synchronize()
+    log(f"[sesame] CSM-1B {model.num_params():,} params bf16 and Mimi "
+        f"{mimi.num_params():,} params f32 on cuda, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def phase_sesame_full(card: str) -> dict:
+    """Phase 29: Sesame CSM-1B cloning a 10-s reference segment, 64 frames
+    whole then streamed (the same seed: the same frames, so the streamed
+    audio is held to the whole one), a warm-up first; then
+    SESAME_PROFILE_FRAMES frames under the profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    model = build_sesame_full()
+    ref = _clone_audio(ICL_REF_SECONDS, 13)
+    kw = dict(ref_audio=ref, ref_text=SESAME_REF_TEXT, temperature=0.9,
+              max_audio_length_ms=SESAME_FRAMES * 80, seed=SESAME_SEED)
+    list(model.generate(SESAME_TEXT, **dict(kw, max_audio_length_ms=320)))
+    out = {}
+    for mode in ("whole", "streamed"):
+        t0 = time.perf_counter()
+        res, ttfa = [], None
+        for r in model.generate(SESAME_TEXT, stream=mode == "streamed",
+                                streaming_interval=SESAME_INTERVAL, **kw):
+            ttfa = ttfa or time.perf_counter() - t0
+            res.append(r)
+        wall = time.perf_counter() - t0
+        audio = np.concatenate([np.asarray(r.audio) for r in res])
+        codes = res[-1].prompt["codes"]
+        out[mode] = dict(wall=wall, ttfa=ttfa, audio=audio, codes=codes,
+                         chunks=len(res), run=dict(model.last_run))
+    whole, streamed = out["whole"], out["streamed"]
+    if not (whole["codes"].shape == (SESAME_FRAMES, 32)
+            and np.array_equal(whole["codes"], streamed["codes"])):
+        raise AssertionError(f"Sesame frames {whole['codes'].shape}, "
+                             f"streamed equal "
+                             f"{np.array_equal(whole['codes'], streamed['codes'])}")
+    err = rel_err(streamed["audio"], whole["audio"])
+    n = SESAME_FRAMES * 1920
+    if not (len(whole["audio"]) == len(streamed["audio"]) == n
+            and np.isfinite(whole["audio"]).all() and err <= CLONE_REL):
+        raise AssertionError(f"Sesame audio: {len(whole['audio'])}, "
+                             f"{len(streamed['audio'])} samples (want {n}), "
+                             f"streamed vs whole rel {err:.3e}")
+    # SESAME_PROFILE_FRAMES frames under the profiler, after a prefill
+    tokens, mask = model.build_prompt(np.arange(10, 40))
+    sampler = model._sampler(0.9, 50, 0)
+    carry, _ = model.prefill(tokens, mask, sampler)
+    model.chunk(carry, SESAME_PROFILE_FRAMES, sampler)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.chunk(carry, SESAME_PROFILE_FRAMES, sampler)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    frame_ms = whole["wall"] * 1e3 / SESAME_FRAMES
+    dev_us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                       or getattr(e, "self_cuda_time_total", 0.0))
+                 for e in kernels)
+    per_frame = sum(e.count for e in kernels) / SESAME_PROFILE_FRAMES
+    plen = whole["run"]["prompt_len"]
+    log(f"[sesame] CSM-1B bf16 cloning a {ICL_REF_SECONDS}-s reference "
+        f"({plen} prompt rows), {SESAME_FRAMES} frames: whole "
+        f"{whole['wall'] * 1e3:.2f} ms ({frame_ms:.2f} ms a frame, xRT "
+        f"{n / 24000 / whole['wall']:.3f}); streamed every "
+        f"{SESAME_INTERVAL} s: {streamed['chunks']} chunks, first audio "
+        f"{streamed['ttfa'] * 1e3:.2f} ms, wall "
+        f"{streamed['wall'] * 1e3:.2f} ms, audio against whole rel "
+        f"{err:.3e}; profiled chunk: {per_frame:.0f} kernels a frame, "
+        f"{dev_us / 1e3 / SESAME_PROFILE_FRAMES:.2f} ms of device time a "
+        f"frame ({100 * dev_us / 1e3 / frame_ms / SESAME_PROFILE_FRAMES:.1f}% "
+        f"of the whole run's ms a frame); peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    log(f"[time] phase 29 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(frame_ms=frame_ms, kernels=per_frame)
+
+
+def phase_clone(model, card: str, recorder: K2Recorder) -> int:
+    """Phases 27-29; neither K1 nor K2 may launch in 27 and 29. Returns
+    phase 28's K2 launches."""
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    def counts():
+        return snake_conv_kernel.launches, qmm_kernel.launches
+
+    before = counts()
+    phase_clone_reference()
+    if counts() != before:
+        raise AssertionError("phase 27 launched K1 or K2")
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_qwen3_clone(model, card, recorder, Path(tmp))
+    before = counts()
+    phase_sesame_full(card)
+    if counts() != before:
+        raise AssertionError("phase 29 launched K1 or K2")
+    return k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -4269,6 +4827,14 @@ def main() -> int:
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Cohere phases launched K1 or K2")
     log(f"[time] phases 1-18 and 26 in {time.perf_counter() - t_start:.1f} s")
+    # voice cloning on the Mimi stack: K2 in phase 28 only (the q8
+    # Qwen3-TTS of phases 6-11), neither kernel in phases 27 and 29
+    t_clone = time.perf_counter()
+    k2_launches += phase_clone(model, card, recorder)
+    torch.cuda.empty_cache()
+    log(f"[time] phases 27-29 in {time.perf_counter() - t_clone:.1f} s; "
+        f"phases 1-18, 26-29 in {time.perf_counter() - t_start:.1f} s")
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
     # Higgs Audio v2: dense bf16 and W8A8 (torch._int_mm) products in
     # phases 19-20, neither K1 nor K2; K2 in phase 21, on the affine-q8
     # backbone between phase 20's two lanes

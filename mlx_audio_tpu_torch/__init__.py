@@ -8,7 +8,9 @@ Hopper under `csrc/`, built on first use (see `ops/cuda_build.py`).
 
 Ported so far: Kokoro-82M text -> audio (`tts.models.kokoro`);
 Qwen3-TTS text ids -> audio, dense or 8/4-bit quantized, whole, streamed
-or continuously batched (`tts.models.qwen3_tts`); Whisper speech -> text
+or continuously batched, with voice cloning by ICL or by the x-vector
+(`tts.models.qwen3_tts`); the Mimi codec (`codec.models.mimi`) and Sesame
+CSM-1B on it (`tts.models.sesame`); Whisper speech -> text
 with timestamps, word timestamps and a streaming session
 (`stt.models.whisper`), its log-mel front end (`dsp.py`), WAV I/O
 (`audio_io.py`) and the STT CLI (`python -m mlx_audio_tpu_torch.stt.generate`);

@@ -1,2 +1,3 @@
 """TTS model families of the port (so far: kokoro, qwen3_tts, higgs_audio,
-kugelaudio, vibevoice, and the llama backbone of the last two)."""
+kugelaudio, vibevoice, sesame, and the llama backbone of the last
+three)."""

@@ -8,7 +8,19 @@ audio:
   directory's tokenizer, bound by `post_load_hook`) or `text_ids`, an
   optional `instruct` (a user-role prompt before the assistant's: instruct,
   CustomVoice and VoiceDesign) and `_prompt_static` (language, an optional
-  `spk_id` speaker; no speaker encoder);
+  `spk_id` speaker, or with `ref_audio` the speaker encoder's x-vector,
+  which bypasses the cache; :446-500);
+* voice cloning (:515-652, :1085-1204): `ref_audio` + `ref_text` build the
+  ICL prompt (`prepare_icl_inputs`: the reference transcript and the
+  target text over codec pads, then the reference clip's codes from the
+  Mimi reference encoder, `encode_ref_audio`, over tts pads, and the
+  x-vector in the codec prefix); `ref_audio` alone takes the x-vector
+  path. The whole path decodes [reference; generated] codes and cuts the
+  reference's samples off; the streamed path decodes the generated codes
+  only, as in JAX. The encoders (`attach_ref_encoder`,
+  `attach_speaker_encoder`, or `bind` of a state holding their weights)
+  stay in f32 whatever the talker's dtype, and run under
+  `mimi.exact_f32()`;
 * prefill over the right-padded prompt bucket into a cache sized for the
   request (:666-691, :1110-1111);
 * `_step0` samples the first frame from the prefill logits (:1440-1476);
@@ -41,14 +53,25 @@ Weights: `init_params(seed)` (random, the JAX package's distributions),
 `model_quant_predicate` turns the AR path's linears into quantized ones,
 whose forward on a CUDA tensor is kernel K2.
 
-Not ported yet (it raises NotImplementedError): voice cloning (ICL,
-speaker encoder). Text without a tokenizer raises ValueError: the
-tokenizer is read from the model directory only (`local_tokenizer`), never
-downloaded.
+Departures from the JAX package, each pinned by a test in
+tests/test_torch_qwen3_tts_icl.py:
+
+* the ICL reference cache is keyed by a digest of the clip's f32 samples
+  and `ref_text`, where JAX's key (ref_text, size, sum) hands a second clip
+  of the same length and sum the first clip's codes; it keeps the
+  ICL_CACHE_SIZE latest clips;
+* the whole path cuts exactly ref_frames x total_upsample samples (the
+  decoder returns T x total_upsample), where JAX's float cut
+  `int(ref_len / T * len(audio))` keeps one reference sample for some
+  lengths.
+
+Text without a tokenizer raises ValueError: the tokenizer is read from the
+model directory only (`local_tokenizer`), never downloaded.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass
 from functools import partial
@@ -64,8 +87,11 @@ from ....ops.sampling import apply_repetition_penalty, sample
 from ..base import (BatchGenerationResult, GenerationResult, format_duration,
                     local_tokenizer, peak_memory_gb)
 from .config import ModelConfig
+from .speaker_encoder import (SpeakerEncoder, sanitize_speaker_encoder,
+                              speaker_mel)
 from .speech_tokenizer import (STREAM_CACHE_LEN, SpeechTokenizer,
-                               init_stream_state, total_upsample)
+                               encoder_mimi_config, init_stream_state,
+                               total_upsample)
 from .talker import Talker
 
 MAX_CACHE_LEN = 4096
@@ -82,6 +108,10 @@ STEPS_AFTER_EOS = 1
 BLOCK = 8
 PEND = CHUNK_TOKENS + BLOCK
 MAX_DEC_BLOCKS = PEND // BLOCK
+# reference clips whose codes (and x-vector) the ICL cache keeps
+ICL_CACHE_SIZE = 16
+REF_ENCODER = "speech_tokenizer.encoder."
+SPEAKER_ENCODER = "speaker_encoder."
 
 
 def _run(steps):
@@ -172,6 +202,7 @@ class Model(TorchModel):
         self.requires_grad_(False)
         self.eval()
         self._prompt_cache: Dict[tuple, tuple] = {}
+        self._icl_cache: Dict[tuple, tuple] = {}
         self._text_projection_calls = 0
         # the text tokenizer, bound by post_load_hook (None: text_ids only)
         self.tokenizer = None
@@ -199,12 +230,110 @@ class Model(TorchModel):
             "codec_head"))
 
     def bind(self, state) -> "Model":
+        """Bind a torch-layout state; a state holding reference-encoder or
+        speaker-encoder weights attaches those encoders first."""
+        if any(k.startswith(REF_ENCODER) for k in state):
+            self.attach_ref_encoder()
+        if any(k.startswith(SPEAKER_ENCODER) for k in state):
+            self.attach_speaker_encoder()
         self._prompt_cache.clear()
+        self._icl_cache.clear()
         return super().bind(state)
 
     def init_params(self, seed: int = 0, on_device: bool = False) -> "Model":
         self._prompt_cache.clear()
+        self._icl_cache.clear()
         return super().init_params(seed, on_device=on_device)
+
+    def astype(self, dtype) -> "Model":
+        """Cast the talker and the codec decoder; the reference and speaker
+        encoders stay in f32 (a clip is encoded once a request, and its
+        codes are an argmin)."""
+        keep = {id(p) for m in (self._ref_encoder(), self._speaker_encoder())
+                if m is not None for p in m.parameters()}
+        for p in self.parameters():
+            if p.is_floating_point() and id(p) not in keep:
+                p.data = p.data.to(dtype)
+        self._prompt_cache.clear()
+        return self
+
+    # ------------------------------------------------------------------
+    # reference encoders (voice cloning, :515-561)
+    # ------------------------------------------------------------------
+
+    def _ref_encoder(self):
+        return self.speech_tokenizer._modules.get("encoder")
+
+    def _speaker_encoder(self):
+        return self._modules.get("speaker_encoder")
+
+    @property
+    def has_ref_encoder(self) -> bool:
+        return self._ref_encoder() is not None
+
+    @property
+    def has_speaker_encoder(self) -> bool:
+        return self._speaker_encoder() is not None
+
+    def attach_ref_encoder(self):
+        """Build the Mimi reference encoder (encode path only, f32) from the
+        tokenizer's `encoder_config` (None: the published dims) under
+        `speech_tokenizer.encoder`, unless one is attached. Its weights are
+        then bound, drawn by `init_params` or loaded by `load_jax_params`."""
+        enc = self._ref_encoder()
+        if enc is None:
+            from ....codec.models.mimi import Mimi
+
+            enc = Mimi(encoder_mimi_config(
+                self.config.tokenizer_config.encoder_config),
+                device=self.device, decoder=False)
+            self.speech_tokenizer.encoder = enc
+            self._icl_cache.clear()
+        return enc
+
+    def attach_speaker_encoder(self) -> SpeakerEncoder:
+        """Build the ECAPA speaker encoder (f32) at the config's
+        `speaker_encoder_config` under `speaker_encoder`, unless one is
+        attached."""
+        spk = self._speaker_encoder()
+        if spk is None:
+            with torch.device(self.device):
+                spk = SpeakerEncoder(self.config.speaker_encoder_config)
+            spk.requires_grad_(False)
+            self.speaker_encoder = spk
+            self._icl_cache.clear()
+        return spk
+
+    def _get_ref_encoder(self):
+        enc = self._ref_encoder()
+        if enc is None:
+            raise ValueError(
+                "this checkpoint has no speech-tokenizer encoder; ICL voice "
+                "cloning is unavailable")
+        return enc
+
+    def encode_ref_audio(self, ref_audio) -> torch.Tensor:
+        """A 24 kHz waveform -> codes (1, valid_nq, T) int64 on the device:
+        the first encoder_valid_num_quantizers books of the reference
+        encoder's."""
+        valid_nq = self.config.tokenizer_config.encoder_valid_num_quantizers
+        codes = self._get_ref_encoder().encode(
+            np.asarray(ref_audio, np.float32).reshape(1, -1))
+        return codes[:, :valid_nq]
+
+    @torch.inference_mode()
+    def extract_speaker_embedding(self, audio) -> torch.Tensor:
+        """A reference clip -> its x-vector (1, enc_dim), f32 on the
+        device."""
+        from ....codec.models.mimi import exact_f32
+
+        spk = self._speaker_encoder()
+        if spk is None:
+            raise ValueError("speaker encoder not available for this model")
+        with exact_f32():
+            mels = speaker_mel(audio, sample_rate=self.config.sample_rate,
+                               device=self.device)
+            return spk(mels)
 
     def sanitize(self, weights: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """Map a published torch-layout checkpoint onto this model's names.
@@ -213,10 +342,15 @@ class Model(TorchModel):
         through; per-group code-predictor tables are stacked into
         (G-1, V, D). The codec's convolutions keep their torch layout;
         its codebooks are rebuilt from embedding_sum / cluster_usage
-        (:165-189). Encoder and speaker-encoder keys are dropped."""
+        (:165-189). The reference encoder's HF keys map onto the Mimi tree
+        under `speech_tokenizer.encoder` (`_sanitize_ref_encoder`) and the
+        speaker encoder's pass through (:143-192); `bind` attaches both
+        when the state holds them."""
         import re
 
         out: Dict[str, np.ndarray] = {}
+        out.update(self._sanitize_ref_encoder(weights))
+        out.update(sanitize_speaker_encoder(weights))
         codebooks: Dict[str, dict] = {}
         groups: Dict[str, Dict[int, np.ndarray]] = {}
         stacked = re.compile(r"^(talker\.code_predictor\.(?:model\."
@@ -244,6 +378,34 @@ class Model(TorchModel):
         for base, table in groups.items():
             out[f"{base}.weight"] = np.stack([table[i] for i in sorted(table)])
         return out
+
+    def _sanitize_ref_encoder(self, weights) -> Dict[str, np.ndarray]:
+        """The reference encoder's HF keys (bare `encoder.*`, or
+        `speech_tokenizer.encoder.*` as the loader merges the published
+        speech_tokenizer/ folder) -> `speech_tokenizer.encoder.<Mimi
+        tree>` (:224-333). Under `encoder.` they are an HF `MimiModel`'s
+        names, so the Mimi's own mapping applies (`sanitize_mimi`, its
+        SEANet index maps from this config's `encoder_config`; q/k/v fused;
+        codebooks rebuilt from cluster_usage / embedding_sum); the
+        quantizer's output projections, which encoding does not use, are
+        dropped. Kernels keep torch's layouts."""
+        from ....codec.models.mimi.mimi import sanitize_mimi
+
+        enc = {}
+        for k, w in weights.items():
+            if k.startswith(REF_ENCODER):
+                k = k[len("speech_tokenizer."):]
+            if k.startswith("encoder."):
+                # the codebooks sit under `vq.layers` or `layers`
+                enc[k[len("encoder."):].replace(
+                    "_vector_quantizer.vq.layers.",
+                    "_vector_quantizer.layers.")] = w
+        if not enc:
+            return {}
+        seanet = encoder_mimi_config(
+            self.config.tokenizer_config.encoder_config).seanet
+        return {REF_ENCODER + k: v
+                for k, v in sanitize_mimi(enc, seanet, decoder=False).items()}
 
     @classmethod
     def post_load_hook(cls, model: "Model", model_path) -> "Model":
@@ -290,21 +452,23 @@ class Model(TorchModel):
                        text_ids: Optional[np.ndarray] = None,
                        language: str = "auto",
                        speaker: Optional[str] = None,
-                       instruct: Optional[str] = None
+                       instruct: Optional[str] = None,
+                       ref_audio=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """-> (input_embeds (1, P, D), trailing text (1, T, D), pad embed).
 
         `text` goes through the chat template
         (`<|im_start|>assistant\\n ... <|im_end|>\\n<|im_start|>assistant\\n`)
         and the tokenizer; `text_ids` are such ids already. `instruct`
-        prepends a user-role prompt (instruct, CustomVoice, VoiceDesign)."""
+        prepends a user-role prompt (instruct, CustomVoice, VoiceDesign);
+        `ref_audio` puts its x-vector where a speaker's embedding goes."""
         if text_ids is None:
             text_ids = self._encode(f"<|im_start|>assistant\n{text}<|im_end|>\n"
                                     f"<|im_start|>assistant\n")
         text_ids = np.asarray(text_ids).reshape(1, -1)
         text_embed = self._embed_text_ids(text_ids)
         combined, codec_last, tts_eos, tts_pad = self._prompt_static(
-            language, speaker)
+            language, speaker, ref_audio)
         parts = [text_embed[:, :3], combined]
         if instruct:
             parts.insert(0, self._embed_text_ids(self._encode(
@@ -314,38 +478,37 @@ class Model(TorchModel):
         trailing = torch.cat([text_embed[:, 4:-5], tts_eos], dim=1)
         return input_embeds, trailing, tts_pad
 
-    def _prompt_static(self, language: str, speaker: Optional[str]):
+    def _prompt_static(self, language: str, speaker: Optional[str],
+                       ref_audio=None):
         """Text-independent prompt pieces, cached per (language, speaker):
         (combined (1, C-1, D) codec prefix summed with the tts pad/bos
-        embeds, codec_last (1, 1, D), tts_eos, tts_pad)."""
+        embeds, codec_last (1, 1, D), tts_eos, tts_pad). With `ref_audio`
+        and a speaker encoder, the clip's x-vector is the speaker embedding,
+        and the cache is neither read nor written."""
         cfg, tcfg = self.config, self.tcfg
         key = (language.lower(), (speaker or "").lower())
-        hit = self._prompt_cache.get(key)
-        if hit is not None:
-            return hit
+        if ref_audio is None:
+            hit = self._prompt_cache.get(key)
+            if hit is not None:
+                return hit
         tts = self._embed_text_ids([[cfg.tts_bos_token_id,
                                      cfg.tts_eos_token_id,
                                      cfg.tts_pad_token_id]])
         tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
         speaker_embed = None
-        if speaker and speaker.lower() in (tcfg.spk_id or {}):
+        if ref_audio is not None and self.has_speaker_encoder:
+            speaker_embed = self.extract_speaker_embedding(ref_audio).to(
+                tts.dtype)
+        elif speaker and speaker.lower() in (tcfg.spk_id or {}):
             speaker_embed = self._codec_embed(
                 np.asarray(tcfg.spk_id[speaker.lower()]).reshape(1, 1))
-        language_id = None
-        if language.lower() != "auto" and (tcfg.codec_language_id or {}):
-            language_id = tcfg.codec_language_id.get(language.lower())
+        language_id = self._language_id(language)
         if (language.lower() in ("chinese", "auto") and speaker
                 and (tcfg.spk_is_dialect or {}).get(speaker.lower())):
             dialect = tcfg.spk_is_dialect[speaker.lower()]
             if dialect in (tcfg.codec_language_id or {}):
                 language_id = tcfg.codec_language_id[dialect]
-        if language_id is None:
-            prefill = [tcfg.codec_nothink_id, tcfg.codec_think_bos_id,
-                       tcfg.codec_think_eos_id]
-        else:
-            prefill = [tcfg.codec_think_id, tcfg.codec_think_bos_id,
-                       language_id, tcfg.codec_think_eos_id]
-        parts = [self._codec_embed([prefill])]
+        parts = [self._codec_embed([self._codec_prefill_ids(language_id)])]
         if speaker_embed is not None:
             parts.append(speaker_embed.reshape(1, 1, -1))
         parts.append(self._codec_embed([[tcfg.codec_pad_id,
@@ -354,8 +517,92 @@ class Model(TorchModel):
         pads = tts_pad.expand(1, codec_embed.shape[1] - 2, -1)
         combined = torch.cat([pads, tts_bos], dim=1) + codec_embed[:, :-1]
         out = (combined, codec_embed[:, -1:], tts_eos, tts_pad)
-        self._prompt_cache[key] = out
+        if ref_audio is None:
+            self._prompt_cache[key] = out
         return out
+
+    def _language_id(self, language: str) -> Optional[int]:
+        tcfg = self.tcfg
+        if language.lower() != "auto" and (tcfg.codec_language_id or {}):
+            return tcfg.codec_language_id.get(language.lower())
+        return None
+
+    def _codec_prefill_ids(self, language_id: Optional[int]) -> List[int]:
+        """The codec prefix's think / language ids (:636-645)."""
+        tcfg = self.tcfg
+        if language_id is None:
+            return [tcfg.codec_nothink_id, tcfg.codec_think_bos_id,
+                    tcfg.codec_think_eos_id]
+        return [tcfg.codec_think_id, tcfg.codec_think_bos_id, language_id,
+                tcfg.codec_think_eos_id]
+
+    def _icl_reference(self, ref_audio, ref_text: str):
+        """(ref codes (1, nq, T), ref text ids (1, R), x-vector (1, 1, D) or
+        None) of a reference clip, cached by a digest of its f32 samples and
+        ref_text (JAX's key, its length and sum, collides)."""
+        audio = np.ascontiguousarray(np.asarray(ref_audio, np.float32)
+                                     .reshape(-1))
+        key = (hashlib.sha256(audio.tobytes()).hexdigest(), ref_text)
+        hit = self._icl_cache.get(key)
+        if hit is not None:
+            return hit
+        codes = self.encode_ref_audio(audio)
+        ref_ids = self._encode(
+            f"<|im_start|>assistant\n{ref_text}<|im_end|>\n")[:, 3:-2]
+        xvec = (self.extract_speaker_embedding(audio).reshape(1, 1, -1)
+                if self.has_speaker_encoder else None)
+        while len(self._icl_cache) >= ICL_CACHE_SIZE:
+            self._icl_cache.pop(next(iter(self._icl_cache)))
+        self._icl_cache[key] = hit = (codes, ref_ids, xvec)
+        return hit
+
+    def prepare_icl_inputs(self, text: str, ref_audio, ref_text: str,
+                           language: str = "auto"
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+        """The ICL voice-clone prompt (:563-652): the role, the codec
+        prefix (with the x-vector when there is a speaker encoder), the
+        reference transcript and the target text plus tts EOS over codec
+        pads, then codec BOS and the reference clip's summed codec
+        embeddings over tts pads. -> (input_embeds (1, P, D), trailing
+        (1, 1, D) = tts pad, pad embed = tts pad, ref codes (1, nq, T))."""
+        cfg, tcfg = self.config, self.tcfg
+        if self.tokenizer is None:
+            raise ValueError("ICL voice cloning requires the text tokenizer")
+        ref_codes, ref_ids, xvec = self._icl_reference(ref_audio, ref_text)
+        target_ids = self._encode(
+            f"<|im_start|>assistant\n{text}<|im_end|>\n"
+            f"<|im_start|>assistant\n")
+        tts = self._embed_text_ids([[cfg.tts_bos_token_id,
+                                     cfg.tts_eos_token_id,
+                                     cfg.tts_pad_token_id]])
+        tts_bos, tts_eos, tts_pad = tts[:, 0:1], tts[:, 1:2], tts[:, 2:3]
+        text_embed = torch.cat([self._embed_text_ids(np.concatenate(
+            [ref_ids, target_ids[:, 3:-5]], axis=1)), tts_eos], dim=1)
+        # the codec side: BOS, then each reference frame's embeddings of
+        # code 0 (talker table) and codes 1..G-1 (code-predictor tables)
+        cp_emb = self.talker.code_predictor.model.codec_embedding.weight
+        ref_codec = self.talker.model.codec_embedding(ref_codes[:, 0])
+        for gi in range(tcfg.num_code_groups - 1):
+            ref_codec = ref_codec + cp_emb[gi][ref_codes[:, gi + 1]].to(
+                ref_codec.dtype)
+        codec_icl = torch.cat([self._codec_embed([[tcfg.codec_bos_id]]),
+                               ref_codec], dim=1)
+        codec_pad = self._codec_embed([[tcfg.codec_pad_id]])
+        icl_embed = torch.cat([text_embed + codec_pad, codec_icl + tts_pad],
+                              dim=1)
+        parts = [self._codec_embed([self._codec_prefill_ids(
+            self._language_id(language))])]
+        if xvec is not None:
+            parts.append(xvec.to(tts.dtype))
+        parts.append(self._codec_embed([[tcfg.codec_pad_id,
+                                         tcfg.codec_bos_id]]))
+        codec_prefix = torch.cat(parts, dim=1)
+        pads = tts_pad.expand(1, codec_prefix.shape[1] - 2, -1)
+        combined = torch.cat([pads, tts_bos], dim=1) + codec_prefix[:, :-1]
+        input_embeds = torch.cat([self._embed_text_ids(target_ids[:, :3]),
+                                  combined, icl_embed], dim=1)
+        return input_embeds, tts_pad, tts_pad, ref_codes
 
     # ------------------------------------------------------------------
     # generation
@@ -445,13 +692,29 @@ class Model(TorchModel):
             yield
         return carry, codes_seq, fins
 
-    def _begin(self, text, text_ids, language, speaker, instruct, max_tokens,
-               sampler, suppress):
-        """Prompt, prefill and step 0 -> (carry, first codes (1, G),
-        trailing, tl, pad_embed, prompt bucket)."""
-        input_embeds, trailing, pad_embed = self.prepare_inputs(
+    def _prompt(self, text, text_ids, language, speaker, instruct,
+                ref_audio, ref_text):
+        """-> (input_embeds, trailing, pad_embed, ref codes or None): the ICL
+        prompt for ref_audio + ref_text (:1085-1100), else prepare_inputs
+        (with ref_audio, its x-vector)."""
+        if ref_audio is not None and ref_text is not None:
+            return self.prepare_icl_inputs(text, ref_audio, ref_text,
+                                           language=language)
+        if ref_audio is not None and not self.has_speaker_encoder:
+            raise ValueError(
+                "ref_audio was passed but this checkpoint has no speaker "
+                "encoder; pass ref_text as well for ICL voice cloning "
+                "(requires the tokenizer encoder) or drop ref_audio")
+        return self.prepare_inputs(
             text=text, text_ids=text_ids, language=language, speaker=speaker,
-            instruct=instruct)
+            instruct=instruct, ref_audio=ref_audio) + (None,)
+
+    def _begin(self, text, text_ids, language, speaker, instruct, max_tokens,
+               sampler, suppress, ref_audio=None, ref_text=None):
+        """Prompt, prefill and step 0 -> (carry, first codes (1, G),
+        trailing, tl, pad_embed, prompt bucket, ref codes or None)."""
+        input_embeds, trailing, pad_embed, ref_codes = self._prompt(
+            text, text_ids, language, speaker, instruct, ref_audio, ref_text)
         plen = input_embeds.shape[1]
         pb = _bucket(plen, PROMPT_BUCKETS)
         input_embeds = torch.nn.functional.pad(input_embeds,
@@ -470,7 +733,7 @@ class Model(TorchModel):
         carry, first_codes = self._step0(logits0, hidden0, caches, trailing,
                                          tl, pad_embed, plen, sampler,
                                          suppress)
-        return carry, first_codes, trailing, tl, pad_embed, pb
+        return carry, first_codes, trailing, tl, pad_embed, pb, ref_codes
 
     def generate(self, text: Optional[str] = None, *,
                  text_ids: Optional[np.ndarray] = None,
@@ -493,10 +756,9 @@ class Model(TorchModel):
         `voice` aliases `speaker` and `lang_code` `language`; text with
         several `split_pattern` segments yields each segment's results in
         turn (seed + segment index); `speed` is accepted and not used, as
-        in the JAX package."""
-        if ref_audio is not None or ref_text is not None:
-            raise NotImplementedError(
-                "voice cloning (ICL, speaker encoder) is not ported yet")
+        in the JAX package. `ref_audio` (a 24 kHz clip) with `ref_text`
+        clones its voice by ICL; `ref_audio` alone by its x-vector (a
+        checkpoint without a speaker encoder raises ValueError)."""
         if text_ids is not None and np.asarray(text_ids).ndim == 2 \
                 and np.asarray(text_ids).shape[0] > 1:
             raise NotImplementedError(
@@ -513,6 +775,7 @@ class Model(TorchModel):
                     for r in self.generate(
                             seg, speaker=speaker, language=language,
                             split_pattern=None, instruct=instruct,
+                            ref_audio=ref_audio, ref_text=ref_text,
                             temperature=temperature, top_k=top_k,
                             top_p=top_p,
                             repetition_penalty=repetition_penalty,
@@ -537,12 +800,13 @@ class Model(TorchModel):
             yield from self._stream_generate(
                 text, text_ids, language, speaker, instruct, max_tokens,
                 sampler, suppress, repetition_penalty, streaming_interval,
-                tp_before)
+                tp_before, ref_audio, ref_text)
             return
         with torch.inference_mode():
-            carry, first_codes, trailing, tl, pad_embed, pb = self._begin(
-                text, text_ids, language, speaker, instruct, max_tokens,
-                sampler, suppress)
+            carry, first_codes, trailing, tl, pad_embed, pb, ref_codes = \
+                self._begin(text, text_ids, language, speaker, instruct,
+                            max_tokens, sampler, suppress, ref_audio,
+                            ref_text)
             finished = bool(carry.finished.all())
             # a first frame whose code 0 is EOS ends the request with no
             # audio (EOS lies past the codec's codebooks), as the stream
@@ -570,16 +834,23 @@ class Model(TorchModel):
                     finished = True
                 gen_codes.append(codes_np[:n_new])
                 total_tokens += n_new
+            ref_len = 0 if ref_codes is None else ref_codes.shape[-1]
             if gen_codes:
                 codes = np.concatenate(gen_codes, axis=0).T[None]  # (1, G, T)
-                audio = self.speech_tokenizer.decoder(
-                    torch.as_tensor(codes, device=self.device))[0]
+                dec_codes = torch.as_tensor(codes, device=self.device)
+                if ref_len:
+                    # decode [reference; generated] and cut the reference's
+                    # samples, exactly ref_len frames of them (:1188-1204)
+                    dec_codes = torch.cat([ref_codes, dec_codes], dim=-1)
+                audio = self.speech_tokenizer.decoder(dec_codes)[0]
+                audio = audio[ref_len * self.total_upsample:]
                 audio = audio.float().cpu().numpy()
             else:
                 codes = np.zeros((1, self.tcfg.num_code_groups, 0), np.int64)
                 audio = np.zeros((0,), np.float32)
         self.last_run = {
             "prompt_bucket": pb, "step0": 1, "decode_steps": steps,
+            "ref_frames": ref_len,
             "text_projection_calls": self._text_projection_calls - tp_before}
         dur = len(audio) / self.sample_rate
         yield self._result(audio, 0, codes.shape[-1], time.time() - t_start,
@@ -588,7 +859,8 @@ class Model(TorchModel):
     @torch.inference_mode()
     def _stream_generate(self, text, text_ids, language, speaker, instruct,
                          max_tokens, sampler, suppress, repetition_penalty,
-                         streaming_interval, tp_before):
+                         streaming_interval, tp_before, ref_audio=None,
+                         ref_text=None):
         """Streaming decode over the fused AR + codec superstep
         (_stream_generate, :1209-1314): one dispatch and one read per
         chunk. The JAX host reads chunk N once chunk N+1 is enqueued, which
@@ -597,12 +869,13 @@ class Model(TorchModel):
         also hands out every earlier chunk whose copy has landed (an event
         query, no wait), and reads the oldest with a wait only where the
         JAX host reads it. `_last_stream_stats` records the reads and the
-        host's total wait in them."""
+        host's total wait in them. An ICL request streams the generated
+        codes only (:1131-1135)."""
         spf = self.total_upsample
         t_seg = time.time()
-        carry, first_codes, trailing, tl, pad_embed, pb = self._begin(
-            text, text_ids, language, speaker, instruct, max_tokens, sampler,
-            suppress)
+        carry, first_codes, trailing, tl, pad_embed, pb, ref_codes = \
+            self._begin(text, text_ids, language, speaker, instruct,
+                        max_tokens, sampler, suppress, ref_audio, ref_text)
         dec = self.speech_tokenizer.decoder
         dtype = next(dec.parameters()).dtype
         pending = torch.zeros(PEND, self.tcfg.num_code_groups,
@@ -700,6 +973,7 @@ class Model(TorchModel):
         self.last_run = {
             "prompt_bucket": pb, "step0": 1, "decode_steps": host["steps"],
             "codec_blocks": host["blocks"],
+            "ref_frames": 0 if ref_codes is None else ref_codes.shape[-1],
             "text_projection_calls": self._text_projection_calls - tp_before}
         yield result(tail, final=True)
 

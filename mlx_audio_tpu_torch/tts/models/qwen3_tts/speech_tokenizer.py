@@ -7,7 +7,9 @@ mlx_audio_tpu/tts/models/qwen3_tts/speech_tokenizer.py: `snake_beta`,
 `causal_tconv_step`, `split_rvq_decode`, the pre-transformer (sliding
 window, LayerScale) with and without caches, the ConvNeXt and residual
 units, `decode_full` (:358-379), `init_stream_state` (:390-456) and
-`streaming_step` (:459-497). Module names follow the JAX tree
+`streaming_step` (:459-497); and `encoder_mimi_config` (:504-548), the
+Mimi config of the reference encoder that ICL voice cloning encodes a
+clip with (the port's codec/models/mimi). Module names follow the JAX tree
 (`speech_tokenizer.decoder.<...>`); the convolutions hold torch layouts,
 converted from the JAX package's WIO / pre-flipped kernels by
 `model.load_jax_params`.
@@ -426,9 +428,50 @@ class Decoder(nn.Module):
 
 
 class SpeechTokenizer(nn.Module):
+    """`decoder`, and the Mimi reference `encoder` once a model attaches
+    one (`Model.attach_ref_encoder`)."""
+
     def __init__(self, cfg: Qwen3TTSTokenizerDecoderConfig):
         super().__init__()
         self.decoder = Decoder(cfg)
+
+
+def encoder_mimi_config(enc_cfg: Optional[dict]):
+    """The MimiConfig of the tokenizer's `encoder_config` dict (None: the
+    published defaults, 32 quantizers of 2,048 x 256 at 12.5 Hz). The
+    reference encoder (SEANet, projected transformer, a stride-2
+    downsample, split RVQ) is the Mimi encoder under other field names."""
+    from ....codec.models.mimi.mimi import MimiConfig
+
+    e = dict(enc_cfg or {})
+    return MimiConfig(
+        channels=e.get("audio_channels", 1),
+        sample_rate=e.get("sampling_rate", 24000),
+        frame_rate=e.get("frame_rate", 12.5),
+        seanet=dict(
+            dimension=e.get("hidden_size", 512),
+            channels=e.get("audio_channels", 1),
+            nfilters=e.get("num_filters", 64),
+            nresidual_layers=e.get("num_residual_layers", 1),
+            ratios=e.get("upsampling_ratios", [8, 6, 5, 4]),
+            ksize=e.get("kernel_size", 7),
+            residual_ksize=e.get("residual_kernel_size", 3),
+            last_ksize=e.get("last_kernel_size", 3),
+            dilation_base=e.get("dilation_growth_rate", 2),
+            pad_mode="constant",
+            true_skip=not e.get("use_conv_shortcut", False),
+            compress=e.get("compress", 2)),
+        transformer=dict(
+            d_model=e.get("hidden_size", 512),
+            num_heads=e.get("num_attention_heads", 8),
+            num_layers=e.get("num_hidden_layers", 8),
+            layer_scale=e.get("layer_scale_initial_scale", 0.01),
+            context=e.get("sliding_window", 250),
+            max_period=float(e.get("rope_theta", 10000.0)),
+            dim_feedforward=e.get("intermediate_size", 2048)),
+        quantizer_nq=e.get("num_quantizers", 32),
+        quantizer_bins=e.get("codebook_size", 2048),
+        quantizer_dim=e.get("codebook_dim", 256))
 
 
 def total_upsample(cfg: Qwen3TTSTokenizerDecoderConfig) -> int:

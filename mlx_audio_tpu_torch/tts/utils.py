@@ -1,6 +1,6 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
 checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS,
-Higgs Audio v2, KugelAudio, VibeVoice).
+Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM).
 
 `MODEL_REMAPPING` is the JAX package's registry of TTS model types, kept
 whole so that a type the port does not have yet is named as such; the
@@ -90,7 +90,8 @@ MODEL_REMAPPING = {
     "dramabox": "dramabox",
 }
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice")
+PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice",
+          "sesame")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",
@@ -101,8 +102,9 @@ def load_model(model_path: Union[str, Path], device="cuda",
 
     The weights are the published torch-layout checkpoint; the family's
     `sanitize` maps them onto the port's parameter names. Qwen3-TTS also
-    reads the codec from a `speech_tokenizer/` subfolder when there is one.
-    Qwen3-TTS, Higgs, KugelAudio and VibeVoice quantize per
+    reads the codec and the reference encoder (with its `encoder_config`)
+    from a `speech_tokenizer/` subfolder when there is one; Sesame builds
+    the Mimi its HF checkpoint embeds. Qwen3-TTS, Higgs, KugelAudio and VibeVoice quantize per
     config["quantization"] (each family's predicate; W8A8 with the opt-in),
     and read an HF tokenizer from the directory. The family comes from the
     config's model_type, else from the directory name's parts
@@ -125,6 +127,12 @@ def load_model(model_path: Union[str, Path], device="cuda",
         return _load_qwen3_tts(path, config, device)
     if family in ("higgs_audio", "kugelaudio", "vibevoice"):
         return _load_quantizable(family, path, config, device)
+    if family == "sesame":
+        from .models.sesame import Model, ModelConfig
+
+        model = Model(ModelConfig.from_dict(config), device=device)
+        model.bind(model.sanitize(load_weights(path)))
+        return Model.post_load_hook(model, path)
     from .models.kokoro import Model, ModelConfig
 
     model = Model(ModelConfig.from_dict(config), device=device)
@@ -142,6 +150,12 @@ def _load_qwen3_tts(path: Path, config: dict, device):
     if codec_dir.is_dir():
         weights.update({f"speech_tokenizer.{k}": v
                         for k, v in load_weights(codec_dir).items()})
+        tok = dict(config.get("tokenizer_config") or {})
+        if (codec_dir / "config.json").is_file() and \
+                not tok.get("encoder_config"):
+            enc = load_config(codec_dir).get("encoder_config")
+            if enc:
+                config["tokenizer_config"] = dict(tok, encoder_config=enc)
     model = Model(ModelConfig.from_dict(config), device=device)
     model.bind(model.sanitize(weights))
     apply_quantization(model, config, model.model_quant_predicate)

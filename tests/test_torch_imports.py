@@ -206,6 +206,46 @@ def test_tiny_qwen3_tts_generate_without_jax():
     assert out.strip() == "False []", out
 
 
+def test_tiny_voice_cloning_generate_without_jax():
+    """Voice cloning on the CPU at a tiny size, with no jax in sys.modules:
+    a Qwen3-TTS ICL request (the Mimi reference encoder and the ECAPA
+    x-vector), an x-vector-only one, and a Sesame request cloning a
+    reference segment through a Mimi codec, whole and streamed."""
+    out = _run("""
+        import sys
+        import numpy as np
+        from chip_smoke import (MIMI_SMALL, SESAME_SMALL, CharTok,
+                                _qwen3_clone_small)
+        from mlx_audio_tpu_torch.codec import Mimi
+        from mlx_audio_tpu_torch.tts.models.sesame import Model
+
+        ref = (np.random.RandomState(0).randn(2400) * 0.3).astype(np.float32)
+        qwen3 = _qwen3_clone_small("cpu")
+        (r,) = qwen3.generate("hi there", ref_audio=ref,
+                              ref_text="reference words", temperature=0.0,
+                              max_tokens=6)
+        assert qwen3.last_run["ref_frames"] == 100
+        assert r.samples == 6 * qwen3.total_upsample
+        (x,) = qwen3.generate("hi there", ref_audio=ref, temperature=0.0,
+                              max_tokens=6)
+        assert np.isfinite(r.audio).all() and np.isfinite(x.audio).all()
+        sesame = Model(SESAME_SMALL, device="cpu").init_params(seed=0)
+        sesame.tokenizer = CharTok()
+        sesame.set_codec(Mimi(dict(MIMI_SMALL, quantizer_bins=40),
+                              device="cpu").init_params(seed=1))
+        kw = dict(ref_audio=ref[:1200], ref_text="a reference",
+                  temperature=0.0, max_audio_length_ms=800)
+        (whole,) = sesame.generate("hello", **kw)
+        parts = list(sesame.generate("hello", stream=True,
+                                     streaming_interval=0.2, **kw))
+        streamed = np.concatenate([p.audio for p in parts])
+        assert whole.prompt["codes"].shape == (10, 4)
+        assert np.abs(streamed - whole.audio).max() < 1e-5
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
+    assert out.strip() == "False []", out
+
+
 def test_tiny_whisper_generate_and_cli_without_jax(tmp_path):
     """Whisper on the CPU at a tiny size from seeded weights: a WAV through
     `generate` with word timestamps, the streaming session, and a
@@ -451,12 +491,13 @@ def test_g2p_copy_matches_the_jax_package(text):
 def _entry_points():
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import server
+    from mlx_audio_tpu_torch.codec.models import mimi
     from mlx_audio_tpu_torch.stt import utils as stt_utils
     from mlx_audio_tpu_torch.stt.models import (cohere_asr, voxtral_realtime,
                                                 whisper)
     from mlx_audio_tpu_torch.tts import generate, utils
     from mlx_audio_tpu_torch.tts.models import (kokoro, kugelaudio, llama,
-                                                qwen3_tts, vibevoice)
+                                                qwen3_tts, sesame, vibevoice)
     from mlx_audio_tpu_torch.vad import utils as vad_utils
     from mlx_audio_tpu_torch.vad.models import silero_vad
 
@@ -479,6 +520,11 @@ def _entry_points():
                                  kugelaudio.ModelConfig())),
         "vibevoice.Model": (vibevoice.Model.__init__,
                             lambda p: vibevoice.Model(vibevoice.ModelConfig())),
+        "mimi.Mimi": (mimi.Mimi.__init__, lambda p: mimi.Mimi()),
+        "mimi.Mimi.from_pretrained": (mimi.Mimi.from_pretrained,
+                                      lambda p: mimi.Mimi.from_pretrained(p)),
+        "sesame.Model": (sesame.Model.__init__,
+                         lambda p: sesame.Model(sesame.ModelConfig())),
         "tts.utils.load_model": (utils.load_model,
                                  lambda p: utils.load_model(p)),
         "stt.utils.load_model": (stt_utils.load_model,
@@ -505,6 +551,8 @@ def _entry_points():
                                   "whisper.Model", "voxtral_realtime.Model",
                                   "cohere_asr.Model", "llama.Model",
                                   "kugelaudio.Model", "vibevoice.Model",
+                                  "mimi.Mimi", "mimi.Mimi.from_pretrained",
+                                  "sesame.Model",
                                   "tts.utils.load_model",
                                   "stt.utils.load_model",
                                   "mlx_audio_tpu_torch.load_model",

@@ -611,9 +611,19 @@ def test_init_params_sets_the_decoder_constants():
                                 dict(ref_audio=np.zeros(8), ref_text="hi"),
                                 dict(text_ids=np.ones((2, 20), int))])
 def test_unported_paths_raise(kw):
+    """Multi-row text_ids are not ported (NotImplementedError). Voice
+    cloning is (tests/test_torch_qwen3_tts_icl.py), and a model without
+    its parts raises ValueError as the JAX package does: ref_audio alone
+    needs a speaker encoder, ICL (with ref_text) the text tokenizer."""
     pm = _port("tiny")
     kw = {"text_ids": np.arange(10, 30)[None], **kw}
-    with pytest.raises(NotImplementedError):
+    if "ref_text" in kw:
+        exc, match = ValueError, "requires the text tokenizer"
+    elif "ref_audio" in kw:
+        exc, match = ValueError, "no speaker encoder"
+    else:
+        exc, match = NotImplementedError, "continuous-batching session"
+    with pytest.raises(exc, match=match):
         list(pm.generate(**kw))
 
 

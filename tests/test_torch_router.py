@@ -21,12 +21,14 @@ NAMES = ["Kokoro-82M", "prince-canuma/Kokoro-82M",
          "kugelaudio-0-open", "VibeVoice-Realtime-0.5B", "silero-vad",
          "silero_vad", "mel-band-roformer-vocals", "ecapa-tdnn-lid",
          "sortformer-4spk", "bark-small", "my_dir", "tts-tiny", "stt-x",
-         "parakeet-tdt-0.6b-v2", "canary-1b-flash", "smart-turn-v3"]
+         "parakeet-tdt-0.6b-v2", "canary-1b-flash", "smart-turn-v3",
+         "sesame/csm-1b"]
 
 MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
                "voxtral_realtime", "cohere_asr", "higgs_audio", "kugelaudio",
                "vibevoice_streaming", "silero_vad", "mel_band_roformer",
-               "ecapa_tdnn", "sortformer", "bark", "llama", "nonsense"]
+               "ecapa_tdnn", "sortformer", "bark", "llama", "csm", "sesame",
+               "nonsense"]
 
 
 @pytest.mark.parametrize("category", ["tts", "stt", "vad"])

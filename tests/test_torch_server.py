@@ -6,8 +6,9 @@ server's request core, driven by aiohttp's TestClient. Then what the port
 adds: a tiny Kokoro checkpoint on disk served by both packages' servers
 (the port's WAV held to the JAX server's), `/v1/realtime` with `server_vad`
 over scripted probabilities (the same events as the JAX server's), the
-session warm-up error logged, Qwen3-TTS voice cloning answered 501, the
-tensor-parallel refusal and the CPU device.
+session warm-up error logged, an unported option answered 501,
+Qwen3-TTS voice cloning (base64 and the voice library) answered with
+generate()'s audio, the tensor-parallel refusal and the CPU device.
 
 Tolerances: the served Kokoro audio within 1e-4 relative to its largest
 value (f32 on both sides, summation order only, as
@@ -889,23 +890,77 @@ class TestPortServing:
         assert "warm-up failed" in rec.getMessage() and rec.exc_info
 
     def test_unported_option_answers_501(self):
-        """Qwen3-TTS voice cloning is not ported: a request with
-        ref_audio goes to the model's serial generate (never the session,
-        which would drop it) and answers 501 with the model's message."""
+        """An option a model refuses with NotImplementedError (here a model
+        whose generate() says an option is not ported yet, as the port's
+        Qwen3-TTS does for multi-row text_ids) answers 501 with the model's
+        message. (Until Qwen3-TTS voice cloning was ported, this test sent
+        it a ref_audio request.)"""
         async def go():
-            from test_torch_qwen3_tts import _port
+            class Unported(FakeTTS):
+                def generate(self, text, instruct=None, **kwargs):
+                    if instruct:
+                        raise NotImplementedError(
+                            "instruct prompts are not ported yet")
+                    yield from FakeTTS.generate(self, text)
 
             server = _make_server()
-            server.provider._models["q3"] = _port("tiny")
-            b64 = base64.b64encode(_wav(np.zeros(2400, np.float32),
-                                        24000)).decode()
+            server.provider._models["fake-tts"] = Unported()
             async with _client(server) as client:
                 r = await client.post("/v1/audio/speech", json={
-                    "model": "q3", "input": "x", "ref_audio": b64})
+                    "model": "fake-tts", "input": "x", "instruct": "warm"})
                 assert r.status == 501
-                assert "voice cloning" in (await r.json())["error"]
+                assert "not ported yet" in (await r.json())["error"]
+                r = await client.post("/v1/audio/speech", json={
+                    "model": "fake-tts", "input": "x"})
+                assert r.status == 200
 
         _run(go())
+
+    def test_qwen3_voice_cloning_answers_200(self, tmp_path):
+        """Qwen3-TTS with ref_audio (base64 with ref_text, then
+        "voice:<name>" with the ref_text the library stored): 200 with the
+        PCM of the model's own generate() for the same request and seed,
+        through the serial path (no continuous-batching session)."""
+        from chip_smoke import _qwen3_clone_small
+        from mlx_audio_tpu_torch.voice_store import VoiceStore
+
+        model = _qwen3_clone_small("cpu")
+        ref = (np.random.RandomState(5).randn(2400) * 0.3).astype(np.float32)
+        wav = _wav(ref, 24000)
+        knobs = {"max_tokens": 6, "temperature": 0.9, "seed": 3,
+                 "response_format": "pcm"}
+
+        async def go():
+            server = _make_server()
+            server.voices = VoiceStore(tmp_path)
+            server.voices.save("narrator", ref, 24000,
+                               ref_text="reference words")
+            server.provider._models["q3"] = model
+            bodies = []
+            async with _client(server) as client:
+                for ref_audio, extra in (
+                        (base64.b64encode(wav).decode(),
+                         {"ref_text": "reference words"}),
+                        ("voice:narrator", {})):
+                    r = await client.post("/v1/audio/speech", json={
+                        "model": "q3", "input": "hello there",
+                        "ref_audio": ref_audio, **knobs, **extra})
+                    assert r.status == 200, await r.text()
+                    bodies.append(await r.read())
+                assert not server.broker._sessions
+            return bodies, server.voices.load("narrator", sample_rate=24000)
+
+        (b64_body, voice_body), stored = _run(go())
+        for body, clip in ((b64_body, _read(wav)[0]), (voice_body, stored)):
+            (want,) = model.generate("hello there", ref_audio=clip,
+                                     ref_text="reference words",
+                                     max_tokens=6, temperature=0.9, seed=3)
+            assert model.last_run["ref_frames"] > 0
+            pcm = np.frombuffer(body, "<i2").astype(int)
+            ref_pcm = np.clip(np.round(want.audio * 32768.0), -32768,
+                              32767).astype(int)
+            assert len(pcm) == len(ref_pcm) == 6 * model.total_upsample
+            assert np.abs(pcm - ref_pcm).max() <= 1
 
     def test_qwen3_speech_through_the_session(self):
         """A text request to a Qwen3-TTS model with a tokenizer runs in the

@@ -2,7 +2,8 @@
 CPU: tests/test_cli_flags.py::TestTTSFlags case for case, its flag
 surface held to the JAX CLI's, and `generate_audio` on a tiny Kokoro
 checkpoint written to disk, whose files equal the in-process model's
-audio as 16-bit WAV (the same model, the same seeded noise).
+audio as 16-bit WAV (the same model, the same seeded noise); then
+`--ref_audio/--ref_text` voice cloning on a tiny Qwen3-TTS checkpoint.
 """
 
 import numpy as np
@@ -109,4 +110,42 @@ def test_cli_on_a_disk_checkpoint_writes_the_models_audio(tmp_path,
     joined, _ = audio_io.read(str(tmp_path / "out" / "joined.wav"),
                               dtype="float32")
     np.testing.assert_allclose(joined, np.clip(np.concatenate(want), -1, 1),
+                               atol=2 / 32768)
+
+
+def test_cli_clones_a_voice_from_ref_audio(tmp_path, monkeypatch):
+    """main() with --ref_audio (a WAV) and --ref_text on a tiny Qwen3-TTS
+    checkpoint that holds the reference and speaker encoders: the WAV it
+    writes is the in-process model's ICL audio for the same clip."""
+    from chip_smoke import _qwen3_clone_small
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.tts.generate import main
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts import qwen3_tts
+    from mlx_audio_tpu_torch.tts.utils import load_model
+    from mlx_audio_tpu_torch.utils import load_audio
+    from test_qwen3_tts_icl import FakeTokenizer
+    from test_torch_qwen3_tts_icl import write_cloning_checkpoint
+
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    write_cloning_checkpoint(_qwen3_clone_small("cpu"), ckpt)
+    ref = (np.random.RandomState(6).randn(2400) * 0.3).astype(np.float32)
+    audio_io.write(str(tmp_path / "ref.wav"), ref, 24000)
+    monkeypatch.setattr(qwen3_tts, "local_tokenizer",
+                        lambda path: FakeTokenizer())
+    main(["--model", str(ckpt), "--text", "hi there", "--ref_audio",
+          str(tmp_path / "ref.wav"), "--ref_text", "reference words",
+          "--temperature", "0", "--max_tokens", "6", "--output_path",
+          str(tmp_path / "out"), "--device", "cpu", "--no-verbose"])
+    model = load_model(ckpt, device="cpu")
+    (want,) = model.generate(
+        "hi there", ref_audio=load_audio(str(tmp_path / "ref.wav"),
+                                         sample_rate=24000),
+        ref_text="reference words", temperature=0.0, max_tokens=6,
+        top_p=0.9, top_k=50, repetition_penalty=1.0)
+    assert model.last_run["ref_frames"] > 0
+    got, sr = audio_io.read(str(tmp_path / "out" / "audio_000.wav"),
+                            dtype="float32")
+    assert sr == 24000 and len(got) == len(want.audio) > 0
+    np.testing.assert_allclose(got, np.clip(want.audio, -1, 1),
                                atol=2 / 32768)
