@@ -22,7 +22,11 @@ transcription, and `/v1/realtime` with Silero's `server_vad` turn
 detection over Voxtral Realtime; and voice cloning on the Mimi stack:
 Qwen3-TTS by ICL (a reference clip's Mimi codes in the prompt) and by the
 ECAPA x-vector, whole, streamed and through the server's voice library,
-and Sesame CSM-1B cloning a reference segment, whole and streamed.
+and Sesame CSM-1B cloning a reference segment, whole and streamed; and
+the NeMo ASR families: Parakeet TDT 0.6B v2 (TDT, RNN-T and CTC decoding,
+a long file in overlapping windows), Canary-1B-v2 and Nemotron ASR
+(`generate` and `stream_generate`), through `generate`, `load_model`, the
+STT CLI and the server's transcription route.
 
     python3 chip_smoke.py
 
@@ -86,10 +90,12 @@ the CUDA toolkit. Phases, each of which raises on failure:
    8-bit codes, x in f32 and bf16 (f32 at K =
    18,944 by the simt path's K tiles).
 9. Qwen3-TTS streaming on the small config at f32 from one seeded q8
-   weight set, CUDA against the CPU path: the greedy streamed chunks (same
-   chunk sizes, audio), `streaming_step` over uneven chunks against
-   `decode_full` on the card, and a greedy two-slot session with a request
-   admitted mid-stream (same codes, audio).
+   weight set, its codec's biases drawn N(0, 0.1) (a trained checkpoint's
+   are not zero), CUDA against the CPU path: the greedy streamed chunks
+   (same chunk sizes, audio), `streaming_step` over uneven chunks against
+   `decode_full` on the card (within 2e-4), and a greedy two-slot session
+   with a request admitted mid-stream (same codes, audio; each request's
+   audio within 2e-4 of `decode_full` of its codes).
 10. Full dims q8, `generate(stream=True)`: the JAX lane's streamed request
    (`np.arange(100, 150)`, max_tokens 100, streaming_interval 2.0, seed 1;
    bench.py:303-305), cold then warm: time to first audio, wall, xRT,
@@ -300,6 +306,32 @@ the CUDA toolkit. Phases, each of which raises on failure:
    frames; streamed audio within 1e-4 of whole): ms a frame, xRT, time to
    first audio, and from two profiled frames the kernels and device time
    a frame. Neither K1 nor K2 may launch in phases 27 and 29.
+30. The NeMo ASR families, run after phase 25, on the small configs of
+   tests/test_parakeet.py, tests/test_canary.py and
+   tests/test_nemotron_asr.py at f32 from one seeded weight set, CUDA
+   against the CPU: Parakeet TDT, RNN-T and CTC (encoder rows within 1e-4,
+   tokens and frames equal), a 2-s file in 0.8-s windows (the merged
+   result equal), Canary's greedy tokens, Nemotron's generate and
+   stream_generate; then each tiny checkpoint directory through the
+   `load_model` router on the card, the STT CLI on Parakeet with
+   --chunk-duration and one Parakeet transcription (verbose_json) through
+   `AudioServer`, each equal to in-process generate().
+31. At full width, seeded random weights drawn on the card in f32, then
+   cast to bf16 (the bf16 encoder against f32, relative Frobenius under
+   2e-2; token agreement with f32 reported): Parakeet TDT 0.6B v2 (the
+   encoder's ms a 120-s window and its share of 989 TFLOP/s; 600 s in
+   120-s windows with a 15-s overlap, cold and warm: wall, xRT, windows,
+   joint steps, tokens, ms a joint step, reads; one 60-s request; kernels
+   and busy share a joint step from a profiled decode, the encoder's
+   largest kernels), Canary-1B-v2 on a
+   30-s clip with max_tokens 200 (encoder ms, decode steps, ms a step,
+   wall, xRT) and Nemotron ASR at `ModelConfig()` on 60 s in 30-s chunks
+   (wall, xRT, joint steps, stream_generate's first yield). Random
+   transducers emit on nearly every step and Canary never ends, so the
+   joints' blank logit is biased, by bisection over decodes of a window's
+   first 200 frames, to emit on about a quarter of the steps, and Canary's
+   EOS row is biased down. Neither K1 nor K2 may launch in
+   phases 30-31.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -309,6 +341,7 @@ before either is printed.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1229,9 +1262,29 @@ SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 100, 0.4, \
 STREAM_FULL_ATOL = 2e-4
 
 
+def draw_codec_biases(model, seed: int = 0, scale: float = 0.1) -> int:
+    """Every bias of the codec decoder (its convs, the upsample stages' and
+    decoder blocks' transposed convs) drawn N(0, scale) from a numpy seed,
+    in place: a trained checkpoint's are not zero, and a transposed conv's
+    streamed overflow must carry its bias once. -> biases drawn."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    n = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("speech_tokenizer.decoder.") and \
+                    name.endswith(".bias"):
+                p.copy_(torch.from_numpy(
+                    (rng.randn(*p.shape) * scale).astype(np.float32)))
+                n += 1
+    return n
+
+
 def _small_pair():
-    """The small config at f32 from one seeded q8 weight set: (CPU model,
-    the same weights on the card)."""
+    """The small config at f32 from one seeded q8 weight set, its codec's
+    biases drawn N(0, 0.1): (CPU model, the same weights on the card)."""
     import copy
 
     from mlx_audio_tpu_torch.tts.models.qwen3_tts import Model
@@ -1240,6 +1293,7 @@ def _small_pair():
     cpu = Model(qwen3_small_config(), device="cpu").init_params(seed=0)
     apply_quantization(cpu, {"quantization": {"bits": 8, "group_size": 16}},
                        cpu.model_quant_predicate)
+    draw_codec_biases(cpu)
     return cpu, copy.deepcopy(cpu).to("cuda")
 
 
@@ -1334,15 +1388,24 @@ def phase_qwen3_streaming_reference():
         np.array_equal(cc[s], cg[s]) for s in cc)
     sess_rel = max(rel_err(torch.from_numpy(g), torch.from_numpy(c))
                    for g, c in zip(sa_g, sa_c))
-    log(f"[qwen3 stream reference] small config f32, q8 gs16, CUDA vs CPU: "
+    # each request's streamed audio against the one-shot decode of its codes
+    with torch.inference_mode():
+        sess_abs = max(float(np.abs(a - dec(torch.from_numpy(
+            cg[slot].T[None]).to(gpu.device))[0].cpu().numpy()).max())
+            for slot, a in enumerate(sa_g))
+    log(f"[qwen3 stream reference] small config f32, q8 gs16, codec biases "
+        f"N(0, 0.1), CUDA vs CPU: "
         f"greedy stream chunks {sizes} equal, audio rel {stream_rel:.3e} "
         f"(tol {QWEN3_E2E_TOL:g}); streaming_step over uneven chunks vs "
         f"decode_full on the card abs {codec_abs:.3e} (tol "
         f"{STREAM_FULL_ATOL:g}); two-slot session, one admitted mid-stream: "
-        f"codes equal {codes_equal}, audio rel {sess_rel:.3e}")
+        f"codes equal {codes_equal}, audio rel {sess_rel:.3e}, each "
+        f"request's audio vs decode_full of its codes abs {sess_abs:.3e}")
     if not (stream_rel <= QWEN3_E2E_TOL and codec_abs <= STREAM_FULL_ATOL
-            and codes_equal and sess_rel <= QWEN3_E2E_TOL):
-        raise AssertionError("streaming or session: CUDA vs CPU")
+            and codes_equal and sess_rel <= QWEN3_E2E_TOL
+            and sess_abs <= STREAM_FULL_ATOL):
+        raise AssertionError("streaming or session: CUDA vs CPU, or the "
+                             "stream vs decode_full")
     if not all(len(a) > 0 and np.isfinite(a).all() for a in sa_g + [ag]):
         raise AssertionError("CUDA streamed audio empty or not finite")
 
@@ -2357,12 +2420,11 @@ def phase_cohere_reference() -> None:
         f"segments equal")
 
 
-def cohere_encoder_flops(cfg: dict, rows: int, frames: int) -> float:
+def conformer_flops(e: dict, rows: int, frames: int) -> float:
     """Operations (2 per multiply-add) of `rows` rows of `frames` mel frames
-    through the encoder: the subsampling convs and `out`, then per layer
-    the two FFs, q/k/v/out, linear_pos over the 2T-1 positions, the three
-    attention products and the conv module; then `encoder_proj` if any."""
-    e = cfg["encoder"]
+    through the FastConformer of encoder config `e`: the subsampling convs
+    and `out`, then per layer the two FFs, q/k/v/out, linear_pos over the
+    2T-1 positions, the three attention products and the conv module."""
     d, ch, ff = e["d_model"], e["subsampling_conv_channels"], \
         e["d_model"] * e["ff_expansion_factor"]
     t, f = frames, e["feat_in"]
@@ -2375,9 +2437,20 @@ def cohere_encoder_flops(cfg: dict, rows: int, frames: int) -> float:
                  + 2 * d * e["conv_kernel_size"] + 2 * d * d
                  + 2 * (t + (2 * t - 1) + t) * d)
     layer = rows * t * per_frame + 2 * (2 * t - 1) * d * d
+    return rows * sub + e["n_layers"] * layer
+
+
+def cohere_encoder_flops(cfg: dict, rows: int, frames: int) -> float:
+    """`conformer_flops` of Cohere's encoder, then `encoder_proj` if
+    any."""
+    e = cfg["encoder"]
+    t = frames
+    for _ in range(3):
+        t = (t - 1) // 2 + 1
     hidden = cfg["transf_decoder"]["config_dict"]["hidden_size"]
-    proj = 2 * rows * t * d * hidden if hidden != d else 0
-    return rows * sub + e["n_layers"] * layer + proj
+    proj = 2 * rows * t * e["d_model"] * hidden if hidden != e["d_model"] \
+        else 0
+    return conformer_flops(e, rows, frames) + proj
 
 
 def phase_cohere_full(card: str) -> dict:
@@ -4766,6 +4839,666 @@ def phase_clone(model, card: str, recorder: K2Recorder) -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# The NeMo ASR families: Parakeet, Canary, Nemotron ASR (phases 30-31)
+# ---------------------------------------------------------------------------
+
+# tests/test_parakeet.py's ENC and vocabulary: 2 layers at d64, subsampling
+# 4, a 1-layer predictor of 32, a joint of 32
+PARAKEET_SMALL = dict(
+    model_type="parakeet", vocab_size=40,
+    encoder=dict(feat_in=80, n_layers=2, d_model=64, n_heads=4,
+                 ff_expansion_factor=2, subsampling_factor=4,
+                 conv_kernel_size=9, subsampling_conv_channels=16),
+    prediction=dict(pred_hidden=32, pred_rnn_layers=1),
+    durations=[0, 1, 2, 3, 4],
+    vocabulary=[chr(97 + i % 26) for i in range(40)])
+# nvidia/parakeet-tdt-0.6b-v2: 128 mels, 24 x d1024, 8 heads, FF x4, conv
+# kernel 9, dw-striding x8 with 256 channels; a 2-layer LSTM of 640; a joint
+# of 640 over 1,024 tokens + blank + 5 durations (JAX's JointArgs default)
+PARAKEET_FULL = dict(
+    model_type="parakeet", decoding="tdt", vocab_size=1024,
+    encoder=dict(feat_in=128, n_layers=24, d_model=1024, n_heads=8,
+                 ff_expansion_factor=4, subsampling_factor=8,
+                 conv_kernel_size=9, subsampling_conv_channels=256),
+    prediction=dict(pred_hidden=640, pred_rnn_layers=2),
+    joint=dict(joint_hidden=640, num_classes=1030),
+    durations=[0, 1, 2, 3, 4])
+# the long file: 600 s in 120-s windows with a 15-s overlap; one 60-s
+# request without windows; about 200 joint steps profiled
+PARAKEET_SECONDS, PARAKEET_WINDOW, PARAKEET_OVERLAP = 600, 120.0, 15.0
+PARAKEET_SHORT, PARAKEET_PROFILE_FRAMES = 60, 300
+# the share of joint steps that emit a token, which the joints' blank bias
+# aims at on random weights (about English speech's rate), found by
+# bisection over decodes of a window's first frames
+EMIT_SHARE, CALIBRATION_FRAMES, BLANK_BISECTIONS = 0.25, 200, 12
+# tests/test_canary.py's _cfg: 1 conformer layer at d16, a 1-layer decoder
+CANARY_SMALL = dict(
+    model_type="canary", vocab_size=64, enc_output_dim=16,
+    encoder=dict(feat_in=16, n_layers=1, d_model=16, n_heads=2,
+                 conv_kernel_size=5, subsampling_conv_channels=4,
+                 xscaling=True),
+    transf_decoder=dict(num_layers=1, hidden_size=16, num_attention_heads=2,
+                        inner_size=32, max_sequence_length=64),
+    preprocessor=dict(features=16))
+# nvidia/canary-1b-v2: 32 x d1024, 8 heads, FF x4, 128 mels; the decoder at
+# JAX's DecoderConfig() (8 x d1024, 16 heads, inner 4096); 16,384 tokens
+CANARY_FULL = dict(
+    model_type="canary", vocab_size=16384, enc_output_dim=1024,
+    encoder=dict(feat_in=128, n_layers=32, d_model=1024, n_heads=8,
+                 ff_expansion_factor=4, subsampling_factor=8,
+                 conv_kernel_size=9, subsampling_conv_channels=256),
+    preprocessor=dict(features=128))
+CANARY_SECONDS, CANARY_MAX_TOKENS = 30, 200
+# tests/test_nemotron_asr.py's _cfg: 1 layer at d16, subsampling 4,
+# chunked-limited [8, 1], a 1-layer predictor of 8, max_symbols 4
+NEMOTRON_VOCAB_SMALL = (["<unk>", "<en-US>", "<de-DE>"]
+                        + ["▁" + w for w in ("the", "cat", "sat", "ok.")]
+                        + list("abcdefgh"))
+NEMOTRON_SMALL = dict(
+    model_type="nemotron_asr",
+    preprocessor=dict(features=16, n_fft=256, window_size=0.016,
+                      window_stride=0.01),
+    encoder=dict(feat_in=16, n_layers=1, d_model=16, n_heads=2,
+                 subsampling_factor=4, subsampling_conv_channels=4,
+                 conv_kernel_size=5, att_context_size=[[8, 1]]),
+    prompt=dict(num_prompts=4, prompt_hidden=8,
+                prompt_dictionary={"auto": 0, "en-US": 1}),
+    decoder=dict(pred_hidden=8, pred_rnn_layers=1, vocab_size=15),
+    joint=dict(joint_hidden=8, encoder_hidden=16, pred_hidden=8,
+               num_classes=15),
+    vocabulary=NEMOTRON_VOCAB_SMALL, default_att_context_size=[8, 1],
+    max_symbols=4)
+# Nemotron ASR at JAX's ModelConfig() defaults (24 x d1024, chunked-limited
+# [56, 13], a 128 -> 2,048 prompt MLP, a 2 x 640 predictor, 13,087 tokens,
+# max_symbols 10), with a stand-in vocabulary of as many pieces
+NEMOTRON_FULL = dict(model_type="nemotron_asr")
+NEMOTRON_SECONDS, NEMOTRON_CHUNK = 60, 30.0
+NEMO_REL = 1e-4
+
+
+def parakeet_small(decoding: str) -> dict:
+    """PARAKEET_SMALL for `decoding`: a joint with durations for TDT, none
+    for RNN-T, no joint for CTC."""
+    cfg = dict(PARAKEET_SMALL, decoding=decoding)
+    if decoding != "ctc":
+        cfg["joint"] = dict(joint_hidden=32,
+                            num_classes=46 if decoding == "tdt" else 41)
+    return cfg
+
+
+def nemotron_pieces(vocab: int) -> list:
+    """A stand-in vocabulary: <unk>, a language tag, then "▁<id>"."""
+    return ["<unk>", "<en-US>"] + [f"▁{i}" for i in range(2, vocab)]
+
+
+def _seeded_like(model, like):
+    if like is None:
+        return model.init_params(seed=0)
+    model.load_state_dict(like.state_dict())
+    return model
+
+
+def _parakeet_small(decoding: str, device: str, like=None):
+    from mlx_audio_tpu_torch.stt.models.parakeet import Model
+
+    return _seeded_like(Model(parakeet_small(decoding), device=device), like)
+
+
+def _canary_small(device: str, like=None):
+    from mlx_audio_tpu_torch.stt.models.canary import CanaryTokenizer, Model
+
+    model = _seeded_like(Model(CANARY_SMALL, device=device), like)
+    model._tokenizer = CanaryTokenizer(piece_list=cohere_pieces(64))
+    return model
+
+
+def _nemotron_small(device: str, like=None):
+    from mlx_audio_tpu_torch.stt.models.nemotron_asr import Model
+
+    return _seeded_like(Model(NEMOTRON_SMALL, device=device), like)
+
+
+def jax_layout_state(model) -> dict:
+    """The model's parameters and buffers as numpy under its names (the
+    JAX tree's), conv weights in the JAX tree's WIO / HWIO layouts."""
+    from mlx_audio_tpu_torch.nn import Conv1d, Conv2d
+
+    state = {k: v.float().cpu().numpy() for k, v in model.state_dict().items()}
+    for name, m in model.named_modules():
+        if isinstance(m, (Conv1d, Conv2d)):
+            w = state[f"{name}.weight"]
+            state[f"{name}.weight"] = w.transpose(
+                (2, 1, 0) if w.ndim == 3 else (2, 3, 1, 0))
+    return state
+
+
+def _write_config(model, path: Path) -> None:
+    import dataclasses
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(
+        dataclasses.asdict(model.config)))
+
+
+def write_parakeet_checkpoint(model, path: Path) -> None:
+    """`model` as a checkpoint directory: config.json (the native schema,
+    its vocabulary included) and the JAX tree in an npz, which `sanitize`
+    passes through."""
+    import numpy as np
+
+    _write_config(model, path)
+    np.savez(path / "model.npz", **jax_layout_state(model))
+
+
+def write_canary_checkpoint(model, path: Path) -> list:
+    """`model` as a checkpoint directory: config.json, its parameters under
+    the JAX tree's names in torch's layouts in an npz, and a tokens.json
+    piece list. -> the pieces."""
+    import numpy as np
+
+    _write_config(model, path)
+    np.savez(path / "model.npz", **{k: v.float().cpu().numpy() for k, v in
+                                    model.state_dict().items()})
+    pieces = cohere_pieces(model.config.vocab_size)
+    (path / "tokens.json").write_text(json.dumps(pieces))
+    return pieces
+
+
+def write_nemotron_checkpoint(model, path: Path) -> None:
+    """`model` as a converted checkpoint directory (config.json with the
+    vocabulary; an npz with MLX conv layouts, (O, H, W, I) and (O, K, I),
+    and the LSTMs' Wx / Wh / bias), which `sanitize` maps back."""
+    import numpy as np
+
+    _write_config(model, path)
+    state = {}
+    for k, v in model.state_dict().items():
+        v = v.float().cpu().numpy()
+        if k.endswith(".weight") and v.ndim == 4:
+            v = v.transpose(0, 2, 3, 1)
+        elif k.endswith(".weight") and v.ndim == 3:
+            v = v.transpose(0, 2, 1)
+        k = (k.replace(".weight_ih", ".Wx").replace(".weight_hh", ".Wh")
+             .replace(".bias_ih", ".bias"))
+        state[k] = v
+    np.savez(path / "model.npz", **state)
+
+
+def _noise(seed: int, seconds: float, scale: float = 0.1):
+    import numpy as np
+
+    return (np.random.RandomState(seed).randn(int(16000 * seconds))
+            * scale).astype(np.float32)
+
+
+def _aligned(result) -> dict:
+    import dataclasses
+
+    return dataclasses.asdict(result)
+
+
+def phase_nemo_reference(tmp: Path) -> None:
+    """Phase 30: the small configs at f32 from one seeded weight set, CUDA
+    against the CPU: Parakeet TDT, RNN-T and CTC (encoder rows, tokens and
+    frames), a long file in three windows or more (the merged result),
+    Canary's greedy tokens, Nemotron's generate and stream_generate; then
+    each tiny checkpoint directory through the `load_model` router on the
+    card, the STT CLI on Parakeet with --chunk-duration, and one Parakeet
+    transcription through `AudioServer`, each against in-process
+    generate()."""
+    import asyncio
+    import io
+
+    import numpy as np
+    import torch
+
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch import audio_io
+
+    t0 = time.perf_counter()
+    audio = _noise(0, 2.0)
+    notes = []
+    for decoding in ("tdt", "rnnt", "ctc"):
+        cpu = _parakeet_small(decoding, "cpu")
+        gpu = _parakeet_small(decoding, "cuda", like=cpu)
+        want, got = cpu.encode(audio), gpu.encode(audio)
+        err = rel_err(got.cpu(), want)
+        if not torch.isfinite(got).all() or not err <= NEMO_REL:
+            raise AssertionError(f"Parakeet {decoding} encoder CUDA vs CPU "
+                                 f"{err:.3e} > {NEMO_REL}, or not finite")
+        want, got = cpu._decode(audio), gpu._decode(audio)
+        if got != want or not got[0]:
+            raise AssertionError(f"Parakeet {decoding}: CUDA tokens/frames "
+                                 f"differ from the CPU's, or none")
+        notes.append(f"{decoding} {len(got[0])} tokens (rel {err:.1e})")
+        if decoding == "tdt":
+            kw = dict(chunk_duration=0.8, overlap_duration=0.2)
+            want = cpu.transcribe_chunked(audio, **kw)
+            got = gpu.transcribe_chunked(audio, **kw)
+            windows = gpu.last_run["windows"]
+            if _aligned(got) != _aligned(want) or windows < 3:
+                raise AssertionError(f"Parakeet long file: CUDA differs "
+                                     f"from the CPU, or {windows} windows")
+            notes.append(f"{windows} windows merged equal")
+            pk_cpu = cpu
+    cpu = _canary_small("cpu")
+    gpu = _canary_small("cuda", like=cpu)
+    want = cpu.generate(audio, max_tokens=24)
+    got = gpu.generate(audio, max_tokens=24)
+    if (got.text, got.generation_tokens) != (want.text,
+                                             want.generation_tokens):
+        raise AssertionError("Canary: CUDA tokens differ from the CPU's")
+    notes.append(f"Canary {got.generation_tokens} tokens")
+    cn_cpu = cpu
+    cpu = _nemotron_small("cpu")
+    gpu = _nemotron_small("cuda", like=cpu)
+    want, got = (m.generate(audio, chunk_duration=1.0) for m in (cpu, gpu))
+    sw, sg = ([(o.text, o.segments) for o in m.stream_generate(
+        audio, chunk_duration=1.0)] for m in (cpu, gpu))
+    if (got.text, got.segments) != (want.text, want.segments) or sg != sw \
+            or len(sg) < 3 or not got.text:
+        raise AssertionError("Nemotron: CUDA generate or stream_generate "
+                             "differs from the CPU's")
+    notes.append(f"Nemotron {got.generation_tokens} tokens, {len(sg)} "
+                 f"streamed chunks")
+    nm_cpu = cpu
+
+    # the loaders, the CLI (windows of 0.8 s, 0.2 s overlapping: three) and
+    # the server (the whole file), on the card
+    wav = tmp / "nemo.wav"
+    audio_io.write(wav, audio, 16000)
+    wav_audio, _ = audio_io.read(wav, dtype="float32")
+    dirs = {"parakeet-tdt-tiny": (write_parakeet_checkpoint, pk_cpu),
+            "canary-tiny": (write_canary_checkpoint, cn_cpu),
+            "nemotron-tiny": (write_nemotron_checkpoint, nm_cpu)}
+    for name, (write, model) in dirs.items():
+        write(model, tmp / name)
+        loaded = mlx_audio_tpu_torch.load_model(tmp / name)
+        if loaded.device.type != "cuda" or type(loaded) is not type(model):
+            raise AssertionError(f"load_model({name}) did not load its "
+                                 f"family on the card")
+        for k, v in model.state_dict().items():
+            if not torch.equal(loaded.state_dict()[k].cpu(), v):
+                raise AssertionError(f"load_model({name}): {k} differs")
+    # the CLI's process would run cuDNN's convolutions in TF32 (PyTorch's
+    # default); this one turned TF32 off, so the CLI's is turned off too
+    ckpt, out = tmp / "parakeet-tdt-tiny", tmp / "cli-out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
+         str(ckpt), "--audio", str(wav), "--format", "json",
+         "--output-path", str(out), "--chunk-duration", "0.8",
+         "--gen-kwargs", '{"overlap_duration": 0.2}'],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "NVIDIA_TF32_OVERRIDE": "0"})
+    if proc.returncode != 0:
+        raise AssertionError(f"STT CLI on Parakeet failed: "
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads((out / "transcription.json").read_text())
+    model = mlx_audio_tpu_torch.load_model(ckpt)
+    want = model.generate(str(wav), chunk_duration=0.8, overlap_duration=0.2)
+    if (got["text"], got["segments"]) != (
+            want.text, json.loads(json.dumps(want.segments))) \
+            or model.last_run["windows"] < 3:
+        raise AssertionError("STT CLI on Parakeet differs from load_model")
+
+    async def serve():
+        from mlx_audio_tpu_torch.server import AudioServer
+
+        server = AudioServer()
+        try:
+            buf = io.BytesIO()
+            audio_io.write(buf, audio, 16000)
+            return await server.transcribe(
+                {"model": str(ckpt), "response_format": "verbose_json"},
+                buf.getvalue())
+        finally:
+            server.close()
+
+    reply = asyncio.run(serve())
+    want = model.generate(wav_audio)
+    if reply.status != 200 or (reply.json["text"], reply.json["segments"]) \
+            != (want.text, json.loads(json.dumps(want.segments))) \
+            or not want.segments:
+        raise AssertionError(f"server transcription {reply.status}: "
+                             f"{reply.json}")
+    log(f"[nemo-ref] small configs f32, CUDA vs CPU on 2 s: Parakeet "
+        f"{', '.join(notes[:4])}; {', '.join(notes[4:])}: equal; load_model "
+        f"of the three tiny directories on the card (the same parameters); "
+        f"the STT CLI with --chunk-duration 0.8 (3 windows) and an "
+        f"AudioServer verbose_json transcription ({len(want.segments)} "
+        f"segments) equal to generate(); phase 30 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _calibrate_blank(bias, blank: int, share) -> tuple:
+    """Raise the joint's blank logit (`bias`, the output layer's bias
+    vector, in place) until a decode emits on about EMIT_SHARE of its joint
+    steps: bisection on the added bias in [0, 16], `share()` decoding a
+    stretch of frames and returning its emitting share. The share is not
+    smooth in the bias (an emitted token changes the prediction network's
+    state), so of every bias tried the one that came nearest EMIT_SHARE is
+    kept. -> (bias added, share reached)."""
+    import torch
+
+    base = bias[blank].item()
+    tried = []
+
+    def at(added: float) -> float:
+        with torch.no_grad():
+            bias[blank] = base + added
+        tried.append((added, share()))
+        return tried[-1][1]
+
+    lo, hi = 0.0, 16.0
+    at(lo)
+    for _ in range(BLANK_BISECTIONS):
+        mid = (lo + hi) / 2
+        if at(mid) > EMIT_SHARE:
+            lo = mid
+        else:
+            hi = mid
+    best = min(tried, key=lambda p: abs(p[1] - EMIT_SHARE))
+    with torch.no_grad():
+        bias[blank] = base + best[0]
+    return best
+
+
+def _bf16_vs_f32(model, encode, what: str):
+    """Cast `model` to bf16 in place; -> (f32 output, bf16 output, relative
+    Frobenius error), raising past WHISPER_BF16_REL."""
+    import torch
+
+    ref = encode().float()
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    got = encode().float()
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    if not torch.isfinite(got).all() or not rel < WHISPER_BF16_REL:
+        raise AssertionError(f"{what} bf16 encoder vs f32: {rel:.3e} >= "
+                             f"{WHISPER_BF16_REL}, or not finite")
+    return rel
+
+
+def _agreement(a: list, b: list) -> str:
+    same = sum(x == y for x, y in zip(a, b))
+    return f"{same}/{max(len(a), len(b))} positions equal"
+
+
+def _device_kernels(fn) -> list:
+    """`fn` once under torch.profiler -> its CUDA kernels' key_averages
+    rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _dev_us(e) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, name):
+            return float(getattr(e, name))
+    return 0.0
+
+
+def _profile_steps(fn, steps: int) -> tuple:
+    """`fn` once unprofiled (wall) and once under torch.profiler -> (kernels
+    a step, device ms a step, wall ms a step, busy share)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = _device_kernels(fn)
+    device = sum(_dev_us(e) for e in kernels) / 1e3 / steps
+    return sum(e.count for e in kernels) / steps, device, wall, device / wall
+
+
+def phase_parakeet_full(card: str) -> dict:
+    """Phase 31a: Parakeet TDT 0.6B v2 (drawn on the card in f32 from seed
+    0, the joint's blank biased to emit on about EMIT_SHARE of its steps,
+    then cast to bf16)."""
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.parakeet import Model
+
+    t_phase = time.perf_counter()
+    model = Model(PARAKEET_FULL, device="cuda").init_params(seed=0,
+                                                            on_device=True)
+    window = _noise(1, PARAKEET_WINDOW)
+    audio = _noise(0, PARAKEET_SECONDS)
+    short = audio[:PARAKEET_SHORT * 16000]
+    blank = model.config.vocab_size
+    enc = model.encode(window)[:, :CALIBRATION_FRAMES]
+
+    def share():
+        tokens, _ = model.decode_tdt(enc)
+        return len(tokens) / model.last_run["joint_steps"]
+
+    bias, reached = _calibrate_blank(model.joint.out.bias, blank, share)
+    tokens32 = model._decode(short)[0]
+    rel = _bf16_vs_f32(model, lambda: model.encode(window), "Parakeet")
+    kw = dict(chunk_duration=PARAKEET_WINDOW,
+              overlap_duration=PARAKEET_OVERLAP)
+    walls, outs = [], []
+    for _ in range(2):
+        o, wall = _sync_s(lambda: model.generate(audio, **kw))
+        outs.append(o)
+        walls.append(wall)
+    run = dict(model.last_run)
+    if outs[0].text != outs[1].text or not outs[1].text:
+        raise AssertionError("Parakeet long file: the runs differ, or no text")
+    enc_ms = _time_ms(lambda: model.encode(window), 5)
+    mel_frames = len(window) // 160 + 1
+    flops = conformer_flops(PARAKEET_FULL["encoder"], 1, mel_frames)
+    log(f"[parakeet] parakeet-tdt-0.6b-v2 dims: {model.num_params() / 1e9:.3f}"
+        f" B parameters, blank logit +{bias:.3f} (emitting on {reached:.3f} "
+        f"of the joint steps over {CALIBRATION_FRAMES} frames, f32); bf16 "
+        f"encoder vs f32 on one "
+        f"{PARAKEET_WINDOW:.0f}-s window: relative Frobenius {rel:.3e} (limit "
+        f"{WHISPER_BF16_REL}); {enc_ms:.3f} ms a window with its mel (CUDA "
+        f"events, median of 5), {flops / 1e12:.3f} TFLOP: "
+        f"{flops / enc_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / PEAK_BF16 * 1e3 / enc_ms:.1f}% of 989 TFLOP/s "
+        f"({card})")
+    kernels = sorted(_device_kernels(lambda: model.encode(window)),
+                     key=_dev_us, reverse=True)
+    total = sum(_dev_us(e) for e in kernels) / 1e3
+    log(f"[parakeet] profiled encoder, one window: {total:.3f} ms of device "
+        f"time in {sum(e.count for e in kernels)} kernels; the largest: "
+        + "; ".join(f"{e.key[:60]} x{e.count} {_dev_us(e) / 1e3:.3f} ms"
+                    for e in kernels[:5]) + f" ({card})")
+    for label, wall in (("cold (one bf16 window encoded before)", walls[0]),
+                        ("warm", walls[1])):
+        dec_s = wall - run["windows"] * enc_ms / 1e3
+        log(f"[parakeet] {label}: {PARAKEET_SECONDS} s in {wall:.3f} s, xRT "
+            f"{PARAKEET_SECONDS / wall:.1f}; {run['windows']} windows of "
+            f"{PARAKEET_WINDOW:.0f} s ({PARAKEET_OVERLAP:.0f}-s overlap), "
+            f"{run['joint_steps']} joint steps, "
+            f"{outs[1].generation_tokens} tokens, {run['reads']} reads; "
+            f"{dec_s * 1e3 / run['joint_steps']:.3f} ms a joint step (wall "
+            f"less {run['windows']} windows' encoder at {enc_ms:.1f} ms), the "
+            f"decode {100 * dec_s / wall:.1f}% of the wall ({card})")
+    model.generate(short)
+    out, short_wall = _sync_s(lambda: model.generate(short))
+    run60 = dict(model.last_run)
+    frames60 = model.encode(short).shape[1]
+    tokens16 = model._decode(short)[0]
+    log(f"[parakeet] one {PARAKEET_SHORT}-s request, no windows, warm: "
+        f"{short_wall:.3f} s, xRT {PARAKEET_SHORT / short_wall:.1f}; "
+        f"{out.generation_tokens} tokens over {frames60} frames "
+        f"({out.generation_tokens / frames60:.3f} a frame), "
+        f"{run60['joint_steps']} joint steps "
+        f"({out.generation_tokens / run60['joint_steps']:.3f} of them emit), "
+        f"{run60['reads']} reads; bf16 tokens against f32's: "
+        f"{_agreement(tokens16, tokens32)} ({card})")
+    with torch.inference_mode():
+        enc = model.encode(window)[:, :PARAKEET_PROFILE_FRAMES]
+        model.decode_tdt(enc)
+        steps = model.last_run["joint_steps"]
+        per, dev_ms, wall_ms, busy = _profile_steps(
+            lambda: model.decode_tdt(enc), steps)
+    log(f"[parakeet] profiled decode of {PARAKEET_PROFILE_FRAMES} frames, "
+        f"{steps} joint steps: {per:.1f} kernels and {dev_ms:.4f} ms of "
+        f"device time a step, {wall_ms:.3f} ms of wall unprofiled "
+        f"({100 * busy:.1f}% busy) ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 31 Parakeet in {time.perf_counter() - t_phase:.1f} s")
+    return {"warm": walls[1], "step_ms": wall_ms, "kernels": per}
+
+
+def phase_canary_full(card: str) -> dict:
+    """Phase 31b: Canary-1B-v2 (drawn on the card in f32 from seed 0, the
+    EOS row's bias lowered so that the 200 tokens run, then cast to bf16) on
+    a 30-s clip."""
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.canary import CanaryTokenizer, Model
+
+    t_phase = time.perf_counter()
+    model = Model(CANARY_FULL, device="cuda").init_params(seed=0,
+                                                          on_device=True)
+    model._tokenizer = CanaryTokenizer(piece_list=cohere_pieces(
+        model.config.vocab_size))
+    with torch.no_grad():
+        model.decoder.output_proj.bias[model._tokenizer.eos_id] -= 1e4
+    clip = _noise(2, CANARY_SECONDS)
+    t0 = time.perf_counter()
+    mel = model._log_mel(clip)
+    mel_s = time.perf_counter() - t0
+    kw = dict(max_tokens=CANARY_MAX_TOKENS, language="en")
+    out32 = model.generate(clip, **kw)
+    rel = _bf16_vs_f32(model, lambda: model.encode(mel)[0], "Canary")
+    enc_ms = _time_ms(lambda: model.encode(mel), 5)
+    model.generate(clip, **kw)
+    out, wall = _sync_s(lambda: model.generate(clip, **kw))
+    steps = model.last_run["decode_steps"]
+    if out.generation_tokens != CANARY_MAX_TOKENS:
+        raise AssertionError(f"Canary: {out.generation_tokens} tokens, "
+                             f"wanted {CANARY_MAX_TOKENS}")
+    log(f"[canary] canary-1b-v2 dims: {model.num_params() / 1e9:.3f} B "
+        f"parameters; bf16 encoder vs f32 on {CANARY_SECONDS} s (the "
+        f"{model.last_run['mel_bucket']}-frame bucket): relative Frobenius "
+        f"{rel:.3e}; encoder {enc_ms:.3f} ms; warm request {wall:.3f} s, xRT "
+        f"{CANARY_SECONDS / wall:.1f}: {steps} decode steps, "
+        f"{(wall - mel_s - enc_ms / 1e3) * 1e3 / steps:.3f} ms a step (wall "
+        f"less the host mel's {mel_s * 1e3:.1f} ms and the encoder's); bf16 "
+        f"tokens against f32's: {_agreement(out.text.split(), out32.text.split())} "
+        f"({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 31 Canary in {time.perf_counter() - t_phase:.1f} s")
+    return {"wall": wall, "step_ms": (wall - mel_s - enc_ms / 1e3) * 1e3
+            / steps}
+
+
+def phase_nemotron_full(card: str) -> dict:
+    """Phase 31c: Nemotron ASR at `ModelConfig()` (drawn on the card in f32
+    from seed 0, the joint's blank biased to emit on about EMIT_SHARE of its
+    steps, then cast to bf16): 60 s in 30-s chunks through generate and
+    stream_generate."""
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.nemotron_asr import Model, ModelConfig
+    from mlx_audio_tpu_torch.stt.models.nemotron_asr.nemotron_asr import (
+        MEL_BUCKETS, nemo_log_mel, subsampled_length)
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.from_dict(NEMOTRON_FULL)
+    cfg.vocabulary = nemotron_pieces(cfg.decoder.vocab_size)
+    model = Model(cfg, device="cuda").init_params(seed=0, on_device=True)
+    audio = _noise(3, NEMOTRON_SECONDS)
+    blank = model.config.decoder.vocab_size
+    mel = nemo_log_mel(torch.from_numpy(audio[:int(NEMOTRON_CHUNK * 16000)])
+                       .to(model.device), model.config.preprocessor)
+    bucket = next(b for b in MEL_BUCKETS if mel.shape[0] <= b)
+    padded = torch.zeros(1, bucket, mel.shape[1], device=model.device)
+    padded[0, :mel.shape[0]] = mel
+    att = tuple(model.config.default_att_context_size)
+
+    def encode():
+        return model.encode(padded, mel.shape[0], att, 0)
+
+    feats = encode()
+    frames = min(CALIBRATION_FRAMES, subsampled_length(mel.shape[0]))
+
+    def share():
+        tokens, _, _, run = model.greedy_rnnt(feats, frames,
+                                              model.initial_state())
+        return len(tokens) / run["joint_steps"]
+
+    bias, reached = _calibrate_blank(model.joint.joint_net["2"].bias, blank,
+                                     share)
+    out32 = model.generate(audio, chunk_duration=NEMOTRON_CHUNK)
+    streamed = list(model.stream_generate(audio,
+                                          chunk_duration=NEMOTRON_CHUNK))
+    if streamed[-1].text != out32.text or not out32.text \
+            or len(streamed) != model.last_run["audio_chunks"]:
+        raise AssertionError("Nemotron f32: stream_generate's last text "
+                             "differs from generate's, or none")
+    rel = _bf16_vs_f32(model, encode, "Nemotron")
+    enc_ms = _time_ms(encode, 5)
+    model.generate(audio, chunk_duration=NEMOTRON_CHUNK)
+    out, wall = _sync_s(lambda: model.generate(
+        audio, chunk_duration=NEMOTRON_CHUNK))
+    run = dict(model.last_run)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = model.stream_generate(audio, chunk_duration=NEMOTRON_CHUNK)
+    first = next(stream)
+    first_s = time.perf_counter() - t0
+    rest = list(stream)
+    if not out.text:
+        raise AssertionError("Nemotron bf16: no text")
+    log(f"[nemotron] ModelConfig() dims: {model.num_params() / 1e9:.3f} B "
+        f"parameters, blank logit +{bias:.3f} (emitting on {reached:.3f} of "
+        f"the joint steps over {frames} frames, f32); bf16 "
+        f"encoder vs f32 on one "
+        f"{NEMOTRON_CHUNK:.0f}-s chunk ({bucket}-frame bucket): relative "
+        f"Frobenius {rel:.3e}, "
+        f"{enc_ms:.3f} ms a chunk; {NEMOTRON_SECONDS} s warm in {wall:.3f} s, "
+        f"xRT {NEMOTRON_SECONDS / wall:.1f}: {run['audio_chunks']} chunks, "
+        f"{run['joint_steps']} joint steps, {out.generation_tokens} tokens, "
+        f"{run['reads']} reads, "
+        f"{(wall - run['audio_chunks'] * enc_ms / 1e3) * 1e3 / run['joint_steps']:.3f}"
+        f" ms a joint step; stream_generate's first yield after "
+        f"{first_s:.3f} s, its last text equal to generate's: "
+        f"{(rest or [first])[-1].text == out.text} (in f32 too, where it is "
+        f"asserted); bf16 tokens against f32's: "
+        f"{_agreement(out.text.split(), out32.text.split())} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 31 Nemotron in {time.perf_counter() - t_phase:.1f} s")
+    return {"wall": wall, "first": first_s}
+
+
+def phase_nemo(card: str) -> None:
+    """Phases 30-31; neither K1 nor K2 may launch in them."""
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_nemo_reference(Path(tmp))
+    phase_parakeet_full(card)
+    phase_canary_full(card)
+    phase_nemotron_full(card)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("phases 30-31 launched K1 or K2")
+    log(f"[time] phases 30-31 in {time.perf_counter() - t0:.1f} s; neither "
+        f"K1 nor K2 launched")
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -4887,6 +5620,10 @@ def main() -> int:
         f"{bf16_k['launches']:.0f} kernels a frame ({card})")
     log(f"[time] phases 22-25 in {time.perf_counter() - t_kugel:.1f} s; "
         f"phases 1-25 in {time.perf_counter() - t_start:.1f} s ({card})")
+    # the NeMo ASR families: dense products, neither K1 nor K2
+    phase_nemo(card)
+    log(f"[time] phases 1-31 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     k2_path_abs = phase_qmm_path(set(recorder.calls))

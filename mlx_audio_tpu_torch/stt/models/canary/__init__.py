@@ -1,7 +1,6 @@
-"""Canary (counterpart of mlx_audio_tpu/stt/models/canary): so far the
-tokenizer and the transformer decoder, which Cohere ASR runs; the Canary
-`Model` is not ported yet."""
+"""Canary (counterpart of mlx_audio_tpu/stt/models/canary): the model, its
+tokenizer and its transformer decoder, which Cohere ASR shares."""
 
-from .canary import CanaryTokenizer, DecoderConfig
+from .canary import CanaryTokenizer, DecoderConfig, Model, ModelConfig
 
-__all__ = ["CanaryTokenizer", "DecoderConfig"]
+__all__ = ["Model", "ModelConfig", "CanaryTokenizer", "DecoderConfig"]

@@ -13,7 +13,8 @@ Counterpart of mlx_audio_tpu/stt/models/cohere_asr/cohere_asr.py:
   `decoder` (the shared `canary.TransformerDecoder`) and `encoder_proj`
   when the widths differ, so `model.load_jax_params` fills it;
 * `encode` over `MEL_BUCKETS` with validity masks, the batched greedy
-  `decode` (the counterpart of the `lax.while_loop` at :387-421),
+  `decode` (the counterpart of the `lax.while_loop` at :387-421, the
+  loop `canary.greedy_decode` that Canary runs too),
   `_transcribe_segments`, `_prompt_tokens`, `transcribe`, `generate`,
   `_to_mono`, `set_vad_model`, `sanitize` and `post_load_hook`.
 
@@ -29,10 +30,10 @@ Departures from the JAX package:
 * **Eager decode.** The loop is Python over eager steps. The argmax, the
   per-row EOS flags and the kept tokens stay on the device; each step's
   flags are copied to the host without blocking (`ops/host_flags.py`) and
-  step i+1 starts only once step i-1's flags are read, so the loop stops at
-  most `STEPS_AFTER_EOS` step after the one where every row finished (JAX
-  stops at once), with the same kept tokens. The decoder step whose logits
-  no kept token needs (after the last) is not run.
+  step i+1 starts only once step i-1's flags are read, so the loop stops
+  at most `canary.STEPS_AFTER_EOS` step after the one where every row
+  finished (JAX stops at once), with the same kept tokens. The decoder
+  step whose logits no kept token needs (after the last) is not run.
 * **Compute dtype.** A bf16 model computes in bf16 (the mel is cast to
   it), with f32 softmax, f32 batch-norm statistics and f32 self-attention
   caches; JAX promotes its bf16 weights against the f32 mel. An f32 model
@@ -61,23 +62,17 @@ from ....base import BaseModelArgs
 from ....dsp import hanning, mel_filters
 from ....model import TorchModel, check_device
 from ....nn import Linear
-from ....ops.host_flags import FinishedFlags
-from ....ops.kvcache import KVCache
 from ....utils import load_audio, load_weights, resample_audio
 from ..base import STTOutput
 from ..canary.canary import (CanaryTokenizer, DecoderConfig as
                              _DecoderInnerConfig, TransformerDecoder,
-                             _fixed_positions, cross_kv, decoder_forward,
-                             encoder_bias, logits)
+                             _fixed_positions, greedy_decode)
 from ..parakeet.conformer import (Conformer, ConformerArgs,
                                   conformer_forward, subsampled_length)
 
 NO_SPACE_LANGS = {"ja", "zh"}
 MEL_BUCKETS = (256, 512, 1024, 2048, 3584)
 LOG_GUARD = 2.0 ** -24
-# steps the decode may run after the one where every row has finished: it
-# reads the flags of step i-1 before launching step i+1
-STEPS_AFTER_EOS = 1
 PREPROCESSOR_BUFFERS = ("preprocessor.featurizer.fb",
                         "preprocessor.featurizer.window")
 
@@ -424,45 +419,14 @@ class Model(TorchModel):
 
     # ------------------------------------------------------------- decoder
 
-    @torch.inference_mode()
     def decode(self, enc: torch.Tensor, enc_mask: torch.Tensor,
                prompt: List[int], max_tokens: int,
                eos_id: int) -> Tuple[torch.Tensor, int]:
-        """Batched greedy decode -> (tokens (B, max_tokens) on the device,
-        EOS from each row's first EOS on; decode steps run). A row with no
-        valid encoder frame starts finished."""
-        cfg = self.dec_cfg
-        b, dev = enc.shape[0], enc.device
-        plen = len(prompt)
-        ckv = cross_kv(self.decoder, cfg, enc)
-        ebias = encoder_bias(enc_mask)
-        caches = KVCache.init(b, plen + max_tokens, cfg.num_attention_heads,
-                              cfg.hidden_size // cfg.num_attention_heads,
-                              dtype=torch.float32, device=dev,
-                              n_layers=cfg.num_layers)
-        ids = torch.tensor(prompt, device=dev).expand(b, plen)
-        h = decoder_forward(self.decoder, cfg, ids, ebias, caches, ckv, 0,
-                            self.pos_table)
-        lg = logits(self.decoder, h[:, -1])
-        toks = torch.full((b, max_tokens), eos_id, dtype=torch.long,
-                          device=dev)
-        done = ~enc_mask.any(dim=1)
-        flags = FinishedFlags(max(max_tokens, 1), done)
-        lag = STEPS_AFTER_EOS + 1
-        steps = 0
-        for i in range(max_tokens):
-            if i >= lag and bool(flags.read(i - lag).all()):
-                break
-            nxt = torch.where(done, eos_id, lg.argmax(dim=-1))
-            done = done | (nxt == eos_id)
-            toks[:, i] = nxt
-            flags.record(i, done)
-            steps = i + 1
-            if steps < max_tokens:
-                h = decoder_forward(self.decoder, cfg, nxt[:, None], ebias,
-                                    caches, ckv, plen + i, self.pos_table)
-                lg = logits(self.decoder, h[:, 0])
-        return toks, steps
+        """Batched greedy decode (`canary.greedy_decode`) -> (tokens (B,
+        max_tokens) on the device, EOS from each row's first EOS on; decode
+        steps run). A row with no valid encoder frame starts finished."""
+        return greedy_decode(self.decoder, self.dec_cfg, self.pos_table, enc,
+                             enc_mask, prompt, max_tokens, eos_id)
 
     def _transcribe_segments(
         self, segments: List[np.ndarray], language: str, punctuation: bool,

@@ -7,7 +7,7 @@ directory (config.json + npz or safetensors weights), maps its names onto
 the JAX tree's with the family's `sanitize`, fills the model through
 `model.load_jax_params`, the one place where layouts are converted, and
 runs the family's `post_load_hook` (Voxtral's reads `tekken.json`, Cohere
-ASR's its tokenizer and mel filterbank).
+ASR's its tokenizer and mel filterbank, Canary's its tokenizer).
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("whisper", "voxtral_realtime", "cohere_asr")
+PORTED = ("whisper", "voxtral_realtime", "cohere_asr", "parakeet", "canary",
+          "nemotron_asr")
 
 
 def model_family(config: dict, path: Path, name_parts=None):
@@ -102,18 +103,18 @@ def load_model(model_path: Union[str, Path], device="cuda",
             f"STT model type {config.get('model_type')!r} (family "
             f"{family!r}) is not ported to mlx_audio_tpu_torch yet (ported: "
             f"{', '.join(PORTED)})")
+    weights = load_weights(path)
     if family == "whisper":
         from .models.whisper import Model, ModelDimensions
 
         model = Model(ModelDimensions.from_dict(config), device=device)
-    elif family == "cohere_asr":
-        from .models.cohere_asr import Model, ModelConfig
-
-        model = Model(ModelConfig.from_dict(config), device=device)
     else:
-        from .models.voxtral_realtime import Model, ModelConfig
+        import importlib
 
-        model = Model(ModelConfig.from_dict(config), device=device)
-    model = load_jax_params(model, model.sanitize(load_weights(path)))
+        family_module = importlib.import_module(f".models.{family}",
+                                                __package__)
+        model = family_module.Model(
+            family_module.ModelConfig.from_dict(config), device=device)
+    model = load_jax_params(model, model.sanitize(weights))
     post_load_hook = getattr(type(model), "post_load_hook", None)
     return model if post_load_hook is None else post_load_hook(model, path)

@@ -20,6 +20,11 @@ pre-transformer's KV caches, the stream offset). `Decoder.streaming_step`
 returns the new state; it writes the KV caches in place, every other leaf
 is a new tensor. Given a row `mask`, rows outside it come back unchanged
 (`take_rows`), so one batched step serves rows at different stream ages.
+
+Departure: a transposed conv's streamed overflow is carried without the
+conv's bias (`CausalTConv.step`), so the overlap samples hold the bias
+once and the stream equals `forward` with any bias. The JAX package's
+`causal_tconv_step` adds it twice there; at zero biases the two agree.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ....nn import (Conv1d, ConvTranspose1d, Embedding, LayerNorm, Linear,
-                    RMSNorm, gelu)
+                    RMSNorm, conv_transpose1d, gelu)
 from ....ops.attention import attention
 from ....ops.kvcache import KVCache, kv_update_rows
 from ....ops.rope import apply_rotary, rope_cos_sin, rope_freqs
@@ -98,17 +103,24 @@ class CausalTConv(nn.Module):
 
     def step(self, x: torch.Tensor, overflow: torch.Tensor, stride: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Streaming form (causal_tconv_step, :85-97): the tail carried
-        from the last call is added to the first samples, and the trimmed
-        kernel - stride samples are carried to the next. -> (y, new
-        overflow)."""
-        y = self.conv(x, stride=stride)
+        """Streaming form (causal_tconv_step, :85-97): the conv runs
+        without its bias, the tail carried from the last call is added to
+        the first samples, the bias is added to the samples handed out, and
+        the trimmed kernel - stride samples are carried, bias-free, to the
+        next call. Each sample then holds the bias once, as in `forward`;
+        the JAX package carries the biased tail, and the next chunk adds
+        the bias to it again. A fresh stream's overflow is zeros.
+        -> (y, new overflow)."""
         trim = self.kernel - stride
         if trim <= 0:
-            return y, overflow
+            return self.conv(x, stride=stride), overflow
+        y = conv_transpose1d(x, self.conv.weight, stride=stride)
         ov = overflow.shape[1]
         y = torch.cat([y[:, :ov] + overflow, y[:, ov:]], dim=1)
-        return y[:, :y.shape[1] - trim], y[:, y.shape[1] - trim:]
+        out = y[:, :y.shape[1] - trim]
+        if self.conv.bias is not None:
+            out = out + self.conv.bias.to(out.dtype)
+        return out, y[:, y.shape[1] - trim:]
 
 
 class Codebook(nn.Module):

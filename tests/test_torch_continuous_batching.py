@@ -286,6 +286,40 @@ def test_session_streams_longer_than_the_codec_buffer_raise(model):
     assert sess.codec_state["tf_caches"][0].k.shape[1] == 4096
 
 
+def test_session_audio_with_codec_biases_matches_decode_full():
+    """With every codec bias drawn N(0, 0.1), a two-slot session that
+    admits its second request mid-stream streams, for each request, the
+    one-shot decode of that request's codes within 2e-4: the row-masked
+    decode carries each transposed conv's overflow without its bias, as
+    `streaming_step` does (the JAX session adds the bias twice on the
+    overlap samples)."""
+    from test_torch_qwen3_streaming import draw_codec_biases
+
+    model = _port("tiny")
+    draw_codec_biases(model, seed=1)
+    sess = model.create_tts_batch_session(
+        _opts(max_batch_size=2, max_tokens=14, temperature=0.0,
+              repetition_penalty=1.0, streaming_interval=0.4,
+              max_cache_len=256))
+    seen = _session_codes(sess)
+    reqs = [_req(10, 26), _req(30, 42)]
+    sess.submit(reqs[0])
+    sess.step()
+    sess.submit(reqs[1])
+    _run(sess)
+    assert sorted(seen) == [0, 1]
+    dec = model.speech_tokenizer.decoder
+    for slot, req in enumerate(reqs):
+        kinds, payloads = _drain(req)
+        assert kinds[-1] == "done"
+        codes = torch.from_numpy(seen[slot].T[None])   # (1, n_q, frames)
+        with torch.no_grad():
+            want = dec(codes)[0].numpy()
+        got = _audio(payloads)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=2e-4)
+
+
 def test_warm_session_does_not_repeat_its_random_draws(model):
     """The JAX session draws from fold_in(key, t) and reset_timeline sets t
     to 0, so a reused warm session repeats its draws. The port keeps one

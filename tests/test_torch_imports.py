@@ -405,6 +405,39 @@ def test_tiny_cohere_generate_and_cli_without_jax(tmp_path):
     assert out.strip() == "False []", out
 
 
+def test_tiny_parakeet_canary_nemotron_generate_without_jax(tmp_path):
+    """The NeMo ASR families on the CPU at a tiny size from seeded weights
+    (chip_smoke.py's small configs): a Parakeet TDT generate, whole and in
+    overlapping windows, a Parakeet checkpoint directory through
+    `load_model`, a Canary and a Nemotron generate, with no jax in
+    sys.modules."""
+    out = _run("""
+        import sys
+        from pathlib import Path
+        import numpy as np
+        import mlx_audio_tpu_torch
+        from chip_smoke import (_canary_small, _nemotron_small,
+                                _parakeet_small, write_parakeet_checkpoint)
+
+        audio = (np.random.RandomState(0).randn(48000) * 0.1).astype(
+            np.float32)
+        model = _parakeet_small("tdt", "cpu")
+        whole = model.generate(audio[:16000])
+        assert whole.text and len(whole.segments) == whole.generation_tokens
+        long = model.generate(audio, chunk_duration=1.5, overlap_duration=0.5)
+        assert long.text and model.last_run["windows"] == 3
+        path = Path(%r) / "parakeet-tdt-tiny"
+        write_parakeet_checkpoint(model, path)
+        loaded = mlx_audio_tpu_torch.load_model(path, device="cpu")
+        assert loaded.generate(audio[:16000]).text == whole.text
+        assert _canary_small("cpu").generate(audio[:16000],
+                                             max_tokens=8).text
+        assert _nemotron_small("cpu").generate(audio[:16000]).text
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_tiny_kugelaudio_and_vibevoice_generate_without_jax():
     """KugelAudio on the CPU at a tiny size (tests/test_kugelaudio.py's
     config, the lanes' forced-diffusion bias): a generate() at cfg_scale
@@ -493,8 +526,9 @@ def _entry_points():
     from mlx_audio_tpu_torch import server
     from mlx_audio_tpu_torch.codec.models import mimi
     from mlx_audio_tpu_torch.stt import utils as stt_utils
-    from mlx_audio_tpu_torch.stt.models import (cohere_asr, voxtral_realtime,
-                                                whisper)
+    from mlx_audio_tpu_torch.stt.models import (canary, cohere_asr,
+                                                nemotron_asr, parakeet,
+                                                voxtral_realtime, whisper)
     from mlx_audio_tpu_torch.tts import generate, utils
     from mlx_audio_tpu_torch.tts.models import (kokoro, kugelaudio, llama,
                                                 qwen3_tts, sesame, vibevoice)
@@ -513,6 +547,13 @@ def _entry_points():
             lambda p: voxtral_realtime.Model(voxtral_realtime.ModelConfig())),
         "cohere_asr.Model": (cohere_asr.Model.__init__,
                              lambda p: cohere_asr.Model(cohere_asr.ModelConfig())),
+        "parakeet.Model": (parakeet.Model.__init__,
+                           lambda p: parakeet.Model(parakeet.ModelConfig())),
+        "canary.Model": (canary.Model.__init__,
+                         lambda p: canary.Model(canary.ModelConfig())),
+        "nemotron_asr.Model": (
+            nemotron_asr.Model.__init__,
+            lambda p: nemotron_asr.Model(nemotron_asr.ModelConfig())),
         "llama.Model": (llama.Model.__init__,
                         lambda p: llama.Model(llama.ModelConfig())),
         "kugelaudio.Model": (kugelaudio.Model.__init__,
@@ -549,7 +590,9 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["kokoro.Model", "qwen3_tts.Model",
                                   "whisper.Model", "voxtral_realtime.Model",
-                                  "cohere_asr.Model", "llama.Model",
+                                  "cohere_asr.Model", "parakeet.Model",
+                                  "canary.Model", "nemotron_asr.Model",
+                                  "llama.Model",
                                   "kugelaudio.Model", "vibevoice.Model",
                                   "mimi.Mimi", "mimi.Mimi.from_pretrained",
                                   "sesame.Model",

@@ -205,6 +205,66 @@ def test_streaming_matches_decode_full():
     np.testing.assert_allclose(_np(streamed), _np(full), atol=2e-4)
 
 
+def draw_codec_biases(model, seed=0, scale=0.1):
+    """Every bias of the port's codec decoder drawn N(0, scale) from a numpy
+    seed, in place (a trained checkpoint's are not zero; the tiny
+    config's init leaves them so). -> {name: array} under the names both
+    packages share."""
+    rng = np.random.RandomState(seed)
+    drawn = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("speech_tokenizer.decoder.") and \
+                    name.endswith(".bias"):
+                drawn[name] = (rng.randn(*p.shape) * scale).astype(np.float32)
+                p.copy_(torch.from_numpy(drawn[name]))
+    return drawn
+
+
+def test_streaming_with_biases_matches_decode_full():
+    """With every codec bias drawn N(0, 0.1), streaming_step over uneven
+    chunks equals the one-shot decode within 2e-4: each overlap sample of
+    a transposed conv (upsample stages and decoder blocks) holds the bias
+    once. The JAX package's stream adds it twice there and strays (the
+    departure in ROADMAP.md section 3)."""
+    from mlx_audio_tpu.tts.models.qwen3_tts.speech_tokenizer import (
+        decode_full as jfull, init_stream_state as jinit,
+        streaming_step as jstep)
+    from mlx_audio_tpu.utils import unflatten
+    from mlx_audio_tpu_torch.tts.models.qwen3_tts.speech_tokenizer import (
+        init_stream_state)
+
+    pm = _port("tiny")
+    drawn = draw_codec_biases(pm)
+    assert any(".upsample." in k for k in drawn) and \
+        any(".block.1.conv.bias" in k for k in drawn)
+    dec = pm.speech_tokenizer.decoder
+    codes = _codes(2, 2, 24)
+    with torch.no_grad():
+        full = dec(torch.from_numpy(codes))
+        state = init_stream_state(pm.dcfg, batch=2)
+        outs = []
+        for start, end in CHUNKS:
+            state, chunk = dec.streaming_step(
+                state, torch.from_numpy(codes[:, :, start:end]))
+            outs.append(chunk)
+    np.testing.assert_allclose(_np(torch.cat(outs, -1)), _np(full),
+                               atol=2e-4)
+
+    jm, flat = _jax_model("tiny")
+    prefix = "speech_tokenizer.decoder."
+    jdec = unflatten({k[len(prefix):]: jnp.asarray(drawn.get(k, v))
+                      for k, v in flat.items() if k.startswith(prefix)})
+    jwant = np.asarray(jfull(jdec, jm.dcfg, jnp.asarray(codes)))
+    np.testing.assert_allclose(jwant, _np(full), atol=2e-4)
+    jstate, jouts = jinit(jm.dcfg, batch=2), []
+    for start, end in CHUNKS:
+        jstate, chunk = jstep(jdec, jm.dcfg, jstate,
+                              jnp.asarray(codes[:, :, start:end]))
+        jouts.append(np.asarray(chunk))
+    assert np.abs(np.concatenate(jouts, -1) - jwant).max() > 1e-2
+
+
 def _flat_state(state):
     """[(name, array)] of a streaming state, the port's or the JAX one."""
     out = []

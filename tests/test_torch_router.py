@@ -2,8 +2,9 @@
 the JAX package's (`mlx_audio_tpu/utils.py:246-481`), on the CPU: the
 category registries equal JAX's for every ported family, the name parts
 and the category guessed as JAX guesses them, a `qwen3tts` config and a
-directory named only by its family reaching their loaders, and the port's
-own errors (local paths only; a category or family it lacks named).
+directory named only by its family (Kokoro, Parakeet, Canary) reaching
+their loaders, and the port's own errors (local paths only; a category or
+family it lacks named).
 Nothing here is numeric.
 """
 
@@ -159,6 +160,28 @@ def test_directory_named_only_by_its_family_loads(tmp_path):
     assert type(loaded) is Model
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
+
+
+@pytest.mark.parametrize("name,family", [
+    ("parakeet-tdt-0.6b-v2", "parakeet"), ("canary-1b-flash", "canary"),
+    ("canary-1b-v2", "canary")])
+def test_nemo_directories_reach_their_stt_loaders(tmp_path, monkeypatch,
+                                                  name, family):
+    """A config-only directory named for Parakeet or Canary, with no
+    model_type, is an STT checkpoint of that family (the JAX package's
+    routing) and reaches its loader, which finds no weights; before the
+    families were ported the router raised "not ported"."""
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.stt import utils as stt_utils
+    from mlx_audio_tpu_torch.utils import get_model_name_parts
+
+    d = _config_only(tmp_path / name)
+    parts = get_model_name_parts(d)
+    assert jax_category(None, parts) == "stt"
+    assert stt_utils.model_family({}, d) == family in stt_utils.PORTED
+    with pytest.raises(FileNotFoundError, match="No weight files"):
+        load_model(d, device="cpu")
 
 
 def test_unported_category_and_family_are_named(tmp_path):

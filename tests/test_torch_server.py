@@ -8,7 +8,8 @@ adds: a tiny Kokoro checkpoint on disk served by both packages' servers
 over scripted probabilities (the same events as the JAX server's), the
 session warm-up error logged, an unported option answered 501,
 Qwen3-TTS voice cloning (base64 and the voice library) answered with
-generate()'s audio, the tensor-parallel refusal and the CPU device.
+generate()'s audio, the tensor-parallel refusal, the CPU device, and a
+Parakeet directory's transcription in overlapping windows.
 
 Tolerances: the served Kokoro audio within 1e-4 relative to its largest
 value (f32 on both sides, summation order only, as
@@ -1105,3 +1106,37 @@ class TestVoiceLibrary:
                 assert r.status == 404
 
         _run(go())
+
+
+def test_parakeet_transcription_by_directory(tmp_path):
+    """A tiny Parakeet directory (CTC decoding, which keeps this cheap on
+    the CPU) served by path through the transcription route, as
+    verbose_json with chunk_duration 16 (a 17.5-s WAV, the default 15-s
+    overlap: three windows): the text and segments of the directory's
+    model's own generate()."""
+    from chip_smoke import _parakeet_small, write_parakeet_checkpoint
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    ckpt = tmp_path / "parakeet-ctc-tiny"
+    write_parakeet_checkpoint(_parakeet_small("ctc", "cpu"), ckpt)
+    wav = _wav((np.random.RandomState(12).randn(280000) * 0.1)
+               .astype(np.float32), 16000)
+
+    async def go():
+        server = AudioServer(device="cpu")
+        try:
+            return await server.transcribe(
+                {"model": str(ckpt), "response_format": "verbose_json",
+                 "chunk_duration": "16"}, wav)
+        finally:
+            server.close()
+
+    reply = _run(go())
+    model = load_model(ckpt, device="cpu")
+    want = model.generate(_read(wav)[0], chunk_duration=16)
+    assert model.last_run["windows"] == 3
+    assert reply.status == 200, reply.json
+    assert reply.json["language"] == "en" and want.segments
+    assert (reply.json["text"], reply.json["segments"]) == (
+        want.text, json.loads(json.dumps(want.segments)))

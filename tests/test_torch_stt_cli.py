@@ -1,7 +1,7 @@
 """The port's STT entry points against the JAX package, on the CPU: its
 copy of `audio_io`, `stt.utils.load_model` and the category routing of
 `mlx_audio_tpu_torch.load_model`, and the STT CLI (`stt/generate.py`), on
-Whisper, on Voxtral Realtime and on Cohere ASR.
+Whisper, on Voxtral Realtime, on Cohere ASR and on Parakeet.
 
 A tiny Whisper checkpoint (`tests/test_whisper.py::DIMS`, the JAX model's
 random parameters under HF names, config.json in HF keys, npz) is written
@@ -14,7 +14,10 @@ names, a tekken.json; `chip_smoke.py::write_voxtral_checkpoint`) is loaded
 by both packages too: its transcription files must be equal byte for byte.
 So must a tiny Cohere ASR checkpoint's (tests/test_cohere_asr.py's config,
 the JAX model's random parameters under NeMo's names in torch's conv
-layouts, npz, a tokens.json; `chip_smoke.py::write_cohere_checkpoint`).
+layouts, npz, a tokens.json; `chip_smoke.py::write_cohere_checkpoint`),
+and a tiny Parakeet TDT checkpoint's json in overlapping windows
+(tests/test_parakeet.py's config, the JAX tree in an npz;
+`chip_smoke.py::write_parakeet_checkpoint`).
 """
 
 import io
@@ -196,15 +199,23 @@ def test_top_level_load_model_routes_stt_types(checkpoint, tmp_path):
 @pytest.mark.parametrize("model_type", ["parakeet", "canary",
                                         "wav2vec2"])
 def test_unported_stt_type_raises_a_clear_error(tmp_path, model_type):
+    """An unported STT type is named, with the ported families; Parakeet
+    and Canary are ported now, so a config-only directory of theirs reaches
+    its family's loader, which finds no weights."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.stt.utils import load_model
 
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": model_type}))
     for load in (load_model, mlx_audio_tpu_torch.load_model):
-        with pytest.raises(ValueError, match="not ported.*ported: whisper, "
-                           "voxtral_realtime, cohere_asr"):
-            load(tmp_path, device="cpu")
+        if model_type == "wav2vec2":
+            with pytest.raises(ValueError, match="not ported.*ported: "
+                               "whisper, voxtral_realtime, cohere_asr, "
+                               "parakeet, canary, nemotron_asr"):
+                load(tmp_path, device="cpu")
+        else:
+            with pytest.raises(FileNotFoundError, match="No weight files"):
+                load(tmp_path, device="cpu")
 
 
 def test_stt_remapping_is_the_jax_registry():
@@ -494,3 +505,61 @@ def test_cohere_cli_defaults_the_language(cohere_checkpoint, wav, tmp_path,
     assert got["language"] == "en"
     assert (got["text"], got["segments"]) == (
         want.text, json.loads(json.dumps(want.segments)))
+
+
+# ---------------------------------------------------------------------------
+# Parakeet
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def parakeet_checkpoint(tmp_path_factory):
+    """A tiny Parakeet TDT checkpoint directory (the JAX tree in an npz,
+    `chip_smoke.py::write_parakeet_checkpoint`), the JAX package's model
+    loaded from it, and a 3.8-s WAV."""
+    from chip_smoke import write_parakeet_checkpoint
+    from mlx_audio_tpu.stt.utils import load_model as jax_load_model
+    from mlx_audio_tpu_torch import audio_io
+    from test_torch_parakeet import pair
+
+    path = tmp_path_factory.mktemp("parakeet-tdt-tiny")
+    write_parakeet_checkpoint(pair("tdt")[1], path)
+    wav = path / "speech.wav"
+    audio_io.write(wav, (np.random.RandomState(11).randn(60800) * 0.1)
+                   .astype(np.float32), 16000)
+    return path, jax_load_model(path), wav
+
+
+def test_parakeet_cli_chunk_duration_matches_generate_and_jax(
+        parakeet_checkpoint, tmp_path, monkeypatch):
+    """The STT CLI with --chunk-duration 1.5 (and the 0.5-s overlap through
+    --gen-kwargs) on a Parakeet directory: its json equals the port's
+    in-process generate() and the JAX package's CLI function, byte for
+    byte."""
+    import mlx_audio_tpu_torch.stt.utils as stt_utils
+    from mlx_audio_tpu.stt.generate import (
+        generate_transcription as jax_generate_transcription)
+    from mlx_audio_tpu_torch.stt.generate import main
+    from mlx_audio_tpu_torch.stt.models.parakeet import Model
+
+    path, jm, wav = parakeet_checkpoint
+    real = stt_utils.load_model
+    monkeypatch.setattr(stt_utils, "load_model",
+                        lambda p: real(p, device="cpu"))
+    main(["--model", str(path), "--audio", str(wav), "--format", "json",
+          "--output-path", str(tmp_path / "port"), "--no-verbose",
+          "--chunk-duration", "1.5",
+          "--gen-kwargs", '{"overlap_duration": 0.5}'])
+    got = (tmp_path / "port" / "transcription.json").read_text("utf-8")
+    model = real(path, device="cpu")
+    assert isinstance(model, Model)
+    want = model.generate(str(wav), chunk_duration=1.5, overlap_duration=0.5)
+    assert model.last_run["windows"] >= 3
+    assert (json.loads(got)["text"], json.loads(got)["segments"]) == (
+        want.text, json.loads(json.dumps(want.segments)))
+    jax_generate_transcription(
+        str(path), str(wav), model=jm, output_path=str(tmp_path / "jax"),
+        format="json", verbose=False, chunk_duration=1.5,
+        gen_kwargs={"overlap_duration": 0.5})
+    assert got == (tmp_path / "jax" / "transcription.json").read_text("utf-8")
+    assert want.segments
