@@ -26,7 +26,11 @@ and Sesame CSM-1B cloning a reference segment, whole and streamed; and
 the NeMo ASR families: Parakeet TDT 0.6B v2 (TDT, RNN-T and CTC decoding,
 a long file in overlapping windows), Canary-1B-v2 and Nemotron ASR
 (`generate` and `stream_generate`), through `generate`, `load_model`, the
-STT CLI and the server's transcription route.
+STT CLI and the server's transcription route; and speech to speech: Moshi
+(a full-duplex 7B LM over Mimi codes) in bf16 and on an affine-q8 LM
+(kernel K2), Mel-Band-RoFormer vocal separation and DeepFilterNet3
+enhancement, offline and streamed, through `generate`, `load_model`, the
+STS CLI and the server's separation route.
 
     python3 chip_smoke.py
 
@@ -73,8 +77,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
 7. Qwen3-TTS main path at the published dims of the 1.7B lane (bench.py
    qwen3_tts_1b7), seeded random bf16 weights quantized to affine 8-bit
    (group 64): `generate(text_ids=...)` requests of 20 ids / 60 frames
-   (cold) and the JAX lane's 50 ids / 100 frames (cold, then warm; the
-   short one ran warm too until phase 26 came): audio length and
+   (cold) and the JAX lane's 50 ids cut to 50 frames from its 100 (cold,
+   then warm; the short one ran warm too until phase 26 came): audio length and
    finiteness, and K2's launch count against the count the config gives
    for the steps that ran (722 per decode step; the model must hold
    exactly the quantized linears the config gives), and the decode steps
@@ -82,11 +86,12 @@ the CUDA toolkit. Phases, each of which raises on failure:
    phases came, a third request of 120 ids / 200 frames ran here; it was
    dropped to keep the run's time.)
 8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
-   10, 11, 21, 24, 26 and 28 launched it with, run after phase 25 (the
-   prefill bucket, the code predictor's first sub-step, text_projection
-   over the text ids, the session's M = 8 and 16 decode frame and its
-   burst prefill at M = 8 x 16, Higgs's four shapes at M = 1 and 512,
-   KugelAudio's five at M = 2 and 1,024, the ICL prefill at M = 512),
+   10, 11, 21, 24, 26, 28, 32 and 33 launched it with, run after phase 34
+   (the prefill bucket, the code predictor's first sub-step,
+   text_projection over the text ids, the session's M = 8 and 16 decode
+   frame and its burst prefill at M = 8 x 16, Higgs's four shapes at M = 1
+   and 512, KugelAudio's five at M = 2 and 1,024, the ICL prefill at M =
+   512, the small and the full Moshi's at M = 1),
    8-bit codes, x in f32 and bf16 (f32 at K =
    18,944 by the simt path's K tiles).
 9. Qwen3-TTS streaming on the small config at f32 from one seeded q8
@@ -97,12 +102,12 @@ the CUDA toolkit. Phases, each of which raises on failure:
    with a request admitted mid-stream (same codes, audio; each request's
    audio within 2e-4 of `decode_full` of its codes).
 10. Full dims q8, `generate(stream=True)`: the JAX lane's streamed request
-   (`np.arange(100, 150)`, max_tokens 100, streaming_interval 2.0, seed 1;
-   bench.py:303-305), cold then warm: time to first audio, wall, xRT,
+   (`np.arange(100, 150)`, max_tokens cut to 50 from its 100,
+   streaming_interval 2.0, seed 1; bench.py:303-305), cold then warm: time to first audio, wall, xRT,
    chunks, reads and the host's wait in them, finite audio of whole
    frames, and K2's launches against the config's count.
 11. Full dims q8, the continuous-batching session at b = 8 (bench.py:
-   761-803: 100 frames, streaming_interval 0.4, max_cache_len 1024,
+   761-803: 50 frames, cut from its 100, streaming_interval 0.4, max_cache_len 1024,
    `warmup()` first) with a cold burst of 8 requests
    `np.arange(100 + i, 150 + i)`: aggregate xRT, time to first audio p50
    and max, wall per `step()`, K2's launches per step (against the
@@ -294,7 +299,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    weights on the CPU, and the share of a 10-s clip's codes that TF32
    would flip; the 10-s reference's encode and x-vector (cold, warm); the
    ICL prefill alone at its 512-row bucket (120-character stand-in texts);
-   100 frames by ICL whole and streamed (time to first audio), 30 by the
+   50 frames by ICL whole and streamed (time to first audio), 30 by the
    x-vector alone, and one `AudioServer` speech request with
    ref_audio="voice:clone" from its voice library (serial path, no
    session; its WAV equal to generate()'s to 1 LSB). K2's launches each
@@ -332,6 +337,43 @@ the CUDA toolkit. Phases, each of which raises on failure:
    first 200 frames, to emit on about a quarter of the steps, and Canary's
    EOS row is biased down. Neither K1 nor K2 may launch in
    phases 30-31.
+32. Speech to speech, run after phase 31, on the small configs of
+   tests/test_moshi.py (its Mimi: phase 27's), tests/test_mel_roformer.py
+   and tests/test_deepfilternet.py at f32 from one seeded weight set,
+   CUDA against the CPU: Moshi's 16 greedy LmGen steps (tokens equal) and
+   a greedy generate over a 2-s clip (2,000 steps of the tiny Mimi's 1-ms
+   frames; text tokens equal, audio within 1e-4); the same LM at widths
+   group 64 divides, affine q8 through K2 against the same model through
+   `qmatmul_reference` on the card (tokens equal, first-step logits within
+   phase 8's 1e-4; K2's launches the config's count a step);
+   Mel-Band-RoFormer `separate` over several chunks and DeepFilterNet
+   offline and streamed in 8-hop chunks (within 1e-4, and streamed against
+   offline on the card); then each tiny checkpoint directory through the
+   `load_model` router on the card (a loaded Moshi's generate asks for a
+   Mimi), the STS CLI on DeepFilterNet and Mel-Band-RoFormer in a
+   subprocess (TF32 off) writing the WAV of in-process generate(), and one
+   Mel-Band-RoFormer separation through `AudioServer` equal to separate().
+33. Moshi v0.1 (`config_v0_1()`, 7.69 B) drawn on the card in bf16 tensor
+   by tensor, its Mimi at mimi_202407(8) in f32: generate over 20 s of
+   seeded input (250 steps) at the default temperatures, seed 0, after a
+   2-s warm-up: ms a step p50 and p95 against the 80-ms frame, wall,
+   the steps' realtime factor, peak memory; kernels and device time a
+   step from 8 profiled steps, and the busy share (that device time over
+   the generate's mean step). Then the same model in affine q8 (group
+   64): the same numbers, K2's launches exactly 337 a step (the model
+   must hold the config's quantized linears), and the first step's text
+   logits against bf16's (relative Frobenius under 0.1). The launches of
+   the q8 parts of phases 32 and 33 join K2's count in the `kernels`
+   line, and their shapes phase 8's final check.
+34. Mel-Band-RoFormer kim_vocal_2 (dim 384, depth 6, 60 bands, n_fft
+   2,048, hop 441, 8-s chunks), seeded on the card: bf16 against f32 on
+   one chunk (relative Frobenius under 2e-2), then a 60-s stereo clip at
+   44.1 kHz in bf16 (wall, xRT, ms a chunk, the chunk's counted operations
+   as a share of 989 TFLOP/s); DeepFilterNet3 at `DeepFilterNetConfig()`
+   (48 kHz, hop 480) with a seeded stand-in ERB filterbank, in f32: 60 s
+   offline (wall, xRT), then streamed in 8-hop chunks (ms a chunk p50 and
+   p95 against the 80-ms chunk; within 1e-4 of offline). Neither K1 nor K2
+   may launch in phases 32-34 outside the q8 Moshi.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -767,8 +809,9 @@ QWEN3_E2E_TOL = 1e-4
 # bf16 check's style
 Q8_PREFILL_TOL, Q8_PREFILL_CORR = 0.05, 0.999
 # (text ids, max_tokens) of phase 7: a short request and the JAX lane's
-# (bench.py:285); temperature 0.9, seed 0
-QWEN3_SEED = 0
+# (bench.py:285) cut from 100 frames to 50 to keep the run's time;
+# temperature 0.9, seed 0
+QWEN3_SEED, LANE_TOKENS = 0, 50
 
 
 def qwen3_requests():
@@ -776,7 +819,7 @@ def qwen3_requests():
 
     rng = np.random.RandomState(1)
     return ((rng.randint(0, 151936, 20), 60),
-            (np.arange(100, 150), 100))
+            (np.arange(100, 150), LANE_TOKENS))
 
 
 def qwen3_config():
@@ -1252,11 +1295,12 @@ def phase_qmm_path(shapes) -> float:
 # Qwen3-TTS streaming and continuous batching (phases 9-11)
 # ---------------------------------------------------------------------------
 
-# phase 10: the JAX lane's streamed request (bench.py:303-305)
-STREAM_IDS, STREAM_TOKENS, STREAM_INTERVAL, STREAM_SEED = (100, 150), 100, \
+# phase 10: the JAX lane's streamed request (bench.py:303-305), and
+# phase 11: its batched session (bench.py:761-803), each cut from 100
+# frames to 50 to keep the run's time
+STREAM_IDS, STREAM_TOKENS, STREAM_INTERVAL, STREAM_SEED = (100, 150), 50, \
     2.0, 1
-# phase 11: the JAX lane's batched session (bench.py:761-803)
-SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 100, 0.4, \
+SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 50, 0.4, \
     1024
 # streamed against one-shot decode on the card, f32: the CPU tests' bound
 STREAM_FULL_ATOL = 2e-4
@@ -3856,8 +3900,9 @@ def phase_vibevoice_full(card: str) -> dict:
 # Kokoro: one whole wav request and one streamed pcm request of this text
 SERVER_TEXT = TEXTS[1]
 # Qwen3-TTS: concurrent streamed requests through the broker's session,
-# frames each, streaming interval (the b = 8 session's, phase 11)
-SERVER_QWEN3_REQUESTS, SERVER_QWEN3_TOKENS = 8, 100
+# frames each (cut from 100 to 50 to keep the run's time), streaming
+# interval (the b = 8 session's, phase 11)
+SERVER_QWEN3_REQUESTS, SERVER_QWEN3_TOKENS = 8, 50
 SERVER_QWEN3_TEXT = ("Request {} of the burst: the server streams this "
                      "sentence as audio.")
 # Whisper turbo: seconds of seeded noise a transcription
@@ -4358,9 +4403,9 @@ SESAME_SMALL = dict(
 # CUDA against the CPU at f32 on the small configs: summation order only
 CLONE_REL = 1e-4
 # phase 28: a seeded 10-s reference clip and 120-character stand-in texts
-# (one id a character: a 512-row ICL prompt bucket); 100 frames whole and
+# (one id a character: a 512-row ICL prompt bucket); 50 frames whole and
 # streamed, fewer for the x-vector and the server's voice-library request
-ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 100, 30
+ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 50, 30
 ICL_REF_TEXT = ("This reference clip was recorded for the voice cloning "
                 "check; its words are read back as the prompt's transcript.")
 ICL_TEXT = ("The cloned voice now reads a different sentence, long enough "
@@ -5225,15 +5270,16 @@ def _agreement(a: list, b: list) -> str:
     return f"{same}/{max(len(a), len(b))} positions equal"
 
 
-def _device_kernels(fn) -> list:
+def _device_kernels(fn, cpu: bool = True) -> list:
     """`fn` once under torch.profiler -> its CUDA kernels' key_averages
-    rows."""
+    rows. `cpu=False` records the CUDA activity alone: the host's op
+    events of a long stretch take many seconds to gather."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + [ProfilerActivity.CPU] * cpu) as prof:
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -5499,6 +5545,681 @@ def phase_nemo(card: str) -> None:
         f"K1 nor K2 launched")
 
 
+# ---------------------------------------------------------------------------
+# Speech-to-speech: Moshi, Mel-Band-RoFormer, DeepFilterNet (phases 32-34)
+# ---------------------------------------------------------------------------
+
+# tests/test_moshi.py's LM_CFG (its Mimi: MIMI_SMALL)
+MOSHI_SMALL = dict(
+    transformer=dict(d_model=32, num_heads=4, num_layers=2,
+                     dim_feedforward=64, context=32),
+    depformer=dict(d_model=16, num_heads=2, num_layers=1, dim_feedforward=32,
+                   num_slices=4),
+    text_in_vocab_size=64, text_out_vocab_size=63, audio_vocab_size=65,
+    audio_codebooks=8, audio_delays=[0, 1, 1, 1] + [0, 1, 1, 1])
+# the same at widths that group 64 divides (the gating hiddens named), so
+# that affine q8 at group 64 takes every linear and JAX's default tree rule
+# every table
+MOSHI_Q8_SMALL = dict(
+    MOSHI_SMALL,
+    transformer=dict(d_model=64, num_heads=4, num_layers=2,
+                     dim_feedforward=128, hidden=128, context=32),
+    depformer=dict(d_model=64, num_heads=2, num_layers=1,
+                   dim_feedforward=128, hidden=64, num_slices=4))
+# tests/test_mel_roformer.py's and tests/test_deepfilternet.py's configs
+MEL_SMALL = dict(dim=16, depth=1, heads=2, dim_head=8, num_bands=6,
+                 ff_mult=2, mlp_expansion_factor=2, mask_estimator_depth=2,
+                 n_fft=64, hop_length=16, win_length=64, sample_rate=8000,
+                 chunk_size=2048, num_overlap=2)
+DFN_SMALL = dict(sample_rate=16000, fft_size=96, hop_size=48, nb_erb=8,
+                 nb_df=16, df_order=3, conv_ch=4, emb_hidden_dim=16,
+                 emb_num_layers=2, df_hidden_dim=16, df_num_layers=2,
+                 df_pathway_kernel_size_t=3, linear_groups=2,
+                 enc_linear_groups=4)
+# CUDA against the CPU at f32 on the small configs: summation order only
+STS_REL = 1e-4
+MOSHI_GREEDY_STEPS = 16
+# phase 33: Moshi v0.1 at full width, 20 s of input (250 steps at 12.5 Hz)
+MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 20, 8, 80.0
+MOSHI_STEPS = int(MOSHI_SECONDS * 1000 / MOSHI_FRAME_MS)
+# the q8 model's first-step text logits against bf16's, relative Frobenius:
+# group-64 codes of 8 bits err by about 0.2% a weight, compounded over 32
+# layers of random weights
+MOSHI_Q8_REL = 0.1
+# phase 34: a 60-s clip through Mel-Band-RoFormer kim_vocal_2 and
+# DeepFilterNet3; bf16 against f32 by relative Frobenius (the Whisper
+# bound), DeepFilterNet streamed in chunks of 8 hops (80 ms)
+STS_SECONDS, MEL_BF16_REL, DFN_CHUNK_HOPS = 60, 2e-2, 8
+
+
+def erb_filterbank(freqs: int, bands: int, seed: int):
+    """A seeded stand-in for the ERB filterbank a checkpoint carries
+    (tests/test_deepfilternet.py's): |N(0, 1)| columns summing to 1, and
+    its transpose as the inverse."""
+    import numpy as np
+
+    fb = np.abs(np.random.RandomState(seed).randn(freqs, bands)).astype(
+        np.float32)
+    return fb / fb.sum(0, keepdims=True)
+
+
+def _moshi_small(device: str, like=None, cfg=None):
+    """Moshi on MOSHI_SMALL (or `cfg`) from seed 0, its Mimi at MIMI_SMALL
+    from seed 1."""
+    from mlx_audio_tpu_torch.codec.models.mimi import Mimi
+    from mlx_audio_tpu_torch.sts.models.moshi import Model, ModelConfig
+
+    model = _seeded_like(Model(ModelConfig(lm_config=cfg or MOSHI_SMALL,
+                                           mimi_num_codebooks=4),
+                               device=device), like)
+    model.mimi = (Mimi(MIMI_SMALL, device=device).init_params(seed=1)
+                  if like is None else
+                  _seeded_like(Mimi(MIMI_SMALL, device=device), like.mimi))
+    return model
+
+
+def _mel_small(device: str, like=None):
+    from mlx_audio_tpu_torch.sts.models.mel_roformer import Model
+
+    return _seeded_like(Model(MEL_SMALL, device=device), like)
+
+
+def _dfn_small(device: str, like=None):
+    import torch
+
+    from mlx_audio_tpu_torch.sts.models.deepfilternet import Model
+
+    model = Model(DFN_SMALL, device=device)
+    if like is not None:
+        return _seeded_like(model, like)
+    model.init_params(seed=0)
+    fb = torch.from_numpy(erb_filterbank(DFN_SMALL["fft_size"] // 2 + 1,
+                                         DFN_SMALL["nb_erb"], 0))
+    with torch.no_grad():
+        model.erb_fb.copy_(fb)
+        model.mask.erb_inv_fb.copy_(fb.T)
+    return model
+
+
+def write_moshi_checkpoint(model, path: Path) -> None:
+    """`model`'s LM as a kyutai MLX checkpoint directory (config.json with
+    the LM config; the module tree's names in an npz). No Mimi is saved:
+    a loaded Moshi has none bound."""
+    import dataclasses
+
+    import numpy as np
+
+    path.mkdir(parents=True, exist_ok=True)
+    cfg = dataclasses.asdict(model.config)
+    cfg["lm_config"] = dataclasses.asdict(model.lm.config)
+    (path / "config.json").write_text(json.dumps(cfg))
+    np.savez(path / "model.npz", **{k: v.float().cpu().numpy() for k, v in
+                                    model.lm.state_dict().items()})
+
+
+def write_mel_checkpoint(model, path: Path) -> None:
+    """`model` as a converted checkpoint directory (the stacked-band
+    layout, which `sanitize` passes through)."""
+    import dataclasses
+
+    import numpy as np
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(
+        dataclasses.asdict(model.config)))
+    np.savez(path / "model.npz", **{k: v.float().cpu().numpy() for k, v in
+                                    model.state_dict().items()})
+
+
+def write_dfn_checkpoint(model, path: Path) -> None:
+    """`model` as a torch DeepFilterNet checkpoint directory: OIHW conv
+    kernels, the depthwise transposed convs as torch ConvTranspose2d
+    kernels (the forward kernel flipped), each squeezed GRU's layers as
+    one torch GRU's `weight_ih_l<i>`, ...; `sanitize` maps them back."""
+    import re
+
+    import numpy as np
+
+    _write_config(model, path)
+    state = {}
+    for k, v in model.state_dict().items():
+        v = v.float().cpu().numpy()
+        if re.search(r"\.convt[12]\.0\.weight$", k):
+            v = np.ascontiguousarray(np.flip(v, axis=(2, 3)))
+        m = re.match(r"(.*)\.gru_layers\.(\d+)\.(weight|bias)_(ih|hh)_l0$", k)
+        if m:
+            k = f"{m[1]}.{m[3]}_{m[4]}_l{m[2]}"
+        state[k] = v
+    np.savez(path / "model.npz", **state)
+
+
+def _clip_audio(seed: int, seconds: float, sr: int, channels: int = 1):
+    """A seeded test clip: two tones and noise, (samples,) or (channels,
+    samples), float32."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    out = []
+    for c in range(channels):
+        out.append(0.2 * np.sin(2 * np.pi * (220 + 110 * c) * t)
+                   + 0.1 * np.sin(2 * np.pi * 1500 * t)
+                   + 0.05 * rng.randn(n))
+    a = np.stack(out).astype(np.float32)
+    return a[0] if channels == 1 else a
+
+
+class K2AsReference:
+    """While active, `ops.quant.qmatmul` on CUDA tensors runs
+    `qmatmul_reference` in place of K2 (the same model through the plain
+    version)."""
+
+    def __enter__(self):
+        from mlx_audio_tpu_torch.ops import quant
+
+        self.prev = quant.qmm_kernel
+        quant.qmm_kernel = lambda x, w_q, s, b, bias=None: \
+            quant.qmatmul_reference(x, w_q, s, b, bias)
+        return self
+
+    def __exit__(self, *exc):
+        from mlx_audio_tpu_torch.ops import quant
+
+        quant.qmm_kernel = self.prev
+
+
+def _moshi_greedy(lm, steps: int, seed: int = 0):
+    """`steps` greedy LmGen steps on the other stream's seeded codes ->
+    (text tokens, own frames or None)."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.sts.models.moshi import LmGen
+
+    rng = np.random.RandomState(seed)
+    gen = LmGen(lm, max_steps=steps + 8, text_temp=0.0, audio_temp=0.0)
+    out = []
+    for _ in range(steps):
+        other = rng.randint(0, lm.config.audio_vocab_size - 1,
+                            (1, lm.config.other_codebooks))
+        text, own = gen.step(other)
+        out.append((text.tolist(), None if own is None else own.tolist()))
+    return out
+
+
+def moshi_first_logits(lm):
+    """The first step's text logits (1, V) f32: the text start token and
+    every audio stream at its padding token, on a fresh cache."""
+    import torch
+
+    c = lm.config
+    caches = lm.make_caches(1, max_steps=4)
+    text = torch.full((1, 1), c.text_out_vocab_size, device=lm.device)
+    audio = torch.full((1, c.audio_codebooks), c.audio_padding_token,
+                       device=lm.device)
+    _, _, out = lm.sample_step(text, audio, caches, 0, None, 0.0, 0.0)
+    return out["text_logits"].float()
+
+
+def phase_sts_reference(tmp: Path, recorder: K2Recorder) -> int:
+    """Phase 32: the small configs at f32 from one seeded weight set, CUDA
+    against the CPU: Moshi's greedy LmGen tokens and a generate over a 2-s
+    clip through the tiny Mimi, the q8 Moshi through K2 against the same
+    model through `qmatmul_reference`, Mel-Band-RoFormer `separate`,
+    DeepFilterNet offline and streamed; then each tiny checkpoint directory
+    through the `load_model` router on the card, the STS CLI on
+    DeepFilterNet and Mel-Band-RoFormer against in-process generate(), and
+    one separation through `AudioServer` against separate(). -> K2's
+    launches in the q8 Moshi's steps through K2, as its counter read
+    them."""
+    import asyncio
+    import base64
+    import io
+
+    import numpy as np
+    import torch
+
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t0 = time.perf_counter()
+    notes = []
+    # Moshi: greedy tokens, then generate over 2 s (2,000 steps of the
+    # tiny Mimi's 1-ms frames)
+    cpu = _moshi_small("cpu")
+    gpu = _moshi_small("cuda", like=cpu)
+    want, got = (_moshi_greedy(m.lm, MOSHI_GREEDY_STEPS) for m in (cpu, gpu))
+    if got != want or sum(own is not None for _, own in got) < 8:
+        raise AssertionError("Moshi greedy LmGen: CUDA tokens differ from "
+                             "the CPU's")
+    clip = _clip_audio(0, 2.0, 24000)
+    kw = dict(text_temp=0.0, audio_temp=0.0)
+    want, got = cpu.generate(clip, **kw), gpu.generate(clip, **kw)
+    err = rel_err(got.audio, want.audio)
+    if got.prompt["text_tokens"] != want.prompt["text_tokens"] \
+            or not err <= STS_REL or not np.isfinite(got.audio).all() \
+            or got.token_count != 2000:
+        raise AssertionError(f"Moshi generate: CUDA text tokens equal "
+                             f"{got.prompt['text_tokens'] == want.prompt['text_tokens']}, "
+                             f"audio rel {err:.3e}, {got.token_count} steps")
+    step_ms = np.median(gpu.last_run["step_ms"])
+    notes.append(f"Moshi {MOSHI_GREEDY_STEPS} greedy steps and a 2-s "
+                 f"generate ({got.token_count} steps, {step_ms:.2f} ms a "
+                 f"step on the card, audio rel {err:.1e})")
+    # q8 through K2 against the same model through the plain version
+    q8 = _moshi_small("cuda", cfg=MOSHI_Q8_SMALL)
+    apply_quantization(q8.lm, {"quantization": {"bits": 8, "group_size": 64}})
+    qmm_kernel.launches = 0
+    with recorder:
+        logits_k2 = moshi_first_logits(q8.lm)
+        tokens_k2 = _moshi_greedy(q8.lm, MOSHI_GREEDY_STEPS)
+    k2 = qmm_kernel.launches
+    with K2AsReference():
+        logits_ref = moshi_first_logits(q8.lm)
+        tokens_ref = _moshi_greedy(q8.lm, MOSHI_GREEDY_STEPS)
+    err = rel_err(logits_k2.cpu(), logits_ref.cpu())
+    per_step = moshi_k2_per_step(q8.lm)
+    if tokens_k2 != tokens_ref or not err <= KERNEL_TOL["float32"] \
+            or k2 != per_step * (MOSHI_GREEDY_STEPS + 1):
+        raise AssertionError(f"q8 Moshi: K2 tokens equal "
+                             f"{tokens_k2 == tokens_ref}, logits rel "
+                             f"{err:.3e}, {k2} K2 launches (want "
+                             f"{per_step * (MOSHI_GREEDY_STEPS + 1)})")
+    notes.append(f"q8 Moshi through K2 vs qmatmul_reference ({k2} K2 "
+                 f"launches, {per_step} a step, logits rel {err:.1e}, tokens "
+                 f"equal)")
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    # Mel-Band-RoFormer over three chunks and more
+    mel_cpu = _mel_small("cpu")
+    mel_gpu = _mel_small("cuda", like=mel_cpu)
+    stereo = _clip_audio(1, 0.6, 8000, channels=2)
+    want, got = mel_cpu.separate(stereo), mel_gpu.separate(stereo)
+    err = rel_err(got.vocals, want.vocals)
+    if not err <= STS_REL or not np.isfinite(got.vocals).all():
+        raise AssertionError(f"Mel-Band-RoFormer separate CUDA vs CPU "
+                             f"{err:.3e}")
+    notes.append(f"Mel-Band-RoFormer separate (rel {err:.1e})")
+    # DeepFilterNet offline and streamed
+    dfn_cpu = _dfn_small("cpu")
+    dfn_gpu = _dfn_small("cuda", like=dfn_cpu)
+    noisy = _clip_audio(2, 1.0, 16000)
+    want, got = dfn_cpu.enhance_array(noisy), dfn_gpu.enhance_array(noisy)
+    err = rel_err(got, want)
+    hop = DFN_SMALL["hop_size"] * DFN_CHUNK_HOPS
+    streams = []
+    for m in (dfn_cpu, dfn_gpu):
+        s = m.create_streamer(DFN_CHUNK_HOPS)
+        outs = [s.process_chunk(noisy[i: i + hop])
+                for i in range(0, len(noisy), hop)] + [s.flush()]
+        streams.append(np.concatenate(outs)[: len(noisy)])
+    n = len(noisy) - DFN_SMALL["fft_size"]
+    s_err = rel_err(streams[1], streams[0])
+    so_err = rel_err(streams[1][:n], got[:n])
+    if not (err <= STS_REL and s_err <= STS_REL and so_err <= STS_REL):
+        raise AssertionError(f"DeepFilterNet CUDA vs CPU offline {err:.3e}, "
+                             f"streamed {s_err:.3e}; streamed vs offline on "
+                             f"the card {so_err:.3e}")
+    notes.append(f"DeepFilterNet offline (rel {err:.1e}) and streamed "
+                 f"(rel {s_err:.1e}; against offline {so_err:.1e})")
+
+    # the loaders, the CLI and the server, on the card
+    dirs = {"moshi-tiny": (write_moshi_checkpoint, cpu),
+            "mel-band-roformer-tiny": (write_mel_checkpoint, mel_cpu),
+            "deepfilternet-tiny": (write_dfn_checkpoint, dfn_cpu)}
+    for name, (write, model) in dirs.items():
+        write(model, tmp / name)
+        loaded = mlx_audio_tpu_torch.load_model(tmp / name)
+        if loaded.device.type != "cuda" or type(loaded) is not type(model):
+            raise AssertionError(f"load_model({name}) did not load its "
+                                 f"family on the card")
+        for k, v in model.state_dict().items():
+            if not torch.equal(loaded.state_dict()[k].cpu(), v):
+                raise AssertionError(f"load_model({name}): {k} differs")
+    try:
+        mlx_audio_tpu_torch.load_model(tmp / "moshi-tiny").generate(clip)
+        raise AssertionError("a loaded Moshi without a Mimi generated")
+    except ValueError as e:
+        if "Bind a Mimi codec" not in str(e):
+            raise
+    wavs = {"deepfilternet-tiny": (noisy, 16000),
+            "mel-band-roformer-tiny": (stereo.T, 8000)}
+    for name, (audio, sr) in wavs.items():
+        wav, out = tmp / f"{name}-in.wav", tmp / f"{name}-out.wav"
+        audio_io.write(wav, audio, sr)
+        proc = subprocess.run(
+            [sys.executable, "-m", "mlx_audio_tpu_torch.sts.generate",
+             "--model", str(tmp / name), "--audio", str(wav),
+             "--output-path", str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "NVIDIA_TF32_OVERRIDE": "0"})
+        if proc.returncode != 0:
+            raise AssertionError(f"STS CLI on {name} failed: "
+                                 f"{proc.stderr[-2000:]}")
+        res = mlx_audio_tpu_torch.load_model(tmp / name).generate(str(wav))
+        res = np.asarray(getattr(res, "audio", res))
+        buf = io.BytesIO()
+        audio_io.write(buf, res.T if res.ndim == 2 else res, sr)
+        if out.read_bytes() != buf.getvalue():
+            raise AssertionError(f"STS CLI on {name}: its WAV differs from "
+                                 f"in-process generate()")
+
+    async def serve():
+        from mlx_audio_tpu_torch.server import AudioServer
+
+        server = AudioServer()
+        try:
+            return await server.separate(
+                {"model": str(tmp / "mel-band-roformer-tiny")},
+                (tmp / "mel-band-roformer-tiny-in.wav").read_bytes())
+        finally:
+            server.close()
+
+    reply = asyncio.run(serve())
+    wav_audio, _ = audio_io.read(tmp / "mel-band-roformer-tiny-in.wav",
+                                 dtype="float32")
+    want = mlx_audio_tpu_torch.load_model(
+        tmp / "mel-band-roformer-tiny").separate(wav_audio.T)
+    if reply.status != 200:
+        raise AssertionError(f"separation {reply.status}: {reply.json}")
+    target, sr = audio_io.read(io.BytesIO(base64.b64decode(
+        reply.json["target"])), dtype="float32")
+    buf = io.BytesIO()
+    audio_io.write(buf, want.vocals.T, want.sample_rate)
+    want_t, _ = audio_io.read(buf, dtype="float32")
+    if sr != 8000 or not np.array_equal(target, want_t):
+        raise AssertionError("server separation differs from separate()")
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("phase 32's Mel-Band-RoFormer, DeepFilterNet, "
+                             "loaders, CLI or server launched K1 or K2")
+    log(f"[sts-ref] small configs f32, CUDA vs CPU: {'; '.join(notes)}: "
+        f"equal or within {STS_REL}; load_model of the three tiny "
+        f"directories on the card (the same parameters; Moshi's generate "
+        f"asks for a Mimi); the STS CLI on DeepFilterNet and "
+        f"Mel-Band-RoFormer writing generate()'s WAV; an AudioServer "
+        f"separation equal to separate(); phase 32 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return k2
+
+
+def moshi_k2_per_step(lm) -> int:
+    """K2 launches a step the config gives for a q8 Lm, checked against
+    the QuantizedLinears the model holds: each main layer's and each
+    depformer layer's in_proj, out_proj and gating pair, each slice's
+    linear_in and linear_out, and text_linear."""
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+
+    c = lm.config
+    t, dp = c.transformer, c.depformer
+    want = t.num_layers * 4 + dp.num_slices * (dp.num_layers * 4 + 2) + 1
+    held = sum(isinstance(m, QuantizedLinear) for m in lm.modules())
+    if held != want:
+        raise AssertionError(f"q8 Moshi holds {held} quantized linears, the "
+                             f"config gives {want}")
+    return want
+
+
+def build_moshi_full():
+    """Moshi v0.1 (`config_v0_1()`, 7.7 B) drawn on the card in bf16 from
+    seed 0 tensor by tensor; its Mimi at mimi_202407(8) in f32 from seed
+    1."""
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.mimi import Mimi, mimi_202407
+    from mlx_audio_tpu_torch.sts.models.moshi import Model, ModelConfig
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(lm_preset="v0_1"), device="cuda",
+                  dtype=torch.bfloat16).init_params(seed=0, on_device=True)
+    model.mimi = Mimi(mimi_202407(8), device="cuda").init_params(
+        seed=1, on_device=True)
+    torch.cuda.synchronize()
+    log(f"[moshi] v0.1 {model.num_params():,} params bf16 and Mimi "
+        f"{model.mimi.num_params():,} params f32 on cuda, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def _moshi_run(model, clip, label: str, card: str, base: int) -> dict:
+    """A 2-s warm-up, then `generate` over `clip` at the default
+    temperatures (seed 0), then MOSHI_PROFILE_STEPS steps under the
+    profiler; the busy share is their device time a step over the
+    generate's mean wall a step. The peak is the device memory allocated
+    above `base` bytes (what earlier phases hold). -> the numbers, and the
+    LM steps run in all."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.sts.models.moshi import LmGen
+
+    model.generate(clip[: 2 * 24000], seed=0)
+    warm = model.last_run["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = model.generate(clip, seed=0)
+    wall = time.perf_counter() - t0
+    steps = np.asarray(model.last_run["step_ms"])
+    if not (res.token_count == MOSHI_STEPS and np.isfinite(res.audio).all()
+            and res.samples > 0):
+        raise AssertionError(f"Moshi {label}: {res.token_count} steps, "
+                             f"{res.samples} samples, or not finite")
+    gen = LmGen(model.lm, max_steps=MOSHI_PROFILE_STEPS + 8)
+    other = np.zeros((1, model.lm.config.other_codebooks), np.int64)
+
+    def stretch():
+        for _ in range(MOSHI_PROFILE_STEPS):
+            gen.step(other)
+
+    rows = _device_kernels(stretch, cpu=False)
+    kernels = sum(e.count for e in rows) / MOSHI_PROFILE_STEPS
+    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / MOSHI_PROFILE_STEPS
+    if not (kernels > 0 and dev_ms > 0):
+        raise AssertionError(f"Moshi {label}: the profiler saw no kernel")
+    t_prof = time.perf_counter() - t0 - wall
+    out = dict(p50=float(np.percentile(steps, 50)),
+               p95=float(np.percentile(steps, 95)), wall=wall,
+               rtf=len(steps) * MOSHI_FRAME_MS / steps.sum(),
+               peak=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               kernels=kernels, dev_ms=dev_ms, busy=dev_ms / steps.mean(),
+               steps_run=warm + len(steps) + MOSHI_PROFILE_STEPS)
+    log(f"[moshi] {label}: generate over {MOSHI_SECONDS} s "
+        f"({len(steps)} steps): {out['p50']:.2f} ms a step p50, "
+        f"{out['p95']:.2f} ms p95, {steps.mean():.2f} ms mean (the frame is "
+        f"{MOSHI_FRAME_MS:.0f} ms), wall {wall:.2f} s with Mimi encode and "
+        f"decode, steps' realtime factor {out['rtf']:.2f}, peak "
+        f"{out['peak']:.2f} GB above the earlier phases'; profiled "
+        f"{MOSHI_PROFILE_STEPS} steps: {kernels:.0f} kernels and "
+        f"{dev_ms:.2f} ms of device time a step (busy {100 * out['busy']:.1f}% "
+        f"of the mean step; profiled in {t_prof:.1f} s) ({card})")
+    return out
+
+
+def phase_moshi_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 33: Moshi v0.1 at full width in bf16, then the same model in
+    affine q8 (group 64) through K2: each a generate over 20 s of input
+    and a profiled stretch; K2's launches a step against the config's
+    count; the first step's text logits q8 against bf16. -> K2's launches
+    over the q8 model's run (warm-up, generate and profiled stretch), as
+    its counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = build_moshi_full()
+    clip = _clip_audio(3, MOSHI_SECONDS, 24000)
+    logits_bf16 = moshi_first_logits(model.lm)
+    bf16 = _moshi_run(model, clip, "bf16", card, base)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 Moshi launched K1 or K2")
+    t0 = time.perf_counter()
+    apply_quantization(model.lm, {"quantization": {"bits": 8,
+                                                   "group_size": 64}})
+    torch.cuda.empty_cache()
+    per_step = moshi_k2_per_step(model.lm)
+    log(f"[moshi] quantized to affine q8 (group 64) in "
+        f"{time.perf_counter() - t0:.2f} s: {per_step} quantized linears, "
+        f"the embedding tables dense")
+    logits_q8 = moshi_first_logits(model.lm)
+    err = float(torch.linalg.norm(logits_q8 - logits_bf16)
+                / torch.linalg.norm(logits_bf16))
+    k1 = snake_conv_kernel.launches
+    qmm_kernel.launches = 0
+    with recorder:
+        q8 = _moshi_run(model, clip, "q8 (K2)", card, base)
+    k2 = qmm_kernel.launches
+    if k2 != per_step * q8["steps_run"] or snake_conv_kernel.launches != k1:
+        raise AssertionError(f"q8 Moshi: {k2} K2 launches in "
+                             f"{q8['steps_run']} steps, want {per_step} a "
+                             f"step; or K1 launched")
+    if not err < MOSHI_Q8_REL:
+        raise AssertionError(f"q8 Moshi first-step text logits vs bf16: "
+                             f"relative {err:.3e}")
+    log(f"[moshi] q8 against bf16 on this card: {q8['p50']:.2f} vs "
+        f"{bf16['p50']:.2f} ms a step p50, {q8['p95']:.2f} vs "
+        f"{bf16['p95']:.2f} p95, {q8['kernels']:.0f} vs "
+        f"{bf16['kernels']:.0f} kernels a step, busy {100 * q8['busy']:.1f}% "
+        f"vs {100 * bf16['busy']:.1f}%, peak {q8['peak']:.2f} vs "
+        f"{bf16['peak']:.2f} GB; K2 launched {k2} times over "
+        f"{q8['steps_run']} steps, {per_step} a step (exactly the config's); "
+        f"first-step text logits q8 vs bf16 relative {err:.3e} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 33 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def mel_chunk_flops(cfg, lay, frames: int) -> float:
+    """Operations of one chunk's network as run (padded band lanes
+    included; the STFT and iSTFT left out), counting a multiply-add as
+    two."""
+    nb, mbd, d = lay.num_bands, lay.max_bd, cfg.dim
+    inner, ff, h = cfg.dim_inner, cfg.ff_dim, cfg.mlp_hidden
+    n = frames * nb
+    per_tf = 2 * n * d * (3 * inner + cfg.heads) + 2 * n * inner * d \
+        + 4 * n * d * ff
+    attn = 4 * n * inner * (frames + nb)        # time then frequency
+    mask = 2 * n * (d * h + (cfg.mask_estimator_depth - 1) * h * h
+                    + h * 2 * mbd)
+    return 2 * n * mbd * d + cfg.depth * (2 * per_tf + attn) + mask
+
+
+def phase_separation_full(card: str) -> dict:
+    """Phase 34: Mel-Band-RoFormer kim_vocal_2 and DeepFilterNet3 at their
+    published dims with seeded random weights, on a 60-s clip."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.sts.models.deepfilternet import (
+        DeepFilterNetConfig, Model as DFN)
+    from mlx_audio_tpu_torch.sts.models.mel_roformer import (
+        MelRoFormerConfig, Model as Mel)
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    cfg = MelRoFormerConfig.kim_vocal_2()
+    mel = Mel(cfg, device="cuda").init_params(seed=0, on_device=True)
+    stereo = _clip_audio(4, STS_SECONDS, cfg.sample_rate, channels=2)
+    chunk = stereo[None, :, : cfg.chunk_size]
+    ref = mel(chunk)
+    mel.astype(torch.bfloat16)
+    got = mel(chunk)
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    if not torch.isfinite(got).all() or not rel < MEL_BF16_REL:
+        raise AssertionError(f"Mel-Band-RoFormer bf16 vs f32 {rel:.3e}")
+    mel.separate(stereo[:, : cfg.chunk_size])
+    res, wall = _sync_s(lambda: mel.separate(stereo))
+    s = stereo.shape[1]
+    hop = cfg.chunk_size // cfg.num_overlap
+    chunks = len(range(0, s - cfg.chunk_size + 1, hop)) \
+        + ((s - cfg.chunk_size) % hop != 0)
+    frames = cfg.chunk_size // cfg.hop_length + 1
+    flops = mel_chunk_flops(cfg, mel.layout, frames)
+    chunk_ms = wall * 1e3 / chunks
+    if res.vocals.shape != stereo.shape or not np.isfinite(res.vocals).all():
+        raise AssertionError("Mel-Band-RoFormer 60-s separation")
+    log(f"[mel-roformer] kim_vocal_2 ({mel.num_params():,} params, "
+        f"{mel.layout.num_bands} bands, widest {mel.layout.max_bd}) bf16 vs "
+        f"f32 on one 8-s chunk: relative Frobenius {rel:.3e}; a "
+        f"{STS_SECONDS}-s stereo clip at {cfg.sample_rate} Hz in bf16: "
+        f"{chunks} chunks in {wall:.3f} s (xRT {STS_SECONDS / wall:.1f}), "
+        f"{chunk_ms:.2f} ms a chunk, {flops / 1e12:.3f} TFLOP a chunk as run "
+        f"= {100 * flops / (chunk_ms * 1e-3) / PEAK_BF16:.2f}% of "
+        f"{PEAK_BF16 / 1e12:.0f} TFLOP/s ({card})")
+    del mel, ref, got
+    torch.cuda.empty_cache()
+
+    dcfg = DeepFilterNetConfig()
+    dfn = DFN(dcfg, device="cuda").init_params(seed=0, on_device=True)
+    fb = torch.from_numpy(erb_filterbank(dcfg.fft_size // 2 + 1,
+                                         dcfg.nb_erb, 0)).cuda()
+    with torch.no_grad():
+        dfn.erb_fb.copy_(fb)
+        dfn.mask.erb_inv_fb.copy_(fb.T)
+    noisy = _clip_audio(5, STS_SECONDS, dcfg.sample_rate)
+    dfn.enhance_array(noisy[: 2 * dcfg.sample_rate])
+    out, off_wall = _sync_s(lambda: dfn.enhance_array(noisy))
+    if out.shape != noisy.shape or not np.isfinite(out).all():
+        raise AssertionError("DeepFilterNet3 offline over 60 s")
+    hop = dcfg.hop_size * DFN_CHUNK_HOPS
+    streamer = dfn.create_streamer(DFN_CHUNK_HOPS)
+    for i in range(0, 10 * hop, hop):
+        streamer.process_chunk(noisy[i: i + hop])
+    streamer.reset()
+    times, outs = [], []
+    for i in range(0, len(noisy), hop):
+        t0 = time.perf_counter()
+        outs.append(streamer.process_chunk(noisy[i: i + hop]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    outs.append(streamer.flush())
+    streamed = np.concatenate(outs)[: len(noisy)]
+    n = len(noisy) - dcfg.fft_size
+    s_err = rel_err(streamed[:n], out[:n])
+    chunk_ms = hop / dcfg.sample_rate * 1e3
+    p50, p95 = np.percentile(times, 50), np.percentile(times, 95)
+    if not s_err <= STS_REL:
+        raise AssertionError(f"DeepFilterNet3 streamed vs offline {s_err:.3e}")
+    log(f"[deepfilternet] DeepFilterNet3 ({dfn.num_params():,} params, f32) "
+        f"over {STS_SECONDS} s at {dcfg.sample_rate} Hz: offline "
+        f"{off_wall:.3f} s (xRT {STS_SECONDS / off_wall:.1f}); streamed in "
+        f"{DFN_CHUNK_HOPS}-hop chunks ({len(times)} of {chunk_ms:.0f} ms): "
+        f"{p50:.2f} ms a chunk p50, {p95:.2f} ms p95, against offline rel "
+        f"{s_err:.1e} ({card})")
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("phase 34 launched K1 or K2")
+    log(f"[time] phase 34 in {time.perf_counter() - t_phase:.1f} s")
+    return dict(mel_chunk_ms=chunk_ms, dfn_p50=p50)
+
+
+def phase_sts(card: str, recorder: K2Recorder) -> int:
+    """Phases 32-34; K2 launches only in the q8 Moshi parts of 32 and 33,
+    K1 never. -> K2's launches there, as its counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_sts_reference(Path(tmp), recorder)
+    torch.cuda.empty_cache()
+    k2 += phase_moshi_full(card, recorder)
+    phase_separation_full(card)
+    if snake_conv_kernel.launches != k1:
+        raise AssertionError("phases 32-34 launched K1")
+    log(f"[time] phases 32-34 in {time.perf_counter() - t0:.1f} s; K1 not "
+        f"launched, K2 only on the q8 Moshi")
+    return k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -5623,6 +6344,10 @@ def main() -> int:
     # the NeMo ASR families: dense products, neither K1 nor K2
     phase_nemo(card)
     log(f"[time] phases 1-31 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # speech-to-speech: K2 on the q8 Moshi only
+    k2_launches += phase_sts(card, recorder)
+    log(f"[time] phases 1-34 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

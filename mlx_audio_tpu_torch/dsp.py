@@ -8,6 +8,10 @@
   arctan2 branch cut.
 * `stft` and `spec_abs` (Voxtral Realtime's mel), with the DFT taken in
   float64 for the reason below and the spectrum returned in complex64.
+* `istft` (Mel-Band-RoFormer's and DeepFilterNet's synthesis): an f32
+  `torch.fft.irfft` a frame and one `F.fold` overlap-add for any hop,
+  normalised by Σ window (or Σ window², COLA). The Kokoro-shaped
+  `ISTFTCache` is not ported.
 * The shared log-mel front end of Whisper-style STT (`mel_filters`,
   `log_mel_spectrogram`, `STR_TO_WINDOW_FN`). Its DFT is `torch.fft.rfft`
   where the JAX package multiplies by a DFT basis at `Precision.HIGHEST`
@@ -254,6 +258,64 @@ def _window_envelope_np(window_key, num_frames: int, hop_length: int,
            + np.arange(win_length)[None, :])
     np.add.at(env, idx.ravel(), np.tile(wn, num_frames))
     return env.astype(np.float32)
+
+
+@lru_cache(maxsize=64)
+def _envelope_on(window_key, num_frames: int, hop_length: int,
+                 win_length: int, squared: bool,
+                 device: torch.device) -> torch.Tensor:
+    """`_window_envelope_np` as an f32 tensor on `device` (copied once)."""
+    return torch.from_numpy(_window_envelope_np(
+        window_key, num_frames, hop_length, win_length, squared)).to(device)
+
+
+def istft(x: torch.Tensor, hop_length: Optional[int] = None,
+          win_length: Optional[int] = None,
+          window: Union[str, torch.Tensor, np.ndarray] = "hann",
+          center: bool = True, length: Optional[int] = None,
+          normalized: bool = False) -> torch.Tensor:
+    """Inverse STFT (dsp.istft, mlx_audio_tpu/dsp.py:383-453): complex
+    (..., num_frames, n_fft // 2 + 1) -> (..., T) f32 on x's device.
+
+    Each frame is `torch.fft.irfft`, cut to win_length and windowed; the
+    frames are overlap-added in one `F.fold` and divided by the overlap-
+    added window (window squared when `normalized`, the COLA form) where
+    that exceeds 1e-10. `center` without `length` trims win_length // 2 from
+    both ends; `length` cuts the result to its first `length` samples
+    (and, as in the JAX package, then trims nothing at the front). A window
+    name gives the periodic window; a numpy array or tensor is used as it
+    is, zero-padded to win_length. The envelope is built on the host in
+    float64 from the window's f32 values, as the JAX package builds it."""
+    if win_length is None:
+        win_length = (x.shape[-1] - 1) * 2
+    if hop_length is None:
+        hop_length = win_length // 4
+    if isinstance(window, str):
+        kind = {"hanning": "hann"}.get(window.lower(), window.lower())
+        if window.lower() not in STR_TO_WINDOW_FN:
+            raise ValueError(f"Unknown window function: {window}")
+        w_np = _window_np(kind, win_length + 1, False)[:-1]
+    else:
+        w_np = np.asarray(window.cpu() if isinstance(window, torch.Tensor)
+                          else window, np.float32)
+    if w_np.shape[0] < win_length:
+        w_np = np.pad(w_np, (0, win_length - w_np.shape[0]))
+    lead, nfr = x.shape[:-2], x.shape[-2]
+    frames = torch.fft.irfft(x.to(torch.complex64), dim=-1)[..., :win_length]
+    frames = frames * torch.tensor(w_np, device=x.device)
+    t = (nfr - 1) * hop_length + win_length
+    out = torch.nn.functional.fold(
+        frames.reshape(-1, nfr, win_length).transpose(1, 2),
+        output_size=(1, t), kernel_size=(1, win_length),
+        stride=(1, hop_length)).reshape(*lead, t)
+    env = _envelope_on(tuple(w_np.astype(np.float64).tolist()), nfr,
+                       hop_length, win_length, normalized, x.device)
+    out = torch.where(env > 1e-10, out / env, out)
+    if center and length is None:
+        out = out[..., win_length // 2: -(win_length // 2)]
+    if length is not None:
+        out = out[..., :length]
+    return out
 
 
 # ---------------------------------------------------------------------------

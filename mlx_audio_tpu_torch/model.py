@@ -17,9 +17,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .nn import (BatchNorm, BiLSTM, Conv1d, Conv2d, ConvTranspose1d, Embedding,
-                 Int8Linear, LayerNorm, Linear, LSTMCell, QuantizedLinear,
-                 RMSNorm, StackedTable)
+from .nn import (GRU, BatchNorm, BiLSTM, Conv1d, Conv2d, ConvTranspose1d,
+                 Embedding, GroupedLinear, Int8Linear, LayerNorm, Linear,
+                 LSTMCell, QuantizedLinear, RMSNorm, StackedTable)
 
 
 def _tensor(v: Any) -> torch.Tensor:
@@ -109,9 +109,11 @@ class TorchModel(nn.Module):
                     m.running_var.fill_(1.0)
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
-            elif isinstance(m, (BiLSTM, LSTMCell)):
+            elif isinstance(m, (BiLSTM, LSTMCell, GRU)):
                 for p in m.parameters():
                     draw(p, "uniform", m.hidden_size ** -0.5)
+            elif isinstance(m, GroupedLinear):
+                draw(m.weight, "uniform", m.weight.shape[1] ** -0.5)
             if isinstance(m, (Linear, Conv1d, Conv2d, ConvTranspose1d)) \
                     and m.bias is not None:
                 m.bias.fill_(0.0)
@@ -167,6 +169,15 @@ def holder(**children: nn.Module) -> nn.Module:
     return m
 
 
+def leaves(**shapes) -> nn.Module:
+    """An nn.Module whose parameters are raw leaves of the JAX tree, named
+    as there and shaped `shapes[name]` (uninitialised)."""
+    m = nn.Module()
+    for name, shape in shapes.items():
+        setattr(m, name, nn.Parameter(torch.empty(shape)))
+    return m
+
+
 def replace_module(model: nn.Module, name: str, new: nn.Module) -> None:
     parent, _, child = name.rpartition(".")
     setattr(model.get_submodule(parent) if parent else model, child, new)
@@ -182,6 +193,8 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
       * ConvTranspose1d: pre-flipped (W, I/g, O)  -> torch (I, O/g, W)
       * BiLSTM:          {forward,backward}.{weight_ih,weight_hh,bias_ih,bias_hh}
                          -> weight_ih_l0[_reverse], ...  (gate order i,f,g,o)
+      * GRU:             {weight_ih,weight_hh,bias_ih,bias_hh} -> weight_ih_l0,
+                         ...  (gate order r,z,n)
       * stacked layers:  leaves under `model.JAX_STACKED` prefixes lose their
                          leading L axis to per-layer modules
       * quantized:       a Linear whose JAX leaf is {w_q, scales, biases[,
@@ -222,6 +235,9 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
             for direction, suffix in (("forward", ""), ("backward", "_reverse")):
                 for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
                     state[f"{pre}{leaf}_l0{suffix}"] = take(f"{pre}{direction}.{leaf}")
+        elif isinstance(m, GRU):
+            for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                state[f"{pre}{leaf}_l0"] = take(f"{pre}{leaf}")
         elif isinstance(m, ConvTranspose1d):
             state[pre + "weight"] = _conv_transpose_from_jax(
                 take(pre + "weight"), m.groups)

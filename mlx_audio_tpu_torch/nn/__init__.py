@@ -10,6 +10,7 @@ from .layers import (
     Conv2d,
     ConvTranspose1d,
     Embedding,
+    GroupedLinear,
     Int8Linear,
     LayerNorm,
     Linear,
@@ -25,12 +26,12 @@ from .layers import (
     linear,
     rms_norm,
 )
-from .recurrent import BiLSTM, LSTMCell
+from .recurrent import GRU, BiLSTM, LSTMCell
 
 __all__ = [
     "Linear", "QuantizedLinear", "Int8Linear", "Embedding", "StackedTable", "LayerNorm",
     "RMSNorm", "Conv1d", "Conv2d", "ConvTranspose1d", "BatchNorm", "BiLSTM",
-    "LSTMCell",
+    "LSTMCell", "GRU", "GroupedLinear",
     "linear", "layer_norm", "rms_norm", "conv1d", "conv2d", "conv_transpose1d",
     "leaky_relu", "gelu",
 ]

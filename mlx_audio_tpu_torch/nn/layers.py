@@ -10,6 +10,8 @@ with like; parameters are held in PyTorch's own layouts:
   * Conv2d:           weight (out, in/groups, kh, kw)       [torch Conv2d]
   * BatchNorm:        weight, bias (dim,); buffers running_mean and
                       running_var f32 (dim,)
+  * GroupedLinear:    weight (groups, in/groups, out/groups), as in the
+                      JAX tree
   * Embedding:        weight (vocab, dim)
   * QuantizedLinear:  buffers w_q uint8 (out, in), scales/biases f32
                       (out, in/gs); optional bias buffer (out,)
@@ -270,20 +272,40 @@ class ConvTranspose1d(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """Weights (O, I/g, kh, kw); called on channel-first (B, C, H, W)."""
+    """Weights (O, I/g, kh, kw); called on channel-first (B, C, H, W). A
+    kernel of one int is square."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, bias: bool = True,
+    def __init__(self, in_ch: int, out_ch: int,
+                 kernel: Union[int, Tuple[int, int]], bias: bool = True,
                  groups: int = 1):
         super().__init__()
         self.groups = groups
-        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel,
-                                               kernel))
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kh,
+                                               kw))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor, stride: int = 1,
                 padding: int = 0) -> torch.Tensor:
         return conv2d(x, self.weight, self.bias, stride=stride,
                       padding=padding, groups=self.groups)
+
+
+class GroupedLinear(nn.Module):
+    """A grouped linear (DeepFilterNet's `GroupedLinearEinsum`): weight
+    (groups, in/groups, out/groups); (..., in) -> (..., out), each group of
+    inputs to its own group of outputs."""
+
+    def __init__(self, in_features: int, out_features: int, groups: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            groups, in_features // groups, out_features // groups))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g, ws, hs = self.weight.shape
+        y = torch.einsum("...gi,gih->...gh", x.reshape(*x.shape[:-1], g, ws),
+                         self.weight.to(x.dtype))
+        return y.reshape(*x.shape[:-1], g * hs)
 
 
 class BatchNorm(nn.Module):

@@ -20,6 +20,13 @@ on `mask.sum(-1)`.
 `bias_hh` are torch's `nn.LSTMCell`'s): a caller that carries (h, c)
 across calls, as a streaming model does, steps it itself.
 
+`GRU` is one unidirectional torch-semantics GRU layer (gate order r, z, n;
+n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), as the JAX package's
+`_gru_cell` in sts/models/deepfilternet/network.py), `nn.GRU` itself, so
+the card runs cuDNN's; it carries its final state out for a streaming
+caller. Its JAX leaf `{weight_ih, weight_hh, bias_ih, bias_hh}` maps onto
+torch's `weight_ih_l0`, ... in `model.load_jax_params`.
+
 BiLSTM's parameter names are torch's (`weight_ih_l0`, `weight_ih_l0_reverse`, ...),
 the names the published checkpoint uses; the JAX tree's `forward`/`backward`
 sub-trees map onto them in `model.load_jax_params`. Gate order (i, f, g, o)
@@ -59,3 +66,16 @@ class BiLSTM(nn.LSTM):
 class LSTMCell(nn.LSTMCell):
     """One LSTM step (B, I), (h, c) (B, H) each -> (h, c); gate order
     (i, f, g, o), as the JAX package's cell step."""
+
+
+class GRU(nn.GRU):
+    """Single-layer GRU on (B, T, I) with a (B, H) state -> ((B, T, H),
+    final state (B, H))."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__(input_size, hidden_size, num_layers=1, bias=True,
+                         batch_first=True)
+
+    def forward(self, x: torch.Tensor, h0: Optional[torch.Tensor] = None):
+        out, h = super().forward(x, None if h0 is None else h0[None])
+        return out, h[0]

@@ -35,8 +35,10 @@ Departures from the JAX server:
   voice cloning) answers 501 with the model's message; requests with
   `ref_audio` never join a continuous-batching session, which would drop
   it;
-* the separation adapter takes any model with `separate(audio)`; the JAX
-  server's sam_audio branch is not ported (no STS family is);
+* the separation adapter takes any model with `separate(audio)` (the
+  port's Mel-Band-RoFormer); the JAX server's sam_audio branch is not
+  ported (SAM-Audio is not: its directory answers 404 with the loader's
+  message);
 * `/v1/realtime` makes each turn's new streaming session with the same
   transcription delay as the first.
 """

@@ -176,19 +176,13 @@ def load_audio(path: Union[str, Path],
 # ---------------------------------------------------------------------------
 
 # the JAX package's categories, in its order of precedence; the port has
-# loaders for the first two and the last
+# loaders for all but `lid`
 CATEGORIES = ("tts", "stt", "sts", "lid", "vad")
-PORTED_CATEGORIES = ("tts", "stt", "vad")
-# the registries of the categories the port has no loader for yet (copies
-# of mlx_audio_tpu/sts/utils.py:14-23 and lid/utils.py:10-15), so that such
-# a checkpoint is named as what it is
+PORTED_CATEGORIES = ("tts", "stt", "sts", "vad")
+# the registry of the category the port has no loader for yet (a copy of
+# mlx_audio_tpu/lid/utils.py:10-15), so that such a checkpoint is named as
+# what it is
 UNPORTED_REMAPPING = {
-    "sts": {"sam_audio": "sam_audio", "moshi": "moshi",
-            "deepfilternet": "deepfilternet",
-            "mossformer2": "mossformer2_se",
-            "mossformer2_se": "mossformer2_se",
-            "mel_roformer": "mel_roformer",
-            "mel_band_roformer": "mel_roformer", "lfm_audio": "lfm_audio"},
     "lid": {"ecapa": "ecapa_tdnn", "ecapa_tdnn": "ecapa_tdnn",
             "wav2vec2": "wav2vec2", "mms_lid": "wav2vec2"},
 }
@@ -299,9 +293,9 @@ def load_model(model_path: Union[str, Path], category: Optional[str] = None,
     """Load a local checkpoint directory into the port, its category found
     as mlx_audio_tpu.utils.load_model finds it (config's model_type, then
     the directory name's parts) unless `category` is given, then its
-    family by that category's loader (`tts.utils`, `stt.utils` or
-    `vad.utils`). Without CUDA it raises before reading anything unless
-    given `device="cpu"`. A path that is not a local directory raises
+    family by that category's loader (`tts.utils`, `stt.utils`,
+    `sts.utils` or `vad.utils`). Without CUDA it raises before reading
+    anything unless given `device="cpu"`. A path that is not a local directory raises
     FileNotFoundError (the port never downloads); a category or family the
     port lacks raises ValueError naming it."""
     from .model import check_device

@@ -104,3 +104,54 @@ def test_windows_match_jax():
             np.testing.assert_array_equal(
                 fn(400, periodic).numpy(),
                 np.asarray(jax_dsp.STR_TO_WINDOW_FN[name](400, periodic)))
+
+
+ISTFT_CASES = [
+    # (win, hop, center, length, normalized, window): Mel-Band-RoFormer's
+    # COLA form (a numpy periodic Hann, hop not dividing the window),
+    # DeepFilterNet's (Vorbis window, no centring, a length), Kokoro-like
+    # defaults and a named window with a cut
+    (2048, 441, True, None, True, "np_hann"),
+    (96, 48, False, 3000, True, "vorbis"),
+    (64, 16, True, None, False, "hann"),
+    (100, 30, True, 1234, False, "hamming"),
+]
+
+
+@pytest.mark.parametrize("win,hop,center,length,normalized,window",
+                         ISTFT_CASES)
+def test_istft_matches_jax(win, hop, center, length, normalized, window):
+    """The inverse STFT of the JAX package's own STFT of seeded noise:
+    both normalisations (sum of window, sum of window squared), `center`
+    and `length`, on a batch of two signals (each against JAX's, which
+    takes one). Within 2e-4 absolute, and 1e-5 away from the edges, where
+    the envelope is small and divides the two packages' f32 rounding."""
+    from mlx_audio_tpu.dsp import istft as jax_istft
+    from mlx_audio_tpu.dsp import stft as jax_stft
+    from mlx_audio_tpu.sts.models.deepfilternet.model import vorbis_window
+    from mlx_audio_tpu_torch.dsp import istft
+
+    w = {"np_hann": np.hanning(win + 1)[:-1].astype(np.float32),
+         "vorbis": vorbis_window(win)}.get(window, window)
+    rng = np.random.RandomState(win)
+    x = rng.randn(2, 4000).astype(np.float32)
+    specs = [np.asarray(jax_stft(row, n_fft=win, hop_length=hop, window=w,
+                                 center=center)) for row in x]
+    kw = dict(hop_length=hop, win_length=win, window=w, center=center,
+              length=length, normalized=normalized)
+    got = istft(torch.from_numpy(np.stack(specs)), **kw)
+    assert got.dtype == torch.float32
+    for i, spec in enumerate(specs):
+        want = np.asarray(jax_istft(spec, **kw))
+        assert got.shape[-1] == want.shape[0]
+        np.testing.assert_allclose(got[i].numpy(), want, atol=2e-4)
+        inner = slice(win, want.shape[0] - win)
+        np.testing.assert_allclose(got[i, inner].numpy(), want[inner],
+                                   atol=1e-5)
+
+
+def test_istft_rejects_an_unknown_window():
+    from mlx_audio_tpu_torch.dsp import istft
+
+    with pytest.raises(ValueError, match="Unknown window"):
+        istft(torch.zeros(3, 9, dtype=torch.complex64), window="nope")

@@ -472,6 +472,57 @@ def test_tiny_kugelaudio_and_vibevoice_generate_without_jax():
     assert out.strip() == "False []", out
 
 
+def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
+    """The STS families on the CPU at a tiny size from seeded weights
+    (chip_smoke.py's small configs): a greedy Moshi generate through its
+    tiny Mimi and on an affine-q8 LM, a Mel-Band-RoFormer separation and a
+    DeepFilterNet enhancement offline and streamed; a DeepFilterNet
+    checkpoint directory through `load_model` and the STS CLI in this
+    interpreter; no jax in sys.modules."""
+    out = _run("""
+        import sys
+        from pathlib import Path
+        import numpy as np
+        import mlx_audio_tpu_torch
+        from mlx_audio_tpu_torch import audio_io
+        from mlx_audio_tpu_torch.sts import generate, utils
+        from mlx_audio_tpu_torch.utils import apply_quantization
+        from chip_smoke import (MOSHI_Q8_SMALL, _clip_audio, _dfn_small,
+                                _mel_small, _moshi_small, moshi_k2_per_step,
+                                write_dfn_checkpoint)
+
+        moshi = _moshi_small("cpu")
+        r = moshi.generate(np.zeros(240, np.float32), text_temp=0.0,
+                           audio_temp=0.0)
+        assert r.token_count == 10 and np.isfinite(r.audio).all()
+        q8 = _moshi_small("cpu", cfg=MOSHI_Q8_SMALL)
+        apply_quantization(q8.lm, {"quantization": {"bits": 8,
+                                                    "group_size": 64}})
+        assert moshi_k2_per_step(q8.lm) == 2 * 4 + 4 * (1 * 4 + 2) + 1
+        assert q8.generate(np.zeros(120, np.float32)).token_count == 5
+        sep = _mel_small("cpu").separate(_clip_audio(1, 0.4, 8000, 2))
+        assert sep.vocals.shape == (2, 3200)
+        dfn = _dfn_small("cpu")
+        noisy = _clip_audio(2, 0.5, 16000)
+        assert dfn.enhance_array(noisy).shape == noisy.shape
+        s = dfn.create_streamer(8)
+        assert s.process_chunk(noisy).size and s.flush().size
+        path = Path(%r) / "deepfilternet-tiny"
+        write_dfn_checkpoint(dfn, path)
+        assert mlx_audio_tpu_torch.load_model(path, device="cpu") \
+            .generate(noisy).shape == noisy.shape
+        real = utils.load_model
+        utils.load_model = lambda p, **kw: real(p, **dict(kw, device="cpu"))
+        audio_io.write(path / "in.wav", noisy, 16000)
+        generate.main(["--model", str(path), "--audio", str(path / "in.wav"),
+                       "--output-path", str(path / "out.wav"),
+                       "--no-verbose"])
+        assert audio_io.read(path / "out.wav")[0].shape == noisy.shape
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
     kernels are built only when first launched."""
@@ -525,6 +576,9 @@ def _entry_points():
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import server
     from mlx_audio_tpu_torch.codec.models import mimi
+    from mlx_audio_tpu_torch.sts import utils as sts_utils
+    from mlx_audio_tpu_torch.sts.models import (deepfilternet, mel_roformer,
+                                                moshi)
     from mlx_audio_tpu_torch.stt import utils as stt_utils
     from mlx_audio_tpu_torch.stt.models import (canary, cohere_asr,
                                                 nemotron_asr, parakeet,
@@ -585,6 +639,16 @@ def _entry_points():
         "tts.generate.generate_audio": (
             generate.generate_audio,
             lambda p: generate.generate_audio("hi", model_path=str(p))),
+        "moshi.Model": (moshi.Model.__init__,
+                        lambda p: moshi.Model(moshi.ModelConfig())),
+        "mel_roformer.Model": (mel_roformer.Model.__init__,
+                               lambda p: mel_roformer.Model(
+                                   mel_roformer.MelRoFormerConfig())),
+        "deepfilternet.Model": (deepfilternet.Model.__init__,
+                                lambda p: deepfilternet.Model(
+                                    deepfilternet.DeepFilterNetConfig())),
+        "sts.utils.load_model": (sts_utils.load_model,
+                                 lambda p: sts_utils.load_model(p)),
     }
 
 
@@ -602,7 +666,10 @@ def _entry_points():
                                   "silero_vad.Model", "vad.utils.load_model",
                                   "server.ModelProvider",
                                   "server.AudioServer",
-                                  "tts.generate.generate_audio"])
+                                  "tts.generate.generate_audio",
+                                  "moshi.Model", "mel_roformer.Model",
+                                  "deepfilternet.Model",
+                                  "sts.utils.load_model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

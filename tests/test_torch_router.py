@@ -32,7 +32,7 @@ MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
                "nonsense"]
 
 
-@pytest.mark.parametrize("category", ["tts", "stt", "vad"])
+@pytest.mark.parametrize("category", ["tts", "stt", "sts", "vad"])
 def test_remappings_equal_jax_for_every_ported_family(category):
     """Every JAX registry key whose family the port has maps the same in
     the port's registry; the port's registries are JAX's, whole."""
@@ -49,11 +49,15 @@ def test_remappings_equal_jax_for_every_ported_family(category):
 
 
 def test_unported_category_registries_equal_jax():
+    """`lid`, the one category the port lacks, keeps JAX's registry in the
+    router; STS, ported, has it in its loader."""
     from mlx_audio_tpu.lid.utils import MODEL_REMAPPING as LID
     from mlx_audio_tpu.sts.utils import MODEL_REMAPPING as STS
+    from mlx_audio_tpu_torch.sts.utils import MODEL_REMAPPING
     from mlx_audio_tpu_torch.utils import UNPORTED_REMAPPING
 
-    assert UNPORTED_REMAPPING == {"sts": STS, "lid": LID}
+    assert UNPORTED_REMAPPING == {"lid": LID}
+    assert MODEL_REMAPPING == STS
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -187,8 +191,8 @@ def test_nemo_directories_reach_their_stt_loaders(tmp_path, monkeypatch,
 def test_unported_category_and_family_are_named(tmp_path):
     from mlx_audio_tpu_torch import load_model
 
-    sts = _config_only(tmp_path / "a", model_type="mel_band_roformer")
-    with pytest.raises(ValueError, match="'sts'.*'mel_roformer'"):
+    sts = _config_only(tmp_path / "a", model_type="sam_audio")
+    with pytest.raises(ValueError, match="'sam_audio'.*not ported"):
         load_model(sts, device="cpu")
     lid = _config_only(tmp_path / "b", model_type="ecapa_tdnn")
     with pytest.raises(ValueError, match="'lid'"):
@@ -203,7 +207,10 @@ def test_unported_category_and_family_are_named(tmp_path):
         load_model(_config_only(tmp_path / "e", model_type="nonsense"),
                    device="cpu")
     # an explicit category the port lacks
-    with pytest.raises(ValueError, match="'sts'"):
+    with pytest.raises(ValueError, match="'lid'"):
+        load_model(bark, category="lid", device="cpu")
+    # an explicit category the port has, whose loader lacks the family
+    with pytest.raises(ValueError, match="STS model type 'bark'.*not ported"):
         load_model(bark, category="sts", device="cpu")
 
 
