@@ -30,7 +30,10 @@ STT CLI and the server's transcription route; and speech to speech: Moshi
 (a full-duplex 7B LM over Mimi codes) in bf16 and on an affine-q8 LM
 (kernel K2), Mel-Band-RoFormer vocal separation and DeepFilterNet3
 enhancement, offline and streamed, through `generate`, `load_model`, the
-STS CLI and the server's separation route.
+STS CLI and the server's separation route; and MLX pre-quantized
+checkpoints, the convert CLI, and Orpheus-3B text -> audio over SNAC 24
+kHz, in bf16 and with every linear on kernel K2 in 4 bits, through
+`load_model`, `generate` whole and streamed, and the TTS CLI.
 
     python3 chip_smoke.py
 
@@ -86,14 +89,18 @@ the CUDA toolkit. Phases, each of which raises on failure:
    phases came, a third request of 120 ids / 200 frames ran here; it was
    dropped to keep the run's time.)
 8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
-   10, 11, 21, 24, 26, 28, 32 and 33 launched it with, run after phase 34
+   10, 11, 21, 24, 26, 28, 32, 33 and 35-37 launched it with, run after
+   phase 37
    (the prefill bucket, the code predictor's first sub-step,
    text_projection over the text ids, the session's M = 8 and 16 decode
    frame and its burst prefill at M = 8 x 16, Higgs's four shapes at M = 1
    and 512, KugelAudio's five at M = 2 and 1,024, the ICL prefill at M =
    512, the small and the full Moshi's at M = 1),
    8-bit codes, x in f32 and bf16 (f32 at K =
-   18,944 by the simt path's K tiles).
+   18,944 by the simt path's K tiles); then at 4-bit codes each shape
+   phases 35-37 launched it with on 4-bit (or mixed 4/6-bit) weights:
+   Orpheus-3B's seven at M = 1 and at the prefill's 128-row bucket, the
+   small Orpheus's.
 9. Qwen3-TTS streaming on the small config at f32 from one seeded q8
    weight set, its codec's biases drawn N(0, 0.1) (a trained checkpoint's
    are not zero), CUDA against the CPU path: the greedy streamed chunks
@@ -198,19 +205,20 @@ the CUDA toolkit. Phases, each of which raises on failure:
    the lane's 512-bucket prefill (relative Frobenius under 2e-2); the
    `higgs_v2_3b_bf16` workload (bench.py:428-464: 480 embeds of
    `randn * 0.02` at seed 0, cache 1,024, temperature 0.7, top_p 0.95, RAS
-   7/2; 250 frames in 16-frame chunks through `prefill` and `chunk`
+   7/2; 100 frames in 16-frame chunks through `prefill` and `chunk`
    whatever `done` says, then the codec at `CodecConfig()` dims in bf16 on
-   the first 242 frames mod 1,024), a warm-up then one timed run (best
-   of 3 until the server phase came, of 2 until the cloning phases came;
-   cut to keep the run's time): wall, ms a
-   frame, xRT over 10 s, the prefill's and the codec's time, peak device
+   the first 92 frames mod 1,024; the lane runs 250 frames and 242, cut
+   here to keep the run's time since the Orpheus phases came), a warm-up
+   then one timed run (best of 3 until the server phase came, of 2 until
+   the cloning phases came; cut to keep the run's time): wall, ms a
+   frame, xRT over 4 s, the prefill's and the codec's time, peak device
    memory, and from one profiled chunk the kernels a frame, device time
    and busy share against the frame's byte bound (1.72 ms). Then, after
    phase 21, the same model's affine codes converted in place to W8A8
    (`tree_to_i8_layout`, as bench.py:414-426), its audio logits on the
    prefill's last row against bf16 (relative Frobenius under 1e-1), and
    the `higgs_v2_3b_q8` workload the same way against its int8 bound.
-   Audio finite and 232,320 samples in each. Neither K1 nor K2 may launch.
+   Audio finite and 88,320 samples in each. Neither K1 nor K2 may launch.
 21. On phase 20's weights, between its two lanes: the backbone quantized
    through `apply_quantization` to affine 8 bits (group 64, no mxu_int8),
    one 32-frame request through `generate_frames` with a voice-clone-like
@@ -235,8 +243,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    hidden rows and one head pass (relative Frobenius under 2e-2), then cast
    in place to bf16 and the lane's workload (bench.py:589-642: the stand-in
    tokenizer, the +1e4 bias on SPEECH_DIFFUSION_ID, its text, 64 frames of
-   10 SDE steps at cfg_scale 3.0; a warm-up, then the best of seeds 1 and
-   2): wall, xRT over 8.53 s, ms a frame, the prefill's, frame loop's and
+   10 SDE steps at cfg_scale 3.0; a warm-up, then seed 1, the lane's seed
+   2 cut to keep the run's time): wall, xRT over 8.53 s, ms a frame, the prefill's, frame loop's and
    VAE decode's seconds, peak device memory, and from one profiled chunk
    of 4 frames the kernels a frame, device time and busy share against
    the frame's byte bound (bench.py:645-656). After phase 24, the same
@@ -307,7 +315,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    none; then K2, W8A8 and dense bf16 at the talker's shapes at M = 512.
 29. Sesame CSM-1B at `ModelConfig()` (bf16; its Mimi at mimi_202407(32) in
    f32; codebook 0's EOS row zeroed so that the frames run): a 10-s
-   reference segment, 64 frames whole and streamed every 0.5 s (the same
+   reference segment, 32 frames whole and streamed every 0.5 s (the same
    frames; streamed audio within 1e-4 of whole): ms a frame, xRT, time to
    first audio, and from two profiled frames the kernels and device time
    a frame. Neither K1 nor K2 may launch in phases 27 and 29.
@@ -354,8 +362,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    subprocess (TF32 off) writing the WAV of in-process generate(), and one
    Mel-Band-RoFormer separation through `AudioServer` equal to separate().
 33. Moshi v0.1 (`config_v0_1()`, 7.69 B) drawn on the card in bf16 tensor
-   by tensor, its Mimi at mimi_202407(8) in f32: generate over 20 s of
-   seeded input (250 steps) at the default temperatures, seed 0, after a
+   by tensor, its Mimi at mimi_202407(8) in f32: generate over 10 s of
+   seeded input (125 steps) at the default temperatures, seed 0, after a
    2-s warm-up: ms a step p50 and p95 against the 80-ms frame, wall,
    the steps' realtime factor, peak memory; kernels and device time a
    step from 8 profiled steps, and the busy share (that device time over
@@ -374,6 +382,38 @@ the CUDA toolkit. Phases, each of which raises on failure:
    offline (wall, xRT), then streamed in 8-hop chunks (ms a chunk p50 and
    p95 against the 80-ms chunk; within 1e-4 of offline). Neither K1 nor K2
    may launch in phases 32-34 outside the q8 Moshi.
+35. Pre-quantized checkpoints and the convert CLI, run after phase 34, on
+   a small Orpheus (tests/test_orpheus.py's sizes at d64, the full
+   156,938-id vocabulary, a stand-in tokenizer, its tiny SNAC) from seed
+   0: written as mlx-community ships one (every linear and the token table
+   MLX-packed, uint32 words, group 64, with a `snac/` subfolder) at 4 and
+   8 bits, each loaded through `tts.utils.load_model` on the card and on
+   the CPU: every linear unpacked onto K2, 40 greedy tokens equal, audio
+   within 1e-4 (both SNACs fed the same noise). Then `python -m
+   mlx_audio_tpu_torch.convert -q --q-bits 4` in a subprocess, and
+   `--quant-predicate mixed_4_6`, `--q-mode mxfp8` and `-d` (of the 4-bit
+   output), each output reloaded on the card with its prefill logits held
+   to the dense model's; and the TTS CLI (`--voice`) on the packed 4-bit
+   directory, whose WAV must be `generate()`'s audio to 2 LSB.
+36. Orpheus-3B at canopylabs' published width (Llama-3.2-3B: 28 layers x
+   d3072, GQA 24/8 of 128, FFN 8,192, tied embeddings, 156,940 ids; 3.30
+   B parameters) drawn on the card in f32 from seed 0, the token table's
+   code and SOS rows scaled by 4 so that the tied head draws codes, cast
+   to bf16; SNAC at hubertsiuzdak/snac_24khz's settings in f32: after a
+   32-token warm-up, one 512-token request whole (temperature 0.6, top_p
+   0.8, repetition penalty 1.3; ms a token p50 and p95 over its chunks,
+   the share of tokens that are SNAC codes, at least 80%; wall, xRT, SNAC
+   decode ms, peak memory) and one of 256 tokens streamed every 1.0 s
+   (time to first audio), then one profiled 32-token chunk (kernels,
+   device ms and busy share a token) against the token's byte bound.
+37. The same weights packed in memory to MLX's 4-bit layout (group 64, as
+   mlx-community ships Orpheus) and loaded through `apply_quantization`'s
+   pre-quantized path: every linear on K2 (the tied table dense), the
+   first step's logits against bf16's, the numbers of phase 36, and K2's
+   launches exactly 28 x 7 = 196 a token (the decode steps and prefills
+   run), read from its counter. Neither phase launches K1, nor phase 36
+   K2; these launches join K2's count in the `kernels` line, and their
+   shapes phase 8's final check at 4 bits.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -1165,21 +1205,41 @@ def expected_decode_steps(frames: int, max_tokens: int) -> int:
 
 class K2Recorder:
     """While active, counts K2's launches through `ops.quant.qmatmul` by
-    (M, out, in, has bias) and by the path `choose_path` gives them."""
+    (M, out, in, has bias) in `calls` and by the path `choose_path` gives
+    them in `paths`; `shapes()` gives each of those shapes with the width
+    of the codes it was launched on."""
 
     def __init__(self):
         from collections import Counter
 
         self.calls, self.paths = Counter(), Counter()
+        # id(codes) -> (a weak reference to them, their largest code on the
+        # card), read once a weight; (shape, id(largest)) -> largest
+        self._top, self._seen = {}, {}
+
+    def shapes(self) -> set:
+        """{(M, out, in, has bias, bits)} of the launches recorded; `bits`
+        from the largest code of the weight, which min-max affine codes
+        (quantize_weight, an MLX packing) reach: 2**bits - 1."""
+        return {(*key[:4], int(top).bit_length())
+                for key, top in self._seen.items()}
 
     def __enter__(self):
+        import weakref
+
         from mlx_audio_tpu_torch.ops import quant
         from mlx_audio_tpu_torch.ops.qmm import choose_path, qmm_kernel
 
         def recording(x, w_q, scales, biases, bias=None):
-            self.calls[(x.shape[0], *w_q.shape, bias is not None)] += 1
+            key = (x.shape[0], *w_q.shape, bias is not None)
+            self.calls[key] += 1
             self.paths[choose_path(x.dtype, x.shape[0],
                                    w_q.shape[1] // scales.shape[1])] += 1
+            ref, top = self._top.get(id(w_q), (None, None))
+            if ref is None or ref() is not w_q:
+                top = w_q.max()             # no host sync: read at the end
+                self._top[id(w_q)] = (weakref.ref(w_q), top)
+            self._seen.setdefault((*key, id(top)), top)
             return qmm_kernel(x, w_q, scales, biases, bias)
 
         quant.qmm_kernel = recording
@@ -1259,11 +1319,12 @@ def _qwen3_requests(model, card: str) -> int:
 
 
 def phase_qmm_path(shapes) -> float:
-    """K2 against qmatmul_reference at every (M, out, in, bias) the main
-    paths launched it with (the prefill bucket, the code predictor's first
-    sub-step at M=2, text_projection over the text ids, the session's
-    frame at M=8 and 16 and its burst prefill, ...), 8-bit codes, group
-    64, x in f32 and bf16. Returns the largest bf16 abs error."""
+    """K2 against qmatmul_reference at every (M, out, in, bias, bits)
+    the main paths launched it with (the prefill bucket, the code
+    predictor's first sub-step at M=2, text_projection over the text ids,
+    the session's frame at M=8 and 16 and its burst prefill, Orpheus's
+    linears at 4 bits, ...; `K2Recorder.shapes`), codes of that width,
+    group 64, x in f32 and bf16. Returns the largest bf16 abs error."""
     import torch
 
     from mlx_audio_tpu_torch.ops.quant import quantize_weight
@@ -1272,22 +1333,23 @@ def phase_qmm_path(shapes) -> float:
     g = torch.Generator(device=dev).manual_seed(1)
     weights = {}
     worst = 0.0
-    for m, n, k, has_bias in sorted(shapes):
-        if (n, k) not in weights:
-            weights[(n, k)] = quantize_weight(
+    for m, n, k, has_bias, bits in sorted(shapes):
+        if (n, k, bits) not in weights:
+            weights[(n, k, bits)] = quantize_weight(
                 torch.randn(n, k, generator=g, device=dev) * k ** -0.5,
-                QMM_GROUP, 8)
-        q = weights[(n, k)]
+                QMM_GROUP, bits)
+        q = weights[(n, k, bits)]
         bias = (0.01 * torch.randn(n, generator=g, device=dev)
                 if has_bias else None)
         x32 = torch.randn(m, k, generator=g, device=dev)
         errs = []
         for dtype in (torch.float32, torch.bfloat16):
             errs.append(_qmm_case(x32.to(dtype), q, bias,
-                                  f"({n},{k}) q8 M={m}"))
+                                  f"({n},{k}) q{bits} M={m}"))
         worst = max(worst, errs[1][1])
-        log(f"[qmm path] ({n:5d},{k:5d}) q8 M={m:4d} bias={has_bias!s:5s} "
-            f"rel f32 {errs[0][0]:.3e} bf16 {errs[1][0]:.3e}")
+        log(f"[qmm path] ({n:5d},{k:5d}) q{bits} M={m:4d} "
+            f"bias={has_bias!s:5s} rel f32 {errs[0][0]:.3e} bf16 "
+            f"{errs[1][0]:.3e}")
     return worst
 
 
@@ -2680,10 +2742,12 @@ HIGGS_SHAPES = ((3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192))
 HIGGS_FRAME_LINEARS = (2, 2, 2, 1)
 # the higgs_v2_3b_* lanes (bench.py:428-464): a 480-token prompt of
 # randn * 0.02 embeds (seed 0) in the 512 bucket, a 1,024-column cache,
-# temperature 0.7, top_p 0.95, RAS 7/2; 250 frames (10 s at 25 frames a
-# second) in 16-frame chunks, then the first 242 delayed frames mod 1,024
-# through the codec at CodecConfig() dims in bf16
-HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 250, 25, 242
+# temperature 0.7, top_p 0.95, RAS 7/2; frames in 16-frame chunks, then
+# the delayed frames less 8 mod 1,024 through the codec at CodecConfig()
+# dims in bf16. The lane runs 250 frames (10 s at 25 frames a second) and
+# 242 through the codec; here 100 and 92, to keep the run's time since the
+# Orpheus phases came
+HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 100, 25, 92
 HIGGS_BF16_REL = 2e-2
 # W8A8 against bf16 audio logits on the prefill's last row (per-channel
 # int8 weights and per-token int8 activations, 28 layers deep)
@@ -3296,6 +3360,9 @@ KUGEL_TEXT = ("Machine learning systems now synthesize natural speech in "
               "real time on a single accelerator chip, streaming audio to "
               "listeners across the planet.")
 KUGEL_FRAMES, KUGEL_STEPS, KUGEL_CFG, KUGEL_HOP = 64, 10, 3.0, 3200
+# the timed seeds after the warm-up (the lane's 1 and 2, cut to 1 to keep
+# the run's time)
+KUGEL_SEEDS = (1,)
 # small configs at f32, CUDA vs CPU: summation order only
 KUGEL_SMALL_REL = 1e-4
 # bf16 against f32 on the lane's prefill hidden and one head pass (28
@@ -3577,9 +3644,9 @@ def _profile_kugel_chunk(model) -> tuple:
 
 
 def _kugel_lane(model, name: str, card: str) -> dict:
-    """The lane's workload: a warm-up (seed 0), then the best of seeds 1
-    and 2 (bench.py:621-631), and one profiled chunk. Returns the numbers
-    it logs."""
+    """The lane's workload: a warm-up (seed 0), then KUGEL_SEEDS (the
+    lane's best of seeds 1 and 2, bench.py:621-631, cut to seed 1), and one
+    profiled chunk. Returns the numbers it logs."""
     import numpy as np
     import torch
 
@@ -3594,7 +3661,7 @@ def _kugel_lane(model, name: str, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     run(0)
-    runs = [run(seed) for seed in (1, 2)]
+    runs = [run(seed) for seed in KUGEL_SEEDS]
     r, wall, stats = min(runs, key=lambda x: x[1])
     want = KUGEL_FRAMES * KUGEL_HOP
     if not (r.samples == want and np.isfinite(r.audio).all()
@@ -3616,7 +3683,8 @@ def _kugel_lane(model, name: str, card: str) -> dict:
                walls=[w for _, w, _ in runs])
     log(f"[kugel {name}] {KUGEL_FRAMES} frames x {KUGEL_STEPS} SDE steps at "
         f"cfg_scale {KUGEL_CFG} -> {want} samples ({audio_s:.2f} s): wall "
-        f"{wall:.3f} s best of 2 ({', '.join(f'{w:.3f}' for w in out['walls'])}"
+        f"{wall:.3f} s best of {len(runs)} "
+        f"({', '.join(f'{w:.3f}' for w in out['walls'])}"
         f" s), xRT {out['xrt']:.3f}, {frame_ms:.2f} ms a frame; prefill "
         f"{out['prefill_s'] * 1e3:.1f} ms (bucket {stats['prompt_bucket']}, "
         f"{stats['prompt_len']} tokens), frame loop {out['frames_s']:.3f} s "
@@ -4414,8 +4482,9 @@ ICL_STREAM_INTERVAL = 2.0
 ICL_SEED = 5
 # the Mimi reference encoder's codes on a 2-s clip, card against CPU
 ICL_CHECK_SECONDS = 2
-# phase 29: Sesame CSM-1B, 64 frames (5.12 s) whole and streamed every 0.5 s
-SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 64, 0.5, 3
+# phase 29: Sesame CSM-1B, 32 frames (2.56 s) whole and streamed every 0.5 s
+# (cut from 64 to keep the run's time)
+SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 32, 0.5, 3
 # frames under the profiler (about 9,000 kernels each)
 SESAME_PROFILE_FRAMES = 2
 SESAME_REF_TEXT = "A ten second reference segment for the cloned voice."
@@ -4787,7 +4856,7 @@ def build_sesame_full():
 
 
 def phase_sesame_full(card: str) -> dict:
-    """Phase 29: Sesame CSM-1B cloning a 10-s reference segment, 64 frames
+    """Phase 29: Sesame CSM-1B cloning a 10-s reference segment, 32 frames
     whole then streamed (the same seed: the same frames, so the streamed
     audio is held to the whole one), a warm-up first; then
     SESAME_PROFILE_FRAMES frames under the profiler."""
@@ -5579,8 +5648,9 @@ DFN_SMALL = dict(sample_rate=16000, fft_size=96, hop_size=48, nb_erb=8,
 # CUDA against the CPU at f32 on the small configs: summation order only
 STS_REL = 1e-4
 MOSHI_GREEDY_STEPS = 16
-# phase 33: Moshi v0.1 at full width, 20 s of input (250 steps at 12.5 Hz)
-MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 20, 8, 80.0
+# phase 33: Moshi v0.1 at full width, 10 s of input (125 steps at 12.5 Hz;
+# cut from 20 s to keep the run's time)
+MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 10, 8, 80.0
 MOSHI_STEPS = int(MOSHI_SECONDS * 1000 / MOSHI_FRAME_MS)
 # the q8 model's first-step text logits against bf16's, relative Frobenius:
 # group-64 codes of 8 bits err by about 0.2% a weight, compounded over 32
@@ -6038,7 +6108,7 @@ def _moshi_run(model, clip, label: str, card: str, base: int) -> dict:
 
 def phase_moshi_full(card: str, recorder: K2Recorder) -> int:
     """Phase 33: Moshi v0.1 at full width in bf16, then the same model in
-    affine q8 (group 64) through K2: each a generate over 20 s of input
+    affine q8 (group 64) through K2: each a generate over 10 s of input
     and a profiled stretch; K2's launches a step against the config's
     count; the first step's text logits q8 against bf16. -> K2's launches
     over the q8 model's run (warm-up, generate and profiled stretch), as
@@ -6047,7 +6117,8 @@ def phase_moshi_full(card: str, recorder: K2Recorder) -> int:
 
     from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
     from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
-    from mlx_audio_tpu_torch.utils import apply_quantization
+    from mlx_audio_tpu_torch.utils import (apply_quantization,
+                                           unpack_prequantized)
 
     t_phase = time.perf_counter()
     before = (snake_conv_kernel.launches, qmm_kernel.launches)
@@ -6220,6 +6291,586 @@ def phase_sts(card: str, recorder: K2Recorder) -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# Pre-quantized checkpoints, the convert CLI, Orpheus over SNAC (35-37)
+# ---------------------------------------------------------------------------
+
+ORPHEUS_VOCAB = 128266 + 7 * 4096
+# tests/test_orpheus.py's sizes at widths group 64 divides; its tiny SNAC
+ORPHEUS_SMALL = dict(model_type="llama", hidden_size=64, num_hidden_layers=2,
+                     intermediate_size=128, num_attention_heads=4,
+                     num_key_value_heads=2, head_dim=16, rope_theta=10000.0,
+                     vocab_size=ORPHEUS_VOCAB)
+SNAC_SMALL = dict(model_type="snac", sampling_rate=24000, encoder_dim=16,
+                  encoder_rates=[2, 2], decoder_dim=32, decoder_rates=[2, 2],
+                  attn_window_size=None, codebook_size=4096, codebook_dim=8,
+                  vq_strides=[4, 2, 1], noise=True, depthwise=True)
+# Orpheus-3B at canopylabs' published config (Llama-3.2-3B dims, tied
+# embeddings, the vocabulary to CODE_OFFSET + 7 x 4096 and two more)
+ORPHEUS_3B = dict(model_type="llama", hidden_size=3072, num_hidden_layers=28,
+                  intermediate_size=8192, num_attention_heads=24,
+                  num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-5,
+                  rope_theta=500000.0, tie_word_embeddings=True,
+                  vocab_size=156940, max_position_embeddings=131072)
+# hubertsiuzdak/snac_24khz's settings, in f32
+SNAC_24KHZ = dict(sampling_rate=24000, encoder_dim=48,
+                  encoder_rates=[2, 4, 8, 8], decoder_dim=1024,
+                  decoder_rates=[8, 8, 4, 2], attn_window_size=None,
+                  codebook_size=4096, codebook_dim=8, vq_strides=[4, 2, 1],
+                  noise=True, depthwise=True)
+ORPHEUS_REL = 1e-4                  # small configs, CUDA vs CPU, f32
+ORPHEUS_TEXT = ("The quick brown fox jumps over the lazy dog while the "
+                "speaker reads this sentence aloud for the first request.")
+ORPHEUS_TOKENS, ORPHEUS_STREAM_TOKENS, ORPHEUS_INTERVAL = 512, 256, 1.0
+# the token table's rows of the code ids and SOS scaled this many times, so
+# that the tied head draws codes from random weights
+ORPHEUS_CODE_SCALE = 4.0
+ORPHEUS_CODE_SHARE = 0.8
+# the 4-bit model's first-step logits against bf16's (random 4-bit group-64
+# codes through 28 layers read 0.27 on the H100; unrelated logits read about
+# 1.4, so this catches a partly wrong unpack or wrong scales)
+ORPHEUS_Q4_REL = 0.5
+MLX_GROUP = 64                      # mlx-community's group size
+
+
+class OrpheusTok:
+    """A stand-in for the Llama-3 tokenizer: one id a character below the
+    special ids, the EOS of tests/test_orpheus.py::FakeTok."""
+
+    eos_token_id = 128001
+
+    def encode(self, text):
+        return [1000 + ord(c) % 1000 for c in text]
+
+
+def mlx_pack(w_q, bits: int):
+    """uint8 codes (out, in) (numpy or torch) -> MLX's packed words, 32 /
+    bits codes a uint32, least significant first: numpy uint32 for numpy
+    codes, int32 holding the same bits for torch codes (CUDA has no uint32
+    arithmetic)."""
+    import numpy as np
+    import torch
+
+    per = 32 // bits
+    if isinstance(w_q, np.ndarray):
+        out_f, in_f = w_q.shape
+        codes = w_q.reshape(out_f, in_f // per, per).astype(np.uint32)
+        shifts = (np.arange(per, dtype=np.uint32) * bits)[None, None, :]
+        return np.bitwise_or.reduce(codes << shifts, axis=-1)
+    out_f, in_f = w_q.shape
+    shifts = torch.arange(per, device=w_q.device) * bits
+    words = (w_q.reshape(out_f, in_f // per, per).long() << shifts).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def fixed_noise(codec):
+    """Give `codec` the same standard-normal noise on every device: stage
+    s draws from a CPU generator seeded s (through SNAC's `_noise`)."""
+    import torch
+
+    def noise(generator, stage, shape):
+        g = torch.Generator().manual_seed(stage)
+        return torch.randn(shape, generator=g).to(codec.device)
+
+    codec._noise = noise
+    return codec
+
+
+def _orpheus_small(device: str):
+    from mlx_audio_tpu_torch.codec.models.snac import SNAC
+    from mlx_audio_tpu_torch.tts.models.llama import Model
+
+    model = Model(ORPHEUS_SMALL, device=device).init_params(seed=0)
+    model.tokenizer = OrpheusTok()
+    return model.set_codec(SNAC(SNAC_SMALL, device=device).init_params(1))
+
+
+def write_orpheus_checkpoint(model, path: Path, bits=None) -> None:
+    """`model` as a checkpoint directory: config.json, model.safetensors
+    under its names (HF llama's), and its SNAC in `snac/` (torch layouts,
+    config.json with model_type "snac"). With `bits`, every linear and the
+    token table ship MLX-packed at `bits` (group 64) with their f32 scales
+    and biases, as mlx-community's quantized repos do, and config.json
+    says so."""
+    import dataclasses
+
+    import numpy as np
+    from safetensors.numpy import save_file
+
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    cfg = dataclasses.asdict(model.config)
+    cfg.pop("model_path", None)
+    flat = {}
+    for k, v in model.state_dict().items():
+        v = v.float().cpu()
+        if bits and k.endswith(".weight") and v.ndim == 2:
+            q = quantize_weight(v, MLX_GROUP, bits)
+            base = k[:-len("weight")]
+            flat[base + "weight"] = mlx_pack(q["w_q"].numpy(), bits)
+            flat[base + "scales"] = q["scales"].numpy()
+            flat[base + "biases"] = q["biases"].numpy()
+        else:
+            flat[k] = v.numpy()
+    if bits:
+        cfg["quantization"] = {"group_size": MLX_GROUP, "bits": bits}
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(flat, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(cfg))
+    (path / "snac").mkdir(exist_ok=True)
+    save_file({k: np.ascontiguousarray(v.float().cpu().numpy())
+               for k, v in model.codec.state_dict().items()},
+              str(path / "snac" / "model.safetensors"))
+    (path / "snac" / "config.json").write_text(json.dumps(SNAC_SMALL))
+
+
+def _load_orpheus(path: Path, device: str):
+    from mlx_audio_tpu_torch.tts.utils import load_model
+
+    model = load_model(path, device=device)
+    model.tokenizer = OrpheusTok()
+    if model.codec is not None:       # a converted directory carries none
+        fixed_noise(model.codec)
+    return model
+
+
+def _orpheus_greedy(model, n: int = 40):
+    ids = model.prepare_input_ids("hello from the card", voice="tara")
+    *_, toks = model._decode_tokens(ids, n, 0.0, 0.8, 0, 1.3, 0)
+    (r,) = list(model.generate("hello from the card", voice="tara",
+                               temperature=0.0, max_tokens=n))
+    return toks, r.audio
+
+
+def _prefill_logits(model):
+    ids = model.prepare_input_ids("hello from the card", voice="tara")
+    return model.prefill(ids, 32)[0]
+
+
+def phase_orpheus_reference(tmp: Path, recorder: K2Recorder) -> int:
+    """Phase 35: the small Orpheus written as MLX-packed 4- and 8-bit
+    checkpoints, each loaded through `tts.utils.load_model` on the card and
+    on the CPU (greedy tokens equal, audio within ORPHEUS_REL, every linear
+    on K2); the convert CLI (`-q --q-bits 4` in a subprocess, then
+    `--quant-predicate mixed_4_6`, `--q-mode mxfp8` and `-d` of the 4-bit
+    output), each output reloaded on the card with its prefill logits held
+    to the dense model's; the TTS CLI's WAV against in-process `generate`.
+    -> K2's launches, as its counter read them."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.convert import convert
+    from mlx_audio_tpu_torch.nn import FpQuantizedLinear, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.tts.models.llama import orpheus
+    from mlx_audio_tpu_torch.tts.utils import load_model
+
+    t0 = time.perf_counter()
+    qmm_kernel.launches = 0
+    src = _orpheus_small("cpu")
+    n_linears = 7 * ORPHEUS_SMALL["num_hidden_layers"] + 1    # + lm_head
+    for bits in (4, 8):
+        d = tmp / f"orpheus-{bits}bit"
+        write_orpheus_checkpoint(src, d, bits=bits)
+        cpu = _load_orpheus(d, "cpu")
+        with recorder:
+            card = _load_orpheus(d, "cuda")
+            held = sum(isinstance(m, QuantizedLinear) for m in card.modules())
+            t_card, a_card = _orpheus_greedy(card)
+        t_cpu, a_cpu = _orpheus_greedy(cpu)
+        rel = rel_err(a_card, a_cpu)
+        if not (held == n_linears and t_card == t_cpu and len(t_card) == 40
+                and a_card.shape == a_cpu.shape and rel < ORPHEUS_REL):
+            raise AssertionError(
+                f"packed {bits}-bit Orpheus: {held} quantized linears (want "
+                f"{n_linears}), tokens equal {t_card == t_cpu}, audio "
+                f"{a_card.shape} vs {a_cpu.shape} rel {rel:.3e}")
+        log(f"[orpheus small] MLX-packed {bits}-bit checkpoint through "
+            f"load_model: {held} linears unpacked onto K2, the token table "
+            f"dense; 40 greedy tokens equal on the card and the CPU, audio "
+            f"({len(a_card)} samples) rel {rel:.3e}")
+    # the convert CLI on the dense checkpoint, on the card
+    dense_dir = tmp / "orpheus-dense"
+    write_orpheus_checkpoint(src, dense_dir)
+    dense = _prefill_logits(_load_orpheus(dense_dir, "cuda"))
+    q4_dir = tmp / "orpheus-q4"
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlx_audio_tpu_torch.convert", "--hf-path",
+         str(dense_dir), "--mlx-path", str(q4_dir), "-q", "--q-bits", "4",
+         "--dtype", "float32"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"convert CLI failed: {proc.stderr[-2000:]}")
+    outs = {"-q --q-bits 4": (q4_dir, QuantizedLinear, 1.5)}
+    for label, kw, kind, tol in (
+            ("-q --quant-predicate mixed_4_6",
+             dict(quantize=True, quant_predicate="mixed_4_6"),
+             QuantizedLinear, 1.5),
+            ("-q --q-mode mxfp8", dict(quantize=True, q_mode="mxfp8"),
+             FpQuantizedLinear, 0.15)):
+        out = tmp / f"orpheus-{label.split()[-1]}"
+        convert(str(dense_dir), str(out), dtype="float32", **kw)
+        outs[label] = (out, kind, tol)
+    dq_dir = convert(str(q4_dir), str(tmp / "orpheus-dq"), dtype="float32",
+                     dequantize=True)
+    with recorder:
+        got = {}
+        for label, (out, kind, tol) in outs.items():
+            m = _load_orpheus(out, "cuda")
+            held = sum(isinstance(x, kind) for x in m.modules())
+            got[label] = _prefill_logits(m)
+            diff = float((got[label] - dense).abs().mean())
+            if not (held == n_linears and torch.isfinite(got[label]).all()
+                    and diff < tol):
+                raise AssertionError(f"convert {label}: {held} "
+                                     f"{kind.__name__}, logits mean abs "
+                                     f"diff {diff:.3e} (limit {tol})")
+            log(f"[orpheus small] convert {label}: {held} "
+                f"{kind.__name__}s, prefill logits mean |diff| against the "
+                f"dense model {diff:.3e} (limit {tol:g})")
+    dq = _load_orpheus(dq_dir, "cuda")
+    if any(isinstance(x, QuantizedLinear) for x in dq.modules()):
+        raise AssertionError("convert -d left quantized linears")
+    rel = rel_err(_prefill_logits(dq), got["-q --q-bits 4"])
+    if not rel < ORPHEUS_REL:
+        raise AssertionError(f"convert -d: logits rel {rel:.3e} against the "
+                             f"4-bit model's")
+    log(f"[orpheus small] convert -d of the 4-bit output: dense again, "
+        f"prefill logits rel {rel:.3e} against the 4-bit model's (K2)")
+    # the TTS CLI on the packed 4-bit directory against generate(): both
+    # load it through load_model (the stand-in tokenizer in place of the
+    # directory's), so both SNACs draw the same seeded noise
+    d4 = tmp / "orpheus-4bit"
+    prev = orpheus.local_tokenizer
+    orpheus.local_tokenizer = lambda path: OrpheusTok()
+    try:
+        with recorder:
+            tts_generate.main([
+                "--model", str(d4), "--text", "hello from the card",
+                "--voice", "tara", "--temperature", "0", "--max_tokens",
+                "40", "--seed", "0", "--output_path", str(tmp / "cli"),
+                "--no-verbose"])
+            model = load_model(d4, device="cuda")
+            (want,) = [r.audio for r in model.generate(
+                "hello from the card", voice="tara", temperature=0.0,
+                max_tokens=40, seed=0, top_p=0.9, top_k=50,
+                repetition_penalty=1.0)]
+    finally:
+        orpheus.local_tokenizer = prev
+    wav, sr = audio_io.read(str(tmp / "cli" / "audio_000.wav"),
+                            dtype="float32")
+    err = float(np.abs(wav - np.clip(want, -1, 1)).max()) if len(
+        wav) == len(want) else float("inf")
+    if not (sr == 24000 and err <= 2 / 32768):
+        raise AssertionError(f"TTS CLI WAV vs generate: {len(wav)} vs "
+                             f"{len(want)} samples, max error {err:.3e}")
+    log(f"[orpheus small] TTS CLI (--voice, the packed 4-bit directory) "
+        f"wrote generate()'s audio: {len(wav)} samples, max error "
+        f"{err:.2e} (16-bit WAV)")
+    launches = qmm_kernel.launches
+    log(f"[time] phase 35 in {time.perf_counter() - t0:.1f} s; K2 launched "
+        f"{launches} times")
+    return launches
+
+
+def build_orpheus_full():
+    """Orpheus-3B (ORPHEUS_3B) drawn on the card in f32 from seed 0 tensor
+    by tensor, the token table's code and SOS rows scaled by
+    ORPHEUS_CODE_SCALE (the tied head then draws codes), cast in place to
+    bf16; its SNAC at SNAC_24KHZ in f32 from seed 1; the stand-in
+    tokenizer."""
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.snac import SNAC
+    from mlx_audio_tpu_torch.tts.models.llama import Model, orpheus
+
+    t0 = time.perf_counter()
+    model = Model(ORPHEUS_3B, device="cuda").init_params(seed=0,
+                                                         on_device=True)
+    with torch.no_grad():
+        emb = model.model.embed_tokens.weight
+        emb[orpheus.CODE_OFFSET:orpheus.CODE_OFFSET + 7 * 4096] *= \
+            ORPHEUS_CODE_SCALE
+        emb[orpheus.SOS] *= ORPHEUS_CODE_SCALE
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    model.tokenizer = OrpheusTok()
+    model.set_codec(SNAC(SNAC_24KHZ, device="cuda").init_params(
+        seed=1, on_device=True))
+    torch.cuda.synchronize()
+    log(f"[orpheus] Orpheus-3B {model.num_params():,} params bf16 (tied "
+        f"head, vocabulary {ORPHEUS_3B['vocab_size']:,}) and SNAC 24 kHz "
+        f"{model.codec.num_params():,} params f32 on cuda, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def orpheus_token_bytes(model, cache_cols: float) -> float:
+    """Bytes a decode token must read: every linear's weight (bf16, or
+    4-bit codes one a byte with f32 scales and biases), the tied head's
+    bf16 table, the norms, and the f32 K and V of `cache_cols` columns."""
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+
+    c = model.config
+    total = 0.0
+    for m in model.modules():
+        if isinstance(m, Linear):
+            total += m.weight.numel() * m.weight.element_size()
+        elif isinstance(m, QuantizedLinear):
+            total += (m.w_q.numel() + 4 * (m.scales.numel()
+                                           + m.biases.numel()))
+    emb = model.model.embed_tokens.weight
+    total += emb.numel() * emb.element_size()
+    total += (2 * c.num_hidden_layers + 1) * c.hidden_size * 2
+    total += (2 * c.num_hidden_layers * cache_cols * c.num_key_value_heads
+              * c.resolved_head_dim * 4)
+    return total
+
+
+def _orpheus_profile(model) -> tuple:
+    """One 32-token chunk unprofiled, then one under torch.profiler, after
+    a prefill at the lane's sampling. -> (kernels a token, device ms a
+    token, wall ms a token unprofiled, busy share)."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.sampling import sample
+    from mlx_audio_tpu_torch.tts.models.llama import orpheus
+
+    ids = model.prepare_input_ids(ORPHEUS_TEXT, voice="tara")
+    logits, caches, _ = model.prefill(ids, 2 * orpheus.CHUNK)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = {"logits": logits, "caches": caches,
+             "history": torch.full((1, orpheus.REP_WINDOW), -1,
+                                   dtype=torch.long, device=dev),
+             "done": torch.zeros(1, dtype=torch.bool, device=dev),
+             "t": len(ids)}
+    stops = torch.tensor(model.stop_ids(), device=dev)
+
+    def chunk():
+        model.chunk(state, orpheus.CHUNK,
+                    lambda lg: sample(lg, 0.6, top_p=0.8, generator=gen),
+                    stops, 1.3).cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk()
+    wall = (time.perf_counter() - t0) * 1e3 / orpheus.CHUNK
+    rows = _device_kernels(chunk, cpu=False)
+    device = sum(_dev_us(e) for e in rows) / 1e3 / orpheus.CHUNK
+    kernels = sum(e.count for e in rows) / orpheus.CHUNK
+    if not (kernels > 0 and device > 0):
+        raise AssertionError("Orpheus: the profiler saw no kernel")
+    return kernels, device, wall, device / wall
+
+
+def _orpheus_run(model, label: str, card: str, base: int) -> dict:
+    """A 32-token warm-up; one request of ORPHEUS_TOKENS tokens whole
+    (ms a token p50 and p95 over its chunks after the first, the code
+    share, wall, xRT, SNAC decode ms); one streamed every
+    ORPHEUS_INTERVAL s of ORPHEUS_STREAM_TOKENS tokens (time to first
+    audio); one profiled chunk. -> the numbers, and the decode steps and
+    prefills run in all."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.llama import orpheus
+
+    kw = dict(voice="tara", temperature=0.6, top_p=0.8, seed=0)
+    list(model.generate(ORPHEUS_TEXT, max_tokens=orpheus.CHUNK, **kw))
+    steps, prefills = model.last_run["steps"], 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (r,) = list(model.generate(ORPHEUS_TEXT, max_tokens=ORPHEUS_TOKENS,
+                               **kw))
+    wall = time.perf_counter() - t0
+    run = dict(model.last_run)
+    steps, prefills = steps + run["steps"], prefills + 1
+    per_token = np.asarray(run["chunk_ms"][1:]) / orpheus.CHUNK
+    share = run["code_tokens"] / max(run["tokens"], 1)
+    if not (run["steps"] == ORPHEUS_TOKENS and r.samples > 0
+            and np.isfinite(r.audio).all() and share >= ORPHEUS_CODE_SHARE):
+        raise AssertionError(f"Orpheus {label}: {run}, {r.samples} samples, "
+                             f"code share {share:.3f}")
+    # SNAC decode of the request's frame count, seeded codes
+    frames = r.samples // (model.codec.hop_length
+                           * model.codec.config.vq_strides[0])
+    rng = np.random.RandomState(0)
+    layers = [rng.randint(0, 4096, (1, frames * k)) for k in (1, 2, 4)]
+    model.codec.decode(layers)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model.codec.decode(layers)
+    torch.cuda.synchronize()
+    snac_ms = (time.perf_counter() - t1) * 1e3
+    t0 = time.perf_counter()
+    first = None
+    samples = 0
+    for c in model.generate(ORPHEUS_TEXT, max_tokens=ORPHEUS_STREAM_TOKENS,
+                            stream=True, streaming_interval=ORPHEUS_INTERVAL,
+                            **kw):
+        first = first or time.perf_counter() - t0
+        samples += c.samples
+    s_wall = time.perf_counter() - t0
+    steps, prefills = steps + model.last_run["steps"], prefills + 1
+    if not (first and samples > 0):
+        raise AssertionError(f"Orpheus {label}: the stream yielded no audio")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    kernels, dev_ms, prof_wall, busy = _orpheus_profile(model)
+    steps, prefills = steps + 2 * orpheus.CHUNK, prefills + 1
+    cols = run["prompt_bucket"] + ORPHEUS_TOKENS / 2
+    bound = orpheus_token_bytes(model, cols) / HBM_BPS * 1e3
+    audio_s = r.samples / model.sample_rate
+    out = dict(p50=float(np.percentile(per_token, 50)),
+               p95=float(np.percentile(per_token, 95)), wall=wall,
+               xrt=audio_s / wall, audio_s=audio_s, share=share,
+               snac_ms=snac_ms, ttfa=first, s_wall=s_wall, peak=peak,
+               kernels=kernels, dev_ms=dev_ms, busy=busy, bound=bound,
+               steps=steps, prefills=prefills, whole_steps=run["steps"])
+    log(f"[orpheus] {label}: {ORPHEUS_TOKENS} tokens ({run['prompt_len']}-"
+        f"token prompt, bucket {run['prompt_bucket']}): {out['p50']:.2f} ms a "
+        f"token p50, {out['p95']:.2f} p95 (over {len(per_token)} chunks of "
+        f"{orpheus.CHUNK}), {100 * share:.1f}% of the tokens SNAC codes, "
+        f"{audio_s:.2f} s of audio in {wall:.2f} s (xRT {out['xrt']:.3f}), "
+        f"SNAC decode of {frames} frames {snac_ms:.2f} ms; "
+        f"streamed every {ORPHEUS_INTERVAL:g} s ({ORPHEUS_STREAM_TOKENS} "
+        f"tokens): first audio {first:.3f} s, wall {s_wall:.2f} s; peak "
+        f"{peak:.2f} GB above the earlier phases'; profiled chunk: "
+        f"{kernels:.0f} kernels and {dev_ms:.3f} ms of device time a token "
+        f"against {prof_wall:.2f} ms of wall ({100 * busy:.1f}% busy); bound "
+        f"{bound:.3f} ms a token (bytes), {100 * bound / out['p50']:.1f}% of "
+        f"it reached at p50 ({card})")
+    return out
+
+
+def pack_mlx_in_memory(model, bits: int = 4) -> dict:
+    """`model`'s state as an mlx-community checkpoint holds it, on the
+    card: every linear's and the token table's weight MLX-packed at `bits`
+    (group 64) with f32 scales and biases; the norms as they are. Each
+    dense weight is dropped from the dict as it is packed."""
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    flat = dict(model.state_dict())
+    for k in [k for k, v in flat.items()
+              if k.endswith(".weight") and v.ndim == 2]:
+        q = quantize_weight(flat.pop(k).float(), MLX_GROUP, bits)
+        base = k[:-len("weight")]
+        flat[base + "weight"] = mlx_pack(q["w_q"], bits)
+        flat[base + "scales"], flat[base + "biases"] = q["scales"], \
+            q["biases"]
+    return flat
+
+
+def phase_orpheus_full(card: str, recorder: K2Recorder) -> int:
+    """Phases 36-37: Orpheus-3B at published width in bf16, then its
+    weights packed to MLX's 4-bit layout in memory and loaded through the
+    pre-quantized path of `apply_quantization` (every linear on K2, the
+    tied table dense): each a whole and a streamed request and a profiled
+    chunk; K2's launches a token, read from its counter, against 28 x 7;
+    the first step's logits 4-bit against bf16. -> K2's launches, as its
+    counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import Embedding, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import (apply_quantization,
+                                           unpack_prequantized)
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = build_orpheus_full()
+    ids = model.prepare_input_ids(ORPHEUS_TEXT, voice="tara")
+    logits_bf16 = model.prefill(ids, 32)[0]
+    bf16 = _orpheus_run(model, "bf16", card, base)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 Orpheus launched K1 or K2")
+    log(f"[time] phase 36 in {time.perf_counter() - t_phase:.1f} s")
+    t37 = time.perf_counter()
+    packed = pack_mlx_in_memory(model, 4)
+    torch.cuda.empty_cache()
+    config = {"quantization": {"group_size": MLX_GROUP, "bits": 4}}
+    flat = unpack_prequantized(model, config, packed)
+    del packed
+    model.bind(flat)
+    del flat
+    apply_quantization(model, config, pre_quantized=True)
+    torch.cuda.empty_cache()
+    per_token = 7 * ORPHEUS_3B["num_hidden_layers"]
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if held != per_token or not isinstance(model.model.embed_tokens,
+                                           Embedding):
+        raise AssertionError(f"4-bit Orpheus holds {held} quantized linears "
+                             f"(want {per_token}) or a quantized table")
+    log(f"[orpheus] packed to MLX 4-bit (group {MLX_GROUP}) in memory and "
+        f"loaded through apply_quantization's pre-quantized path in "
+        f"{time.perf_counter() - t37:.2f} s: {held} linears on K2, the tied "
+        f"table dense ({model.model.embed_tokens.weight.dtype})")
+    k1 = snake_conv_kernel.launches
+    qmm_kernel.launches = 0
+    with recorder:
+        logits_q4 = model.prefill(ids, 32)[0]
+        q4 = _orpheus_run(model, "4-bit (K2)", card, base)
+    k2 = qmm_kernel.launches
+    rel = float(torch.linalg.norm(logits_q4 - logits_bf16)
+                / torch.linalg.norm(logits_bf16))
+    top1 = int(logits_q4.argmax()) == int(logits_bf16.argmax())
+    if not (torch.isfinite(logits_q4).all() and rel < ORPHEUS_Q4_REL):
+        raise AssertionError(f"4-bit Orpheus first-step logits vs bf16: "
+                             f"relative {rel:.3e}")
+    # the comparison's prefill and the requests' steps and prefills
+    want = per_token * (1 + q4["steps"] + q4["prefills"])
+    if k2 != want or snake_conv_kernel.launches != k1:
+        raise AssertionError(f"4-bit Orpheus: {k2} K2 launches for "
+                             f"{q4['steps']} decode steps and "
+                             f"{q4['prefills']} prefills, want {want} "
+                             f"({per_token} each); or K1 launched")
+    log(f"[orpheus] 4-bit against bf16 on this card: {q4['p50']:.2f} vs "
+        f"{bf16['p50']:.2f} ms a token p50, {q4['p95']:.2f} vs "
+        f"{bf16['p95']:.2f} p95, xRT {q4['xrt']:.3f} vs {bf16['xrt']:.3f}, "
+        f"first audio {q4['ttfa']:.3f} vs {bf16['ttfa']:.3f} s, "
+        f"{q4['kernels']:.0f} vs {bf16['kernels']:.0f} kernels and "
+        f"{q4['dev_ms']:.3f} vs {bf16['dev_ms']:.3f} ms of device time a "
+        f"token, busy {100 * q4['busy']:.1f}% vs {100 * bf16['busy']:.1f}%, "
+        f"peak {q4['peak']:.2f} vs {bf16['peak']:.2f} GB, bound "
+        f"{q4['bound']:.3f} vs {bf16['bound']:.3f} ms a token; K2 launched "
+        f"{k2} times over {q4['steps']} decode steps and "
+        f"{1 + q4['prefills']} prefills (the comparison's included): "
+        f"{k2 // (1 + q4['steps'] + q4['prefills'])} a token, read from "
+        f"its counter; first-step logits 4-bit vs bf16 relative "
+        f"{rel:.3e} (limit {ORPHEUS_Q4_REL:g}), top-1 "
+        f"{'equal' if top1 else 'differs'} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 37 in {time.perf_counter() - t37:.1f} s; phases "
+        f"36-37 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def phase_orpheus(card: str, recorder: K2Recorder) -> int:
+    """Phases 35-37; K1 never launches. -> K2's launches there."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_orpheus_reference(Path(tmp), recorder)
+    torch.cuda.empty_cache()
+    k2 += phase_orpheus_full(card, recorder)
+    if snake_conv_kernel.launches != k1:
+        raise AssertionError("phases 35-37 launched K1")
+    log(f"[time] phases 35-37 in {time.perf_counter() - t0:.1f} s; K1 not "
+        f"launched")
+    return k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -6349,9 +7000,13 @@ def main() -> int:
     k2_launches += phase_sts(card, recorder)
     log(f"[time] phases 1-34 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
+    # pre-quantized checkpoints, the convert CLI and Orpheus: K2 at 4 bits
+    k2_launches += phase_orpheus(card, recorder)
+    log(f"[time] phases 1-37 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    k2_path_abs = phase_qmm_path(set(recorder.calls))
+    k2_path_abs = phase_qmm_path(recorder.shapes())
 
     # K1: the 48 legs of one synth of two rows (B=2) at the 1024-frame
     # bucket, summed from the per-shape times of phase 3, by the dispatched

@@ -1,5 +1,10 @@
-"""Audio codecs of the port (counterpart of mlx_audio_tpu/codec). `Mimi` is
-exported lazily, as in the JAX package's codec/__init__.py (:13-30)."""
+"""Audio codecs of the port (counterpart of mlx_audio_tpu/codec). `SNAC` is
+exported as in the JAX package's codec/__init__.py (:6), `Mimi` lazily
+(:13-30)."""
+
+from .models.snac import SNAC
+
+__all__ = ["SNAC"]
 
 
 def __getattr__(name):

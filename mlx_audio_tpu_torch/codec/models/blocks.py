@@ -1,7 +1,9 @@
-"""Shared codec blocks: the snake activation and nearest-codebook search.
+"""Shared codec blocks: the snake activation, the residual unit,
+nearest-codebook search and the time pooling of multi-scale quantizers.
 
-The port's copy of `snake`, `init_snake`, `apply_snake` and `vq_encode` of
-mlx_audio_tpu/codec/models/blocks.py (:30-40, :76-92), on channel-last
+The port's copy of `snake`, `init_snake`, `apply_snake`,
+`apply_residual_unit`, `vq_encode`, `avg_pool_time` and `repeat_time` of
+mlx_audio_tpu/codec/models/blocks.py (:30-73, :76-103), on channel-last
 (B, T, C) tensors. This snake divides by alpha + 1e-9, which Kokoro's
 (fused into kernel K1) does not.
 """
@@ -10,6 +12,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ...nn import Conv1d
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -36,6 +40,35 @@ def apply_snake(p: Snake, x: torch.Tensor) -> torch.Tensor:
     return snake(x, p.alpha.reshape(-1))
 
 
+class ResidualUnit(nn.Module):
+    """The parameter holder of a residual unit (init_residual_unit, :46-56):
+    `block.0` snake, `block.1` a k-wide conv (grouped: depthwise in SNAC),
+    `block.2` snake, `block.3` a 1x1 conv."""
+
+    def __init__(self, dim: int, kernel: int = 7, groups: int = 1):
+        super().__init__()
+        self.block = nn.ModuleDict({
+            "0": Snake(dim), "1": Conv1d(dim, dim, kernel, groups=groups),
+            "2": Snake(dim), "3": Conv1d(dim, dim, 1)})
+
+
+def apply_residual_unit(p: ResidualUnit, x: torch.Tensor,
+                        dilation: int) -> torch.Tensor:
+    """x + conv1x1(snake(conv_k,dil(snake(x)))), the k-wide conv padded to
+    keep the length ((k - 1) * dil // 2 a side); x trimmed to the result's
+    length where it is longer (:59-73). The conv's groups are the
+    module's."""
+    b = p.block
+    conv = b["1"]
+    pad = ((conv.weight.shape[-1] - 1) * dilation) // 2
+    y = conv(apply_snake(b["0"], x), padding=pad, dilation=dilation)
+    y = b["3"](apply_snake(b["2"], y))
+    trim = (x.shape[-2] - y.shape[-2]) // 2
+    if trim > 0:
+        x = x[..., trim:-trim, :]
+    return x + y
+
+
 def vq_encode(latents: torch.Tensor, codebook: torch.Tensor,
               normalized: bool = True) -> torch.Tensor:
     """Nearest-codebook-entry indices: latents (B, T, D), codebook (N, D) ->
@@ -53,4 +86,19 @@ def vq_encode(latents: torch.Tensor, codebook: torch.Tensor,
     return torch.argmin(dist, dim=-1)
 
 
-__all__ = ["snake", "Snake", "apply_snake", "vq_encode"]
+def avg_pool_time(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """(B, T, C) -> (B, T // stride, C): the mean of each `stride` steps
+    (a trailing partial window dropped)."""
+    b, t, c = x.shape
+    t2 = t // stride
+    return x[:, :t2 * stride].reshape(b, t2, stride, c).mean(dim=2)
+
+
+def repeat_time(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """(B, T, C) -> (B, T * stride, C), each step repeated `stride` times."""
+    return torch.repeat_interleave(x, stride, dim=-2)
+
+
+__all__ = ["snake", "Snake", "apply_snake", "ResidualUnit",
+           "apply_residual_unit", "vq_encode", "avg_pool_time",
+           "repeat_time"]

@@ -18,8 +18,12 @@ import torch
 from torch import nn
 
 from .nn import (GRU, BatchNorm, BiLSTM, Conv1d, Conv2d, ConvTranspose1d,
-                 Embedding, GroupedLinear, Int8Linear, LayerNorm, Linear,
-                 LSTMCell, QuantizedLinear, RMSNorm, StackedTable)
+                 Embedding, FpQuantizedLinear, GroupedLinear, Int8Linear,
+                 LayerNorm, Linear, LSTMCell, QuantizedLinear, RMSNorm,
+                 StackedTable)
+
+# the modules whose buffers are parameters of the JAX tree
+_BUFFERED = (QuantizedLinear, Int8Linear, FpQuantizedLinear, BatchNorm)
 
 
 def _tensor(v: Any) -> torch.Tensor:
@@ -183,6 +187,85 @@ def replace_module(model: nn.Module, name: str, new: nn.Module) -> None:
     setattr(model.get_submodule(parent) if parent else model, child, new)
 
 
+def swap_quantized_linears(model: nn.Module, flat: Mapping[str, Any]) -> None:
+    """Replace each `Linear` of `model` whose leaf in the flat tree `flat`
+    holds quantized codes by an empty module of that leaf's shapes, which a
+    bind then fills: {w_q, scales, biases[, bias]} a QuantizedLinear (the
+    group size from the shapes), {w_i8, scale[, bias]} (W8A8) an
+    Int8Linear, {w_fp4 | w_fp8, scales[, bias]} an FpQuantizedLinear."""
+    for name, m in list(model.named_modules()):
+        if not isinstance(m, Linear):
+            continue
+        bias = m.bias is not None
+        if f"{name}.w_q" in flat:
+            out_f, in_f = np.shape(flat[f"{name}.w_q"])
+            q = QuantizedLinear(in_f, out_f,
+                                in_f // np.shape(flat[f"{name}.scales"])[1],
+                                bias=bias)
+        elif f"{name}.w_i8" in flat:
+            q = Int8Linear(m.in_features, np.shape(flat[f"{name}.w_i8"])[0],
+                           bias=bias)
+        else:
+            codes = next((c for c in ("w_fp4", "w_fp8")
+                          if f"{name}.{c}" in flat), None)
+            if codes is None:
+                continue
+            out_f, in_f = np.shape(flat[f"{name}.{codes}"])
+            q = FpQuantizedLinear(
+                in_f, out_f, in_f // np.shape(flat[f"{name}.scales"])[1],
+                codes, bias=bias)
+        if q.in_features != m.in_features:
+            raise ValueError(f"{name}: quantized codes of {q.in_features} "
+                             f"inputs for a linear of {m.in_features}")
+        replace_module(model, name, q.to(m.weight.device))
+
+
+def jax_params(model: TorchModel) -> Dict[str, torch.Tensor]:
+    """The inverse of `load_jax_params`: the model's parameters (and the
+    buffers of its quantized linears and batch norms) as the JAX package's
+    flat tree, in its layouts (WIO and HWIO convs, pre-flipped transposed
+    convs, LSTM `forward`/`backward` sub-trees, `JAX_STACKED` layers
+    stacked again), on the model's device. What the convert CLI writes."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
+        own = dict(m.named_parameters(recurse=False))
+        if isinstance(m, BiLSTM):
+            for direction, suffix in (("forward", ""), ("backward", "_reverse")):
+                for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                    out[f"{pre}{direction}.{leaf}"] = own[f"{leaf}_l0{suffix}"]
+            continue
+        if isinstance(m, GRU):
+            for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                out[pre + leaf] = own[f"{leaf}_l0"]
+            continue
+        if isinstance(m, ConvTranspose1d):
+            w = m.weight
+            i_ch, o_g, width = w.shape
+            g = m.groups
+            own["weight"] = w.reshape(g, i_ch // g, o_g, width).permute(
+                3, 1, 0, 2).reshape(width, i_ch // g, g * o_g).flip(0)
+        elif isinstance(m, Conv1d):
+            own["weight"] = m.weight.permute(2, 1, 0)
+        elif isinstance(m, Conv2d):
+            own["weight"] = m.weight.permute(2, 3, 1, 0)
+        if isinstance(m, _BUFFERED):
+            own.update((k, b) for k, b in m.named_buffers(recurse=False)
+                       if b is not None)
+        out.update((pre + k, v.detach()) for k, v in own.items()
+                   if v is not None)
+    for prefix in getattr(model, "JAX_STACKED", ()):
+        groups: Dict[str, Dict[int, torch.Tensor]] = {}
+        head = prefix + "."
+        for key in [k for k in out if k.startswith(head)]:
+            idx, rest = key[len(head):].split(".", 1)
+            groups.setdefault(rest, {})[int(idx)] = out.pop(key)
+        for rest, layers in groups.items():
+            out[f"{prefix}.{rest}"] = torch.stack(
+                [layers[i] for i in sorted(layers)])
+    return out
+
+
 def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
     """Fill `model` from the JAX package's parameter tree, given flat
     ({dotted name: numpy array}, e.g. `mlx_audio_tpu.utils.flatten(params)`).
@@ -197,28 +280,16 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
                          ...  (gate order r,z,n)
       * stacked layers:  leaves under `model.JAX_STACKED` prefixes lose their
                          leading L axis to per-layer modules
-      * quantized:       a Linear whose JAX leaf is {w_q, scales, biases[,
-                         bias]} becomes a QuantizedLinear (w_q stays uint8),
-                         one whose leaf is {w_i8, scale[, bias]} (W8A8) an
-                         Int8Linear
+      * quantized:       a Linear whose JAX leaf holds quantized codes
+                         becomes the module that takes them
+                         (`swap_quantized_linears`)
       * buffers:         a quantized linear's codes, scales and biases and a
                          BatchNorm's running_mean/running_var are taken too
       * everything else (linear (out,in), embeddings, norms, snake alphas,
         stacked tables) is copied as is.
     Raises if a parameter is missing or a JAX leaf is left over."""
     flat = _unstack(model, flat)
-    for name, m in list(model.named_modules()):
-        if isinstance(m, Linear) and f"{name}.w_q" in flat:
-            w_q = np.asarray(flat[f"{name}.w_q"])
-            gs = w_q.shape[1] // np.asarray(flat[f"{name}.scales"]).shape[1]
-            q = QuantizedLinear(m.in_features, w_q.shape[0], gs,
-                                bias=m.bias is not None)
-            replace_module(model, name, q.to(m.weight.device))
-        elif isinstance(m, Linear) and f"{name}.w_i8" in flat:
-            w_i8 = np.asarray(flat[f"{name}.w_i8"])
-            q = Int8Linear(m.in_features, w_i8.shape[0],
-                           bias=m.bias is not None)
-            replace_module(model, name, q.to(m.weight.device))
+    swap_quantized_linears(model, flat)
     state: Dict[str, np.ndarray] = {}
     used = set()
 
@@ -250,7 +321,7 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
             if m.bias is not None:
                 state[pre + "bias"] = take(pre + "bias")
         else:
-            if isinstance(m, (QuantizedLinear, Int8Linear, BatchNorm)):
+            if isinstance(m, _BUFFERED):
                 for bname, _ in m.named_buffers(recurse=False):
                     state[pre + bname] = take(pre + bname)
             for pname, p in m.named_parameters(recurse=False):

@@ -10,6 +10,7 @@ from .layers import (
     Conv2d,
     ConvTranspose1d,
     Embedding,
+    FpQuantizedLinear,
     GroupedLinear,
     Int8Linear,
     LayerNorm,
@@ -29,7 +30,8 @@ from .layers import (
 from .recurrent import GRU, BiLSTM, LSTMCell
 
 __all__ = [
-    "Linear", "QuantizedLinear", "Int8Linear", "Embedding", "StackedTable", "LayerNorm",
+    "Linear", "QuantizedLinear", "Int8Linear", "FpQuantizedLinear",
+    "Embedding", "StackedTable", "LayerNorm",
     "RMSNorm", "Conv1d", "Conv2d", "ConvTranspose1d", "BatchNorm", "BiLSTM",
     "LSTMCell", "GRU", "GroupedLinear",
     "linear", "layer_norm", "rms_norm", "conv1d", "conv2d", "conv_transpose1d",

@@ -17,6 +17,8 @@ with like; parameters are held in PyTorch's own layouts:
                       (out, in/gs); optional bias buffer (out,)
   * Int8Linear:       buffers w_i8 int8 (out, in), scale f32 (out,);
                       optional bias buffer (out,)
+  * FpQuantizedLinear: buffers w_fp4 or w_fp8 uint8 (out, in), scales f32
+                      (out, in/gs); optional bias buffer (out,)
 
 The JAX package's layouts (WIO and HWIO convs, pre-flipped transposed-conv
 kernels) are converted once, in `model.load_jax_params`. Conv2d is the one
@@ -160,8 +162,64 @@ class QuantizedLinear(nn.Module):
         self.register_buffer("bias", torch.zeros(out_features) if bias
                              else None)
 
+    @classmethod
+    def from_params(cls, params) -> "QuantizedLinear":
+        """A QuantizedLinear holding {w_q (out, in), scales, biases[, bias]}
+        (quantize_weight's or unpack_mlx_quantized's layout) on their
+        device, with no dense weight in between."""
+        w_q = params["w_q"]
+        out_f, in_f = w_q.shape
+        m = cls(in_f, out_f, in_f // params["scales"].shape[1],
+                bias=params.get("bias") is not None).to(w_q.device)
+        for k in ("w_q", "scales", "biases", "bias"):
+            if params.get(k) is not None:
+                getattr(m, k).copy_(params[k])
+        return m
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return quant.qmatmul(x, self.w_q, self.scales, self.biases, self.bias)
+
+
+class FpQuantizedLinear(nn.Module):
+    """A microscaling fp linear (quantize_weight_fp's layout): E2M1 codes
+    (`w_fp4`, mxfp4 and nvfp4) or E4M3 bytes (`w_fp8`, mxfp8) and their f32
+    group scales, held as buffers. It stands where the JAX package's
+    `apply_linear` sends a leaf with fp codes to `fp_matmul`
+    (nn/layers.py:72-74)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 group_size: int, codes: str = "w_fp4", bias: bool = False):
+        super().__init__()
+        if codes not in ("w_fp4", "w_fp8"):
+            raise ValueError(f"fp codes are w_fp4 or w_fp8, not {codes!r}")
+        self.in_features = in_features
+        self.codes = codes
+        self.register_buffer(codes, torch.zeros(out_features, in_features,
+                                                dtype=torch.uint8))
+        self.register_buffer("scales", torch.zeros(
+            out_features, in_features // group_size))
+        self.register_buffer("bias", torch.zeros(out_features) if bias
+                             else None)
+
+    @classmethod
+    def from_params(cls, params) -> "FpQuantizedLinear":
+        """An FpQuantizedLinear holding {w_fp4 | w_fp8 (out, in), scales[,
+        bias]} (quantize_weight_fp's layout) on their device."""
+        codes = "w_fp4" if "w_fp4" in params else "w_fp8"
+        out_f, in_f = params[codes].shape
+        m = cls(in_f, out_f, in_f // params["scales"].shape[1], codes,
+                bias=params.get("bias") is not None).to(params[codes].device)
+        for k in (codes, "scales", "bias"):
+            if params.get(k) is not None:
+                getattr(m, k).copy_(params[k])
+        return m
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = {self.codes: getattr(self, self.codes),
+                  "scales": self.scales}
+        if self.bias is not None:
+            params["bias"] = self.bias
+        return quant.fp_matmul(params, x)
 
 
 class Int8Linear(nn.Module):

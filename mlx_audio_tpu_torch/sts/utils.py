@@ -9,10 +9,15 @@ as the JAX loader does before dispatch (:26-58).
 
 `load_model` reads a local checkpoint directory (config.json + npz or
 safetensors weights), maps its names onto the JAX tree's with the family's
-`sanitize`, quantizes the linears a config's `quantization` entry names
-(`utils.apply_quantization` with the family's `model_quant_predicate`),
-fills the model through `model.load_jax_params`, the one place where
-layouts are converted, and runs the family's `post_load_hook`. Loading is
+`sanitize` (an MLX pre-quantized checkpoint's packed leaves then unpacked,
+`utils.unpack_prequantized`), fills the model through
+`model.load_jax_params`, the one place where layouts are converted, then
+quantizes the linears a config's `quantization` entry names on their
+device (`utils.apply_quantization` with the family's
+`model_quant_predicate`; none of a pre-quantized checkpoint's), and runs
+the family's `post_load_hook`. A directory the
+convert CLI wrote holds the JAX tree and skips `sanitize` and the
+quantization (`utils.bind_checkpoint`). Loading is
 strict: a parameter the checkpoint lacks, or a leaf it has over, raises.
 A Moshi loads without a Mimi codec bound, as in the JAX package: its
 `generate` then raises until a caller sets `model.mimi`.
@@ -25,7 +30,7 @@ from pathlib import Path
 from typing import Optional, Union
 
 from ..model import check_device, load_jax_params
-from ..utils import (apply_quantization, get_model_name_parts, load_audio,
+from ..utils import (bind_checkpoint, get_model_name_parts, load_audio,
                      load_config, load_weights, resolve_family)
 
 __all__ = ["MODEL_REMAPPING", "PORTED", "infer_model_type_from_config",
@@ -92,10 +97,8 @@ def load_model(model_path: Union[str, Path], device="cuda",
             f"{', '.join(PORTED)})")
     module = importlib.import_module(f".models.{family}", __package__)
     model = module.Model(module.ModelConfig.from_dict(config), device=device)
-    flat = model.sanitize(load_weights(path))
-    model = load_jax_params(model, flat)
-    apply_quantization(model, config,
-                       getattr(model, "model_quant_predicate", None))
+    bind_checkpoint(model, config, load_weights(path),
+                    bind=lambda flat: load_jax_params(model, flat))
     post_load_hook = getattr(type(model), "post_load_hook", None)
     return model if post_load_hook is None else post_load_hook(model, path)
 

@@ -1,6 +1,7 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
 checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS,
-Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM).
+Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM, Orpheus), dense,
+pre-quantized (MLX-packed) or written by the convert CLI.
 
 `MODEL_REMAPPING` is the JAX package's registry of TTS model types, kept
 whole so that a type the port does not have yet is named as such; the
@@ -14,7 +15,7 @@ from pathlib import Path
 from typing import Union
 
 from ..model import check_device
-from ..utils import (apply_quantization, get_model_name_parts, load_config,
+from ..utils import (bind_checkpoint, get_model_name_parts, load_config,
                      load_weights, resolve_family)
 
 MODEL_REMAPPING = {
@@ -91,7 +92,7 @@ MODEL_REMAPPING = {
 }
 # families of MODEL_REMAPPING's values that the port has
 PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice",
-          "sesame")
+          "sesame", "llama")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",
@@ -100,15 +101,20 @@ def load_model(model_path: Union[str, Path], device="cuda",
     the card by default; without CUDA it raises, before reading the
     weights, unless given `device="cpu"`.
 
-    The weights are the published torch-layout checkpoint; the family's
-    `sanitize` maps them onto the port's parameter names. Qwen3-TTS also
-    reads the codec and the reference encoder (with its `encoder_config`)
-    from a `speech_tokenizer/` subfolder when there is one; Sesame builds
-    the Mimi its HF checkpoint embeds. Qwen3-TTS, Higgs, KugelAudio and VibeVoice quantize per
-    config["quantization"] (each family's predicate; W8A8 with the opt-in),
-    and read an HF tokenizer from the directory. The family comes from the
-    config's model_type, else from the directory name's parts
-    (`model_name_parts`, which the router passes)."""
+    The weights are the published torch-layout checkpoint, which the
+    family's `sanitize` maps onto the port's parameter names, then
+    quantized per config["quantization"] with the family's predicates (a
+    pre-quantized MLX checkpoint's packed leaves unpacked instead;
+    `utils.bind_checkpoint`); or the JAX tree of a directory the convert
+    CLI wrote. Qwen3-TTS also reads the codec and the reference encoder
+    (with its `encoder_config`) from a `speech_tokenizer/` subfolder when
+    there is one; Sesame builds the Mimi its HF checkpoint embeds; Orpheus
+    (`llama`, `orpheus`, `svara`) binds the SNAC of its `snac/` or
+    `codec/` subfolder. The families with a text tokenizer read it from
+    the directory. The family comes from the config's model_type, else
+    from the directory name's parts (`model_name_parts`, which the router
+    passes); a `llama` config with `acoustic_dim` is TADA, as in the JAX
+    package (mlx_audio_tpu/utils.py:339-341)."""
     device = check_device(device)
     path = Path(model_path).expanduser()
     if not path.is_dir():
@@ -117,6 +123,8 @@ def load_model(model_path: Union[str, Path], device="cuda",
     config["model_path"] = str(path)
     config.update(config_overrides)
     model_type = config.get("model_type") or config.get("architecture")
+    if model_type == "llama" and "acoustic_dim" in config:
+        model_type = "tada"
     family = resolve_family(model_type, model_name_parts
                             or get_model_name_parts(path), MODEL_REMAPPING)
     if family not in PORTED:
@@ -125,27 +133,25 @@ def load_model(model_path: Union[str, Path], device="cuda",
                          f"{', '.join(PORTED)})")
     if family == "qwen3_tts":
         return _load_qwen3_tts(path, config, device)
-    if family in ("higgs_audio", "kugelaudio", "vibevoice"):
-        return _load_quantizable(family, path, config, device)
-    if family == "sesame":
-        from .models.sesame import Model, ModelConfig
+    return _load_family(family, path, config, device, load_weights(path))
 
-        model = Model(ModelConfig.from_dict(config), device=device)
-        model.bind(model.sanitize(load_weights(path)))
-        return Model.post_load_hook(model, path)
-    from .models.kokoro import Model, ModelConfig
 
-    model = Model(ModelConfig.from_dict(config), device=device)
-    return model.bind(model.sanitize(load_weights(path)))
+def _load_family(family: str, path: Path, config: dict, device,
+                 weights: dict):
+    import importlib
+
+    module = importlib.import_module(f".models.{family}", __package__)
+    model = module.Model(module.ModelConfig.from_dict(config), device=device)
+    bind_checkpoint(model, config, weights)
+    post_load_hook = getattr(module.Model, "post_load_hook", None)
+    return model if post_load_hook is None else post_load_hook(model, path)
 
 
 def _load_qwen3_tts(path: Path, config: dict, device):
-    from .models.qwen3_tts import Model, ModelConfig
-
+    """Qwen3-TTS, with the codec and reference-encoder weights of a
+    `speech_tokenizer/` subfolder under `speech_tokenizer.`, and that
+    folder's `encoder_config` in the tokenizer config."""
     weights = load_weights(path)
-    if any(k.endswith(".scales") for k in weights):
-        raise NotImplementedError("pre-quantized (MLX-packed) checkpoints are "
-                                  "not ported yet; load the dense one")
     codec_dir = path / "speech_tokenizer"
     if codec_dir.is_dir():
         weights.update({f"speech_tokenizer.{k}": v
@@ -156,27 +162,4 @@ def _load_qwen3_tts(path: Path, config: dict, device):
             enc = load_config(codec_dir).get("encoder_config")
             if enc:
                 config["tokenizer_config"] = dict(tok, encoder_config=enc)
-    model = Model(ModelConfig.from_dict(config), device=device)
-    model.bind(model.sanitize(weights))
-    apply_quantization(model, config, model.model_quant_predicate)
-    return Model.post_load_hook(model, path)
-
-
-def _load_quantizable(family: str, path: Path, config: dict, device):
-    """Higgs, KugelAudio or VibeVoice: the weights through the family's
-    `sanitize`, its linears quantized per config["quantization"] with its
-    predicates, then its `post_load_hook` (the local HF tokenizer)."""
-    import importlib
-
-    module = importlib.import_module(f".models.{family}", __package__)
-    Model, ModelConfig = module.Model, module.ModelConfig
-    weights = load_weights(path)
-    if any(k.endswith(".scales") for k in weights):
-        raise NotImplementedError("pre-quantized (MLX-packed) checkpoints are "
-                                  "not ported yet; load the dense one")
-    model = Model(ModelConfig.from_dict(config), device=device)
-    model.bind(model.sanitize(weights))
-    apply_quantization(model, config,
-                       getattr(model, "model_quant_predicate", None),
-                       getattr(model, "model_i8_predicate", None))
-    return Model.post_load_hook(model, path)
+    return _load_family("qwen3_tts", path, config, device, weights)

@@ -53,21 +53,27 @@ def load_config(model_path: Union[str, Path]) -> dict:
 
 def load_weights(model_path: Union[str, Path],
                  keys: Optional[Iterable[str]] = None) -> Dict[str, np.ndarray]:
-    """All *.safetensors (read with safetensors, imported only here) or,
-    failing those, *.npz under model_path, as one flat {name: array}. With
-    `keys`, only those of them that the files hold are read."""
+    """All *.safetensors (read with safetensors, imported only here;
+    bfloat16 tensors as float32) or, failing those, *.npz under model_path,
+    as one flat {name: numpy array}. With `keys`, only those of them that
+    the files hold are read."""
     model_path = Path(model_path)
     wanted = None if keys is None else set(keys)
     weights: Dict[str, np.ndarray] = {}
     files = sorted(glob.glob(str(model_path / "*.safetensors")))
     if files:
+        import torch
         from safetensors import safe_open
 
         for wf in files:
-            with safe_open(wf, framework="numpy") as f:
+            # read through torch, which holds bfloat16 (numpy needs
+            # ml_dtypes for it); bfloat16 arrives as float32
+            with safe_open(wf, framework="pt") as f:
                 for k in f.keys():
                     if wanted is None or k in wanted:
-                        weights[k] = f.get_tensor(k)
+                        t = f.get_tensor(k)
+                        weights[k] = (t.float() if t.dtype == torch.bfloat16
+                                      else t).numpy()
         return weights
     files = sorted(glob.glob(str(model_path / "*.npz")))
     if not files:
@@ -81,33 +87,103 @@ def load_weights(model_path: Union[str, Path],
     return weights
 
 
+# the marker the convert CLI writes into a config.json (the JAX package's,
+# so that one converted directory loads in both packages)
+CONVERTED_BY = "mlx_audio_tpu.convert"
+
+
+def is_converted(config: dict) -> bool:
+    """A directory the convert CLI wrote: its weights are the JAX tree,
+    bound with no sanitize and no quantization (mlx_audio_tpu/utils.py:
+    373-382)."""
+    return config.get("converted_by") == CONVERTED_BY
+
+
+def _quantization(config: dict) -> Optional[dict]:
+    return config.get("quantization") or config.get("quantization_config")
+
+
+def unpack_prequantized(model, config: dict,
+                        weights: Dict[str, Any]) -> Dict[str, Any]:
+    """The flat, sanitized tree `weights` of a pre-quantized checkpoint,
+    ready to bind into `model` (the pre-quantized branch of the JAX
+    package's `maybe_quantize_tree`, mlx_audio_tpu/ops/quant.py:402-413):
+    each MLX-packed leaf (integer `weight` words with `scales` beside them)
+    is unpacked at config['quantization']'s group size
+    (`ops.quant.unpack_mlx_quantized`), an embedding-like one to a dense
+    weight, and the `Linear` it belongs to is swapped for a module of its
+    shapes. Every other leaf is passed on as it is. A packed leaf that is
+    no linear of the model raises."""
+    import torch
+
+    from .model import _tensor, swap_quantized_linears
+    from .nn import Linear
+    from .ops.quant import maybe_quantize_tree
+
+    def packed(w) -> bool:
+        if isinstance(w, torch.Tensor):
+            return not w.is_floating_point()
+        return np.asarray(w).dtype.kind in "iu"
+
+    quantization = _quantization(config)
+    if quantization is None:
+        return weights
+    group_size = quantization.get("group_size", 64)
+    mode = quantization.get("mode", "affine")
+    out = dict(weights)
+    for key in [k for k in weights if k.endswith(".scales")]:
+        name = key[:-len(".scales")]
+        w = weights.get(f"{name}.weight")
+        if w is None or not packed(w):
+            continue
+        leaf = {k: _tensor(out.pop(f"{name}.{k}"))
+                for k in ("weight", "scales", "biases", "bias")
+                if f"{name}.{k}" in out}
+        leaf = maybe_quantize_tree(leaf, group_size, path=name, mode=mode)
+        out.update((f"{name}.{k}", v) for k, v in leaf.items())
+    linears = {name for name, m in model.named_modules()
+               if isinstance(m, Linear)}
+    stray = sorted(k for k in out if k.endswith(".w_q")
+                   and k[:-len(".w_q")] not in linears)
+    if stray:
+        raise ValueError(f"pre-quantized leaves that are not linears of "
+                         f"this model: {stray[:10]}")
+    swap_quantized_linears(model, out)
+    return out
+
+
 def apply_quantization(model, config: dict,
                        predicate: Optional[Callable] = None,
-                       i8_predicate: Optional[Callable] = None):
-    """Quantize `model`'s linears per config['quantization']
-    (mlx_audio_tpu/utils.py:148-206): each `Linear` whose dotted name
-    passes `predicate(name, weight)` and a per-name entry in the
-    quantization dict (False leaves that linear dense) becomes a
-    `QuantizedLinear` of `bits` and `group_size`. With bits 8 and the W8A8
-    opt-in (the quantization dict's `mxu_int8`, else the environment
-    variable MLX_AUDIO_TPU_MXU_INT8 set to 1, true or yes, as
-    mlx_audio_tpu/utils.py:195-199 reads it), each of those whose name passes
-    `i8_predicate(name)` (all when it is None; JAX's model_i8_predicate)
-    then becomes an `Int8Linear`. One linear at a time, so the model never
-    holds a second copy of its weights. Returns the model; without a
-    quantization entry it is unchanged."""
+                       i8_predicate: Optional[Callable] = None,
+                       pre_quantized: bool = False):
+    """Quantize the bound `model`'s linears per config['quantization'] (its
+    mode, group_size and bits; mlx_audio_tpu/utils.py:148-206): each
+    `Linear` whose dotted name passes `predicate(name, weight)` and a
+    per-name entry in the quantization dict (False leaves that linear
+    dense) becomes a `QuantizedLinear` (affine) or an `FpQuantizedLinear`
+    (mxfp4, nvfp4, mxfp8), one linear at a time, on its device, so the
+    model never holds a second copy of its weights. With `pre_quantized`
+    (the checkpoint held `*.scales`, bound by `unpack_prequantized`) no
+    dense linear is quantized, as in the JAX package.
+
+    Then, with 8-bit affine codes and the W8A8 opt-in (the quantization
+    dict's `mxu_int8`, else the environment variable MLX_AUDIO_TPU_MXU_INT8
+    set to 1, true or yes, as mlx_audio_tpu/utils.py:195-199 reads it),
+    each `QuantizedLinear` whose name passes `i8_predicate(name)` (all when
+    it is None; JAX's model_i8_predicate) becomes an `Int8Linear`. Returns
+    the model; without a quantization entry it is unchanged."""
     import torch
 
     from .model import replace_module
-    from .nn import Int8Linear, Linear, QuantizedLinear
+    from .nn import FpQuantizedLinear, Int8Linear, Linear, QuantizedLinear
     from .ops.quant import maybe_quantize_tree
 
-    quantization = config.get("quantization") or config.get(
-        "quantization_config")
+    quantization = _quantization(config)
     if quantization is None:
         return model
     group_size = quantization.get("group_size", 64)
     bits = quantization.get("bits", 4)
+    mode = quantization.get("mode", "affine")
     mxu_int8 = quantization.get("mxu_int8")
     if mxu_int8 is None:
         mxu_int8 = os.environ.get("MLX_AUDIO_TPU_MXU_INT8",
@@ -120,24 +196,48 @@ def apply_quantization(model, config: dict,
         q = quantization.get(path, True)
         return bool(q) if isinstance(q, bool) else True
 
-    linears = [(name, m) for name, m in model.named_modules()
-               if isinstance(m, Linear)]
     with torch.no_grad():
-        for name, m in linears:
-            quantized = maybe_quantize_tree({"weight": m.weight.detach()},
-                                            group_size, bits, verdict, name)
-            if "w_q" not in quantized:
-                continue
-            q = QuantizedLinear(m.in_features, m.weight.shape[0], group_size,
-                                bias=m.bias is not None).to(m.weight.device)
-            for k in ("w_q", "scales", "biases"):
-                getattr(q, k).copy_(quantized[k])
-            if m.bias is not None:
-                q.bias.copy_(m.bias)
-            if to_i8 and (i8_predicate is None or i8_predicate(name)):
-                q = Int8Linear.from_quantized(q)
-            replace_module(model, name, q)
+        for name, m in list(model.named_modules()):
+            if isinstance(m, Linear) and not pre_quantized:
+                leaf = maybe_quantize_tree({"weight": m.weight.detach()},
+                                           group_size, bits, verdict, name,
+                                           mode)
+                if "weight" in leaf:
+                    continue
+                if m.bias is not None:
+                    leaf["bias"] = m.bias.detach()
+                m = (QuantizedLinear if "w_q" in leaf
+                     else FpQuantizedLinear).from_params(leaf)
+                replace_module(model, name, m)
+            if isinstance(m, QuantizedLinear) and to_i8 and (
+                    i8_predicate is None or i8_predicate(name)):
+                replace_module(model, name, Int8Linear.from_quantized(m))
     return model
+
+
+def bind_checkpoint(model, config: dict, weights: Dict[str, Any],
+                    bind: Optional[Callable] = None):
+    """Bind a checkpoint's flat `weights` into `model` as the JAX package's
+    `base_load_model` does (mlx_audio_tpu/utils.py:373-399): a directory
+    the convert CLI wrote holds the JAX tree, bound by `load_jax_params`
+    with no sanitize and no quantization. Any other goes through the
+    family's `sanitize`, `unpack_prequantized` when the checkpoint holds
+    `*.scales`, `bind` (default `model.bind`, the port's torch-layout
+    names; a family whose `sanitize` gives the JAX tree passes
+    `load_jax_params`) and then `apply_quantization` on the model's device
+    with the family's predicates. Returns the model."""
+    from .model import load_jax_params
+
+    if is_converted(config):
+        return load_jax_params(model, weights)
+    weights = model.sanitize(weights)
+    pre_quantized = any(k.endswith(".scales") for k in weights)
+    if pre_quantized:
+        weights = unpack_prequantized(model, config, weights)
+    (bind or model.bind)(weights)
+    return apply_quantization(
+        model, config, getattr(model, "model_quant_predicate", None),
+        getattr(model, "model_i8_predicate", None), pre_quantized)
 
 
 def resample_audio(audio: np.ndarray, orig_sr: int,

@@ -472,6 +472,57 @@ def test_tiny_kugelaudio_and_vibevoice_generate_without_jax():
     assert out.strip() == "False []", out
 
 
+def test_tiny_orpheus_and_convert_without_jax(tmp_path):
+    """Orpheus on the CPU at a tiny size (the full 156,938-id vocabulary,
+    a stand-in tokenizer, a tiny SNAC): a greedy generate whole and
+    streamed; then the convert CLI on it in 4 bits, reloaded through
+    `load_model`; no jax in sys.modules."""
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import numpy as np
+        import torch
+        from mlx_audio_tpu_torch.codec.models.snac import SNAC
+        from mlx_audio_tpu_torch.convert import convert
+        from mlx_audio_tpu_torch.model import jax_params
+        from mlx_audio_tpu_torch.nn import QuantizedLinear
+        from mlx_audio_tpu_torch.tts.models.llama import Model, orpheus
+        from mlx_audio_tpu_torch.tts.utils import load_model
+
+        class Tok:
+            eos_token_id = 128001
+            def encode(self, text):
+                return [ord(c) %% 100 + 10 for c in text]
+
+        cfg = dict(model_type="llama", hidden_size=64, num_hidden_layers=1,
+                   intermediate_size=128, num_attention_heads=4,
+                   num_key_value_heads=2, vocab_size=128266 + 7 * 4096)
+        m = Model(cfg, device="cpu").init_params(0)
+        m.tokenizer = Tok()
+        m.set_codec(SNAC(dict(encoder_dim=16, encoder_rates=[2, 2],
+                              decoder_dim=32, decoder_rates=[2, 2],
+                              vq_strides=[4, 2, 1], attn_window_size=None),
+                         device="cpu").init_params(1))
+        (r,) = m.generate("hi", temperature=0.0, max_tokens=21)
+        assert r.samples > 0 and np.isfinite(r.audio).all()
+        chunks = list(m.generate("hi", temperature=0.0, max_tokens=21,
+                                 stream=True, streaming_interval=0.05))
+        assert sum(c.samples for c in chunks) > 0
+        src = Path(%r) / "src"
+        src.mkdir()
+        from safetensors.torch import save_file
+        save_file(jax_params(m), str(src / "model.safetensors"))
+        (src / "config.json").write_text(json.dumps(
+            dict(cfg, converted_by="mlx_audio_tpu.convert")))
+        out = convert(str(src), str(Path(%r) / "q4"), quantize=True,
+                      q_bits=4, device="cpu")
+        q = load_model(out, device="cpu")
+        assert sum(isinstance(x, QuantizedLinear) for x in q.modules()) == 8
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), str(tmp_path), FORBIDDEN))
+    assert out.strip().splitlines()[-1] == "False []", out
+
+
 def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
     """The STS families on the CPU at a tiny size from seeded weights
     (chip_smoke.py's small configs): a greedy Moshi generate through its
@@ -574,8 +625,9 @@ def test_g2p_copy_matches_the_jax_package(text):
 
 def _entry_points():
     import mlx_audio_tpu_torch
-    from mlx_audio_tpu_torch import server
-    from mlx_audio_tpu_torch.codec.models import mimi
+    from mlx_audio_tpu_torch import convert, server
+    from mlx_audio_tpu_torch.codec import utils as codec_utils
+    from mlx_audio_tpu_torch.codec.models import mimi, snac
     from mlx_audio_tpu_torch.sts import utils as sts_utils
     from mlx_audio_tpu_torch.sts.models import (deepfilternet, mel_roformer,
                                                 moshi)
@@ -649,6 +701,14 @@ def _entry_points():
                                     deepfilternet.DeepFilterNetConfig())),
         "sts.utils.load_model": (sts_utils.load_model,
                                  lambda p: sts_utils.load_model(p)),
+        "llama.BackboneModel": (llama.BackboneModel.__init__,
+                                lambda p: llama.BackboneModel(
+                                    llama.BackboneConfig())),
+        "snac.SNAC": (snac.SNAC.__init__, lambda p: snac.SNAC()),
+        "codec.utils.load_model": (codec_utils.load_model,
+                                   lambda p: codec_utils.load_model(p)),
+        "convert.convert": (convert.convert,
+                            lambda p: convert.convert(str(p))),
     }
 
 
@@ -669,7 +729,10 @@ def _entry_points():
                                   "tts.generate.generate_audio",
                                   "moshi.Model", "mel_roformer.Model",
                                   "deepfilternet.Model",
-                                  "sts.utils.load_model"])
+                                  "sts.utils.load_model",
+                                  "llama.BackboneModel", "snac.SNAC",
+                                  "codec.utils.load_model",
+                                  "convert.convert"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

@@ -35,7 +35,7 @@ def _models(**over):
         from mlx_audio_tpu.tts.models.llama import BackboneConfig, init_llama
         from mlx_audio_tpu.utils import flatten
         from mlx_audio_tpu_torch.model import load_jax_params
-        from mlx_audio_tpu_torch.tts.models.llama import Model
+        from mlx_audio_tpu_torch.tts.models.llama import BackboneModel as Model
 
         cfg = dict(CFG, **over)
         jcfg = BackboneConfig(**cfg)
@@ -170,7 +170,7 @@ def test_tied_head_and_logits_scaling_match_jax():
 def test_backbone_switches_and_sanitize():
     """`embed`, `final_norm` and `lm_head` leave out those parameters; the
     rotary buffers of a checkpoint are dropped."""
-    from mlx_audio_tpu_torch.tts.models.llama import Model
+    from mlx_audio_tpu_torch.tts.models.llama import BackboneModel as Model
 
     names = set(Model(CFG, device="cpu", embed=False, final_norm=False,
                       lm_head=False).state_dict())
@@ -184,7 +184,7 @@ def test_backbone_switches_and_sanitize():
 
 
 def test_entry_point_defaults_to_cuda():
-    from mlx_audio_tpu_torch.tts.models.llama import Model
+    from mlx_audio_tpu_torch.tts.models.llama import BackboneModel as Model
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default does not raise")

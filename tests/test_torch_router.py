@@ -23,13 +23,14 @@ NAMES = ["Kokoro-82M", "prince-canuma/Kokoro-82M",
          "silero_vad", "mel-band-roformer-vocals", "ecapa-tdnn-lid",
          "sortformer-4spk", "bark-small", "my_dir", "tts-tiny", "stt-x",
          "parakeet-tdt-0.6b-v2", "canary-1b-flash", "smart-turn-v3",
-         "sesame/csm-1b"]
+         "sesame/csm-1b", "canopylabs/orpheus-3b-0.1-ft",
+         "orpheus-3b-0.1-ft-4bit", "svara-tts-v1"]
 
 MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
                "voxtral_realtime", "cohere_asr", "higgs_audio", "kugelaudio",
                "vibevoice_streaming", "silero_vad", "mel_band_roformer",
                "ecapa_tdnn", "sortformer", "bark", "llama", "csm", "sesame",
-               "nonsense"]
+               "orpheus", "svara", "tada", "nonsense"]
 
 
 @pytest.mark.parametrize("category", ["tts", "stt", "sts", "vad"])
@@ -185,6 +186,42 @@ def test_nemo_directories_reach_their_stt_loaders(tmp_path, monkeypatch,
     assert jax_category(None, parts) == "stt"
     assert stt_utils.model_family({}, d) == family in stt_utils.PORTED
     with pytest.raises(FileNotFoundError, match="No weight files"):
+        load_model(d, device="cpu")
+
+
+@pytest.mark.parametrize("how", ["llama", "orpheus", "svara",
+                                 "directory name"])
+def test_llama_types_reach_the_orpheus_loader(tmp_path, monkeypatch, how):
+    """model_type llama, orpheus or svara (JAX's registry: all the llama
+    family), or a directory named for Orpheus with no model_type, reach the
+    TTS loader's llama family (the Orpheus token-TTS)."""
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.tts import utils
+
+    seen = []
+    monkeypatch.setattr(utils, "load_weights", lambda path: {})
+    monkeypatch.setattr(utils, "_load_family",
+                        lambda family, path, config, device, weights:
+                        seen.append(family) or family)
+    if how == "directory name":
+        d = _config_only(tmp_path / "orpheus-3b-0.1-ft")
+    else:
+        d = _config_only(tmp_path / "ckpt", model_type=how)
+    assert load_model(d, device="cpu") == "llama"
+    assert seen == ["llama"]
+
+
+def test_llama_with_acoustic_dim_is_tada(tmp_path):
+    """JAX's rule (mlx_audio_tpu/utils.py:339-341): a `llama` config that
+    carries `acoustic_dim` is TADA, which the port names as not ported."""
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.utils import get_model_category
+
+    d = _config_only(tmp_path / "ckpt", model_type="llama", acoustic_dim=64)
+    assert get_model_category("llama", []) == jax_category("llama", []) \
+        == "tts"
+    with pytest.raises(ValueError, match="'tada'.*not ported"):
         load_model(d, device="cpu")
 
 
