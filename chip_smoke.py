@@ -33,7 +33,12 @@ enhancement, offline and streamed, through `generate`, `load_model`, the
 STS CLI and the server's separation route; and MLX pre-quantized
 checkpoints, the convert CLI, and Orpheus-3B text -> audio over SNAC 24
 kHz, in bf16 and with every linear on kernel K2 in 4 bits, through
-`load_model`, `generate` whole and streamed, and the TTS CLI.
+`load_model`, `generate` whole and streamed, and the TTS CLI; and the
+Qwen3 LM families: Qwen3-ASR speech -> text (a chunked audio encoder and
+a Qwen3 LM) in bf16 and with every linear on K2 in 8 bits, its forced
+aligner and MegaASR (an audio-quality router and a LoRA adapter), and
+VyvoTTS text -> audio over SNAC, through `load_model`, `generate`, the
+STT and TTS CLIs and the server's transcription route.
 
     python3 chip_smoke.py
 
@@ -89,13 +94,15 @@ the CUDA toolkit. Phases, each of which raises on failure:
    phases came, a third request of 120 ids / 200 frames ran here; it was
    dropped to keep the run's time.)
 8. K2 (the dispatched path) vs plain at each (M, out, in) that phases 7,
-   10, 11, 21, 24, 26, 28, 32, 33 and 35-37 launched it with, run after
-   phase 37
+   10, 11, 21, 24, 26, 28, 32, 33 and 35-39 launched it with, run after
+   phase 40
    (the prefill bucket, the code predictor's first sub-step,
    text_projection over the text ids, the session's M = 8 and 16 decode
    frame and its burst prefill at M = 8 x 16, Higgs's four shapes at M = 1
    and 512, KugelAudio's five at M = 2 and 1,024, the ICL prefill at M =
-   512, the small and the full Moshi's at M = 1),
+   512, the small and the full Moshi's at M = 1, Qwen3-ASR's LM at M = 1
+   and the prefill's 512, its tower at the windows' M = 416 and conv_out
+   at 390, the small Qwen3 LM families' packed checkpoints),
    8-bit codes, x in f32 and bf16 (f32 at K =
    18,944 by the simt path's K tiles); then at 4-bit codes each shape
    phases 35-37 launched it with on 4-bit (or mixed 4/6-bit) weights:
@@ -114,7 +121,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    chunks, reads and the host's wait in them, finite audio of whole
    frames, and K2's launches against the config's count.
 11. Full dims q8, the continuous-batching session at b = 8 (bench.py:
-   761-803: 50 frames, cut from its 100, streaming_interval 0.4, max_cache_len 1024,
+   761-803: 20 frames, cut from its 100 (to 50, then to 20 to make room for
+   phases 38-40), streaming_interval 0.4, max_cache_len 1024,
    `warmup()` first) with a cold burst of 8 requests
    `np.arange(100 + i, 150 + i)`: aggregate xRT, time to first audio p50
    and max, wall per `step()`, K2's launches per step (against the
@@ -131,8 +139,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    892-895; 807 M parameters drawn on the card from seed 0 in f32, then
    cast to bf16): the bf16 encoder against f32 on one 30-s window (relative
    Frobenius error under 2e-2), the encoder's time a window (CUDA events)
-   and its share of 989 TFLOP/s, the JAX lane's workload (600 s of
-   `randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
+   and its share of 989 TFLOP/s, the JAX lane's workload cut from 600 s
+   to 300 s (`randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
    bench.py:898-905) cold then warm (wall, xRT, windows, segments, tokens,
    decode steps, ms a step), and the streaming session over ten 1-s chunks
    then `close()` (step latency p50 and max; a final event must arrive).
@@ -184,8 +192,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    bf16): the bf16 encoder against f32 on one 8-row batch of the 3,584-
    frame bucket (relative Frobenius under 2e-2), the encoder's time a
    batch (CUDA events) and its share of 989 TFLOP/s; the lane's workload
-   (bench.py:856-869: 600 s of `randn * 0.1` at seed 0, language "en",
-   max_tokens 150) cold, then warm best of 3: wall, xRT, segments (19),
+   (bench.py:856-869, its 600 s cut to 240: `randn * 0.1` at seed 0,
+   language "en", max_tokens 150) cold, then warm best of 3: wall, xRT,
+   segments (8, one batch of the 8-row encoder check),
    tokens, decode steps and ms a step, the host mel's time, peak device
    memory; every batch's encoder rows finite, the runs' texts equal.
    Neither K1 nor K2 may launch in phases 17-18.
@@ -332,8 +341,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
 31. At full width, seeded random weights drawn on the card in f32, then
    cast to bf16 (the bf16 encoder against f32, relative Frobenius under
    2e-2; token agreement with f32 reported): Parakeet TDT 0.6B v2 (the
-   encoder's ms a 120-s window and its share of 989 TFLOP/s; 600 s in
-   120-s windows with a 15-s overlap, cold and warm: wall, xRT, windows,
+   encoder's ms a 120-s window and its share of 989 TFLOP/s; 300 s (cut
+   from 600) in 120-s windows with a 15-s overlap, cold and warm: wall,
+   xRT, windows,
    joint steps, tokens, ms a joint step, reads; one 60-s request; kernels
    and busy share a joint step from a profiled decode, the encoder's
    largest kernels), Canary-1B-v2 on a
@@ -400,7 +410,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    B parameters) drawn on the card in f32 from seed 0, the token table's
    code and SOS rows scaled by 4 so that the tied head draws codes, cast
    to bf16; SNAC at hubertsiuzdak/snac_24khz's settings in f32: after a
-   32-token warm-up, one 512-token request whole (temperature 0.6, top_p
+   32-token warm-up, one 256-token request whole (512 until phases 38-40
+   came; temperature 0.6, top_p
    0.8, repetition penalty 1.3; ms a token p50 and p95 over its chunks,
    the share of tokens that are SNAC codes, at least 80%; wall, xRT, SNAC
    decode ms, peak memory) and one of 256 tokens streamed every 1.0 s
@@ -413,7 +424,46 @@ the CUDA toolkit. Phases, each of which raises on failure:
    launches exactly 28 x 7 = 196 a token (the decode steps and prefills
    run), read from its counter. Neither phase launches K1, nor phase 36
    K2; these launches join K2's count in the `kernels` line, and their
-   shapes phase 8's final check at 4 bits.
+   shapes phase 8's final check at 4 bits. Before the 4-bit requests the
+   196 linears are timed alone at M = 1 (one CUDA graph of their K2
+   launches replayed) beside their byte bound; phase 33 does the same for
+   the q8 Moshi's 337 linears a step.
+38. The Qwen3 LM families' small configs (tests/test_qwen3_asr.py's shapes
+   at d64, two layers each side; stand-in tokenizers), each on the card
+   against the CPU at f32: a Qwen3-ASR and a forced aligner written as
+   MLX-packed 8-bit checkpoints (group 64) and loaded through
+   `stt.utils.load_model` (every linear on K2, the token table dense):
+   greedy tokens equal, encoder features within 1e-4, the aligner's
+   timestamps equal; the STT CLI with `--stream`, then `--text` on the
+   aligner, against in-process results; the Qwen3-ASR directory's
+   transcription through `AudioServer`; a dense MegaASR directory with its
+   router and LoRA in extras/ (the route and the text with the adapter on
+   and off equal on both devices; the routed text through the STT CLI and
+   the server, the aligner's words through the server); a VyvoTTS
+   directory with its SNAC in
+   snac/ (greedy codes equal, audio within 1e-4) and the TTS CLI's WAV
+   against in-process `generate()`.
+39. Qwen3-ASR at `ModelConfig()` (a 24 x d1024 tower, a 28 x d2048 LM with
+   151,936 ids and a tied head; 2.0 B parameters) drawn on the card in f32
+   from seed 0 and cast to bf16, then packed in memory to MLX's 8-bit
+   layout (group 64) and loaded through the pre-quantized path (every
+   linear on K2, the tied table dense): each on 30 s of `randn * 0.1` at
+   seed 0, greedy, max_tokens 256: encoder ms, prefill ms at its bucket,
+   ms a token p50 and p95, xRT, peak memory, a profiled chunk (kernels,
+   device ms and busy share a token) and the token's byte bound; in q8,
+   K2's launches a decode token read from its counter against the
+   config's 28 x 7 = 196, the LM's 196 linears alone (one CUDA graph) and
+   at the prefill's bucket against cuBLAS bf16, and the first step's
+   logits against bf16's (relative, under 0.1).
+40. At Qwen3-0.6B's text dims (28 x d1024, 16 heads, 8 KV heads, head 128,
+   FFN 3,072) in bf16 from seeds on the card: the forced aligner (its
+   tower at `AudioEncoderConfig()` with output_dim 1024) aligning 60
+   words to 30 s, cold and warm; VyvoTTS (180,352 ids, the code rows
+   scaled by 4 so that the tied head draws codes; SNAC 24 kHz in f32) on
+   a 256-token request whole (ms a token p50 and p95, the share of SNAC
+   codes, at least 80%) and streamed every 0.5 s (time to first audio).
+   K1 never launches in phases 38-40, K2 only on the q8 models; their
+   shapes join phase 8's final check, their launches the `kernels` line.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -1359,10 +1409,11 @@ def phase_qmm_path(shapes) -> float:
 
 # phase 10: the JAX lane's streamed request (bench.py:303-305), and
 # phase 11: its batched session (bench.py:761-803), each cut from 100
-# frames to 50 to keep the run's time
+# frames to 50 to keep the run's time; the session's then to 20 to make
+# room for phases 38-40
 STREAM_IDS, STREAM_TOKENS, STREAM_INTERVAL, STREAM_SEED = (100, 150), 50, \
     2.0, 1
-SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 50, 0.4, \
+SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 20, 0.4, \
     1024
 # streamed against one-shot decode on the card, f32: the CPU tests' bound
 STREAM_FULL_ATOL = 2e-4
@@ -1752,8 +1803,9 @@ WHISPER_TURBO = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280,
                      n_audio_head=20, n_audio_layer=32, n_vocab=51866,
                      n_text_ctx=448, n_text_state=1280, n_text_head=20,
                      n_text_layer=4)
-# the JAX lane's workload (bench.py:898-905): 600 s of randn * 0.1, seed 0
-WHISPER_SECONDS = 600
+# the JAX lane's workload (bench.py:898-905): randn * 0.1, seed 0, its
+# 600 s cut to 300 s to make room for phases 38-40
+WHISPER_SECONDS = 300
 WHISPER_KW = dict(language="en", temperature=0.0,
                   compression_ratio_threshold=None, logprob_threshold=None,
                   no_speech_threshold=None, return_timestamps=True,
@@ -1867,8 +1919,8 @@ def build_whisper_turbo():
 def phase_whisper_turbo(card: str) -> dict:
     """Whisper large-v3-turbo at full width on the card: the bf16 encoder
     against f32 on one window, the encoder's time per window, the JAX
-    lane's 600-s transcription cold then warm, and the streaming session
-    over ten 1-s chunks."""
+    lane's transcription (cut to 300 s) cold then warm, and the streaming
+    session over ten 1-s chunks."""
     import numpy as np
     import torch
 
@@ -2401,9 +2453,11 @@ COHERE_SPECIALS = ("<|startofcontext|>", "<|startoftranscript|>",
                    "<|emo:undefined|>", "<|en|>", "<|pnc|>", "<|nopnc|>",
                    "<|noitn|>", "<|notimestamp|>", "<|nodiarize|>",
                    "<|endoftext|>")
-# the lane's workload (bench.py:856-869): 600 s of randn * 0.1 at seed 0,
-# language "en", max_tokens 150, cold then warm best of 3
-COHERE_SECONDS, COHERE_MAX_TOKENS, COHERE_SEGMENTS = 600, 150, 19
+# the lane's workload (bench.py:856-869): randn * 0.1 at seed 0, language
+# "en", max_tokens 150, cold then warm best of 3; its 600 s (19 segments in
+# 3 batches) cut to 300 s (10 segments: a full batch of 8 rows and a
+# partial one of 2) to make room for phases 38-40
+COHERE_SECONDS, COHERE_MAX_TOKENS, COHERE_SEGMENTS = 300, 150, 10
 # CUDA against the CPU at f32: encoder rows, max|a-b| / max|b|
 COHERE_REL = 1e-4
 # NeMo's subsampling indices (torch.nn.Sequential, ReLUs between) of the
@@ -2563,7 +2617,7 @@ def phase_cohere_full(card: str) -> dict:
     """Cohere ASR at the cohere_asr_10min lane's dims (2.05 B parameters
     drawn on the card in f32 from seed 0, then cast in place to bf16): the
     bf16 encoder against f32 on one 8-row batch of the 3,584-frame bucket,
-    the encoder's time a batch, then the lane's 600-s file cold and warm
+    the encoder's time a batch, then the lane's file (cut to 300 s) cold and warm
     (best of 3)."""
     import numpy as np
     import torch
@@ -3968,9 +4022,9 @@ def phase_vibevoice_full(card: str) -> dict:
 # Kokoro: one whole wav request and one streamed pcm request of this text
 SERVER_TEXT = TEXTS[1]
 # Qwen3-TTS: concurrent streamed requests through the broker's session,
-# frames each (cut from 100 to 50 to keep the run's time), streaming
-# interval (the b = 8 session's, phase 11)
-SERVER_QWEN3_REQUESTS, SERVER_QWEN3_TOKENS = 8, 50
+# frames each (cut from 100 to 50 to keep the run's time, then to 20 with
+# the session's), streaming interval (the b = 8 session's, phase 11)
+SERVER_QWEN3_REQUESTS, SERVER_QWEN3_TOKENS = 8, 20
 SERVER_QWEN3_TEXT = ("Request {} of the burst: the server streams this "
                      "sentence as audio.")
 # Whisper turbo: seconds of seeded noise a transcription
@@ -4978,9 +5032,10 @@ PARAKEET_FULL = dict(
     prediction=dict(pred_hidden=640, pred_rnn_layers=2),
     joint=dict(joint_hidden=640, num_classes=1030),
     durations=[0, 1, 2, 3, 4])
-# the long file: 600 s in 120-s windows with a 15-s overlap; one 60-s
-# request without windows; about 200 joint steps profiled
-PARAKEET_SECONDS, PARAKEET_WINDOW, PARAKEET_OVERLAP = 600, 120.0, 15.0
+# the long file: 300 s (cut from 600 to make room for phases 38-40) in
+# 120-s windows with a 15-s overlap (3 windows); one 60-s request without
+# windows; about 200 joint steps profiled
+PARAKEET_SECONDS, PARAKEET_WINDOW, PARAKEET_OVERLAP = 300, 120.0, 15.0
 PARAKEET_SHORT, PARAKEET_PROFILE_FRAMES = 60, 300
 # the share of joint steps that emit a token, which the joints' blank bias
 # aims at on random weights (about English speech's rate), found by
@@ -6140,6 +6195,7 @@ def phase_moshi_full(card: str, recorder: K2Recorder) -> int:
     logits_q8 = moshi_first_logits(model.lm)
     err = float(torch.linalg.norm(logits_q8 - logits_bf16)
                 / torch.linalg.norm(logits_bf16))
+    k2_linears_alone(model.lm, card, "moshi")
     k1 = snake_conv_kernel.launches
     qmm_kernel.launches = 0
     with recorder:
@@ -6311,7 +6367,11 @@ ORPHEUS_3B = dict(model_type="llama", hidden_size=3072, num_hidden_layers=28,
                   intermediate_size=8192, num_attention_heads=24,
                   num_key_value_heads=8, head_dim=128, rms_norm_eps=1e-5,
                   rope_theta=500000.0, tie_word_embeddings=True,
-                  vocab_size=156940, max_position_embeddings=131072)
+                  vocab_size=156940, max_position_embeddings=131072,
+                  rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                                "low_freq_factor": 1.0,
+                                "high_freq_factor": 4.0,
+                                "original_max_position_embeddings": 8192})
 # hubertsiuzdak/snac_24khz's settings, in f32
 SNAC_24KHZ = dict(sampling_rate=24000, encoder_dim=48,
                   encoder_rates=[2, 4, 8, 8], decoder_dim=1024,
@@ -6321,7 +6381,8 @@ SNAC_24KHZ = dict(sampling_rate=24000, encoder_dim=48,
 ORPHEUS_REL = 1e-4                  # small configs, CUDA vs CPU, f32
 ORPHEUS_TEXT = ("The quick brown fox jumps over the lazy dog while the "
                 "speaker reads this sentence aloud for the first request.")
-ORPHEUS_TOKENS, ORPHEUS_STREAM_TOKENS, ORPHEUS_INTERVAL = 512, 256, 1.0
+# the whole request cut from 512 tokens to 256 to make room for phases 38-40
+ORPHEUS_TOKENS, ORPHEUS_STREAM_TOKENS, ORPHEUS_INTERVAL = 256, 256, 1.0
 # the token table's rows of the code ids and SOS scaled this many times, so
 # that the tied head draws codes from random weights
 ORPHEUS_CODE_SCALE = 4.0
@@ -6811,6 +6872,7 @@ def phase_orpheus_full(card: str, recorder: K2Recorder) -> int:
         f"loaded through apply_quantization's pre-quantized path in "
         f"{time.perf_counter() - t37:.2f} s: {held} linears on K2, the tied "
         f"table dense ({model.model.embed_tokens.weight.dtype})")
+    k2_linears_alone(model, card, "orpheus")
     k1 = snake_conv_kernel.launches
     qmm_kernel.launches = 0
     with recorder:
@@ -6867,6 +6929,859 @@ def phase_orpheus(card: str, recorder: K2Recorder) -> int:
     if snake_conv_kernel.launches != k1:
         raise AssertionError("phases 35-37 launched K1")
     log(f"[time] phases 35-37 in {time.perf_counter() - t0:.1f} s; K1 not "
+        f"launched")
+    return k2
+
+
+# ---------------------------------------------------------------------------
+# The Qwen3 LM families (phases 38-40): Qwen3-ASR with its forced aligner
+# and MegaASR, VyvoTTS over SNAC
+# ---------------------------------------------------------------------------
+
+# the special tokens the stand-in tokenizers encode, at the Qwen3 tokenizer's
+# ids (the full-size models) or past a small vocabulary's characters
+ASR_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>",
+                "<|audio_start|>", "<|audio_end|>", "<|audio_pad|>",
+                "<asr_text>", "<timestamp>")
+QWEN3_SPECIAL_IDS = dict(zip(ASR_SPECIALS, (151643, 151644, 151645, 151669,
+                                            151670, 151676, 151704, 151705)))
+SMALL_SPECIAL_IDS = {name: 240 + i for i, name in enumerate(ASR_SPECIALS)}
+# tests/test_qwen3_asr.py's shapes at widths group 64 divides, two layers
+# each side, a 200-frame attention window (two windows at 4 s)
+QWEN3_ASR_SMALL = dict(
+    model_type="qwen3_asr", audio_token_id=245, timestamp_token_id=247,
+    classify_num=64,
+    audio_config=dict(num_mel_bins=64, encoder_layers=2,
+                      encoder_attention_heads=4, encoder_ffn_dim=128,
+                      d_model=64, downsample_hidden_size=8, output_dim=64,
+                      n_window=50, n_window_infer=200),
+    text_config=dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=2, head_dim=16,
+                     tie_word_embeddings=True))
+# Qwen3-0.6B's text dims (28 x d1024, 16 heads, 8 KV heads, head 128, FFN
+# 3,072): the forced aligner's LM (its audio tower at AudioEncoderConfig()'s
+# dims with output_dim 1024, the LM's width) and VyvoTTS's, whose
+# vocabulary holds its SNAC code ids past 151,679 (180,352 rows)
+QWEN3_06B_TEXT = dict(vocab_size=151936, hidden_size=1024,
+                      intermediate_size=3072, num_hidden_layers=28,
+                      num_attention_heads=16, num_key_value_heads=8,
+                      head_dim=128, tie_word_embeddings=True)
+# the code ids end at 151,679 + 7 x 4,096 - 1; rows rounded up to 64
+VYVO_VOCAB = 180352
+VYVO_SMALL = dict(vocab_size=VYVO_VOCAB, hidden_size=64, intermediate_size=128,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, head_dim=16, tie_word_embeddings=True)
+# the table's code and START_OF_SPEECH rows scaled, so that a tied head on
+# random weights draws codes (phase 36's device); VyvoTTS's share of codes
+VYVO_CODE_SCALE, VYVO_CODE_SHARE = 4.0, 0.8
+# Qwen3-ASR at ModelConfig(): 30 s of randn * 0.1 at seed 0, greedy,
+# max_tokens 256; a decode chunk profiled
+QWEN3_ASR_SECONDS, QWEN3_ASR_TOKENS = 30, 256
+ASR_REL = 1e-4                      # small configs, CUDA vs CPU, f32
+# the q8 model's first-step logits against bf16's (random 8-bit group-64
+# codes through 28 layers; unrelated logits read about 1.4)
+ASR_Q8_REL = 0.1
+ALIGN_TEXT = " ".join(["the", "aligner", "places", "every", "word", "of",
+                       "this", "sentence", "in", "time"] * 6)
+VYVO_TEXT = ("VyvoTTS reads this sentence aloud, one SNAC frame of seven "
+             "codes at a time.")
+VYVO_TOKENS, VYVO_INTERVAL = 256, 0.5
+
+
+class AsrTok:
+    """A stand-in for the Qwen3 tokenizer (not in the repository): the
+    special tokens of ASR_SPECIALS at `ids`, one id a character below them;
+    decode writes the ids."""
+
+    unk_token_id = None
+
+    def __init__(self, ids: dict, n_chars: int = 200):
+        self.ids, self.n_chars = ids, n_chars
+        self.eos_token_id = ids["<|im_end|>"]
+
+    def encode(self, text, add_special_tokens=False):
+        out, i = [], 0
+        while i < len(text):
+            for name, tid in self.ids.items():
+                if text.startswith(name, i):
+                    out.append(tid)
+                    i += len(name)
+                    break
+            else:
+                out.append(10 + ord(text[i]) % self.n_chars)
+                i += 1
+        return out
+
+    def decode(self, toks, skip_special_tokens=True):
+        return " ".join(str(t) for t in toks)
+
+    def convert_tokens_to_ids(self, s):
+        return self.ids.get(s)
+
+
+class VyvoTok:
+    """One id a character, below the special ids."""
+
+    def encode(self, text, **kw):
+        return [10 + ord(c) % 200 for c in text]
+
+
+def _asr_small(family: str, device: str):
+    """The small Qwen3-ASR, aligner or MegaASR at f32 from seed 0 with the
+    stand-in tokenizer."""
+    import importlib
+
+    mod = importlib.import_module(f"mlx_audio_tpu_torch.stt.models.{family}")
+    m = mod.Model(mod.ModelConfig.from_dict(QWEN3_ASR_SMALL),
+                  device=device).init_params(seed=0)
+    m._tokenizer = AsrTok(SMALL_SPECIAL_IDS)
+    return m
+
+
+def _vyvo_small(device: str):
+    from mlx_audio_tpu_torch.codec.models.snac import SNAC
+    from mlx_audio_tpu_torch.tts.models.qwen3 import Model
+
+    m = Model(VYVO_SMALL, device=device).init_params(seed=0)
+    _scale_code_rows(m)
+    m.tokenizer = VyvoTok()
+    return m.set_codec(fixed_noise(SNAC(SNAC_SMALL, device=device)
+                                   .init_params(1)))
+
+
+def _scale_code_rows(model) -> None:
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.qwen3 import qwen3
+
+    with torch.no_grad():
+        emb = model.model.embed_tokens.weight
+        emb[qwen3.AUDIO_TOKENS_START:] *= VYVO_CODE_SCALE
+        emb[qwen3.START_OF_SPEECH] *= VYVO_CODE_SCALE
+
+
+def write_asr_checkpoint(model, path: Path, bits=None, extras=None,
+                         group_size: int = MLX_GROUP) -> None:
+    """A Qwen3 LM family's `model` as an HF checkpoint directory:
+    config.json, model.safetensors under the `thinker.` names in torch conv
+    layouts; with `bits` every linear and the token table MLX-packed at
+    `bits` (group `group_size`) with f32 scales and biases, and config.json
+    says so. `extras` {file name: state} go to extras/ (MegaASR's router
+    and LoRA)."""
+    import dataclasses
+
+    from safetensors.numpy import save_file
+
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    cfg = dataclasses.asdict(model.config)
+    cfg.pop("model_path", None)
+    flat = {}
+    for k, v in model.state_dict().items():
+        v = v.float().cpu()
+        if bits and k.endswith(".weight") and v.ndim == 2:
+            q = quantize_weight(v, group_size, bits)
+            base = "thinker." + k[:-len("weight")]
+            flat[base + "weight"] = mlx_pack(q["w_q"].numpy(), bits)
+            flat[base + "scales"] = q["scales"].numpy()
+            flat[base + "biases"] = q["biases"].numpy()
+        else:
+            flat["thinker." + k] = v.numpy()
+    if bits:
+        cfg["quantization"] = {"group_size": group_size, "bits": bits}
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(flat, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(cfg))
+    for name, state in (extras or {}).items():
+        (path / "extras").mkdir(exist_ok=True)
+        save_file(state, str(path / "extras" / name))
+
+
+def write_vyvo_checkpoint(model, path: Path) -> None:
+    """VyvoTTS as a checkpoint directory: config.json (model_type qwen3),
+    model.safetensors under HF names, its SNAC in snac/."""
+    import dataclasses
+
+    import numpy as np
+    from safetensors.numpy import save_file
+
+    path.mkdir(parents=True, exist_ok=True)
+    save_file({k: v.float().cpu().numpy() for k, v in
+               model.state_dict().items()}, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(
+        dataclasses.asdict(model.config)))
+    (path / "snac").mkdir(exist_ok=True)
+    save_file({k: np.ascontiguousarray(v.float().cpu().numpy())
+               for k, v in model.codec.state_dict().items()},
+              str(path / "snac" / "model.safetensors"))
+    (path / "snac" / "config.json").write_text(json.dumps(SNAC_SMALL))
+
+
+def router_state(seed: int = 2, d: int = 64, h: int = 32, ff: int = 128,
+                 max_len: int = 850) -> dict:
+    """MegaASR's router in its converted layout (tests/test_mega_asr.py's),
+    seeded, with random batch-norm statistics."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+
+    def r(*s, scale=1.0):
+        return (rs.randn(*s) * scale).astype(np.float32)
+
+    w = {"frontend.conv.0.weight": r(h, 3, 80, scale=0.1),
+         "frontend.conv.0.bias": r(h),
+         "frontend.conv.4.weight": r(d, 3, h, scale=0.1),
+         "frontend.conv.4.bias": r(d), "pos_encoder.pe": r(1, max_len, d,
+                                                            scale=0.1)}
+    pre = "transformer.layers.0"
+    for name, shape in (("self_attn.in_proj_weight", (3 * d, d)),
+                        ("self_attn.out_proj.weight", (d, d)),
+                        ("linear1.weight", (ff, d)),
+                        ("linear2.weight", (d, ff))):
+        w[f"{pre}.{name}"] = r(*shape, scale=shape[1] ** -0.5)
+        w[f"{pre}.{name.replace('weight', 'bias')}"] = r(shape[0],
+                                                         scale=0.1)
+    for name in (f"{pre}.norm1", f"{pre}.norm2", "transformer.norm"):
+        w[f"{name}.weight"], w[f"{name}.bias"] = 1 + r(d, scale=0.1), r(d)
+    for name, (o, i) in (("pooling.query", (1, d)), ("classifier.0", (h, d)),
+                         ("classifier.3", (2, h))):
+        w[f"{name}.weight"], w[f"{name}.bias"] = r(o, i, scale=i ** -0.5), \
+            r(o, scale=0.1)
+    for i, n in ((1, h), (5, d)):
+        w[f"frontend.conv.{i}.weight"] = 1 + r(n, scale=0.1)
+        w[f"frontend.conv.{i}.bias"] = r(n, scale=0.1)
+        w[f"frontend.conv.{i}.running_mean"] = r(n, scale=0.1)
+        w[f"frontend.conv.{i}.running_var"] = 1 + abs(r(n, scale=0.1))
+    return w
+
+
+def lora_state(seed: int = 4) -> dict:
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    return {"model.layers.0.self_attn.q_proj.lora_A":
+            (rs.randn(4, 64) * 0.5).astype(np.float32),
+            "model.layers.0.self_attn.q_proj.lora_B":
+            (rs.randn(64, 4) * 0.5).astype(np.float32)}
+
+
+def _asr_outputs(model, audio) -> tuple:
+    """Greedy tokens of `generate` (their ids, written by the stand-in
+    tokenizer's decode) and the encoder's features."""
+    out = model.generate(audio, language="English", max_tokens=48)
+    feats, _ = model.encode(audio)
+    return out.text, feats.float().cpu()
+
+
+def phase_qwen3_lm_reference(tmp: Path, recorder: K2Recorder,
+                             device: str = "cuda") -> int:
+    """Phase 38: the small configs, each on the card against the CPU. A
+    Qwen3-ASR and a forced aligner written as MLX-packed 8-bit checkpoints
+    and loaded through `stt.utils.load_model` (every linear on K2, the token
+    table dense): greedy tokens equal, encoder features within ASR_REL, the
+    aligner's timestamps equal; the STT CLI (`--stream`, then `--text` on
+    the aligner) against in-process results; the Qwen3-ASR directory's
+    transcription through `AudioServer`. A dense MegaASR directory with its
+    router and LoRA in extras/: the route and the text with the adapter on
+    and off equal on both devices; its routed text through the STT CLI and
+    `AudioServer`, and the aligner's words through `AudioServer`. A VyvoTTS directory with its SNAC: the
+    greedy codes equal and audio within ASR_REL, and the TTS CLI's WAV
+    against in-process `generate`. `device` is the card's ("cpu" checks
+    the phase's own logic on a machine without one). -> K2's launches."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.nn import Embedding, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.stt import generate as stt_generate
+    from mlx_audio_tpu_torch.stt.models.qwen3_asr import qwen3_asr
+    from mlx_audio_tpu_torch.stt.utils import load_model
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.tts.models.qwen3 import qwen3
+    from mlx_audio_tpu_torch.tts.utils import load_model as load_tts
+
+    t0 = time.perf_counter()
+    qmm_kernel.launches = 0
+    audio = _noise(21, 4.0)
+    wav = tmp / "asr.wav"
+    audio_io.write(wav, audio, 16000)
+    prev = (qwen3_asr.local_tokenizer, qwen3.local_tokenizer)
+    qwen3_asr.local_tokenizer = lambda path: AsrTok(SMALL_SPECIAL_IDS)
+    qwen3.local_tokenizer = lambda path: VyvoTok()
+    try:
+        # Qwen3-ASR and the aligner, MLX-packed q8
+        n_linears = 1 + 6 * 2 + 2 + 7 * 2
+        for family in ("qwen3_asr", "qwen3_forced_aligner"):
+            d = tmp / f"{family}-q8"
+            write_asr_checkpoint(_asr_small(family, "cpu"), d, bits=8)
+            cpu = load_model(d, device="cpu")
+            with recorder:
+                card = load_model(d, device=device)
+                held = sum(isinstance(m, QuantizedLinear)
+                           for m in card.modules())
+                if family == "qwen3_asr":
+                    got = _asr_outputs(card, audio)
+                else:
+                    got = card.generate(audio, text=ALIGN_TEXT[:60],
+                                        language="English").segments
+            want = (_asr_outputs(cpu, audio) if family == "qwen3_asr" else
+                    cpu.generate(audio, text=ALIGN_TEXT[:60],
+                                 language="English").segments)
+            extra = n_linears + (family != "qwen3_asr")
+            if not (held == extra and isinstance(card.model.embed_tokens,
+                                                 Embedding)):
+                raise AssertionError(f"packed {family}: {held} quantized "
+                                     f"linears, want {extra}")
+            if family == "qwen3_asr":
+                rel = rel_err(got[1].numpy(), want[1].numpy())
+                if not (got[0] == want[0] and rel < ASR_REL):
+                    raise AssertionError(f"packed Qwen3-ASR card vs CPU: "
+                                         f"text equal {got[0] == want[0]}, "
+                                         f"features rel {rel:.3e}")
+                log(f"[qwen3-asr small] MLX-packed 8-bit checkpoint through "
+                    f"load_model: {held} linears unpacked onto K2, the token "
+                    f"table dense; {len(got[0].split())} greedy tokens equal "
+                    f"on the card and the CPU, encoder features "
+                    f"{tuple(got[1].shape)} rel {rel:.3e}")
+            else:
+                if got != want or not got:
+                    raise AssertionError(f"aligner card vs CPU: {got} vs "
+                                         f"{want}")
+                log(f"[aligner small] MLX-packed 8-bit checkpoint: {held} "
+                    f"linears on K2 (the timestamp head too); {len(got)} "
+                    f"words' timestamps equal on the card and the CPU")
+        # the STT CLI, streamed, and the aligner's --text, on the card
+        d = tmp / "qwen3_asr-q8"
+        with recorder:
+            model = load_model(d, device=device)
+            want = "".join(r.text for r in model.stream_transcribe(
+                audio, language="English", max_tokens=48))
+            stt_generate.main(["--model", str(d), "--audio", str(wav),
+                               "--language", "English", "--max-tokens", "48",
+                               "--stream", "--no-verbose", "--output-path",
+                               str(tmp / "cli")])
+            got = (tmp / "cli" / "transcription.txt").read_text().strip()
+            stt_generate.main(["--model", str(tmp / "qwen3_forced_aligner-"
+                                               "q8"),
+                               "--audio", str(wav), "--text",
+                               ALIGN_TEXT[:60], "--language", "English",
+                               "--format", "json", "--no-verbose",
+                               "--output-path", str(tmp / "align")])
+            aligned = json.loads((tmp / "align" / "transcription.json")
+                                 .read_text())
+            server = AudioServer(device=device)
+            try:
+                buf = tmp / "served.wav"
+                audio_io.write(buf, audio, 16000)
+                reply = asyncio.run(server.transcribe(
+                    {"model": str(d), "response_format": "json",
+                     "language": "English", "max_tokens": "48"},
+                    buf.read_bytes()))
+            finally:
+                server.close()
+        heard, _ = audio_io.read(str(buf), dtype="float32")
+        served_want = model.generate(heard, language="English",
+                                     max_tokens=48).text
+        if not (got == want.strip() and aligned["segments"]
+                and reply.status == 200
+                and reply.json["text"] == served_want):
+            raise AssertionError(f"CLI --stream {got!r} vs {want!r}; aligner "
+                                 f"{aligned}; server {reply.status}")
+        log(f"[qwen3-asr small] STT CLI --stream wrote the streamed text "
+            f"({len(got.split())} tokens); --text on the aligner wrote "
+            f"{len(aligned['segments'])} words with their times; "
+            f"AudioServer's transcription route gave generate()'s text")
+        # MegaASR: dense, its router and LoRA in extras/
+        d = tmp / "mega_asr"
+        write_asr_checkpoint(_asr_small("mega_asr", "cpu"), d, extras={
+            "router.safetensors": router_state(),
+            "lora.safetensors": lora_state()})
+        texts = {}
+        for dev in ("cpu", device):
+            m = load_model(d, device=dev)
+            m._tokenizer = AsrTok(SMALL_SPECIAL_IDS)
+            routed = m.generate(audio, language="English", max_tokens=24)
+            route = dict(m.last_route)
+            flipped = {"degraded_prob": route["degraded_prob"],
+                       "use_lora": not route["use_lora"]}
+            m._router.route = lambda a, f=flipped: f
+            other = m.generate(audio, language="English", max_tokens=24)
+            texts[dev] = (route, routed.text, other.text)
+        (rc, a_cpu, b_cpu), (rg, a_gpu, b_gpu) = texts["cpu"], texts[device]
+        if not (rc["use_lora"] == rg["use_lora"]
+                and abs(rc["degraded_prob"] - rg["degraded_prob"]) < 1e-4
+                and (a_cpu, b_cpu) == (a_gpu, b_gpu) and a_cpu != b_cpu):
+            raise AssertionError(f"MegaASR card vs CPU: {texts}")
+        log(f"[mega-asr small] router on the card: degraded probability "
+            f"{rg['degraded_prob']:.6f} (CPU {rc['degraded_prob']:.6f}), "
+            f"LoRA {'on' if rg['use_lora'] else 'off'}; the text with the "
+            f"adapter on and off equal on both devices, and the two differ")
+        # MegaASR through the STT CLI, MegaASR and the aligner through the
+        # server's transcription route, each against in-process results
+        heard, _ = audio_io.read(str(wav), dtype="float32")
+        want = load_model(d, device=device).generate(
+            heard, language="English", max_tokens=24).text
+        stt_generate.main(["--model", str(d), "--audio", str(wav),
+                           "--language", "English", "--max-tokens", "24",
+                           "--format", "json", "--no-verbose",
+                           "--output-path", str(tmp / "mega-cli")])
+        cli = json.loads((tmp / "mega-cli" / "transcription.json")
+                         .read_text())["text"]
+        server = AudioServer(device=device)
+        try:
+            served = asyncio.run(server.transcribe(
+                {"model": str(d), "response_format": "json",
+                 "language": "English", "max_tokens": "24"},
+                wav.read_bytes()))
+            served_align = asyncio.run(server.transcribe(
+                {"model": str(tmp / "qwen3_forced_aligner-q8"),
+                 "response_format": "verbose_json", "text": ALIGN_TEXT[:60],
+                 "language": "English"}, wav.read_bytes()))
+        finally:
+            server.close()
+        if not (cli == want == served.json.get("text")
+                and served_align.json.get("segments")
+                == aligned["segments"]):
+            raise AssertionError(f"MegaASR CLI {cli!r}, served "
+                                 f"{served.json}, in process {want!r}; "
+                                 f"served aligner {served_align.json}")
+        log(f"[mega-asr small] the STT CLI and AudioServer's transcription "
+            f"route gave the routed in-process text; the route served the "
+            f"aligner's {len(aligned['segments'])} words with the CLI's "
+            f"times")
+        # VyvoTTS with its SNAC, and the TTS CLI
+        d = tmp / "vyvotts"
+        write_vyvo_checkpoint(_vyvo_small("cpu"), d)
+        kw = dict(voice="zoe", temperature=0.0, max_tokens=60, seed=0)
+        res = {}
+        for dev in ("cpu", device):
+            m = load_tts(d, device=dev)
+            fixed_noise(m.codec)
+            (r,) = list(m.generate(VYVO_TEXT, **kw))
+            res[dev] = (m.last_run["tokens"], m.last_run["code_tokens"],
+                        r.audio)
+        rel = rel_err(res[device][2], res["cpu"][2])
+        if not (res[device][:2] == res["cpu"][:2]
+                and len(res[device][2]) == len(res["cpu"][2]) > 0
+                and rel < ASR_REL):
+            raise AssertionError(f"VyvoTTS card vs CPU: tokens "
+                                 f"{res[device][:2]} vs {res['cpu'][:2]}, "
+                                 f"audio rel {rel:.3e}")
+        tts_generate.main(["--model", str(d), "--text", VYVO_TEXT, "--voice",
+                           "zoe", "--temperature", "0", "--max_tokens", "60",
+                           "--seed", "0", "--output_path", str(tmp / "tts"),
+                           "--device", device, "--no-verbose"])
+        m = load_tts(d, device=device)
+        (want,) = [r.audio for r in m.generate(
+            VYVO_TEXT, voice="zoe", temperature=0.0, max_tokens=60, seed=0,
+            top_p=0.9, top_k=50, repetition_penalty=1.0)]
+        wav_out, sr = audio_io.read(str(tmp / "tts" / "audio_000.wav"),
+                                    dtype="float32")
+        err = float(np.abs(wav_out - np.clip(want, -1, 1)).max()) if len(
+            wav_out) == len(want) else float("inf")
+        if not (sr == 24000 and err <= 2 / 32768):
+            raise AssertionError(f"VyvoTTS CLI WAV vs generate: "
+                                 f"{len(wav_out)} vs {len(want)} samples, "
+                                 f"max error {err:.3e}")
+        log(f"[vyvotts small] load_model with its snac/: greedy codes equal "
+            f"on the card and the CPU ({res[device][0]} tokens, "
+            f"{res[device][1]} of them SNAC codes), audio rel "
+            f"{rel:.3e}; the TTS CLI wrote generate()'s audio "
+            f"({len(wav_out)} samples, max error {err:.2e})")
+    finally:
+        qwen3_asr.local_tokenizer, qwen3.local_tokenizer = prev
+    launches = qmm_kernel.launches
+    torch.cuda.empty_cache()
+    log(f"[time] phase 38 in {time.perf_counter() - t0:.1f} s; K2 launched "
+        f"{launches} times")
+    return launches
+
+
+def k2_linears_alone(model, card: str, tag: str, reps: int = 7) -> tuple:
+    """Every QuantizedLinear of `model` once at M = 1 on a bf16 row: their
+    K2 launches captured in one CUDA graph and replayed (device time alone,
+    no host; the weights together far larger than the L2, each read once a
+    round), and the byte bound of the same work (codes one a byte, f32
+    scales and biases, the bf16 row in and out). -> (ms, bound ms, the
+    linears). The timing's launches are left out of K2's count."""
+    from functools import partial
+
+    import torch
+
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    fns, nbytes = [], 0
+    for m in model.modules():
+        if not isinstance(m, QuantizedLinear):
+            continue
+        n, k = m.w_q.shape
+        x = torch.randn(1, k, generator=g, device="cuda").to(torch.bfloat16)
+        fns.append(partial(qmm_kernel, x, m.w_q, m.scales, m.biases, m.bias))
+        nbytes += (m.w_q.numel() + 4 * (m.scales.numel() + m.biases.numel())
+                   + 2 * (n + k) + (4 * n if m.bias is not None else 0))
+    before = qmm_kernel.launches
+    ms = _time_graph(fns, reps) * len(fns)
+    qmm_kernel.launches = before
+    bound = nbytes / HBM_BPS * 1e3
+    log(f"[{tag}] K2 alone: the {len(fns)} quantized linears of a step at "
+        f"M = 1, one CUDA graph replayed: {ms:.3f} ms, bound {bound:.3f} ms "
+        f"({nbytes / 1e9:.3f} GB; {100 * bound / ms:.1f}% of it reached) "
+        f"({card})")
+    return ms, bound, len(fns)
+
+
+def build_qwen3_asr_full():
+    """Qwen3-ASR at ModelConfig() (a 24 x d1024 tower, a 28 x d2048 LM
+    with 151,936 ids and a tied head) drawn on the card in f32 from seed 0
+    tensor by tensor, cast in place to bf16; the stand-in tokenizer."""
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.qwen3_asr import Model, ModelConfig
+
+    t0 = time.perf_counter()
+    model = Model(ModelConfig(), device="cuda").init_params(seed=0,
+                                                            on_device=True)
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    model._tokenizer = AsrTok(QWEN3_SPECIAL_IDS, n_chars=1000)
+    torch.cuda.synchronize()
+    log(f"[qwen3-asr] ModelConfig() dims (tower 24 x d1024, LM 28 x d2048 "
+        f"GQA 16/8, vocabulary 151,936, tied head): {model.num_params():,} "
+        f"params bf16 on cuda, built in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def asr_token_bytes(model, cache_cols: float) -> float:
+    """Bytes a decode token must read: the LM's linears (bf16, or 8-bit
+    codes one a byte with f32 scales and biases), the tied head's bf16
+    table, the norms, and the f32 K and V of `cache_cols` columns."""
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+
+    t = model.config.text_config
+    total = 0.0
+    for m in model.model.modules():
+        if isinstance(m, Linear):
+            total += m.weight.numel() * m.weight.element_size()
+        elif isinstance(m, QuantizedLinear):
+            total += (m.w_q.numel() + 4 * (m.scales.numel()
+                                           + m.biases.numel()))
+    emb = model.model.embed_tokens.weight
+    total += emb.numel() * emb.element_size()
+    total += (2 * t.num_hidden_layers + 1) * t.hidden_size * 2
+    total += (2 * t.num_hidden_layers * cache_cols * t.num_key_value_heads
+              * t.head_dim * 4)
+    return total
+
+
+def _sync_ms(fn, reps: int = 3) -> float:
+    """Median wall ms of `fn` between device syncs."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _asr_run(model, audio, label: str, card: str, base: int) -> dict:
+    """Encoder ms; prefill ms at its bucket; a generate of
+    QWEN3_ASR_TOKENS tokens (ms a token p50 and p95 over its chunks after
+    the first, xRT, peak memory); one profiled chunk (kernels, device ms
+    and busy share a token; K2's launches in it). -> the numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.stt.models.qwen3_asr.qwen3_asr import \
+        prompt_bucket
+    from mlx_audio_tpu_torch.stt.models.qwen3_lm import DEC_CHUNK
+
+    model.generate(audio, language="English", max_tokens=DEC_CHUNK)
+    enc_ms = _sync_ms(lambda: model.encode(audio))
+    feats, n_audio = model.encode(audio)
+    ids = model._build_prompt(n_audio, "English", None)
+    n = len(ids)
+    bucket = prompt_bucket(n)
+    fns = model._decode_fns(bucket, QWEN3_ASR_TOKENS, 0.0, model._eos_ids())
+    embeds = model.prompt_embeds(ids, feats, bucket)
+    prefill_ms = _sync_ms(lambda: fns.prefill(embeds, n))
+    logits = fns.prefill(embeds, n)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = model.generate(audio, language="English",
+                         max_tokens=QWEN3_ASR_TOKENS)
+    wall = time.perf_counter() - t0
+    run = dict(model.last_run)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
+    if not (out.generation_tokens > 0 and len(per_token)):
+        raise AssertionError(f"Qwen3-ASR {label}: {run}")
+    # one chunk unprofiled, then one profiled, after a prefill
+    state = fns.start(embeds, n, QWEN3_ASR_TOKENS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fns.chunk(state)
+    chunk_wall = (time.perf_counter() - t1) * 1e3 / DEC_CHUNK
+    k2 = qmm_kernel.launches
+    fwd = state["forwards"]
+    rows = _device_kernels(lambda: fns.chunk(state), cpu=False)
+    k2_token = (qmm_kernel.launches - k2) / max(state["forwards"] - fwd, 1)
+    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / DEC_CHUNK
+    kernels = sum(e.count for e in rows) / DEC_CHUNK
+    if not (kernels > 0 and dev_ms > 0):
+        raise AssertionError("Qwen3-ASR: the profiler saw no kernel")
+    # a step at column t reads the t + 1 columns written so far
+    cols = n + run["steps"] / 2
+    bound = asr_token_bytes(model, cols) / HBM_BPS * 1e3
+    t_cfg = model.config.text_config
+    col_bytes = (2 * t_cfg.num_hidden_layers * t_cfg.num_key_value_heads
+                 * t_cfg.head_dim * 4)
+    grown = state["caches"].k.shape[2]
+    res = dict(enc_ms=enc_ms, prefill_ms=prefill_ms, bucket=bucket,
+               p50=float(np.percentile(per_token, 50)),
+               p95=float(np.percentile(per_token, 95)), wall=wall,
+               xrt=QWEN3_ASR_SECONDS / wall, peak=peak, kernels=kernels,
+               dev_ms=dev_ms, busy=dev_ms / chunk_wall, bound=bound,
+               k2_token=k2_token, logits=logits, steps=run["steps"],
+               tokens=out.generation_tokens, n_audio=n_audio, prompt=n)
+    log(f"[qwen3-asr] {label}: {QWEN3_ASR_SECONDS} s, {n_audio} audio "
+        f"tokens in a {n}-token prompt (bucket {bucket}): encoder "
+        f"{enc_ms:.2f} ms, prefill {prefill_ms:.2f} ms; {res['tokens']} "
+        f"tokens ({run['steps']} steps): {res['p50']:.2f} ms a token p50, "
+        f"{res['p95']:.2f} p95 (over {len(per_token)} chunks of "
+        f"{DEC_CHUNK}), wall {wall:.2f} s, xRT {res['xrt']:.2f}, peak "
+        f"{peak:.2f} GB above the earlier phases'; profiled chunk: "
+        f"{kernels:.0f} kernels and {dev_ms:.3f} ms of device time a token "
+        f"against {chunk_wall:.2f} ms of wall ({100 * res['busy']:.1f}% "
+        f"busy), {k2_token:.0f} K2 launches a token; bound {bound:.3f} ms a "
+        f"token (bytes), {100 * bound / res['p50']:.1f}% of it reached at "
+        f"p50; the f32 caches read {cols:.0f} columns a token on average "
+        f"({cols * col_bytes / 1e6:.1f} MB) and held {grown} columns after "
+        f"the profiled chunk ({grown * col_bytes / 1e9:.3f} GB); at the default max_tokens "
+        f"8,192 they may grow to {bucket + 8192} columns "
+        f"({(bucket + 8192) * col_bytes / 1e9:.3f} GB) ({card})")
+    return res
+
+
+def phase_qwen3_asr_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 39: Qwen3-ASR at ModelConfig() seeded on the card in bf16,
+    then its weights packed to MLX's 8-bit layout in memory and loaded
+    through the pre-quantized path (every linear on K2, the tied table
+    dense): each on 30 s of randn * 0.1 at seed 0 with max_tokens 256
+    (`_asr_run`); the LM's linears at the prefill's bucket and at M = 1,
+    K2 against cuBLAS bf16 (`_linear_times`); K2's launches a token read
+    from its counter against the config's 196; the first-step logits q8
+    against bf16. -> K2's launches, as its counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import Embedding, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import (apply_quantization,
+                                           unpack_prequantized)
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = build_qwen3_asr_full()
+    audio = _noise(0, QWEN3_ASR_SECONDS)
+    bf16 = _asr_run(model, audio, "bf16", card, base)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 Qwen3-ASR launched K1 or K2")
+    t = model.config.text_config
+    per_token = 7 * t.num_hidden_layers
+    t1 = time.perf_counter()
+    packed = pack_mlx_in_memory(model, 8)
+    torch.cuda.empty_cache()
+    config = {"quantization": {"group_size": MLX_GROUP, "bits": 8}}
+    flat = unpack_prequantized(model, config, packed)
+    del packed
+    model.bind(flat)
+    del flat
+    apply_quantization(model, config, pre_quantized=True)
+    torch.cuda.empty_cache()
+    lm_held = sum(isinstance(m, QuantizedLinear)
+                  for m in model.model.modules())
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if lm_held != per_token or not isinstance(model.model.embed_tokens,
+                                              Embedding):
+        raise AssertionError(f"q8 Qwen3-ASR's LM holds {lm_held} quantized "
+                             f"linears (want {per_token}) or a quantized "
+                             f"table")
+    log(f"[qwen3-asr] packed to MLX 8-bit (group {MLX_GROUP}) in memory and "
+        f"loaded through the pre-quantized path in "
+        f"{time.perf_counter() - t1:.2f} s: {held} linears on K2 ({lm_held} "
+        f"in the LM, the rest the tower's), the tied table dense")
+    k1 = snake_conv_kernel.launches
+    qmm_kernel.launches = 0
+    with recorder:
+        q8 = _asr_run(model, audio, "q8 (K2)", card, base)
+    k2 = qmm_kernel.launches
+    if q8["k2_token"] != per_token or snake_conv_kernel.launches != k1:
+        raise AssertionError(f"q8 Qwen3-ASR: {q8['k2_token']} K2 launches a "
+                             f"token, want {per_token}; or K1 launched")
+    rel = float(torch.linalg.norm(q8["logits"] - bf16["logits"])
+                / torch.linalg.norm(bf16["logits"]))
+    top1 = int(q8["logits"].argmax()) == int(bf16["logits"].argmax())
+    if not (torch.isfinite(q8["logits"]).all() and rel < ASR_Q8_REL):
+        raise AssertionError(f"q8 Qwen3-ASR first-step logits vs bf16: "
+                             f"relative {rel:.3e}")
+    alone, bound, n = k2_linears_alone(model.model, card, "qwen3-asr")
+    sums = _linear_times(card, "qwen3-asr", ((2048, 2048), (1024, 2048),
+                                              (6144, 2048), (2048, 6144)),
+                         (2, 2, 2, 1), t.num_hidden_layers,
+                         rows=(1, q8["bucket"]))
+    pre = sums[q8["bucket"]]
+    log(f"[qwen3-asr] the prefill's {per_token} LM linears at M = "
+        f"{q8['bucket']}: K2 (mma) {pre['K2']:.3f} ms against cuBLAS bf16 "
+        f"{pre['bf16']:.3f} ms ({pre['K2'] / pre['bf16']:.2f}x) ({card})")
+    log(f"[qwen3-asr] q8 against bf16 on this card: encoder "
+        f"{q8['enc_ms']:.2f} vs {bf16['enc_ms']:.2f} ms, prefill "
+        f"{q8['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
+        f"{q8['p50']:.2f} vs {bf16['p50']:.2f} ms a token p50, "
+        f"{q8['p95']:.2f} vs {bf16['p95']:.2f} p95, xRT {q8['xrt']:.2f} vs "
+        f"{bf16['xrt']:.2f}, {q8['kernels']:.0f} vs {bf16['kernels']:.0f} "
+        f"kernels and {q8['dev_ms']:.3f} vs {bf16['dev_ms']:.3f} ms of device "
+        f"time a token, busy {100 * q8['busy']:.1f}% vs "
+        f"{100 * bf16['busy']:.1f}%, peak {q8['peak']:.2f} vs "
+        f"{bf16['peak']:.2f} GB, bound {q8['bound']:.3f} vs "
+        f"{bf16['bound']:.3f} ms a token; K2 launched {k2} times, "
+        f"{q8['k2_token']:.0f} a decode token (read from its counter; the "
+        f"config gives {per_token}), the LM's {n} linears alone "
+        f"{alone:.3f} ms a token (bound {bound:.3f} ms); first-step logits "
+        f"q8 vs bf16 relative {rel:.3e} (limit {ASR_Q8_REL:g}), top-1 "
+        f"{'equal' if top1 else 'differs'} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 39 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def phase_aligner_vyvo_full(card: str) -> None:
+    """Phase 40, in bf16 from seeds on the card at Qwen3-0.6B's text dims:
+    the forced aligner (its tower at AudioEncoderConfig() with output_dim
+    1024) on 30 s with 60 words, cold then warm (ms); VyvoTTS (vocabulary
+    180,352, the code rows scaled, SNAC 24 kHz in f32) on a request of
+    VYVO_TOKENS tokens whole (ms a token p50 and p95, code share, xRT) and
+    streamed every VYVO_INTERVAL s (time to first audio). Neither K1 nor
+    K2 launches."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.snac import SNAC
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.stt.models.qwen3_forced_aligner import (
+        Model as Aligner, ModelConfig as AlignerConfig)
+    from mlx_audio_tpu_torch.stt.models.qwen3_lm import DEC_CHUNK
+    from mlx_audio_tpu_torch.tts.models.qwen3 import Model as Vyvo
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    cfg = AlignerConfig.from_dict({"audio_config": {"output_dim": 1024},
+                                   "text_config": QWEN3_06B_TEXT})
+    al = Aligner(cfg, device="cuda").init_params(seed=0, on_device=True)
+    al.astype(torch.bfloat16)
+    al._tokenizer = AsrTok(QWEN3_SPECIAL_IDS, n_chars=1000)
+    audio = _noise(1, QWEN3_ASR_SECONDS)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = al.generate(audio, text=ALIGN_TEXT, language="English")
+        walls.append(time.perf_counter() - t0)
+    times = [(it.start_time, it.end_time) for it in res]
+    if not (len(res) == 60 and all(0 <= a <= b for a, b in times)):
+        raise AssertionError(f"aligner: {len(res)} words, {times[:4]}")
+    log(f"[aligner] Qwen3-0.6B text dims (28 x d1024, 16 heads, 8 KV, head "
+        f"128, FFN 3,072) with the default tower: {al.num_params():,} params "
+        f"bf16; one alignment of {QWEN3_ASR_SECONDS} s and 60 words: cold "
+        f"{walls[0] * 1e3:.1f} ms, warm {walls[1] * 1e3:.1f} ms; the last "
+        f"word {times[-1][0]:.2f}-{times[-1][1]:.2f} s ({card})")
+    del al
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    vy = Vyvo(dict(QWEN3_06B_TEXT, vocab_size=VYVO_VOCAB),
+              device="cuda").init_params(seed=0, on_device=True)
+    _scale_code_rows(vy)
+    vy.astype(torch.bfloat16)
+    vy.tokenizer = VyvoTok()
+    vy.set_codec(SNAC(SNAC_24KHZ, device="cuda").init_params(
+        seed=1, on_device=True))
+    kw = dict(voice="zoe", temperature=0.6, top_p=0.8, seed=0)
+    list(vy.generate(VYVO_TEXT, max_tokens=DEC_CHUNK, **kw))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (r,) = list(vy.generate(VYVO_TEXT, max_tokens=VYVO_TOKENS, **kw))
+    wall = time.perf_counter() - t0
+    run = dict(vy.last_run)
+    per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
+    share = run["code_tokens"] / max(run["tokens"], 1)
+    if not (r.samples > 0 and np.isfinite(r.audio).all()
+            and share >= VYVO_CODE_SHARE):
+        raise AssertionError(f"VyvoTTS: {run}, {r.samples} samples, code "
+                             f"share {share:.3f}")
+    t0 = time.perf_counter()
+    first, samples, chunks = None, 0, 0
+    for c in vy.generate(VYVO_TEXT, max_tokens=VYVO_TOKENS, stream=True,
+                         streaming_interval=VYVO_INTERVAL, **kw):
+        first = first or time.perf_counter() - t0
+        samples += c.samples
+        chunks += 1
+    s_wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not (first and samples > 0 and chunks > 1):
+        raise AssertionError(f"VyvoTTS stream: {chunks} chunks, {samples} "
+                             f"samples")
+    audio_s = r.samples / vy.sample_rate
+    log(f"[vyvotts] Qwen3-0.6B text dims, vocabulary {VYVO_VOCAB:,}: "
+        f"{vy.num_params():,} params bf16, SNAC 24 kHz f32; {VYVO_TOKENS} "
+        f"tokens ({run['prompt_len']}-token prompt, bucket "
+        f"{run['prompt_bucket']}): {np.percentile(per_token, 50):.2f} ms a "
+        f"token p50, {np.percentile(per_token, 95):.2f} p95 (over "
+        f"{len(per_token)} chunks of {DEC_CHUNK}), {100 * share:.1f}% of the "
+        f"tokens SNAC codes, {audio_s:.2f} s of audio in {wall:.2f} s (xRT "
+        f"{audio_s / wall:.3f}); streamed every {VYVO_INTERVAL:g} s: "
+        f"{chunks} chunks, first audio {first:.3f} s, wall {s_wall:.2f} s; "
+        f"peak {peak:.2f} GB ({card})")
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("phase 40 launched K1 or K2")
+    del vy
+    torch.cuda.empty_cache()
+    log(f"[time] phase 40 in {time.perf_counter() - t_phase:.1f} s "
+        f"(VyvoTTS {time.perf_counter() - t1:.1f} s)")
+
+
+def phase_qwen3_lm(card: str, recorder: K2Recorder) -> int:
+    """Phases 38-40; K1 never launches, K2 only on the q8 models. -> K2's
+    launches there."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_qwen3_lm_reference(Path(tmp), recorder)
+    torch.cuda.empty_cache()
+    k2 += phase_qwen3_asr_full(card, recorder)
+    phase_aligner_vyvo_full(card)
+    if snake_conv_kernel.launches != k1:
+        raise AssertionError("phases 38-40 launched K1")
+    log(f"[time] phases 38-40 in {time.perf_counter() - t0:.1f} s; K1 not "
         f"launched")
     return k2
 
@@ -7003,6 +7918,11 @@ def main() -> int:
     # pre-quantized checkpoints, the convert CLI and Orpheus: K2 at 4 bits
     k2_launches += phase_orpheus(card, recorder)
     log(f"[time] phases 1-37 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # the Qwen3 LM families: K2 on the q8 Qwen3-ASR and the small packed
+    # checkpoints
+    k2_launches += phase_qwen3_lm(card, recorder)
+    log(f"[time] phases 1-40 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

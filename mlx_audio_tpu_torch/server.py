@@ -31,10 +31,10 @@ Departures from the JAX server:
   multi-device path yet;
 * a session warm-up failure is logged with its traceback (the JAX server
   swallows it), and so is a VAD model that fails to load;
-* a model that has no implementation for a request's option (Qwen3-TTS
-  voice cloning) answers 501 with the model's message; requests with
-  `ref_audio` never join a continuous-batching session, which would drop
-  it;
+* a model that has no implementation for a request's option (it raises
+  NotImplementedError) answers 501 with the model's message; requests
+  with `ref_audio` never join a continuous-batching session, which would
+  drop it;
 * the separation adapter takes any model with `separate(audio)` (the
   port's Mel-Band-RoFormer); the JAX server's sam_audio branch is not
   ported (SAM-Audio is not: its directory answers 404 with the loader's

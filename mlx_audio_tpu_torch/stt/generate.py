@@ -12,8 +12,12 @@ package's `maybe_profile`, a `jax.profiler` trace hook around the call.
 `stream=True` returns the `generate_streaming` generator), where the JAX
 package's Whisper returns one result that the CLI then fails to iterate.
 A streamed chunk may be a plain text delta (Voxtral Realtime's
-`generate(stream=True)` yields strings): it is taken as an STTOutput of
-that text, where the JAX package's CLI fails on it.
+`generate(stream=True)` yields strings) or a result of another type
+(Qwen3-ASR's `StreamingResult`): it is taken as an STTOutput of its text
+and counts, where the JAX package's CLI fails on it. So is a result that
+is not an STTOutput (the forced aligner's `ForcedAlignResult`, written
+with its words as segments): `--text` then aligns, as in the JAX package,
+whose CLI fails on the result.
 """
 
 from __future__ import annotations
@@ -72,6 +76,23 @@ _WRITERS = {"txt": save_as_txt, "srt": save_as_srt, "vtt": save_as_vtt,
             "json": save_as_json}
 
 
+def as_output(result) -> "STTOutput":
+    """A model's result (or streamed chunk) as an STTOutput: a string is
+    its text; another type gives its text, segments, language and token
+    counts where it has them."""
+    from .models.base import STTOutput
+
+    if isinstance(result, STTOutput):
+        return result
+    if isinstance(result, str):
+        return STTOutput(text=result)
+    return STTOutput(
+        text=result.text, segments=getattr(result, "segments", None),
+        language=getattr(result, "language", None),
+        prompt_tokens=getattr(result, "prompt_tokens", 0),
+        generation_tokens=getattr(result, "generation_tokens", 0))
+
+
 def generate_transcription(
     model_path: str,
     audio: str,
@@ -85,7 +106,6 @@ def generate_transcription(
 
     Returns the STTOutput (reference stt/generate.py:243-385).
     """
-    from .models.base import STTOutput
     from .utils import load_model
 
     if model is None:
@@ -114,8 +134,7 @@ def generate_transcription(
         # streaming accumulation (reference stt/generate.py:293-332)
         output = None
         for chunk in model.generate(audio, stream=True, **gen_kwargs):
-            if isinstance(chunk, str):
-                chunk = STTOutput(text=chunk)
+            chunk = as_output(chunk)
             if verbose and chunk.text:
                 print(chunk.text, end="", flush=True)
             if output is None:
@@ -134,7 +153,7 @@ def generate_transcription(
         if output is None:
             raise RuntimeError("streaming generate yielded no output")
     else:
-        output = model.generate(audio, **gen_kwargs)
+        output = as_output(model.generate(audio, **gen_kwargs))
     wall = time.time() - start
 
     if verbose:

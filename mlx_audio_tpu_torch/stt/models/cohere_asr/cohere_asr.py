@@ -42,14 +42,20 @@ Departures from the JAX package:
   sentencepiece (and raises if the package is missing) or else a
   `tokens.json` piece list; the checkpoint's `preprocessor.featurizer.fb`
   and `window` are read with `utils.load_weights` (npz or safetensors),
-  where JAX reads safetensors only and swallows any error there. `vad=True`
-  needs a model given to `set_vad_model`: the silero VAD family is not
-  ported, and nothing is downloaded.
+  where JAX reads safetensors only and swallows any error there.
+* **VAD.** `vad=True` segments with the port's Silero
+  (`vad/models/silero_vad`), loaded by `vad.utils.load_model` from a local
+  directory: `vad=<directory>`, `set_vad_model(<directory or model>)`, or
+  the MLX_AUDIO_VAD_MODEL environment variable (which the server reads for
+  /v1/realtime too), on the model's device. JAX's downloads
+  mlx-community/silero-vad; the port never downloads, and without a
+  directory it raises, naming Silero.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -598,20 +604,35 @@ class Model(TorchModel):
         return seg_waves, seg_meta
 
     def _get_vad(self, selector):
-        if selector is not True and selector != "silero-mlx":
+        """The Silero model of `vad`: True or "silero-mlx" take the one
+        set (`set_vad_model`), else the directory MLX_AUDIO_VAD_MODEL
+        names; a local directory is loaded."""
+        if isinstance(selector, (str, Path)) and selector != "silero-mlx" \
+                and Path(selector).expanduser().is_dir():
+            self.set_vad_model(selector)
+        elif selector is not True and selector != "silero-mlx":
             raise ValueError(
                 f"unknown vad backend: {selector!r} "
-                "(supported: True, 'silero-mlx')")
+                "(supported: True, 'silero-mlx', a local Silero directory)")
         if self._vad_model is None:
-            raise RuntimeError(
-                "vad=True needs a silero VAD model: the silero VAD family is "
-                "not ported to mlx_audio_tpu_torch yet; pass a loaded one "
-                "(an object with predict_proba(audio, sample_rate)) to "
-                "set_vad_model()")
+            env = os.environ.get("MLX_AUDIO_VAD_MODEL", "")
+            if not env:
+                raise RuntimeError(
+                    "vad=True needs a silero VAD model: give a local Silero "
+                    "directory (vad=<directory>, or the MLX_AUDIO_VAD_MODEL "
+                    "environment variable), or pass a loaded one (an object "
+                    "with predict_proba(audio, sample_rate)) or a directory "
+                    "to set_vad_model(); nothing is downloaded")
+            self.set_vad_model(env)
         return self._vad_model
 
     def set_vad_model(self, model):
-        """Inject a loaded silero VAD model."""
+        """Inject a loaded silero VAD model, or load one from a local
+        directory (`vad.utils.load_model`, on this model's device)."""
+        if isinstance(model, (str, Path)):
+            from ....vad.utils import load_model as load_vad
+
+            model = load_vad(model, device=self.device)
         self._vad_model = model
 
     # ------------------------------------------------------------- loading

@@ -7,7 +7,12 @@ directory (config.json + npz or safetensors weights), maps its names onto
 the JAX tree's with the family's `sanitize`, fills the model through
 `model.load_jax_params`, the one place where layouts are converted, and
 runs the family's `post_load_hook` (Voxtral's reads `tekken.json`, Cohere
-ASR's its tokenizer and mel filterbank, Canary's its tokenizer).
+ASR's its tokenizer and mel filterbank, Canary's its tokenizer). Every
+family binds through `utils.bind_checkpoint`, as the JAX package's loader
+binds every family: an MLX-packed checkpoint's leaves are unpacked (its
+linears then run on kernel K2 on the card), a dense one is quantized per
+its config's `quantization` (unchanged without one), and a directory the
+convert CLI wrote binds as written.
 """
 
 from __future__ import annotations
@@ -16,8 +21,8 @@ from pathlib import Path
 from typing import Union
 
 from ..model import check_device, load_jax_params
-from ..utils import (get_model_name_parts, load_audio, load_config,
-                     load_weights, resolve_family)
+from ..utils import (bind_checkpoint, get_model_name_parts, load_audio,
+                     load_config, load_weights, resolve_family)
 
 __all__ = ["MODEL_REMAPPING", "PORTED", "load_model", "load_audio"]
 
@@ -73,7 +78,7 @@ MODEL_REMAPPING = {
 
 # families of MODEL_REMAPPING's values that the port has
 PORTED = ("whisper", "voxtral_realtime", "cohere_asr", "parakeet", "canary",
-          "nemotron_asr")
+          "nemotron_asr", "qwen3_asr", "qwen3_forced_aligner", "mega_asr")
 
 
 def model_family(config: dict, path: Path, name_parts=None):
@@ -115,6 +120,7 @@ def load_model(model_path: Union[str, Path], device="cuda",
                                                 __package__)
         model = family_module.Model(
             family_module.ModelConfig.from_dict(config), device=device)
-    model = load_jax_params(model, model.sanitize(weights))
+    bind_checkpoint(model, config, weights,
+                    bind=lambda w: load_jax_params(model, w))
     post_load_hook = getattr(type(model), "post_load_hook", None)
     return model if post_load_hook is None else post_load_hook(model, path)

@@ -8,6 +8,12 @@ Counterpart of mlx_audio_tpu/tts/models/llama/llama.py: `ModelConfig`
 `lm_head`. Qwen2 adds biases to q, k and v (`attention_bias`); RoPE is
 split-half (`ops/rope.py`) unless `rope_interleaved`; RMSNorm runs in f32.
 
+A config whose `rope_scaling` names `llama3` (Llama-3.x checkpoints:
+Orpheus-3B, Sesame's backbones) rotates by `ops.rope.rope_freqs_llama3`
+(`llama_inv_freq`). This departs from the JAX package, whose
+`ModelConfig` has no `rope_scaling` field and rotates every model by the
+plain frequencies; without `rope_scaling` the two agree.
+
 `Model` takes `embed`, `final_norm` and `lm_head` switches, so a consumer
 builds exactly the tree it holds: VibeVoice's lower text LM has no final
 norm, its TTS LM no token table, and neither has a head.
@@ -23,7 +29,7 @@ to f32 too.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +41,7 @@ from ....nn import Embedding, Linear, RMSNorm
 from ....ops.attention import attention, decode_attention
 from ....ops.kvcache import KVCache, kv_update
 from ....ops.rope import (apply_rotary, apply_rotary_interleaved, rope_cis,
-                          rope_cos_sin, rope_freqs)
+                          rope_cos_sin, rope_freqs, rope_freqs_llama3)
 
 
 @dataclass
@@ -61,10 +67,28 @@ class ModelConfig(BaseModelArgs):
     logits_scaling: float = 1.0
     # interleaved ("traditional") RoPE; False keeps HF split-half
     rope_interleaved: bool = False
+    # HF's rope_scaling; {"rope_type": "llama3", ...} scales the frequencies
+    rope_scaling: Optional[Dict] = None
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+
+def llama_inv_freq(cfg: ModelConfig) -> torch.Tensor:
+    """The inverse RoPE frequencies (head_dim // 2,), f32: Llama-3's
+    scaled ones where `rope_scaling` names llama3 (its `rope_type`, or the
+    older `type`), else plain."""
+    rs = cfg.rope_scaling or {}
+    hd = cfg.resolved_head_dim
+    if (rs.get("rope_type") or rs.get("type")) == "llama3":
+        return rope_freqs_llama3(
+            hd, cfg.rope_theta, factor=rs.get("factor", 8.0),
+            low_freq_factor=rs.get("low_freq_factor", 1.0),
+            high_freq_factor=rs.get("high_freq_factor", 4.0),
+            original_max_position=rs.get(
+                "original_max_position_embeddings", 8192))
+    return rope_freqs(hd, cfg.rope_theta)
 
 
 class DecoderLayer(nn.Module):
@@ -114,9 +138,8 @@ class Model(TorchModel):
             if lm_head and not cfg.tie_word_embeddings:
                 self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
                                       bias=False)
-        self.register_buffer("inv_freq", rope_freqs(
-            cfg.resolved_head_dim, cfg.rope_theta).to(device),
-            persistent=False)
+        self.register_buffer("inv_freq", llama_inv_freq(cfg).to(device),
+                             persistent=False)
         self.requires_grad_(False)
         self.eval()
 
@@ -241,5 +264,6 @@ def decode_step(lm: Model, token: torch.Tensor, caches: KVCache,
     return logits_from_hidden(lm, hidden)[:, -1], caches
 
 
-__all__ = ["Model", "ModelConfig", "DecoderLayer", "llama_forward",
+__all__ = ["Model", "ModelConfig", "DecoderLayer", "llama_inv_freq",
+           "llama_forward",
            "logits_from_hidden", "init_caches", "decode_step"]

@@ -3,7 +3,8 @@ route here too).
 
 Counterpart of mlx_audio_tpu/tts/models/llama/orpheus.py: the special ids
 and constants (:40-53), `flat_codes_to_layers` / `layers_to_flat_codes`
-(:57-86), `ModelConfig` (:89-93), the prompt methods `_encode_text`,
+(:57-86, in `codec/models/snac/codes.py`, shared with VyvoTTS),
+`ModelConfig` (:89-93), the prompt methods `_encode_text`,
 `encode_audio_to_codes`, `prepare_zeroprompt`, `prepare_input_ids`,
 `parse_codes` (:118-163), the decode (`_stepper`, `_decode_tokens`,
 :167-254), `generate` and `stream_generate` (:258-328), `_clip_codes`,
@@ -38,9 +39,10 @@ Departures from the JAX package:
   (`set_codec`), whatever the model's dtype;
 * text without a tokenizer raises ValueError.
 
-Like the JAX package, the backbone applies no `rope_scaling`: Llama-3.2's
-`llama3` RoPE frequencies are not used (an open question until a real
-checkpoint runs).
+The backbone rotates by Llama-3's scaled frequencies where the config's
+`rope_scaling` names llama3, as Orpheus-3B's (Llama-3.2) does; the JAX
+package drops the field and rotates by the plain ones
+(`llama.llama_inv_freq`).
 """
 
 from __future__ import annotations
@@ -49,11 +51,13 @@ import re
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ....codec.models.snac.codes import flat_codes_to_layers, \
+    layers_to_flat_codes
 from ....ops.sampling import apply_repetition_penalty, sample
 from ..base import GenerationResult, format_duration, local_tokenizer, \
     peak_memory_gb
@@ -76,35 +80,6 @@ CHUNK = 32
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 REP_WINDOW = 20
 TOKENS_PER_SECOND = 137.5
-
-
-def flat_codes_to_layers(codes: np.ndarray) -> List[np.ndarray]:
-    """Flat 7-per-frame codes (7F,), the slot offsets k x 4096 still on ->
-    the 3 SNAC layers (1, F), (1, 2F), (1, 4F)."""
-    frames = np.asarray(codes).reshape(-1, 7).astype(np.int64)
-    l1 = frames[:, 0]
-    l2 = np.stack([frames[:, 1] - 4096, frames[:, 4] - 4 * 4096],
-                  axis=1).reshape(-1)
-    l3 = np.stack([frames[:, 2] - 2 * 4096, frames[:, 3] - 3 * 4096,
-                   frames[:, 5] - 5 * 4096, frames[:, 6] - 6 * 4096],
-                  axis=1).reshape(-1)
-    return [l1[None], l2[None], l3[None]]
-
-
-def layers_to_flat_codes(layers: Sequence) -> np.ndarray:
-    """The 3 SNAC layers (F, 2F, 4F codes) -> flat 7-per-frame codes with
-    the slot offsets."""
-    l1, l2, l3 = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x
-                             ).reshape(-1) for x in layers[:3])
-    out = np.empty((len(l1), 7), np.int64)
-    out[:, 0] = l1
-    out[:, 1] = l2[0::2] + 4096
-    out[:, 2] = l3[0::4] + 2 * 4096
-    out[:, 3] = l3[1::4] + 3 * 4096
-    out[:, 4] = l2[1::2] + 4 * 4096
-    out[:, 5] = l3[2::4] + 5 * 4096
-    out[:, 6] = l3[3::4] + 6 * 4096
-    return out.reshape(-1)
 
 
 @dataclass

@@ -77,12 +77,17 @@ class Qwen3Layer(nn.Module):
         q = apply_rotary(q, cos, sin)
         k = apply_rotary(k, cos, sin)
         if cache is not None:
+            # an f32 cache under a bf16 layer (Qwen3-ASR, VyvoTTS) attends
+            # in f32 and hands the layer's dtype back to o_proj
             kv_update(cache, k, v, offset)
+            dt = torch.promote_types(q.dtype, cache.k.dtype)
+            q, ck, cv = q.to(dt), cache.k.to(dt), cache.v.to(dt)
             if t == 1:
-                out = decode_attention(q, cache.k, cache.v, offset + 1,
+                out = decode_attention(q, ck, cv, offset + 1,
                                        lengths_mask=mask)
             else:
-                out = attention(q, cache.k, cache.v, mask=mask)
+                out = attention(q, ck, cv, mask=mask)
+            out = out.to(x.dtype)
         else:
             out = attention(q, k, v, mask=mask)
         x = x + a.o_proj(out.reshape(b, t, a.n_heads * a.head_dim))

@@ -53,7 +53,11 @@ Departures from the JAX package:
   audio);
 * a bf16 model computes in bf16 against its f32 caches (attended in f32),
   where JAX promotes the residual stream to f32;
-* draws come from a torch.Generator, so only greedy runs compare with JAX.
+* draws come from a torch.Generator, so only greedy runs compare with JAX;
+* a backbone or depth-decoder config whose `rope_scaling` names llama3
+  (the HF csm checkpoint's) rotates by Llama-3's scaled frequencies
+  (`llama.llama_inv_freq`), where JAX keeps only the flavour's fields and
+  rotates by the plain ones.
 """
 
 from __future__ import annotations
@@ -73,11 +77,10 @@ from ....model import TorchModel, check_device
 from ....nn import Embedding, Linear, RMSNorm
 from ....ops.host_flags import FinishedFlags
 from ....ops.kvcache import KVCache
-from ....ops.rope import rope_freqs
 from ....ops.sampling import sample
 from ..base import (GenerationResult, format_duration, local_tokenizer,
                     peak_memory_gb)
-from ..llama.llama import DecoderLayer, llama_forward
+from ..llama.llama import DecoderLayer, llama_forward, llama_inv_freq
 from ..llama.llama import ModelConfig as LlamaConfig
 
 MAX_CACHE_LEN = 2048
@@ -183,8 +186,8 @@ class Stack(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.register_buffer("inv_freq", rope_freqs(
-            cfg.resolved_head_dim, cfg.rope_theta), persistent=False)
+        self.register_buffer("inv_freq", llama_inv_freq(cfg),
+                             persistent=False)
 
     @property
     def model(self) -> "Stack":

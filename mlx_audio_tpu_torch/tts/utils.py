@@ -1,6 +1,6 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
 checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS,
-Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM, Orpheus), dense,
+Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM, Orpheus, VyvoTTS), dense,
 pre-quantized (MLX-packed) or written by the convert CLI.
 
 `MODEL_REMAPPING` is the JAX package's registry of TTS model types, kept
@@ -92,7 +92,7 @@ MODEL_REMAPPING = {
 }
 # families of MODEL_REMAPPING's values that the port has
 PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice",
-          "sesame", "llama")
+          "sesame", "llama", "qwen3")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",
@@ -109,8 +109,8 @@ def load_model(model_path: Union[str, Path], device="cuda",
     CLI wrote. Qwen3-TTS also reads the codec and the reference encoder
     (with its `encoder_config`) from a `speech_tokenizer/` subfolder when
     there is one; Sesame builds the Mimi its HF checkpoint embeds; Orpheus
-    (`llama`, `orpheus`, `svara`) binds the SNAC of its `snac/` or
-    `codec/` subfolder. The families with a text tokenizer read it from
+    (`llama`, `orpheus`, `svara`) and VyvoTTS (`qwen3`, `vyvo`,
+    `vyvotts`) bind the SNAC of a `snac/` or `codec/` subfolder. The families with a text tokenizer read it from
     the directory. The family comes from the config's model_type, else
     from the directory name's parts (`model_name_parts`, which the router
     passes); a `llama` config with `acoustic_dim` is TADA, as in the JAX

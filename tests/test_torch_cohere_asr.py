@@ -405,6 +405,55 @@ def test_vad_without_a_model_raises_naming_silero(pair):
         pm.generate(np.zeros(16000, np.float32), vad=True)
 
 
+def test_vad_loads_a_local_silero_and_segments_as_jax(pair, tmp_path,
+                                                      monkeypatch):
+    """`vad=True` with MLX_AUDIO_VAD_MODEL naming a local Silero directory
+    (or `vad=<directory>`): the port's Silero, loaded through
+    `vad.utils.load_model`, gives the spans of JAX's `segment_with_silero`
+    with the same weights, and the same transcription."""
+    from safetensors.numpy import save_file
+
+    from mlx_audio_tpu.vad.models.silero_vad import Model as JSilero
+    from mlx_audio_tpu.vad.models.silero_vad import \
+        ModelConfig as JSileroConfig
+    from mlx_audio_tpu_torch.model import load_jax_params
+    from mlx_audio_tpu_torch.stt.models.cohere_asr import cohere_asr as pca
+    from mlx_audio_tpu_torch.vad.models.silero_vad import Model as Silero
+    from mlx_audio_tpu_torch.vad.models.silero_vad import ModelConfig
+    from test_torch_vad import _speechy
+
+    jm, pm = pair
+    jv = JSilero(JSileroConfig()).init_and_bind()
+    pv = load_jax_params(Silero(ModelConfig(), device="cpu"),
+                         {k: np.asarray(v) for k, v in
+                          flatten(jv.params).items()})
+    d = tmp_path / "silero_vad"
+    d.mkdir()
+    save_file({k: v.numpy() for k, v in pv.state_dict().items()},
+              str(d / "model.safetensors"))
+    x = _speechy(SR * 3, 3)
+    kw = dict(merge_gap_s=0.2, max_chunk_s=1.0)
+    monkeypatch.setenv("MLX_AUDIO_VAD_MODEL", str(d))
+    pm.set_vad_model(None)
+    loaded = pm._get_vad(True)
+    assert isinstance(loaded, Silero)
+    want = jca.segment_with_silero(x, jv, SR, **kw)
+    assert pca.segment_with_silero(x, loaded, SR, **kw) == want
+    assert len(want) >= 1
+    jm.set_vad_model(jv)
+    gen = dict(language="en", max_tokens=4, vad=True, vad_merge_gap_s=0.2,
+               vad_max_chunk_s=1.0)
+    j = jm.generate(x, **gen)
+    got = pm.generate(x, **gen)
+    assert (got.text, got.segments) == (j.text, j.segments)
+    monkeypatch.delenv("MLX_AUDIO_VAD_MODEL")
+    pm.set_vad_model(None)
+    got = pm.generate(x, **dict(gen, vad=str(d)))
+    assert (got.text, got.segments) == (j.text, j.segments)
+    pm.set_vad_model(None)
+    jm.set_vad_model(None)
+
+
 def test_no_tokenizer_raises():
     from mlx_audio_tpu_torch.stt.models.cohere_asr import Model, ModelConfig
 

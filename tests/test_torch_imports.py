@@ -523,6 +523,105 @@ def test_tiny_orpheus_and_convert_without_jax(tmp_path):
     assert out.strip().splitlines()[-1] == "False []", out
 
 
+QWEN3_LM_SOURCES = (
+    "mlx_audio_tpu_torch/stt/models/qwen3_lm.py",
+    "mlx_audio_tpu_torch/stt/models/qwen3_asr/qwen3_asr.py",
+    "mlx_audio_tpu_torch/stt/models/qwen3_asr/forced_aligner.py",
+    "mlx_audio_tpu_torch/stt/models/qwen3_forced_aligner/__init__.py",
+    "mlx_audio_tpu_torch/stt/models/mega_asr/router.py",
+    "mlx_audio_tpu_torch/stt/models/mega_asr/lora.py",
+    "mlx_audio_tpu_torch/stt/models/mega_asr/mega_asr.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts/moss_tts.py",
+    "mlx_audio_tpu_torch/tts/models/qwen3/qwen3.py")
+
+
+def test_qwen3_lm_families_are_checked_statically():
+    """The Qwen3 LM families' modules are among the sources whose imports
+    `test_source_imports_nothing_of_jax` checks."""
+    assert set(QWEN3_LM_SOURCES) <= set(PORT_SOURCES)
+
+
+def test_tiny_qwen3_lm_families_without_jax(tmp_path):
+    """Qwen3-ASR on the CPU at a tiny size, in f32 and on an affine-q8 LM
+    (group 16), a greedy generate whole and streamed; the forced aligner
+    and MegaASR (its router and a LoRA toggle) on the same stack; VyvoTTS
+    over a tiny SNAC, whole and streamed; no jax in sys.modules."""
+    out = _run("""
+        import sys
+        import numpy as np
+        import torch
+        from mlx_audio_tpu_torch.codec.models.snac import SNAC
+        from mlx_audio_tpu_torch.nn import QuantizedLinear
+        from mlx_audio_tpu_torch.stt.models import (mega_asr, qwen3_asr,
+                                                    qwen3_forced_aligner)
+        from mlx_audio_tpu_torch.tts.models import qwen3
+        from mlx_audio_tpu_torch.utils import apply_quantization
+
+        class Tok:
+            eos_token_id = 3
+            def encode(self, text, add_special_tokens=False):
+                out = [7, 8] + [5] * text.count("<|audio_pad|>")
+                return out + [9] * text.count("<timestamp>") + [10]
+            def decode(self, toks, skip_special_tokens=True):
+                return " ".join(str(t) for t in toks)
+
+        cfg = dict(audio_token_id=5, timestamp_token_id=9, classify_num=40,
+                   audio_config=dict(num_mel_bins=16, encoder_layers=1,
+                                     encoder_attention_heads=2,
+                                     encoder_ffn_dim=32, d_model=16,
+                                     downsample_hidden_size=4,
+                                     output_dim=16),
+                   text_config=dict(vocab_size=64, hidden_size=16,
+                                    intermediate_size=32,
+                                    num_hidden_layers=1,
+                                    num_attention_heads=2,
+                                    num_key_value_heads=2, head_dim=8))
+        audio = np.random.RandomState(0).randn(16000).astype(np.float32)
+        m = qwen3_asr.Model(cfg, device="cpu").init_params(0)
+        m._tokenizer = Tok()
+        dense = m.generate(audio, language="English", max_tokens=16).text
+        apply_quantization(m.model, {"quantization": {"bits": 8,
+                                                      "group_size": 16}})
+        assert sum(isinstance(x, QuantizedLinear)
+                   for x in m.modules()) == 7
+        out = m.generate(audio, language="English", max_tokens=16)
+        parts = list(m.generate(audio, language="English", max_tokens=16,
+                                stream=True))
+        assert parts[-1].is_final and out.generation_tokens <= 16
+        a = qwen3_forced_aligner.Model(cfg, device="cpu").init_params(0)
+        a._tokenizer = Tok()
+        res = a.generate(audio, text="one two", language="English")
+        assert [it.text for it in res] == ["one", "two"]
+        g = mega_asr.Model(cfg, device="cpu").init_params(0)
+        g._tokenizer = Tok()
+        q = g.model.layers[0].self_attn.q_proj.weight.clone()
+        g.set_lora({"model.layers.0.self_attn.q_proj": {
+            "A": np.ones((2, 16), np.float32),
+            "B": np.ones((16, 2), np.float32), "scaling": 0.5}})
+        g._set_lora(True)
+        assert not torch.equal(g.model.layers[0].self_attn.q_proj.weight, q)
+        g._set_lora(False)
+        assert torch.equal(g.model.layers[0].self_attn.q_proj.weight, q)
+        v = qwen3.Model(dict(vocab_size=151679 + 7 * 4096, hidden_size=32,
+                             intermediate_size=64, num_hidden_layers=1,
+                             num_attention_heads=4, num_key_value_heads=2,
+                             head_dim=8, tie_word_embeddings=True),
+                        device="cpu").init_params(0)
+        v.tokenizer = Tok()
+        v.set_codec(SNAC(dict(encoder_dim=16, encoder_rates=[2, 2],
+                              decoder_dim=32, decoder_rates=[2, 2],
+                              vq_strides=[4, 2, 1], attn_window_size=None),
+                         device="cpu").init_params(1))
+        (r,) = v.generate("hi", temperature=0.0, max_tokens=28)
+        chunks = list(v.generate("hi", temperature=0.0, max_tokens=28,
+                                 stream=True, streaming_interval=0.06))
+        assert r.samples > 0 and np.isfinite(r.audio).all()
+        assert sum(c.samples for c in chunks) > 0
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
+    assert out.strip().splitlines()[-1] == "False []", out
+
+
 def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
     """The STS families on the CPU at a tiny size from seeded weights
     (chip_smoke.py's small configs): a greedy Moshi generate through its
@@ -638,6 +737,9 @@ def _entry_points():
     from mlx_audio_tpu_torch.tts import generate, utils
     from mlx_audio_tpu_torch.tts.models import (kokoro, kugelaudio, llama,
                                                 qwen3_tts, sesame, vibevoice)
+    from mlx_audio_tpu_torch.stt.models import (mega_asr, qwen3_asr,
+                                                qwen3_forced_aligner)
+    from mlx_audio_tpu_torch.tts.models import qwen3
     from mlx_audio_tpu_torch.vad import utils as vad_utils
     from mlx_audio_tpu_torch.vad.models import silero_vad
 
@@ -709,6 +811,19 @@ def _entry_points():
                                    lambda p: codec_utils.load_model(p)),
         "convert.convert": (convert.convert,
                             lambda p: convert.convert(str(p))),
+        "qwen3_asr.Model": (qwen3_asr.Model.__init__,
+                            lambda p: qwen3_asr.Model(qwen3_asr.ModelConfig())),
+        "qwen3_forced_aligner.Model": (
+            qwen3_forced_aligner.Model.__init__,
+            lambda p: qwen3_forced_aligner.Model(
+                qwen3_forced_aligner.ModelConfig())),
+        "mega_asr.Model": (mega_asr.Model.__init__,
+                           lambda p: mega_asr.Model(mega_asr.ModelConfig())),
+        "mega_asr.AudioQualityRouter": (
+            mega_asr.AudioQualityRouter.__init__,
+            lambda p: mega_asr.AudioQualityRouter({})),
+        "qwen3.Model": (qwen3.Model.__init__,
+                        lambda p: qwen3.Model(qwen3.ModelConfig())),
     }
 
 
@@ -732,7 +847,11 @@ def _entry_points():
                                   "sts.utils.load_model",
                                   "llama.BackboneModel", "snac.SNAC",
                                   "codec.utils.load_model",
-                                  "convert.convert"])
+                                  "convert.convert", "qwen3_asr.Model",
+                                  "qwen3_forced_aligner.Model",
+                                  "mega_asr.Model",
+                                  "mega_asr.AudioQualityRouter",
+                                  "qwen3.Model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

@@ -190,3 +190,63 @@ def test_entry_point_defaults_to_cuda():
         pytest.skip("a GPU is present: the default does not raise")
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(CFG)
+
+
+LLAMA3_SCALING = {"rope_type": "llama3", "factor": 32.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192}
+
+
+@pytest.mark.parametrize("key", ["rope_type", "type"])
+def test_llama3_rope_scaling_rotates_by_the_scaled_frequencies(key):
+    """A departure from the JAX package, whose config drops
+    `rope_scaling`: a config naming llama3 rotates by Llama-3's scaled
+    frequencies (those of JAX's `rope_freqs_llama3`), so its forward is
+    JAX's with those frequencies; in the backbone and in Sesame's two
+    stacks. Without the field the frequencies stay plain (the parity tests
+    above)."""
+    from mlx_audio_tpu.ops.rope import rope_freqs_llama3 as jax_llama3
+    from mlx_audio_tpu.tts.models.llama.llama import llama_forward
+    from mlx_audio_tpu_torch.ops.rope import rope_freqs
+    from mlx_audio_tpu_torch.tts.models.llama import BackboneModel as Model
+    from mlx_audio_tpu_torch.tts.models.sesame import ModelConfig as Sesame
+    from mlx_audio_tpu_torch.tts.models.sesame.sesame import Stack
+
+    scaling = dict(LLAMA3_SCALING)
+    scaling[key] = scaling.pop("rope_type")
+    jcfg, params, plain = _models()
+    pm = Model(dict(CFG, rope_scaling=scaling), device="cpu")
+    pm.load_state_dict(plain.state_dict())
+    want = np.asarray(jax_llama3(8, 10000.0, factor=32.0))
+    np.testing.assert_allclose(_np(pm.inv_freq), want, rtol=1e-6)
+    assert not np.allclose(want, _np(rope_freqs(8, 10000.0)))
+    np.testing.assert_array_equal(_np(plain.inv_freq),
+                                  _np(rope_freqs(8, 10000.0)))
+    # JAX's forward with its own rope table swapped for the scaled one
+    import mlx_audio_tpu.tts.models.llama.llama as jl
+
+    x = _tokens((1, 12), 3)
+    orig = jl.rope_freqs
+    jl.rope_freqs = lambda hd, theta: jnp.asarray(want)
+    try:
+        jh = np.asarray(jax.jit(lambda p, t: llama_forward(p, jcfg, t)[0])(
+            params, jnp.asarray(x)))
+    finally:
+        jl.rope_freqs = orig
+    from mlx_audio_tpu_torch.tts.models.llama import llama_forward as pf
+
+    np.testing.assert_allclose(_np(pf(pm, torch.from_numpy(x))[0]), jh,
+                               atol=ATOL)
+    bb, dec = Sesame.from_dict({
+        "model_type": "csm", "hidden_size": 32, "num_hidden_layers": 1,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 8,
+        "intermediate_size": 64, "rope_theta": 10000.0,
+        "rope_scaling": scaling,
+        "depth_decoder_config": {"hidden_size": 32, "num_hidden_layers": 1,
+                                 "num_attention_heads": 4,
+                                 "num_key_value_heads": 2, "head_dim": 8,
+                                 "intermediate_size": 64,
+                                 "rope_theta": 10000.0,
+                                 "rope_scaling": scaling}}).llama_configs()
+    for cfg in (bb, dec):
+        np.testing.assert_allclose(_np(Stack(cfg).inv_freq), want, rtol=1e-6)

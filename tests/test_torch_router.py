@@ -24,13 +24,16 @@ NAMES = ["Kokoro-82M", "prince-canuma/Kokoro-82M",
          "sortformer-4spk", "bark-small", "my_dir", "tts-tiny", "stt-x",
          "parakeet-tdt-0.6b-v2", "canary-1b-flash", "smart-turn-v3",
          "sesame/csm-1b", "canopylabs/orpheus-3b-0.1-ft",
-         "orpheus-3b-0.1-ft-4bit", "svara-tts-v1"]
+         "orpheus-3b-0.1-ft-4bit", "svara-tts-v1", "Qwen3-ASR-0.6B-8bit",
+         "Qwen3-ForcedAligner-0.6B", "mega-asr-v1", "VyvoTTS-v0-Qwen3-0.6B"]
 
 MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
                "voxtral_realtime", "cohere_asr", "higgs_audio", "kugelaudio",
                "vibevoice_streaming", "silero_vad", "mel_band_roformer",
                "ecapa_tdnn", "sortformer", "bark", "llama", "csm", "sesame",
-               "orpheus", "svara", "tada", "nonsense"]
+               "orpheus", "svara", "tada", "qwen3_asr", "qwen3_omni_moe",
+               "qwen3_forced_aligner", "forced_aligner", "mega_asr",
+               "qwen3", "vyvo", "vyvotts", "nonsense"]
 
 
 @pytest.mark.parametrize("category", ["tts", "stt", "sts", "vad"])
@@ -165,6 +168,32 @@ def test_directory_named_only_by_its_family_loads(tmp_path):
     assert type(loaded) is Model
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
+
+
+@pytest.mark.parametrize("model_type,category,family", [
+    ("qwen3_asr", "stt", "qwen3_asr"), ("qwen3_omni_moe", "stt", "qwen3_asr"),
+    ("qwen3_forced_aligner", "stt", "qwen3_forced_aligner"),
+    ("forced_aligner", "stt", "qwen3_forced_aligner"),
+    ("mega_asr", "stt", "mega_asr"), ("qwen3", "tts", "qwen3"),
+    ("vyvo", "tts", "qwen3"), ("vyvotts", "tts", "qwen3")])
+def test_qwen3_lm_families_reach_their_loaders(tmp_path, model_type,
+                                               category, family):
+    """A config-only directory of each Qwen3 LM family's types is a
+    checkpoint of JAX's category and family, ported now: it reaches its
+    loader, which finds no weights."""
+    import importlib
+
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.utils import resolve_family
+
+    loader = importlib.import_module(f"mlx_audio_tpu_torch.{category}.utils")
+    d = _config_only(tmp_path / "ckpt", model_type=model_type)
+    assert jax_category(model_type, []) == category
+    assert resolve_family(model_type, [], loader.MODEL_REMAPPING) == family
+    assert family in loader.PORTED
+    with pytest.raises(FileNotFoundError, match="No weight files"):
+        load_model(d, device="cpu")
 
 
 @pytest.mark.parametrize("name,family", [

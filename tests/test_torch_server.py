@@ -1140,3 +1140,89 @@ def test_parakeet_transcription_by_directory(tmp_path):
     assert reply.json["language"] == "en" and want.segments
     assert (reply.json["text"], reply.json["segments"]) == (
         want.text, json.loads(json.dumps(want.segments)))
+
+
+def test_qwen3_asr_and_aligner_transcriptions_by_directory(tmp_path,
+                                                          monkeypatch):
+    """A tiny Qwen3-ASR directory and a tiny forced-aligner directory
+    served by path through the transcription route (their tokenizer the
+    stand-in one): the text and segments of the directory's model's own
+    generate(), and the aligner's words and times for the form's `text`."""
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.stt.models.qwen3_asr import qwen3_asr
+    from mlx_audio_tpu_torch.stt.utils import load_model
+    from test_torch_forced_aligner import FakeTok as AlignTok
+    from test_torch_forced_aligner import TEXT
+    from test_torch_forced_aligner import pair as aligner_pair
+    from chip_smoke import write_asr_checkpoint
+    from test_torch_qwen3_asr import CFG, FakeTok, make_pair
+
+    asr, aligner = tmp_path / "qwen3-asr-tiny", tmp_path / "aligner-tiny"
+    write_asr_checkpoint(make_pair(CFG)[1], asr)
+    write_asr_checkpoint(aligner_pair.__wrapped__()[1], aligner)
+    toks = {str(asr): FakeTok(), str(aligner): AlignTok()}
+    monkeypatch.setattr(qwen3_asr, "local_tokenizer",
+                        lambda path: toks[str(path)])
+    audio = (np.random.RandomState(13).randn(24000) * 0.1).astype(np.float32)
+    wav = _wav(audio, 16000)
+
+    async def go():
+        server = AudioServer(device="cpu")
+        try:
+            a = await server.transcribe(
+                {"model": str(asr), "response_format": "verbose_json",
+                 "language": "English", "max_tokens": "24"}, wav)
+            b = await server.transcribe(
+                {"model": str(aligner), "response_format": "verbose_json",
+                 "text": TEXT, "language": "English"}, wav)
+            return a, b
+        finally:
+            server.close()
+
+    a, b = _run(go())
+    assert a.status == 200 and b.status == 200, (a.json, b.json)
+    heard = _read(wav)[0]
+    want = load_model(asr, device="cpu").generate(
+        heard, language="English", max_tokens=24)
+    assert (a.json["text"], a.json["segments"], a.json["language"]) == (
+        want.text, json.loads(json.dumps(want.segments)), want.language)
+    al = load_model(aligner, device="cpu").generate(
+        heard, text=TEXT, language="English")
+    assert (b.json["text"], b.json["segments"], b.json["language"]) == (
+        al.text, al.segments, "English")
+
+
+def test_vyvotts_speech_by_directory(tmp_path, monkeypatch):
+    """A tiny VyvoTTS directory (its SNAC in snac/, the stand-in tokenizer)
+    served by path through /v1/audio/speech: the WAV of the directory's
+    model's own greedy generate()."""
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.tts.models.qwen3 import qwen3
+    from mlx_audio_tpu_torch.tts.utils import load_model
+    from chip_smoke import write_vyvo_checkpoint
+    from test_torch_vyvotts import CharTok
+    from test_torch_vyvotts import models as vyvo_models
+
+    d = tmp_path / "vyvotts-tiny"
+    write_vyvo_checkpoint(vyvo_models.__wrapped__()[1], d)
+    monkeypatch.setattr(qwen3, "local_tokenizer", lambda path: CharTok())
+
+    async def go():
+        server = AudioServer(device="cpu")
+        try:
+            reply = await server.speech({
+                "model": str(d), "input": "hello world", "voice": "zoe",
+                "temperature": 0.0, "max_tokens": 16, "seed": 0})
+            return reply.status, await reply.read()
+        finally:
+            server.close()
+
+    status, body = _run(go())
+    assert status == 200
+    got, sr = _read(body)
+    model = load_model(d, device="cpu")
+    (want,) = list(model.generate("hello world", voice="zoe",
+                                  temperature=0.0, max_tokens=16, seed=0))
+    assert sr == 24000 and len(got) == want.samples > 0
+    np.testing.assert_allclose(got, np.clip(want.audio, -1, 1),
+                               atol=2 / 32768)

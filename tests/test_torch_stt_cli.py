@@ -178,6 +178,43 @@ def test_load_model_matches_jax(checkpoint):
                                rtol=0)
 
 
+@pytest.mark.parametrize("kind", ["converted", "quantized"])
+def test_whisper_binds_through_bind_checkpoint(checkpoint, tmp_path, kind):
+    """Every STT family binds as the JAX package's loader binds it: a
+    directory the convert CLI wrote (the JAX tree, marked converted) binds
+    as written and embeds the audio as JAX's model does (ATOL 2e-4); a
+    config's `quantization` turns each linear into a QuantizedLinear (the
+    conv stem stays dense), within 8-bit group-32 error of the dense
+    embedding (relative Frobenius under 1e-2)."""
+    from mlx_audio_tpu.utils import flatten
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    path, jm = checkpoint
+    if kind == "converted":
+        cfg = dict(DIMS.__dict__, model_type="whisper",
+                   converted_by="mlx_audio_tpu.convert")
+        np.savez(tmp_path / "weights.npz",
+                 **{k: np.asarray(v) for k, v in flatten(jm.params).items()})
+    else:
+        cfg = _hf_config(quantization={"group_size": 32, "bits": 8})
+        (tmp_path / "weights.npz").write_bytes(
+            (path / "weights.npz").read_bytes())
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    pm = load_model(tmp_path, device="cpu")
+    mel = np.random.RandomState(0).randn(1, 200, 80).astype(np.float32) * 0.1
+    got = pm.embed_audio(mel).numpy()
+    want = np.asarray(jm.embed_audio(mel))
+    quantized = sum(isinstance(m, QuantizedLinear) for m in pm.modules())
+    dense = sum(isinstance(m, Linear) for m in pm.modules())
+    if kind == "converted":
+        assert quantized == 0
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+    else:
+        assert quantized > 0 and dense == 0
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-2
+
+
 def test_top_level_load_model_routes_stt_types(checkpoint, tmp_path):
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.stt.models.whisper import Model
@@ -563,3 +600,118 @@ def test_parakeet_cli_chunk_duration_matches_generate_and_jax(
         gen_kwargs={"overlap_duration": 0.5})
     assert got == (tmp_path / "jax" / "transcription.json").read_text("utf-8")
     assert want.segments
+
+
+# ---------------------------------------------------------------------------
+# Qwen3-ASR and its forced aligner
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def qwen3_asr_checkpoint(tmp_path_factory):
+    """A tiny Qwen3-ASR directory (tests/test_qwen3_asr.py's config, the
+    JAX model's parameters) with the JAX model loaded from it, and a 1.5-s
+    WAV."""
+    from chip_smoke import write_asr_checkpoint
+    from mlx_audio_tpu.stt.utils import load_model as jax_load_model
+    from mlx_audio_tpu_torch import audio_io
+    from test_torch_qwen3_asr import CFG, FakeTok, make_pair
+
+    path = tmp_path_factory.mktemp("qwen3-asr-tiny")
+    write_asr_checkpoint(make_pair(CFG)[1], path)
+    wav = path / "speech.wav"
+    audio_io.write(wav, (np.random.RandomState(12).randn(24000) * 0.1)
+                   .astype(np.float32), 16000)
+    import sys
+
+    saved = sys.modules.get("transformers")
+    sys.modules["transformers"] = None      # no tokenizer files to read
+    try:
+        jm = jax_load_model(path)
+    finally:
+        if saved is None:
+            sys.modules.pop("transformers")
+        else:
+            sys.modules["transformers"] = saved
+    jm._tokenizer = FakeTok()
+    return path, jm, wav
+
+
+def _port_loader(monkeypatch, tok):
+    import mlx_audio_tpu_torch.stt.utils as stt_utils
+
+    real = stt_utils.load_model
+
+    def load(p):
+        m = real(p, device="cpu")
+        m._tokenizer = tok
+        return m
+
+    monkeypatch.setattr(stt_utils, "load_model", load)
+    return real
+
+
+def test_qwen3_asr_cli_matches_jax_and_streams(qwen3_asr_checkpoint,
+                                               tmp_path, monkeypatch,
+                                               capsys):
+    """The STT CLI on a Qwen3-ASR directory: its json equals the JAX
+    package's CLI function's byte for byte; `--stream` prints each decode
+    chunk's text and accumulates them (JAX's CLI fails on the streamed
+    results, which carry no segments)."""
+    from mlx_audio_tpu.stt.generate import (
+        generate_transcription as jax_generate_transcription)
+    from mlx_audio_tpu_torch.stt.generate import main
+    from test_torch_qwen3_asr import FakeTok
+
+    path, jm, wav = qwen3_asr_checkpoint
+    real = _port_loader(monkeypatch, FakeTok())
+    args = ["--model", str(path), "--audio", str(wav), "--max-tokens", "40",
+            "--language", "English"]
+    main(args + ["--format", "json", "--no-verbose", "--output-path",
+                 str(tmp_path / "port")])
+    jax_generate_transcription(
+        str(path), str(wav), model=jm, output_path=str(tmp_path / "jax"),
+        format="json", verbose=False, max_tokens=40, language="English")
+    got = (tmp_path / "port" / "transcription.json").read_text("utf-8")
+    assert got == (tmp_path / "jax" / "transcription.json").read_text(
+        "utf-8")
+    assert json.loads(got)["text"]
+    m = real(path, device="cpu")
+    m._tokenizer = FakeTok()
+    chunks = [r.text for r in m.stream_transcribe(
+        str(wav), max_tokens=40, language="English")]
+    capsys.readouterr()
+    main(args + ["--stream", "--format", "txt", "--output-path",
+                 str(tmp_path / "stream")])
+    printed = capsys.readouterr().out
+    assert "".join(chunks) in printed
+    assert (tmp_path / "stream" / "transcription.txt").read_text(
+        "utf-8") == "".join(chunks).strip() + "\n"
+
+
+def test_aligner_cli_writes_the_word_times(tmp_path, monkeypatch):
+    """`--text` on a forced-aligner directory: the json holds the words
+    with their start and end times, as in-process `generate` gives them
+    (JAX's CLI fails on the aligner's result, which has no language)."""
+    from chip_smoke import write_asr_checkpoint
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.stt.generate import main
+    from test_torch_forced_aligner import FakeTok, TEXT
+    from test_torch_forced_aligner import pair as aligner_pair
+
+    d = tmp_path / "qwen3-forced-aligner"
+    _, pm = aligner_pair.__wrapped__()
+    write_asr_checkpoint(pm, d)
+    wav = tmp_path / "a.wav"
+    audio_io.write(wav, (np.random.RandomState(1).randn(16000) * 0.1)
+                   .astype(np.float32), 16000)
+    _port_loader(monkeypatch, FakeTok())
+    main(["--model", str(d), "--audio", str(wav), "--text", TEXT,
+          "--language", "English", "--format", "json", "--no-verbose",
+          "--output-path", str(tmp_path / "out")])
+    got = json.loads((tmp_path / "out" / "transcription.json").read_text())
+    want = pm.generate(str(wav), text=TEXT, language="English")
+    assert got == {"text": want.text, "segments": want.segments,
+                   "language": "English"}
+    assert [s["text"] for s in got["segments"]] == TEXT.replace(
+        ",", "").split()
