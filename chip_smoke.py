@@ -38,7 +38,12 @@ Qwen3 LM families: Qwen3-ASR speech -> text (a chunked audio encoder and
 a Qwen3 LM) in bf16 and with every linear on K2 in 8 bits, its forced
 aligner and MegaASR (an audio-quality router and a LoRA adapter), and
 VyvoTTS text -> audio over SNAC, through `load_model`, `generate`, the
-STT and TTS CLIs and the server's transcription route.
+STT and TTS CLIs and the server's transcription route; and the
+LLM-decoder STT families: offline Voxtral-Mini-3B speech -> text (a
+Whisper-style tower and a Mistral LM) in bf16 and with its LM on K2 in 8
+bits, Qwen2-Audio-7B with its LM on K2 in 4 bits, GLM-ASR, Granite Speech
+and VibeVoice-ASR's long-form encoders, through `load_model`, `generate`,
+the STT CLI and the server's transcription route.
 
     python3 chip_smoke.py
 
@@ -85,7 +90,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
 7. Qwen3-TTS main path at the published dims of the 1.7B lane (bench.py
    qwen3_tts_1b7), seeded random bf16 weights quantized to affine 8-bit
    (group 64): `generate(text_ids=...)` requests of 20 ids / 60 frames
-   (cold) and the JAX lane's 50 ids cut to 50 frames from its 100 (cold,
+   (cold) and the JAX lane's 50 ids cut to 30 frames from its 100 (50
+   until phases 41-44 came; cold,
    then warm; the short one ran warm too until phase 26 came): audio length and
    finiteness, and K2's launch count against the count the config gives
    for the steps that ran (722 per decode step; the model must hold
@@ -116,7 +122,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    with a request admitted mid-stream (same codes, audio; each request's
    audio within 2e-4 of `decode_full` of its codes).
 10. Full dims q8, `generate(stream=True)`: the JAX lane's streamed request
-   (`np.arange(100, 150)`, max_tokens cut to 50 from its 100,
+   (`np.arange(100, 150)`, max_tokens cut to 30 from its 100 (50 until
+   phases 41-44 came),
    streaming_interval 2.0, seed 1; bench.py:303-305), cold then warm: time to first audio, wall, xRT,
    chunks, reads and the host's wait in them, finite audio of whole
    frames, and K2's launches against the config's count.
@@ -140,7 +147,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    cast to bf16): the bf16 encoder against f32 on one 30-s window (relative
    Frobenius error under 2e-2), the encoder's time a window (CUDA events)
    and its share of 989 TFLOP/s, the JAX lane's workload cut from 600 s
-   to 300 s (`randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
+   to 180 s (300 until phases 41-44 came; `randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
    bench.py:898-905) cold then warm (wall, xRT, windows, segments, tokens,
    decode steps, ms a step), and the streaming session over ten 1-s chunks
    then `close()` (step latency p50 and max; a final event must arrive).
@@ -214,13 +221,14 @@ the CUDA toolkit. Phases, each of which raises on failure:
    the lane's 512-bucket prefill (relative Frobenius under 2e-2); the
    `higgs_v2_3b_bf16` workload (bench.py:428-464: 480 embeds of
    `randn * 0.02` at seed 0, cache 1,024, temperature 0.7, top_p 0.95, RAS
-   7/2; 100 frames in 16-frame chunks through `prefill` and `chunk`
+   7/2; 50 frames in 16-frame chunks through `prefill` and `chunk`
    whatever `done` says, then the codec at `CodecConfig()` dims in bf16 on
-   the first 92 frames mod 1,024; the lane runs 250 frames and 242, cut
-   here to keep the run's time since the Orpheus phases came), a warm-up
+   the first 42 frames mod 1,024; the lane runs 250 frames and 242, cut
+   here to keep the run's time: to 100 and 92 since the Orpheus phases
+   came, to 50 and 42 since phases 41-44), a warm-up
    then one timed run (best of 3 until the server phase came, of 2 until
    the cloning phases came; cut to keep the run's time): wall, ms a
-   frame, xRT over 4 s, the prefill's and the codec's time, peak device
+   frame, xRT over 2 s, the prefill's and the codec's time, peak device
    memory, and from one profiled chunk the kernels a frame, device time
    and busy share against the frame's byte bound (1.72 ms). Then, after
    phase 21, the same model's affine codes converted in place to W8A8
@@ -251,9 +259,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    draws every floating leaf): bf16 against f32 on the lane's CFG prefill
    hidden rows and one head pass (relative Frobenius under 2e-2), then cast
    in place to bf16 and the lane's workload (bench.py:589-642: the stand-in
-   tokenizer, the +1e4 bias on SPEECH_DIFFUSION_ID, its text, 64 frames of
-   10 SDE steps at cfg_scale 3.0; a warm-up, then seed 1, the lane's seed
-   2 cut to keep the run's time): wall, xRT over 8.53 s, ms a frame, the prefill's, frame loop's and
+   tokenizer, the +1e4 bias on SPEECH_DIFFUSION_ID, its text, 32 frames of
+   10 SDE steps at cfg_scale 3.0 (the lane's 64 cut for phases 41-44); a warm-up, then seed 1, the lane's seed
+   2 cut to keep the run's time): wall, xRT over 4.27 s, ms a frame, the prefill's, frame loop's and
    VAE decode's seconds, peak device memory, and from one profiled chunk
    of 4 frames the kernels a frame, device time and busy share against
    the frame's byte bound (bench.py:645-656). After phase 24, the same
@@ -277,7 +285,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    8's final check.
 25. VibeVoice at `ModelConfig()` dims (a 24-layer Qwen2 split 4 + 20 at
    d896, a 4-layer head, 20 DPM steps; drawn as phase 23, in bf16), no
-   voice, its EOS classifier biased off: 48 latents (wall, xRT, ms a
+   voice, its EOS classifier biased off: 24 latents (48 until phases 41-44
+   came; wall, xRT, ms a
    latent) and a profiled request of one speech window (kernels a latent,
    busy share).
 26. The server, run after phase 16 on models earlier phases built
@@ -316,7 +325,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    weights on the CPU, and the share of a 10-s clip's codes that TF32
    would flip; the 10-s reference's encode and x-vector (cold, warm); the
    ICL prefill alone at its 512-row bucket (120-character stand-in texts);
-   50 frames by ICL whole and streamed (time to first audio), 30 by the
+   30 frames by ICL whole and streamed (50 until phases 41-44 came; time to
+   first audio), 30 by the
    x-vector alone, and one `AudioServer` speech request with
    ref_audio="voice:clone" from its voice library (serial path, no
    session; its WAV equal to generate()'s to 1 LSB). K2's launches each
@@ -324,7 +334,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    none; then K2, W8A8 and dense bf16 at the talker's shapes at M = 512.
 29. Sesame CSM-1B at `ModelConfig()` (bf16; its Mimi at mimi_202407(32) in
    f32; codebook 0's EOS row zeroed so that the frames run): a 10-s
-   reference segment, 32 frames whole and streamed every 0.5 s (the same
+   reference segment, 16 frames (32 until phases 41-44 came) whole and
+   streamed every 0.5 s (the same
    frames; streamed audio within 1e-4 of whole): ms a frame, xRT, time to
    first audio, and from two profiled frames the kernels and device time
    a frame. Neither K1 nor K2 may launch in phases 27 and 29.
@@ -372,8 +383,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    subprocess (TF32 off) writing the WAV of in-process generate(), and one
    Mel-Band-RoFormer separation through `AudioServer` equal to separate().
 33. Moshi v0.1 (`config_v0_1()`, 7.69 B) drawn on the card in bf16 tensor
-   by tensor, its Mimi at mimi_202407(8) in f32: generate over 10 s of
-   seeded input (125 steps) at the default temperatures, seed 0, after a
+   by tensor, its Mimi at mimi_202407(8) in f32: generate over 6 s of
+   seeded input (75 steps; 10 s until phases 41-44 came) at the default
+   temperatures, seed 0, after a
    2-s warm-up: ms a step p50 and p95 against the 80-ms frame, wall,
    the steps' realtime factor, peak memory; kernels and device time a
    step from 8 profiled steps, and the busy share (that device time over
@@ -410,11 +422,11 @@ the CUDA toolkit. Phases, each of which raises on failure:
    B parameters) drawn on the card in f32 from seed 0, the token table's
    code and SOS rows scaled by 4 so that the tied head draws codes, cast
    to bf16; SNAC at hubertsiuzdak/snac_24khz's settings in f32: after a
-   32-token warm-up, one 256-token request whole (512 until phases 38-40
-   came; temperature 0.6, top_p
+   32-token warm-up, one 128-token request whole (512 until phases 38-40
+   came, 256 until phases 41-44; temperature 0.6, top_p
    0.8, repetition penalty 1.3; ms a token p50 and p95 over its chunks,
    the share of tokens that are SNAC codes, at least 80%; wall, xRT, SNAC
-   decode ms, peak memory) and one of 256 tokens streamed every 1.0 s
+   decode ms, peak memory) and one of 128 tokens streamed every 1.0 s
    (time to first audio), then one profiled 32-token chunk (kernels,
    device ms and busy share a token) against the token's byte bound.
 37. The same weights packed in memory to MLX's 4-bit layout (group 64, as
@@ -448,7 +460,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    from seed 0 and cast to bf16, then packed in memory to MLX's 8-bit
    layout (group 64) and loaded through the pre-quantized path (every
    linear on K2, the tied table dense): each on 30 s of `randn * 0.1` at
-   seed 0, greedy, max_tokens 256: encoder ms, prefill ms at its bucket,
+   seed 0, greedy, max_tokens 128 (256 until phases 41-44 came): encoder
+   ms, prefill ms at its bucket,
    ms a token p50 and p95, xRT, peak memory, a profiled chunk (kernels,
    device ms and busy share a token) and the token's byte bound; in q8,
    K2's launches a decode token read from its counter against the
@@ -460,10 +473,48 @@ the CUDA toolkit. Phases, each of which raises on failure:
    tower at `AudioEncoderConfig()` with output_dim 1024) aligning 60
    words to 30 s, cold and warm; VyvoTTS (180,352 ids, the code rows
    scaled by 4 so that the tied head draws codes; SNAC 24 kHz in f32) on
-   a 256-token request whole (ms a token p50 and p95, the share of SNAC
+   a 128-token request whole (256 until phases 41-44 came; ms a token p50
+   and p95, the share of SNAC
    codes, at least 80%) and streamed every 0.5 s (time to first audio).
    K1 never launches in phases 38-40, K2 only on the q8 models; their
    shapes join phase 8's final check, their launches the `kernels` line.
+41. The LLM-decoder STT families' small configs (the JAX tests' tiny
+   configs, Voxtral's and Qwen2-Audio's at widths group 64 divides;
+   stand-in tokenizers), each written as a checkpoint directory and loaded
+   through `stt.utils.load_model` on the card and on the CPU: offline
+   Voxtral MLX-packed q8 with a tekken.json and Qwen2-Audio MLX-packed
+   4-bit (their LM and projector linears on K2), GLM-ASR, Granite Speech
+   and VibeVoice-ASR dense: greedy tokens and text equal, encoder rows
+   within 1e-4; the STT CLI (Qwen2-Audio's json, GLM-ASR's `--stream`)
+   against in-process results; Granite Speech's directory through
+   `AudioServer`'s transcription route.
+42. Voxtral-Mini-3B-2507 at the dims of mistralai/Voxtral-Mini-3B-2507's
+   config.json (a 32 x d1280 tower, the 5,120 -> 3,072 -> 3,072 projector,
+   a 30 x d3072 Mistral LM with 131,072 ids and an untied head; 4.68 B
+   parameters) seeded on the card in bf16, then its projector and LM
+   packed in memory to MLX's 8-bit layout (group 64; the tower dense) and
+   loaded through the pre-quantized path: each on 30 s of `randn * 0.1`
+   at seed 0, greedy, max_tokens 256: tower ms, prefill ms, ms a token p50
+   and p95, xRT, peak memory, a profiled chunk (kernels, device ms and
+   busy share a token), bytes and bound a token; in q8, K2's launches a
+   token read from its counter against 30 x 7 + 1, the LM's linears alone
+   (one CUDA graph) and at the prefill's M against cuBLAS bf16 with their
+   bound, and the first step's logits against bf16's (relative, under
+   0.1).
+43. Qwen2-Audio-7B-Instruct at the dims of Qwen/Qwen2-Audio-7B-Instruct's
+   config.json (the same tower with a 2x pool, a 32 x d4096 Qwen2 LM with
+   32 KV heads, q/k/v biases and 156,032 ids; 8.40 B parameters) seeded on
+   the card in bf16 and packed in memory to MLX's 4-bit layout (group 64):
+   30 s, 128 tokens: ms a token p50, K2's launches a token from its
+   counter against 32 x 7 + 1, bytes and bound a token (the f32 caches of
+   32 KV heads included), peak memory, the first step's logits against
+   bf16's (relative, under 0.5).
+44. VibeVoice-ASR's acoustic and semantic tokenizer encoders at
+   `TokenizerConfig()` dims in bf16 on 10 minutes of 24-kHz audio (ms,
+   peak memory, 4,500 finite rows), and bf16 against f32 on its first 10
+   s. K1 never launches in phases 41-44, K2 only on the packed models;
+   their shapes join phase 8's final check, their launches the `kernels`
+   line.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -899,9 +950,9 @@ QWEN3_E2E_TOL = 1e-4
 # bf16 check's style
 Q8_PREFILL_TOL, Q8_PREFILL_CORR = 0.05, 0.999
 # (text ids, max_tokens) of phase 7: a short request and the JAX lane's
-# (bench.py:285) cut from 100 frames to 50 to keep the run's time;
-# temperature 0.9, seed 0
-QWEN3_SEED, LANE_TOKENS = 0, 50
+# (bench.py:285) cut from 100 frames to 50 to keep the run's time, then to
+# 30 for phases 41-44; temperature 0.9, seed 0
+QWEN3_SEED, LANE_TOKENS = 0, 30
 
 
 def qwen3_requests():
@@ -1410,8 +1461,8 @@ def phase_qmm_path(shapes) -> float:
 # phase 10: the JAX lane's streamed request (bench.py:303-305), and
 # phase 11: its batched session (bench.py:761-803), each cut from 100
 # frames to 50 to keep the run's time; the session's then to 20 to make
-# room for phases 38-40
-STREAM_IDS, STREAM_TOKENS, STREAM_INTERVAL, STREAM_SEED = (100, 150), 50, \
+# room for phases 38-40, the stream's to 30 for phases 41-44
+STREAM_IDS, STREAM_TOKENS, STREAM_INTERVAL, STREAM_SEED = (100, 150), 30, \
     2.0, 1
 SESSION_B, SESSION_TOKENS, SESSION_INTERVAL, SESSION_CACHE = 8, 20, 0.4, \
     1024
@@ -1804,8 +1855,9 @@ WHISPER_TURBO = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280,
                      n_text_ctx=448, n_text_state=1280, n_text_head=20,
                      n_text_layer=4)
 # the JAX lane's workload (bench.py:898-905): randn * 0.1, seed 0, its
-# 600 s cut to 300 s to make room for phases 38-40
-WHISPER_SECONDS = 300
+# 600 s cut to 300 s to make room for phases 38-40, then to 180 s for
+# phases 41-44
+WHISPER_SECONDS = 180
 WHISPER_KW = dict(language="en", temperature=0.0,
                   compression_ratio_threshold=None, logprob_threshold=None,
                   no_speech_threshold=None, return_timestamps=True,
@@ -1919,7 +1971,7 @@ def build_whisper_turbo():
 def phase_whisper_turbo(card: str) -> dict:
     """Whisper large-v3-turbo at full width on the card: the bf16 encoder
     against f32 on one window, the encoder's time per window, the JAX
-    lane's transcription (cut to 300 s) cold then warm, and the streaming
+    lane's transcription (cut to WHISPER_SECONDS) cold then warm, and the streaming
     session over ten 1-s chunks."""
     import numpy as np
     import torch
@@ -2145,6 +2197,26 @@ def write_tekken(path: Path, n_special: int, n_vocab: int) -> None:
     path.write_text(json.dumps({
         "vocab": vocab, "config": {"default_num_special_tokens": n_special},
         "special_tokens": [{"rank": 1}, {"rank": 2}, {"rank": 32}]}))
+
+
+def write_mistral_tekken(path: Path, n_special: int, n_vocab: int) -> None:
+    """A tekken.json for offline Voxtral's `TekkenEncoder`: the named
+    special tokens of its transcription prompt at Mistral's ranks (<s> 1,
+    </s> 2, [INST] 3, [/INST] 4, [BEGIN_AUDIO] 12, [AUDIO] 24,
+    [TRANSCRIBE] 34), then the 256 single bytes and f"<{i}>" pieces up to
+    `n_vocab` ids."""
+    import base64
+
+    pieces = [bytes([b]) for b in range(256)] + [
+        f"<{i}>".encode() for i in range(n_special + 256, n_vocab)]
+    names = {"<s>": 1, "</s>": 2, "[INST]": 3, "[/INST]": 4,
+             "[BEGIN_AUDIO]": 12, "[AUDIO]": 24, "[TRANSCRIBE]": 34}
+    path.write_text(json.dumps({
+        "config": {"default_num_special_tokens": n_special},
+        "vocab": [{"token_bytes": base64.b64encode(p).decode()}
+                  for p in pieces[:n_vocab - n_special]],
+        "special_tokens": [{"rank": r, "token_str": n}
+                           for n, r in names.items()]}))
 
 
 def write_voxtral_checkpoint(model, path: Path) -> None:
@@ -2799,9 +2871,9 @@ HIGGS_FRAME_LINEARS = (2, 2, 2, 1)
 # temperature 0.7, top_p 0.95, RAS 7/2; frames in 16-frame chunks, then
 # the delayed frames less 8 mod 1,024 through the codec at CodecConfig()
 # dims in bf16. The lane runs 250 frames (10 s at 25 frames a second) and
-# 242 through the codec; here 100 and 92, to keep the run's time since the
-# Orpheus phases came
-HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 100, 25, 92
+# 242 through the codec; here 50 and 42, to keep the run's time (100 and
+# 92 from the Orpheus phases to phases 41-44)
+HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 50, 25, 42
 HIGGS_BF16_REL = 2e-2
 # W8A8 against bf16 audio logits on the prefill's last row (per-channel
 # int8 weights and per-token int8 activations, 28 layers deep)
@@ -3340,7 +3412,7 @@ def _linear_times(card: str, tag: str, shapes, per_layer, layers: int,
         del qs, i8s, wbs
     n_step = layers * sum(per_layer)
     frame = sums[rows[0]]
-    log(f"[{tag} linear] one decode step's {n_step} linears at M = "
+    log(f"[{tag} linear] one step's {n_step} linears at M = "
         f"{rows[0]}, summed: " + ", ".join(
             f"{name} {frame[name]:.3f} ms (bound {bounds[name]:.3f} ms, "
             f"{100 * bounds[name] / frame[name]:.1f}%)" for name in frame)
@@ -3348,6 +3420,22 @@ def _linear_times(card: str, tag: str, shapes, per_layer, layers: int,
     for m in rows:
         sums[m]["plain"] = plain[m]
     return sums
+
+
+def linears_bound(shapes, per_layer, layers: int, m: int) -> tuple:
+    """The least time one step's linears (layers x per_layer of each (out,
+    in) shape) could take at M = m rows with 8-bit codes: the larger of
+    their operations (2 m out in) over 989 TFLOP/s and their bytes (codes
+    one a byte, f32 scales and biases a group of 64, bf16 x in and y out)
+    over 3.35 TB/s. -> (ms, "operations" or "bytes")."""
+    ops = nbytes = 0
+    for (n, k), count in zip(shapes, per_layer):
+        ops += layers * count * 2 * m * n * k
+        nbytes += layers * count * (n * k + 2 * n * (k // QMM_GROUP) * 4
+                                    + 2 * m * (n + k))
+    by_ops, by_bytes = ops / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3
+    return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
+                                   else "bytes")
 
 
 def phase_higgs_w8a8(model, codec, emb, mask, logits_bf16, card: str):
@@ -3413,7 +3501,8 @@ KUGEL_LANE = dict(
 KUGEL_TEXT = ("Machine learning systems now synthesize natural speech in "
               "real time on a single accelerator chip, streaming audio to "
               "listeners across the planet.")
-KUGEL_FRAMES, KUGEL_STEPS, KUGEL_CFG, KUGEL_HOP = 64, 10, 3.0, 3200
+# the lane's 64 frames cut to 32 to make room for phases 41-44
+KUGEL_FRAMES, KUGEL_STEPS, KUGEL_CFG, KUGEL_HOP = 32, 10, 3.0, 3200
 # the timed seeds after the warm-up (the lane's 1 and 2, cut to 1 to keep
 # the run's time)
 KUGEL_SEEDS = (1,)
@@ -3446,10 +3535,11 @@ KUGEL_LONG_K = dict(
 # frames of the profiled chunk (W8A8 launches about 8,600 kernels a frame;
 # the profiler's own cost grows with the events it records)
 KUGEL_PROFILE_FRAMES = 4
-# phase 25: VibeVoice at ModelConfig() dims, 48 latents with the EOS
+# phase 25: VibeVoice at ModelConfig() dims, 24 latents (48 until phases
+# 41-44 came) with the EOS
 # classifier biased off, cfg_scale 1.5 (its default); a request of one
 # speech window (6 latents) warms up, and is timed and profiled
-VIBE_LATENTS, VIBE_WINDOW = 48, 6
+VIBE_LATENTS, VIBE_WINDOW = 24, 6
 
 
 def tts_fixtures():
@@ -3956,7 +4046,7 @@ def phase_vibevoice_full(card: str) -> dict:
     + 20 at d896, a 4-layer head, 20 DPM steps; every floating parameter
     drawn N(0, 0.02) on the card in f32 from seed 0, then cast in place to
     bf16), no voice, its EOS classifier biased off: a warm-up, then one
-    request of 48 latents (wall, xRT, ms a latent), and one of a speech
+    request of VIBE_LATENTS latents (wall, xRT, ms a latent), and one of a speech
     window timed and then profiled (kernels a latent, device time over the
     unprofiled wall)."""
     import numpy as np
@@ -4525,9 +4615,10 @@ SESAME_SMALL = dict(
 # CUDA against the CPU at f32 on the small configs: summation order only
 CLONE_REL = 1e-4
 # phase 28: a seeded 10-s reference clip and 120-character stand-in texts
-# (one id a character: a 512-row ICL prompt bucket); 50 frames whole and
-# streamed, fewer for the x-vector and the server's voice-library request
-ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 50, 30
+# (one id a character: a 512-row ICL prompt bucket); 30 frames whole and
+# streamed (50 until phases 41-44 came), as many for the x-vector and the
+# server's voice-library request
+ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 30, 30
 ICL_REF_TEXT = ("This reference clip was recorded for the voice cloning "
                 "check; its words are read back as the prompt's transcript.")
 ICL_TEXT = ("The cloned voice now reads a different sentence, long enough "
@@ -4536,9 +4627,9 @@ ICL_STREAM_INTERVAL = 2.0
 ICL_SEED = 5
 # the Mimi reference encoder's codes on a 2-s clip, card against CPU
 ICL_CHECK_SECONDS = 2
-# phase 29: Sesame CSM-1B, 32 frames (2.56 s) whole and streamed every 0.5 s
-# (cut from 64 to keep the run's time)
-SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 32, 0.5, 3
+# phase 29: Sesame CSM-1B, 16 frames (1.28 s) whole and streamed every 0.5 s
+# (cut from 64 to 32 to keep the run's time, then to 16 for phases 41-44)
+SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 16, 0.5, 3
 # frames under the profiler (about 9,000 kernels each)
 SESAME_PROFILE_FRAMES = 2
 SESAME_REF_TEXT = "A ten second reference segment for the cloned voice."
@@ -4910,7 +5001,7 @@ def build_sesame_full():
 
 
 def phase_sesame_full(card: str) -> dict:
-    """Phase 29: Sesame CSM-1B cloning a 10-s reference segment, 32 frames
+    """Phase 29: Sesame CSM-1B cloning a 10-s reference segment, SESAME_FRAMES frames
     whole then streamed (the same seed: the same frames, so the streamed
     audio is held to the whole one), a warm-up first; then
     SESAME_PROFILE_FRAMES frames under the profiler."""
@@ -5703,9 +5794,9 @@ DFN_SMALL = dict(sample_rate=16000, fft_size=96, hop_size=48, nb_erb=8,
 # CUDA against the CPU at f32 on the small configs: summation order only
 STS_REL = 1e-4
 MOSHI_GREEDY_STEPS = 16
-# phase 33: Moshi v0.1 at full width, 10 s of input (125 steps at 12.5 Hz;
-# cut from 20 s to keep the run's time)
-MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 10, 8, 80.0
+# phase 33: Moshi v0.1 at full width, 6 s of input (75 steps at 12.5 Hz;
+# cut from 20 s to 10 to keep the run's time, then to 6 for phases 41-44)
+MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 6, 8, 80.0
 MOSHI_STEPS = int(MOSHI_SECONDS * 1000 / MOSHI_FRAME_MS)
 # the q8 model's first-step text logits against bf16's, relative Frobenius:
 # group-64 codes of 8 bits err by about 0.2% a weight, compounded over 32
@@ -6163,7 +6254,7 @@ def _moshi_run(model, clip, label: str, card: str, base: int) -> dict:
 
 def phase_moshi_full(card: str, recorder: K2Recorder) -> int:
     """Phase 33: Moshi v0.1 at full width in bf16, then the same model in
-    affine q8 (group 64) through K2: each a generate over 10 s of input
+    affine q8 (group 64) through K2: each a generate over MOSHI_SECONDS of input
     and a profiled stretch; K2's launches a step against the config's
     count; the first step's text logits q8 against bf16. -> K2's launches
     over the q8 model's run (warm-up, generate and profiled stretch), as
@@ -6381,8 +6472,9 @@ SNAC_24KHZ = dict(sampling_rate=24000, encoder_dim=48,
 ORPHEUS_REL = 1e-4                  # small configs, CUDA vs CPU, f32
 ORPHEUS_TEXT = ("The quick brown fox jumps over the lazy dog while the "
                 "speaker reads this sentence aloud for the first request.")
-# the whole request cut from 512 tokens to 256 to make room for phases 38-40
-ORPHEUS_TOKENS, ORPHEUS_STREAM_TOKENS, ORPHEUS_INTERVAL = 256, 256, 1.0
+# the whole request cut from 512 tokens to 256 to make room for phases
+# 38-40, then it and the streamed one from 256 to 128 for phases 41-44
+ORPHEUS_TOKENS, ORPHEUS_STREAM_TOKENS, ORPHEUS_INTERVAL = 128, 128, 1.0
 # the token table's rows of the code ids and SOS scaled this many times, so
 # that the tied head draws codes from random weights
 ORPHEUS_CODE_SCALE = 4.0
@@ -6808,16 +6900,18 @@ def _orpheus_run(model, label: str, card: str, base: int) -> dict:
     return out
 
 
-def pack_mlx_in_memory(model, bits: int = 4) -> dict:
+def pack_mlx_in_memory(model, bits: int = 4, predicate=None) -> dict:
     """`model`'s state as an mlx-community checkpoint holds it, on the
     card: every linear's and the token table's weight MLX-packed at `bits`
-    (group 64) with f32 scales and biases; the norms as they are. Each
-    dense weight is dropped from the dict as it is packed."""
+    (group 64) with f32 scales and biases (only those whose name passes
+    `predicate(name, weight)` where one is given); the norms as they are.
+    Each dense weight is dropped from the dict as it is packed."""
     from mlx_audio_tpu_torch.ops.quant import quantize_weight
 
     flat = dict(model.state_dict())
     for k in [k for k, v in flat.items()
-              if k.endswith(".weight") and v.ndim == 2]:
+              if k.endswith(".weight") and v.ndim == 2 and (
+                  predicate is None or predicate(k[:-len(".weight")], v))]:
         q = quantize_weight(flat.pop(k).float(), MLX_GROUP, bits)
         base = k[:-len("weight")]
         flat[base + "weight"] = mlx_pack(q["w_q"], bits)
@@ -6976,8 +7070,8 @@ VYVO_SMALL = dict(vocab_size=VYVO_VOCAB, hidden_size=64, intermediate_size=128,
 # random weights draws codes (phase 36's device); VyvoTTS's share of codes
 VYVO_CODE_SCALE, VYVO_CODE_SHARE = 4.0, 0.8
 # Qwen3-ASR at ModelConfig(): 30 s of randn * 0.1 at seed 0, greedy,
-# max_tokens 256; a decode chunk profiled
-QWEN3_ASR_SECONDS, QWEN3_ASR_TOKENS = 30, 256
+# max_tokens 128 (256 until phases 41-44 came); a decode chunk profiled
+QWEN3_ASR_SECONDS, QWEN3_ASR_TOKENS = 30, 128
 ASR_REL = 1e-4                      # small configs, CUDA vs CPU, f32
 # the q8 model's first-step logits against bf16's (random 8-bit group-64
 # codes through 28 layers; unrelated logits read about 1.4)
@@ -6986,7 +7080,8 @@ ALIGN_TEXT = " ".join(["the", "aligner", "places", "every", "word", "of",
                        "this", "sentence", "in", "time"] * 6)
 VYVO_TEXT = ("VyvoTTS reads this sentence aloud, one SNAC frame of seven "
              "codes at a time.")
-VYVO_TOKENS, VYVO_INTERVAL = 256, 0.5
+# VyvoTTS's request 128 tokens (256 until phases 41-44 came)
+VYVO_TOKENS, VYVO_INTERVAL = 128, 0.5
 
 
 class AsrTok:
@@ -7063,36 +7158,15 @@ def _scale_code_rows(model) -> None:
 
 def write_asr_checkpoint(model, path: Path, bits=None, extras=None,
                          group_size: int = MLX_GROUP) -> None:
-    """A Qwen3 LM family's `model` as an HF checkpoint directory:
-    config.json, model.safetensors under the `thinker.` names in torch conv
-    layouts; with `bits` every linear and the token table MLX-packed at
-    `bits` (group `group_size`) with f32 scales and biases, and config.json
-    says so. `extras` {file name: state} go to extras/ (MegaASR's router
-    and LoRA)."""
-    import dataclasses
-
+    """A Qwen3 LM family's `model` as an HF checkpoint directory
+    (`write_llm_stt_checkpoint` under the `thinker.` names, torch conv
+    layouts, every linear and the token table MLX-packed with `bits`);
+    `extras` {file name: state} go to extras/ (MegaASR's router and
+    LoRA)."""
     from safetensors.numpy import save_file
 
-    from mlx_audio_tpu_torch.ops.quant import quantize_weight
-
-    cfg = dataclasses.asdict(model.config)
-    cfg.pop("model_path", None)
-    flat = {}
-    for k, v in model.state_dict().items():
-        v = v.float().cpu()
-        if bits and k.endswith(".weight") and v.ndim == 2:
-            q = quantize_weight(v, group_size, bits)
-            base = "thinker." + k[:-len("weight")]
-            flat[base + "weight"] = mlx_pack(q["w_q"].numpy(), bits)
-            flat[base + "scales"] = q["scales"].numpy()
-            flat[base + "biases"] = q["biases"].numpy()
-        else:
-            flat["thinker." + k] = v.numpy()
-    if bits:
-        cfg["quantization"] = {"group_size": group_size, "bits": bits}
-    path.mkdir(parents=True, exist_ok=True)
-    save_file(flat, str(path / "model.safetensors"))
-    (path / "config.json").write_text(json.dumps(cfg))
+    write_llm_stt_checkpoint(model, path, bits, group_size,
+                             prefix="thinker.")
     for name, state in (extras or {}).items():
         (path / "extras").mkdir(exist_ok=True)
         save_file(state, str(path / "extras" / name))
@@ -7116,6 +7190,51 @@ def write_vyvo_checkpoint(model, path: Path) -> None:
                for k, v in model.codec.state_dict().items()},
               str(path / "snac" / "model.safetensors"))
     (path / "snac" / "config.json").write_text(json.dumps(SNAC_SMALL))
+
+
+def write_llm_stt_checkpoint(model, path: Path, bits=None,
+                             group_size: int = MLX_GROUP,
+                             conv: str = "torch", prefix: str = "") -> None:
+    """An STT family's `model` (Voxtral, Qwen2-Audio, GLM-ASR, Granite
+    Speech, VibeVoice-ASR; the Qwen3 LM families with `prefix` "thinker.")
+    as a checkpoint directory: config.json and model.safetensors under the
+    JAX tree's names after `prefix`, conv weights in
+    torch's (O, I, K) layout or, with conv="mlx", MLX's (O, K, I), or with
+    conv="jax" the JAX tree's WIO (K, I, O); with
+    `bits` each linear the family's `model_quant_predicate` passes, and
+    the token table, MLX-packed at `bits` (group `group_size`, f32 scales
+    and biases), and config.json says so."""
+    import dataclasses
+
+    from safetensors.numpy import save_file
+
+    from mlx_audio_tpu_torch.ops.quant import quantize_weight
+
+    cfg = dataclasses.asdict(model.config)
+    cfg.pop("model_path", None)
+    convs = {name + ".weight" for name, m in model.named_modules()
+             if type(m).__name__ == "Conv1d"}
+    keep = getattr(model, "model_quant_predicate", None)
+    flat = {}
+    for k, v in model.state_dict().items():
+        v = v.float().cpu()
+        base = k[:-len("weight")]
+        if k in convs and conv != "torch":
+            v = v.permute(0, 2, 1) if conv == "mlx" else v.permute(2, 1, 0)
+        if bits and k.endswith(".weight") and v.ndim == 2 and (
+                keep is None or keep(base[:-1], v)) \
+                and v.shape[1] % group_size == 0:
+            q = quantize_weight(v, group_size, bits)
+            flat[prefix + base + "weight"] = mlx_pack(q["w_q"].numpy(), bits)
+            flat[prefix + base + "scales"] = q["scales"].numpy()
+            flat[prefix + base + "biases"] = q["biases"].numpy()
+        else:
+            flat[prefix + k] = v.contiguous().numpy()
+    if bits:
+        cfg["quantization"] = {"group_size": group_size, "bits": bits}
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(flat, str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(cfg))
 
 
 def router_state(seed: int = 2, d: int = 64, h: int = 32, ff: int = 128,
@@ -7579,9 +7698,9 @@ def phase_qwen3_asr_full(card: str, recorder: K2Recorder) -> int:
     """Phase 39: Qwen3-ASR at ModelConfig() seeded on the card in bf16,
     then its weights packed to MLX's 8-bit layout in memory and loaded
     through the pre-quantized path (every linear on K2, the tied table
-    dense): each on 30 s of randn * 0.1 at seed 0 with max_tokens 256
-    (`_asr_run`); the LM's linears at the prefill's bucket and at M = 1,
-    K2 against cuBLAS bf16 (`_linear_times`); K2's launches a token read
+    dense): each on 30 s of randn * 0.1 at seed 0 with QWEN3_ASR_TOKENS
+    (`_asr_run`); the LM's linears at the prefill's bucket, K2 against
+    cuBLAS bf16 (`_linear_times`) and their bound; K2's launches a token read
     from its counter against the config's 196; the first-step logits q8
     against bf16. -> K2's launches, as its counter read them."""
     import torch
@@ -7639,14 +7758,18 @@ def phase_qwen3_asr_full(card: str, recorder: K2Recorder) -> int:
         raise AssertionError(f"q8 Qwen3-ASR first-step logits vs bf16: "
                              f"relative {rel:.3e}")
     alone, bound, n = k2_linears_alone(model.model, card, "qwen3-asr")
-    sums = _linear_times(card, "qwen3-asr", ((2048, 2048), (1024, 2048),
-                                              (6144, 2048), (2048, 6144)),
-                         (2, 2, 2, 1), t.num_hidden_layers,
-                         rows=(1, q8["bucket"]))
+    shapes = ((2048, 2048), (1024, 2048), (6144, 2048), (2048, 6144))
+    sums = _linear_times(card, "qwen3-asr", shapes, (2, 2, 2, 1),
+                         t.num_hidden_layers, rows=(q8["bucket"],))
     pre = sums[q8["bucket"]]
+    pre_bound, by = linears_bound(shapes, (2, 2, 2, 1),
+                                  t.num_hidden_layers, q8["bucket"])
     log(f"[qwen3-asr] the prefill's {per_token} LM linears at M = "
         f"{q8['bucket']}: K2 (mma) {pre['K2']:.3f} ms against cuBLAS bf16 "
-        f"{pre['bf16']:.3f} ms ({pre['K2'] / pre['bf16']:.2f}x) ({card})")
+        f"{pre['bf16']:.3f} ms ({pre['K2'] / pre['bf16']:.2f}x); bound "
+        f"{pre_bound:.3f} ms ({by}), {100 * pre_bound / pre['K2']:.1f}% of "
+        f"it reached by K2, {100 * pre_bound / pre['bf16']:.1f}% by cuBLAS "
+        f"({card})")
     log(f"[qwen3-asr] q8 against bf16 on this card: encoder "
         f"{q8['enc_ms']:.2f} vs {bf16['enc_ms']:.2f} ms, prefill "
         f"{q8['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
@@ -7782,6 +7905,683 @@ def phase_qwen3_lm(card: str, recorder: K2Recorder) -> int:
     if snake_conv_kernel.launches != k1:
         raise AssertionError("phases 38-40 launched K1")
     log(f"[time] phases 38-40 in {time.perf_counter() - t0:.1f} s; K1 not "
+        f"launched")
+    return k2
+
+
+# ---------------------------------------------------------------------------
+# The LLM-decoder STT families (phases 41-44)
+# ---------------------------------------------------------------------------
+
+# Voxtral-Mini-3B-2507 at the dims of mistralai/Voxtral-Mini-3B-2507's
+# config.json: a 32 x d1280 Whisper-style tower (20 heads, FFN 5,120, 128
+# mels, 1,500 positions), the 5,120 -> 3,072 -> 3,072 projector, a 30 x
+# d3072 Mistral LM (32 heads, 8 KV heads, head 128, FFN 8,192, 131,072 ids,
+# rope_theta 1e8, an untied head); 4.68 B parameters
+VOXTRAL_MINI_3B = dict(
+    model_type="voxtral", audio_token_id=24,
+    audio_config=dict(d_model=1280, encoder_layers=32,
+                      encoder_attention_heads=20, encoder_ffn_dim=5120,
+                      num_mel_bins=128, max_source_positions=1500,
+                      intermediate_size=5120),
+    text_config=dict(hidden_size=3072, num_hidden_layers=30,
+                     intermediate_size=8192, num_attention_heads=32,
+                     num_key_value_heads=8, head_dim=128, vocab_size=131072,
+                     rope_theta=1e8, rms_norm_eps=1e-5,
+                     tie_word_embeddings=False))
+# Qwen2-Audio-7B-Instruct at the dims of Qwen/Qwen2-Audio-7B-Instruct's
+# config.json: Voxtral's tower (fixed sinusoidal positions, a 2x pool), a
+# 1,280 -> 4,096 projector, a 32 x d4096 Qwen2 LM (32 heads and 32 KV
+# heads, FFN 11,008, 156,032 ids, q/k/v biases, rope_theta 1e4, an untied
+# head); 8.40 B parameters
+QWEN2_AUDIO_7B = dict(
+    model_type="qwen2_audio", audio_token_id=151646,
+    audio_bos_token_id=151647, audio_eos_token_id=151648,
+    audio_config=dict(d_model=1280, encoder_layers=32,
+                      encoder_attention_heads=20, encoder_ffn_dim=5120,
+                      num_mel_bins=128, max_source_positions=1500),
+    text_config=dict(hidden_size=4096, num_hidden_layers=32,
+                     intermediate_size=11008, num_attention_heads=32,
+                     num_key_value_heads=32, vocab_size=156032,
+                     rope_theta=10000.0, rms_norm_eps=1e-5,
+                     tie_word_embeddings=False))
+# the JAX tests' tiny configs (tests/test_voxtral.py::tiny_cfg,
+# test_qwen2_audio.py::tiny_cfg at widths group 64 divides, for the packed
+# ones; test_glmasr.py::_cfg, test_granite_speech.py::tiny_cfg,
+# test_vibevoice_asr.py::tiny_cfg as they are)
+_TINY_TOWER = dict(d_model=64, encoder_layers=2, encoder_attention_heads=4,
+                   encoder_ffn_dim=128, num_mel_bins=32,
+                   max_source_positions=1500)
+_TINY_LM = dict(hidden_size=64, num_hidden_layers=2, intermediate_size=128,
+                num_attention_heads=4, num_key_value_heads=2, head_dim=16)
+LLM_STT_SMALL = {
+    "voxtral": dict(model_type="voxtral", audio_token_id=24,
+                    audio_config=dict(_TINY_TOWER, intermediate_size=256),
+                    text_config=dict(_TINY_LM, vocab_size=1200,
+                                     rope_theta=1e8)),
+    "qwen2_audio": dict(model_type="qwen2_audio", audio_token_id=590,
+                        audio_bos_token_id=591, audio_eos_token_id=592,
+                        audio_config=_TINY_TOWER,
+                        text_config=dict(_TINY_LM, vocab_size=640,
+                                         rope_theta=10000.0)),
+    "glmasr": dict(model_type="glmasr", merge_factor=2,
+                   whisper_config=dict(d_model=16, encoder_attention_heads=2,
+                                       encoder_ffn_dim=32, encoder_layers=1,
+                                       num_mel_bins=16),
+                   lm_config=dict(vocab_size=64, hidden_size=16,
+                                  intermediate_size=32, num_hidden_layers=1,
+                                  num_attention_heads=2,
+                                  num_key_value_heads=2, head_dim=8,
+                                  eos_token_id=[3])),
+    "granite_speech": dict(
+        model_type="granite_speech",
+        encoder_config=dict(input_dim=20, num_layers=2, hidden_dim=32,
+                            feedforward_mult=2, num_heads=4, dim_head=8,
+                            output_dim=10, context_size=8, max_pos_emb=16,
+                            conv_kernel_size=5, conv_expansion_factor=2),
+        projector_config=dict(hidden_size=32, num_hidden_layers=1,
+                              num_attention_heads=4, intermediate_size=64,
+                              encoder_hidden_size=32),
+        text_config=dict(model_type="granite", vocab_size=120,
+                         hidden_size=32, intermediate_size=64,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         num_key_value_heads=2, rope_theta=10000.0,
+                         attention_multiplier=0.125,
+                         embedding_multiplier=12.0, residual_multiplier=0.22,
+                         logits_scaling=8.0),
+        audio_token_index=110),
+    "vibevoice_asr": dict(
+        model_type="vibevoice_asr",
+        acoustic_tokenizer_config=dict(vae_dim=8, encoder_n_filters=4,
+                                       encoder_ratios=[4, 2],
+                                       encoder_depths="1-1-2"),
+        semantic_tokenizer_config=dict(vae_dim=12, encoder_n_filters=4,
+                                       encoder_ratios=[4, 2],
+                                       encoder_depths="1-1-2"),
+        decoder_config=dict(vocab_size=151700, hidden_size=32,
+                            intermediate_size=64, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2)),
+}
+# the stand-in tokenizers' special tokens, EOS and chat template use
+LLM_STT_TOKS = {
+    "qwen2_audio": ({"<|AUDIO|>": 590, "<|audio_bos|>": 591,
+                     "<|audio_eos|>": 592}, 599, True),
+    "glmasr": ({}, 3, False),
+    "granite_speech": ({"<|audio|>": 110}, 2, False),
+    "vibevoice_asr": ({"<|object_ref_start|>": 151646,
+                       "<|object_ref_end|>": 151647,
+                       "<|box_start|>": 151648}, 151645, True),
+}
+# small packed checkpoints: Voxtral MLX-packed q8, Qwen2-Audio 4-bit
+LLM_STT_BITS = {"voxtral": 8, "qwen2_audio": 4}
+LLM_STT_TOKENS = 24
+# the full-width runs: 30 s of randn * 0.1 at seed 0, greedy; Voxtral's
+# request 256 tokens, Qwen2-Audio's 128; VibeVoice-ASR's encoders on 10
+# minutes at 24 kHz
+VOXTRAL_SECONDS, VOXTRAL_TOKENS, QWEN2_AUDIO_TOKENS = 30, 256, 128
+VIBEVOICE_ASR_SECONDS = 600
+# the q8 and 4-bit models' first-step logits against bf16's (random codes
+# through 30 or 32 layers; unrelated logits read about 1.4)
+LLM_Q8_REL, LLM_Q4_REL = 0.1, 0.5
+
+
+class SttTok:
+    """A stand-in for an HF tokenizer (none is in the repository): the
+    `specials` at their ids, one id a character below 40 above 4; decode
+    writes the ids; `chat` gives an `apply_chat_template` that joins the
+    messages' contents."""
+
+    unk_token_id = None
+
+    def __init__(self, specials: dict, eos: int, chat: bool):
+        self.specials, self.eos_token_id = specials, eos
+        self.chat_template = "joined" if chat else None
+
+    def encode(self, text, **kw):
+        out, i = [], 0
+        while i < len(text):
+            for name, tid in self.specials.items():
+                if text.startswith(name, i):
+                    out.append(tid)
+                    i += len(name)
+                    break
+            else:
+                out.append(4 + ord(text[i]) % 40)
+                i += 1
+        return out
+
+    def decode(self, toks, skip_special_tokens=True):
+        return " ".join(str(t) for t in toks)
+
+    def apply_chat_template(self, messages, tokenize=False,
+                            add_generation_prompt=True):
+        return "".join(m["content"] for m in messages)
+
+    def convert_tokens_to_ids(self, s):
+        return self.specials.get(s)
+
+
+def llm_stt_tok(family: str) -> SttTok:
+    specials, eos, chat = LLM_STT_TOKS[family]
+    return SttTok(specials, eos, chat)
+
+
+def _llm_small(family: str, device: str):
+    """A small family model at f32 from seed 0 with its stand-in
+    tokenizer."""
+    import importlib
+
+    mod = importlib.import_module(f"mlx_audio_tpu_torch.stt.models.{family}")
+    m = mod.Model(LLM_STT_SMALL[family], device=device).init_params(seed=0)
+    if family != "voxtral":
+        setattr(m, "tokenizer" if family == "vibevoice_asr" else
+                "_tokenizer", llm_stt_tok(family))
+    return m
+
+
+def _llm_outputs(model, family: str, audio) -> tuple:
+    """(greedy text, generated tokens, the encoder's rows on the CPU)."""
+    import numpy as np
+
+    out = model.generate(audio, max_tokens=LLM_STT_TOKENS)
+    if family == "voxtral":
+        feats = model.get_audio_embeds(audio)
+    elif family == "qwen2_audio":
+        feats = model.get_audio_embeds(audio)[0]
+    elif family == "glmasr":
+        feats = model.encode(audio)[0][0]
+    elif family == "granite_speech":
+        feats = model.get_audio_features(model._extract_features(audio)[0])
+    else:
+        feats = model.encode_speech(model._preprocess_audio(
+            np.asarray(audio), 16000))
+    return out.text, out.generation_tokens, feats.float().cpu()
+
+
+def phase_llm_stt_reference(tmp: Path, recorder: K2Recorder,
+                            device: str = "cuda") -> int:
+    """Phase 41: the small configs of the five families, each written as a
+    checkpoint directory (Voxtral MLX-packed q8 with a tekken.json,
+    Qwen2-Audio MLX-packed 4-bit, both at group 64, their LM and projector
+    linears on K2; GLM-ASR, Granite Speech and VibeVoice-ASR dense) and
+    loaded through `stt.utils.load_model` on the card and on the CPU (the
+    stand-in tokenizers through the modules' `local_tokenizer`): greedy
+    tokens and text equal, encoder rows within ASR_REL; the STT CLI on the
+    card (Qwen2-Audio json, GLM-ASR `--stream`) against in-process results;
+    Granite Speech's directory through `AudioServer`'s transcription route.
+    -> K2's launches."""
+    import asyncio
+    import importlib
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.stt import generate as stt_generate
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    t0 = time.perf_counter()
+    qmm_kernel.launches = 0
+    audio = _noise(31, 4.0)
+    wav = tmp / "llm-stt.wav"
+    audio_io.write(wav, audio, 16000)
+    modules = {f: importlib.import_module(
+        f"mlx_audio_tpu_torch.stt.models.{f}.{f}") for f in LLM_STT_TOKS}
+    prev = {f: m.local_tokenizer for f, m in modules.items()}
+    for f, m in modules.items():
+        m.local_tokenizer = lambda path, f=f, **kw: llm_stt_tok(f)
+    try:
+        for family in LLM_STT_SMALL:
+            d = tmp / family
+            src = _llm_small(family, "cpu")
+            bits = LLM_STT_BITS.get(family)
+            write_llm_stt_checkpoint(src, d, bits=bits)
+            if family == "voxtral":
+                write_mistral_tekken(d / "tekken.json", 40, 1200)
+            cpu = load_model(d, device="cpu")
+            with recorder:
+                card = load_model(d, device=device)
+                held = sum(isinstance(m, QuantizedLinear)
+                           for m in card.modules())
+                got = _llm_outputs(card, family, audio)
+            want = _llm_outputs(cpu, family, audio)
+            rel = rel_err(got[2], want[2])
+            lm = LLM_STT_SMALL[family].get("text_config", {})
+            # the LM's 7 a layer and its head, and the projector's
+            n_q = {"voxtral": 7 * 2 + 1 + 2, "qwen2_audio": 7 * 2 + 1 + 1}
+            if not (got[:2] == want[:2] and got[1] > 0 and rel < ASR_REL
+                    and held == n_q.get(family, 0)):
+                raise AssertionError(
+                    f"{family} card vs CPU: text equal {got[0] == want[0]}, "
+                    f"tokens {got[1]} vs {want[1]}, encoder rel {rel:.3e}, "
+                    f"{held} quantized linears")
+            log(f"[{family} small] "
+                + (f"MLX-packed {bits}-bit checkpoint: {held} linears on "
+                   f"K2; " if bits else "dense checkpoint; ")
+                + f"{got[1]} greedy tokens equal on the card and the CPU, "
+                f"encoder rows {tuple(got[2].shape)} rel {rel:.3e}"
+                + (f" (LM {lm.get('hidden_size')} wide)" if lm else ""))
+        # the STT CLI on the card: Qwen2-Audio's json, GLM-ASR streamed
+        with recorder:
+            m = load_model(tmp / "qwen2_audio", device=device)
+            heard, _ = audio_io.read(str(wav), dtype="float32")
+            want = m.generate(heard, max_tokens=LLM_STT_TOKENS).text
+            stt_generate.main(["--model", str(tmp / "qwen2_audio"),
+                               "--audio", str(wav), "--max-tokens",
+                               str(LLM_STT_TOKENS), "--format", "json",
+                               "--no-verbose", "--output-path",
+                               str(tmp / "q2-cli")])
+        cli = json.loads((tmp / "q2-cli" / "transcription.json")
+                         .read_text())["text"]
+        g = load_model(tmp / "glmasr", device=device)
+        streamed = "".join(r.text for r in g.generate(
+            heard, max_tokens=LLM_STT_TOKENS, stream=True))
+        stt_generate.main(["--model", str(tmp / "glmasr"), "--audio",
+                           str(wav), "--max-tokens", str(LLM_STT_TOKENS),
+                           "--stream", "--no-verbose", "--output-path",
+                           str(tmp / "glm-cli")])
+        glm_cli = (tmp / "glm-cli" / "transcription.txt").read_text()
+        server = AudioServer(device=device)
+        try:
+            served = asyncio.run(server.transcribe(
+                {"model": str(tmp / "granite_speech"),
+                 "response_format": "json",
+                 "max_tokens": str(LLM_STT_TOKENS)}, wav.read_bytes()))
+        finally:
+            server.close()
+        granite_want = load_model(tmp / "granite_speech", device=device) \
+            .generate(heard, max_tokens=LLM_STT_TOKENS).text
+        if not (cli == want and glm_cli.strip() == streamed.strip()
+                and streamed and served.status == 200
+                and served.json.get("text") == granite_want):
+            raise AssertionError(f"CLI {cli!r} vs {want!r}; GLM --stream "
+                                 f"{glm_cli!r} vs {streamed!r}; server "
+                                 f"{served.status} {served.json}")
+        log(f"[llm-stt small] the STT CLI wrote Qwen2-Audio's generate() "
+            f"text as json and GLM-ASR's streamed text; AudioServer's "
+            f"transcription route gave Granite Speech's generate() text")
+    finally:
+        for f, m in modules.items():
+            m.local_tokenizer = prev[f]
+    launches = qmm_kernel.launches
+    log(f"[time] phase 41 in {time.perf_counter() - t0:.1f} s; K2 launched "
+        f"{launches} times")
+    return launches
+
+
+def llm_token_bytes(lm, cache_cols: float) -> float:
+    """Bytes a decode token of the llama LM `lm` must read: its linears
+    (bf16, or codes one a byte with f32 scales and biases, and their f32
+    q/k/v biases), the token's table row, the norms, and the f32 K and V
+    of `cache_cols` columns."""
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+
+    t = lm.config
+    total = 0.0
+    for m in lm.modules():
+        if isinstance(m, Linear):
+            total += m.weight.numel() * m.weight.element_size()
+            if m.bias is not None:
+                total += m.bias.numel() * m.bias.element_size()
+        elif isinstance(m, QuantizedLinear):
+            total += (m.w_q.numel() + 4 * (m.scales.numel()
+                                           + m.biases.numel()))
+            if m.bias is not None:
+                total += 4 * m.bias.numel()
+    total += (t.hidden_size + (2 * t.num_hidden_layers + 1)
+              * t.hidden_size) * 2
+    total += (2 * t.num_hidden_layers * cache_cols * t.num_key_value_heads
+              * t.resolved_head_dim * 4)
+    return total
+
+
+def _llm_run(model, audio, label: str, tag: str, tokens: int, card: str,
+             base: int, encode) -> dict:
+    """Encoder ms (`encode(audio)`), prefill ms, a generate of `tokens`
+    tokens (ms a token p50 and p95 over its chunks after the first, xRT,
+    peak memory), one profiled chunk (kernels, device ms and busy share a
+    token, K2's launches a token) and the byte bound a token. -> the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.stt.models.llm_stt import (DEC_CHUNK, GREEDY,
+                                                        decode_fns,
+                                                        splice_embeds)
+
+    lm = model.language_model
+    model.generate(audio, max_tokens=8)
+    enc_ms = _sync_ms(lambda: encode(audio))
+    feats, ids = model.prompt_inputs(audio)
+    n = len(ids)
+    fns = decode_fns(lm, n, tokens, GREEDY, model._eos_ids())
+    with torch.inference_mode():
+        embeds = splice_embeds(lm, ids, feats, audio_id=model.audio_id)
+    prefill_ms = _sync_ms(lambda: fns.prefill(embeds, n))
+    logits = fns.prefill(embeds, n)[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = model.generate(audio, max_tokens=tokens)
+    wall = time.perf_counter() - t0
+    run = dict(model.last_run)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
+    if not (out.generation_tokens > 0 and len(per_token)):
+        raise AssertionError(f"{tag} {label}: {run}")
+    state = fns.start(embeds, n, tokens)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fns.chunk(state)
+    chunk_wall = (time.perf_counter() - t1) * 1e3 / DEC_CHUNK
+    k2, fwd = qmm_kernel.launches, state["forwards"]
+    rows = _device_kernels(lambda: fns.chunk(state), cpu=False)
+    k2_token = (qmm_kernel.launches - k2) / max(state["forwards"] - fwd, 1)
+    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / DEC_CHUNK
+    kernels = sum(e.count for e in rows) / DEC_CHUNK
+    if not (kernels > 0 and dev_ms > 0):
+        raise AssertionError(f"{tag}: the profiler saw no kernel")
+    cols = n + run["steps"] / 2
+    nbytes = llm_token_bytes(lm, cols)
+    bound = nbytes / HBM_BPS * 1e3
+    t = lm.config
+    col_bytes = (2 * t.num_hidden_layers * t.num_key_value_heads
+                 * t.resolved_head_dim * 4)
+    seconds = len(audio) / 16000
+    res = dict(enc_ms=enc_ms, prefill_ms=prefill_ms, prompt=n,
+               p50=float(np.percentile(per_token, 50)),
+               p95=float(np.percentile(per_token, 95)), wall=wall,
+               xrt=seconds / wall, peak=peak, kernels=kernels, dev_ms=dev_ms,
+               busy=dev_ms / chunk_wall, bound=bound, nbytes=nbytes,
+               k2_token=k2_token, logits=logits, steps=run["steps"],
+               tokens=out.generation_tokens, audio_tokens=feats.shape[0])
+    log(f"[{tag}] {label}: {seconds:.0f} s, {feats.shape[0]} audio tokens in "
+        f"a {n}-token prompt: encoder {enc_ms:.2f} ms, prefill "
+        f"{prefill_ms:.2f} ms; {res['tokens']} tokens ({run['steps']} "
+        f"steps): {res['p50']:.2f} ms a token p50, {res['p95']:.2f} p95 "
+        f"(over {len(per_token)} chunks of {DEC_CHUNK}), wall {wall:.2f} s, "
+        f"xRT {res['xrt']:.2f}, peak {peak:.2f} GB above the earlier "
+        f"phases'; profiled chunk: {kernels:.0f} kernels and {dev_ms:.3f} ms "
+        f"of device time a token against {chunk_wall:.2f} ms of wall "
+        f"({100 * res['busy']:.1f}% busy), {k2_token:.0f} K2 launches a "
+        f"token; {nbytes / 1e9:.3f} GB a token, bound {bound:.3f} ms "
+        f"(bytes), {100 * bound / res['p50']:.1f}% of it reached at p50; "
+        f"the f32 caches read {cols:.0f} columns a token on average "
+        f"({cols * col_bytes / 1e9:.3f} GB) ({card})")
+    return res
+
+
+def _pack_into(model, bits: int) -> None:
+    """`model`'s LM and projector (its `model_quant_predicate`) packed in
+    memory to MLX's `bits`-bit layout (group 64) and loaded back through
+    the pre-quantized path, on the card."""
+    import torch
+
+    from mlx_audio_tpu_torch.utils import (apply_quantization,
+                                           unpack_prequantized)
+
+    packed = pack_mlx_in_memory(model, bits, model.model_quant_predicate)
+    torch.cuda.empty_cache()
+    config = {"quantization": {"group_size": MLX_GROUP, "bits": bits}}
+    flat = unpack_prequantized(model, config, packed)
+    del packed
+    model.bind(flat)
+    del flat
+    apply_quantization(model, config, pre_quantized=True)
+    torch.cuda.empty_cache()
+
+
+def phase_voxtral_mini(card: str, recorder: K2Recorder, tmp: Path) -> int:
+    """Phase 42: Voxtral-Mini-3B-2507 at its published dims seeded on the
+    card in bf16 (a stand-in tekken.json of 131,072 ids), then its
+    projector and LM packed in memory to MLX's 8-bit layout (group 64; the
+    tower dense, as `model_quant_predicate` says) and loaded through the
+    pre-quantized path: each on 30 s of `randn * 0.1` at seed 0 with
+    max_tokens 256 (`_llm_run`); the LM's linears at the prefill's M, K2
+    against cuBLAS bf16 (`_linear_times`) and their bound; K2's launches a token
+    read from its counter against the config's 30 x 7 + 1 (the head); the
+    first step's logits q8 against bf16. -> K2's launches."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import Embedding, Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.stt.models.voxtral import Model, TekkenEncoder
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = Model(VOXTRAL_MINI_3B, device="cuda").init_params(
+        seed=0, on_device=True)
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    write_mistral_tekken(tmp / "tekken.json", 1000, 131072)
+    model._tekken = TekkenEncoder(str(tmp / "tekken.json"))
+    log(f"[voxtral-mini] Voxtral-Mini-3B-2507 dims (tower 32 x d1280, LM 30 "
+        f"x d3072 GQA 32/8, 131,072 ids, untied head): "
+        f"{model.num_params():,} params bf16 on cuda, built in "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    audio = _noise(0, VOXTRAL_SECONDS)
+    bf16 = _llm_run(model, audio, "bf16", "voxtral-mini", VOXTRAL_TOKENS,
+                    card, base, model.get_audio_embeds)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 Voxtral launched K1 or K2")
+    t = model.config.text
+    per_token = 7 * t.num_hidden_layers + 1
+    t1 = time.perf_counter()
+    _pack_into(model, 8)
+    lm_held = sum(isinstance(m, QuantizedLinear)
+                  for m in model.language_model.modules())
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if not (lm_held == per_token and held == per_token + 2
+            and isinstance(model.language_model.model.embed_tokens,
+                           Embedding)
+            and isinstance(model.audio_tower.layers[0].fc1, Linear)):
+        raise AssertionError(f"q8 Voxtral: {held} quantized linears, "
+                             f"{lm_held} in the LM (want {per_token})")
+    log(f"[voxtral-mini] packed to MLX 8-bit (group {MLX_GROUP}) in memory "
+        f"and loaded through the pre-quantized path in "
+        f"{time.perf_counter() - t1:.2f} s: {held} linears on K2 "
+        f"({lm_held} in the LM with its head, 2 in the projector), the "
+        f"tower and the token table dense")
+    k1 = snake_conv_kernel.launches
+    qmm_kernel.launches = 0
+    with recorder:
+        q8 = _llm_run(model, audio, "q8 (K2)", "voxtral-mini",
+                      VOXTRAL_TOKENS, card, base, model.get_audio_embeds)
+    k2 = qmm_kernel.launches
+    if q8["k2_token"] != per_token or snake_conv_kernel.launches != k1:
+        raise AssertionError(f"q8 Voxtral: {q8['k2_token']} K2 launches a "
+                             f"token, want {per_token}; or K1 launched")
+    rel = float(torch.linalg.norm(q8["logits"] - bf16["logits"])
+                / torch.linalg.norm(bf16["logits"]))
+    top1 = int(q8["logits"].argmax()) == int(bf16["logits"].argmax())
+    if not (torch.isfinite(q8["logits"]).all() and rel < LLM_Q8_REL):
+        raise AssertionError(f"q8 Voxtral first-step logits vs bf16: "
+                             f"relative {rel:.3e}")
+    alone, bound, n = k2_linears_alone(model.language_model, card,
+                                       "voxtral-mini")
+    shapes = ((4096, 3072), (1024, 3072), (3072, 4096), (8192, 3072),
+              (3072, 8192))
+    sums = _linear_times(card, "voxtral-mini", shapes, (1, 2, 1, 2, 1),
+                         t.num_hidden_layers, rows=(q8["prompt"],))
+    pre = sums[q8["prompt"]]
+    pre_bound, by = linears_bound(shapes, (1, 2, 1, 2, 1),
+                                  t.num_hidden_layers, q8["prompt"])
+    log(f"[voxtral-mini] the prefill's {7 * t.num_hidden_layers} LM linears "
+        f"at M = {q8['prompt']}: K2 (mma) {pre['K2']:.3f} ms against cuBLAS "
+        f"bf16 {pre['bf16']:.3f} ms ({pre['K2'] / pre['bf16']:.2f}x); bound "
+        f"{pre_bound:.3f} ms ({by}), {100 * pre_bound / pre['K2']:.1f}% of "
+        f"it reached by K2, {100 * pre_bound / pre['bf16']:.1f}% by cuBLAS "
+        f"({card})")
+    log(f"[voxtral-mini] q8 against bf16 on this card: encoder "
+        f"{q8['enc_ms']:.2f} vs {bf16['enc_ms']:.2f} ms, prefill "
+        f"{q8['prefill_ms']:.2f} vs {bf16['prefill_ms']:.2f} ms, "
+        f"{q8['p50']:.2f} vs {bf16['p50']:.2f} ms a token p50, "
+        f"{q8['p95']:.2f} vs {bf16['p95']:.2f} p95, xRT {q8['xrt']:.2f} vs "
+        f"{bf16['xrt']:.2f}, {q8['kernels']:.0f} vs {bf16['kernels']:.0f} "
+        f"kernels and {q8['dev_ms']:.3f} vs {bf16['dev_ms']:.3f} ms of device "
+        f"time a token, busy {100 * q8['busy']:.1f}% vs "
+        f"{100 * bf16['busy']:.1f}%, peak {q8['peak']:.2f} vs "
+        f"{bf16['peak']:.2f} GB, {q8['nbytes'] / 1e9:.3f} vs "
+        f"{bf16['nbytes'] / 1e9:.3f} GB and bound {q8['bound']:.3f} vs "
+        f"{bf16['bound']:.3f} ms a token; K2 launched {k2} times, "
+        f"{q8['k2_token']:.0f} a decode token (read from its counter; the "
+        f"config gives {per_token}), the LM's {n} linears alone "
+        f"{alone:.3f} ms a token (bound {bound:.3f} ms); first-step logits "
+        f"q8 vs bf16 relative {rel:.3e} (limit {LLM_Q8_REL:g}), top-1 "
+        f"{'equal' if top1 else 'differs'} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 42 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def phase_qwen2_audio_7b(card: str, recorder: K2Recorder) -> int:
+    """Phase 43: Qwen2-Audio-7B-Instruct at its published dims seeded on
+    the card in bf16, its projector and LM packed in memory to MLX's 4-bit
+    layout (group 64, as the mlx-community checkpoint ships it) and loaded
+    through the pre-quantized path; 30 s of `randn * 0.1` at seed 0 with
+    max_tokens 128 (`_llm_run`, no tokenizer: the bare audio prompt); K2's
+    launches a token read from its counter against 32 x 7 + 1; the first
+    step's logits 4-bit against bf16. -> K2's launches."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.stt.models.llm_stt import (GREEDY, decode_fns,
+                                                        splice_embeds)
+    from mlx_audio_tpu_torch.stt.models.qwen2_audio import Model
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    model = Model(QWEN2_AUDIO_7B, device="cuda").init_params(
+        seed=0, on_device=True)
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    n_params = model.num_params()
+    audio = _noise(0, VOXTRAL_SECONDS)
+    lm = model.language_model
+    feats, ids = model.prompt_inputs(audio)
+    with torch.inference_mode():
+        embeds = splice_embeds(lm, ids, feats, audio_id=model.audio_id)
+    fns = decode_fns(lm, len(ids), 1, GREEDY, model._eos_ids())
+    logits_bf16 = fns.prefill(embeds, len(ids))[0]
+    del fns, embeds
+    t = lm.config
+    per_token = 7 * t.num_hidden_layers + 1
+    t1 = time.perf_counter()
+    _pack_into(model, 4)
+    held = sum(isinstance(m, QuantizedLinear) for m in lm.modules())
+    if held != per_token:
+        raise AssertionError(f"4-bit Qwen2-Audio's LM holds {held} quantized "
+                             f"linears, want {per_token}")
+    log(f"[qwen2-audio-7b] Qwen2-Audio-7B-Instruct dims (tower 32 x d1280, "
+        f"LM 32 x d4096, 32 heads and 32 KV heads, 156,032 ids, q/k/v "
+        f"biases, untied head): {n_params:,} params, seeded bf16 on cuda, "
+        f"packed to MLX 4-bit (group {MLX_GROUP}) and loaded through the "
+        f"pre-quantized path in {time.perf_counter() - t1:.2f} s: {held} LM "
+        f"linears and the projector on K2")
+    qmm_kernel.launches = 0
+    with recorder:
+        q4 = _llm_run(model, audio, "4-bit (K2)", "qwen2-audio-7b",
+                      QWEN2_AUDIO_TOKENS, card, base,
+                      lambda a: model.get_audio_embeds(a))
+    k2 = qmm_kernel.launches
+    if q4["k2_token"] != per_token:
+        raise AssertionError(f"4-bit Qwen2-Audio: {q4['k2_token']} K2 "
+                             f"launches a token, want {per_token}")
+    rel = float(torch.linalg.norm(q4["logits"] - logits_bf16)
+                / torch.linalg.norm(logits_bf16))
+    if not (torch.isfinite(q4["logits"]).all() and rel < LLM_Q4_REL):
+        raise AssertionError(f"4-bit Qwen2-Audio first-step logits vs bf16: "
+                             f"relative {rel:.3e}")
+    alone, bound, n = k2_linears_alone(lm, card, "qwen2-audio-7b")
+    log(f"[qwen2-audio-7b] K2 launched {k2} times, {q4['k2_token']:.0f} a "
+        f"decode token (read from its counter; the config gives "
+        f"{per_token}); the LM's {n} linears alone {alone:.3f} ms a token "
+        f"(bound {bound:.3f} ms); {q4['nbytes'] / 1e9:.3f} GB a token with "
+        f"the f32 caches, bound {q4['bound']:.3f} ms against "
+        f"{q4['p50']:.2f} ms p50; peak {q4['peak']:.2f} GB; first-step "
+        f"logits 4-bit vs bf16 relative {rel:.3e} (limit {LLM_Q4_REL:g}) "
+        f"({card})")
+    del model, lm
+    torch.cuda.empty_cache()
+    log(f"[time] phase 43 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def phase_vibevoice_asr_encoders(card: str) -> None:
+    """Phase 44: VibeVoice-ASR's acoustic and semantic tokenizer encoders at
+    `TokenizerConfig()` dims (32 filters, ratios 8-5-5-4-2-2, depths
+    3-3-3-3-3-3-8; the LM small) in bf16 on 10 minutes of 24-kHz audio:
+    ms and peak memory, the rows' count (ceil(T / 3,200)) and finiteness;
+    the same model in f32 on the first 10 s against bf16 (relative)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.vibevoice_asr import Model
+    from mlx_audio_tpu_torch.stt.models.vibevoice_asr.vibevoice_asr import \
+        speech_token_count
+
+    t_phase = time.perf_counter()
+    cfg = dict(LLM_STT_SMALL["vibevoice_asr"])
+    cfg.pop("acoustic_tokenizer_config")
+    cfg.pop("semantic_tokenizer_config")
+    model = Model(cfg, device="cuda").init_params(seed=0, on_device=True)
+    n_enc = sum(p.numel() for name, p in model.named_parameters()
+                if "tokenizer" in name)
+    wav = (np.random.RandomState(0).randn(24000 * VIBEVOICE_ASR_SECONDS)
+           * 0.1).astype(np.float32)
+    f32 = model.encode_speech(wav[:240000])
+    model.astype(torch.bfloat16)
+    short = model.encode_speech(wav[:240000])
+    rel = rel_err(short, f32)
+    model.encode_speech(wav[:24000])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    feats = model.encode_speech(wav)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    n_tok = speech_token_count(len(wav), model.config.acoustic.encoder_ratios)
+    if not (feats.shape[0] == n_tok and torch.isfinite(feats).all()
+            and rel < 5e-2):
+        raise AssertionError(f"VibeVoice-ASR encoders: {tuple(feats.shape)} "
+                             f"(want {n_tok} rows), bf16 vs f32 rel {rel:.3e}")
+    hour = 59 * 60 / VIBEVOICE_ASR_SECONDS
+    log(f"[vibevoice-asr] the two tokenizer encoders at TokenizerConfig() "
+        f"({n_enc:,} params) in bf16 on {VIBEVOICE_ASR_SECONDS} s at 24 kHz "
+        f"({len(wav):,} samples): {ms:.1f} ms ({ms / VIBEVOICE_ASR_SECONDS:.3f}"
+        f" ms a second of audio), peak {peak:.2f} GB above the model, "
+        f"{n_tok} speech tokens, finite; on the first 10 s bf16 vs f32 rel "
+        f"{rel:.3e}; at the 59-minute cap the peak would scale to about "
+        f"{peak * hour:.1f} GB ({card})")
+    del model, feats
+    torch.cuda.empty_cache()
+    log(f"[time] phase 44 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_llm_stt(card: str, recorder: K2Recorder) -> int:
+    """Phases 41-44; K1 never launches, K2 only on the packed models. ->
+    K2's launches there."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_llm_stt_reference(Path(tmp), recorder)
+        torch.cuda.empty_cache()
+        k2 += phase_voxtral_mini(card, recorder, Path(tmp))
+    k2 += phase_qwen2_audio_7b(card, recorder)
+    phase_vibevoice_asr_encoders(card)
+    if snake_conv_kernel.launches != k1:
+        raise AssertionError("phases 41-44 launched K1")
+    log(f"[time] phases 41-44 in {time.perf_counter() - t0:.1f} s; K1 not "
         f"launched")
     return k2
 
@@ -7923,6 +8723,11 @@ def main() -> int:
     # checkpoints
     k2_launches += phase_qwen3_lm(card, recorder)
     log(f"[time] phases 1-40 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # the LLM-decoder STT families: K2 on the packed Voxtral and
+    # Qwen2-Audio
+    k2_launches += phase_llm_stt(card, recorder)
+    log(f"[time] phases 1-44 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -150,6 +150,50 @@ def _conv_transpose_from_jax(w: np.ndarray, groups: int) -> np.ndarray:
     return np.transpose(w, (2, 1, 3, 0)).reshape(groups * i_g, o // groups, width)
 
 
+_CONV1D_READS = {"torch": (2, 1, 0), "mlx": (1, 2, 0), "wio": None}
+
+
+def _conv1d_layouts(w_shape, torch_shape) -> list:
+    """The layouts (torch (O, I/g, K), MLX (O, K, I/g), the JAX tree's WIO
+    (K, I/g, O)) whose shape for a conv1d of `torch_shape` is `w_shape`."""
+    o, i, k = torch_shape
+    shapes = {"torch": (o, i, k), "mlx": (o, k, i), "wio": (k, i, o)}
+    return [name for name, s in shapes.items() if s == tuple(w_shape)]
+
+
+def convs_to_wio(weights: Mapping[str, Any], shapes: Mapping[str, tuple],
+                 is_conv) -> Dict[str, Any]:
+    """`weights` with each conv1d weight (`is_conv(name, array)`, of a
+    name in `shapes`, the model's own torch shapes) read into WIO from the
+    layout its shape shows: torch (O, I/g, K), MLX (O, K, I/g) or WIO. A
+    shape that fits more than one (O == K, say) takes the one layout the
+    checkpoint's other conv weights show; a shape that fits none, or a
+    checkpoint whose unambiguous convs show no single layout, raises."""
+    convs = {k: _conv1d_layouts(np.shape(v), shapes[k])
+             for k, v in weights.items() if k in shapes and is_conv(k, v)}
+    for k, fits in convs.items():
+        if not fits:
+            o, i, kk = shapes[k]
+            raise ValueError(
+                f"{k}: shape {tuple(np.shape(weights[k]))} is none of "
+                f"torch's {(o, i, kk)}, MLX's {(o, kk, i)} or WIO "
+                f"{(kk, i, o)}")
+    seen = {fits[0] for fits in convs.values() if len(fits) == 1}
+    out = dict(weights)
+    for k, fits in convs.items():
+        if len(fits) > 1:
+            if len(seen) != 1 or next(iter(seen)) not in fits:
+                raise ValueError(
+                    f"{k}: shape {tuple(np.shape(weights[k]))} fits the "
+                    f"{' and '.join(fits)} layouts, and the checkpoint's "
+                    f"other conv weights show {sorted(seen) or 'none'}")
+            fits = list(seen)
+        axes = _CONV1D_READS[fits[0]]
+        if axes is not None:
+            out[k] = np.transpose(np.asarray(out[k]), axes)
+    return out
+
+
 def _unstack(model: TorchModel, flat: Mapping[str, Any]) -> Dict[str, Any]:
     """Split the leading layer axis of the JAX tree's stacked layer leaves
     (`model.JAX_STACKED` prefixes) into per-layer names: `p.k` (L, ...) ->

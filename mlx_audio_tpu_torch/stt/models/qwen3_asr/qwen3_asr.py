@@ -57,6 +57,7 @@ from ....model import TorchModel, check_device, holder
 from ....nn import Conv2d, LayerNorm, Linear, gelu
 from ....ops.attention import attention
 from ...models.base import STTOutput
+from ...models.llm_stt import as_audio
 from ...models.qwen3_lm import (DEC_CHUNK, iter_decode, make_decode_fns)
 from ....tts.models.base import local_tokenizer
 from ....tts.models.moss_tts.moss_tts import (Qwen3LM, lm_logits,
@@ -555,14 +556,7 @@ class Model(TorchModel):
 
     @staticmethod
     def _load(audio) -> np.ndarray:
-        from ....utils import load_audio
-
-        x = audio[0] if isinstance(audio, list) else audio
-        if isinstance(x, (str, Path)):
-            x = load_audio(x, sample_rate=16000)
-        if isinstance(x, torch.Tensor):
-            x = x.detach().float().cpu().numpy()
-        return np.asarray(x, np.float32).reshape(-1)
+        return as_audio(audio, 16000)
 
     # ------------------------------------------------------------ loading
 

@@ -6,8 +6,9 @@ families in `PORTED` are ported. `load_model` reads a local checkpoint
 directory (config.json + npz or safetensors weights), maps its names onto
 the JAX tree's with the family's `sanitize`, fills the model through
 `model.load_jax_params`, the one place where layouts are converted, and
-runs the family's `post_load_hook` (Voxtral's reads `tekken.json`, Cohere
-ASR's its tokenizer and mel filterbank, Canary's its tokenizer). Every
+runs the family's `post_load_hook` (Voxtral's and Voxtral Realtime's read
+`tekken.json`, Cohere ASR's its tokenizer and mel filterbank, Canary's its
+tokenizer, the LLM-decoder families' their HF tokenizer files). Every
 family binds through `utils.bind_checkpoint`, as the JAX package's loader
 binds every family: an MLX-packed checkpoint's leaves are unpacked (its
 linears then run on kernel K2 on the card), a dense one is quantized per
@@ -78,7 +79,9 @@ MODEL_REMAPPING = {
 
 # families of MODEL_REMAPPING's values that the port has
 PORTED = ("whisper", "voxtral_realtime", "cohere_asr", "parakeet", "canary",
-          "nemotron_asr", "qwen3_asr", "qwen3_forced_aligner", "mega_asr")
+          "nemotron_asr", "qwen3_asr", "qwen3_forced_aligner", "mega_asr",
+          "voxtral", "qwen2_audio", "glmasr", "granite_speech",
+          "vibevoice_asr")
 
 
 def model_family(config: dict, path: Path, name_parts=None):

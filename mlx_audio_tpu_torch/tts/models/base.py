@@ -26,10 +26,12 @@ def peak_memory_gb() -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def local_tokenizer(model_path):
+def local_tokenizer(model_path, **kwargs):
     """The HF tokenizer saved in `model_path`, never downloaded: None when
     the directory holds no tokenizer files or `transformers` is not
-    installed; any other failure to read the files raises."""
+    installed; any other failure to read the files raises. `kwargs` go to
+    `AutoTokenizer.from_pretrained` (`trust_remote_code=True` for a
+    tokenizer whose code is in the directory)."""
     path = Path(model_path)
     if not any((path / f).exists() for f in (
             "tokenizer.json", "tokenizer_config.json", "tokenizer.model")):
@@ -38,7 +40,7 @@ def local_tokenizer(model_path):
         from transformers import AutoTokenizer
     except ImportError:
         return None
-    return AutoTokenizer.from_pretrained(str(path))
+    return AutoTokenizer.from_pretrained(str(path), **kwargs)
 
 
 @dataclass

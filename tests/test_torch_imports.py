@@ -622,6 +622,108 @@ def test_tiny_qwen3_lm_families_without_jax(tmp_path):
     assert out.strip().splitlines()[-1] == "False []", out
 
 
+LLM_STT_SOURCES = (
+    "mlx_audio_tpu_torch/stt/models/llm_stt.py",
+    "mlx_audio_tpu_torch/stt/models/voxtral/voxtral.py",
+    "mlx_audio_tpu_torch/stt/models/voxtral/__init__.py",
+    "mlx_audio_tpu_torch/stt/models/qwen2_audio/qwen2_audio.py",
+    "mlx_audio_tpu_torch/stt/models/qwen2_audio/__init__.py",
+    "mlx_audio_tpu_torch/stt/models/glmasr/glmasr.py",
+    "mlx_audio_tpu_torch/stt/models/glmasr/__init__.py",
+    "mlx_audio_tpu_torch/stt/models/granite_speech/granite_speech.py",
+    "mlx_audio_tpu_torch/stt/models/granite_speech/__init__.py",
+    "mlx_audio_tpu_torch/stt/models/vibevoice_asr/vibevoice_asr.py",
+    "mlx_audio_tpu_torch/stt/models/vibevoice_asr/__init__.py")
+
+
+def test_llm_stt_families_are_checked_statically():
+    """The LLM-decoder STT families' modules are among the sources whose
+    imports `test_source_imports_nothing_of_jax` checks."""
+    assert set(LLM_STT_SOURCES) <= set(PORT_SOURCES)
+
+
+def test_tiny_llm_stt_families_without_jax(tmp_path):
+    """Offline Voxtral from an MLX-packed q8 directory through
+    `stt.utils.load_model` (its linears on QuantizedLinear), Qwen2-Audio on
+    an affine 4-bit LM, GLM-ASR, Granite Speech (whole and streamed) and
+    VibeVoice-ASR, each a greedy generate on the CPU at a tiny size from
+    seed 0 with a stand-in tokenizer; no jax in sys.modules."""
+    out = _run("""
+        import sys
+        from pathlib import Path
+        import numpy as np
+        from chip_smoke import write_llm_stt_checkpoint, write_mistral_tekken
+        from mlx_audio_tpu_torch.nn import QuantizedLinear
+        from mlx_audio_tpu_torch.stt.models import (glmasr, granite_speech,
+                                                    qwen2_audio,
+                                                    vibevoice_asr, voxtral)
+        from mlx_audio_tpu_torch.stt.utils import load_model
+        from mlx_audio_tpu_torch.utils import apply_quantization
+
+        class Tok:
+            eos_token_id = 3
+            chat_template = None
+            def encode(self, text, **kw):
+                return [7 + ord(c) %% 40 for c in text[:30]]
+            def decode(self, toks, skip_special_tokens=True):
+                return " ".join(str(t) for t in toks)
+
+        lm = dict(hidden_size=32, num_hidden_layers=1, intermediate_size=64,
+                  num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+                  vocab_size=256)
+        tower = dict(d_model=32, encoder_layers=1, encoder_attention_heads=4,
+                     encoder_ffn_dim=64, num_mel_bins=32)
+        audio = (np.random.RandomState(0).randn(16000) * 0.1).astype(
+            np.float32)
+        v = voxtral.Model(dict(audio_config=dict(tower, intermediate_size=128),
+                               text_config=lm), device="cpu").init_params(0)
+        d = Path(%r) / "voxtral-q8"
+        write_llm_stt_checkpoint(v, d, bits=8, group_size=32)
+        write_mistral_tekken(d / "tekken.json", 40, 256)
+        v = load_model(d, device="cpu")
+        assert sum(isinstance(x, QuantizedLinear) for x in v.modules()) == 10
+        assert v.generate(audio, max_tokens=8).generation_tokens <= 8
+        q = qwen2_audio.Model(dict(audio_config=tower, text_config=lm),
+                              device="cpu").init_params(0)
+        apply_quantization(q, {"quantization": {"bits": 4, "group_size": 32}},
+                           q.model_quant_predicate)
+        q._tokenizer = Tok()
+        assert q.generate(audio, max_tokens=8).generation_tokens <= 8
+        g = glmasr.Model(dict(merge_factor=2, whisper_config=dict(
+            d_model=16, encoder_attention_heads=2, encoder_ffn_dim=32,
+            encoder_layers=1, num_mel_bins=16), lm_config=dict(
+            lm, eos_token_id=[3])), device="cpu").init_params(0)
+        g._tokenizer = Tok()
+        assert g.generate(audio, max_tokens=8).generation_tokens <= 8
+        gr = granite_speech.Model(dict(
+            encoder_config=dict(input_dim=20, num_layers=2, hidden_dim=32,
+                                num_heads=4, dim_head=8, output_dim=10,
+                                context_size=8, max_pos_emb=16,
+                                conv_kernel_size=5),
+            projector_config=dict(hidden_size=32, num_hidden_layers=1,
+                                  num_attention_heads=4,
+                                  intermediate_size=64,
+                                  encoder_hidden_size=32),
+            text_config=dict(lm, embedding_multiplier=12.0,
+                             residual_multiplier=0.22, logits_scaling=8.0),
+            audio_token_index=250), device="cpu").init_params(0)
+        out = gr.generate(audio, max_tokens=8)
+        parts = list(gr.generate(audio, max_tokens=8, stream=True))
+        assert parts[-1].is_final and len(parts) - 1 == out.generation_tokens
+        vv = vibevoice_asr.Model(dict(
+            acoustic_tokenizer_config=dict(vae_dim=8, encoder_n_filters=4,
+                                           encoder_ratios=[4, 2],
+                                           encoder_depths="1-1-2"),
+            semantic_tokenizer_config=dict(vae_dim=12, encoder_n_filters=4,
+                                           encoder_ratios=[4, 2],
+                                           encoder_depths="1-1-2"),
+            decoder_config=lm), device="cpu").init_params(0)
+        assert vv.generate(audio[:4000], max_tokens=8).generation_tokens <= 8
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip().splitlines()[-1] == "False []", out
+
+
 def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
     """The STS families on the CPU at a tiny size from seeded weights
     (chip_smoke.py's small configs): a greedy Moshi generate through its
@@ -740,6 +842,9 @@ def _entry_points():
     from mlx_audio_tpu_torch.stt.models import (mega_asr, qwen3_asr,
                                                 qwen3_forced_aligner)
     from mlx_audio_tpu_torch.tts.models import qwen3
+    from mlx_audio_tpu_torch.stt.models import (glmasr, granite_speech,
+                                                qwen2_audio, vibevoice_asr,
+                                                voxtral)
     from mlx_audio_tpu_torch.vad import utils as vad_utils
     from mlx_audio_tpu_torch.vad.models import silero_vad
 
@@ -824,6 +929,19 @@ def _entry_points():
             lambda p: mega_asr.AudioQualityRouter({})),
         "qwen3.Model": (qwen3.Model.__init__,
                         lambda p: qwen3.Model(qwen3.ModelConfig())),
+        "voxtral.Model": (voxtral.Model.__init__,
+                          lambda p: voxtral.Model(voxtral.ModelConfig())),
+        "qwen2_audio.Model": (qwen2_audio.Model.__init__,
+                              lambda p: qwen2_audio.Model(
+                                  qwen2_audio.ModelConfig())),
+        "glmasr.Model": (glmasr.Model.__init__,
+                         lambda p: glmasr.Model(glmasr.ModelConfig())),
+        "granite_speech.Model": (granite_speech.Model.__init__,
+                                 lambda p: granite_speech.Model(
+                                     granite_speech.ModelConfig())),
+        "vibevoice_asr.Model": (vibevoice_asr.Model.__init__,
+                                lambda p: vibevoice_asr.Model(
+                                    vibevoice_asr.ModelConfig())),
     }
 
 
@@ -851,7 +969,10 @@ def _entry_points():
                                   "qwen3_forced_aligner.Model",
                                   "mega_asr.Model",
                                   "mega_asr.AudioQualityRouter",
-                                  "qwen3.Model"])
+                                  "qwen3.Model", "voxtral.Model",
+                                  "qwen2_audio.Model", "glmasr.Model",
+                                  "granite_speech.Model",
+                                  "vibevoice_asr.Model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

@@ -25,7 +25,9 @@ NAMES = ["Kokoro-82M", "prince-canuma/Kokoro-82M",
          "parakeet-tdt-0.6b-v2", "canary-1b-flash", "smart-turn-v3",
          "sesame/csm-1b", "canopylabs/orpheus-3b-0.1-ft",
          "orpheus-3b-0.1-ft-4bit", "svara-tts-v1", "Qwen3-ASR-0.6B-8bit",
-         "Qwen3-ForcedAligner-0.6B", "mega-asr-v1", "VyvoTTS-v0-Qwen3-0.6B"]
+         "Qwen3-ForcedAligner-0.6B", "mega-asr-v1", "VyvoTTS-v0-Qwen3-0.6B",
+         "Voxtral-Mini-3B-2507", "Qwen2-Audio-7B-Instruct-4bit",
+         "GLM-ASR-Nano-2512", "granite-speech-3.3-2b", "VibeVoice-ASR"]
 
 MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
                "voxtral_realtime", "cohere_asr", "higgs_audio", "kugelaudio",
@@ -33,7 +35,9 @@ MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
                "ecapa_tdnn", "sortformer", "bark", "llama", "csm", "sesame",
                "orpheus", "svara", "tada", "qwen3_asr", "qwen3_omni_moe",
                "qwen3_forced_aligner", "forced_aligner", "mega_asr",
-               "qwen3", "vyvo", "vyvotts", "nonsense"]
+               "qwen3", "vyvo", "vyvotts", "voxtral", "qwen2_audio",
+               "qwen2audio", "glmasr", "glm_asr", "granite_speech", "granite",
+               "vibevoice_asr", "vibevoiceasr", "nonsense"]
 
 
 @pytest.mark.parametrize("category", ["tts", "stt", "sts", "vad"])
@@ -194,6 +198,47 @@ def test_qwen3_lm_families_reach_their_loaders(tmp_path, model_type,
     assert family in loader.PORTED
     with pytest.raises(FileNotFoundError, match="No weight files"):
         load_model(d, device="cpu")
+
+
+@pytest.mark.parametrize("model_type,family", [
+    ("qwen2_audio", "qwen2_audio"), ("qwen2audio", "qwen2_audio"),
+    ("glmasr", "glmasr"), ("glm_asr", "glmasr"),
+    ("granite_speech", "granite_speech"), ("granite", "granite_speech"),
+    ("vibevoice_asr", "vibevoice_asr"), ("vibevoiceasr", "vibevoice_asr")])
+def test_llm_stt_families_reach_their_loaders(tmp_path, model_type, family):
+    """A config-only directory of each LLM-decoder STT family's types is an
+    STT checkpoint of that family in JAX's router, ported now: it reaches
+    the STT loader, which finds no weights."""
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.stt import utils as stt_utils
+    from mlx_audio_tpu_torch.utils import resolve_family
+
+    d = _config_only(tmp_path / "ckpt", model_type=model_type)
+    assert jax_category(model_type, []) == "stt"
+    assert resolve_family(model_type, [],
+                          stt_utils.MODEL_REMAPPING) == family
+    assert family in stt_utils.PORTED
+    with pytest.raises(FileNotFoundError, match="No weight files"):
+        load_model(d, device="cpu")
+
+
+def test_voxtral_type_is_tts_in_the_router_and_stt_in_its_loader(tmp_path):
+    """model_type "voxtral" is a TTS key too (Voxtral TTS), which JAX's
+    router reads first: the top-level router sends it to the TTS loader,
+    which names the family it lacks, as JAX's does; the STT loader takes
+    it as offline Voxtral, ported now."""
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.stt import utils as stt_utils
+
+    d = _config_only(tmp_path / "ckpt", model_type="voxtral")
+    assert jax_category("voxtral", []) == "tts"
+    with pytest.raises(ValueError, match="voxtral_tts"):
+        load_model(d, device="cpu")
+    assert "voxtral" in stt_utils.PORTED
+    with pytest.raises(FileNotFoundError, match="No weight files"):
+        stt_utils.load_model(d, device="cpu")
 
 
 @pytest.mark.parametrize("name,family", [

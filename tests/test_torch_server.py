@@ -1192,6 +1192,57 @@ def test_qwen3_asr_and_aligner_transcriptions_by_directory(tmp_path,
         al.text, al.segments, "English")
 
 
+@pytest.mark.parametrize("family", ["qwen2_audio", "granite_speech",
+                                    "vibevoice_asr"])
+def test_llm_stt_transcription_by_directory(tmp_path, monkeypatch, family):
+    """A tiny Qwen2-Audio, Granite Speech and VibeVoice-ASR directory
+    served by path through the transcription route (their tokenizer the
+    JAX tests' stand-in): the text of the directory's model's own
+    generate()."""
+    import importlib
+
+    from chip_smoke import write_llm_stt_checkpoint
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    tests = importlib.import_module(f"test_torch_{family}")
+    make_tok = getattr(tests, "tok2" if family == "granite_speech"
+                       else "fake_tok")
+
+    def tokenizer(path, **kw):
+        tok = make_tok()
+        if family == "vibevoice_asr":     # the ids its hook reads
+            tok.convert_tokens_to_ids = {
+                "<|object_ref_start|>": 151646, "<|object_ref_end|>": 151647,
+                "<|box_start|>": 151648}.get
+        return tok
+
+    module = importlib.import_module(
+        f"mlx_audio_tpu_torch.stt.models.{family}.{family}")
+    monkeypatch.setattr(module, "local_tokenizer", tokenizer)
+    d = tmp_path / f"{family}-tiny"
+    write_llm_stt_checkpoint(tests.make_pair(tok=False)[1], d)
+    audio = (np.random.RandomState(16).randn(8000) * 0.1).astype(np.float32)
+    wav = _wav(audio, 16000)
+
+    async def go():
+        server = AudioServer(device="cpu")
+        try:
+            return await server.transcribe(
+                {"model": str(d), "response_format": "json",
+                 "max_tokens": "16"}, wav)
+        finally:
+            server.close()
+
+    reply = _run(go())
+    assert reply.status == 200, reply.json
+    heard = _read(wav)[0]
+    model = load_model(d, device="cpu")
+    want = model.generate(heard, max_tokens=16)
+    assert want.generation_tokens > 0
+    assert reply.json["text"] == want.text
+
+
 def test_vyvotts_speech_by_directory(tmp_path, monkeypatch):
     """A tiny VyvoTTS directory (its SNAC in snac/, the stand-in tokenizer)
     served by path through /v1/audio/speech: the WAV of the directory's

@@ -21,10 +21,43 @@ on the card, relative error max|a-b|/max|b| as chip_smoke.py: f32 1e-4,
 bf16 1e-2.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+# torch's fp32 precision settings that a CPU conv or matmul reads
+_MKLDNN_FP32 = ("matmul", "conv")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Both sides of an f32 comparison at full f32, restored on exit: JAX's
+    default matmul precision "highest" (a dot left at DEFAULT may be lowered
+    with a shorter mantissa, and an executable compiled so may come back
+    from the persistent compile cache; "highest" is another program, with
+    its own cache key), torch's float32 matmul precision "highest" and
+    oneDNN's conv and matmul fp32 precision "ieee" where this torch has
+    those settings."""
+    import jax
+
+    mk = torch.backends.mkldnn
+    has = [op for op in _MKLDNN_FP32
+           if hasattr(getattr(mk, op, None), "fp32_precision")]
+    prev = (torch.get_float32_matmul_precision(),
+            [getattr(mk, op).fp32_precision for op in has])
+    torch.set_float32_matmul_precision("highest")
+    for op in has:
+        getattr(mk, op).fp32_precision = "ieee"
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        for op, value in zip(has, prev[1]):
+            getattr(mk, op).fp32_precision = value
 
 
 def _inputs(seed, b, t, c, k, dtype=np.float32):
@@ -64,13 +97,41 @@ def _jax_call(inp, dilation, vlen, dtype=None):
 
 @pytest.mark.parametrize("k,dilation", [(3, 1), (3, 3), (7, 1), (7, 3)])
 def test_reference_matches_pallas_f32(k, dilation):
-    """B=2 with ragged valid lengths (one row full, one cut)."""
+    """B=2 with ragged valid lengths (one row full, one cut); both sides
+    pinned to full f32 (`full_f32`)."""
     inp = _inputs(4, 2, 300, 128, k)
     vlen = [300, 170]
-    got = _port_call(inp, dilation, vlen)
-    want = _jax_call(inp, dilation, vlen)
+    with full_f32():
+        got = _port_call(inp, dilation, vlen)
+        want = _jax_call(inp, dilation, vlen)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_full_f32_pins_and_restores_the_settings():
+    """Inside `full_f32` JAX's and torch's f32 precision are the highest;
+    on exit each setting is what it was, even one that a test left lowered
+    (here torch's float32 matmul precision at "medium")."""
+    import jax
+
+    before = torch.get_float32_matmul_precision()
+    jax_before = jax.config.jax_default_matmul_precision
+    torch.set_float32_matmul_precision("medium")
+    try:
+        mk = torch.backends.mkldnn
+        has = [op for op in _MKLDNN_FP32
+               if hasattr(getattr(mk, op, None), "fp32_precision")]
+        outer = [getattr(mk, op).fp32_precision for op in has]
+        with full_f32():
+            assert torch.get_float32_matmul_precision() == "highest"
+            assert jax.config.jax_default_matmul_precision == "highest"
+            assert all(getattr(mk, op).fp32_precision == "ieee"
+                       for op in has)
+        assert torch.get_float32_matmul_precision() == "medium"
+        assert jax.config.jax_default_matmul_precision == jax_before
+        assert [getattr(mk, op).fp32_precision for op in has] == outer
+    finally:
+        torch.set_float32_matmul_precision(before)
 
 
 def test_reference_matches_pallas_bf16():

@@ -715,3 +715,107 @@ def test_aligner_cli_writes_the_word_times(tmp_path, monkeypatch):
                    "language": "English"}
     assert [s["text"] for s in got["segments"]] == TEXT.replace(
         ",", "").split()
+
+
+# ---------------------------------------------------------------------------
+# the LLM-decoder STT families
+# ---------------------------------------------------------------------------
+
+
+def _load_with(monkeypatch, attr: str, tok):
+    """Patch the CLI's loader to load on the CPU and set the model's
+    tokenizer attribute `attr` to `tok` -> the real loader."""
+    import mlx_audio_tpu_torch.stt.utils as stt_utils
+
+    real = stt_utils.load_model
+
+    def load(p):
+        m = real(p, device="cpu")
+        setattr(m, attr, tok)
+        return m
+
+    monkeypatch.setattr(stt_utils, "load_model", load)
+    return real
+
+
+def test_voxtral_cli_matches_jax(tmp_path, monkeypatch):
+    """The STT CLI on an offline Voxtral directory (torch conv layouts,
+    tekken.json): its json equals the JAX package's CLI function's on the
+    JAX package's load of the same directory, byte for byte."""
+    import shutil
+
+    from chip_smoke import write_llm_stt_checkpoint
+    from mlx_audio_tpu.stt.generate import (
+        generate_transcription as jax_generate_transcription)
+    from mlx_audio_tpu.stt.utils import load_model as jax_load_model
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.stt.generate import main
+    from test_torch_voxtral import make_pair
+    from test_voxtral import make_tekken
+
+    tekken = make_tekken(tmp_path)
+    d = tmp_path / "voxtral-tiny"
+    write_llm_stt_checkpoint(make_pair(tekken)[1], d)
+    shutil.copy(tekken, d / "tekken.json")
+    wav = tmp_path / "speech.wav"
+    audio_io.write(wav, (np.random.RandomState(14).randn(32000) * 0.1)
+                   .astype(np.float32), 16000)
+    import mlx_audio_tpu_torch.stt.utils as stt_utils
+
+    real = stt_utils.load_model
+    monkeypatch.setattr(stt_utils, "load_model",
+                        lambda p: real(p, device="cpu"))
+    main(["--model", str(d), "--audio", str(wav), "--max-tokens", "24",
+          "--format", "json", "--no-verbose", "--output-path",
+          str(tmp_path / "port")])
+    jax_generate_transcription(
+        str(d), str(wav), model=jax_load_model(str(d)),
+        output_path=str(tmp_path / "jax"), format="json", verbose=False,
+        max_tokens=24)
+    got = (tmp_path / "port" / "transcription.json").read_text("utf-8")
+    assert got == (tmp_path / "jax" / "transcription.json").read_text(
+        "utf-8")
+    out = real(d, device="cpu").generate(str(wav), max_tokens=24)
+    assert out.generation_tokens > 0
+    assert json.loads(got)["text"] == out.text
+
+
+@pytest.mark.parametrize("family", ["glmasr", "granite_speech"])
+def test_llm_stt_cli_streams(tmp_path, monkeypatch, capsys, family):
+    """`--stream` on a GLM-ASR directory (one result a 30-s chunk) and a
+    Granite Speech directory (one a token): the CLI prints and writes the
+    streamed texts, joined, and in-process `generate(stream=True)` gives
+    the same; without `--stream` the CLI writes `generate`'s text."""
+    from chip_smoke import write_llm_stt_checkpoint
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.stt.generate import main
+
+    if family == "glmasr":
+        from test_torch_glmasr import fake_tok, make_pair
+    else:
+        from test_torch_granite_speech import make_pair
+        from test_torch_granite_speech import tok2 as fake_tok
+    d = tmp_path / family
+    write_llm_stt_checkpoint(make_pair(tok=False)[1], d)
+    wav = tmp_path / "speech.wav"
+    audio_io.write(wav, (np.random.RandomState(15).randn(16000) * 0.1)
+                   .astype(np.float32), 16000)
+    real = _load_with(monkeypatch, "_tokenizer", fake_tok())
+    m = real(d, device="cpu")
+    m._tokenizer = fake_tok()
+    parts = [r.text for r in m.generate(str(wav), max_tokens=12,
+                                        stream=True)]
+    whole = m.generate(str(wav), max_tokens=12).text
+    assert "".join(parts)
+    capsys.readouterr()
+    main(["--model", str(d), "--audio", str(wav), "--max-tokens", "12",
+          "--stream", "--format", "txt", "--output-path",
+          str(tmp_path / "stream")])
+    assert "".join(parts) in capsys.readouterr().out
+    assert (tmp_path / "stream" / "transcription.txt").read_text(
+        "utf-8") == "".join(parts).strip() + "\n"
+    main(["--model", str(d), "--audio", str(wav), "--max-tokens", "12",
+          "--format", "txt", "--no-verbose", "--output-path",
+          str(tmp_path / "whole")])
+    assert (tmp_path / "whole" / "transcription.txt").read_text(
+        "utf-8") == whole.strip() + "\n"

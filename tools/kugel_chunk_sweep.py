@@ -34,6 +34,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# the lane's request (bench.py:589-642), which chip_smoke.py cuts to
+# KUGEL_FRAMES to keep its run's time
+LANE_FRAMES = 64
 sys.path.insert(0, str(ROOT))
 
 
@@ -88,9 +91,9 @@ def main() -> int:
                                  f"frames run against {state['frame']} picks")
         return wall, run
 
-    cases = (("lane, 64 frames", None, cs.KUGEL_FRAMES),
+    cases = (("lane, 64 frames", None, LANE_FRAMES),
              (f"END after {args.end} latents", args.end, 2048))
-    request(None, cs.KUGEL_FRAMES, 0)               # warm-up
+    request(None, LANE_FRAMES, 0)                   # warm-up
     runs = {(chunk, i): [] for chunk in chunks for i in range(len(cases))}
     for rep in range(args.reps):
         for chunk in chunks:
