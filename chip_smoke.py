@@ -43,7 +43,12 @@ LLM-decoder STT families: offline Voxtral-Mini-3B speech -> text (a
 Whisper-style tower and a Mistral LM) in bf16 and with its LM on K2 in 8
 bits, Qwen2-Audio-7B with its LM on K2 in 4 bits, GLM-ASR, Granite Speech
 and VibeVoice-ASR's long-form encoders, through `load_model`, `generate`,
-the STT CLI and the server's transcription route.
+the STT CLI and the server's transcription route; and OuteTTS text ->
+audio (a llama over descript's DAC) in bf16 and with every linear on K2
+in 8 bits, Pocket-TTS (Kyutai's flow-matching TTS over Mimi latents),
+EnCodec, MMS speech recognition and language ID by wav2vec2 (MMS-LID) and
+ECAPA-TDNN, through `load_model`, `generate`, `predict` and the TTS and
+STT CLIs. Each phase's functions log their seconds as `[step]` lines.
 
     python3 chip_smoke.py
 
@@ -91,8 +96,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    qwen3_tts_1b7), seeded random bf16 weights quantized to affine 8-bit
    (group 64): `generate(text_ids=...)` requests of 20 ids / 60 frames
    (cold) and the JAX lane's 50 ids cut to 30 frames from its 100 (50
-   until phases 41-44 came; cold,
-   then warm; the short one ran warm too until phase 26 came): audio length and
+   until phases 41-44 came; cold; it ran warm too until phases 45-48
+   came, the short one until phase 26 came): audio length and
    finiteness, and K2's launch count against the count the config gives
    for the steps that ran (722 per decode step; the model must hold
    exactly the quantized linears the config gives), and the decode steps
@@ -200,7 +205,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    frame bucket (relative Frobenius under 2e-2), the encoder's time a
    batch (CUDA events) and its share of 989 TFLOP/s; the lane's workload
    (bench.py:856-869, its 600 s cut to 240: `randn * 0.1` at seed 0,
-   language "en", max_tokens 150) cold, then warm best of 3: wall, xRT,
+   language "en", max_tokens 150) cold, then warm: wall, xRT,
    segments (8, one batch of the 8-row encoder check),
    tokens, decode steps and ms a step, the host mel's time, peak device
    memory; every batch's encoder rows finite, the runs' texts equal.
@@ -370,7 +375,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    tests/test_moshi.py (its Mimi: phase 27's), tests/test_mel_roformer.py
    and tests/test_deepfilternet.py at f32 from one seeded weight set,
    CUDA against the CPU: Moshi's 16 greedy LmGen steps (tokens equal) and
-   a greedy generate over a 2-s clip (2,000 steps of the tiny Mimi's 1-ms
+   a greedy generate over a 0.5-s clip (500 steps of the tiny Mimi's 1-ms
    frames; text tokens equal, audio within 1e-4); the same LM at widths
    group 64 divides, affine q8 through K2 against the same model through
    `qmatmul_reference` on the card (tokens equal, first-step logits within
@@ -383,12 +388,13 @@ the CUDA toolkit. Phases, each of which raises on failure:
    subprocess (TF32 off) writing the WAV of in-process generate(), and one
    Mel-Band-RoFormer separation through `AudioServer` equal to separate().
 33. Moshi v0.1 (`config_v0_1()`, 7.69 B) drawn on the card in bf16 tensor
-   by tensor, its Mimi at mimi_202407(8) in f32: generate over 6 s of
-   seeded input (75 steps; 10 s until phases 41-44 came) at the default
-   temperatures, seed 0, after a
+   by tensor, its Mimi at mimi_202407(8) in f32: generate over 4 s of
+   seeded input (50 steps; 10 s until phases 41-44 came, 6 s until
+   phases 45-48) at the default temperatures, seed 0, after a
    2-s warm-up: ms a step p50 and p95 against the 80-ms frame, wall,
    the steps' realtime factor, peak memory; kernels and device time a
-   step from 8 profiled steps, and the busy share (that device time over
+   step from 4 profiled steps (8 until phases 45-48 came), and the busy
+   share (that device time over
    the generate's mean step). Then the same model in affine q8 (group
    64): the same numbers, K2's launches exactly 337 a step (the model
    must hold the config's quantized linears), and the first step's text
@@ -422,13 +428,14 @@ the CUDA toolkit. Phases, each of which raises on failure:
    B parameters) drawn on the card in f32 from seed 0, the token table's
    code and SOS rows scaled by 4 so that the tied head draws codes, cast
    to bf16; SNAC at hubertsiuzdak/snac_24khz's settings in f32: after a
-   32-token warm-up, one 128-token request whole (512 until phases 38-40
-   came, 256 until phases 41-44; temperature 0.6, top_p
-   0.8, repetition penalty 1.3; ms a token p50 and p95 over its chunks,
-   the share of tokens that are SNAC codes, at least 80%; wall, xRT, SNAC
-   decode ms, peak memory) and one of 128 tokens streamed every 1.0 s
-   (time to first audio), then one profiled 32-token chunk (kernels,
-   device ms and busy share a token) against the token's byte bound.
+   32-token warm-up, one 128-token request (512 until phases 38-40 came,
+   256 until phases 41-44) streamed every 1.0 s (it also ran whole until
+   phases 45-48 came; temperature 0.6, top_p 0.8, repetition penalty 1.3;
+   time to first audio, ms a token p50 and p95 over its chunks, the share
+   of tokens that are SNAC codes, at least 80%; wall, xRT, SNAC decode ms
+   of as many frames, peak memory), then one profiled 32-token chunk
+   (kernels, device ms and busy share a token) against the token's byte
+   bound.
 37. The same weights packed in memory to MLX's 4-bit layout (group 64, as
    mlx-community ships Orpheus) and loaded through `apply_quantization`'s
    pre-quantized path: every linear on K2 (the tied table dense), the
@@ -462,8 +469,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    linear on K2, the tied table dense): each on 30 s of `randn * 0.1` at
    seed 0, greedy, max_tokens 128 (256 until phases 41-44 came): encoder
    ms, prefill ms at its bucket,
-   ms a token p50 and p95, xRT, peak memory, a profiled chunk (kernels,
-   device ms and busy share a token) and the token's byte bound; in q8,
+   ms a token p50 and p95, xRT, peak memory, 8 profiled steps (a 32-step
+   chunk until phases 45-48 came; kernels, device ms and busy share a
+   token) and the token's byte bound; in q8,
    K2's launches a decode token read from its counter against the
    config's 28 x 7 = 196, the LM's 196 linears alone (one CUDA graph) and
    at the prefill's bucket against cuBLAS bf16, and the first step's
@@ -473,9 +481,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    tower at `AudioEncoderConfig()` with output_dim 1024) aligning 60
    words to 30 s, cold and warm; VyvoTTS (180,352 ids, the code rows
    scaled by 4 so that the tied head draws codes; SNAC 24 kHz in f32) on
-   a 128-token request whole (256 until phases 41-44 came; ms a token p50
-   and p95, the share of SNAC
-   codes, at least 80%) and streamed every 0.5 s (time to first audio).
+   a 128-token request (256 until phases 41-44 came) streamed every 0.5 s
+   (it also ran whole until phases 45-48 came; time to first audio, ms a
+   token p50 and p95, the share of SNAC codes, at least 80%).
    K1 never launches in phases 38-40, K2 only on the q8 models; their
    shapes join phase 8's final check, their launches the `kernels` line.
 41. The LLM-decoder STT families' small configs (the JAX tests' tiny
@@ -494,8 +502,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    parameters) seeded on the card in bf16, then its projector and LM
    packed in memory to MLX's 8-bit layout (group 64; the tower dense) and
    loaded through the pre-quantized path: each on 30 s of `randn * 0.1`
-   at seed 0, greedy, max_tokens 256: tower ms, prefill ms, ms a token p50
-   and p95, xRT, peak memory, a profiled chunk (kernels, device ms and
+   at seed 0, greedy, max_tokens 128 (256 until phases 45-48 came): tower
+   ms, prefill ms, ms a token p50 and p95, xRT, peak memory, 8 profiled
+   steps (a 32-step chunk until phases 45-48 came; kernels, device ms and
    busy share a token), bytes and bound a token; in q8, K2's launches a
    token read from its counter against 30 x 7 + 1, the LM's linears alone
    (one CUDA graph) and at the prefill's M against cuBLAS bf16 with their
@@ -515,6 +524,50 @@ the CUDA toolkit. Phases, each of which raises on failure:
    s. K1 never launches in phases 41-44, K2 only on the packed models;
    their shapes join phase 8's final check, their launches the `kernels`
    line.
+45. OuteTTS, Pocket-TTS, EnCodec, MMS and language ID on small configs
+   (the JAX tests' tiny ones; OuteTTS a 2-layer llama at d64 over the
+   tiny DAC with two codebooks, stand-in tokenizers) at f32 from one
+   seeded weight set, the card against the CPU: the DAC's encode codes
+   equal and its `from_codes` and decode within 1e-4; EnCodec's round
+   trip; OuteTTS's 40 greedy tokens equal and its DAC audio; an
+   MLX-packed q8 OuteTTS directory through `tts.utils.load_model` (every
+   linear on K2; tokens equal to the CPU's and to the same model through
+   `qmatmul_reference`; K2's launches printed); Pocket-TTS's latents and
+   audio at temperature 0 (EOS on the first frame, eight frames after
+   it); MMS's CTC ids; wav2vec2 and ECAPA LID's top-3 and probabilities;
+   then tiny directories through `tts.utils`, `stt.utils`, `lid.utils`
+   and the top-level `load_model` on the card (an "mms-lid" wav2vec2
+   directory routes to LID), the TTS CLI's WAV on OuteTTS and the STT
+   CLI's text on MMS against in-process `generate`.
+46. Llama-OuteTTS-1.0-1B (Llama-3.2-1B's dims: 16 layers at d2048, GQA
+   32/8 of 64, FFN 8,192, RoPE theta 500,000 with llama3 scaling, tied
+   head; OuteTTS-1.0's 134,400 ids; 1.24 B parameters) seeded on the card
+   in bf16, its code rows scaled by 4, over descript's 24-kHz DAC in f32
+   (two of its 32 codebooks): a 128-token request at OuteTTS's sampling
+   (ms a token p50 and p95, code share, wall, xRT, the DAC's ms), the
+   same streamed every 0.5 s (first audio), 8 profiled steps (kernels,
+   device ms and busy share a token), bytes and bound a token; then
+   packed in memory to MLX's 8-bit layout and loaded through the
+   pre-quantized path: its 112 linears alone at M = 1 (one CUDA graph)
+   against their byte bound, the request again, K2's launches a token
+   read from its counter against 16 x 7, the first step's logits against
+   bf16's (relative, under 0.1).
+47. Pocket-TTS at the JAX package's `ModelConfig()` (a 12 x d1024 flow
+   LM, a 1,024 x 6 flow net, an 8,000-bin table, the default Mimi; not a
+   published config.json) in f32 from seeds on the card, EOS biased off:
+   one sentence of 11 words from the default 0.5-s silent voice, run to
+   its max_gen frames (ms a frame p50 and p95 against the 80-ms frame,
+   realtime factor, kernels a frame over 4 profiled frames); EnCodec at
+   its 24-kHz dims (32 filters, ratios [8, 5, 4, 2], two LSTM layers, 32
+   codebooks) in f32: a round trip of 10 s (ms, xRT).
+48. MMS-1b-all's dims (48 layers at d1280, 16 heads, FFN 5,120, the
+   stable layer norm, adapters of 16) on 30 s, f32 then bf16 (ms, xRT,
+   the share of 989 TFLOP/s by counted operations, CTC ids bf16 against
+   f32 on at least 90% of the frames); MMS-LID-256 on 10 s (top-1 equal
+   in bf16 and f32); ECAPA VoxLingua107 (channels 1,024, embedding 256,
+   107 languages) on 30 s in f32 (ms). K1 never launches in phases 45-48,
+   K2 only on the q8 OuteTTS models; their shapes join phase 8's final
+   check, their launches the `kernels` line.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -562,6 +615,43 @@ TEXTS = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the functions whose every call logs its seconds as a `[step]` line,
+# indented by nesting: the phases, the model builds and their runs
+_STEP_PREFIXES = ("phase_", "build_", "_linear_times", "k2_linears_alone",
+                  "_profile")
+_STEP_DEPTH = [0]
+
+
+def _stepped(name: str, fn):
+    import functools
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _STEP_DEPTH[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _STEP_DEPTH[0] -= 1
+            log(f"[step] {'  ' * _STEP_DEPTH[0]}{name} "
+                f"{time.perf_counter() - t0:.1f} s")
+    return run
+
+
+def time_steps() -> None:
+    """Wrap this module's phases, builds and `_*_run` functions so that
+    each call logs its seconds (the callers look them up at call time)."""
+    import inspect
+
+    g = globals()
+    for name, fn in list(g.items()):
+        if (inspect.isfunction(fn) and fn.__module__ == __name__
+                and name not in ("phase_device", "time_steps")
+                and (name.startswith(_STEP_PREFIXES)
+                     or (name.startswith("_") and name.endswith("_run")))):
+            g[name] = _stepped(name, fn)
 
 
 def rel_err(a, b) -> float:
@@ -1374,7 +1464,8 @@ def phase_qwen3_main(model, card: str, recorder: K2Recorder) -> int:
 
 
 def _qwen3_requests(model, card: str) -> int:
-    """The three requests of phase 7; returns K2's launches over them."""
+    """The two requests of phase 7, cold (the lane's ran warm too until
+    phases 45-48 came); returns K2's launches over them."""
     import numpy as np
     import torch
 
@@ -1383,8 +1474,7 @@ def _qwen3_requests(model, card: str) -> int:
     qmm_kernel.launches = 0
     total = 0
     short, lane = qwen3_requests()
-    for run, (ids, max_tokens) in (("cold", short), ("cold", lane),
-                                   ("warm", lane)):
+    for run, (ids, max_tokens) in (("cold", short), ("cold", lane)):
         before = qmm_kernel.launches
         torch.cuda.reset_peak_memory_stats()
         (r,) = list(model.generate(text_ids=ids[None], temperature=0.9,
@@ -2088,28 +2178,49 @@ def write_whisper_checkpoint(model, path: Path) -> None:
         max_target_positions=d.n_text_ctx)))
 
 
-def phase_whisper_cli(tmp: Path) -> None:
+def start_stt_cli(ckpt: Path, wav: Path, out: Path, what: str):
+    """`python -m mlx_audio_tpu_torch.stt.generate --format json` on
+    `ckpt` and `wav`, started in a subprocess on the card. -> a function
+    that waits for it and returns (its JSON, its seconds from the start)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
+         str(ckpt), "--audio", str(wav), "--format", "json", "--output-path",
+         str(out)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def wait() -> tuple:
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"STT CLI on {what} failed: {err[-2000:]}")
+        return (json.loads((out / "transcription.json").read_text()),
+                time.perf_counter() - t0)
+
+    return wait
+
+
+def phase_whisper_cli(tmp: Path):
     """The normal entry points on the card: a small checkpoint (HF names,
-    npz) and a 5-s WAV written with the port's audio_io, the STT CLI in a
-    subprocess, and its JSON against load_model(...).generate(...) here."""
+    npz) and a 5-s WAV written with the port's audio_io, the STT CLI
+    started in a subprocess. -> the check of its JSON against
+    load_model(...).generate(...) here, to call once the CLIs of phase 14
+    are started."""
     import numpy as np
 
-    import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import audio_io
 
-    ckpt, wav, out = tmp / "whisper-small", tmp / "speech.wav", tmp / "out"
+    ckpt, wav = tmp / "whisper-small", tmp / "whisper.wav"
     write_whisper_checkpoint(_whisper(WHISPER_SMALL, "cpu"), ckpt)
     audio_io.write(wav, (np.random.RandomState(5).randn(16000 * 5) * 0.05
                          ).astype(np.float32), 16000)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
-         str(ckpt), "--audio", str(wav), "--format", "json", "--output-path",
-         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
-    cli_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"STT CLI failed: {proc.stderr[-2000:]}")
-    got = json.loads((out / "transcription.json").read_text())
+    wait = start_stt_cli(ckpt, wav, tmp / "whisper-out", "Whisper")
+    return lambda: _check_whisper_cli(ckpt, wav, wait)
+
+
+def _check_whisper_cli(ckpt: Path, wav: Path, wait) -> None:
+    import mlx_audio_tpu_torch
+
+    got, cli_s = wait()
     model = mlx_audio_tpu_torch.load_model(ckpt)
     if model.device.type != "cuda":
         raise AssertionError("load_model did not load onto the card")
@@ -2128,7 +2239,8 @@ def phase_whisper_cli(tmp: Path) -> None:
                                      f"{b[k]!r}")
     log(f"[whisper-cli] python -m mlx_audio_tpu_torch.stt.generate --format "
         f"json on a small HF-named npz checkpoint and a 5-s WAV, on the card "
-        f"({cli_s:.2f} s with its start-up): language {got['language']}, "
+        f"({cli_s:.2f} s with its start-up, beside phase 14's other CLIs): "
+        f"language {got['language']}, "
         f"{len(got['segments'])} segments, equal to "
         f"mlx_audio_tpu_torch.load_model(...).generate(...) in process")
 
@@ -2449,30 +2561,30 @@ def phase_voxtral_full(card: str, tmp: Path) -> dict:
     return {"p95": p95, "xrt": xrt, "model": model}
 
 
-def phase_voxtral_cli(tmp: Path) -> None:
+def phase_voxtral_cli(tmp: Path):
     """A small Voxtral checkpoint (consolidated names, npz, tekken.json)
-    and a 3-s WAV: the STT CLI in a subprocess on the card, its JSON
-    against load_model(...).generate(...) here."""
+    and a 3-s WAV: the STT CLI started in a subprocess on the card. -> the
+    check of its JSON against load_model(...).generate(...) here."""
     import numpy as np
 
-    import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import audio_io
     from mlx_audio_tpu_torch.stt.models.voxtral_realtime import (
         Model, ModelConfig)
 
-    ckpt, wav, out = tmp / "voxtral-small", tmp / "speech.wav", tmp / "out"
+    ckpt, wav = tmp / "voxtral-small", tmp / "voxtral.wav"
     write_voxtral_checkpoint(Model(ModelConfig.from_dict(VOXTRAL_SMALL),
                                    device="cpu").init_params(seed=0), ckpt)
     audio_io.write(wav, (np.random.RandomState(6).randn(16000 * 3) * 0.1
                          ).astype(np.float32), 16000)
-    proc = subprocess.run(
-        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
-         str(ckpt), "--audio", str(wav), "--format", "json", "--output-path",
-         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise AssertionError(f"STT CLI on Voxtral failed: "
-                             f"{proc.stderr[-2000:]}")
-    got = json.loads((out / "transcription.json").read_text())
+    wait = start_stt_cli(ckpt, wav, tmp / "voxtral-out", "Voxtral")
+    return lambda: _check_voxtral_cli(ckpt, wav, wait)
+
+
+def _check_voxtral_cli(ckpt: Path, wav: Path, wait) -> None:
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.stt.models.voxtral_realtime import Model
+
+    got, _ = wait()
     model = mlx_audio_tpu_torch.load_model(ckpt)
     if model.device.type != "cuda" or not isinstance(model, Model):
         raise AssertionError("load_model did not load Voxtral on the card")
@@ -2526,7 +2638,7 @@ COHERE_SPECIALS = ("<|startofcontext|>", "<|startoftranscript|>",
                    "<|noitn|>", "<|notimestamp|>", "<|nodiarize|>",
                    "<|endoftext|>")
 # the lane's workload (bench.py:856-869): randn * 0.1 at seed 0, language
-# "en", max_tokens 150, cold then warm best of 3; its 600 s (19 segments in
+# "en", max_tokens 150, cold then warm; its 600 s (19 segments in
 # 3 batches) cut to 300 s (10 segments: a full batch of 8 rows and a
 # partial one of 2) to make room for phases 38-40
 COHERE_SECONDS, COHERE_MAX_TOKENS, COHERE_SEGMENTS = 300, 150, 10
@@ -2689,8 +2801,8 @@ def phase_cohere_full(card: str) -> dict:
     """Cohere ASR at the cohere_asr_10min lane's dims (2.05 B parameters
     drawn on the card in f32 from seed 0, then cast in place to bf16): the
     bf16 encoder against f32 on one 8-row batch of the 3,584-frame bucket,
-    the encoder's time a batch, then the lane's file (cut to 300 s) cold and warm
-    (best of 3)."""
+    the encoder's time a batch, then the lane's file (cut to 300 s) cold and
+    warm."""
     import numpy as np
     import torch
 
@@ -2750,7 +2862,7 @@ def phase_cohere_full(card: str) -> dict:
 
     kw = dict(language="en", max_tokens=COHERE_MAX_TOKENS)
     walls, outs = [], []
-    for i in range(4):
+    for i in range(2):
         model.encode = checked_encode if i == 0 else encode
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
@@ -2769,8 +2881,8 @@ def phase_cohere_full(card: str) -> dict:
                              f"{finite}")
     if any(o.text != res.text for o in outs) or not res.text:
         raise AssertionError("Cohere lane: the runs' texts differ, or none")
-    warm = min(walls[1:])
-    for label, wall in (("cold", walls[0]), ("warm (best of 3)", warm)):
+    warm = walls[1]
+    for label, wall in (("cold", walls[0]), ("warm", warm)):
         enc_s = run["batches"] * enc_ms / 1e3
         log(f"[cohere] {label}: {COHERE_SECONDS} s in {wall:.3f} s, xRT "
             f"{COHERE_SECONDS / wall:.2f}; {len(res.segments)} segments in "
@@ -2789,29 +2901,28 @@ def phase_cohere_full(card: str) -> dict:
     return {"warm": warm, "enc_ms": enc_ms, "rel": rel}
 
 
-def phase_cohere_cli(tmp: Path) -> None:
+def phase_cohere_cli(tmp: Path):
     """A small Cohere checkpoint (NeMo names, torch conv layouts, npz with
-    the preprocessor buffers, tokens.json) and a 5-s WAV: the STT CLI in a
-    subprocess on the card, its JSON against load_model(...).generate(...)
-    here."""
+    the preprocessor buffers, tokens.json) and a 5-s WAV: the STT CLI
+    started in a subprocess on the card. -> the check of its JSON against
+    load_model(...).generate(...) here."""
     import numpy as np
 
-    import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import audio_io
-    from mlx_audio_tpu_torch.stt.models.cohere_asr import Model
 
-    ckpt, wav, out = tmp / "cohere-small", tmp / "speech.wav", tmp / "out"
+    ckpt, wav = tmp / "cohere-small", tmp / "cohere.wav"
     write_cohere_checkpoint(_cohere_small("cpu"), ckpt)
     audio_io.write(wav, (np.random.RandomState(7).randn(16000 * 5) * 0.5
                          ).astype(np.float32), 16000)
-    proc = subprocess.run(
-        [sys.executable, "-m", "mlx_audio_tpu_torch.stt.generate", "--model",
-         str(ckpt), "--audio", str(wav), "--format", "json", "--output-path",
-         str(out)], cwd=ROOT, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise AssertionError(f"STT CLI on Cohere failed: "
-                             f"{proc.stderr[-2000:]}")
-    got = json.loads((out / "transcription.json").read_text())
+    wait = start_stt_cli(ckpt, wav, tmp / "cohere-out", "Cohere")
+    return lambda: _check_cohere_cli(ckpt, wav, wait)
+
+
+def _check_cohere_cli(ckpt: Path, wav: Path, wait) -> None:
+    import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.stt.models.cohere_asr import Model
+
+    got, _ = wait()
     model = mlx_audio_tpu_torch.load_model(ckpt)
     if model.device.type != "cuda" or not isinstance(model, Model):
         raise AssertionError("load_model did not load Cohere on the card")
@@ -3126,11 +3237,11 @@ def _higgs_run(model, emb, mask, sampling, cache_len: int):
 
 
 def _profile_chunk(model, emb, mask, sampling, cache_len: int) -> tuple:
-    """One 16-frame chunk under torch.profiler after a prefill. -> (kernels
-    a frame, device ms a frame, wall ms a frame unprofiled, busy share)."""
+    """One 16-frame chunk under torch.profiler (the device's activity
+    alone: the host's op events of a W8A8 chunk take a minute to gather)
+    after a prefill. -> (kernels a frame, device ms a frame, wall ms a
+    frame unprofiled, busy share)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     carry, _ = model.prefill(emb, mask, HIGGS_PLEN, cache_len, seed=0)
     model.chunk(carry, sampling)
@@ -3139,20 +3250,9 @@ def _profile_chunk(model, emb, mask, sampling, cache_len: int) -> tuple:
     model.chunk(carry, sampling)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / 16
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.chunk(carry, sampling)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, name):
-                return float(getattr(e, name))
-        return 0.0
-
-    device = sum(dev_us(e) for e in kernels) / 1e3 / 16
+    kernels = _device_kernels(lambda: model.chunk(carry, sampling),
+                              cpu=False)
+    device = sum(_dev_us(e) for e in kernels) / 1e3 / 16
     launches = sum(e.count for e in kernels) / 16
     return launches, device, wall, device / wall
 
@@ -3741,11 +3841,9 @@ def _frob(a, b) -> float:
 
 def _profile_kugel_chunk(model) -> tuple:
     """KUGEL_PROFILE_FRAMES frames of the frame loop after a prefill, under
-    torch.profiler. -> (kernels a frame, device ms a frame, wall ms a frame
-    unprofiled, busy share)."""
+    torch.profiler (the device's activity alone). -> (kernels a frame,
+    device ms a frame, wall ms a frame unprofiled, busy share)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mlx_audio_tpu_torch.tts.models.vibevoice.scheduler import \
         sde_dpm_tables
@@ -3769,20 +3867,8 @@ def _profile_kugel_chunk(model) -> tuple:
     run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, name):
-                return float(getattr(e, name))
-        return 0.0
-
-    device = sum(dev_us(e) for e in kernels) / 1e3 / n
+    kernels = _device_kernels(run, cpu=False)
+    device = sum(_dev_us(e) for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
     return launches, device, wall, device / wall
 
@@ -4051,8 +4137,6 @@ def phase_vibevoice_full(card: str) -> dict:
     unprofiled wall)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mlx_audio_tpu_torch.tts.models.vibevoice import Model, ModelConfig
 
@@ -4079,15 +4163,9 @@ def phase_vibevoice_full(card: str) -> dict:
     t2 = time.perf_counter()
     next(model.generate(KUGEL_TEXT, max_tokens=VIBE_WINDOW, seed=2))
     wall_w = time.perf_counter() - t2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        next(model.generate(KUGEL_TEXT, max_tokens=VIBE_WINDOW, seed=2))
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_s = sum(float(getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0)))
-                   for e in kernels) / 1e6
+    kernels = _device_kernels(lambda: next(model.generate(
+        KUGEL_TEXT, max_tokens=VIBE_WINDOW, seed=2)), cpu=False)
+    device_s = sum(_dev_us(e) for e in kernels) / 1e6
     launches = sum(e.count for e in kernels) / VIBE_WINDOW
     audio_s = want / model.sample_rate
     log(f"[vibevoice] ModelConfig() dims ({n_params / 1e9:.3f} B parameters, "
@@ -5007,8 +5085,6 @@ def phase_sesame_full(card: str) -> dict:
     SESAME_PROFILE_FRAMES frames under the profiler."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
     model = build_sesame_full()
@@ -5048,16 +5124,11 @@ def phase_sesame_full(card: str) -> dict:
     carry, _ = model.prefill(tokens, mask, sampler)
     model.chunk(carry, SESAME_PROFILE_FRAMES, sampler)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        model.chunk(carry, SESAME_PROFILE_FRAMES, sampler)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = _device_kernels(
+        lambda: model.chunk(carry, SESAME_PROFILE_FRAMES, sampler),
+        cpu=False)
     frame_ms = whole["wall"] * 1e3 / SESAME_FRAMES
-    dev_us = sum(float(getattr(e, "self_device_time_total", 0.0)
-                       or getattr(e, "self_cuda_time_total", 0.0))
-                 for e in kernels)
+    dev_us = sum(_dev_us(e) for e in kernels)
     per_frame = sum(e.count for e in kernels) / SESAME_PROFILE_FRAMES
     plen = whole["run"]["prompt_len"]
     log(f"[sesame] CSM-1B bf16 cloning a {ICL_REF_SECONDS}-s reference "
@@ -5518,7 +5589,7 @@ def _profile_steps(fn, steps: int) -> tuple:
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = _device_kernels(fn)
+    kernels = _device_kernels(fn, cpu=False)
     device = sum(_dev_us(e) for e in kernels) / 1e3 / steps
     return sum(e.count for e in kernels) / steps, device, wall, device / wall
 
@@ -5794,9 +5865,12 @@ DFN_SMALL = dict(sample_rate=16000, fft_size=96, hop_size=48, nb_erb=8,
 # CUDA against the CPU at f32 on the small configs: summation order only
 STS_REL = 1e-4
 MOSHI_GREEDY_STEPS = 16
-# phase 33: Moshi v0.1 at full width, 6 s of input (75 steps at 12.5 Hz;
-# cut from 20 s to 10 to keep the run's time, then to 6 for phases 41-44)
-MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 6, 8, 80.0
+# the small Moshi's generate, CUDA against the CPU: 1,000 steps a second
+MOSHI_SMALL_SECONDS = 0.5
+# phase 33: Moshi v0.1 at full width, 4 s of input (50 steps at 12.5 Hz;
+# cut from 20 s to 10 to keep the run's time, then to 6 for phases 41-44
+# and to 4 for phases 45-48)
+MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 4, 4, 80.0
 MOSHI_STEPS = int(MOSHI_SECONDS * 1000 / MOSHI_FRAME_MS)
 # the q8 model's first-step text logits against bf16's, relative Frobenius:
 # group-64 codes of 8 bits err by about 0.2% a weight, compounded over 32
@@ -5979,7 +6053,7 @@ def moshi_first_logits(lm):
 
 def phase_sts_reference(tmp: Path, recorder: K2Recorder) -> int:
     """Phase 32: the small configs at f32 from one seeded weight set, CUDA
-    against the CPU: Moshi's greedy LmGen tokens and a generate over a 2-s
+    against the CPU: Moshi's greedy LmGen tokens and a generate over a 0.5-s
     clip through the tiny Mimi, the q8 Moshi through K2 against the same
     model through `qmatmul_reference`, Mel-Band-RoFormer `separate`,
     DeepFilterNet offline and streamed; then each tiny checkpoint directory
@@ -6003,27 +6077,28 @@ def phase_sts_reference(tmp: Path, recorder: K2Recorder) -> int:
 
     t0 = time.perf_counter()
     notes = []
-    # Moshi: greedy tokens, then generate over 2 s (2,000 steps of the
-    # tiny Mimi's 1-ms frames)
+    # Moshi: greedy tokens, then generate over MOSHI_SMALL_SECONDS (its
+    # steps the tiny Mimi's 1-ms frames)
     cpu = _moshi_small("cpu")
     gpu = _moshi_small("cuda", like=cpu)
     want, got = (_moshi_greedy(m.lm, MOSHI_GREEDY_STEPS) for m in (cpu, gpu))
     if got != want or sum(own is not None for _, own in got) < 8:
         raise AssertionError("Moshi greedy LmGen: CUDA tokens differ from "
                              "the CPU's")
-    clip = _clip_audio(0, 2.0, 24000)
+    clip = _clip_audio(0, MOSHI_SMALL_SECONDS, 24000)
     kw = dict(text_temp=0.0, audio_temp=0.0)
     want, got = cpu.generate(clip, **kw), gpu.generate(clip, **kw)
     err = rel_err(got.audio, want.audio)
     if got.prompt["text_tokens"] != want.prompt["text_tokens"] \
             or not err <= STS_REL or not np.isfinite(got.audio).all() \
-            or got.token_count != 2000:
+            or got.token_count != int(MOSHI_SMALL_SECONDS * 1000):
         raise AssertionError(f"Moshi generate: CUDA text tokens equal "
                              f"{got.prompt['text_tokens'] == want.prompt['text_tokens']}, "
                              f"audio rel {err:.3e}, {got.token_count} steps")
     step_ms = np.median(gpu.last_run["step_ms"])
-    notes.append(f"Moshi {MOSHI_GREEDY_STEPS} greedy steps and a 2-s "
-                 f"generate ({got.token_count} steps, {step_ms:.2f} ms a "
+    notes.append(f"Moshi {MOSHI_GREEDY_STEPS} greedy steps and a "
+                 f"{MOSHI_SMALL_SECONDS:g}-s generate ({got.token_count} "
+                 f"steps, {step_ms:.2f} ms a "
                  f"step on the card, audio rel {err:.1e})")
     # q8 through K2 against the same model through the plain version
     q8 = _moshi_small("cuda", cfg=MOSHI_Q8_SMALL)
@@ -6474,7 +6549,7 @@ ORPHEUS_TEXT = ("The quick brown fox jumps over the lazy dog while the "
                 "speaker reads this sentence aloud for the first request.")
 # the whole request cut from 512 tokens to 256 to make room for phases
 # 38-40, then it and the streamed one from 256 to 128 for phases 41-44
-ORPHEUS_TOKENS, ORPHEUS_STREAM_TOKENS, ORPHEUS_INTERVAL = 128, 128, 1.0
+ORPHEUS_TOKENS, ORPHEUS_INTERVAL = 128, 1.0
 # the token table's rows of the code ids and SOS scaled this many times, so
 # that the tied head draws codes from random weights
 ORPHEUS_CODE_SCALE = 4.0
@@ -6539,16 +6614,13 @@ def _orpheus_small(device: str):
     return model.set_codec(SNAC(SNAC_SMALL, device=device).init_params(1))
 
 
-def write_orpheus_checkpoint(model, path: Path, bits=None) -> None:
-    """`model` as a checkpoint directory: config.json, model.safetensors
-    under its names (HF llama's), and its SNAC in `snac/` (torch layouts,
-    config.json with model_type "snac"). With `bits`, every linear and the
-    token table ship MLX-packed at `bits` (group 64) with their f32 scales
-    and biases, as mlx-community's quantized repos do, and config.json
-    says so."""
+def write_lm_weights(model, path: Path, bits=None) -> None:
+    """A llama token-TTS `model`'s config.json and model.safetensors under
+    its names (HF llama's). With `bits`, every linear and the token table
+    ship MLX-packed at `bits` (group 64) with their f32 scales and biases,
+    as mlx-community's quantized repos do, and config.json says so."""
     import dataclasses
 
-    import numpy as np
     from safetensors.numpy import save_file
 
     from mlx_audio_tpu_torch.ops.quant import quantize_weight
@@ -6571,6 +6643,15 @@ def write_orpheus_checkpoint(model, path: Path, bits=None) -> None:
     path.mkdir(parents=True, exist_ok=True)
     save_file(flat, str(path / "model.safetensors"))
     (path / "config.json").write_text(json.dumps(cfg))
+
+
+def write_orpheus_checkpoint(model, path: Path, bits=None) -> None:
+    """`model` as a checkpoint directory: `write_lm_weights`, and its SNAC
+    in `snac/` (torch layouts, config.json with model_type "snac")."""
+    import numpy as np
+    from safetensors.numpy import save_file
+
+    write_lm_weights(model, path, bits)
     (path / "snac").mkdir(exist_ok=True)
     save_file({k: np.ascontiguousarray(v.float().cpu().numpy())
                for k, v in model.codec.state_dict().items()},
@@ -6822,12 +6903,11 @@ def _orpheus_profile(model) -> tuple:
 
 
 def _orpheus_run(model, label: str, card: str, base: int) -> dict:
-    """A 32-token warm-up; one request of ORPHEUS_TOKENS tokens whole
-    (ms a token p50 and p95 over its chunks after the first, the code
-    share, wall, xRT, SNAC decode ms); one streamed every
-    ORPHEUS_INTERVAL s of ORPHEUS_STREAM_TOKENS tokens (time to first
-    audio); one profiled chunk. -> the numbers, and the decode steps and
-    prefills run in all."""
+    """A 32-token warm-up; one request of ORPHEUS_TOKENS tokens streamed
+    every ORPHEUS_INTERVAL s (time to first audio, wall, xRT, ms a token
+    p50 and p95 over its chunks after the first, the code share); a SNAC
+    decode of as many frames (ms); one profiled chunk. -> the numbers, and
+    the decode steps and prefills run in all."""
     import numpy as np
     import torch
 
@@ -6838,20 +6918,27 @@ def _orpheus_run(model, label: str, card: str, base: int) -> dict:
     steps, prefills = model.last_run["steps"], 1
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (r,) = list(model.generate(ORPHEUS_TEXT, max_tokens=ORPHEUS_TOKENS,
-                               **kw))
-    wall = time.perf_counter() - t0
+    first = None
+    samples = 0
+    finite = True
+    for c in model.generate(ORPHEUS_TEXT, max_tokens=ORPHEUS_TOKENS,
+                            stream=True, streaming_interval=ORPHEUS_INTERVAL,
+                            **kw):
+        first = first or time.perf_counter() - t0
+        samples += c.samples
+        finite = finite and bool(np.isfinite(c.audio).all())
+    wall = s_wall = time.perf_counter() - t0
     run = dict(model.last_run)
     steps, prefills = steps + run["steps"], prefills + 1
     per_token = np.asarray(run["chunk_ms"][1:]) / orpheus.CHUNK
     share = run["code_tokens"] / max(run["tokens"], 1)
-    if not (run["steps"] == ORPHEUS_TOKENS and r.samples > 0
-            and np.isfinite(r.audio).all() and share >= ORPHEUS_CODE_SHARE):
-        raise AssertionError(f"Orpheus {label}: {run}, {r.samples} samples, "
+    if not (run["steps"] == ORPHEUS_TOKENS and first and samples > 0
+            and finite and share >= ORPHEUS_CODE_SHARE):
+        raise AssertionError(f"Orpheus {label}: {run}, {samples} samples, "
                              f"code share {share:.3f}")
     # SNAC decode of the request's frame count, seeded codes
-    frames = r.samples // (model.codec.hop_length
-                           * model.codec.config.vq_strides[0])
+    frames = samples // (model.codec.hop_length
+                         * model.codec.config.vq_strides[0])
     rng = np.random.RandomState(0)
     layers = [rng.randint(0, 4096, (1, frames * k)) for k in (1, 2, 4)]
     model.codec.decode(layers)
@@ -6860,24 +6947,12 @@ def _orpheus_run(model, label: str, card: str, base: int) -> dict:
     model.codec.decode(layers)
     torch.cuda.synchronize()
     snac_ms = (time.perf_counter() - t1) * 1e3
-    t0 = time.perf_counter()
-    first = None
-    samples = 0
-    for c in model.generate(ORPHEUS_TEXT, max_tokens=ORPHEUS_STREAM_TOKENS,
-                            stream=True, streaming_interval=ORPHEUS_INTERVAL,
-                            **kw):
-        first = first or time.perf_counter() - t0
-        samples += c.samples
-    s_wall = time.perf_counter() - t0
-    steps, prefills = steps + model.last_run["steps"], prefills + 1
-    if not (first and samples > 0):
-        raise AssertionError(f"Orpheus {label}: the stream yielded no audio")
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     kernels, dev_ms, prof_wall, busy = _orpheus_profile(model)
     steps, prefills = steps + 2 * orpheus.CHUNK, prefills + 1
     cols = run["prompt_bucket"] + ORPHEUS_TOKENS / 2
     bound = orpheus_token_bytes(model, cols) / HBM_BPS * 1e3
-    audio_s = r.samples / model.sample_rate
+    audio_s = samples / model.sample_rate
     out = dict(p50=float(np.percentile(per_token, 50)),
                p95=float(np.percentile(per_token, 95)), wall=wall,
                xrt=audio_s / wall, audio_s=audio_s, share=share,
@@ -6885,13 +6960,13 @@ def _orpheus_run(model, label: str, card: str, base: int) -> dict:
                kernels=kernels, dev_ms=dev_ms, busy=busy, bound=bound,
                steps=steps, prefills=prefills, whole_steps=run["steps"])
     log(f"[orpheus] {label}: {ORPHEUS_TOKENS} tokens ({run['prompt_len']}-"
-        f"token prompt, bucket {run['prompt_bucket']}): {out['p50']:.2f} ms a "
-        f"token p50, {out['p95']:.2f} p95 (over {len(per_token)} chunks of "
-        f"{orpheus.CHUNK}), {100 * share:.1f}% of the tokens SNAC codes, "
-        f"{audio_s:.2f} s of audio in {wall:.2f} s (xRT {out['xrt']:.3f}), "
-        f"SNAC decode of {frames} frames {snac_ms:.2f} ms; "
-        f"streamed every {ORPHEUS_INTERVAL:g} s ({ORPHEUS_STREAM_TOKENS} "
-        f"tokens): first audio {first:.3f} s, wall {s_wall:.2f} s; peak "
+        f"token prompt, bucket {run['prompt_bucket']}) streamed every "
+        f"{ORPHEUS_INTERVAL:g} s: first audio {first:.3f} s; "
+        f"{out['p50']:.2f} ms a token p50, {out['p95']:.2f} p95 (over "
+        f"{len(per_token)} chunks of {orpheus.CHUNK}), {100 * share:.1f}% of "
+        f"the tokens SNAC codes, {audio_s:.2f} s of audio in {wall:.2f} s "
+        f"(xRT {out['xrt']:.3f}), SNAC decode of {frames} frames "
+        f"{snac_ms:.2f} ms; peak "
         f"{peak:.2f} GB above the earlier phases'; profiled chunk: "
         f"{kernels:.0f} kernels and {dev_ms:.3f} ms of device time a token "
         f"against {prof_wall:.2f} ms of wall ({100 * busy:.1f}% busy); bound "
@@ -7614,6 +7689,26 @@ def _sync_ms(fn, reps: int = 3) -> float:
     return times[len(times) // 2]
 
 
+# decode steps a profiled chunk of the LM decodes runs (a whole 32-step
+# chunk until phases 45-48 came)
+PROFILE_STEPS = 8
+
+
+class Laps:
+    """The seconds of a function's stages, logged as one `[laps]` line."""
+
+    def __init__(self, tag: str):
+        self.tag, self.t, self.laps = tag, time.perf_counter(), []
+
+    def __call__(self, stage: str) -> None:
+        now = time.perf_counter()
+        self.laps.append(f"{stage} {now - self.t:.1f} s")
+        self.t = now
+
+    def log(self) -> None:
+        log(f"[laps] {self.tag}: {', '.join(self.laps)}")
+
+
 def _asr_run(model, audio, label: str, card: str, base: int) -> dict:
     """Encoder ms; prefill ms at its bucket; a generate of
     QWEN3_ASR_TOKENS tokens (ms a token p50 and p95 over its chunks after
@@ -7627,7 +7722,9 @@ def _asr_run(model, audio, label: str, card: str, base: int) -> dict:
         prompt_bucket
     from mlx_audio_tpu_torch.stt.models.qwen3_lm import DEC_CHUNK
 
+    laps = Laps(f"qwen3-asr {label}")
     model.generate(audio, language="English", max_tokens=DEC_CHUNK)
+    laps("warm-up")
     enc_ms = _sync_ms(lambda: model.encode(audio))
     feats, n_audio = model.encode(audio)
     ids = model._build_prompt(n_audio, "English", None)
@@ -7637,28 +7734,34 @@ def _asr_run(model, audio, label: str, card: str, base: int) -> dict:
     embeds = model.prompt_embeds(ids, feats, bucket)
     prefill_ms = _sync_ms(lambda: fns.prefill(embeds, n))
     logits = fns.prefill(embeds, n)[0]
+    laps("encoder and prefill timed")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = model.generate(audio, language="English",
                          max_tokens=QWEN3_ASR_TOKENS)
     wall = time.perf_counter() - t0
+    laps("the request")
     run = dict(model.last_run)
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
     if not (out.generation_tokens > 0 and len(per_token)):
         raise AssertionError(f"Qwen3-ASR {label}: {run}")
-    # one chunk unprofiled, then one profiled, after a prefill
+    # PROFILE_STEPS steps unprofiled, then as many profiled, after a
+    # prefill
     state = fns.start(embeds, n, QWEN3_ASR_TOKENS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    fns.chunk(state)
-    chunk_wall = (time.perf_counter() - t1) * 1e3 / DEC_CHUNK
+    fns.chunk(state, PROFILE_STEPS)
+    chunk_wall = (time.perf_counter() - t1) * 1e3 / PROFILE_STEPS
     k2 = qmm_kernel.launches
     fwd = state["forwards"]
-    rows = _device_kernels(lambda: fns.chunk(state), cpu=False)
+    rows = _device_kernels(lambda: fns.chunk(state, PROFILE_STEPS),
+                           cpu=False)
     k2_token = (qmm_kernel.launches - k2) / max(state["forwards"] - fwd, 1)
-    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / DEC_CHUNK
-    kernels = sum(e.count for e in rows) / DEC_CHUNK
+    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / PROFILE_STEPS
+    kernels = sum(e.count for e in rows) / PROFILE_STEPS
+    laps("profiled steps")
+    laps.log()
     if not (kernels > 0 and dev_ms > 0):
         raise AssertionError("Qwen3-ASR: the profiler saw no kernel")
     # a step at column t reads the t + 1 columns written so far
@@ -7797,8 +7900,8 @@ def phase_aligner_vyvo_full(card: str) -> None:
     the forced aligner (its tower at AudioEncoderConfig() with output_dim
     1024) on 30 s with 60 words, cold then warm (ms); VyvoTTS (vocabulary
     180,352, the code rows scaled, SNAC 24 kHz in f32) on a request of
-    VYVO_TOKENS tokens whole (ms a token p50 and p95, code share, xRT) and
-    streamed every VYVO_INTERVAL s (time to first audio). Neither K1 nor
+    VYVO_TOKENS tokens streamed every VYVO_INTERVAL s (time to first audio,
+    ms a token p50 and p95, code share, xRT). Neither K1 nor
     K2 launches."""
     import numpy as np
     import torch
@@ -7848,28 +7951,23 @@ def phase_aligner_vyvo_full(card: str) -> None:
     list(vy.generate(VYVO_TEXT, max_tokens=DEC_CHUNK, **kw))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    (r,) = list(vy.generate(VYVO_TEXT, max_tokens=VYVO_TOKENS, **kw))
-    wall = time.perf_counter() - t0
-    run = dict(vy.last_run)
-    per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
-    share = run["code_tokens"] / max(run["tokens"], 1)
-    if not (r.samples > 0 and np.isfinite(r.audio).all()
-            and share >= VYVO_CODE_SHARE):
-        raise AssertionError(f"VyvoTTS: {run}, {r.samples} samples, code "
-                             f"share {share:.3f}")
-    t0 = time.perf_counter()
-    first, samples, chunks = None, 0, 0
+    first, samples, chunks, finite = None, 0, 0, True
     for c in vy.generate(VYVO_TEXT, max_tokens=VYVO_TOKENS, stream=True,
                          streaming_interval=VYVO_INTERVAL, **kw):
         first = first or time.perf_counter() - t0
         samples += c.samples
         chunks += 1
-    s_wall = time.perf_counter() - t0
+        finite = finite and bool(np.isfinite(c.audio).all())
+    wall = s_wall = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-    if not (first and samples > 0 and chunks > 1):
+    run = dict(vy.last_run)
+    per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
+    share = run["code_tokens"] / max(run["tokens"], 1)
+    if not (first and samples > 0 and chunks > 1 and finite
+            and share >= VYVO_CODE_SHARE):
         raise AssertionError(f"VyvoTTS stream: {chunks} chunks, {samples} "
-                             f"samples")
-    audio_s = r.samples / vy.sample_rate
+                             f"samples, {run}, code share {share:.3f}")
+    audio_s = samples / vy.sample_rate
     log(f"[vyvotts] Qwen3-0.6B text dims, vocabulary {VYVO_VOCAB:,}: "
         f"{vy.num_params():,} params bf16, SNAC 24 kHz f32; {VYVO_TOKENS} "
         f"tokens ({run['prompt_len']}-token prompt, bucket "
@@ -8016,9 +8114,9 @@ LLM_STT_TOKS = {
 LLM_STT_BITS = {"voxtral": 8, "qwen2_audio": 4}
 LLM_STT_TOKENS = 24
 # the full-width runs: 30 s of randn * 0.1 at seed 0, greedy; Voxtral's
-# request 256 tokens, Qwen2-Audio's 128; VibeVoice-ASR's encoders on 10
+# request 128 tokens, Qwen2-Audio's 128; VibeVoice-ASR's encoders on 10
 # minutes at 24 kHz
-VOXTRAL_SECONDS, VOXTRAL_TOKENS, QWEN2_AUDIO_TOKENS = 30, 256, 128
+VOXTRAL_SECONDS, VOXTRAL_TOKENS, QWEN2_AUDIO_TOKENS = 30, 128, 128
 VIBEVOICE_ASR_SECONDS = 600
 # the q8 and 4-bit models' first-step logits against bf16's (random codes
 # through 30 or 32 layers; unrelated logits read about 1.4)
@@ -8251,7 +8349,9 @@ def _llm_run(model, audio, label: str, tag: str, tokens: int, card: str,
                                                         splice_embeds)
 
     lm = model.language_model
+    laps = Laps(f"{tag} {label}")
     model.generate(audio, max_tokens=8)
+    laps("warm-up")
     enc_ms = _sync_ms(lambda: encode(audio))
     feats, ids = model.prompt_inputs(audio)
     n = len(ids)
@@ -8260,10 +8360,12 @@ def _llm_run(model, audio, label: str, tag: str, tokens: int, card: str,
         embeds = splice_embeds(lm, ids, feats, audio_id=model.audio_id)
     prefill_ms = _sync_ms(lambda: fns.prefill(embeds, n))
     logits = fns.prefill(embeds, n)[0]
+    laps("encoder and prefill timed")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = model.generate(audio, max_tokens=tokens)
     wall = time.perf_counter() - t0
+    laps("the request")
     run = dict(model.last_run)
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
@@ -8272,13 +8374,16 @@ def _llm_run(model, audio, label: str, tag: str, tokens: int, card: str,
     state = fns.start(embeds, n, tokens)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    fns.chunk(state)
-    chunk_wall = (time.perf_counter() - t1) * 1e3 / DEC_CHUNK
+    fns.chunk(state, PROFILE_STEPS)
+    chunk_wall = (time.perf_counter() - t1) * 1e3 / PROFILE_STEPS
     k2, fwd = qmm_kernel.launches, state["forwards"]
-    rows = _device_kernels(lambda: fns.chunk(state), cpu=False)
+    rows = _device_kernels(lambda: fns.chunk(state, PROFILE_STEPS),
+                           cpu=False)
     k2_token = (qmm_kernel.launches - k2) / max(state["forwards"] - fwd, 1)
-    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / DEC_CHUNK
-    kernels = sum(e.count for e in rows) / DEC_CHUNK
+    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / PROFILE_STEPS
+    kernels = sum(e.count for e in rows) / PROFILE_STEPS
+    laps("profiled steps")
+    laps.log()
     if not (kernels > 0 and dev_ms > 0):
         raise AssertionError(f"{tag}: the profiler saw no kernel")
     cols = n + run["steps"] / 2
@@ -8586,6 +8691,913 @@ def phase_llm_stt(card: str, recorder: K2Recorder) -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# OuteTTS over the DAC, Pocket-TTS and EnCodec, MMS and language ID
+# (phases 45-48)
+# ---------------------------------------------------------------------------
+
+# the card the full-size phases 45-48 run on
+DEVICE = "cuda"
+# small configs: a llama whose widths group 64 divides (the q8 checkpoint),
+# the tiny DAC of tests/test_codecs.py::TestDAC at 24 kHz with two
+# codebooks of 1,024, TestEncodec's EnCodec with two LSTM layers,
+# tests/test_pocket_tts.py's `tiny_cfg`, tests/test_wav2vec2.py's tiny
+# wav2vec2 with the stable layer norm and adapters, TestLidEcapa's ECAPA
+OUTE_SMALL = dict(model_type="outetts", hidden_size=64, num_hidden_layers=2,
+                  intermediate_size=128, num_attention_heads=4,
+                  num_key_value_heads=2, vocab_size=2304,
+                  rope_theta=10000.0)
+# the stand-in tokenizer's ids: characters from 3, c1 and c2 codes from
+# these, the special strings from `special`
+OUTE_SMALL_IDS = dict(c1=100, c2=1200, special=2240, chars=90)
+DAC_SMALL = dict(model_type="dac", encoder_dim=16, encoder_rates=[2, 4],
+                 latent_dim=32, decoder_dim=64, decoder_rates=[4, 2],
+                 n_codebooks=2, codebook_size=1024, codebook_dim=4,
+                 sample_rate=24000)
+ENCODEC_SMALL = dict(model_type="encodec", num_filters=8, hidden_size=16,
+                     codebook_dim=16, codebook_size=32, num_quantizers=4,
+                     upsampling_ratios=[4, 2], num_lstm_layers=2)
+POCKET_SMALL = dict(
+    model_type="pocket_tts",
+    flow_lm=dict(transformer=dict(d_model=32, num_heads=4, num_layers=2,
+                                  hidden_scale=2, max_period=10000),
+                 flow=dict(dim=32, depth=2),
+                 lookup_table=dict(n_bins=64, dim=16)),
+    mimi=dict(sample_rate=24000, channels=1, frame_rate=12.5,
+              seanet=dict(dimension=16, channels=1, n_filters=4,
+                          n_residual_layers=1, ratios=[8, 5, 4, 2],
+                          kernel_size=7, residual_kernel_size=3,
+                          last_kernel_size=3, dilation_base=2,
+                          pad_mode="constant", compress=2),
+              transformer=dict(d_model=16, num_heads=2, num_layers=1,
+                               layer_scale=0.01, context=32,
+                               dim_feedforward=32),
+              quantizer=dict(dimension=8, output_dimension=16)))
+MMS_SMALL = dict(model_type="wav2vec2", vocab_size=6, hidden_size=16,
+                 num_hidden_layers=2, num_attention_heads=2,
+                 intermediate_size=32, conv_dim=[8, 8], conv_stride=[5, 2],
+                 conv_kernel=[10, 3], num_feat_extract_layers=2,
+                 num_conv_pos_embeddings=8, num_conv_pos_embedding_groups=4,
+                 do_stable_layer_norm=True, feat_extract_norm="layer",
+                 adapter_attn_dim=4)
+MMS_SMALL_VOCAB = {"<pad>": 0, "a": 1, "b": 2, "|": 3, "c": 4, "d": 5}
+LID_SMALL = dict({k: v for k, v in MMS_SMALL.items() if k != "vocab_size"},
+                 classifier_proj_size=8,
+                 id2label={"0": "en", "1": "fr", "2": "de"})
+ECAPA_SMALL = dict(model_type="ecapa_tdnn", channels=32, embedding_dim=16,
+                   attention_channels=8, res2net_scale=4, se_channels=8,
+                   classifier_hidden_dim=16, num_classes=5,
+                   id2label={"0": "en: English", "1": "fr: French",
+                             "2": "de: German", "3": "es: Spanish",
+                             "4": "zh: Chinese"})
+# CUDA against the CPU at f32 on the small configs
+OUTE_REL = 1e-4
+OUTE_TEXT = "hello from the card"
+# the head's (or tied table's) c1 and c2 rows scaled, so that random
+# weights draw code pairs
+OUTE_CODE_SCALE = 4.0
+# Llama-OuteTTS-1.0-1B: Llama-3.2-1B's dims (16 layers at d2048, GQA 32/8
+# of 64, FFN 8,192, RoPE theta 500,000 with llama3 scaling of factor 32,
+# the head tied to the table) and OuteTTS-1.0's vocabulary of 134,400
+OUTE_1B = dict(model_type="outetts", hidden_size=2048, num_hidden_layers=16,
+               intermediate_size=8192, num_attention_heads=32,
+               num_key_value_heads=8, head_dim=64, vocab_size=134400,
+               rope_theta=500000.0, tie_word_embeddings=True,
+               rope_scaling=dict(rope_type="llama3", factor=32.0,
+                                 low_freq_factor=1.0, high_freq_factor=4.0,
+                                 original_max_position_embeddings=8192))
+# the stand-in tokenizer gives c1_i and c2_i one id, so that each code token
+# random weights draw is a DAC frame of two codes (a trained model
+# alternates c1 and c2 tokens)
+OUTE_1B_IDS = dict(c1=128400, c2=128400, special=130450, chars=1000)
+# descript's 24-kHz DAC (weights_24khz.pth's settings); OuteTTS decodes
+# two of its 32 codebooks
+DAC_24KHZ = dict(model_type="dac", encoder_dim=64, encoder_rates=[2, 4, 5, 8],
+                 latent_dim=1024, decoder_dim=1536,
+                 decoder_rates=[8, 5, 4, 2], n_codebooks=32,
+                 codebook_size=1024, codebook_dim=8, sample_rate=24000)
+OUTE_TOKENS, OUTE_INTERVAL = 128, 0.5
+OUTE_LONG_TEXT = ("OuteTTS reads this sentence aloud on the card, two DAC "
+                  "codebooks a frame, seventy five frames a second")
+# Pocket-TTS at the JAX package's ModelConfig() defaults (no published
+# config.json is in the repository); one sentence of ten words from the
+# default 0.5-s silent voice prompt, EOS biased off: max_gen frames
+POCKET_TEXT = ("The small streaming voice speaks this short sentence "
+               "for everyone today")
+POCKET_EOS_BIAS = -1e4
+POCKET_PROFILE_FRAMES = 4
+# EnCodec at mlx-community/encodec-24khz-float32's dims (ModelConfig()),
+# a round trip of ENCODEC_SECONDS in f32
+ENCODEC_SECONDS = 10
+# MMS-1b-all (wav2vec2 large: 48 layers at d1280, 16 heads, FFN 5,120, the
+# stable layer norm, adapters of 16) over an English vocabulary of 154;
+# MMS-LID-256 on the same backbone (projector 1,024, 256 labels);
+# SpeechBrain's VoxLingua107 ECAPA (channels 1,024, embedding 256, 107
+# languages)
+MMS_1B = dict(model_type="wav2vec2", vocab_size=154, hidden_size=1280,
+              num_hidden_layers=48, num_attention_heads=16,
+              intermediate_size=5120, feat_extract_norm="layer",
+              conv_bias=True, do_stable_layer_norm=True,
+              num_conv_pos_embeddings=128, num_conv_pos_embedding_groups=16,
+              adapter_attn_dim=16)
+MMS_LID_256 = dict({k: v for k, v in MMS_1B.items()
+                    if k not in ("vocab_size", "adapter_attn_dim")},
+                   classifier_proj_size=1024,
+                   id2label={str(i): f"lang{i}" for i in range(256)})
+ECAPA_VOXLINGUA = dict(model_type="ecapa_tdnn", channels=1024,
+                       embedding_dim=256, num_classes=107)
+MMS_SECONDS, MMS_LID_SECONDS, ECAPA_SECONDS = 30, 10, 30
+# the share of frames whose CTC ids agree, bf16 against f32, on random
+# weights
+MMS_BF16_AGREE = 0.9
+
+
+class PocketTok:
+    """A stand-in Pocket-TTS tokenizer: one id a character, inside the
+    small config's 64-bin table (tests/test_pocket_tts.py's)."""
+
+    def encode(self, text):
+        return [ord(c) % 64 for c in text]
+
+
+class OuteTok:
+    """A stand-in OuteTTS tokenizer (no HF tokenizer is in the repository):
+    each special string of the prompt one id from `special`, the c1 and c2
+    codes at `c1` + i and `c2` + i, any other character one of `chars`
+    ids from 3."""
+
+    def __init__(self, c1: int, c2: int, special: int, chars: int):
+        from mlx_audio_tpu_torch.tts.models.outetts.prompt import \
+            SpecialTokens
+
+        st = SpecialTokens()
+        self.ids = {}
+        for s in st.to_dict().values():
+            if "{" not in s:
+                self.ids[s] = special + len(self.ids)
+        for i in range(1025):
+            self.ids[st.c1.format(i)] = c1 + i
+            self.ids[st.c2.format(i)] = c2 + i
+        self.eos_token_id = self.ids[st.eos]
+        self.chars = chars
+
+    def encode(self, text, add_special_tokens=False):
+        out, i = [], 0
+        while i < len(text):
+            j = text.find(">", i) if text[i] == "<" else -1
+            if j != -1 and text[i:j + 1] in self.ids:
+                out.append(self.ids[text[i:j + 1]])
+                i = j + 1
+            else:
+                out.append(3 + ord(text[i]) % self.chars)
+                i += 1
+        return out
+
+
+def _scale_outetts_codes(model, ids: dict) -> None:
+    """The head's c1 and c2 rows (the table's where it is tied) times
+    OUTE_CODE_SCALE."""
+    import torch
+
+    with torch.no_grad():
+        w = (model.model.embed_tokens.weight
+             if model.config.tie_word_embeddings else model.lm_head.weight)
+        for start in sorted({ids["c1"], ids["c2"]}):
+            w[start:start + 1025] *= OUTE_CODE_SCALE
+
+
+def _small(kind: str, cfg: dict, device: str, like=None):
+    """A small model of `kind` ("dac", "encodec", "pocket", "mms", "lid",
+    "ecapa") on `device`: seeded from 0, or `like`'s weights."""
+    import importlib
+
+    module, cls = {
+        "dac": ("codec.models.descript", "DAC"),
+        "encodec": ("codec.models.encodec", "Encodec"),
+        "pocket": ("tts.models.pocket_tts", "Model"),
+        "mms": ("stt.models.mms", "Model"),
+        "lid": ("lid.models.wav2vec2", "Model"),
+        "ecapa": ("lid.models.ecapa_tdnn", "Model")}[kind]
+    m = importlib.import_module(f"mlx_audio_tpu_torch.{module}")
+    return _seeded_like(getattr(m, cls)(dict(cfg), device=device), like)
+
+
+def _outetts_small(device: str, like=None):
+    """The small OuteTTS (seed 0, its code rows scaled), the stand-in
+    tokenizer, the small DAC (seed 1) bound."""
+    from mlx_audio_tpu_torch.tts.models.outetts import Model
+
+    model = Model(OUTE_SMALL, device=device)
+    if like is None:
+        model.init_params(seed=0)
+        _scale_outetts_codes(model, OUTE_SMALL_IDS)
+    else:
+        model.load_state_dict(like.state_dict())
+    model.tokenizer = OuteTok(**OUTE_SMALL_IDS)
+    dac = _small("dac", DAC_SMALL, device)
+    if like is None:
+        dac.init_params(seed=1)
+    else:
+        dac.load_state_dict(like.codec.state_dict())
+    return model.set_codec(dac)
+
+
+def _outetts_greedy(model, n: int = 40) -> tuple:
+    """n greedy tokens of OUTE_TEXT's prompt, and `generate`'s audio."""
+    import numpy as np
+
+    ids = np.asarray(model.tokenizer.encode(
+        model._processor().get_completion_prompt(OUTE_TEXT)), np.int32)
+    *_, toks = model._decode_tokens(ids, n, 0.0, 0.9, 40, 0.05, 1.1, 0)
+    res = list(model.generate(OUTE_TEXT, temperature=0.0, max_tokens=n))
+    audio = np.concatenate([r.audio for r in res]) if res else np.zeros(0)
+    return toks, audio
+
+
+def write_outetts_checkpoint(model, path: Path, bits=None) -> None:
+    """`model` as a checkpoint directory: config.json and model.safetensors
+    (HF llama names; with `bits` MLX-packed, `write_lm_weights`), its DAC
+    in `codec/` (descript's names, torch layouts, config.json)."""
+    import numpy as np
+    from safetensors.numpy import save_file
+
+    write_lm_weights(model, path, bits)
+    (path / "codec").mkdir(exist_ok=True)
+    save_file({k: np.ascontiguousarray(v.float().cpu().numpy())
+               for k, v in model.codec.state_dict().items()},
+              str(path / "codec" / "model.safetensors"))
+    (path / "codec" / "config.json").write_text(json.dumps(DAC_SMALL))
+
+
+def _load_outetts(path: Path, device: str):
+    from mlx_audio_tpu_torch.tts.utils import load_model
+
+    model = load_model(path, device=device)
+    model.tokenizer = OuteTok(**OUTE_SMALL_IDS)
+    return model
+
+
+def _pocket_frames(model, **kw) -> tuple:
+    """`generate` of a short sentence (EOS moved below its logit: it fires
+    on the first frame, eight frames follow) -> (the frames' latents, the
+    audio)."""
+    import numpy as np
+
+    latents = []
+    frame = model.frame
+
+    def recorded(*args):
+        out = frame(*args)
+        latents.append(out[0].float().cpu().numpy())
+        return out
+
+    model.frame = recorded
+    try:
+        res = list(model.generate("hello world test", temperature=0.0,
+                                  frames_after_eos=8, eos_threshold=-1000.0,
+                                  seed=0, **kw))
+    finally:
+        del model.frame
+    return np.concatenate(latents), np.concatenate([r.audio for r in res])
+
+
+def _write_state(model, path: Path, config: dict, jax_tree=False) -> None:
+    """config.json and the model's weights in npz: its names in torch
+    layouts (HF's, for wav2vec2), or the JAX tree (ECAPA's)."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.model import jax_params
+
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(config))
+    state = jax_params(model) if jax_tree else model.state_dict()
+    np.savez(path / "model.npz", **{k: v.float().cpu().numpy()
+                                    for k, v in state.items()})
+
+
+def phase_outetts_lid_reference(tmp: Path, recorder: K2Recorder) -> int:
+    """Phase 45: the small configs at f32 from one seeded weight set, the
+    card against the CPU: the DAC (encode codes equal, `from_codes` and
+    decode within OUTE_REL), EnCodec's round trip, OuteTTS (40 greedy
+    tokens equal, the DAC audio), an MLX-packed q8 OuteTTS through
+    `tts.utils.load_model` (every linear on K2: tokens equal to the CPU's
+    and to the same model through `qmatmul_reference`), Pocket-TTS's frames
+    at temperature 0, MMS's CTC ids, wav2vec2 and ECAPA LID's
+    probabilities; then tiny directories through `tts.utils`,
+    `stt.utils`, `lid.utils` and the top-level `load_model` on the card,
+    the TTS CLI on OuteTTS and the STT CLI on MMS against in-process
+    `generate`. -> K2's launches, as its counter read them."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch import load_model as route
+    from mlx_audio_tpu_torch.lid.utils import load_model as lid_load
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.stt import generate as stt_generate
+    from mlx_audio_tpu_torch.stt.utils import load_model as stt_load
+    from mlx_audio_tpu_torch.tts import generate as tts_generate
+    from mlx_audio_tpu_torch.tts.models.outetts import outetts
+
+    t0 = time.perf_counter()
+    qmm_kernel.launches = 0
+    notes = []
+    # the codecs
+    clip = _clip_audio(3, 0.1, 24000)
+    cpu = _small("dac", DAC_SMALL, "cpu")
+    card = _small("dac", DAC_SMALL, DEVICE, like=cpu)
+    (zc, cc), (zg, cg) = cpu.encode(clip), card.encode(clip)
+    errs = (rel_err(zg.cpu(), zc),
+            rel_err(card.decode(card.from_codes(cg)).cpu(),
+                    cpu.decode(cpu.from_codes(cc))))
+    if not (torch.equal(cg.cpu(), cc) and max(errs) <= OUTE_REL):
+        raise AssertionError(f"DAC CUDA vs CPU: codes equal "
+                             f"{torch.equal(cg.cpu(), cc)}, rel {errs}")
+    notes.append(f"DAC codes equal ({tuple(cc.shape)}), latent and audio "
+                 f"rel {max(errs):.1e}")
+    cpu = _small("encodec", ENCODEC_SMALL, "cpu")
+    card = _small("encodec", ENCODEC_SMALL, DEVICE, like=cpu)
+    cc, cg = cpu.encode(clip[:640]), card.encode(clip[:640])
+    err = rel_err(card.decode(cg).cpu(), cpu.decode(cc))
+    if not (torch.equal(cg.cpu(), cc) and err <= OUTE_REL):
+        raise AssertionError(f"EnCodec CUDA vs CPU: codes equal "
+                             f"{torch.equal(cg.cpu(), cc)}, audio rel {err}")
+    notes.append(f"EnCodec codes equal ({tuple(cc.shape)}), audio rel "
+                 f"{err:.1e}")
+    # OuteTTS, dense, then MLX-packed q8 on K2
+    cpu = _outetts_small("cpu")
+    card = _outetts_small(DEVICE, like=cpu)
+    (tc, ac), (tg, ag) = _outetts_greedy(cpu), _outetts_greedy(card)
+    err = rel_err(ag, ac) if len(ac) and ag.shape == ac.shape else 1.0
+    if not (tg == tc and len(tc) == 40 and err <= OUTE_REL):
+        raise AssertionError(f"OuteTTS CUDA vs CPU: tokens equal {tg == tc}, "
+                             f"audio {ag.shape} vs {ac.shape} rel {err}")
+    notes.append(f"OuteTTS 40 greedy tokens equal, DAC audio ({len(ac)} "
+                 f"samples) rel {err:.1e}")
+    d8 = tmp / "outetts-q8"
+    write_outetts_checkpoint(cpu, d8, bits=8)
+    with recorder:
+        q8 = _load_outetts(d8, DEVICE)
+        held = sum(isinstance(m, QuantizedLinear) for m in q8.modules())
+        k2 = qmm_kernel.launches
+        t8, a8 = _outetts_greedy(q8)
+        k2 = qmm_kernel.launches - k2
+    with K2AsReference():
+        tr, ar = _outetts_greedy(q8)
+    tq, aq = _outetts_greedy(_load_outetts(d8, "cpu"))
+    n_linears = 7 * OUTE_SMALL["num_hidden_layers"] + 1       # + lm_head
+    err = rel_err(a8, aq) if len(aq) and a8.shape == aq.shape else 1.0
+    if not (held == n_linears and t8 == tr == tq and err <= OUTE_REL
+            and k2 > 0):
+        raise AssertionError(f"q8 OuteTTS: {held} quantized linears (want "
+                             f"{n_linears}), K2 tokens equal the plain "
+                             f"version's {t8 == tr}, the CPU's {t8 == tq}, "
+                             f"audio rel {err}, {k2} K2 launches")
+    notes.append(f"MLX-packed q8 OuteTTS through load_model: {held} linears "
+                 f"on K2 ({k2} launches over a greedy decode and generate), "
+                 f"tokens equal to qmatmul_reference's and the CPU's")
+    # Pocket-TTS at temperature 0
+    cpu = _small("pocket", POCKET_SMALL, "cpu")
+    card = _small("pocket", POCKET_SMALL, DEVICE, like=cpu)
+    for m in (cpu, card):
+        m.tokenizer = PocketTok()
+    (lc, pc), (lg, pg) = _pocket_frames(cpu), _pocket_frames(card)
+    errs = (rel_err(lg, lc), rel_err(pg, pc))
+    if not (lg.shape == lc.shape == (9, 1, 8) and max(errs) <= OUTE_REL):
+        raise AssertionError(f"Pocket-TTS CUDA vs CPU: frames {lg.shape} vs "
+                             f"{lc.shape}, rel {errs}")
+    notes.append(f"Pocket-TTS {len(lc)} frames at temperature 0, rel "
+                 f"{max(errs):.1e}")
+    # MMS, wav2vec2 LID, ECAPA LID
+    speech = _noise(4, 1.0)
+    cpu = _small("mms", MMS_SMALL, "cpu")
+    card = _small("mms", MMS_SMALL, DEVICE, like=cpu)
+    ids = cpu.transcribe_ids(speech)
+    if card.transcribe_ids(speech) != ids or not ids:
+        raise AssertionError("MMS CUDA vs CPU: CTC ids differ")
+    mms_cpu = cpu
+    lid_cpu = _small("lid", LID_SMALL, "cpu")
+    ecapa_cpu = _small("ecapa", ECAPA_SMALL, "cpu")
+    for cpu, kind, cfg in ((lid_cpu, "lid", LID_SMALL),
+                           (ecapa_cpu, "ecapa", ECAPA_SMALL)):
+        card = _small(kind, cfg, DEVICE, like=cpu)
+        want, got = cpu.predict(speech, top_k=3), card.predict(speech,
+                                                              top_k=3)
+        err = max(abs(a[1] - b[1]) for a, b in zip(got, want))
+        if [g[0] for g in got] != [w[0] for w in want] or err > OUTE_REL:
+            raise AssertionError(f"{kind} LID CUDA vs CPU: {got} vs {want}")
+    notes.append(f"MMS CTC ids equal ({len(ids)}), wav2vec2 and ECAPA LID "
+                 f"top-3 equal, probabilities within {OUTE_REL:g}")
+    # the loaders and the CLIs on the card
+    d_oute = tmp / "outetts-tiny"
+    write_outetts_checkpoint(_outetts_small("cpu"), d_oute)
+    d_mms = tmp / "mms-1b-tiny"
+    _write_state(mms_cpu, d_mms, MMS_SMALL)
+    (d_mms / "vocab.json").write_text(json.dumps(MMS_SMALL_VOCAB))
+    d_lid = tmp / "mms-lid-tiny"
+    _write_state(lid_cpu, d_lid, LID_SMALL)
+    d_ecapa = tmp / "voxlingua107-ecapa-tiny"
+    _write_state(ecapa_cpu, d_ecapa, ECAPA_SMALL, jax_tree=True)
+    oute = _load_outetts(d_oute, DEVICE)
+    mms = stt_load(d_mms, device=DEVICE)
+    lid = route(d_lid, device=DEVICE)
+    ecapa = lid_load(d_ecapa, device=DEVICE)
+    kinds = [type(m).__module__.rsplit(".", 2)[-2]
+             for m in (oute, mms, lid, ecapa, route(d_oute, device=DEVICE),
+                       route(d_ecapa, device=DEVICE))]
+    if kinds != ["outetts", "mms", "wav2vec2", "ecapa_tdnn", "outetts",
+                 "ecapa_tdnn"] or _outetts_greedy(oute)[0] != tc \
+            or mms.transcribe_ids(speech) != ids \
+            or [p[0] for p in lid.predict(speech, top_k=3)] != \
+            [p[0] for p in lid_cpu.predict(speech, top_k=3)] \
+            or [p[0] for p in ecapa.predict(speech, top_k=3)] != \
+            [p[0] for p in ecapa_cpu.predict(speech, top_k=3)]:
+        raise AssertionError(f"the loaders on the card: {kinds}")
+    notes.append("tts.utils, stt.utils, lid.utils and the top-level "
+                 "load_model on tiny directories (outetts, mms, wav2vec2 "
+                 "and ecapa_tdnn LID), each as the CPU model")
+    prev = outetts.local_tokenizer
+    outetts.local_tokenizer = lambda path: OuteTok(**OUTE_SMALL_IDS)
+    try:
+        tts_generate.main([
+            "--model", str(d_oute), "--text", OUTE_TEXT, "--temperature",
+            "0", "--max_tokens", "40", "--seed", "0", "--output_path",
+            str(tmp / "oute-cli"), "--no-verbose", "--device", DEVICE])
+    finally:
+        outetts.local_tokenizer = prev
+    want = np.concatenate([r.audio for r in oute.generate(
+        OUTE_TEXT, temperature=0.0, max_tokens=40, seed=0, top_p=0.9,
+        top_k=50, repetition_penalty=1.0)])
+    wav, sr = audio_io.read(str(tmp / "oute-cli" / "audio_000.wav"),
+                            dtype="float32")
+    err = float(np.abs(wav - np.clip(want, -1, 1)).max()) if len(
+        wav) == len(want) else float("inf")
+    wav16 = tmp / "speech.wav"
+    audio_io.write(wav16, speech, 16000)
+    stt_generate.main(["--model", str(d_mms), "--audio", str(wav16),
+                       "--no-verbose", "--output-path", str(tmp / "mms")])
+    text = (tmp / "mms" / "transcription.txt").read_text().strip()
+    if not (sr == 24000 and err <= 2 / 32768
+            and text == mms.generate(str(wav16)).text):
+        raise AssertionError(f"the CLIs: TTS WAV {len(wav)} vs {len(want)} "
+                             f"samples, max error {err:.3e}; STT {text!r}")
+    notes.append(f"the TTS CLI wrote OuteTTS's generate() audio ({len(wav)} "
+                 f"samples, max error {err:.1e}), the STT CLI MMS's text")
+    launches = qmm_kernel.launches
+    log(f"[outetts-lid small] {'; '.join(notes)}")
+    log(f"[time] phase 45 in {time.perf_counter() - t0:.1f} s; K2 launched "
+        f"{launches} times")
+    return launches
+
+
+def build_outetts_full():
+    """Llama-OuteTTS-1.0-1B (OUTE_1B) drawn on the card in f32 from seed 0
+    tensor by tensor, the tied table's code rows scaled by
+    OUTE_CODE_SCALE, cast in place to bf16; the 24-kHz DAC in f32 from seed
+    1; the stand-in tokenizer."""
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.descript import DAC
+    from mlx_audio_tpu_torch.tts.models.outetts import Model
+
+    t0 = time.perf_counter()
+    model = Model(OUTE_1B, device=DEVICE).init_params(seed=0, on_device=True)
+    _scale_outetts_codes(model, OUTE_1B_IDS)
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    model.tokenizer = OuteTok(**OUTE_1B_IDS)
+    model.set_codec(DAC(DAC_24KHZ, device=DEVICE).init_params(
+        seed=1, on_device=True))
+    torch.cuda.synchronize()
+    log(f"[outetts] Llama-OuteTTS-1.0-1B dims: {model.num_params():,} params "
+        f"bf16 (tied head, vocabulary {OUTE_1B['vocab_size']:,}) and the "
+        f"24-kHz DAC {model.codec.num_params():,} params f32 on cuda, built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def _outetts_profile(model, ids) -> tuple:
+    """PROFILE_STEPS sampled steps unprofiled, then as many under
+    torch.profiler, after a prefill. -> (kernels a token, device ms a
+    token, wall ms a token unprofiled, busy share)."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.sampling import sample
+
+    logits, caches, _ = model.prefill(ids, 4 * PROFILE_STEPS)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = {"logits": logits, "caches": caches,
+             "history": torch.full((1, model.rep_window), -1,
+                                   dtype=torch.long, device=dev),
+             "done": torch.zeros(1, dtype=torch.bool, device=dev),
+             "t": len(ids)}
+    stops = torch.tensor(model.stop_ids(), device=dev)
+
+    def chunk():
+        model.chunk(state, PROFILE_STEPS, lambda lg: sample(
+            lg, 0.4, top_k=40, top_p=0.9, min_p=0.05, generator=gen),
+            stops, 1.1).cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk()
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    rows = _device_kernels(chunk, cpu=False)
+    device = sum(_dev_us(e) for e in rows) / 1e3 / PROFILE_STEPS
+    kernels = sum(e.count for e in rows) / PROFILE_STEPS
+    if not (kernels > 0 and device > 0):
+        raise AssertionError("OuteTTS: the profiler saw no kernel")
+    return kernels, device, wall, device / wall
+
+
+def _outetts_run(model, label: str, card: str, base: int,
+                 stream: bool) -> dict:
+    """A 32-token warm-up; one request of OUTE_TOKENS tokens at OuteTTS's
+    sampling (ms a token p50 and p95 over its chunks after the first, the
+    code share, wall, xRT); with `stream`, the same request streamed every
+    OUTE_INTERVAL s (time to first audio); the DAC's ms on the request's
+    codes; a profiled stretch. -> the numbers, and the decode steps and
+    prefills run in all."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.llama import orpheus
+
+    laps = Laps(f"outetts {label}")
+    kw = dict(seed=0)
+    list(model.generate(OUTE_LONG_TEXT, max_tokens=orpheus.CHUNK, **kw))
+    steps, prefills = model.last_run["steps"], 1
+    laps("warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = list(model.generate(OUTE_LONG_TEXT, max_tokens=OUTE_TOKENS, **kw))
+    wall = time.perf_counter() - t0
+    laps("the request")
+    run = dict(model.last_run)
+    steps, prefills = steps + run["steps"], prefills + 1
+    samples = sum(r.samples for r in res)
+    per_token = np.asarray(run["chunk_ms"][1:]) / orpheus.CHUNK
+    share = run["code_tokens"] / max(run["tokens"], 1)
+    if not (run["steps"] == OUTE_TOKENS and samples > 0
+            and all(np.isfinite(r.audio).all() for r in res)):
+        raise AssertionError(f"OuteTTS {label}: {run}, {samples} samples")
+    # the DAC's decode of as many frames, seeded codes
+    dac = model.codec
+    frames = samples // dac.hop_length
+    c = torch.as_tensor(np.random.RandomState(0).randint(
+        0, 1024, (1, 2, frames)), device=DEVICE)
+    dac.decode(dac.from_codes(c))
+    dac_s = _sync_s(lambda: dac.decode(dac.from_codes(c)))[1]
+    out = dict(wall=wall, samples=samples, share=share, dac_ms=dac_s * 1e3,
+               frames=frames,
+               p50=float(np.percentile(per_token, 50)),
+               p95=float(np.percentile(per_token, 95)))
+    if stream:
+        t0 = time.perf_counter()
+        first = None
+        n = 0
+        for r in model.generate(OUTE_LONG_TEXT, max_tokens=OUTE_TOKENS,
+                                stream=True, streaming_interval=OUTE_INTERVAL,
+                                **kw):
+            first = first or time.perf_counter() - t0
+            n += r.samples
+        out.update(ttfa=first, s_wall=time.perf_counter() - t0,
+                   s_samples=n)
+        steps, prefills = steps + model.last_run["steps"], prefills + 1
+        if not (first and n > 0):
+            raise AssertionError(f"OuteTTS {label}: the stream yielded no "
+                                 f"audio")
+        laps("streamed")
+    out["peak"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ids = np.asarray(model.tokenizer.encode(
+        model._processor().get_completion_prompt(OUTE_LONG_TEXT)), np.int32)
+    kernels, dev_ms, prof_wall, busy = _outetts_profile(model, ids)
+    steps, prefills = steps + 2 * PROFILE_STEPS, prefills + 1
+    laps("profiled steps")
+    laps.log()
+    cols = run["prompt_bucket"] + OUTE_TOKENS / 2
+    bound = orpheus_token_bytes(model, cols) / HBM_BPS * 1e3
+    audio_s = samples / model.sample_rate
+    out.update(xrt=audio_s / wall, kernels=kernels, dev_ms=dev_ms, busy=busy,
+               bound=bound, steps=steps, prefills=prefills,
+               nbytes=orpheus_token_bytes(model, cols))
+    log(f"[outetts] {label}: {OUTE_TOKENS} tokens ({run['prompt_len']}-token "
+        f"prompt, bucket {run['prompt_bucket']}): {out['p50']:.2f} ms a token "
+        f"p50, {out['p95']:.2f} p95 (over {len(per_token)} chunks of "
+        f"{orpheus.CHUNK}), {100 * share:.1f}% of the tokens codes, "
+        f"{out['frames']} DAC frames, {audio_s:.2f} s of audio in {wall:.2f} "
+        f"s (xRT {out['xrt']:.3f}), the DAC's decode of them "
+        f"{out['dac_ms']:.2f} ms"
+        + (f"; streamed every {OUTE_INTERVAL:g} s: first audio "
+           f"{out['ttfa']:.3f} s, wall {out['s_wall']:.2f} s, "
+           f"{out['s_samples']} samples (the whole request's {samples}; "
+           f"every interval decodes every code so far)" if stream else "")
+        + f"; peak {out['peak']:.2f} GB above the earlier phases'; profiled "
+        f"{PROFILE_STEPS} steps: {kernels:.0f} kernels and {dev_ms:.3f} ms "
+        f"of device time a token against {prof_wall:.2f} ms of wall "
+        f"({100 * busy:.1f}% busy); {out['nbytes'] / 1e9:.3f} GB a token, "
+        f"bound {bound:.3f} ms (bytes), {100 * bound / out['p50']:.1f}% of it "
+        f"reached at p50 ({card})")
+    return out
+
+
+def phase_outetts_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 46: Llama-OuteTTS-1.0-1B at its published dims in bf16 over
+    the 24-kHz DAC (a request whole and streamed), then its weights packed
+    to MLX's 8-bit layout in memory and loaded through the pre-quantized
+    path (every linear on K2, the tied table dense): the 112 linears alone
+    at M = 1 against their byte bound, the request again, K2's launches a
+    token read from its counter against 16 x 7, the first step's logits
+    q8 against bf16. -> K2's launches, as its counter read them."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.nn import Embedding, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import (apply_quantization,
+                                           unpack_prequantized)
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = build_outetts_full()
+    ids = np.asarray(model.tokenizer.encode(
+        model._processor().get_completion_prompt(OUTE_LONG_TEXT)), np.int32)
+    logits_bf16 = model.prefill(ids, 32)[0]
+    bf16 = _outetts_run(model, "bf16", card, base, stream=True)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 OuteTTS launched K1 or K2")
+    t1 = time.perf_counter()
+    packed = pack_mlx_in_memory(model, 8)
+    torch.cuda.empty_cache()
+    config = {"quantization": {"group_size": MLX_GROUP, "bits": 8}}
+    flat = unpack_prequantized(model, config, packed)
+    del packed
+    model.bind(flat)
+    del flat
+    apply_quantization(model, config, pre_quantized=True)
+    torch.cuda.empty_cache()
+    per_token = 7 * OUTE_1B["num_hidden_layers"]
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if held != per_token or not isinstance(model.model.embed_tokens,
+                                           Embedding):
+        raise AssertionError(f"q8 OuteTTS holds {held} quantized linears "
+                             f"(want {per_token}) or a quantized table")
+    log(f"[outetts] packed to MLX 8-bit (group {MLX_GROUP}) in memory and "
+        f"loaded through the pre-quantized path in "
+        f"{time.perf_counter() - t1:.2f} s: {held} linears on K2, the tied "
+        f"table dense")
+    k2_linears_alone(model, card, "outetts")
+    k1 = snake_conv_kernel.launches
+    qmm_kernel.launches = 0
+    with recorder:
+        logits_q8 = model.prefill(ids, 32)[0]
+        q8 = _outetts_run(model, "q8 (K2)", card, base, stream=False)
+    k2 = qmm_kernel.launches
+    rel = float(torch.linalg.norm(logits_q8 - logits_bf16)
+                / torch.linalg.norm(logits_bf16))
+    top1 = int(logits_q8.argmax()) == int(logits_bf16.argmax())
+    want = per_token * (1 + q8["steps"] + q8["prefills"])
+    if k2 != want or snake_conv_kernel.launches != k1:
+        raise AssertionError(f"q8 OuteTTS: {k2} K2 launches for "
+                             f"{q8['steps']} decode steps and "
+                             f"{1 + q8['prefills']} prefills, want {want}; "
+                             f"or K1 launched")
+    if not (torch.isfinite(logits_q8).all() and rel < ASR_Q8_REL):
+        raise AssertionError(f"q8 OuteTTS first-step logits vs bf16: "
+                             f"relative {rel:.3e}")
+    log(f"[outetts] q8 against bf16 on this card: {q8['p50']:.2f} vs "
+        f"{bf16['p50']:.2f} ms a token p50, {q8['p95']:.2f} vs "
+        f"{bf16['p95']:.2f} p95, xRT {q8['xrt']:.3f} vs {bf16['xrt']:.3f}, "
+        f"{q8['kernels']:.0f} vs {bf16['kernels']:.0f} kernels and "
+        f"{q8['dev_ms']:.3f} vs {bf16['dev_ms']:.3f} ms of device time a "
+        f"token, busy {100 * q8['busy']:.1f}% vs {100 * bf16['busy']:.1f}%, "
+        f"{q8['nbytes'] / 1e9:.3f} vs {bf16['nbytes'] / 1e9:.3f} GB a token, "
+        f"bound {q8['bound']:.3f} vs {bf16['bound']:.3f} ms, peak "
+        f"{q8['peak']:.2f} vs {bf16['peak']:.2f} GB; K2 launched {k2} times "
+        f"over {q8['steps']} decode steps and {1 + q8['prefills']} prefills "
+        f"(the comparison's included): "
+        f"{k2 // (1 + q8['steps'] + q8['prefills'])} a token, read from its "
+        f"counter (the config gives {per_token}); first-step logits q8 vs "
+        f"bf16 relative {rel:.3e} (limit {ASR_Q8_REL:g}), top-1 "
+        f"{'equal' if top1 else 'differs'} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 46 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def phase_pocket_encodec_full(card: str) -> None:
+    """Phase 47: Pocket-TTS at the JAX package's ModelConfig() (a 12 x
+    d1024 flow LM, a 1,024 x 6 flow net, an 8,000-bin table, the default
+    Mimi) drawn on the card in f32 from seed 0, EOS biased off: one
+    sentence from the default 0.5-s silent voice, run to max_gen (ms a
+    frame p50 and p95 against the 80-ms frame, realtime factor, kernels a
+    frame); EnCodec at its 24-kHz dims in f32: a round trip of
+    ENCODEC_SECONDS (ms, xRT)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.encodec import Encodec
+    from mlx_audio_tpu_torch.tts.models.pocket_tts import Model
+    from mlx_audio_tpu_torch.tts.models.pocket_tts.pocket_tts import \
+        split_into_best_sentences
+
+    t_phase = time.perf_counter()
+    model = Model(dict(model_type="pocket_tts"), device=DEVICE).init_params(
+        seed=0, on_device=True)
+    with torch.no_grad():
+        model.flow_lm.out_eos.bias.fill_(POCKET_EOS_BIAS)
+    model.tokenizer = PocketTok()
+    n_params = model.num_params()
+    voice = np.zeros(int(0.5 * model.sample_rate), np.float32)
+    (chunk,) = split_into_best_sentences(model.tokenizer, POCKET_TEXT)
+    # a warm-up of a few frames, then the request frame by frame
+    state = model.get_state_for_audio_prompt(voice)
+    for _, _ in zip(range(3), model.generate_audio_stream(
+            state, "Warm up.")):
+        pass
+    state = model.get_state_for_audio_prompt(voice)
+    torch.cuda.synchronize()
+    times, samples = [], 0
+    t0 = t_last = time.perf_counter()
+    for audio in model.generate_audio_stream(state, POCKET_TEXT):
+        now = time.perf_counter()
+        times.append((now - t_last) * 1e3)
+        t_last = now
+        samples += len(audio)
+        if not np.isfinite(audio).all():
+            raise AssertionError("Pocket-TTS: audio not finite")
+    wall = time.perf_counter() - t0
+    run = dict(model.last_run)
+    frame_ms = 1e3 / model.frame_rate
+    if not (len(times) == run["max_gen"] and run["eos_step"] is None):
+        raise AssertionError(f"Pocket-TTS: {len(times)} frames, {run}")
+    # POCKET_PROFILE_FRAMES frames under the profiler
+    state = model.get_state_for_audio_prompt(voice)
+    frames = model.generate_audio_stream(state, POCKET_TEXT)
+    next(frames)
+    rows = _device_kernels(lambda: [next(frames) for _ in range(
+        POCKET_PROFILE_FRAMES)], cpu=False)
+    frames.close()
+    kernels = sum(e.count for e in rows) / POCKET_PROFILE_FRAMES
+    dev_ms = sum(_dev_us(e) for e in rows) / 1e3 / POCKET_PROFILE_FRAMES
+    p50, p95 = np.percentile(times[1:], 50), np.percentile(times[1:], 95)
+    audio_s = samples / model.sample_rate
+    log(f"[pocket-tts] ModelConfig() ({n_params:,} params f32, flow LM 12 x "
+        f"d1024, flow net 1,024 x 6, the default Mimi): {len(times)} frames "
+        f"of a {len(POCKET_TEXT.split())}-word sentence "
+        f"({len(model.tokenizer.encode(chunk))} text tokens) from a 0.5-s "
+        f"silent voice: {p50:.2f} ms a frame p50, {p95:.2f} p95 against the "
+        f"{frame_ms:.0f}-ms frame, {audio_s:.2f} s of audio in {wall:.2f} s "
+        f"(realtime factor {audio_s / wall:.2f}); profiled "
+        f"{POCKET_PROFILE_FRAMES} frames: {kernels:.0f} kernels and "
+        f"{dev_ms:.3f} ms of device time a frame ({card})")
+    del model, state
+    torch.cuda.empty_cache()
+    codec = Encodec(dict(model_type="encodec"), device=DEVICE).init_params(
+        seed=0, on_device=True)
+    clip = _clip_audio(5, ENCODEC_SECONDS, codec.sample_rate)
+    codec.decode(codec.encode(clip[:24000]))
+    (codes, enc_s) = _sync_s(lambda: codec.encode(clip))
+    audio, dec_s = _sync_s(lambda: codec.decode(codes))
+    if not (codes.shape == (1, 32, ENCODEC_SECONDS * 75)
+            and audio.shape[1] >= len(clip)
+            and torch.isfinite(audio).all()):
+        raise AssertionError(f"EnCodec: codes {tuple(codes.shape)}, audio "
+                             f"{tuple(audio.shape)}")
+    log(f"[encodec] 24-kHz dims ({codec.num_params():,} params f32, 32 "
+        f"filters, ratios [8, 5, 4, 2], two LSTM layers, 32 codebooks): "
+        f"{ENCODEC_SECONDS} s encoded in {enc_s * 1e3:.1f} ms and decoded in "
+        f"{dec_s * 1e3:.1f} ms, round trip xRT "
+        f"{ENCODEC_SECONDS / (enc_s + dec_s):.1f} ({card})")
+    del codec
+    torch.cuda.empty_cache()
+    log(f"[time] phase 47 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def wav2vec2_flops(cfg: dict, samples: int) -> float:
+    """Operations of one wav2vec2 forward over `samples`: the conv feature
+    encoder, the projection, the positional conv and each layer's
+    projections, attention and FFN (2 a multiply-add)."""
+    from mlx_audio_tpu_torch.stt.models.wav2vec import ModelConfig
+
+    c = ModelConfig.from_dict(cfg)
+    ops, n, cin = 0.0, samples, 1
+    for dim, k, s in zip(c.conv_dim, c.conv_kernel, c.conv_stride):
+        n = (n - k) // s + 1
+        ops += 2 * n * k * cin * dim
+        cin = dim
+    h = c.hidden_size
+    ops += 2 * n * cin * h
+    ops += 2 * n * c.num_conv_pos_embeddings * h * h \
+        / c.num_conv_pos_embedding_groups
+    ops += c.num_hidden_layers * (2 * n * 4 * h * h + 4 * n * n * h
+                                  + 4 * n * h * c.intermediate_size)
+    return ops
+
+
+def phase_mms_lid_full(card: str) -> None:
+    """Phase 48: MMS-1b-all (MMS_1B) on MMS_SECONDS of `randn * 0.1`, in
+    bf16 and f32 (ms, xRT, the share of 989 TFLOP/s by counted operations,
+    CTC ids bf16 against f32); MMS-LID-256 on MMS_LID_SECONDS (top-1 equal
+    between bf16 and f32); ECAPA VoxLingua107 on ECAPA_SECONDS in f32
+    (ms). All drawn on the card from seed 0."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.lid.models import ecapa_tdnn, wav2vec2
+    from mlx_audio_tpu_torch.stt.models.mms import Model
+    from mlx_audio_tpu_torch.stt.models.mms.mms import padded_wave
+
+    t_phase = time.perf_counter()
+    model = Model(MMS_1B, device=DEVICE).init_params(seed=0, on_device=True)
+    audio = _noise(6, MMS_SECONDS)
+    wave, n = padded_wave(audio, DEVICE)
+    ids32, frames = model.forward_ids(wave, n)
+    ms32 = _sync_ms(lambda: model.forward_ids(wave, n), reps=1)
+    model.astype(torch.bfloat16)
+    model.forward_ids(wave, n)
+    ms16 = _sync_ms(lambda: model.forward_ids(wave, n), reps=1)
+    ids16 = model.forward_ids(wave, n)[0]
+    f = int(frames[0])
+    agree = float((ids16[0, :f] == ids32[0, :f]).float().mean())
+    text16 = model.transcribe_ids(audio)
+    flops = wav2vec2_flops(MMS_1B, wave.shape[1])
+    if not (agree >= MMS_BF16_AGREE and text16):
+        raise AssertionError(f"MMS bf16 vs f32: {agree:.3f} of the frames' "
+                             f"CTC ids agree (limit {MMS_BF16_AGREE})")
+    log(f"[mms] MMS-1b-all dims ({model.num_params():,} params: 48 layers at "
+        f"d1280, adapters of 16) on {MMS_SECONDS} s ({f} frames): bf16 "
+        f"{ms16:.1f} ms (xRT {MMS_SECONDS * 1e3 / ms16:.0f}, "
+        f"{flops / 1e12:.2f} TFLOP: {100 * flops / PEAK_BF16 * 1e3 / ms16:.1f}"
+        f"% of 989 TFLOP/s), f32 {ms32:.1f} ms; CTC ids bf16 vs f32 agree on "
+        f"{100 * agree:.1f}% of the frames, {len(text16)} ids after the "
+        f"collapse ({card})")
+    del model
+    torch.cuda.empty_cache()
+    lid = wav2vec2.Model(MMS_LID_256, device=DEVICE).init_params(
+        seed=0, on_device=True)
+    clip = _noise(7, MMS_LID_SECONDS)
+    top32 = lid.predict(clip, top_k=3)
+    ms32 = _sync_ms(lambda: lid.predict(clip, top_k=3), reps=1)
+    lid.astype(torch.bfloat16)
+    top16 = lid.predict(clip, top_k=3)
+    ms16 = _sync_ms(lambda: lid.predict(clip, top_k=3), reps=1)
+    if top16[0][0] != top32[0][0]:
+        raise AssertionError(f"MMS-LID top-1 bf16 {top16[0]} vs f32 "
+                             f"{top32[0]}")
+    log(f"[mms-lid] MMS-LID-256 dims ({lid.num_params():,} params, projector "
+        f"1,024, 256 labels) on {MMS_LID_SECONDS} s: bf16 {ms16:.1f} ms, f32 "
+        f"{ms32:.1f} ms; top-1 {top16[0][0]} in both "
+        f"({top16[0][1]:.4f} vs {top32[0][1]:.4f}) ({card})")
+    del lid
+    torch.cuda.empty_cache()
+    ecapa = ecapa_tdnn.Model(ECAPA_VOXLINGUA, device=DEVICE).init_params(
+        seed=0, on_device=True)
+    clip = _noise(8, ECAPA_SECONDS)
+    preds = ecapa.predict(clip, top_k=3)
+    ms = _sync_ms(lambda: ecapa.predict(clip, top_k=3), reps=1)
+    if not (len(preds) == 3 and all(np.isfinite(p) for _, p in preds)):
+        raise AssertionError(f"ECAPA LID: {preds}")
+    log(f"[ecapa-lid] VoxLingua107 dims ({ecapa.num_params():,} params, "
+        f"channels 1,024, embedding 256, 107 languages) on {ECAPA_SECONDS} s "
+        f"in f32: {ms:.1f} ms with the log-mel (xRT "
+        f"{ECAPA_SECONDS * 1e3 / ms:.0f}), top-1 probability "
+        f"{preds[0][1]:.4f} ({card})")
+    del ecapa
+    torch.cuda.empty_cache()
+    log(f"[time] phase 48 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_outetts_lid(card: str, recorder: K2Recorder) -> int:
+    """Phases 45-48; K1 never launches, K2 only on the q8 OuteTTS models.
+    -> K2's launches there."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_outetts_lid_reference(Path(tmp), recorder)
+    torch.cuda.empty_cache()
+    k2 += phase_outetts_full(card, recorder)
+    before = qmm_kernel.launches
+    phase_pocket_encodec_full(card)
+    phase_mms_lid_full(card)
+    if snake_conv_kernel.launches != k1 or qmm_kernel.launches != before:
+        raise AssertionError("phases 45-48 launched K1, or K2 outside the "
+                             "q8 OuteTTS")
+    log(f"[time] phases 45-48 in {time.perf_counter() - t0:.1f} s; K1 not "
+        f"launched")
+    return k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -8593,6 +9605,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
     card = phase_device()
+    time_steps()
     log(card)
     phase_build()
     kres, kextra = phase_kernels(card)
@@ -8618,11 +9631,13 @@ def main() -> int:
     phase_whisper_reference()
     whisper = phase_whisper_turbo(card)["model"]
     with tempfile.TemporaryDirectory() as tmp:
-        phase_whisper_cli(Path(tmp))
-        phase_voxtral_cli(Path(tmp))
-        phase_cohere_cli(Path(tmp))
+        # phase 14's three STT CLIs run side by side, their checks after
+        checks = [phase_whisper_cli(Path(tmp)), phase_voxtral_cli(Path(tmp)),
+                  phase_cohere_cli(Path(tmp))]
         phase_higgs_load(Path(tmp))
         phase_tts_loads(Path(tmp))
+        for check in checks:
+            check()
     if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
         raise AssertionError("the Whisper phases or the CLI launched K1 or "
                              "K2")
@@ -8728,6 +9743,11 @@ def main() -> int:
     # Qwen2-Audio
     k2_launches += phase_llm_stt(card, recorder)
     log(f"[time] phases 1-44 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # OuteTTS over the DAC, Pocket-TTS and EnCodec, MMS and language ID:
+    # K2 on the q8 OuteTTS models
+    k2_launches += phase_outetts_lid(card, recorder)
+    log(f"[time] phases 1-48 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -4,8 +4,10 @@ nearest-codebook search and the time pooling of multi-scale quantizers.
 The port's copy of `snake`, `init_snake`, `apply_snake`,
 `apply_residual_unit`, `vq_encode`, `avg_pool_time` and `repeat_time` of
 mlx_audio_tpu/codec/models/blocks.py (:30-73, :76-103), on channel-last
-(B, T, C) tensors. This snake divides by alpha + 1e-9, which Kokoro's
-(fused into kernel K1) does not.
+(B, T, C) tensors, and the checkpoints' weight-norm fold
+(`fold_torch_weight_norm`, the JAX package's nn/layers.py:207-240). This
+snake divides by alpha + 1e-9, which Kokoro's (fused into kernel K1) does
+not.
 """
 
 from __future__ import annotations
@@ -99,6 +101,30 @@ def repeat_time(x: torch.Tensor, stride: int) -> torch.Tensor:
     return torch.repeat_interleave(x, stride, dim=-2)
 
 
-__all__ = ["snake", "Snake", "apply_snake", "ResidualUnit",
-           "apply_residual_unit", "vq_encode", "avg_pool_time",
-           "repeat_time"]
+def fold_torch_weight_norm(weights: Dict) -> Dict:
+    """Each `X.weight_g`/`X.weight_v` or `X.parametrizations.weight.
+    original0/1` pair folded into `X.weight` (w = g v / ||v||, the norm
+    over every axis but the first); other keys pass (the JAX package's
+    nn/layers.py:207-240)."""
+    from ...tts.models.kokoro.istftnet import fold_weight_norm
+
+    out, consumed = {}, set()
+    for k in weights:
+        for v_suf, g_suf in ((".parametrizations.weight.original1",
+                              ".parametrizations.weight.original0"),
+                             (".weight_v", ".weight_g")):
+            if k.endswith(v_suf):
+                base = k[: -len(v_suf)]
+                if base + g_suf in weights:
+                    out[base + ".weight"] = fold_weight_norm(
+                        weights[base + g_suf], weights[k])
+                    consumed.update((k, base + g_suf))
+    for k, w in weights.items():
+        if k not in consumed:
+            out.setdefault(k, w)
+    return out
+
+
+__all__ = ["fold_torch_weight_norm", "snake", "Snake", "apply_snake",
+           "ResidualUnit", "apply_residual_unit", "vq_encode",
+           "avg_pool_time", "repeat_time"]

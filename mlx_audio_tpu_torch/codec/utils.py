@@ -2,7 +2,8 @@
 weights) -> the codec model, the counterpart of the JAX package's
 `base_load_model(path, category="codec", model_remapping=...)`
 (mlx_audio_tpu/utils.py:288-403), which Orpheus calls for its `snac/` or
-`codec/` subfolder (mlx_audio_tpu/tts/models/llama/orpheus.py:389-398).
+`codec/` subfolder (mlx_audio_tpu/tts/models/llama/orpheus.py:389-398) and
+OuteTTS for its `codec/` DAC (tts/models/outetts/outetts.py:300-310).
 
 Local only (a missing directory raises FileNotFoundError: the port never
 downloads) and strict: the family's `sanitize` gives the JAX tree, which
@@ -22,8 +23,9 @@ from ..utils import (get_model_name_parts, is_converted, load_config,
                      load_weights, resolve_family)
 
 # codec families the port has, by model type
-MODEL_REMAPPING = {"snac": "snac"}
-PORTED = ("snac",)
+MODEL_REMAPPING = {"snac": "snac", "dac": "descript", "descript": "descript",
+                   "encodec": "encodec"}
+PORTED = ("snac", "descript", "encodec")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",

@@ -17,10 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from .nn import (GRU, BatchNorm, BiLSTM, Conv1d, Conv2d, ConvTranspose1d,
-                 Embedding, FpQuantizedLinear, GroupedLinear, Int8Linear,
-                 LayerNorm, Linear, LSTMCell, QuantizedLinear, RMSNorm,
-                 StackedTable)
+from .nn import (GRU, LSTM, BatchNorm, BiLSTM, Conv1d, Conv2d,
+                 ConvTranspose1d, Embedding, FpQuantizedLinear, GroupedLinear,
+                 Int8Linear, LayerNorm, Linear, LSTMCell, QuantizedLinear,
+                 RMSNorm, StackedTable)
 
 # the modules whose buffers are parameters of the JAX tree
 _BUFFERED = (QuantizedLinear, Int8Linear, FpQuantizedLinear, BatchNorm)
@@ -113,7 +113,7 @@ class TorchModel(nn.Module):
                     m.running_var.fill_(1.0)
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
-            elif isinstance(m, (BiLSTM, LSTMCell, GRU)):
+            elif isinstance(m, (BiLSTM, LSTMCell, LSTM, GRU)):
                 for p in m.parameters():
                     draw(p, "uniform", m.hidden_size ** -0.5)
             elif isinstance(m, GroupedLinear):
@@ -279,7 +279,7 @@ def jax_params(model: TorchModel) -> Dict[str, torch.Tensor]:
                 for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
                     out[f"{pre}{direction}.{leaf}"] = own[f"{leaf}_l0{suffix}"]
             continue
-        if isinstance(m, GRU):
+        if isinstance(m, (GRU, LSTM)):
             for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
                 out[pre + leaf] = own[f"{leaf}_l0"]
             continue
@@ -322,6 +322,8 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
                          -> weight_ih_l0[_reverse], ...  (gate order i,f,g,o)
       * GRU:             {weight_ih,weight_hh,bias_ih,bias_hh} -> weight_ih_l0,
                          ...  (gate order r,z,n)
+      * LSTM (one layer): the same leaf names -> weight_ih_l0, ...  (gate
+                         order i,f,g,o)
       * stacked layers:  leaves under `model.JAX_STACKED` prefixes lose their
                          leading L axis to per-layer modules
       * quantized:       a Linear whose JAX leaf holds quantized codes
@@ -350,7 +352,7 @@ def load_jax_params(model: TorchModel, flat: Mapping[str, Any]) -> TorchModel:
             for direction, suffix in (("forward", ""), ("backward", "_reverse")):
                 for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
                     state[f"{pre}{leaf}_l0{suffix}"] = take(f"{pre}{direction}.{leaf}")
-        elif isinstance(m, GRU):
+        elif isinstance(m, (GRU, LSTM)):
             for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
                 state[f"{pre}{leaf}_l0"] = take(f"{pre}{leaf}")
         elif isinstance(m, ConvTranspose1d):

@@ -27,13 +27,13 @@ from .layers import (
     linear,
     rms_norm,
 )
-from .recurrent import GRU, BiLSTM, LSTMCell
+from .recurrent import GRU, LSTM, BiLSTM, LSTMCell
 
 __all__ = [
     "Linear", "QuantizedLinear", "Int8Linear", "FpQuantizedLinear",
     "Embedding", "StackedTable", "LayerNorm",
     "RMSNorm", "Conv1d", "Conv2d", "ConvTranspose1d", "BatchNorm", "BiLSTM",
-    "LSTMCell", "GRU", "GroupedLinear",
+    "LSTMCell", "LSTM", "GRU", "GroupedLinear",
     "linear", "layer_norm", "rms_norm", "conv1d", "conv2d", "conv_transpose1d",
     "leaky_relu", "gelu",
 ]

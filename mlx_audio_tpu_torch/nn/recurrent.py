@@ -20,6 +20,8 @@ on `mask.sum(-1)`.
 `bias_hh` are torch's `nn.LSTMCell`'s): a caller that carries (h, c)
 across calls, as a streaming model does, steps it itself.
 
+`LSTM` is one unidirectional LSTM layer run over a whole sequence.
+
 `GRU` is one unidirectional torch-semantics GRU layer (gate order r, z, n;
 n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), as the JAX package's
 `_gru_cell` in sts/models/deepfilternet/network.py), `nn.GRU` itself, so
@@ -66,6 +68,20 @@ class BiLSTM(nn.LSTM):
 class LSTMCell(nn.LSTMCell):
     """One LSTM step (B, I), (h, c) (B, H) each -> (h, c); gate order
     (i, f, g, o), as the JAX package's cell step."""
+
+
+class LSTM(nn.LSTM):
+    """Single-layer unidirectional LSTM on (B, T, I) from a zero state ->
+    (B, T, H): the JAX package's `apply_lstm` of one `init_lstm` leaf
+    (EnCodec stacks them), `nn.LSTM` itself, so the card runs cuDNN's. Its
+    JAX leaf maps onto `weight_ih_l0`, ... as GRU's does."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__(input_size, hidden_size, num_layers=1, bias=True,
+                         batch_first=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x)[0]
 
 
 class GRU(nn.GRU):

@@ -262,8 +262,9 @@ def _fold_weight_norm_conv(g: np.ndarray, v: np.ndarray) -> np.ndarray:
 def sanitize_wav2vec2(weights: Dict, strip_prefix: bool = True) -> Dict:
     """HF checkpoint -> the port's names (wav2vec.py:265-294): weight-norm
     pairs (weight_g/weight_v or parametrizations.original0/1) folded into
-    plain conv weights, training-only tensors dropped; conv kernels keep
-    torch's (O, I/g, K)."""
+    plain conv weights, training-only tensors dropped (under the
+    `wav2vec2.` prefix too, which the JAX package's keeps there and its
+    lax bind ignores); conv kernels keep torch's (O, I/g, K)."""
     out = {}
     staged_g, staged_v = {}, {}
     for k, v in weights.items():
@@ -273,8 +274,9 @@ def sanitize_wav2vec2(weights: Dict, strip_prefix: bool = True) -> Dict:
             k = k.replace(".parametrizations.weight.original0", ".weight_g")
         elif k.endswith(".parametrizations.weight.original1"):
             k = k.replace(".parametrizations.weight.original1", ".weight_v")
-        if k.startswith("quantizer.") or k.startswith("project_") \
-                or k == "masked_spec_embed":
+        bare = k[len("wav2vec2."):] if k.startswith("wav2vec2.") else k
+        if bare.startswith(("quantizer.", "project_")) \
+                or bare == "masked_spec_embed":
             continue
         if k.endswith(".weight_g"):
             staged_g[k[: -len(".weight_g")]] = np.asarray(v)

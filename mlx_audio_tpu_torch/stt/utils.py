@@ -81,7 +81,7 @@ MODEL_REMAPPING = {
 PORTED = ("whisper", "voxtral_realtime", "cohere_asr", "parakeet", "canary",
           "nemotron_asr", "qwen3_asr", "qwen3_forced_aligner", "mega_asr",
           "voxtral", "qwen2_audio", "glmasr", "granite_speech",
-          "vibevoice_asr")
+          "vibevoice_asr", "mms")
 
 
 def model_family(config: dict, path: Path, name_parts=None):

@@ -25,7 +25,9 @@ bucket + ceil(max_tokens / CHUNK) x CHUNK columns under an additive pad
 mask, then a step per token: the repetition penalty over the last
 REP_WINDOW tokens (padded with -1), the draw, the stop on EOS_SPEECH or
 the tokenizer's EOS, tokens from the stop on masked to -1, the next logits.
-The host reads the chunk's tokens and the stop flag once a chunk.
+The host reads the chunk's tokens and the stop flag once a chunk. OuteTTS
+(`tts/models/outetts`) subclasses this `Model` and runs the same stepper
+with its own `prompt_buckets`, `rep_window`, `stop_ids` and `code_tokens`.
 
 Departures from the JAX package:
 
@@ -93,6 +95,10 @@ class Model(BackboneModel):
     """Orpheus: text -> llama AR decode of SNAC codes -> SNAC audio, on
     `device` (the card by default; without CUDA the constructor raises
     unless given `device="cpu"`)."""
+
+    # the stepper's constants (OuteTTS's subclass sets its own)
+    prompt_buckets = PROMPT_BUCKETS
+    rep_window = REP_WINDOW
 
     def __init__(self, config=None, device="cuda"):
         if config is None:
@@ -185,7 +191,7 @@ class Model(BackboneModel):
         pad mask. -> (logits of the last prompt row (1, V) f32, caches,
         the bucket)."""
         n = len(prompt_ids)
-        bucket = next((b for b in PROMPT_BUCKETS if n <= b),
+        bucket = next((b for b in self.prompt_buckets if n <= b),
                       ((n + 511) // 512) * 512)
         cap = bucket + -(-max_tokens // CHUNK) * CHUNK
         dev = self.device
@@ -223,26 +229,30 @@ class Model(BackboneModel):
         return torch.cat([torch.stack(toks, dim=1),
                           state["done"][:, None].long()], dim=1)
 
+    def code_tokens(self, tokens: List[int]) -> int:
+        """How many of `tokens` are SNAC codes."""
+        return sum(CODE_OFFSET <= t < CODE_OFFSET + 7 * 4096 for t in tokens)
+
     def _decode_tokens(self, prompt_ids: np.ndarray, max_tokens: int,
                        temperature: float, top_p: float, top_k: int,
-                       rep_pen: float, seed: int):
+                       rep_pen: float, seed: int, min_p: float = 0.0):
         """Yields the generated tokens so far, a list, once a chunk.
         `last_run` holds the prompt's length and bucket, the chunks and
-        steps run, the tokens kept, how many of them are SNAC codes, and
-        each chunk's wall ms up to its read (the first's with the
-        prefill)."""
+        steps run, the tokens kept, how many of them are codes
+        (`code_tokens`), and each chunk's wall ms up to its read (the
+        first's with the prefill)."""
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         stops = torch.tensor(self.stop_ids(), device=dev)
 
         def sampler(logits):
             return sample(logits, temperature, top_k=top_k, top_p=top_p,
-                          generator=gen)
+                          generator=gen, min_p=min_p)
 
         t_start = time.perf_counter()
         logits, caches, bucket = self.prefill(prompt_ids, max_tokens)
         state = {"logits": logits, "caches": caches,
-                 "history": torch.full((1, REP_WINDOW), -1,
+                 "history": torch.full((1, self.rep_window), -1,
                                        dtype=torch.long, device=dev),
                  "done": torch.zeros(1, dtype=torch.bool, device=dev),
                  "t": len(prompt_ids)}
@@ -259,8 +269,7 @@ class Model(BackboneModel):
             steps += n
             new = [t for t in read[:n] if t >= 0]
             generated.extend(new)
-            codes += sum(CODE_OFFSET <= t < CODE_OFFSET + 7 * 4096
-                         for t in new)
+            codes += self.code_tokens(new)
             self.last_run = {"prompt_len": len(prompt_ids),
                              "prompt_bucket": bucket,
                              "chunks": len(chunk_ms), "steps": steps,

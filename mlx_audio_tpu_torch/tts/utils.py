@@ -92,7 +92,7 @@ MODEL_REMAPPING = {
 }
 # families of MODEL_REMAPPING's values that the port has
 PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice",
-          "sesame", "llama", "qwen3")
+          "sesame", "llama", "qwen3", "outetts", "pocket_tts")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",

@@ -276,16 +276,8 @@ def load_audio(path: Union[str, Path],
 # ---------------------------------------------------------------------------
 
 # the JAX package's categories, in its order of precedence; the port has
-# loaders for all but `lid`
+# a loader for each
 CATEGORIES = ("tts", "stt", "sts", "lid", "vad")
-PORTED_CATEGORIES = ("tts", "stt", "sts", "vad")
-# the registry of the category the port has no loader for yet (a copy of
-# mlx_audio_tpu/lid/utils.py:10-15), so that such a checkpoint is named as
-# what it is
-UNPORTED_REMAPPING = {
-    "lid": {"ecapa": "ecapa_tdnn", "ecapa_tdnn": "ecapa_tdnn",
-            "wav2vec2": "wav2vec2", "mms_lid": "wav2vec2"},
-}
 
 
 def is_valid_module_name(name: Optional[str]) -> bool:
@@ -336,8 +328,6 @@ def get_model_name_parts(model_path: Union[str, Path]) -> List[str]:
 
 def category_remapping(category: str) -> Dict[str, str]:
     """The JAX package's registry {model type: family} of `category`."""
-    if category in UNPORTED_REMAPPING:
-        return UNPORTED_REMAPPING[category]
     module = importlib.import_module(f".{category}.utils", __package__)
     return module.MODEL_REMAPPING
 
@@ -362,17 +352,20 @@ def get_model_category(model_type: Optional[str],
                        model_name: List[str]) -> Optional[str]:
     """The category of a checkpoint, from its model_type and name parts.
 
-    A model_type that a category's registry names (as a key or a family)
-    decides. Otherwise the JAX package's precedence (utils.py:418-448)
-    over the name parts: a category word among them, then a registry key,
-    then a family name. (The JAX package lets a name part outrank the
-    model_type: a Voxtral Realtime checkpoint in a directory whose name
-    holds "voxtral", a TTS key, goes to its TTS loader and fails there.)"""
+    A model_type that one category's registry names (as a key or a
+    family) decides. Otherwise, and where two categories' registries name
+    it (`wav2vec2`: MMS's STT and MMS-LID's LID), the JAX package's
+    precedence (utils.py:418-448) over the model_type and the name parts:
+    a category word among them, then a registry key, then a family name.
+    (The JAX package lets a name part outrank the model_type: a Voxtral
+    Realtime checkpoint in a directory whose name holds "voxtral", a TTS
+    key, goes to its TTS loader and fails there.)"""
     cats = [(c, category_remapping(c)) for c in CATEGORIES]
     if model_type:
-        for category, remap in cats:
-            if model_type in remap or model_type in set(remap.values()):
-                return category
+        named = [category for category, remap in cats
+                 if model_type in remap or model_type in set(remap.values())]
+        if len(named) == 1:
+            return named[0]
     candidates = ([model_type] if model_type else []) + list(model_name or [])
     for category, remap in cats:
         if category in candidates and resolve_family(
@@ -394,10 +387,11 @@ def load_model(model_path: Union[str, Path], category: Optional[str] = None,
     as mlx_audio_tpu.utils.load_model finds it (config's model_type, then
     the directory name's parts) unless `category` is given, then its
     family by that category's loader (`tts.utils`, `stt.utils`,
-    `sts.utils` or `vad.utils`). Without CUDA it raises before reading
-    anything unless given `device="cpu"`. A path that is not a local directory raises
-    FileNotFoundError (the port never downloads); a category or family the
-    port lacks raises ValueError naming it."""
+    `sts.utils`, `lid.utils` or `vad.utils`). Without CUDA it raises before
+    reading anything unless given `device="cpu"`. A path that is not a local
+    directory raises FileNotFoundError (the port never downloads); a family
+    the port lacks, or a category that is none, raises ValueError naming
+    it."""
     from .model import check_device
 
     device = check_device(device)
@@ -415,13 +409,9 @@ def load_model(model_path: Union[str, Path], category: Optional[str] = None,
     if category is None:
         raise ValueError(f"Could not determine model category for "
                          f"'{model_path}' (model_type={model_type})")
-    if category not in PORTED_CATEGORIES:
-        family = resolve_family(model_type, name_parts,
-                                category_remapping(category))
-        raise ValueError(
-            f"Model category {category!r} (family {family!r}) is not ported "
-            f"to mlx_audio_tpu_torch yet (ported categories: "
-            f"{', '.join(PORTED_CATEGORIES)})")
+    if category not in CATEGORIES:
+        raise ValueError(f"Unknown model category {category!r} (categories: "
+                         f"{', '.join(CATEGORIES)})")
     loader = importlib.import_module(f".{category}.utils", __package__)
     return loader.load_model(path, device=device, model_name_parts=name_parts,
                              **kwargs)

@@ -724,6 +724,74 @@ def test_tiny_llm_stt_families_without_jax(tmp_path):
     assert out.strip().splitlines()[-1] == "False []", out
 
 
+OUTETTS_LID_SOURCES = (
+    "mlx_audio_tpu_torch/codec/models/descript/dac.py",
+    "mlx_audio_tpu_torch/codec/models/encodec/encodec.py",
+    "mlx_audio_tpu_torch/codec/models/ecapa_tdnn/ecapa_tdnn.py",
+    "mlx_audio_tpu_torch/tts/models/outetts/outetts.py",
+    "mlx_audio_tpu_torch/tts/models/outetts/prompt.py",
+    "mlx_audio_tpu_torch/tts/models/pocket_tts/pocket_tts.py",
+    "mlx_audio_tpu_torch/stt/models/mms/mms.py",
+    "mlx_audio_tpu_torch/lid/utils.py",
+    "mlx_audio_tpu_torch/lid/models/wav2vec2/wav2vec2.py",
+    "mlx_audio_tpu_torch/lid/models/ecapa_tdnn/ecapa_tdnn.py")
+
+
+def test_outetts_pocket_mms_lid_are_checked_statically():
+    """The modules of OuteTTS, the DAC, EnCodec, Pocket-TTS, MMS and the
+    LID families are among the sources whose imports
+    `test_source_imports_nothing_of_jax` checks."""
+    assert set(OUTETTS_LID_SOURCES) <= set(PORT_SOURCES)
+
+
+def test_tiny_outetts_generate_and_ecapa_predict_without_jax():
+    """A tiny OuteTTS over a tiny DAC, a greedy generate whole and
+    streamed, and an ECAPA LID `predict`, on the CPU from seeded weights;
+    no jax in sys.modules."""
+    out = _run("""
+        import sys
+        import numpy as np
+        from mlx_audio_tpu_torch.codec.models.descript import DAC
+        from mlx_audio_tpu_torch.lid.models import ecapa_tdnn
+        from mlx_audio_tpu_torch.tts.models import outetts
+
+        class Tok:
+            eos_token_id = 2
+            def encode(self, text, add_special_tokens=False):
+                if text.startswith("<|c1_"):
+                    return [100 + int(text[5:-2])]
+                if text.startswith("<|c2_"):
+                    return [1200 + int(text[5:-2])]
+                return [3 + ord(c) %% 90 for c in text]
+
+        m = outetts.Model(dict(hidden_size=32, num_hidden_layers=1,
+                               intermediate_size=64, num_attention_heads=4,
+                               num_key_value_heads=2, vocab_size=2300),
+                          device="cpu").init_params(0)
+        m.tokenizer = Tok()
+        m.set_codec(DAC(dict(encoder_dim=8, encoder_rates=[2, 2],
+                             decoder_dim=32, decoder_rates=[2, 2],
+                             n_codebooks=2, codebook_size=1024,
+                             codebook_dim=4, sample_rate=24000),
+                        device="cpu").init_params(1))
+        res = list(m.generate("hi there", temperature=0.0, max_tokens=40))
+        parts = list(m.generate("hi there", temperature=0.0, max_tokens=40,
+                                stream=True, streaming_interval=0.1))
+        assert m.last_run["steps"] <= 40
+        assert all(np.isfinite(r.audio).all() for r in res + parts)
+        lid = ecapa_tdnn.Model(dict(channels=16, embedding_dim=8,
+                                    attention_channels=4, res2net_scale=4,
+                                    se_channels=4, classifier_hidden_dim=8,
+                                    num_classes=3),
+                               device="cpu").init_params(0)
+        preds = lid.predict(np.random.RandomState(0).randn(8000) * 0.1,
+                            top_k=2)
+        assert len(preds) == 2 and preds[0][1] >= preds[1][1]
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
+    assert out.strip().splitlines()[-1] == "False []", out
+
+
 def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
     """The STS families on the CPU at a tiny size from seeded weights
     (chip_smoke.py's small configs): a greedy Moshi generate through its
@@ -847,6 +915,12 @@ def _entry_points():
                                                 voxtral)
     from mlx_audio_tpu_torch.vad import utils as vad_utils
     from mlx_audio_tpu_torch.vad.models import silero_vad
+    from mlx_audio_tpu_torch.codec.models import descript, encodec
+    from mlx_audio_tpu_torch.lid import utils as lid_utils
+    from mlx_audio_tpu_torch.lid.models import ecapa_tdnn
+    from mlx_audio_tpu_torch.lid.models import wav2vec2 as lid_wav2vec2
+    from mlx_audio_tpu_torch.stt.models import mms
+    from mlx_audio_tpu_torch.tts.models import outetts, pocket_tts
 
     return {
         "kokoro.Model": (kokoro.Model.__init__,
@@ -942,6 +1016,24 @@ def _entry_points():
         "vibevoice_asr.Model": (vibevoice_asr.Model.__init__,
                                 lambda p: vibevoice_asr.Model(
                                     vibevoice_asr.ModelConfig())),
+        "descript.DAC": (descript.DAC.__init__, lambda p: descript.DAC()),
+        "encodec.Encodec": (encodec.Encodec.__init__,
+                            lambda p: encodec.Encodec()),
+        "outetts.Model": (outetts.Model.__init__,
+                          lambda p: outetts.Model(outetts.ModelConfig())),
+        "pocket_tts.Model": (pocket_tts.Model.__init__,
+                             lambda p: pocket_tts.Model(
+                                 pocket_tts.ModelConfig())),
+        "mms.Model": (mms.Model.__init__,
+                      lambda p: mms.Model(mms.ModelConfig())),
+        "lid.wav2vec2.Model": (lid_wav2vec2.Model.__init__,
+                               lambda p: lid_wav2vec2.Model(
+                                   lid_wav2vec2.ModelConfig())),
+        "lid.ecapa_tdnn.Model": (ecapa_tdnn.Model.__init__,
+                                 lambda p: ecapa_tdnn.Model(
+                                     ecapa_tdnn.ModelConfig())),
+        "lid.utils.load_model": (lid_utils.load_model,
+                                 lambda p: lid_utils.load_model(p)),
     }
 
 
@@ -972,7 +1064,12 @@ def _entry_points():
                                   "qwen3.Model", "voxtral.Model",
                                   "qwen2_audio.Model", "glmasr.Model",
                                   "granite_speech.Model",
-                                  "vibevoice_asr.Model"])
+                                  "vibevoice_asr.Model", "descript.DAC",
+                                  "encodec.Encodec", "outetts.Model",
+                                  "pocket_tts.Model", "mms.Model",
+                                  "lid.wav2vec2.Model",
+                                  "lid.ecapa_tdnn.Model",
+                                  "lid.utils.load_model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

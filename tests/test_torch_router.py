@@ -3,8 +3,9 @@ the JAX package's (`mlx_audio_tpu/utils.py:246-481`), on the CPU: the
 category registries equal JAX's for every ported family, the name parts
 and the category guessed as JAX guesses them, a `qwen3tts` config and a
 directory named only by its family (Kokoro, Parakeet, Canary) reaching
-their loaders, and the port's own errors (local paths only; a category or
-family it lacks named).
+their loaders, a wav2vec2 checkpoint routed by its name (MMS to STT,
+MMS-LID to LID), and the port's own errors (local paths only; a family it
+lacks, or a category that is none, named).
 Nothing here is numeric.
 """
 
@@ -40,7 +41,7 @@ MODEL_TYPES = [None, "kokoro", "qwen3_tts", "qwen3tts", "whisper",
                "vibevoice_asr", "vibevoiceasr", "nonsense"]
 
 
-@pytest.mark.parametrize("category", ["tts", "stt", "sts", "vad"])
+@pytest.mark.parametrize("category", ["tts", "stt", "sts", "lid", "vad"])
 def test_remappings_equal_jax_for_every_ported_family(category):
     """Every JAX registry key whose family the port has maps the same in
     the port's registry; the port's registries are JAX's, whole."""
@@ -57,14 +58,20 @@ def test_remappings_equal_jax_for_every_ported_family(category):
 
 
 def test_unported_category_registries_equal_jax():
-    """`lid`, the one category the port lacks, keeps JAX's registry in the
-    router; STS, ported, has it in its loader."""
+    """Every category of the JAX package has a loader in the port, `lid`
+    the last; the router reads each category's registry from its loader,
+    JAX's whole (LID's and STS's here)."""
     from mlx_audio_tpu.lid.utils import MODEL_REMAPPING as LID
     from mlx_audio_tpu.sts.utils import MODEL_REMAPPING as STS
+    from mlx_audio_tpu.utils import _CATEGORIES
+    from mlx_audio_tpu_torch import utils
+    from mlx_audio_tpu_torch.lid.utils import MODEL_REMAPPING as PORT_LID
     from mlx_audio_tpu_torch.sts.utils import MODEL_REMAPPING
-    from mlx_audio_tpu_torch.utils import UNPORTED_REMAPPING
 
-    assert UNPORTED_REMAPPING == {"lid": LID}
+    assert utils.CATEGORIES == ("tts", "stt", "sts", "lid", "vad")
+    assert set(utils.CATEGORIES) == set(_CATEGORIES)
+    assert not hasattr(utils, "UNPORTED_REMAPPING")
+    assert utils.category_remapping("lid") == PORT_LID == LID
     assert MODEL_REMAPPING == STS
 
 
@@ -81,22 +88,23 @@ def test_name_parts_equal_jax(name):
 
 
 def _registered(model_type):
-    """The first category whose JAX registry names `model_type`."""
+    """The one category whose JAX registry names `model_type`; None where
+    none does, or two do (`voxtral`: TTS and STT; `wav2vec2`: STT and
+    LID)."""
     import importlib
 
-    for category in ("tts", "stt", "sts", "lid", "vad"):
-        remap = importlib.import_module(
-            f"mlx_audio_tpu.{category}.utils").MODEL_REMAPPING
-        if model_type in remap or model_type in remap.values():
-            return category
-    return None
+    named = [c for c in ("tts", "stt", "sts", "lid", "vad")
+             if model_type in (remap := importlib.import_module(
+                 f"mlx_audio_tpu.{c}.utils").MODEL_REMAPPING)
+             or model_type in remap.values()]
+    return named[0] if len(named) == 1 else None
 
 
 @pytest.mark.parametrize("model_type", MODEL_TYPES)
 def test_category_equals_jax(model_type):
     """Over every name above: the category JAX's `get_model_category`
-    finds, among the categories both packages know, except that a
-    model_type some registry names decides (the port's departure)."""
+    finds, except that a model_type one registry alone names decides (the
+    port's departure)."""
     from mlx_audio_tpu.utils import get_model_category as jax_category
     from mlx_audio_tpu.utils import get_model_name_parts
     from mlx_audio_tpu_torch.utils import get_model_category
@@ -299,15 +307,49 @@ def test_llama_with_acoustic_dim_is_tada(tmp_path):
         load_model(d, device="cpu")
 
 
+def _write_ecapa(path):
+    """A tiny ECAPA LID directory (config.json, the JAX tree in npz) from
+    seeded port weights."""
+    from mlx_audio_tpu_torch.lid.models.ecapa_tdnn import Model
+    from mlx_audio_tpu_torch.model import jax_params
+
+    cfg = dict(model_type="ecapa_tdnn", channels=16, embedding_dim=8,
+               attention_channels=4, res2net_scale=4, se_channels=4,
+               classifier_hidden_dim=8, num_classes=3)
+    m = Model(cfg, device="cpu").init_params(seed=0)
+    path.mkdir()
+    (path / "config.json").write_text(json.dumps(cfg))
+    np.savez(path / "model.npz",
+             **{k: v.numpy() for k, v in jax_params(m).items()})
+    return path
+
+
+@pytest.mark.parametrize("name,want", [
+    ("mms-lid-256", "lid"), ("facebook/mms-lid-4017", "lid"),
+    ("mms-1b-all", "stt"), ("mms-1b-fl102", "stt")])
+def test_wav2vec2_checkpoint_routes_by_its_name(name, want):
+    """model_type `wav2vec2` is a key of both the STT registry (MMS) and
+    the LID one (MMS-LID), so it does not decide alone: the name parts
+    decide by JAX's precedence, as the JAX package's `get_model_category`
+    does."""
+    from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu.utils import get_model_name_parts
+    from mlx_audio_tpu_torch.utils import get_model_category
+
+    parts = get_model_name_parts(name)
+    assert get_model_category("wav2vec2", parts) == \
+        jax_category("wav2vec2", parts) == want
+
+
 def test_unported_category_and_family_are_named(tmp_path):
     from mlx_audio_tpu_torch import load_model
 
     sts = _config_only(tmp_path / "a", model_type="sam_audio")
     with pytest.raises(ValueError, match="'sam_audio'.*not ported"):
         load_model(sts, device="cpu")
-    lid = _config_only(tmp_path / "b", model_type="ecapa_tdnn")
-    with pytest.raises(ValueError, match="'lid'"):
-        load_model(lid, device="cpu")
+    lid = _write_ecapa(tmp_path / "b")
+    assert type(load_model(lid, device="cpu")).__module__.endswith(
+        "lid.models.ecapa_tdnn.ecapa_tdnn")
     bark = _config_only(tmp_path / "c", model_type="bark")
     with pytest.raises(ValueError, match="'bark'.*not ported"):
         load_model(bark, device="cpu")
@@ -317,9 +359,12 @@ def test_unported_category_and_family_are_named(tmp_path):
     with pytest.raises(ValueError, match="category"):
         load_model(_config_only(tmp_path / "e", model_type="nonsense"),
                    device="cpu")
-    # an explicit category the port lacks
-    with pytest.raises(ValueError, match="'lid'"):
+    # an explicit category whose loader lacks the family; one that is no
+    # category
+    with pytest.raises(ValueError, match="LID model type 'bark'.*not ported"):
         load_model(bark, category="lid", device="cpu")
+    with pytest.raises(ValueError, match="Unknown model category 'foo'"):
+        load_model(bark, category="foo", device="cpu")
     # an explicit category the port has, whose loader lacks the family
     with pytest.raises(ValueError, match="STS model type 'bark'.*not ported"):
         load_model(bark, category="sts", device="cpu")
