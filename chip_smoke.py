@@ -568,6 +568,44 @@ the CUDA toolkit. Phases, each of which raises on failure:
    107 languages) on 30 s in f32 (ms). K1 never launches in phases 45-48,
    K2 only on the q8 OuteTTS models; their shapes join phase 8's final
    check, their launches the `kernels` line.
+49. The Kaldi fbank families' small configs (the JAX tests' tiny
+   configs; Fun-ASR-Nano's LM at d64 so that group 64 divides its widths)
+   at f32 from one seeded weight set, the card against the CPU: the Kaldi
+   fbank (16 kHz at int16 scale, 48 kHz dithered), deltas and
+   `ISTFTCache`; FSMN `detect` and a session fed in pieces; SenseVoice's
+   CTC ids and rich tags; Fun-ASR-Nano's greedy tokens, and an MLX-packed
+   q8 Fun-ASR-Nano through `stt.utils` (every LM linear on K2: tokens
+   equal to `qmatmul_reference`'s and the CPU's, K2's launches printed);
+   FireRedASR2's beam-3 hypotheses and scores; MossFormer2-SE's
+   `enhance`; tiny directories through the `vad`, `stt` and `sts` loaders
+   and the top-level `load_model` on the card; the STT CLI on SenseVoice
+   and the STS CLI on MossFormer2-SE against in-process `generate`.
+50. Fun-ASR-Nano-2512 (the SenseVoice encoder, 50 + 20 blocks at d512;
+   the 2-block d1,024 adaptor; Qwen3-0.6B, 28 layers at d1,024, GQA 16/8
+   of 128, FFN 3,072, 151,936 ids, tied) seeded on the card in bf16, the
+   tied table's EOS rows zeroed: on 30 s of randn x 0.1, the encoder and
+   adaptor's ms, a 128-token greedy transcription (ms a token p50 and
+   p95, xRT), a profiled 8-step chunk (kernels, device ms and busy share
+   a token), bytes a token and their bound; then `llm.model` packed to
+   MLX's 8-bit layout in memory and loaded through the pre-quantized
+   path: its 196 linears alone at M = 1 against their byte bound, the
+   transcription again, K2's launches a token read from its counter
+   against 28 x 7, the first step's logits against bf16's.
+51. SenseVoiceSmall at the JAX defaults (25,055 ids, input 560) on 30 s,
+   f32 then bf16 (ms, xRT, the share of 989 TFLOP/s by counted
+   operations, CTC ids bf16 against f32); FireRedASR2-AED at the JAX
+   defaults (16 + 16 layers at d1,280, 20 heads, conv kernel 33, 8,667
+   ids; 1.1 B parameters) in bf16 on 10 s: the encoder's ms, then beam 3
+   with max_len 64, EOS's projection row zeroed (ms a beam step p50 and
+   p95 at M = 3, kernels a step over a profiled 8-step beam, bytes a
+   step and their bound).
+52. MossFormer2-SE 48K at the JAX defaults (24 blocks at d512, 961 bins)
+   in f32 on a 10-s clip and a 30-s clip (sliding 4-s windows), cold then
+   warm (ms, xRT); FSMN VAD at the JAX defaults (FunASR's fsmn-vad) on
+   60 s: `detect` cold then warm (ms, xRT) and a session fed in pieces
+   equal to it. K1 never launches in phases 49-52, K2 only on the q8
+   Fun-ASR-Nano models; their shapes join phase 8's final check, their
+   launches the `kernels` line.
 
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -9598,6 +9636,729 @@ def phase_outetts_lid(card: str, recorder: K2Recorder) -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# Phases 49-52: the Kaldi fbank families
+# ---------------------------------------------------------------------------
+
+# the JAX tests' tiny configs (tests/test_fsmn.py, test_sensevoice.py,
+# test_fireredasr2.py, test_mossformer2_se.py); Fun-ASR-Nano's at LM widths
+# group 64 divides (K2), d64 with 4 heads and 2 KV heads of 16
+FSMN_SMALL = dict(model_type="fsmn", n_mels=8, lfr_m=5, lfr_n=1,
+                  encoder=dict(input_dim=40, input_affine_dim=16,
+                               fsmn_layers=2, linear_dim=24, proj_dim=8,
+                               lorder=4, output_affine_dim=16,
+                               output_dim=12))
+SV_SMALL = dict(model_type="sensevoice", vocab_size=64, input_size=40,
+                encoder_conf=dict(output_size=16, attention_heads=2,
+                                  linear_units=32, num_blocks=2, tp_blocks=1,
+                                  kernel_size=5),
+                frontend_conf=dict(n_mels=8, lfr_m=5, lfr_n=3))
+FUN_SMALL = dict(
+    model_type="fun_asr_nano", input_size=24,
+    frontend_conf=dict(n_mels=8, lfr_m=3, lfr_n=2),
+    audio_encoder_conf=dict(output_size=32, attention_heads=4,
+                            linear_units=64, num_blocks=2, tp_blocks=1,
+                            kernel_size=5),
+    audio_adaptor_conf=dict(downsample_rate=2, ffn_dim=48, llm_dim=64,
+                            encoder_dim=32, n_layer=1, attention_heads=4),
+    llm_config=dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                    num_hidden_layers=2, num_attention_heads=4,
+                    num_key_value_heads=2, head_dim=16,
+                    tie_word_embeddings=True))
+FIRE_SMALL = dict(model_type="fireredasr2", idim=32, odim=50, d_model=32,
+                  sos_id=3, eos_id=4,
+                  encoder=dict(n_layers=2, n_head=4, d_model=32,
+                               kernel_size=9),
+                  decoder=dict(n_layers=2, n_head=4, d_model=32))
+MOSS_SMALL = dict(model_type="mossformer2_se", sample_rate=8000,
+                  win_len=256, win_inc=128, fft_len=256, num_mels=20,
+                  in_channels=60, out_channels=32, out_channels_final=129,
+                  num_blocks=2, group_size=16, query_key_dim=64,
+                  fsmn_inner=16, fsmn_lorder=3, one_time_decode_length=2,
+                  decode_window=1, chunk_seconds=1.0,
+                  auto_chunk_threshold=8.0)
+# Fun-ASR-Nano-2512: the SenseVoice encoder (d512, 4 heads, FFN 2,048,
+# 50 + 20 blocks, kernel 11), the 2-block d1,024 adaptor (8 heads, its
+# projector's FFN 2,048) and Qwen3-0.6B (the JAX package's defaults with
+# Qwen3-0.6B's text config)
+FUN_NANO = dict(model_type="fun_asr_nano", llm_config=dict(
+    QWEN3_06B_TEXT, rope_theta=1000000.0))
+FUN_TOKENS, FUN_SECONDS = 128, 30
+SV_SECONDS, FIRE_SECONDS, FIRE_STEPS = 30, 10, 64
+MOSS_CLIPS, FSMN_SECONDS = (10, 30), 60
+# card against CPU at f32 on the small configs: relative, as OUTE_REL
+KALDI_REL = 1e-4
+# the small FSMN's output layer is scaled so that its sil scores sit far
+# from the decision thresholds; the small FireRed's output norm is biased
+# toward EOS (tests/test_torch_fireredasr2.py) so that beams end apart
+FSMN_OUT_SCALE, FIRE_EOS_BIAS = 8.0, 4.0
+
+
+def _kaldi_small(kind: str, device: str, like=None):
+    """A small FSMN, SenseVoice, Fun-ASR-Nano, FireRedASR2 or
+    MossFormer2-SE on `device`: seeded from 0 (FSMN's output layer scaled,
+    FireRed's output norm biased toward EOS), or `like`'s weights."""
+    import importlib
+
+    import torch
+
+    module, cfg = {"fsmn": ("vad.models.fsmn", FSMN_SMALL),
+                   "sensevoice": ("stt.models.sensevoice", SV_SMALL),
+                   "fun": ("stt.models.fun_asr_nano", FUN_SMALL),
+                   "fire": ("stt.models.fireredasr2", FIRE_SMALL),
+                   "moss": ("sts.models.mossformer2_se", MOSS_SMALL)}[kind]
+    m = importlib.import_module(f"mlx_audio_tpu_torch.{module}")
+    model = m.Model(dict(cfg), device=device)
+    if like is not None:
+        model.load_state_dict(like.state_dict())
+    else:
+        model.init_params(seed=0)
+        with torch.no_grad():
+            if kind == "fsmn":
+                model.encoder.out_linear2.weight.mul_(FSMN_OUT_SCALE)
+            elif kind == "fire":
+                dec = model.decoder
+                dec.layer_norm_out.bias.copy_(
+                    dec.tgt_word_prj.weight[cfg["eos_id"]] * FIRE_EOS_BIAS)
+    if kind == "fun":
+        model._tokenizer = AsrTok(SMALL_SPECIAL_IDS, n_chars=100)
+    return model
+
+
+def _write_kaldi_dir(model, path: Path, config: dict, bits=None) -> None:
+    """`model` as a checkpoint directory: its torch-layout state in npz
+    and its config; with `bits`, the `llm.model` weights MLX-packed."""
+    import numpy as np
+
+    path.mkdir(parents=True)
+    if bits:
+        flat = pack_mlx_in_memory(model, bits, lambda k, v: k.startswith(
+            "llm.model"))
+        config = dict(config, quantization={"group_size": MLX_GROUP,
+                                            "bits": bits})
+    else:
+        flat = model.state_dict()
+    np.savez(path / "model.npz",
+             **{k: v.detach().cpu().numpy() for k, v in flat.items()})
+    (path / "config.json").write_text(json.dumps(config))
+
+
+def phase_kaldi_reference(tmp: Path, recorder: K2Recorder) -> int:
+    """Phase 49: the small configs at f32 from one seeded weight set, the
+    card against the CPU: the Kaldi fbank (16 kHz at int16 scale, 48 kHz
+    dithered), deltas and `ISTFTCache`; FSMN `detect` and a session fed in
+    pieces; SenseVoice's CTC ids and rich tags; Fun-ASR-Nano's greedy
+    tokens, and an MLX-packed q8 Fun-ASR-Nano through `stt.utils` (every
+    LM linear on K2: tokens equal to the same model through
+    `qmatmul_reference` and to the CPU's); FireRedASR2's beam-3 tokens and
+    scores; MossFormer2-SE's `enhance`; then tiny directories through the
+    `vad`, `stt` and `sts` loaders and the top-level `load_model` on the
+    card, the STT CLI on SenseVoice and the STS CLI on MossFormer2-SE
+    against in-process `generate`. -> K2's launches, as its counter read
+    them."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch import audio_io, dsp
+    from mlx_audio_tpu_torch import load_model as route
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.sts import generate as sts_generate
+    from mlx_audio_tpu_torch.sts.utils import load_model as sts_load
+    from mlx_audio_tpu_torch.stt import generate as stt_generate
+    from mlx_audio_tpu_torch.stt.utils import load_model as stt_load
+    from mlx_audio_tpu_torch.vad.utils import load_model as vad_load
+
+    t0 = time.perf_counter()
+    qmm_kernel.launches = 0
+    notes = []
+    # the DSP
+    speech = _noise(49, 2.0)
+    fb = [dsp.compute_fbank_kaldi(speech * 32768.0, sample_rate=16000,
+                                  win_len=400, win_inc=160, num_mels=80,
+                                  dither=0.0, device=d) for d in (DEVICE,
+                                                                  "cpu")]
+    x48 = _clip_audio(49, 1.0, 48000) * 32768.0
+    fb48 = [dsp.compute_fbank_kaldi(x48, device=d) for d in (DEVICE, "cpu")]
+    deltas = [dsp.compute_deltas_kaldi(f.T, 5).T for f in fb48]
+    spec = dsp.stft(x48, n_fft=1920, hop_length=384, win_length=1920,
+                    window=dsp.hamming(1920), center=False)
+    istft = [dsp.ISTFTCache().istft(
+        spec.real.T[None].to(d), spec.imag.T[None].to(d), 1920, 384, 1920,
+        dsp.hamming(1920), center=False, audio_length=len(x48) - 1920)
+        for d in (DEVICE, "cpu")]
+    errs = [rel_err(a.cpu(), b) for a, b in (fb, fb48, deltas, istft)]
+    trip = rel_err(istft[1][0], torch.as_tensor(x48[:len(x48) - 1920]))
+    if max(errs) > KALDI_REL or trip > 1e-4:
+        raise AssertionError(f"Kaldi DSP CUDA vs CPU: rel {errs}, ISTFT "
+                             f"round trip {trip}")
+    notes.append(f"fbank (16 kHz int16, 48 kHz dithered), deltas and "
+                 f"ISTFTCache rel {max(errs):.1e}, round trip {trip:.1e}")
+    # FSMN
+    cpu = _kaldi_small("fsmn", "cpu")
+    card = _kaldi_small("fsmn", DEVICE, like=cpu)
+    vad_audio = np.concatenate([_noise(50, 0.5, 0.002), _noise(51, 1.0, 0.3),
+                                _noise(52, 1.0, 0.002), _noise(53, 0.6, 0.3),
+                                _noise(54, 0.5, 0.002)])
+    segs = cpu.detect(vad_audio)
+    from mlx_audio_tpu_torch.vad.models.fsmn.fsmn import (compute_decibel,
+                                                          extract_features)
+    sil = card._sil_scores(card.scores(extract_features(
+        vad_audio, card.config, None, card.device)))
+    db = compute_decibel(vad_audio * 32768.0, 16000, 25, 10)[:len(sil)]
+    sil = sil[:len(db)]
+    session, streamed = card.create_session(), []
+    for i in range(0, len(db), 40):
+        streamed += session.feed(sil[i:i + 40], db[i:i + 40],
+                                 is_final=i + 40 >= len(db))
+    if not (segs and card.detect(vad_audio) == segs == streamed):
+        raise AssertionError(f"FSMN CUDA vs CPU: {card.detect(vad_audio)} "
+                             f"vs {segs}, streamed {streamed}")
+    notes.append(f"FSMN detect {segs} equal, streamed in 40-frame pieces "
+                 f"too")
+    fsmn_cpu = cpu
+    # SenseVoice
+    cpu = _kaldi_small("sensevoice", "cpu")
+    card = _kaldi_small("sensevoice", DEVICE, like=cpu)
+    want = cpu.transcribe_ids(speech)
+    if card.transcribe_ids(speech) != want or not want[0]:
+        raise AssertionError(f"SenseVoice CUDA vs CPU: "
+                             f"{card.transcribe_ids(speech)} vs {want}")
+    notes.append(f"SenseVoice {len(want[0])} CTC ids and the tags "
+                 f"{want[1]} equal")
+    sv_cpu = cpu
+    # Fun-ASR-Nano, dense, then MLX-packed q8 on K2
+    cpu = _kaldi_small("fun", "cpu")
+    card = _kaldi_small("fun", DEVICE, like=cpu)
+    kw = dict(max_tokens=24)
+    tc = cpu.generate(speech, **kw).text
+    if card.generate(speech, **kw).text != tc or len(tc.split()) != 24:
+        raise AssertionError("Fun-ASR-Nano CUDA vs CPU: greedy tokens "
+                             "differ")
+    d8 = tmp / "fun-asr-nano-q8"
+    _write_kaldi_dir(cpu, d8, FUN_SMALL, bits=8)
+    with recorder:
+        q8 = stt_load(d8, device=DEVICE)
+        q8._tokenizer = cpu._tokenizer
+        held = sum(isinstance(m, QuantizedLinear) for m in q8.modules())
+        k2 = qmm_kernel.launches
+        t8 = q8.generate(speech, **kw).text
+        k2 = qmm_kernel.launches - k2
+        steps = q8.last_run["forwards"]
+    with K2AsReference():
+        tr = q8.generate(speech, **kw).text
+    qc = stt_load(d8, device="cpu")
+    qc._tokenizer = cpu._tokenizer
+    tq = qc.generate(speech, **kw).text
+    n_lm = 7 * FUN_SMALL["llm_config"]["num_hidden_layers"]
+    if not (held == n_lm and t8 == tr == tq and k2 == n_lm * (1 + steps)):
+        raise AssertionError(f"q8 Fun-ASR-Nano: {held} quantized linears "
+                             f"(want {n_lm}), K2 tokens equal the plain "
+                             f"version's {t8 == tr}, the CPU's {t8 == tq}, "
+                             f"{k2} K2 launches over {steps} steps")
+    notes.append(f"Fun-ASR-Nano 24 greedy tokens equal; MLX-packed q8 "
+                 f"through stt.utils: {held} linears on K2, {k2} launches "
+                 f"({n_lm} a forward over a prefill and {steps} steps), "
+                 f"tokens equal to qmatmul_reference's and the CPU's")
+    fun_cpu = cpu
+    # FireRedASR2, beam 3
+    cpu = _kaldi_small("fire", "cpu")
+    card = _kaldi_small("fire", DEVICE, like=cpu)
+    short = speech[:8000]
+    oc = cpu.generate(short, beam_size=3)
+    rc = dict(cpu.last_run)
+    og = card.generate(short, beam_size=3)
+    rg = card.last_run
+    err = float(np.abs(rg["scores"] - rc["scores"]).max())
+    if not (og.text == oc.text and np.array_equal(rg["ys"], rc["ys"])
+            and err < 1e-3):
+        raise AssertionError(f"FireRedASR2 CUDA vs CPU: {og.text!r} vs "
+                             f"{oc.text!r}, scores {rg['scores']} vs "
+                             f"{rc['scores']}")
+    notes.append(f"FireRedASR2 beam 3: {rc['steps']} steps, hypotheses "
+                 f"equal, scores within {err:.1e}")
+    fire_cpu = cpu
+    # MossFormer2-SE
+    cpu = _kaldi_small("moss", "cpu")
+    card = _kaldi_small("moss", DEVICE, like=cpu)
+    clip = _clip_audio(55, 0.5, 8000)
+    ec, eg = cpu.enhance(clip), card.enhance(clip)
+    err = rel_err(eg, ec)
+    if not (eg.shape == ec.shape and err <= KALDI_REL):
+        raise AssertionError(f"MossFormer2-SE CUDA vs CPU: rel {err}")
+    notes.append(f"MossFormer2-SE enhance of {len(clip)} samples rel "
+                 f"{err:.1e}")
+    moss_cpu = cpu
+    # the loaders and the CLIs on the card
+    dirs = {}
+    for name, model, cfg in (("fsmn-vad-tiny", fsmn_cpu, FSMN_SMALL),
+                             ("SenseVoiceSmall-tiny", sv_cpu, SV_SMALL),
+                             ("Fun-ASR-Nano-tiny", fun_cpu, FUN_SMALL),
+                             ("FireRedASR2-AED-tiny", fire_cpu, FIRE_SMALL),
+                             ("MossFormer2_SE_48K-tiny", moss_cpu,
+                              MOSS_SMALL)):
+        dirs[name] = tmp / name
+        _write_kaldi_dir(model, dirs[name], cfg)
+    loaded = [vad_load(dirs["fsmn-vad-tiny"], device=DEVICE),
+              stt_load(dirs["SenseVoiceSmall-tiny"], device=DEVICE),
+              stt_load(dirs["Fun-ASR-Nano-tiny"], device=DEVICE),
+              stt_load(dirs["FireRedASR2-AED-tiny"], device=DEVICE),
+              sts_load(dirs["MossFormer2_SE_48K-tiny"], device=DEVICE)]
+    loaded += [route(d, device=DEVICE) for d in dirs.values()]
+    kinds = [type(m).__module__.rsplit(".", 1)[-1] for m in loaded]
+    want_kinds = ["fsmn", "sensevoice", "fun_asr_nano", "fireredasr2",
+                  "mossformer2_se"] * 2
+    loaded[2]._tokenizer = fun_cpu._tokenizer
+    if kinds != want_kinds or loaded[0].detect(vad_audio) != segs \
+            or loaded[1].transcribe_ids(speech) != sv_cpu.transcribe_ids(
+                speech) \
+            or loaded[2].generate(speech, **kw).text != tc \
+            or loaded[3].generate(short, beam_size=3).text != oc.text \
+            or rel_err(loaded[4].enhance(clip), ec) > KALDI_REL:
+        raise AssertionError(f"the loaders on the card: {kinds}")
+    notes.append("vad.utils, stt.utils, sts.utils and the top-level "
+                 "load_model on tiny directories (fsmn, sensevoice, "
+                 "fun_asr_nano, fireredasr2, mossformer2_se), each as the "
+                 "CPU model")
+    wav16, wav8 = tmp / "speech16.wav", tmp / "clip8.wav"
+    audio_io.write(wav16, speech, 16000)
+    audio_io.write(wav8, clip, 8000)
+    stt_generate.main(["--model", str(dirs["SenseVoiceSmall-tiny"]),
+                       "--audio", str(wav16), "--no-verbose",
+                       "--output-path", str(tmp / "sv")])
+    text = (tmp / "sv" / "transcription.txt").read_text().strip()
+    sts_generate.main(["--model", str(dirs["MossFormer2_SE_48K-tiny"]),
+                       "--audio", str(wav8), "--output-path",
+                       str(tmp / "moss.wav")])
+    y, sr = audio_io.read(str(tmp / "moss.wav"), dtype="float32")
+    x8, _ = audio_io.read(str(wav8), dtype="float32")
+    want_y = np.clip(loaded[4].enhance(x8), -1, 1)
+    err = float(np.abs(y - want_y).max()) if len(y) == len(want_y) \
+        else float("inf")
+    if not (text == loaded[1].generate(str(wav16)).text and sr == 8000
+            and err <= 2 / 32768):
+        raise AssertionError(f"the CLIs: STT {text!r}; STS WAV {len(y)} "
+                             f"samples at {sr}, max error {err:.3e}")
+    notes.append(f"the STT CLI wrote SenseVoice's text, the STS CLI "
+                 f"MossFormer2-SE's enhance() audio (max error {err:.1e})")
+    launches = qmm_kernel.launches
+    log(f"[kaldi small] {'; '.join(notes)}")
+    log(f"[time] phase 49 in {time.perf_counter() - t0:.1f} s; K2 launched "
+        f"{launches} times")
+    return launches
+
+
+def build_fun_asr_nano_full():
+    """Fun-ASR-Nano-2512 (FUN_NANO) drawn on the card in f32 from seed 0
+    tensor by tensor, the EOS rows of the tied table zeroed (so that a
+    greedy decode runs its whole budget), cast in place to bf16; the
+    stand-in tokenizer."""
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.fun_asr_nano import Model
+    from mlx_audio_tpu_torch.stt.models.fun_asr_nano.fun_asr_nano import \
+        EOS_IDS
+
+    t0 = time.perf_counter()
+    model = Model(FUN_NANO, device=DEVICE).init_params(seed=0,
+                                                       on_device=True)
+    with torch.no_grad():
+        model.llm.model.embed_tokens.weight[list(EOS_IDS)] = 0.0
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    model._tokenizer = AsrTok(QWEN3_SPECIAL_IDS, n_chars=1000)
+    torch.cuda.synchronize()
+    log(f"[fun-asr-nano] Fun-ASR-Nano-2512 dims (SenseVoice encoder 50 + 20 "
+        f"x d512, adaptor 2 x d1024, Qwen3-0.6B 28 x d1024 GQA 16/8 of 128, "
+        f"FFN 3,072, vocabulary 151,936, tied head): {model.num_params():,} "
+        f"params bf16 on cuda, built in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def _lm_view(model):
+    """Fun-ASR-Nano as `asr_token_bytes` reads a model: its text config
+    and its Qwen3 LM."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(config=SimpleNamespace(
+        text_config=model.config.text), model=model.llm.model)
+
+
+def _fun_run(model, audio, label: str, card: str, base: int) -> dict:
+    """The features; the encoder and adaptor's ms; a FUN_TOKENS-token
+    greedy transcription (ms a token p50 and p95 over its chunks after the
+    first, xRT, peak memory); one profiled chunk of PROFILE_STEPS steps
+    (kernels, device ms and busy share a token; K2's launches a token).
+    -> the numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.stt.models.qwen3_lm import (DEC_CHUNK,
+                                                         prompt_bucket)
+
+    laps = Laps(f"fun-asr-nano {label}")
+    model.generate(audio, max_tokens=DEC_CHUNK)
+    laps("warm-up")
+    feats, _, fake_len = model._extract_features(audio)
+    enc_ms = _sync_ms(lambda: model.get_audio_embeds(feats))
+    rows = model.get_audio_embeds(feats)
+    ids, beg = model._build_prompt_ids(fake_len, language=None,
+                                       hotwords=None, itn=True)
+    n = len(ids)
+    bucket = prompt_bucket(n)
+    greedy = (0.0, 0, 1.0, 0.0, 1.0, 20, 1)
+    fns = model._decode_fns(bucket, FUN_TOKENS, greedy)
+    embeds = model.prompt_embeds(ids, beg, rows, fake_len, bucket)
+    logits = fns.prefill(embeds, n)[0]
+    laps("encoder timed")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = model.generate(audio, max_tokens=FUN_TOKENS)
+    wall = time.perf_counter() - t0
+    laps("the request")
+    run = dict(model.last_run)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
+    if not (out.generation_tokens == FUN_TOKENS and len(per_token)):
+        raise AssertionError(f"Fun-ASR-Nano {label}: {out.generation_tokens}"
+                             f" tokens, {run}")
+    state = fns.start(embeds, n, FUN_TOKENS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fns.chunk(state, PROFILE_STEPS)
+    chunk_wall = (time.perf_counter() - t1) * 1e3 / PROFILE_STEPS
+    k2, fwd = qmm_kernel.launches, state["forwards"]
+    prof = _device_kernels(lambda: fns.chunk(state, PROFILE_STEPS),
+                           cpu=False)
+    k2_token = (qmm_kernel.launches - k2) / max(state["forwards"] - fwd, 1)
+    dev_ms = sum(_dev_us(e) for e in prof) / 1e3 / PROFILE_STEPS
+    kernels = sum(e.count for e in prof) / PROFILE_STEPS
+    laps("profiled steps")
+    laps.log()
+    if not (kernels > 0 and dev_ms > 0):
+        raise AssertionError("Fun-ASR-Nano: the profiler saw no kernel")
+    cols = n + FUN_TOKENS / 2
+    nbytes = asr_token_bytes(_lm_view(model), cols)
+    bound = nbytes / HBM_BPS * 1e3
+    res = dict(enc_ms=enc_ms, bucket=bucket, logits=logits, wall=wall,
+               p50=float(np.percentile(per_token, 50)),
+               p95=float(np.percentile(per_token, 95)),
+               xrt=FUN_SECONDS / wall, peak=peak, kernels=kernels,
+               dev_ms=dev_ms, busy=dev_ms / chunk_wall, bound=bound,
+               nbytes=nbytes, k2_token=k2_token, prompt=n,
+               frames=feats.shape[0], audio_tokens=fake_len)
+    log(f"[fun-asr-nano] {label}: {FUN_SECONDS} s, {feats.shape[0]} LFR "
+        f"frames, {fake_len} audio rows in a {n}-token prompt (bucket "
+        f"{bucket}): encoder and adaptor {enc_ms:.2f} ms; {FUN_TOKENS} greedy "
+        f"tokens: {res['p50']:.2f} ms a token p50, {res['p95']:.2f} p95 "
+        f"(over {len(per_token)} chunks of {DEC_CHUNK}), wall {wall:.2f} s, "
+        f"xRT {res['xrt']:.2f}, peak {peak:.2f} GB above the earlier "
+        f"phases'; profiled chunk: {kernels:.0f} kernels and {dev_ms:.3f} ms "
+        f"of device time a token against {chunk_wall:.2f} ms of wall "
+        f"({100 * res['busy']:.1f}% busy), {k2_token:.0f} K2 launches a "
+        f"token; {nbytes / 1e9:.3f} GB a token, bound {bound:.3f} ms "
+        f"(bytes), {100 * bound / res['p50']:.1f}% of it reached at p50 "
+        f"({card})")
+    return res
+
+
+def phase_fun_asr_nano_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 50: Fun-ASR-Nano-2512 at its published dims seeded on the
+    card in bf16, then its `llm.model` weights packed to MLX's 8-bit
+    layout in memory and loaded through the pre-quantized path (every LM
+    linear on K2, the tied table dense, the head one dense product): each
+    a 128-token greedy transcription of 30 s of randn * 0.1 (`_fun_run`);
+    the 196 LM linears alone at M = 1 against their byte bound; K2's
+    launches a token read from its counter against 28 x 7; the first-step
+    logits q8 against bf16. -> K2's launches, as its counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import Embedding, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import (apply_quantization,
+                                           unpack_prequantized)
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = build_fun_asr_nano_full()
+    audio = _noise(0, FUN_SECONDS)
+    bf16 = _fun_run(model, audio, "bf16", card, base)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 Fun-ASR-Nano launched K1 or K2")
+    per_token = 7 * model.config.text.num_hidden_layers
+    t1 = time.perf_counter()
+    packed = pack_mlx_in_memory(model, 8, lambda k, v: k.startswith(
+        "llm.model"))
+    torch.cuda.empty_cache()
+    config = {"quantization": {"group_size": MLX_GROUP, "bits": 8}}
+    flat = unpack_prequantized(model, config, packed)
+    del packed
+    model.bind(flat)
+    del flat
+    apply_quantization(model, config, model.model_quant_predicate,
+                       pre_quantized=True)
+    torch.cuda.empty_cache()
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if held != per_token or not isinstance(model.llm.model.embed_tokens,
+                                           Embedding):
+        raise AssertionError(f"q8 Fun-ASR-Nano holds {held} quantized "
+                             f"linears (want {per_token}) or a quantized "
+                             f"table")
+    log(f"[fun-asr-nano] llm.model packed to MLX 8-bit (group {MLX_GROUP}) "
+        f"in memory and loaded through the pre-quantized path in "
+        f"{time.perf_counter() - t1:.2f} s: {held} LM linears on K2, the "
+        f"encoder and adaptor bf16, the tied table dense")
+    alone, abound, n = k2_linears_alone(model.llm.model, card,
+                                        "fun-asr-nano")
+    k1 = snake_conv_kernel.launches
+    qmm_kernel.launches = 0
+    with recorder:
+        q8 = _fun_run(model, audio, "q8 (K2)", card, base)
+    k2 = qmm_kernel.launches
+    if q8["k2_token"] != per_token or snake_conv_kernel.launches != k1:
+        raise AssertionError(f"q8 Fun-ASR-Nano: {q8['k2_token']} K2 "
+                             f"launches a token, want {per_token}; or K1 "
+                             f"launched")
+    rel = float(torch.linalg.norm(q8["logits"] - bf16["logits"])
+                / torch.linalg.norm(bf16["logits"]))
+    top1 = int(q8["logits"].argmax()) == int(bf16["logits"].argmax())
+    if not (torch.isfinite(q8["logits"]).all() and rel < ASR_Q8_REL):
+        raise AssertionError(f"q8 Fun-ASR-Nano first-step logits vs bf16: "
+                             f"relative {rel:.3e}")
+    log(f"[fun-asr-nano] q8 against bf16 on this card: encoder and adaptor "
+        f"{q8['enc_ms']:.2f} vs {bf16['enc_ms']:.2f} ms, {q8['p50']:.2f} vs "
+        f"{bf16['p50']:.2f} ms a token p50, {q8['p95']:.2f} vs "
+        f"{bf16['p95']:.2f} p95, xRT {q8['xrt']:.2f} vs {bf16['xrt']:.2f}, "
+        f"{q8['kernels']:.0f} vs {bf16['kernels']:.0f} kernels and "
+        f"{q8['dev_ms']:.3f} vs {bf16['dev_ms']:.3f} ms of device time a "
+        f"token, busy {100 * q8['busy']:.1f}% vs {100 * bf16['busy']:.1f}%, "
+        f"{q8['nbytes'] / 1e9:.3f} vs {bf16['nbytes'] / 1e9:.3f} GB a token, "
+        f"bound {q8['bound']:.3f} vs {bf16['bound']:.3f} ms, peak "
+        f"{q8['peak']:.2f} vs {bf16['peak']:.2f} GB; K2 launched {k2} times, "
+        f"{q8['k2_token']:.0f} a decode token (read from its counter; the "
+        f"config gives {per_token}), the {n} LM linears alone {alone:.3f} ms "
+        f"a token (bound {abound:.3f} ms); first-step logits q8 vs bf16 "
+        f"relative {rel:.3e} (limit {ASR_Q8_REL:g}), top-1 "
+        f"{'equal' if top1 else 'differs'} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 50 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def sensevoice_flops(cfg, t: int) -> float:
+    """Multiply-adds x 2 of a SenseVoice forward over t rows: each SANM
+    layer's q/k/v, output and FFN products, its attention's scores and
+    weighted sum, its memory conv; the CTC head."""
+    e = cfg.encoder_conf
+    d, total = e.output_size, 0.0
+    for i in range(e.num_blocks + e.tp_blocks):
+        din = cfg.input_size if i == 0 else d
+        total += 2 * t * (din * 3 * d + d * d + 2 * d * e.linear_units
+                          + d * e.kernel_size) + 4 * t * t * d
+    return total + 2 * t * d * cfg.vocab_size
+
+
+def phase_sensevoice_firered_full(card: str) -> None:
+    """Phase 51: SenseVoiceSmall at the JAX package's defaults (vocabulary
+    25,055, input 560, 50 + 20 SANM blocks at d512) seeded on the card: 30
+    s in f32 then bf16 (ms, xRT, the share of 989 TFLOP/s by counted
+    operations, CTC ids bf16 against f32); FireRedASR2-AED at the JAX
+    defaults (16 + 16 layers at d1,280, 20 heads, conv kernel 33, 8,667
+    ids) in bf16, EOS's projection row zeroed: the encoder on 10 s (ms),
+    then beam 3 with max_len 64 (ms a beam step p50 and p95, kernels a
+    step over a profiled 8-step beam, bytes a step and their bound).
+    Neither K1 nor K2 launches."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.fireredasr2 import Model as Fire
+    from mlx_audio_tpu_torch.stt.models.fireredasr2.fireredasr2 import \
+        BeamSearch
+    from mlx_audio_tpu_torch.stt.models.sensevoice import Model as SV
+    from mlx_audio_tpu_torch.nn import Linear
+
+    t_phase = time.perf_counter()
+    sv = SV(dict(model_type="sensevoice"), device=DEVICE).init_params(
+        seed=0, on_device=True)
+    audio = _noise(2, SV_SECONDS)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sv.astype(dtype)
+        sv.transcribe_ids(audio)
+        ms = _sync_ms(lambda: sv.transcribe_ids(audio))
+        feats = sv._extract_features(audio)
+        lp = sv.log_probs(sv._build_speech(feats, "auto", False))
+        res[dtype] = (ms, lp[4:].argmax(-1), sv.transcribe_ids(audio))
+    t_rows = lp.shape[0]
+    flops = sensevoice_flops(sv.config, t_rows)
+    agree = float((res[torch.float32][1] == res[torch.bfloat16][1]).float()
+                  .mean())
+    if agree < 0.9 or not torch.isfinite(lp).all():
+        raise AssertionError(f"SenseVoice bf16 vs f32: {agree:.3f} of the "
+                             f"frames' CTC ids equal")
+    (f32_ms, _, _), (bf_ms, _, (ids, tags)) = res[torch.float32], \
+        res[torch.bfloat16]
+    log(f"[sensevoice] SenseVoiceSmall dims ({sv.num_params():,} params): "
+        f"{SV_SECONDS} s -> {t_rows} rows; f32 {f32_ms:.2f} ms (xRT "
+        f"{SV_SECONDS * 1e3 / f32_ms:.0f}), bf16 {bf_ms:.2f} ms (xRT "
+        f"{SV_SECONDS * 1e3 / bf_ms:.0f}, {flops / 1e9:.1f} GFLOP: "
+        f"{100 * flops / PEAK_BF16 * 1e3 / bf_ms:.2f}% of 989 TFLOP/s); the "
+        f"frames' CTC ids bf16 vs f32 equal on {100 * agree:.1f}%, {len(ids)} "
+        f"ids after the collapse, tags {tags} ({card})")
+    del sv, res, lp
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fire = Fire(dict(model_type="fireredasr2"), device=DEVICE).init_params(
+        seed=0, on_device=True)
+    with torch.no_grad():
+        fire.decoder.tgt_word_prj.weight[fire.config.eos_id] = 0.0
+    fire.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t1
+    clip = _noise(3, FIRE_SECONDS)
+    feats = fire._extract_fbank(clip)
+    fire.encode(feats)
+    enc_ms = _sync_ms(lambda: fire.encode(feats))
+    out = fire.generate(clip, beam_size=3, max_len=FIRE_STEPS)
+    out = fire.generate(clip, beam_size=3, max_len=FIRE_STEPS)
+    run = fire.last_run
+    steps = np.asarray(run["step_ms"])
+    if run["steps"] != FIRE_STEPS or out.generation_tokens != FIRE_STEPS:
+        raise AssertionError(f"FireRedASR2: {run['steps']} steps, "
+                             f"{out.generation_tokens} tokens")
+    enc_out = fire.encode(feats)
+    search = BeamSearch(fire, enc_out, 3, 8, 1.25, 1.0)
+    search.run()
+    prof = _device_kernels(lambda: BeamSearch(fire, enc_out, 3, 8, 1.25,
+                                              1.0).run(), cpu=False)
+    kernels = sum(e.count for e in prof) / 8
+    dev_ms = sum(_dev_us(e) for e in prof) / 1e3 / 8
+    # a step reads the decoder's linears but the cross K and V projections
+    # (made once), the embedding rows, the f32 self caches at about half
+    # the steps' columns and the bf16 cross K and V
+    dec, d = fire.decoder, fire.config.dec
+    lin = sum(m.weight.numel() * 2 for name, m in dec.named_modules()
+              if isinstance(m, Linear) and "cross_attn.w_ks" not in name
+              and "cross_attn.w_vs" not in name)
+    cache = d.n_layers * 2 * 3 * (FIRE_STEPS / 2) * d.d_model * 4
+    cross = d.n_layers * 2 * enc_out.shape[1] * d.d_model * 2
+    nbytes = lin + cache + cross + 3 * d.d_model * 2
+    bound = nbytes / HBM_BPS * 1e3
+    p50 = float(np.percentile(steps, 50))
+    log(f"[fireredasr2] FireRedASR2-AED dims ({fire.num_params():,} params "
+        f"bf16, built in {build_s:.1f} s): {FIRE_SECONDS} s -> {len(feats)} "
+        f"frames, "
+        f"{enc_out.shape[1]} encoder rows: encoder {enc_ms:.2f} ms; beam 3, "
+        f"max_len {FIRE_STEPS}, EOS's row zeroed: {run['steps']} steps, "
+        f"{p50:.2f} ms a beam step p50, {np.percentile(steps, 95):.2f} p95 "
+        f"(M = 3); a profiled 8-step beam: {kernels:.0f} kernels and "
+        f"{dev_ms:.3f} ms of device time a step; {nbytes / 1e9:.3f} GB a "
+        f"step, bound {bound:.3f} ms (bytes), {100 * bound / p50:.1f}% of it "
+        f"reached at p50 ({card})")
+    del fire, enc_out, search
+    torch.cuda.empty_cache()
+    log(f"[time] phase 51 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_mossformer_fsmn_full(card: str) -> None:
+    """Phase 52: MossFormer2-SE 48K at the JAX defaults (24 blocks at
+    d512, 961 bins) seeded on the card in f32: a 10-s clip (one chunk) and
+    a 30-s clip (sliding 4-s windows past 20 s), each cold then warm (ms,
+    xRT); FSMN VAD at the JAX defaults (FunASR's fsmn-vad: 4 FSMN layers,
+    400 inputs, 248 pdfs) on 60 s of loud and quiet stretches, its output
+    layer scaled by FSMN_OUT_SCALE: `detect` cold then warm (ms, xRT,
+    segments) and a session fed 100-frame pieces equal to it."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.sts.models.mossformer2_se import Model as Moss
+    from mlx_audio_tpu_torch.vad.models.fsmn import Model as Fsmn
+    from mlx_audio_tpu_torch.vad.models.fsmn.fsmn import (compute_decibel,
+                                                          extract_features)
+
+    t_phase = time.perf_counter()
+    moss = Moss(dict(model_type="mossformer2_se"), device=DEVICE) \
+        .init_params(seed=0, on_device=True)
+    parts = []
+    for secs in MOSS_CLIPS:
+        clip = _clip_audio(60 + secs, secs, 48000)
+        walls = []
+        for _ in range(2):
+            out, s = _sync_s(lambda: moss.enhance(clip))
+            walls.append(s)
+        if not (out.shape == clip.shape and np.isfinite(out).all()):
+            raise AssertionError(f"MossFormer2-SE on {secs} s: {out.shape}")
+        parts.append(f"{secs} s ({moss.last_run['chunks']} chunks): cold "
+                     f"{walls[0] * 1e3:.1f} ms, warm {walls[1] * 1e3:.1f} ms "
+                     f"(xRT {secs / walls[1]:.1f})")
+    log(f"[mossformer2-se] 48K dims ({moss.num_params():,} params f32): "
+        f"{'; '.join(parts)} ({card})")
+    del moss
+    torch.cuda.empty_cache()
+    vad = Fsmn(dict(model_type="fsmn"), device=DEVICE).init_params(
+        seed=0, on_device=True)
+    with torch.no_grad():
+        vad.encoder.out_linear2.weight.mul_(FSMN_OUT_SCALE)
+    rs = np.random.RandomState(7)
+    pieces, loud = [], False
+    while sum(map(len, pieces)) < FSMN_SECONDS * 16000:
+        pieces.append(rs.randn(rs.randint(8000, 40000))
+                      * (0.3 if loud else 0.002))
+        loud = not loud
+    audio = np.concatenate(pieces)[:FSMN_SECONDS * 16000].astype(np.float32)
+    walls = []
+    for _ in range(2):
+        segs, s = _sync_s(lambda: vad.detect(audio))
+        walls.append(s)
+    sil = vad._sil_scores(vad.scores(extract_features(
+        audio, vad.config, None, vad.device)))
+    db = compute_decibel(audio * 32768.0, 16000, 25, 10)[:len(sil)]
+    sil = sil[:len(db)]
+    session, streamed = vad.create_session(), []
+    for i in range(0, len(db), 100):
+        streamed += session.feed(sil[i:i + 100], db[i:i + 100],
+                                 is_final=i + 100 >= len(db))
+    if streamed != segs:
+        raise AssertionError(f"FSMN session {streamed} vs detect {segs}")
+    log(f"[fsmn-vad] FunASR fsmn-vad dims ({vad.num_params():,} params "
+        f"f32) on {FSMN_SECONDS} s: detect cold {walls[0] * 1e3:.1f} ms, warm "
+        f"{walls[1] * 1e3:.1f} ms (xRT {FSMN_SECONDS / walls[1]:.0f}), "
+        f"{len(segs)} segments, the session fed in 100-frame pieces equal "
+        f"({card})")
+    del vad
+    torch.cuda.empty_cache()
+    log(f"[time] phase 52 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_kaldi_families(card: str, recorder: K2Recorder) -> int:
+    """Phases 49-52; K1 never launches, K2 only on the q8 Fun-ASR-Nano
+    models. -> K2's launches there."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_kaldi_reference(Path(tmp), recorder)
+    torch.cuda.empty_cache()
+    k2 += phase_fun_asr_nano_full(card, recorder)
+    before = qmm_kernel.launches
+    phase_sensevoice_firered_full(card)
+    phase_mossformer_fsmn_full(card)
+    if snake_conv_kernel.launches != k1 or qmm_kernel.launches != before:
+        raise AssertionError("phases 49-52 launched K1, or K2 outside the "
+                             "q8 Fun-ASR-Nano")
+    log(f"[time] phases 49-52 in {time.perf_counter() - t0:.1f} s; K1 not "
+        f"launched")
+    return k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -9748,6 +10509,10 @@ def main() -> int:
     # K2 on the q8 OuteTTS models
     k2_launches += phase_outetts_lid(card, recorder)
     log(f"[time] phases 1-48 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # the Kaldi fbank families: K2 on the q8 Fun-ASR-Nano models
+    k2_launches += phase_kaldi_families(card, recorder)
+    log(f"[time] phases 1-52 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -22,6 +22,17 @@
   package; in f64 the port is within the JAX package's own error. No TF32
   applies to f64.
 
+* The Kaldi features (dsp.py:865-1048: `mel_scale_kaldi`,
+  `get_mel_banks_kaldi`, `compute_deltas_kaldi`, `compute_fbank_kaldi`)
+  of FSMN VAD, SenseVoice, Fun-ASR-Nano, FireRedASR2 and MossFormer2-SE.
+  The framing, dither, DC removal, pre-emphasis and window run in f32, as
+  in the JAX package; the power spectrum and the mel product run in
+  float64 and the mel energies are rounded to f32 before the log, for the
+  reason above. The dither's noise has a seam: `noise=` takes the draws
+  (a test hands in JAX's `normal(PRNGKey(0), frames.shape)`), else they
+  come from a CPU `torch.Generator` seeded 0, so one input gives one
+  output on every device, as JAX's fixed key does.
+
 Windows, DFT bases, filterbanks and envelopes are built on the host in
 float64 (float32 for a filterbank's non-`precise` build), cast to float32
 and cached, exactly as in the JAX package.
@@ -469,3 +480,224 @@ def log_mel_spectrogram(
     if log_floor_mode == "clip":
         return torch.log(torch.clamp(mel, min=1e-5))
     return torch.log(mel + 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# ISTFTCache (dsp.py:454-512)
+# ---------------------------------------------------------------------------
+
+
+class ISTFTCache:
+    """Batched inverse STFT (dsp.ISTFTCache): (batch, freq, frames) real
+    and imaginary parts -> (batch, samples) f32 on their device. The JAX
+    package compiles one program a (n_fft, hop, win_length, center) and
+    caches it; here each such config is recorded, and the squared-window
+    envelope of each (window, frames, hop) is built once on the host in
+    float64 (`_envelope_on`)."""
+
+    def __init__(self):
+        self._configs = set()
+
+    def istft(self, real_part: torch.Tensor, imag_part: torch.Tensor,
+              n_fft: int, hop_length: int, win_length: int, window,
+              center: bool = True,
+              audio_length: Optional[int] = None) -> torch.Tensor:
+        w = _resolve_window(window, win_length, n_fft)
+        dev = real_part.device
+        nfr = real_part.shape[-1]
+        self._configs.add((n_fft, hop_length, win_length, center))
+        env = _envelope_on(tuple(w.double().tolist()), nfr, hop_length,
+                           n_fft, True, dev).clamp(min=1e-10)
+        spec = torch.complex(real_part.float(), imag_part.float())
+        frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
+        frames = frames * w.to(dev)
+        lead = frames.shape[:-2]
+        t = (nfr - 1) * hop_length + n_fft
+        out = torch.nn.functional.fold(
+            frames.reshape(-1, nfr, n_fft).transpose(1, 2),
+            output_size=(1, t), kernel_size=(1, n_fft),
+            stride=(1, hop_length)).reshape(*lead, t)
+        out = out / env
+        if center:
+            out = out[..., n_fft // 2:]
+        if audio_length is not None:
+            out = out[..., :audio_length]
+        return out
+
+    def clear_cache(self):
+        self._configs.clear()
+
+    def cache_info(self):
+        return {"jitted_configs": len(self._configs)}
+
+
+# ---------------------------------------------------------------------------
+# Kaldi-compatible features (dsp.py:865-1048)
+# ---------------------------------------------------------------------------
+
+
+def mel_scale_kaldi(freq):
+    """Hz -> mel, Kaldi's formula."""
+    return 1127.0 * torch.log(1.0 + torch.as_tensor(freq) / 700.0)
+
+
+def inverse_mel_scale_kaldi(mel_freq):
+    """Mel -> Hz, Kaldi's formula."""
+    return 700.0 * (torch.exp(torch.as_tensor(mel_freq) / 1127.0) - 1.0)
+
+
+def _next_power_of_2(x: int) -> int:
+    return 1 if x == 0 else 2 ** (x - 1).bit_length()
+
+
+@lru_cache(maxsize=None)
+def _mel_banks_kaldi_np(num_bins: int, window_length_padded: int,
+                        sample_freq: float, low_freq: float,
+                        high_freq: float):
+    """Kaldi's triangular mel banks (num_bins, window_length_padded // 2)
+    and their centre frequencies, built in float64, cast to f32."""
+    assert num_bins > 3, "Must have at least 3 mel bins"
+    assert window_length_padded % 2 == 0
+    num_fft_bins = window_length_padded // 2
+    nyquist = 0.5 * sample_freq
+    if high_freq <= 0.0:
+        high_freq += nyquist
+    assert (0.0 <= low_freq < nyquist) and (0.0 < high_freq <= nyquist)
+
+    def m(f):
+        return 1127.0 * np.log(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+    def im(mel):
+        return 700.0 * (np.exp(np.asarray(mel, dtype=np.float64) / 1127.0)
+                        - 1.0)
+
+    fft_bin_width = sample_freq / window_length_padded
+    mel_low = float(m(low_freq))
+    mel_high = float(m(high_freq))
+    mel_delta = (mel_high - mel_low) / (num_bins + 1)
+    bin_idx = np.arange(num_bins, dtype=np.float64)[:, None]
+    left = mel_low + bin_idx * mel_delta
+    center = mel_low + (bin_idx + 1.0) * mel_delta
+    right = mel_low + (bin_idx + 2.0) * mel_delta
+    center_freqs = im(center)
+    mel = m(fft_bin_width * np.arange(num_fft_bins))[None, :]
+    up = (mel - left) / (center - left)
+    down = (right - mel) / (right - center)
+    bins = np.maximum(0.0, np.minimum(up, down)).astype(np.float32)
+    return bins, center_freqs.squeeze().astype(np.float32)
+
+
+def get_mel_banks_kaldi(num_bins: int, window_length_padded: int,
+                        sample_freq: float, low_freq: float,
+                        high_freq: float):
+    """Kaldi mel filterbank (num_bins, n_fft // 2) and centre frequencies,
+    f32 on the CPU."""
+    bins, cf = _mel_banks_kaldi_np(num_bins, window_length_padded,
+                                   float(sample_freq), float(low_freq),
+                                   float(high_freq))
+    return torch.from_numpy(bins.copy()), torch.from_numpy(cf.copy())
+
+
+@lru_cache(maxsize=16)
+def _kaldi_banks_on(num_bins: int, padded: int, sample_freq: float,
+                    low_freq: float, high_freq: float,
+                    device: torch.device) -> torch.Tensor:
+    """The banks padded by one zero column (the Nyquist bin), transposed to
+    (padded // 2 + 1, num_bins), float64 on `device` (copied once)."""
+    bins, _ = _mel_banks_kaldi_np(num_bins, padded, sample_freq, low_freq,
+                                  high_freq)
+    return torch.from_numpy(np.pad(bins, ((0, 0), (0, 1))).T.astype(
+        np.float64)).to(device)
+
+
+def compute_deltas_kaldi(specgram, win_length: int = 5,
+                         mode: str = "edge") -> torch.Tensor:
+    """Delta coefficients over the last (time) axis of (..., freq, time):
+    one depthwise conv of the (-n..n) / denom kernel over the edge- or
+    zero-padded rows."""
+    if win_length < 3:
+        raise ValueError(f"win_length should be >= 3, got {win_length}")
+    specgram = torch.as_tensor(specgram)
+    shape = specgram.shape
+    x = specgram.reshape(-1, shape[-1])
+    n = (win_length - 1) // 2
+    denom = float(n * (n + 1) * (2 * n + 1)) / 3.0
+    xp = torch.nn.functional.pad(
+        x[:, None], (n, n), mode="replicate" if mode == "edge"
+        else "constant")
+    kernel = (torch.arange(-n, n + 1, dtype=x.dtype, device=x.device)
+              / denom)
+    return torch.nn.functional.conv1d(xp, kernel[None, None]).reshape(shape)
+
+
+def _get_strided_kaldi(waveform: torch.Tensor, window_size: int,
+                       window_shift: int, snip_edges: bool) -> torch.Tensor:
+    """Kaldi's frames (m, window_size): with `snip_edges` only whole
+    frames; else (T + shift // 2) // shift frames over the signal with its
+    edges reflected."""
+    num_samples = waveform.shape[0]
+    if snip_edges:
+        if num_samples < window_size:
+            return waveform.new_zeros((0, 0))
+        return frame_signal(waveform, window_size, window_shift)
+    m = (num_samples + (window_shift // 2)) // window_shift
+    pad = window_size // 2 - window_shift // 2
+    if pad > 0:
+        pad_left = torch.flip(waveform[1:pad + 1], (0,))
+        pad_right = (torch.flip(waveform, (0,))[:pad] if pad > 1
+                     else waveform[-1:])
+        waveform = torch.cat([pad_left, waveform, pad_right])
+    else:
+        waveform = torch.cat([waveform[-pad:], torch.flip(waveform, (0,))])
+    needed = (m - 1) * window_shift + window_size
+    if waveform.shape[0] < needed:
+        waveform = torch.cat([waveform, waveform[-1:].expand(
+            needed - waveform.shape[0])])
+    return frame_signal(waveform, window_size, window_shift)[:m]
+
+
+def compute_fbank_kaldi(waveform, sample_rate: int = 48000,
+                        win_len: int = 1920, win_inc: int = 384,
+                        num_mels: int = 60, win_type: str = "hamming",
+                        preemphasis: float = 0.97, dither: float = 1.0,
+                        snip_edges: bool = True, low_freq: float = 20.0,
+                        high_freq: float = 0.0,
+                        noise: Optional[torch.Tensor] = None,
+                        device=None) -> torch.Tensor:
+    """Kaldi-compatible log mel-filterbank features (time, num_mels), f32
+    on `device` (default: the waveform's, the CPU for numpy input).
+
+    Dither adds `noise * dither` to the frames: `noise` (the frames'
+    shape) if given, else standard normal draws from a CPU generator
+    seeded 0, moved to the frames' device."""
+    waveform = torch.as_tensor(waveform, dtype=torch.float32, device=device)
+    if waveform.ndim == 2:
+        waveform = waveform[0]
+    window_shift = int(sample_rate * (win_inc / sample_rate * 1000) * 0.001)
+    window_size = int(sample_rate * (win_len / sample_rate * 1000) * 0.001)
+    padded = _next_power_of_2(window_size)
+    frames = _get_strided_kaldi(waveform, window_size, window_shift,
+                                snip_edges)
+    if frames.shape[0] == 0:
+        return waveform.new_zeros((0, num_mels))
+    if dither != 0.0:
+        if noise is None:
+            noise = torch.randn(frames.shape,
+                                generator=torch.Generator().manual_seed(0))
+        frames = frames + torch.as_tensor(noise, dtype=torch.float32).to(
+            frames.device) * dither
+    frames = frames - frames.mean(dim=1, keepdim=True)
+    if preemphasis != 0.0:
+        frames = torch.cat([frames[:, :1],
+                            frames[:, 1:] - preemphasis * frames[:, :-1]],
+                           dim=1)
+    if win_type in ("hamming", "hanning", "povey"):
+        kind = {"hanning": "hann"}.get(win_type, win_type)
+        frames = frames * torch.from_numpy(
+            _window_np(kind, window_size, False)).to(frames.device)
+    spec = torch.fft.rfft(frames.double(), n=padded, dim=-1)
+    power = spec.real ** 2 + spec.imag ** 2
+    banks = _kaldi_banks_on(num_mels, padded, float(sample_rate),
+                            float(low_freq), float(high_freq), frames.device)
+    feats = (power @ banks).float()
+    return torch.log(torch.clamp(feats, min=1e-8))

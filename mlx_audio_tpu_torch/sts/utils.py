@@ -2,7 +2,7 @@
 
 `MODEL_REMAPPING` is the JAX package's registry of STS model types (its
 :14-23), kept whole so that a type the port does not have yet (SAM-Audio,
-MossFormer2-SE, LFM2-Audio) is named as such; the families in `PORTED` are
+LFM2-Audio) is named as such; the families in `PORTED` are
 ported. `infer_model_type_from_config` guesses a family from a config's
 characteristic keys when it has no model_type (raw kyutai Moshi configs),
 as the JAX loader does before dispatch (:26-58).
@@ -48,7 +48,7 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("moshi", "mel_roformer", "deepfilternet")
+PORTED = ("moshi", "mel_roformer", "deepfilternet", "mossformer2_se")
 
 
 def infer_model_type_from_config(config: dict) -> Optional[str]:

@@ -8,7 +8,8 @@ the JAX tree's with the family's `sanitize`, fills the model through
 `model.load_jax_params`, the one place where layouts are converted, and
 runs the family's `post_load_hook` (Voxtral's and Voxtral Realtime's read
 `tekken.json`, Cohere ASR's its tokenizer and mel filterbank, Canary's its
-tokenizer, the LLM-decoder families' their HF tokenizer files). Every
+tokenizer, the LLM-decoder families' their HF tokenizer files, SenseVoice's and
+FireRedASR2's their CMVN and token lists). Every
 family binds through `utils.bind_checkpoint`, as the JAX package's loader
 binds every family: an MLX-packed checkpoint's leaves are unpacked (its
 linears then run on kernel K2 on the card), a dense one is quantized per
@@ -81,7 +82,8 @@ MODEL_REMAPPING = {
 PORTED = ("whisper", "voxtral_realtime", "cohere_asr", "parakeet", "canary",
           "nemotron_asr", "qwen3_asr", "qwen3_forced_aligner", "mega_asr",
           "voxtral", "qwen2_audio", "glmasr", "granite_speech",
-          "vibevoice_asr", "mms")
+          "vibevoice_asr", "mms", "sensevoice", "fun_asr_nano",
+          "fireredasr2")
 
 
 def model_family(config: dict, path: Path, name_parts=None):

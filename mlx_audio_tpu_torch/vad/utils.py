@@ -1,15 +1,17 @@
 """VAD loader of the port (counterpart of mlx_audio_tpu/vad/utils.py).
 
 `MODEL_REMAPPING` is the JAX package's registry of VAD model types, kept
-whole so that a type the port does not have yet (sortformer, fsmn,
+whole so that a type the port does not have yet (sortformer,
 smart_turn) is named as such; the families in `PORTED` are ported.
 `load_model` reads a local checkpoint directory (config.json + npz or
 safetensors weights), maps its names onto the JAX tree's with the family's
-`sanitize` and fills the model through `model.load_jax_params`.
+`sanitize`, fills the model through `model.load_jax_params` and runs the
+family's `post_load_hook` (FSMN's reads `cmvn.json` or `am.mvn`).
 """
 
 from __future__ import annotations
 
+import importlib
 from pathlib import Path
 from typing import Union
 
@@ -29,7 +31,7 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("silero_vad",)
+PORTED = ("silero_vad", "fsmn")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",
@@ -52,7 +54,8 @@ def load_model(model_path: Union[str, Path], device="cuda",
         raise ValueError(
             f"VAD model type {model_type!r} (family {family!r}) is not ported "
             f"to mlx_audio_tpu_torch yet (ported: {', '.join(PORTED)})")
-    from .models.silero_vad import Model, ModelConfig
-
-    model = Model(ModelConfig.from_dict(config), device=device)
-    return load_jax_params(model, model.sanitize(load_weights(path)))
+    module = importlib.import_module(f".models.{family}", __package__)
+    model = module.Model(module.ModelConfig.from_dict(config), device=device)
+    load_jax_params(model, model.sanitize(load_weights(path)))
+    post_load_hook = getattr(type(model), "post_load_hook", None)
+    return model if post_load_hook is None else post_load_hook(model, path)

@@ -792,6 +792,55 @@ def test_tiny_outetts_generate_and_ecapa_predict_without_jax():
     assert out.strip().splitlines()[-1] == "False []", out
 
 
+KALDI_FAMILY_SOURCES = (
+    "mlx_audio_tpu_torch/dsp.py",
+    "mlx_audio_tpu_torch/vad/models/fsmn/fsmn.py",
+    "mlx_audio_tpu_torch/vad/models/fsmn/config.py",
+    "mlx_audio_tpu_torch/stt/models/sensevoice/sensevoice.py",
+    "mlx_audio_tpu_torch/stt/models/fun_asr_nano/fun_asr_nano.py",
+    "mlx_audio_tpu_torch/stt/models/fireredasr2/fireredasr2.py",
+    "mlx_audio_tpu_torch/sts/models/mossformer2_se/mossformer2_se.py")
+
+
+def test_kaldi_families_are_checked_statically():
+    """The Kaldi DSP and the modules of FSMN VAD, SenseVoice,
+    Fun-ASR-Nano, FireRedASR2 and MossFormer2-SE are among the sources
+    whose imports `test_source_imports_nothing_of_jax` checks."""
+    assert set(KALDI_FAMILY_SOURCES) <= set(PORT_SOURCES)
+
+
+def test_tiny_sensevoice_generate_and_fsmn_detect_without_jax():
+    """A tiny SenseVoice `generate` (rich tags and CTC text) and an FSMN
+    VAD `detect`, on the CPU from seeded weights; no jax in
+    sys.modules."""
+    out = _run("""
+        import sys
+        import numpy as np
+        from mlx_audio_tpu_torch.stt.models import sensevoice
+        from mlx_audio_tpu_torch.vad.models import fsmn
+
+        m = sensevoice.Model(dict(
+            vocab_size=64, input_size=40,
+            encoder_conf=dict(output_size=16, attention_heads=2,
+                              linear_units=32, num_blocks=2, tp_blocks=1,
+                              kernel_size=5),
+            frontend_conf=dict(n_mels=8, lfr_m=5, lfr_n=3)),
+            device="cpu").init_params(0)
+        m._token_list = [f"t{i}" for i in range(64)]
+        audio = np.random.RandomState(0).randn(16000).astype(np.float32) * 0.1
+        out = m.generate(audio)
+        assert isinstance(out.text, str) and out.segments[0]["emotion"]
+        vad = fsmn.Model(dict(encoder=dict(
+            input_dim=40, input_affine_dim=16, fsmn_layers=2, linear_dim=24,
+            proj_dim=8, lorder=4, output_affine_dim=16, output_dim=12),
+            n_mels=8), device="cpu").init_params(0)
+        segs = vad.detect(audio)
+        assert all(0 <= a < b for a, b in segs)
+        print("jax" in sys.modules, %s)
+    """ % FORBIDDEN)
+    assert out.strip().splitlines()[-1] == "False []", out
+
+
 def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
     """The STS families on the CPU at a tiny size from seeded weights
     (chip_smoke.py's small configs): a greedy Moshi generate through its
@@ -921,6 +970,10 @@ def _entry_points():
     from mlx_audio_tpu_torch.lid.models import wav2vec2 as lid_wav2vec2
     from mlx_audio_tpu_torch.stt.models import mms
     from mlx_audio_tpu_torch.tts.models import outetts, pocket_tts
+    from mlx_audio_tpu_torch.stt.models import (fireredasr2, fun_asr_nano,
+                                                sensevoice)
+    from mlx_audio_tpu_torch.sts.models import mossformer2_se
+    from mlx_audio_tpu_torch.vad.models import fsmn
 
     return {
         "kokoro.Model": (kokoro.Model.__init__,
@@ -1034,6 +1087,20 @@ def _entry_points():
                                      ecapa_tdnn.ModelConfig())),
         "lid.utils.load_model": (lid_utils.load_model,
                                  lambda p: lid_utils.load_model(p)),
+        "fsmn.Model": (fsmn.Model.__init__,
+                       lambda p: fsmn.Model(fsmn.ModelConfig())),
+        "sensevoice.Model": (sensevoice.Model.__init__,
+                             lambda p: sensevoice.Model(
+                                 sensevoice.ModelConfig())),
+        "fun_asr_nano.Model": (fun_asr_nano.Model.__init__,
+                               lambda p: fun_asr_nano.Model(
+                                   fun_asr_nano.ModelConfig())),
+        "fireredasr2.Model": (fireredasr2.Model.__init__,
+                              lambda p: fireredasr2.Model(
+                                  fireredasr2.ModelConfig())),
+        "mossformer2_se.Model": (mossformer2_se.Model.__init__,
+                                 lambda p: mossformer2_se.Model(
+                                     mossformer2_se.ModelConfig())),
     }
 
 
@@ -1069,7 +1136,10 @@ def _entry_points():
                                   "pocket_tts.Model", "mms.Model",
                                   "lid.wav2vec2.Model",
                                   "lid.ecapa_tdnn.Model",
-                                  "lid.utils.load_model"])
+                                  "lid.utils.load_model", "fsmn.Model",
+                                  "sensevoice.Model", "fun_asr_nano.Model",
+                                  "fireredasr2.Model",
+                                  "mossformer2_se.Model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

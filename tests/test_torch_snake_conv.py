@@ -32,29 +32,55 @@ torch = pytest.importorskip("torch")
 _MKLDNN_FP32 = ("matmul", "conv")
 
 
+# torch's fp32 precision parents, read where a child is left at "none"
+_TORCH_FP32_PARENTS = ("backends", "backends.mkldnn")
+
+
+def _torch_attr(path):
+    obj = torch
+    for name in path.split("."):
+        obj = getattr(obj, name)
+    return obj
+
+
 @contextlib.contextmanager
 def full_f32():
     """Both sides of an f32 comparison at full f32, restored on exit: JAX's
     default matmul precision "highest" (a dot left at DEFAULT may be lowered
-    with a shorter mantissa, and an executable compiled so may come back
-    from the persistent compile cache; "highest" is another program, with
-    its own cache key), torch's float32 matmul precision "highest" and
-    oneDNN's conv and matmul fp32 precision "ieee" where this torch has
-    those settings."""
+    with a shorter mantissa), JAX's persistent compile cache off (an
+    executable in it may have been compiled by another process on another
+    host, with other machine features; inside this scope every program is
+    compiled here), torch's float32 matmul precision "highest" and oneDNN's
+    fp32 precision "ieee" on the conv and matmul children and on their
+    parents (`torch.backends`, `torch.backends.mkldnn`), where this torch
+    has those settings."""
     import jax
+    from jax._src import compilation_cache
 
     mk = torch.backends.mkldnn
     has = [op for op in _MKLDNN_FP32
            if hasattr(getattr(mk, op, None), "fp32_precision")]
+    parents = [p for p in _TORCH_FP32_PARENTS
+               if hasattr(_torch_attr(p), "fp32_precision")]
     prev = (torch.get_float32_matmul_precision(),
-            [getattr(mk, op).fp32_precision for op in has])
+            [getattr(mk, op).fp32_precision for op in has],
+            [_torch_attr(p).fp32_precision for p in parents],
+            jax.config.jax_enable_compilation_cache)
+    for p in parents:
+        _torch_attr(p).fp32_precision = "ieee"
     torch.set_float32_matmul_precision("highest")
     for op in has:
         getattr(mk, op).fp32_precision = "ieee"
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()     # the cache reads the flag once
     try:
         with jax.default_matmul_precision("highest"):
             yield
     finally:
+        jax.config.update("jax_enable_compilation_cache", prev[3])
+        compilation_cache.reset_cache()
+        for p, value in zip(parents, prev[2]):
+            _torch_attr(p).fp32_precision = value
         torch.set_float32_matmul_precision(prev[0])
         for op, value in zip(has, prev[1]):
             getattr(mk, op).fp32_precision = value
@@ -95,41 +121,82 @@ def _jax_call(inp, dilation, vlen, dtype=None):
         block_t=128, interpret=True)
 
 
+def _f64_call(inp, dilation, vlen):
+    """The same function in float64 numpy: snake(x*scale + shift), the rows
+    at/after `valid_len` zeroed, the dilated taps, the bias, the rows
+    zeroed again."""
+    x = inp["x"].astype(np.float64)
+    b, t, _ = x.shape
+    k = inp["w"].shape[0]
+    a = inp["alpha"].astype(np.float64)
+    h = x * inp["scale"][:, None, :] + inp["shift"][:, None, :]
+    h = h + np.sin(a * h) ** 2 / a
+    keep = (np.arange(t)[None, :] < np.asarray(vlen)[:, None])[..., None]
+    h = np.where(keep, h, 0.0)
+    pad = (k - 1) // 2 * dilation
+    hp = np.pad(h, ((0, 0), (pad, pad), (0, 0)))
+    w = inp["w"].astype(np.float64)
+    out = sum(hp[:, j * dilation:j * dilation + t, :] @ w[j] for j in range(k))
+    return np.where(keep, out + inp["bias"], 0.0)
+
+
 @pytest.mark.parametrize("k,dilation", [(3, 1), (3, 3), (7, 1), (7, 3)])
 def test_reference_matches_pallas_f32(k, dilation):
     """B=2 with ragged valid lengths (one row full, one cut); both sides
-    pinned to full f32 (`full_f32`)."""
+    pinned to full f32 (`full_f32`), the JAX kernel compiled in this scope.
+    Each side is held to the float64 computation first, so that a failure
+    names the side that strays, then to the other."""
+    from mlx_audio_tpu.ops.snake_conv_pallas import adain_snake_conv1d
+
     inp = _inputs(4, 2, 300, 128, k)
     vlen = [300, 170]
+    adain_snake_conv1d.clear_cache()    # no executable from an earlier file
     with full_f32():
-        got = _port_call(inp, dilation, vlen)
-        want = _jax_call(inp, dilation, vlen)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
+        got = _port_call(inp, dilation, vlen).numpy()
+        want = np.asarray(_jax_call(inp, dilation, vlen))
+    exact = _f64_call(inp, dilation, vlen)
+    np.testing.assert_allclose(got, exact, rtol=2e-4, atol=2e-4,
+                               err_msg="the port's reference against float64")
+    np.testing.assert_allclose(want, exact, rtol=2e-4, atol=2e-4,
+                               err_msg="the JAX kernel against float64")
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 
 def test_full_f32_pins_and_restores_the_settings():
-    """Inside `full_f32` JAX's and torch's f32 precision are the highest;
-    on exit each setting is what it was, even one that a test left lowered
-    (here torch's float32 matmul precision at "medium")."""
+    """Inside `full_f32` JAX's and torch's f32 precision are the highest and
+    JAX's persistent compile cache is off; on exit each setting is what it
+    was, even one that a test left lowered (here torch's float32 matmul
+    precision at "medium")."""
     import jax
+    from jax._src import compilation_cache
 
     before = torch.get_float32_matmul_precision()
     jax_before = jax.config.jax_default_matmul_precision
+    cache_before = jax.config.jax_enable_compilation_cache
     torch.set_float32_matmul_precision("medium")
     try:
         mk = torch.backends.mkldnn
         has = [op for op in _MKLDNN_FP32
                if hasattr(getattr(mk, op, None), "fp32_precision")]
+        parents = [p for p in _TORCH_FP32_PARENTS
+                   if hasattr(_torch_attr(p), "fp32_precision")]
         outer = [getattr(mk, op).fp32_precision for op in has]
+        outer_parents = [_torch_attr(p).fp32_precision for p in parents]
         with full_f32():
             assert torch.get_float32_matmul_precision() == "highest"
             assert jax.config.jax_default_matmul_precision == "highest"
             assert all(getattr(mk, op).fp32_precision == "ieee"
                        for op in has)
+            assert all(_torch_attr(p).fp32_precision == "ieee"
+                       for p in parents)
+            assert not jax.config.jax_enable_compilation_cache
+            assert not compilation_cache.is_cache_used(
+                jax.devices()[0].client)
         assert torch.get_float32_matmul_precision() == "medium"
         assert jax.config.jax_default_matmul_precision == jax_before
+        assert jax.config.jax_enable_compilation_cache == cache_before
         assert [getattr(mk, op).fp32_precision for op in has] == outer
+        assert [_torch_attr(p).fp32_precision for p in parents] == outer_parents
     finally:
         torch.set_float32_matmul_precision(before)
 

@@ -115,11 +115,20 @@ def test_raw_kyutai_config_is_inferred_as_moshi(tmp_path):
     ("sam_audio", "sam_audio"), ("lfm_audio", "lfm_audio"),
     ("mossformer2", "mossformer2_se")])
 def test_unported_sts_family_is_named(tmp_path, model_type, family):
+    """An unported STS family (SAM-Audio, LFM2-Audio) is named; MossFormer2
+    is ported now, so its alias resolves to `mossformer2_se` and a
+    config-only directory reaches that loader, which finds no weights."""
     import mlx_audio_tpu_torch
+    from mlx_audio_tpu_torch.sts import utils
 
     d = tmp_path / "ckpt"
     d.mkdir()
     (d / "config.json").write_text(json.dumps({"model_type": model_type}))
+    if family in utils.PORTED:
+        assert utils.model_family({"model_type": model_type}, d) == family
+        with pytest.raises(FileNotFoundError, match="No weight files"):
+            mlx_audio_tpu_torch.load_model(d, device="cpu")
+        return
     with pytest.raises(ValueError, match=f"'{family}'.*not ported"):
         mlx_audio_tpu_torch.load_model(d, device="cpu")
 

@@ -234,21 +234,24 @@ def test_top_level_load_model_routes_stt_types(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("model_type", ["parakeet", "canary",
-                                        "wav2vec2", "sensevoice"])
+                                        "wav2vec2", "sensevoice",
+                                        "moonshine"])
 def test_unported_stt_type_raises_a_clear_error(tmp_path, model_type):
-    """An unported STT type is named, with the ported families; Parakeet,
-    Canary and MMS (`wav2vec2`) are ported now, so a config-only directory
-    of theirs reaches its family's loader, which finds no weights."""
+    """An unported STT type (moonshine) is named, with the ported
+    families; Parakeet, Canary, MMS (`wav2vec2`) and SenseVoice are ported
+    now, so a config-only directory of theirs reaches its family's loader,
+    which finds no weights."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.stt.utils import load_model
 
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": model_type}))
     for load in (load_model, mlx_audio_tpu_torch.load_model):
-        if model_type == "sensevoice":
+        if model_type == "moonshine":
             with pytest.raises(ValueError, match="not ported.*ported: "
                                "whisper, voxtral_realtime, cohere_asr, "
-                               "parakeet, canary, nemotron_asr"):
+                               "parakeet, canary, nemotron_asr.*sensevoice, "
+                               "fun_asr_nano, fireredasr2"):
                 load(tmp_path, device="cpu")
         else:
             with pytest.raises(FileNotFoundError, match="No weight files"):
