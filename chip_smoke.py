@@ -9725,15 +9725,17 @@ def _kaldi_small(kind: str, device: str, like=None):
     return model
 
 
-def _write_kaldi_dir(model, path: Path, config: dict, bits=None) -> None:
+def _write_kaldi_dir(model, path: Path, config: dict, bits=None,
+                     packed=("llm.model",)) -> None:
     """`model` as a checkpoint directory: its torch-layout state in npz
-    and its config; with `bits`, the `llm.model` weights MLX-packed."""
+    and its config; with `bits`, the weights under the `packed` prefixes
+    MLX-packed."""
     import numpy as np
 
     path.mkdir(parents=True)
     if bits:
         flat = pack_mlx_in_memory(model, bits, lambda k, v: k.startswith(
-            "llm.model"))
+            tuple(packed)))
         config = dict(config, quantization={"group_size": MLX_GROUP,
                                             "bits": bits})
     else:
@@ -10359,6 +10361,579 @@ def phase_kaldi_families(card: str, recorder: K2Recorder) -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# Phases 53-55: the last six STT families (LASR-CTC, Moonshine,
+# MOSS-Transcribe-Diarize, Higgs Audio v3, Granite Speech NAR, MOSS-Music)
+# ---------------------------------------------------------------------------
+
+# the JAX tests' tiny configs (tests/test_lasr_ctc.py, test_moonshine.py,
+# test_moss_stt.py, test_higgs3_granite_nar.py), their LMs and the NAR
+# editor at widths group 64 divides (K2), d64 with 4 heads and 2 KV heads
+# of 16; the stand-in AsrTok's special ids and 250-252 for the audio ids
+_LM64 = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+             num_hidden_layers=2, num_attention_heads=4,
+             num_key_value_heads=2, head_dim=16)
+_TOWER32 = dict(num_mel_bins=80, d_model=32, encoder_layers=2,
+                encoder_attention_heads=4, encoder_ffn_dim=64)
+LAST_STT_SMALL = {
+    "lasr_ctc": dict(model_type="lasr", vocab_size=40, encoder_config=dict(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=4, intermediate_size=64, conv_kernel_size=8,
+        num_mel_bins=32, subsampling_conv_channels=16)),
+    "moonshine": dict(model_type="moonshine", vocab_size=64, hidden_size=32,
+                      intermediate_size=64, encoder_num_hidden_layers=2,
+                      decoder_num_hidden_layers=2,
+                      encoder_num_attention_heads=4,
+                      decoder_num_attention_heads=4),
+    "moss_transcribe_diarize": dict(
+        model_type="moss_transcribe_diarize", text_config=_LM64,
+        audio_config=_TOWER32, audio_token_id=250),
+    "higgs_audio_3": dict(model_type="higgs_audio_3",
+                          audio_encoder_config=_TOWER32, text_config=_LM64,
+                          chunk_size_seconds=1.0),
+    "granite_speech_nar": dict(
+        model_type="granite_speech_nar",
+        encoder_config=dict(input_dim=160, num_layers=4, hidden_dim=32,
+                            feedforward_mult=2, num_heads=2, dim_head=16,
+                            output_dim=12, context_size=50, max_pos_emb=64,
+                            conv_kernel_size=5, bpe_output_dim=40,
+                            bpe_pooling_window=4, self_conditioning_layer=2,
+                            blank_token_id=0),
+        projector_config=dict(num_layers=2, num_encoder_layers=4,
+                              hidden_size=32, num_heads=4, encoder_dim=32,
+                              llm_dim=64, mlp_ratio=2),
+        text_config=dict(hidden_size=64, intermediate_size=128,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         num_key_value_heads=2, vocab_size=40,
+                         attention_multiplier=0.35),
+        encoder_layer_indices=[1, 2, 3, -1], blank_token_id=0),
+    "moss_music": dict(
+        model_type="moss_music", audio_config=dict(
+            d_model=32, output_dim=32, encoder_layers=4,
+            encoder_attention_heads=4, encoder_ffn_dim=64,
+            downsample_hidden_size=8, n_window=50,
+            deepstack_encoder_layer_indexes=[1, 2, 3]),
+        language_config=_LM64, adapter_hidden_size=48,
+        deepstack_num_inject_layers=2, audio_token_id=250,
+        audio_start_id=251, audio_end_id=252, eos_token_id=242),
+}
+# the prefixes an MLX-packed q8 directory of each LM family packs: every
+# LM linear (and Higgs's head; the tables unpack dense)
+LAST_STT_PACKED = {"moss_transcribe_diarize": ("model.language_model",),
+                   "higgs_audio_3": ("language_model", "lm_head"),
+                   "granite_speech_nar": ("editor.",),
+                   "moss_music": ("language_model",)}
+# Qwen/Qwen3-8B's published text config (MOSS-Music-8B-Thinking's LM; the
+# repository holds no MOSS-Music config.json, so this is an assumption)
+QWEN3_8B_TEXT = dict(vocab_size=151936, hidden_size=4096,
+                     intermediate_size=12288, num_hidden_layers=36,
+                     num_attention_heads=32, num_key_value_heads=8,
+                     head_dim=128, rope_theta=1000000.0, rms_norm_eps=1e-6,
+                     tie_word_embeddings=False)
+MUSIC_FULL = dict(model_type="moss_music", language_config=QWEN3_8B_TEXT)
+# UsefulSensors/moonshine-base's published dims (the JAX defaults are
+# moonshine-tiny's 288 / 6 / 6)
+MOONSHINE_BASE = dict(model_type="moonshine", hidden_size=416,
+                      intermediate_size=1664, encoder_num_hidden_layers=8,
+                      decoder_num_hidden_layers=8,
+                      encoder_num_attention_heads=8,
+                      decoder_num_attention_heads=8,
+                      partial_rotary_factor=0.62)
+# phase 55's five: LASR-CTC, MOSS-Transcribe-Diarize and Higgs Audio v3
+# (plain 4-s chunks: vad_cut off) at the JAX defaults, Moonshine at
+# moonshine-base's dims, Granite Speech NAR at the JAX defaults but 16
+# encoder layers (the defaults' 10 cannot hold `encoder_layer_indices`
+# [4, 8, 12, -1])
+LAST_STT_FULL = {
+    "lasr_ctc": dict(model_type="lasr"),
+    "moonshine": MOONSHINE_BASE,
+    "moss_transcribe_diarize": dict(model_type="moss_transcribe_diarize"),
+    "higgs_audio_3": dict(model_type="higgs_audio_3", vad_cut=False),
+    "granite_speech_nar": dict(model_type="granite_speech_nar",
+                               encoder_config=dict(num_layers=16))}
+LAST_STT_SECONDS, MUSIC_TOKENS, LAST_STT_TOKENS = 30, 128, 96
+# the tokens of a warm-up request before a timed one
+WARM_TOKENS = 4
+
+
+def _stt_small(family: str, device: str, like=None):
+    """The small config of `family` at f32 on `device`: seeded from 0, or
+    `like`'s weights."""
+    import importlib
+
+    mod = importlib.import_module(f"mlx_audio_tpu_torch.stt.models.{family}")
+    model = mod.Model(dict(LAST_STT_SMALL[family]), device=device)
+    if like is None:
+        return model.init_params(seed=0)
+    model.load_state_dict(like.state_dict())
+    return model
+
+
+def _with_asr_tok(model, ids: dict, n_chars: int):
+    """`model` with the stand-in AsrTok where its family reads a
+    tokenizer, and the tokenizer's digit ids where it marks time."""
+    from mlx_audio_tpu_torch.stt.models.moss_transcribe_diarize.\
+        moss_transcribe_diarize import digit_ids
+
+    name = type(model).__module__.rsplit(".", 1)[-1]
+    if name in ("moss_transcribe_diarize", "higgs_audio_3", "moss_music"):
+        model._tokenizer = AsrTok(ids, n_chars=n_chars)
+        if name != "higgs_audio_3":
+            model._digit_token_ids = digit_ids(model._tokenizer)
+    return model
+
+
+def _last_stt_out(model, audio):
+    """What a family's greedy transcription gives: CTC ids, or text (24
+    tokens at most) with the segments (Higgs's one segment ends at the
+    wall time: its text alone)."""
+    if type(model).__module__.endswith(".lasr"):
+        return model.transcribe_ids(audio)
+    out = model.generate(audio, max_tokens=24)
+    if type(model).__module__.endswith(".higgs_audio_3"):
+        return (out.text,)
+    return out.text, out.segments
+
+
+def phase_last_stt_reference(tmp: Path, recorder: K2Recorder) -> int:
+    """Phase 53: the six families' small configs at f32 from one seeded
+    weight set, the card against the CPU: LASR-CTC's CTC ids, Moonshine's
+    greedy tokens, MOSS-Transcribe-Diarize's (whole and streamed), Higgs
+    Audio v3's over a seeded Silero's chunks (the VAD seam on the card),
+    Granite Speech NAR's two passes, MOSS-Music's with its deepstack
+    prefill; an MLX-packed q8 directory of each LM family through
+    `stt.utils` (every packed linear on K2: tokens equal to the same model
+    through `qmatmul_reference` and to the CPU's); tiny directories of all
+    six through `stt.utils` and the top-level `load_model` on the card;
+    the STT CLI on Moonshine and on MOSS-Transcribe-Diarize with --stream
+    against in-process `generate`. -> K2's launches, as its counter read
+    them."""
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch import load_model as route
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.stt import generate as stt_generate
+    from mlx_audio_tpu_torch.stt import utils as stt_utils
+    from mlx_audio_tpu_torch.vad.models.silero_vad import Model as Silero
+    from mlx_audio_tpu_torch.vad.models.silero_vad import \
+        ModelConfig as SileroConfig
+
+    t0 = time.perf_counter()
+    qmm_kernel.launches = 0
+    speech = _noise(53, 2.0)
+    notes, cpus = [], {}
+    # one seeded Silero on each device, the same weights
+    vads = {dev: Silero(SileroConfig(), device=dev).init_params(seed=0)
+            for dev in ("cpu", DEVICE)}
+
+    def ready(m):
+        """The stand-in tokenizer; Higgs's Silero on the model's device."""
+        if type(m).__module__.endswith(".higgs_audio_3"):
+            m.set_vad_model(vads[m.device.type])
+        return _with_asr_tok(m, SMALL_SPECIAL_IDS, 200)
+
+    for family in LAST_STT_SMALL:
+        cpu = ready(_stt_small(family, "cpu"))
+        card = ready(_stt_small(family, DEVICE, like=cpu))
+        want, got = _last_stt_out(cpu, speech), _last_stt_out(card, speech)
+        if got != want or not want:
+            raise AssertionError(f"{family} CUDA vs CPU: {got} vs {want}")
+        if family == "moss_transcribe_diarize":
+            parts = list(card.generate(speech, max_tokens=24, stream=True))
+            if " ".join(p.text for p in parts[:-1]) != want[0] or \
+                    not parts[-1].is_final:
+                raise AssertionError("MOSS-Transcribe-Diarize's stream on "
+                                     "the card differs from its generate")
+        size = len(want) if family == "lasr_ctc" else len(want[0].split())
+        notes.append(f"{family} equal ({size} "
+                     f"{'CTC ids' if family == 'lasr_ctc' else 'tokens'})")
+        cpus[family] = cpu
+    # the LM families' MLX-packed q8 directories on K2
+    for family, packed in LAST_STT_PACKED.items():
+        d8 = tmp / f"{family}-q8"
+        _write_kaldi_dir(cpus[family], d8, LAST_STT_SMALL[family], bits=8,
+                         packed=packed)
+        with recorder:
+            q8 = ready(stt_utils.load_model(d8, device=DEVICE))
+            held = sum(isinstance(m, QuantizedLinear) for m in q8.modules())
+            k2 = qmm_kernel.launches
+            got = _last_stt_out(q8, speech)
+            k2 = qmm_kernel.launches - k2
+        with K2AsReference():
+            ref = _last_stt_out(q8, speech)
+        qc = ready(stt_utils.load_model(d8, device="cpu"))
+        if not (held and k2 and got == ref == _last_stt_out(qc, speech)):
+            raise AssertionError(f"q8 {family}: {held} quantized linears, "
+                                 f"{k2} K2 launches; K2's output equal to "
+                                 f"the plain version's {got == ref}, the "
+                                 f"CPU's {got == _last_stt_out(qc, speech)}")
+        notes.append(f"q8 {family}: {held} linears on K2, {k2} launches")
+    # the loaders and the CLI on the card
+    dirs = {}
+    for family, cpu in cpus.items():
+        dirs[family] = tmp / f"{family}-tiny"
+        _write_kaldi_dir(cpu, dirs[family], LAST_STT_SMALL[family])
+    for family, d in dirs.items():
+        for load in (stt_utils.load_model, route):
+            m = ready(load(d, device=DEVICE))
+            if type(m).__module__.rsplit(".", 1)[-1] != \
+                    type(cpus[family]).__module__.rsplit(".", 1)[-1] or \
+                    _last_stt_out(m, speech) != _last_stt_out(cpus[family],
+                                                              speech):
+                raise AssertionError(f"the loaders on the card: {family}")
+    notes.append("stt.utils and the top-level load_model on the six tiny "
+                 "directories, each as the CPU model")
+    wav = tmp / "speech53.wav"
+    audio_io.write(wav, speech, 16000)
+    real = stt_utils.load_model
+    stt_utils.load_model = lambda p: ready(real(p, device=DEVICE))
+    try:
+        for family, extra in (("moonshine", []),
+                              ("moss_transcribe_diarize", ["--stream"])):
+            out = tmp / f"cli-{family}"
+            stt_generate.main(["--model", str(dirs[family]), "--audio",
+                               str(wav), "--max-tokens", "24",
+                               "--no-verbose", "--output-path", str(out)]
+                              + extra)
+            text = (out / "transcription.txt").read_text().strip()
+            want = _last_stt_out(cpus[family], speech)[0]
+            if extra:                   # the stream's pieces, one a token
+                want = want.replace(" ", "")
+            if text != want:
+                raise AssertionError(f"the STT CLI on {family}: {text!r}")
+    finally:
+        stt_utils.load_model = real
+    notes.append("the STT CLI wrote Moonshine's text and "
+                 "MOSS-Transcribe-Diarize's streamed text")
+    launches = qmm_kernel.launches
+    log(f"[last stt small] {'; '.join(notes)}")
+    log(f"[time] phase 53 in {time.perf_counter() - t0:.1f} s; K2 launched "
+        f"{launches} times")
+    return launches
+
+
+def lm_token_bytes(lm, head, cfg, cache_cols: float) -> float:
+    """Bytes a decode token must read from a Qwen3 LM: its layers' linears
+    (bf16, or 8-bit codes one a byte with f32 scales and biases), the head
+    (a dense `head`, or the tied table where it is None) and one table
+    row, the norms, and the f32 K and V of `cache_cols` columns."""
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+
+    total = 0.0
+    for m in lm.layers.modules():
+        if isinstance(m, Linear):
+            total += m.weight.numel() * m.weight.element_size()
+        elif isinstance(m, QuantizedLinear):
+            total += (m.w_q.numel() + 4 * (m.scales.numel()
+                                           + m.biases.numel()))
+    table = lm.embed_tokens.weight
+    w = table if head is None else head.weight
+    total += w.numel() * w.element_size()
+    total += cfg.hidden_size * table.element_size()
+    total += (4 * cfg.num_hidden_layers + 1) * cfg.hidden_size * 2
+    total += (2 * cfg.num_hidden_layers * cache_cols
+              * cfg.num_key_value_heads * cfg.head_dim * 4)
+    return total
+
+
+def build_moss_music_full():
+    """MOSS-Music at MUSIC_FULL (the JAX defaults' 32 x d1280 encoder, its
+    adapter and three deepstack mergers, Qwen3-8B's text config) drawn on
+    the card in f32 from seed 0 tensor by tensor, EOS's head row zeroed
+    (so that a greedy decode runs its budget), cast in place to bf16; the
+    stand-in tokenizer."""
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.moss_music import Model
+
+    t0 = time.perf_counter()
+    model = Model(MUSIC_FULL, device=DEVICE).init_params(seed=0,
+                                                         on_device=True)
+    with torch.no_grad():
+        model.lm_head.weight[model.config.eos_token_id] = 0.0
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    _with_asr_tok(model, QWEN3_SPECIAL_IDS, 1000)
+    torch.cuda.synchronize()
+    log(f"[moss-music] MOSS-Music-8B dims (encoder 32 x d1280, adapter and 3 "
+        f"mergers of 8,192, Qwen3-8B 36 x d4096 GQA 32/8 of 128, FFN "
+        f"12,288, vocabulary 151,936, untied head): {model.num_params():,} "
+        f"params bf16 on cuda, built in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def _music_run(model, audio, label: str, card: str, base: int) -> dict:
+    """The encoder's ms (with its deepstack captures); a MUSIC_TOKENS-token
+    greedy decode (ms a token p50 and p95 over its chunks after the first,
+    xRT, peak memory); one profiled chunk of PROFILE_STEPS steps (kernels,
+    device ms and busy share a token; K2's launches a token). -> the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.stt.models.qwen3_lm import (DEC_CHUNK,
+                                                         qwen3_decode_fns)
+
+    laps = Laps(f"moss-music {label}")
+    greedy = (0.0, 0, 1.0, 0.0, 1.0, 20, 1)
+    ids, feats, ds, _ = model._prepare(audio, None, None)
+    model._decode(ids, feats, ds, WARM_TOKENS, greedy)
+    laps("warm-up")
+    enc_ms = _sync_ms(lambda: model.encode_audio(audio), reps=2)
+    embeds, full = model.prompt_embeds(ids, feats, ds)
+    n = len(ids)
+    lc = model.config.language_config
+    fns = qwen3_decode_fns(model.language_model, lc, model.lm_head, n,
+                           MUSIC_TOKENS, greedy, (model.config.eos_token_id,),
+                           deepstack=full)
+    logits = fns.prefill(embeds, n)[0]
+    laps("encoder timed")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = model._decode(ids, feats, ds, MUSIC_TOKENS, greedy)
+    wall = time.perf_counter() - t0
+    laps("the decode")
+    run = dict(model.last_run)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    per_token = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
+    if not (len(toks) == MUSIC_TOKENS and len(per_token)):
+        raise AssertionError(f"MOSS-Music {label}: {len(toks)} tokens, "
+                             f"{run}")
+    state = fns.start(embeds, n, MUSIC_TOKENS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fns.chunk(state, PROFILE_STEPS)
+    chunk_wall = (time.perf_counter() - t1) * 1e3 / PROFILE_STEPS
+    k2, fwd = qmm_kernel.launches, state["forwards"]
+    prof = _device_kernels(lambda: fns.chunk(state, PROFILE_STEPS),
+                           cpu=False)
+    k2_token = (qmm_kernel.launches - k2) / max(state["forwards"] - fwd, 1)
+    dev_ms = sum(_dev_us(e) for e in prof) / 1e3 / PROFILE_STEPS
+    kernels = sum(e.count for e in prof) / PROFILE_STEPS
+    laps("profiled steps")
+    laps.log()
+    if not (kernels > 0 and dev_ms > 0):
+        raise AssertionError("MOSS-Music: the profiler saw no kernel")
+    nbytes = lm_token_bytes(model.language_model, model.lm_head, lc,
+                            n + MUSIC_TOKENS / 2)
+    bound = nbytes / HBM_BPS * 1e3
+    res = dict(enc_ms=enc_ms, logits=logits, wall=wall,
+               p50=float(np.percentile(per_token, 50)),
+               p95=float(np.percentile(per_token, 95)),
+               xrt=LAST_STT_SECONDS / (wall + enc_ms / 1e3), peak=peak,
+               kernels=kernels, dev_ms=dev_ms, busy=dev_ms / chunk_wall,
+               bound=bound, nbytes=nbytes, k2_token=k2_token, prompt=n,
+               audio_tokens=run["audio_tokens"])
+    log(f"[moss-music] {label}: {LAST_STT_SECONDS} s, {run['audio_tokens']} "
+        f"audio rows (3 deepstack features each) in a {n}-token prompt: "
+        f"encoder and adapters {enc_ms:.2f} ms; {MUSIC_TOKENS} greedy tokens: "
+        f"{res['p50']:.2f} ms a token p50, {res['p95']:.2f} p95 (over "
+        f"{len(per_token)} chunks of {DEC_CHUNK}), decode wall {wall:.2f} s, "
+        f"xRT {res['xrt']:.2f}, peak {peak:.2f} GB above the earlier "
+        f"phases'; profiled chunk: {kernels:.0f} kernels and {dev_ms:.3f} ms "
+        f"of device time a token against {chunk_wall:.2f} ms of wall "
+        f"({100 * res['busy']:.1f}% busy), {k2_token:.0f} K2 launches a "
+        f"token; {nbytes / 1e9:.3f} GB a token, bound {bound:.3f} ms "
+        f"(bytes), {100 * bound / res['p50']:.1f}% of it reached at p50 "
+        f"({card})")
+    return res
+
+
+def phase_moss_music_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 54: MOSS-Music-8B (MUSIC_FULL) seeded on the card in bf16,
+    then its `language_model` weights packed to MLX's 8-bit layout in
+    memory and loaded through the pre-quantized path (the bf16 linears
+    replaced: every LM linear on K2, the table dense, the head, encoder,
+    adapter and mergers bf16): each on 30 s of randn * 0.1 with 128 greedy
+    tokens (`_music_run`); the 252 LM linears alone at M = 1 against their
+    byte bound; K2's launches a token read from its counter against
+    36 x 7; the first-step logits q8 against bf16. -> K2's launches, as
+    its counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import Embedding, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import (apply_quantization,
+                                           unpack_prequantized)
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = build_moss_music_full()
+    audio = _noise(54, LAST_STT_SECONDS)
+    bf16 = _music_run(model, audio, "bf16", card, base)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 MOSS-Music launched K1 or K2")
+    per_token = 7 * model.config.language_config.num_hidden_layers
+    t1 = time.perf_counter()
+    packed = pack_mlx_in_memory(model, 8, lambda k, v: k.startswith(
+        "language_model"))
+    torch.cuda.empty_cache()
+    config = {"quantization": {"group_size": MLX_GROUP, "bits": 8}}
+    flat = unpack_prequantized(model, config, packed)
+    del packed
+    model.bind(flat)
+    del flat
+    apply_quantization(model, config, model.model_quant_predicate,
+                       pre_quantized=True)
+    torch.cuda.empty_cache()
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    if held != per_token or not isinstance(
+            model.language_model.embed_tokens, Embedding):
+        raise AssertionError(f"q8 MOSS-Music holds {held} quantized linears "
+                             f"(want {per_token}) or a quantized table")
+    log(f"[moss-music] language_model packed to MLX 8-bit (group "
+        f"{MLX_GROUP}) in memory and loaded through the pre-quantized path "
+        f"in {time.perf_counter() - t1:.2f} s: {held} LM linears on K2, the "
+        f"encoder, adapter, mergers and head bf16, the table dense")
+    alone, abound, n = k2_linears_alone(model.language_model, card,
+                                        "moss-music")
+    k1 = snake_conv_kernel.launches
+    qmm_kernel.launches = 0
+    with recorder:
+        q8 = _music_run(model, audio, "q8 (K2)", card, base)
+    k2 = qmm_kernel.launches
+    if q8["k2_token"] != per_token or snake_conv_kernel.launches != k1:
+        raise AssertionError(f"q8 MOSS-Music: {q8['k2_token']} K2 launches "
+                             f"a token, want {per_token}; or K1 launched")
+    rel = float(torch.linalg.norm(q8["logits"] - bf16["logits"])
+                / torch.linalg.norm(bf16["logits"]))
+    top1 = int(q8["logits"].argmax()) == int(bf16["logits"].argmax())
+    if not (torch.isfinite(q8["logits"]).all() and rel < ASR_Q8_REL):
+        raise AssertionError(f"q8 MOSS-Music first-step logits vs bf16: "
+                             f"relative {rel:.3e}")
+    log(f"[moss-music] q8 against bf16 on this card: encoder "
+        f"{q8['enc_ms']:.2f} vs {bf16['enc_ms']:.2f} ms, {q8['p50']:.2f} vs {bf16['p50']:.2f} "
+        f"ms a token p50, {q8['p95']:.2f} vs {bf16['p95']:.2f} p95, xRT "
+        f"{q8['xrt']:.2f} vs {bf16['xrt']:.2f}, {q8['kernels']:.0f} vs "
+        f"{bf16['kernels']:.0f} kernels and {q8['dev_ms']:.3f} vs "
+        f"{bf16['dev_ms']:.3f} ms of device time a token, busy "
+        f"{100 * q8['busy']:.1f}% vs {100 * bf16['busy']:.1f}%, "
+        f"{q8['nbytes'] / 1e9:.3f} vs {bf16['nbytes'] / 1e9:.3f} GB a token, "
+        f"bound {q8['bound']:.3f} vs {bf16['bound']:.3f} ms, peak "
+        f"{q8['peak']:.2f} vs {bf16['peak']:.2f} GB; K2 launched {k2} times, "
+        f"{q8['k2_token']:.0f} a decode token (read from its counter; the "
+        f"config gives {per_token}), the {n} LM linears alone {alone:.3f} ms "
+        f"a token (bound {abound:.3f} ms); first-step logits q8 vs bf16 "
+        f"relative {rel:.3e} (limit {ASR_Q8_REL:g}), top-1 "
+        f"{'equal' if top1 else 'differs'} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 54 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+def _build_full(family: str, config: dict, zero_rows=None):
+    """`family` at `config` drawn on the card in f32 from seed 0, the rows
+    `zero_rows(model)` gives zeroed (EOS's, so that greedy decodes run
+    their budget), cast to bf16, with the stand-in tokenizer."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"mlx_audio_tpu_torch.stt.models.{family}")
+    model = mod.Model(dict(config), device=DEVICE).init_params(
+        seed=0, on_device=True)
+    if zero_rows is not None:
+        with torch.no_grad():
+            for w, rows in zero_rows(model):    # ids past it never drawn
+                w[[r for r in rows if r < w.shape[0]]] = 0.0
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    return _with_asr_tok(model, QWEN3_SPECIAL_IDS, 1000)
+
+
+def phase_last_stt_full(card: str) -> None:
+    """Phase 55: the other five families at full width in bf16 on 30 s of
+    randn * 0.1, each seeded on the card: LASR-CTC at the JAX defaults,
+    Moonshine at moonshine-base's dims, MOSS-Transcribe-Diarize and Higgs
+    Audio v3 (plain 4-s chunks, vad_cut off) at the JAX defaults, Granite
+    Speech NAR at the JAX defaults with 16 encoder layers; EOS rows zeroed
+    where a family decodes (LAST_STT_TOKENS greedy tokens). Each: the
+    encoder's ms, ms a token p50 over the chunks after the first, xRT of
+    the request and peak memory. Neither K1 nor K2 launches."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.qwen3_lm import DEC_CHUNK
+
+    audio = _noise(55, LAST_STT_SECONDS)
+    # the EOS rows each decoding family's greedy pick could stop on
+    eos_rows = {
+        "moonshine": lambda m: [(m.decoder.embed_tokens.weight,
+                                 [m.config.eos_token_id])],
+        "moss_transcribe_diarize": lambda m: [
+            (m.model.language_model.embed_tokens.weight, m._eos_ids())],
+        "higgs_audio_3": lambda m: [(m.lm_head.weight, (151643, 151645))]}
+    runs = [(family, config, eos_rows.get(family))
+            for family, config in LAST_STT_FULL.items()]
+    for family, config, zero in runs:
+        t0 = time.perf_counter()
+        base = torch.cuda.memory_allocated()
+        model = _build_full(family, config, zero)
+        build_s = time.perf_counter() - t0
+        params = model.num_params()
+        torch.cuda.reset_peak_memory_stats()
+        kw = {} if family in ("lasr_ctc", "granite_speech_nar") else \
+            dict(max_tokens=LAST_STT_TOKENS)
+        model.generate(audio, **({**kw, "max_tokens": WARM_TOKENS} if kw
+                                 else {}))
+        out, wall = _sync_s(lambda: model.generate(audio, **kw))
+        run = dict(model.last_run)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        part = (f"{params / 1e9:.3f} B params, built in {build_s:.1f} s: "
+                f"{LAST_STT_SECONDS} s in {wall * 1e3:.1f} ms (xRT "
+                f"{LAST_STT_SECONDS / wall:.1f})")
+        if family == "lasr_ctc":
+            part += (f", {run['frames']} mel frames, "
+                     f"{len(out.text.split())} ids")
+        elif family == "granite_speech_nar":
+            part += (f": encoder and projector {run['encode_ms']:.1f} ms "
+                     f"({run['frames']} rows -> {run['audio_rows']} audio "
+                     f"rows), editor {run['edit_ms']:.1f} ms over "
+                     f"{run['audio_rows'] + run['slots']} rows")
+        else:
+            if out.generation_tokens != LAST_STT_TOKENS:
+                raise AssertionError(f"{family}: {out.generation_tokens} "
+                                     f"tokens, {run}")
+            per = np.asarray(run["chunk_ms"][1:]) / DEC_CHUNK
+            part += (f": encoder {run['encode_ms']:.1f} ms, "
+                     f"{LAST_STT_TOKENS} greedy tokens at "
+                     f"{np.percentile(per, 50):.2f} ms a token p50 "
+                     f"({len(per)} chunks after the first)")
+        if not np.isfinite(wall) or not out.text:
+            raise AssertionError(f"{family} gave no text")
+        log(f"[{family}] {part}, peak {peak:.2f} GB ({card})")
+        del model, out
+        torch.cuda.empty_cache()
+
+
+def phase_last_stt(card: str, recorder: K2Recorder) -> int:
+    """Phases 53-55; K1 never launches, K2 only on the q8 models of phases
+    53 and 54. -> K2's launches there."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_last_stt_reference(Path(tmp), recorder)
+    torch.cuda.empty_cache()
+    k2 += phase_moss_music_full(card, recorder)
+    before = qmm_kernel.launches
+    phase_last_stt_full(card)
+    if snake_conv_kernel.launches != k1 or qmm_kernel.launches != before:
+        raise AssertionError("phases 53-55 launched K1, or K2 outside the "
+                             "q8 models")
+    log(f"[time] phases 53-55 in {time.perf_counter() - t0:.1f} s; K1 not "
+        f"launched")
+    return k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -10513,6 +11088,11 @@ def main() -> int:
     # the Kaldi fbank families: K2 on the q8 Fun-ASR-Nano models
     k2_launches += phase_kaldi_families(card, recorder)
     log(f"[time] phases 1-52 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # the last six STT families: K2 on the small q8 directories and the
+    # q8 MOSS-Music-8B
+    k2_launches += phase_last_stt(card, recorder)
+    log(f"[time] phases 1-55 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -17,7 +17,8 @@ A streamed chunk may be a plain text delta (Voxtral Realtime's
 and counts, where the JAX package's CLI fails on it. So is a result that
 is not an STTOutput (the forced aligner's `ForcedAlignResult`, written
 with its words as segments): `--text` then aligns, as in the JAX package,
-whose CLI fails on the result.
+whose CLI fails on the result. A family whose `generate` accepts `stream`
+and returns one result all the same (Moonshine) writes that result.
 """
 
 from __future__ import annotations
@@ -133,7 +134,10 @@ def generate_transcription(
     if stream and "stream" in sig_params:
         # streaming accumulation (reference stt/generate.py:293-332)
         output = None
-        for chunk in model.generate(audio, stream=True, **gen_kwargs):
+        result = model.generate(audio, stream=True, **gen_kwargs)
+        if not hasattr(result, "__next__"):     # `stream` accepted, ignored
+            result = [result]
+        for chunk in result:
             chunk = as_output(chunk)
             if verbose and chunk.text:
                 print(chunk.text, end="", flush=True)

@@ -10,7 +10,8 @@ of the pieces those five JAX modules share:
   (`init_audio_tower` and `audio_tower_forward`, :92-139), which
   Qwen2-Audio reuses with fixed sinusoidal positions and a 2x average pool
   before its last LayerNorm (qwen2_audio.py:107-149): `WhisperTower`,
-  `tower_forward`;
+  `tower_forward`; MOSS-Transcribe-Diarize's `whisper_encoder_forward` and
+  Higgs Audio v3's (its `final_pool2` the same pool) run on it too;
 * the prompt splice (each `generate`'s `embeds[0, pos[:m]] = feats[:m]`):
   `splice_embeds`;
 * each family's jitted prefill and while-loop (or chunk scan) decode, here
@@ -45,7 +46,7 @@ from ...ops.attention import attention
 from ...ops.kvcache import KVCache
 from ...tts.models.llama.llama import (init_caches, llama_forward,
                                        logits_from_hidden)
-from .qwen3_lm import DEC_CHUNK, DecodeFns, make_decode_fns
+from .qwen3_lm import DEC_CHUNK, DecodeFns, prompt_decode_fns
 
 # (temperature, top_k, top_p, min_p, repetition_penalty,
 #  repetition_context_size, min_tokens_to_keep)
@@ -164,24 +165,19 @@ def lm_forward(lm, embeds: torch.Tensor, caches: Optional[KVCache],
 def decode_fns(lm, n: int, max_tokens: int, sampling: tuple,
                eos_ids: Tuple[int, ...],
                min_context: int = 0) -> DecodeFns:
-    """The (prefill, chunk) pair of `qwen3_lm.make_decode_fns` over the
-    llama LM `lm` for an n-row prompt: f32 caches on the LM's device, the
-    repetition penalty's history at least `min_context` tokens long."""
-    (temperature, top_k, top_p, min_p, repetition_penalty,
-     repetition_context_size, min_tokens_to_keep) = sampling
+    """`qwen3_lm.prompt_decode_fns` over the llama LM `lm` for an n-row
+    prompt: f32 caches on the LM's device, the repetition penalty's
+    history at least `min_context` tokens long."""
     cfg = lm.config
     dev = lm.model.embed_tokens.weight.device
-    return make_decode_fns(
+    return prompt_decode_fns(
         text_config=cfg, embed_fn=lm.model.embed_tokens,
-        logits_fn=lambda h: logits_from_hidden(lm, h),
         forward_fn=lambda e, c, o, m: lm_forward(lm, e, c, o, m),
+        logits_fn=lambda h: logits_from_hidden(lm, h),
         make_caches=lambda cols: init_caches(cfg, 1, cols, torch.float32,
                                              dev),
-        bucket=n, max_new=max(int(max_tokens), 1), temperature=temperature,
-        top_k=top_k, top_p=top_p, min_p=min_p,
-        min_tokens_to_keep=min_tokens_to_keep, eos_ids=tuple(eos_ids),
-        repetition_penalty=repetition_penalty,
-        repetition_context_size=max(repetition_context_size, min_context))
+        n=n, max_tokens=max_tokens, sampling=sampling, eos_ids=eos_ids,
+        min_context=min_context)
 
 
 def decode_tokens(gen) -> List[int]:

@@ -1,5 +1,8 @@
 """Shared decode stepper for the Qwen3-LM-decoder families (Qwen3-ASR, its
-forced aligner's LM, MegaASR, VyvoTTS).
+forced aligner's LM, MegaASR, VyvoTTS, Fun-ASR-Nano; over an unpadded
+prompt through `prompt_decode_fns`, the llama LLM-decoder STT families
+and, through `qwen3_decode_fns`, MOSS-Transcribe-Diarize, Higgs Audio v3
+and MOSS-Music, whose deepstack features enter at the prefill alone).
 
 Counterpart of mlx_audio_tpu/stt/models/qwen3_lm.py: `prompt_bucket`,
 `make_decode_fns` and `run_decode` (:32-134). The JAX package compiles a
@@ -184,6 +187,48 @@ def make_decode_fns(*, text_config, embed_fn: Callable, logits_fn: Callable,
                      rep_ctx=repetition_context_size)
 
 
+def prompt_decode_fns(*, text_config, embed_fn: Callable,
+                      forward_fn: Callable, logits_fn: Callable,
+                      make_caches: Callable, n: int, max_tokens: int,
+                      sampling: tuple, eos_ids: Tuple[int, ...],
+                      min_context: int = 0) -> DecodeFns:
+    """`make_decode_fns` for an n-row prompt, not padded to a bucket, with
+    `sampling` the knobs of `llm_stt.sampling_knobs` and the repetition
+    penalty's history at least `min_context` tokens long: the one
+    stepper of the llama (`llm_stt.decode_fns`) and Qwen3
+    (`qwen3_decode_fns`) LLM-decoder STT families."""
+    (temperature, top_k, top_p, min_p, repetition_penalty,
+     repetition_context_size, min_tokens_to_keep) = sampling
+    return make_decode_fns(
+        text_config=text_config, embed_fn=embed_fn, logits_fn=logits_fn,
+        forward_fn=forward_fn, make_caches=make_caches, bucket=n,
+        max_new=max(int(max_tokens), 1), temperature=temperature,
+        top_k=top_k, top_p=top_p, min_p=min_p,
+        min_tokens_to_keep=min_tokens_to_keep, eos_ids=tuple(eos_ids),
+        repetition_penalty=repetition_penalty,
+        repetition_context_size=max(repetition_context_size, min_context))
+
+
+def qwen3_decode_fns(lm, text_config, logits_fn: Callable, n: int,
+                     max_tokens: int, sampling: tuple,
+                     eos_ids: Tuple[int, ...], deepstack=None) -> DecodeFns:
+    """`prompt_decode_fns` over a `tts.models.moss_tts.Qwen3LM`
+    (MOSS-Transcribe-Diarize, Higgs Audio v3, MOSS-Music): f32 caches on
+    the LM's device; `deepstack` (a list of (1, n, D) tensors) is added
+    after the first layers in the prefill alone."""
+    from ...tts.models.moss_tts.moss_tts import qwen3_lm_forward
+
+    def forward(embeds, caches, offset, pad_mask):
+        return qwen3_lm_forward(lm, embeds, caches, offset, pad_mask,
+                                deepstack=deepstack if offset == 0 else None)
+
+    return prompt_decode_fns(
+        text_config=text_config, embed_fn=lm.embed_tokens,
+        forward_fn=forward, logits_fn=logits_fn,
+        make_caches=lambda cols: lm.make_caches(text_config, 1, cols),
+        n=n, max_tokens=max_tokens, sampling=sampling, eos_ids=eos_ids)
+
+
 def iter_decode(fns: DecodeFns, embeds: torch.Tensor, n: int, *,
                 max_tokens: int, seed: int = 0, history=None,
                 run: Optional[dict] = None
@@ -230,4 +275,6 @@ def run_decode(model, fns: DecodeFns, embeds: torch.Tensor, n: int, *,
 
 
 __all__ = ["DEC_CHUNK", "PROMPT_BUCKETS", "STEPS_AFTER_EOS", "DecodeFns",
-           "prompt_bucket", "make_decode_fns", "iter_decode", "run_decode"]
+           "prompt_bucket", "make_decode_fns", "prompt_decode_fns",
+           "qwen3_decode_fns",
+           "iter_decode", "run_decode"]

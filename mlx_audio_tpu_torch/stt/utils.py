@@ -1,20 +1,21 @@
 """STT loader of the port (subset of mlx_audio_tpu/stt/utils.py).
 
 `MODEL_REMAPPING` is the JAX package's registry of STT model types, kept
-whole so that a type the port does not have yet is named as such; the
-families in `PORTED` are ported. `load_model` reads a local checkpoint
-directory (config.json + npz or safetensors weights), maps its names onto
-the JAX tree's with the family's `sanitize`, fills the model through
-`model.load_jax_params`, the one place where layouts are converted, and
-runs the family's `post_load_hook` (Voxtral's and Voxtral Realtime's read
-`tekken.json`, Cohere ASR's its tokenizer and mel filterbank, Canary's its
-tokenizer, the LLM-decoder families' their HF tokenizer files, SenseVoice's and
-FireRedASR2's their CMVN and token lists). Every
-family binds through `utils.bind_checkpoint`, as the JAX package's loader
-binds every family: an MLX-packed checkpoint's leaves are unpacked (its
-linears then run on kernel K2 on the card), a dense one is quantized per
-its config's `quantization` (unchanged without one), and a directory the
-convert CLI wrote binds as written.
+whole; `PORTED` lists its families, every one of which the port has.
+`load_model` reads a local checkpoint directory (config.json + npz or
+safetensors weights), maps its names onto the JAX tree's with the
+family's `sanitize`, fills the model through `model.load_jax_params`, the
+one place where layouts are converted, and runs the family's
+`post_load_hook` (Voxtral's and Voxtral Realtime's read `tekken.json`,
+Cohere ASR's its tokenizer and mel filterbank, Canary's its tokenizer, the
+LLM-decoder families' their HF tokenizer files, SenseVoice's and
+FireRedASR2's their CMVN and token lists, MOSS-Transcribe-Diarize's its
+`processor_config.json`). Every family binds through
+`utils.bind_checkpoint`, as the JAX package's loader binds every family:
+an MLX-packed checkpoint's leaves are unpacked (its linears then run on
+kernel K2 on the card), a dense one is quantized per its config's
+`quantization` (unchanged without one), and a directory the convert CLI
+wrote binds as written.
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ PORTED = ("whisper", "voxtral_realtime", "cohere_asr", "parakeet", "canary",
           "nemotron_asr", "qwen3_asr", "qwen3_forced_aligner", "mega_asr",
           "voxtral", "qwen2_audio", "glmasr", "granite_speech",
           "vibevoice_asr", "mms", "sensevoice", "fun_asr_nano",
-          "fireredasr2")
+          "fireredasr2", "lasr_ctc", "moonshine", "moss_transcribe_diarize",
+          "higgs_audio_3", "granite_speech_nar", "moss_music")
 
 
 def model_family(config: dict, path: Path, name_parts=None):
@@ -110,9 +112,8 @@ def load_model(model_path: Union[str, Path], device="cuda",
     family = model_family(config, path, model_name_parts)
     if family not in PORTED:
         raise ValueError(
-            f"STT model type {config.get('model_type')!r} (family "
-            f"{family!r}) is not ported to mlx_audio_tpu_torch yet (ported: "
-            f"{', '.join(PORTED)})")
+            f"model type {config.get('model_type')!r} of {path.name!r} is "
+            f"no STT type of the registry (families: {', '.join(PORTED)})")
     weights = load_weights(path)
     if family == "whisper":
         from .models.whisper import Model, ModelDimensions

@@ -10,7 +10,7 @@ tree's names. Any config with the Qwen3 text fields builds it (Qwen3-ASR's
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -48,12 +48,14 @@ def init_qwen3_lm(cfg, device="cpu") -> Qwen3LM:
 
 def qwen3_lm_forward(lm: Qwen3LM, embeds: torch.Tensor,
                      caches: Optional[KVCache], offset: int,
-                     pad_mask: Optional[torch.Tensor] = None
+                     pad_mask: Optional[torch.Tensor] = None,
+                     deepstack: Optional[Sequence[torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """embeds (B, T, D) -> (normed hidden (B, T, D), caches): causal over
     the prompt, the caches (if any) written in place at the host int
     `offset`; `pad_mask` (B, S) additive over the cache's columns (or the
-    T keys without a cache) masks a right-padded prompt.
+    T keys without a cache) masks a right-padded prompt; `deepstack`
+    (B, T, D) tensors are added after the first layers, one a layer.
 
     The layers see a view of the caches' first offset + T columns, the only
     ones a query may attend to, so a decode step reads the keys written so
@@ -66,7 +68,8 @@ def qwen3_lm_forward(lm: Qwen3LM, embeds: torch.Tensor,
         if pad_mask is not None:
             pad_mask = pad_mask[:, :used]
     lengths = None if pad_mask is None else pad_mask[:, None, None, :]
-    return lm.run(embeds, view, offset, lengths), caches
+    return lm.run(embeds, view, offset, lengths,
+                  deepstack=deepstack), caches
 
 
 def lm_logits(owner, hidden: torch.Tensor) -> torch.Tensor:

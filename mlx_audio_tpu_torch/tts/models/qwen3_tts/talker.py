@@ -13,7 +13,7 @@ position streams are equal for TTS (talker.py:8-11).
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -110,12 +110,16 @@ class LayerStack(nn.Module):
 
     def run(self, x: torch.Tensor, caches: Optional[KVCache], offset: int,
             lengths_mask: Optional[torch.Tensor] = None,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+            positions: Optional[torch.Tensor] = None,
+            deepstack: Optional[Sequence[torch.Tensor]] = None
+            ) -> torch.Tensor:
         """Causal pass over x (B, T, D), writing the stacked cache (if any)
         at column `offset`; returns the normed hidden. RoPE rotates at
         offset.. unless `positions` (B, T) says otherwise (scan_layers,
         :214-278; continuous batching writes every row at the shared
-        column `offset` and rotates each at its own length).
+        column `offset` and rotates each at its own length). `deepstack`
+        (B, T, D) tensors are added to the output of the first layers,
+        one a layer (MOSS-Music's prefill).
 
         With a cache and T > 1 the additive mask spans the whole buffer:
         keys after the query or past offset+T are masked, plus
@@ -142,6 +146,8 @@ class LayerStack(nn.Module):
         for i, layer in enumerate(self.layers):
             cache = caches.layer(i) if caches is not None else None
             x = layer(x, cos, sin, cache, offset, mask)
+            if deepstack is not None and i < len(deepstack):
+                x = x + deepstack[i].to(x.dtype)
         return self.norm(x)
 
 

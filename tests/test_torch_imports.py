@@ -841,6 +841,124 @@ def test_tiny_sensevoice_generate_and_fsmn_detect_without_jax():
     assert out.strip().splitlines()[-1] == "False []", out
 
 
+LAST_STT_SOURCES = (
+    "mlx_audio_tpu_torch/stt/models/lasr_ctc/lasr.py",
+    "mlx_audio_tpu_torch/stt/models/moonshine/moonshine.py",
+    "mlx_audio_tpu_torch/stt/models/moss_transcribe_diarize/"
+    "moss_transcribe_diarize.py",
+    "mlx_audio_tpu_torch/stt/models/higgs_audio_3/higgs_audio_3.py",
+    "mlx_audio_tpu_torch/stt/models/granite_speech_nar/"
+    "granite_speech_nar.py",
+    "mlx_audio_tpu_torch/stt/models/moss_music/moss_music.py")
+
+
+@pytest.mark.parametrize("path", LAST_STT_SOURCES)
+def test_last_stt_families_are_checked_statically(path):
+    """LASR-CTC, Moonshine, MOSS-Transcribe-Diarize, Higgs Audio v3,
+    Granite Speech NAR and MOSS-Music are among the sources whose imports
+    `test_source_imports_nothing_of_jax` checks."""
+    assert path in PORT_SOURCES
+
+
+def test_tiny_moonshine_and_moss_diarize_cli_without_jax(tmp_path):
+    """A tiny Moonshine and a tiny MOSS-Transcribe-Diarize on the CPU from
+    seed 0: each written as a checkpoint directory and transcribed by
+    `generate`, then the same WAV through the STT CLI with --stream in a
+    second fresh interpreter (MOSS-Transcribe-Diarize streams; Moonshine's
+    `generate` ignores `stream` and gives one result) giving the same
+    text; no jax in either's sys.modules."""
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import numpy as np
+        from mlx_audio_tpu_torch import audio_io
+        from mlx_audio_tpu_torch.stt.models import (moonshine,
+                                                    moss_transcribe_diarize)
+
+        class Tok:
+            eos_token_id = 5
+            def encode(self, s, **kw):
+                return [10 + ord(c) %% 80 for c in s]
+            def decode(self, ids, **kw):
+                return "".join(chr(97 + i %% 26) for i in ids)
+
+        tmp = Path(%r)
+        x = (np.random.RandomState(0).randn(24000) * 0.1).astype(np.float32)
+        audio_io.write(tmp / "a.wav", x, 16000)
+        cfgs = {"moonshine": dict(
+                    model_type="moonshine", vocab_size=64, hidden_size=32,
+                    intermediate_size=64, encoder_num_hidden_layers=1,
+                    decoder_num_hidden_layers=1,
+                    encoder_num_attention_heads=4,
+                    decoder_num_attention_heads=4),
+                "moss": dict(
+                    model_type="moss_transcribe_diarize", text_config=dict(
+                        vocab_size=1000, hidden_size=32,
+                        intermediate_size=64, num_hidden_layers=1,
+                        num_attention_heads=4, num_key_value_heads=2,
+                        head_dim=8),
+                    audio_config=dict(num_mel_bins=80, d_model=32,
+                                      encoder_layers=1,
+                                      encoder_attention_heads=4,
+                                      encoder_ffn_dim=64),
+                    audio_token_id=999)}
+        want = {}
+        for name, mod in (("moonshine", moonshine),
+                          ("moss", moss_transcribe_diarize)):
+            m = mod.Model(cfgs[name], device="cpu").init_params(0)
+            d = tmp / name
+            d.mkdir()
+            np.savez(d / "model.npz", **{k: v.numpy() for k, v in
+                                         m.state_dict().items()})
+            (d / "config.json").write_text(json.dumps(cfgs[name]))
+            if name == "moss":
+                m._tokenizer = Tok()
+            want[name] = m.generate(str(tmp / "a.wav"), max_tokens=8).text
+        assert all(want.values())
+        (tmp / "want.json").write_text(json.dumps(want))
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import mlx_audio_tpu_torch.stt.utils as stt_utils
+        from mlx_audio_tpu_torch.stt import generate
+
+        class Tok:
+            eos_token_id = 5
+            def encode(self, s, **kw):
+                return [10 + ord(c) %% 80 for c in s]
+            def decode(self, ids, **kw):
+                return "".join(chr(97 + i %% 26) for i in ids)
+
+        real = stt_utils.load_model
+
+        def load(p):
+            m = real(p, device="cpu")
+            if m._tokenizer is None and type(m).__module__.endswith(
+                    "moss_transcribe_diarize"):
+                m._tokenizer = Tok()
+            return m
+
+        stt_utils.load_model = load
+        tmp = Path(%r)
+        want = json.loads((tmp / "want.json").read_text())
+        for name, extra in (("moonshine", ["--stream"]),
+                            ("moss", ["--stream"])):
+            generate.main(["--model", str(tmp / name), "--audio",
+                           str(tmp / "a.wav"), "--format", "json",
+                           "--max-tokens", "8", "--output-path",
+                           str(tmp / ("out-" + name)), "--no-verbose"]
+                          + extra)
+            got = json.loads((tmp / ("out-" + name)
+                              / "transcription.json").read_text())
+            assert got["text"].strip() == want[name], (got, want)
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
     """The STS families on the CPU at a tiny size from seeded weights
     (chip_smoke.py's small configs): a greedy Moshi generate through its
@@ -974,8 +1092,16 @@ def _entry_points():
                                                 sensevoice)
     from mlx_audio_tpu_torch.sts.models import mossformer2_se
     from mlx_audio_tpu_torch.vad.models import fsmn
+    from mlx_audio_tpu_torch.stt.models import (granite_speech_nar,
+                                                higgs_audio_3, lasr_ctc,
+                                                moonshine, moss_music,
+                                                moss_transcribe_diarize)
 
-    return {
+    last_stt = {f"{m.__name__.rsplit('.', 1)[-1]}.Model": (
+        m.Model.__init__, lambda p, m=m: m.Model(m.ModelConfig()))
+        for m in (lasr_ctc, moonshine, moss_transcribe_diarize,
+                  higgs_audio_3, granite_speech_nar, moss_music)}
+    return last_stt | {
         "kokoro.Model": (kokoro.Model.__init__,
                          lambda p: kokoro.Model(kokoro.ModelConfig())),
         "qwen3_tts.Model": (qwen3_tts.Model.__init__,
@@ -1139,7 +1265,12 @@ def _entry_points():
                                   "lid.utils.load_model", "fsmn.Model",
                                   "sensevoice.Model", "fun_asr_nano.Model",
                                   "fireredasr2.Model",
-                                  "mossformer2_se.Model"])
+                                  "mossformer2_se.Model", "lasr_ctc.Model",
+                                  "moonshine.Model",
+                                  "moss_transcribe_diarize.Model",
+                                  "higgs_audio_3.Model",
+                                  "granite_speech_nar.Model",
+                                  "moss_music.Model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

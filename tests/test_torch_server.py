@@ -1243,6 +1243,57 @@ def test_llm_stt_transcription_by_directory(tmp_path, monkeypatch, family):
     assert reply.json["text"] == want.text
 
 
+@pytest.mark.parametrize("family", ["lasr_ctc", "moonshine",
+                                    "moss_transcribe_diarize",
+                                    "higgs_audio_3", "granite_speech_nar",
+                                    "moss_music"])
+def test_last_stt_transcription_by_directory(tmp_path, monkeypatch, family):
+    """A tiny directory of each of the last six STT families (chip_smoke.py
+    phase 53's small configs) served by path through the transcription
+    route: the text of the directory's model's own generate(). The LM
+    families read the stand-in AsrTok as their tokenizer; Higgs Audio v3
+    cuts its chunks with the local Silero MLX_AUDIO_VAD_MODEL names."""
+    import importlib
+
+    from safetensors.numpy import save_file
+
+    from chip_smoke import (LAST_STT_SMALL, SMALL_SPECIAL_IDS, AsrTok,
+                            _stt_small, _write_kaldi_dir)
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.stt.utils import load_model
+    from mlx_audio_tpu_torch.vad.models.silero_vad import Model as Silero
+    from mlx_audio_tpu_torch.vad.models.silero_vad import ModelConfig
+
+    pkg = importlib.import_module(f"mlx_audio_tpu_torch.stt.models.{family}")
+    module = importlib.import_module(pkg.Model.__module__)
+    monkeypatch.setattr(module, "local_tokenizer", lambda path, **kw: AsrTok(
+        SMALL_SPECIAL_IDS, n_chars=200))
+    vad = tmp_path / "silero_vad"
+    vad.mkdir()
+    save_file({k: v.numpy() for k, v in Silero(ModelConfig(), device="cpu")
+               .init_params(seed=0).state_dict().items()},
+              str(vad / "model.safetensors"))
+    monkeypatch.setenv("MLX_AUDIO_VAD_MODEL", str(vad))
+    d = tmp_path / f"{family}-tiny"
+    _write_kaldi_dir(_stt_small(family, "cpu"), d, LAST_STT_SMALL[family])
+    audio = (np.random.RandomState(17).randn(24000) * 0.1).astype(np.float32)
+    wav = _wav(audio, 16000)
+
+    async def go():
+        server = AudioServer(device="cpu")
+        try:
+            return await server.transcribe(
+                {"model": str(d), "response_format": "json",
+                 "max_tokens": "16"}, wav)
+        finally:
+            server.close()
+
+    reply = _run(go())
+    assert reply.status == 200, reply.json
+    want = load_model(d, device="cpu").generate(_read(wav)[0], max_tokens=16)
+    assert want.text and reply.json["text"] == want.text
+
+
 def test_vyvotts_speech_by_directory(tmp_path, monkeypatch):
     """A tiny VyvoTTS directory (its SNAC in snac/, the stand-in tokenizer)
     served by path through /v1/audio/speech: the WAV of the directory's

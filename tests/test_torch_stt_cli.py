@@ -235,27 +235,35 @@ def test_top_level_load_model_routes_stt_types(checkpoint, tmp_path):
 
 @pytest.mark.parametrize("model_type", ["parakeet", "canary",
                                         "wav2vec2", "sensevoice",
-                                        "moonshine"])
+                                        "moonshine", "lasr", "moss_music",
+                                        "not_an_stt_type"])
 def test_unported_stt_type_raises_a_clear_error(tmp_path, model_type):
-    """An unported STT type (moonshine) is named, with the ported
-    families; Parakeet, Canary, MMS (`wav2vec2`) and SenseVoice are ported
-    now, so a config-only directory of theirs reaches its family's loader,
-    which finds no weights."""
+    """Every STT type of the JAX package's registry is ported now, so a
+    config-only directory of one (Parakeet, Canary, MMS's `wav2vec2`,
+    SenseVoice, Moonshine, LASR-CTC, MOSS-Music) reaches its family's
+    loader, which finds no weights; a type outside the registry is named
+    by the STT loader, with the families it has, and the top-level router
+    finds it no category."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.stt.utils import load_model
 
     (tmp_path / "config.json").write_text(json.dumps(
         {"model_type": model_type}))
+    if model_type == "not_an_stt_type":
+        with pytest.raises(ValueError, match="not_an_stt_type.* is no STT "
+                           "type.*families: whisper, voxtral_realtime, "
+                           "cohere_asr, parakeet, canary, nemotron_asr.*"
+                           "fireredasr2, lasr_ctc, moonshine, "
+                           "moss_transcribe_diarize, higgs_audio_3, "
+                           "granite_speech_nar, moss_music"):
+            load_model(tmp_path, device="cpu")
+        with pytest.raises(ValueError, match="Could not determine model "
+                           "category"):
+            mlx_audio_tpu_torch.load_model(tmp_path, device="cpu")
+        return
     for load in (load_model, mlx_audio_tpu_torch.load_model):
-        if model_type == "moonshine":
-            with pytest.raises(ValueError, match="not ported.*ported: "
-                               "whisper, voxtral_realtime, cohere_asr, "
-                               "parakeet, canary, nemotron_asr.*sensevoice, "
-                               "fun_asr_nano, fireredasr2"):
-                load(tmp_path, device="cpu")
-        else:
-            with pytest.raises(FileNotFoundError, match="No weight files"):
-                load(tmp_path, device="cpu")
+        with pytest.raises(FileNotFoundError, match="No weight files"):
+            load(tmp_path, device="cpu")
 
 
 def test_stt_remapping_is_the_jax_registry():
