@@ -194,6 +194,26 @@ def convs_to_wio(weights: Mapping[str, Any], shapes: Mapping[str, tuple],
     return out
 
 
+def conv2d_to_hwio(name: str, w: np.ndarray, torch_shape) -> np.ndarray:
+    """A conv2d weight read into HWIO from the layout its shape shows:
+    torch (O, I/g, kh, kw), MLX (O, kh, kw, I/g) or HWIO (kh, kw, I/g, O).
+    A shape that fits more than one layout with different readings, or
+    none, raises."""
+    o, i, kh, kw = torch_shape
+    reads = {"torch": ((o, i, kh, kw), (2, 3, 1, 0)),
+             "mlx": ((o, kh, kw, i), (1, 2, 3, 0)),
+             "hwio": ((kh, kw, i, o), (0, 1, 2, 3))}
+    fits = {axes for shape, axes in reads.values() if shape == w.shape}
+    outs = {np.transpose(w, axes).tobytes() for axes in fits}
+    if len(outs) != 1:
+        raise ValueError(
+            f"{name}: shape {w.shape} is "
+            + ("none" if not fits else "more than one")
+            + f" of torch's {(o, i, kh, kw)}, MLX's {(o, kh, kw, i)} or "
+            f"HWIO {(kh, kw, i, o)}")
+    return np.transpose(w, next(iter(fits)))
+
+
 def _unstack(model: TorchModel, flat: Mapping[str, Any]) -> Dict[str, Any]:
     """Split the leading layer axis of the JAX tree's stacked layer leaves
     (`model.JAX_STACKED` prefixes) into per-layer names: `p.k` (L, ...) ->

@@ -1,9 +1,8 @@
 """STS loader of the port (counterpart of mlx_audio_tpu/sts/utils.py).
 
 `MODEL_REMAPPING` is the JAX package's registry of STS model types (its
-:14-23), kept whole so that a type the port does not have yet (SAM-Audio,
-LFM2-Audio) is named as such; the families in `PORTED` are
-ported. `infer_model_type_from_config` guesses a family from a config's
+:14-23), kept whole so that a type the port does not have yet (SAM-Audio) is named as
+such; the families in `PORTED` are ported. `infer_model_type_from_config` guesses a family from a config's
 characteristic keys when it has no model_type (raw kyutai Moshi configs),
 as the JAX loader does before dispatch (:26-58).
 
@@ -20,7 +19,9 @@ convert CLI wrote holds the JAX tree and skips `sanitize` and the
 quantization (`utils.bind_checkpoint`). Loading is
 strict: a parameter the checkpoint lacks, or a leaf it has over, raises.
 A Moshi loads without a Mimi codec bound, as in the JAX package: its
-`generate` then raises until a caller sets `model.mimi`.
+`generate` then raises until a caller sets `model.mimi`. An LFM2-Audio's
+hook builds its processor (the directory's tokenizer; its Mimi and
+detokenizer read from their files when first used).
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("moshi", "mel_roformer", "deepfilternet", "mossformer2_se")
+PORTED = ("moshi", "mel_roformer", "deepfilternet", "mossformer2_se",
+          "lfm_audio")
 
 
 def infer_model_type_from_config(config: dict) -> Optional[str]:

@@ -1,12 +1,13 @@
 """VAD loader of the port (counterpart of mlx_audio_tpu/vad/utils.py).
 
 `MODEL_REMAPPING` is the JAX package's registry of VAD model types, kept
-whole so that a type the port does not have yet (sortformer,
-smart_turn) is named as such; the families in `PORTED` are ported.
+whole; the families in `PORTED` are ported (all four of them).
 `load_model` reads a local checkpoint directory (config.json + npz or
 safetensors weights), maps its names onto the JAX tree's with the family's
 `sanitize`, fills the model through `model.load_jax_params` and runs the
-family's `post_load_hook` (FSMN's reads `cmvn.json` or `am.mvn`).
+family's `post_load_hook` (FSMN's reads `cmvn.json` or `am.mvn`). Smart
+Turn's and Sortformer's `sanitize` give the JAX tree from HF-Whisper-style
+and NeMo names.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("silero_vad", "fsmn")
+PORTED = ("silero_vad", "fsmn", "smart_turn", "sortformer")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",

@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_qwen3_tts import AUDIO_REL, _jax_model, _port, _rel  # noqa: E402
 
 

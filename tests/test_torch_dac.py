@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -28,14 +29,6 @@ ATOL = 2e-4
 TINY = dict(encoder_dim=16, encoder_rates=[2, 4], latent_dim=32,
             decoder_dim=64, decoder_rates=[4, 2], n_codebooks=3,
             codebook_size=64, codebook_dim=4, sample_rate=16000)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_pair(cfg=TINY, seed=0):

@@ -19,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -28,14 +29,6 @@ ATOL = 2e-4
 TINY = dict(num_filters=8, hidden_size=16, codebook_dim=16,
             codebook_size=32, num_quantizers=4, upsampling_ratios=[4, 2],
             num_lstm_layers=1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_pair(cfg, seed=0):

@@ -29,6 +29,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 
 ATOL = 2e-4
@@ -36,14 +37,6 @@ CFG = dict(idim=32, odim=50, d_model=32, sos_id=3, eos_id=4,
            encoder=dict(n_layers=2, n_head=4, d_model=32, kernel_size=9),
            decoder=dict(n_layers=2, n_head=4, d_model=32))
 EOS_BIAS = 4.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def fr_pair(eos_bias=0.0, seed=0):

@@ -21,20 +21,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 
 ATOL = 2e-4
 ENC = dict(input_dim=40, input_affine_dim=16, fsmn_layers=2, linear_dim=24,
            proj_dim=8, lorder=4, output_affine_dim=16, output_dim=12)
 CFG = dict(encoder=ENC, n_mels=8, lfr_m=5, lfr_n=1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def fsmn_pair(seed=0, out_scale=1.0):

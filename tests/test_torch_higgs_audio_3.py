@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 from test_torch_prequantized import packed_leaf  # noqa: E402
 
@@ -55,14 +56,6 @@ class Tok:
 def no_hf_tokenizer(monkeypatch):
     monkeypatch.setitem(sys.modules, "transformers", None)
     monkeypatch.delenv("MLX_AUDIO_VAD_MODEL", raising=False)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_pair(cfg):

@@ -3,8 +3,9 @@
 The port imports neither jax nor anything of the JAX package
 `mlx_audio_tpu`, not even its jax-free host code (it keeps its own copies):
 a static check reads every import of its sources, and the runtime checks
-run in a fresh interpreter, so nothing the test process has already
-imported (the test suite imports jax) can hide an import. Its entry points
+run in fresh processes forked from a clean interpreter (`_run`), so
+nothing the test process has already imported (the test suite imports
+jax) can hide an import. Its entry points
 build on the card by default and raise without CUDA.
 """
 
@@ -65,12 +66,93 @@ def test_source_imports_nothing_of_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def _run(code: str) -> str:
-    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
-                          cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    return proc.stdout
+# The fresh-interpreter runs share one module-scoped child, a zygote: it
+# starts once, imports torch and numpy (nothing of the port, jax or the JAX
+# package), and forks a process per run, which executes the run's code as
+# __main__ with its own stdout and stderr, so each run starts from the
+# zygote's clean state and no run sees another's imports or patches. The
+# runs use one torch thread each (OMP_NUM_THREADS=1 in the zygote's
+# environment, before torch is imported): the suite runs six workers on
+# the box's cores, and a run of the default thread count would contend
+# with them. With one thread the zygote runs no other thread, which a fork
+# needs; it checks that before serving.
+ZYGOTE = r"""
+import json, os, signal, sys, time, traceback
+import numpy, torch
+
+if os.path.isdir("/proc/self/task") and len(os.listdir("/proc/self/task")) > 1:
+    raise SystemExit("the zygote runs more than one thread: no fork")
+for line in sys.stdin:
+    job = json.loads(line)
+    pid = os.fork()
+    if pid == 0:
+        for fd, path in ((1, job["out"]), (2, job["err"])):
+            os.dup2(os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC), fd)
+        sys.stdout = os.fdopen(1, "w")
+        sys.stderr = os.fdopen(2, "w")
+        rc = 0
+        try:
+            exec(compile(job["code"], "<run>", "exec"),
+                 {"__name__": "__main__"})
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else (e.code is not None)
+        except BaseException:
+            traceback.print_exc()
+            rc = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
+    end = time.monotonic() + job["timeout"]
+    while True:
+        done, status = os.waitpid(pid, os.WNOHANG)
+        if done:
+            rc = os.waitstatus_to_exitcode(status)
+            break
+        if time.monotonic() > end:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+            rc = "timeout"
+            break
+        time.sleep(0.02)
+    print(json.dumps(rc), flush=True)
+"""
+_zygote = None
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _stop_zygote():
+    yield
+    global _zygote
+    if _zygote is not None:
+        _zygote.stdin.close()
+        _zygote.wait(timeout=60)
+        _zygote = None
+
+
+def _run(code: str, timeout: int = 300) -> str:
+    """Run `code` in a fresh process forked from the zygote (cwd the
+    repository); -> its stdout. A run that fails or outlasts `timeout`
+    fails the test with its stderr."""
+    import json
+    import tempfile
+
+    global _zygote
+    if _zygote is None:
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        _zygote = subprocess.Popen([sys.executable, "-c", ZYGOTE], cwd=REPO,
+                                   env=env, stdin=subprocess.PIPE,
+                                   stdout=subprocess.PIPE, text=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out, err = os.path.join(tmp, "out"), os.path.join(tmp, "err")
+        _zygote.stdin.write(json.dumps({"code": textwrap.dedent(code),
+                                        "out": out, "err": err,
+                                        "timeout": timeout}) + "\n")
+        _zygote.stdin.flush()
+        rc = json.loads(_zygote.stdout.readline())
+        stdout = open(out).read() if os.path.exists(out) else ""
+        stderr = open(err).read() if os.path.exists(err) else ""
+    assert rc == 0, f"rc {rc}: {stderr[-3000:]}"
+    return stdout
 
 
 def test_tiny_synth_without_jax():
@@ -1010,6 +1092,76 @@ def test_tiny_sts_generate_and_cli_without_jax(tmp_path):
     assert out.strip() == "False []", out
 
 
+SLICE7A_SOURCES = (
+    "mlx_audio_tpu_torch/vad/models/smart_turn/smart_turn.py",
+    "mlx_audio_tpu_torch/vad/models/sortformer/sortformer.py",
+    "mlx_audio_tpu_torch/sts/models/lfm_audio/lfm2.py",
+    "mlx_audio_tpu_torch/sts/models/lfm_audio/detokenizer.py",
+    "mlx_audio_tpu_torch/sts/models/lfm_audio/processor.py",
+    "mlx_audio_tpu_torch/sts/models/lfm_audio/lfm_audio.py")
+
+
+@pytest.mark.parametrize("path", SLICE7A_SOURCES)
+def test_slice7a_families_are_checked_statically(path):
+    """Smart Turn, Sortformer and LFM2-Audio are among the sources whose
+    imports `test_source_imports_nothing_of_jax` checks."""
+    assert path in PORT_SOURCES
+
+
+def test_tiny_smart_turn_sortformer_lfm_audio_without_jax(tmp_path):
+    """The three families on the CPU at a tiny size from seeded weights
+    (chip_smoke.py's small configs), with no jax in sys.modules: a Smart
+    Turn and a Sortformer directory through the VAD loader (an endpoint
+    prediction at 8 kHz; a diarization, and an AOSC stream that compresses
+    its speaker cache), and a q8 LFM2-Audio directory through the STS
+    loader (every linear quantized, run on K2's plain version here), whose
+    chat request gives text and audio through the tiny detokenizer."""
+    out = _run("""
+        import sys
+        from pathlib import Path
+        import numpy as np
+        import mlx_audio_tpu_torch
+        from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+        from mlx_audio_tpu_torch.vad import utils as vad_utils
+        from chip_smoke import (LFM_SMALL, SMART_TURN_SMALL,
+                                SORTFORMER_SMALL, _clip_audio, _lfm_out,
+                                _lfm_ready, _slice7a_small,
+                                write_slice7a_checkpoint)
+
+        tmp = Path(%r)
+        audio = _clip_audio(3, 2.0, 16000)
+        for kind, cfg in (("smart_turn", SMART_TURN_SMALL),
+                          ("sortformer", SORTFORMER_SMALL)):
+            write_slice7a_checkpoint(_slice7a_small(kind, "cpu"),
+                                     tmp / kind, dict(cfg, model_type=kind))
+        turn = vad_utils.load_model(tmp / "smart_turn", device="cpu")
+        r = turn.predict_endpoint(audio[::2], sample_rate=8000)
+        assert 0.0 <= r.probability <= 1.0
+        diar = mlx_audio_tpu_torch.load_model(tmp / "sortformer",
+                                              device="cpu")
+        assert diar.generate(audio).speaker_probs.shape[1] == 3
+        mc = diar.config.modules_config
+        mc.use_aosc, mc.spkcache_len, mc.spkcache_update_period = True, 12, 8
+        mc.spkcache_sil_frames_per_spk = 1
+        final = list(diar.generate_stream(audio))[-1]
+        assert diar.last_run["compressions"] >= 1
+        assert np.isfinite(final.speaker_probs).all()
+        write_slice7a_checkpoint(
+            _slice7a_small("lfm_audio", "cpu"), tmp / "lfm",
+            dict(LFM_SMALL, model_type="lfm_audio"),
+            {"quantization": {"group_size": 16, "bits": 8}})
+        lfm = mlx_audio_tpu_torch.load_model(tmp / "lfm", device="cpu")
+        assert not any(isinstance(m, Linear) for m in lfm.modules())
+        assert any(isinstance(m, QuantizedLinear) for m in lfm.modules())
+        _lfm_ready(lfm, _slice7a_small("detokenizer", "cpu"))
+        tokens, wav = _lfm_out(lfm, audio)
+        assert {m for _, m in tokens} == {1, 3}, tokens
+        assert wav.size and np.isfinite(wav).all()
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
     kernels are built only when first launched."""
@@ -1097,10 +1249,21 @@ def _entry_points():
                                                 moonshine, moss_music,
                                                 moss_transcribe_diarize)
 
+    from mlx_audio_tpu_torch.sts.models import lfm_audio
+    from mlx_audio_tpu_torch.vad.models import smart_turn, sortformer
+
     last_stt = {f"{m.__name__.rsplit('.', 1)[-1]}.Model": (
         m.Model.__init__, lambda p, m=m: m.Model(m.ModelConfig()))
         for m in (lasr_ctc, moonshine, moss_transcribe_diarize,
-                  higgs_audio_3, granite_speech_nar, moss_music)}
+                  higgs_audio_3, granite_speech_nar, moss_music, smart_turn,
+                  sortformer, lfm_audio)}
+    last_stt["lfm_audio.LFM2AudioDetokenizer"] = (
+        lfm_audio.LFM2AudioDetokenizer.__init__,
+        lambda p: lfm_audio.LFM2AudioDetokenizer())
+    last_stt["lfm_audio.LFM2AudioProcessor.from_pretrained"] = (
+        lfm_audio.LFM2AudioProcessor.from_pretrained,
+        lambda p: lfm_audio.LFM2AudioProcessor.from_pretrained(
+            str(p), config=lfm_audio.ModelConfig()))
     return last_stt | {
         "kokoro.Model": (kokoro.Model.__init__,
                          lambda p: kokoro.Model(kokoro.ModelConfig())),
@@ -1270,7 +1433,11 @@ def _entry_points():
                                   "moss_transcribe_diarize.Model",
                                   "higgs_audio_3.Model",
                                   "granite_speech_nar.Model",
-                                  "moss_music.Model"])
+                                  "moss_music.Model", "smart_turn.Model",
+                                  "sortformer.Model", "lfm_audio.Model",
+                                  "lfm_audio.LFM2AudioDetokenizer",
+                                  "lfm_audio.LFM2AudioProcessor."
+                                  "from_pretrained"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without
@@ -1376,19 +1543,16 @@ def test_tts_cli_runs_without_jax(tmp_path):
         np.save(d / "voices" / "af_test.npy",
                 np.random.RandomState(0).randn(510, 1, 32).astype(np.float32))
     """ % str(ckpt))
-    proc = subprocess.run(
-        [sys.executable, "-c", textwrap.dedent("""
-            import runpy, sys
-            sys.argv = ["generate", "--model", %r, "--text", "hello there",
-                        "--voice", "af_test", "--output_path", %r,
-                        "--device", "cpu", "--no-verbose"]
-            runpy.run_module("mlx_audio_tpu_torch.tts.generate",
-                             run_name="__main__")
-            print(%s)
-        """ % (str(ckpt), str(tmp_path / "out"), FORBIDDEN))],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "[]", proc.stdout
+    out = _run("""
+        import runpy, sys
+        sys.argv = ["generate", "--model", %r, "--text", "hello there",
+                    "--voice", "af_test", "--output_path", %r,
+                    "--device", "cpu", "--no-verbose"]
+        runpy.run_module("mlx_audio_tpu_torch.tts.generate",
+                         run_name="__main__")
+        print(%s)
+    """ % (str(ckpt), str(tmp_path / "out"), FORBIDDEN))
+    assert out.strip() == "[]", out
     assert (tmp_path / "out" / "audio_000.wav").stat().st_size > 44
 
 

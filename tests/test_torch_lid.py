@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -35,14 +36,6 @@ CFG = dict(channels=32, embedding_dim=16, attention_channels=8,
                      "2": "de: German", "3": "es: Spanish",
                      "4": "zh: Chinese"})
 AUDIO = np.random.RandomState(0).randn(16000).astype(np.float32) * 0.1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

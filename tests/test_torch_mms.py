@@ -24,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 
 ATOL = 2e-4
@@ -36,14 +37,6 @@ STABLE = dict(SMALL, do_stable_layer_norm=True, feat_extract_norm="layer",
               adapter_attn_dim=4, num_hidden_layers=2)
 LABELS = {"0": "en", "1": "fr", "2": "de"}
 AUDIO = np.random.RandomState(0).randn(4000).astype(np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def mms_pair(cfg, seed=0):

@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 
 ATOL = 2e-4
@@ -35,14 +36,6 @@ CFG = dict(vocab_size=64, hidden_size=32, intermediate_size=64,
 @pytest.fixture(autouse=True)
 def no_hf_tokenizer(monkeypatch):
     monkeypatch.setitem(sys.modules, "transformers", None)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_pair(cfg, flat=None, seed=0):

@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 from test_torch_prequantized import packed_leaf  # noqa: E402
 
@@ -54,14 +55,6 @@ class CharTok:
 @pytest.fixture(autouse=True)
 def no_hf_tokenizer(monkeypatch):
     monkeypatch.setitem(sys.modules, "transformers", None)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def with_tok(m):

@@ -24,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 
 ATOL = 2e-4
@@ -33,14 +34,6 @@ CFG = dict(sample_rate=8000, win_len=256, win_inc=128, fft_len=256,
            query_key_dim=64, fsmn_inner=16, fsmn_lorder=3,
            one_time_decode_length=2, decode_window=1, chunk_seconds=1.0,
            auto_chunk_threshold=8.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_noise(shape):

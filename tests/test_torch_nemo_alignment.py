@@ -12,6 +12,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from mlx_audio_tpu.stt.models import nemo as jnemo  # noqa: E402
 from mlx_audio_tpu_torch.stt.models.nemo import (  # noqa: E402
     AlignedToken,

@@ -20,6 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 from test_torch_prequantized import no_hf_tokenizer  # noqa: E402,F401
 from test_torch_snac import TINY as SNAC_TINY  # noqa: E402

@@ -24,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -41,14 +42,6 @@ DAC_CFG = dict(encoder_dim=16, encoder_rates=[2, 4], latent_dim=32,
 CODE_SCALE = 4.0
 TEXTS = ["hello world", "a\n\tb…  “x” – ‘y’ — z\x07", "  spaced   out  ",
          "Short. Then a second sentence! And a third?"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def dac_pair(cfg=DAC_CFG, seed=1):

@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from mlx_audio_tpu.stt.models.parakeet import Model as JModel  # noqa: E402

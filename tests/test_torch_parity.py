@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 transformers = pytest.importorskip("transformers")
 
 ATOL = 2e-4

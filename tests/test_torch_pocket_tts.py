@@ -30,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -42,14 +43,6 @@ REF = np.random.RandomState(2).randn(4000).astype(np.float32)
 TEXTS = ["hello there", "one two three four five six", "lower case start",
          "Ends with punctuation!", "First sentence is right here now. "
          "Second one follows it closely. And a third, short."]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def port_cfg():

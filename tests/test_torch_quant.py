@@ -29,6 +29,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 REL = 1e-5
 
 

@@ -16,6 +16,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 NAMES = ["Kokoro-82M", "prince-canuma/Kokoro-82M",
          "Qwen3-TTS-12Hz-1.7B-Base", "Qwen3-TTS-12Hz-0.6B-CustomVoice-8bit",
          "whisper-large-v3-turbo", "Voxtral-Mini-3B-Realtime-2602",
@@ -353,9 +354,9 @@ def test_unported_category_and_family_are_named(tmp_path):
     bark = _config_only(tmp_path / "c", model_type="bark")
     with pytest.raises(ValueError, match="'bark'.*not ported"):
         load_model(bark, device="cpu")
-    turn = _config_only(tmp_path / "d", model_type="smart_turn")
-    with pytest.raises(ValueError, match="'smart_turn'.*not ported"):
-        load_model(turn, device="cpu")
+    dia = _config_only(tmp_path / "d", model_type="dia")
+    with pytest.raises(ValueError, match="'dia'.*not ported"):
+        load_model(dia, device="cpu")
     with pytest.raises(ValueError, match="category"):
         load_model(_config_only(tmp_path / "e", model_type="nonsense"),
                    device="cpu")

@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 
 ATOL = 2e-4
@@ -32,14 +33,6 @@ def cfg(shift=0):
                                   linear_units=32, num_blocks=2, tp_blocks=1,
                                   kernel_size=5, sanm_shfit=shift),
                 frontend_conf=dict(n_mels=8, lfr_m=5, lfr_n=3))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def sv_pair(c, seed=0):

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+
+from torch_threads import one_torch_thread  # noqa: E402,F401
 pytest.importorskip("aiohttp")
 
 AUDIO_REL = 1e-4

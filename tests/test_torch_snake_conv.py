@@ -28,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 # torch's fp32 precision settings that a CPU conv or matmul reads
 _MKLDNN_FP32 = ("matmul", "conv")
 
@@ -144,21 +145,37 @@ def _f64_call(inp, dilation, vlen):
 def test_reference_matches_pallas_f32(k, dilation):
     """B=2 with ragged valid lengths (one row full, one cut); both sides
     pinned to full f32 (`full_f32`), the JAX kernel compiled in this scope.
-    Each side is held to the float64 computation first, so that a failure
-    names the side that strays, then to the other."""
+    The float64 computation runs first, on a copy of the inputs, and the
+    inputs must come back from both calls unchanged. Each side is then held
+    to the float64 result, so that a failure names the side that strays,
+    then to the other; every message carries all three errors and that of
+    a second call of the port's reference on the copy, so that a failure
+    also says whether it repeats within the test."""
     from mlx_audio_tpu.ops.snake_conv_pallas import adain_snake_conv1d
 
     inp = _inputs(4, 2, 300, 128, k)
+    pristine = {name: v.copy() for name, v in inp.items()}
     vlen = [300, 170]
+    exact = _f64_call(pristine, dilation, vlen)
     adain_snake_conv1d.clear_cache()    # no executable from an earlier file
     with full_f32():
         got = _port_call(inp, dilation, vlen).numpy()
         want = np.asarray(_jax_call(inp, dilation, vlen))
-    exact = _f64_call(inp, dilation, vlen)
+        again = _port_call(pristine, dilation, vlen).numpy()
+    changed = sorted(n for n in inp if not np.array_equal(inp[n],
+                                                          pristine[n]))
+    report = (f"; max |port - f64| {np.abs(got - exact).max():.3e}, "
+              f"|JAX - f64| {np.abs(want - exact).max():.3e}, "
+              f"|port - JAX| {np.abs(got - want).max():.3e}, a second port "
+              f"call |port - f64| {np.abs(again - exact).max():.3e}; inputs "
+              f"changed by the calls: {changed or 'none'}")
+    assert not changed, "the calls changed their inputs" + report
     np.testing.assert_allclose(got, exact, rtol=2e-4, atol=2e-4,
-                               err_msg="the port's reference against float64")
+                               err_msg="the port's reference against float64"
+                               + report)
     np.testing.assert_allclose(want, exact, rtol=2e-4, atol=2e-4,
-                               err_msg="the JAX kernel against float64")
+                               err_msg="the JAX kernel against float64"
+                               + report)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 

@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import chip_smoke  # noqa: E402
 
 FAMILIES = {
@@ -115,9 +116,10 @@ def test_raw_kyutai_config_is_inferred_as_moshi(tmp_path):
     ("sam_audio", "sam_audio"), ("lfm_audio", "lfm_audio"),
     ("mossformer2", "mossformer2_se")])
 def test_unported_sts_family_is_named(tmp_path, model_type, family):
-    """An unported STS family (SAM-Audio, LFM2-Audio) is named; MossFormer2
-    is ported now, so its alias resolves to `mossformer2_se` and a
-    config-only directory reaches that loader, which finds no weights."""
+    """An unported STS family (SAM-Audio) is named; MossFormer2 and
+    LFM2-Audio are ported now, so their types resolve to `mossformer2_se`
+    and `lfm_audio` and a config-only directory reaches that loader, which
+    finds no weights."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.sts import utils
 

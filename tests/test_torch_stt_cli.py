@@ -29,6 +29,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from test_torch_whisper import checkpoint_trees  # noqa: E402

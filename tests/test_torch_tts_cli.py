@@ -11,6 +11,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
+
 
 class TestTTSFlags:
     def test_model_specific_knobs(self):

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_vad import _FakeVad  # noqa: E402
 
 ATOL = 2e-4

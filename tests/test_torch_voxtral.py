@@ -19,22 +19,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_threads import one_torch_thread  # noqa: E402,F401
 from test_torch_mimi import flat_numpy, numpy_params  # noqa: E402
 
 ATOL = 2e-4
 MAX_TOKENS = 24
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """torch on one intra-op thread while this module runs, restored after:
-    the tiny models' decode is thousands of small ops, which several
-    test workers' thread pools, each as wide as the machine, slow many
-    times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 CFG = dict(
