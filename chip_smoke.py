@@ -94,8 +94,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    logits with K2 against the same model through `qmatmul_reference`.
 7. Qwen3-TTS main path at the published dims of the 1.7B lane (bench.py
    qwen3_tts_1b7), seeded random bf16 weights quantized to affine 8-bit
-   (group 64): `generate(text_ids=...)` requests of 20 ids / 60 frames
-   (cold) and the JAX lane's 50 ids cut to 30 frames from its 100 (50
+   (group 64): `generate(text_ids=...)` requests of 20 ids / 30 frames
+   (cold; 60 until phases 58-61 came) and the JAX lane's 50 ids cut to 30 frames from its 100 (50
    until phases 41-44 came; cold; it ran warm too until phases 45-48
    came, the short one until phase 26 came): audio length and
    finiteness, and K2's launch count against the count the config gives
@@ -152,7 +152,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    cast to bf16): the bf16 encoder against f32 on one 30-s window (relative
    Frobenius error under 2e-2), the encoder's time a window (CUDA events)
    and its share of 989 TFLOP/s, the JAX lane's workload cut from 600 s
-   to 180 s (300 until phases 41-44 came; `randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
+   to 90 s (300 until phases 41-44 came, 180 until phases 58-61;
+   `randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
    bench.py:898-905) cold then warm (wall, xRT, windows, segments, tokens,
    decode steps, ms a step), and the streaming session over ten 1-s chunks
    then `close()` (step latency p50 and max; a final event must arrive).
@@ -226,16 +227,18 @@ the CUDA toolkit. Phases, each of which raises on failure:
    the lane's 512-bucket prefill (relative Frobenius under 2e-2); the
    `higgs_v2_3b_bf16` workload (bench.py:428-464: 480 embeds of
    `randn * 0.02` at seed 0, cache 1,024, temperature 0.7, top_p 0.95, RAS
-   7/2; 50 frames in 16-frame chunks through `prefill` and `chunk`
+   7/2; 32 frames in 16-frame chunks through `prefill` and `chunk`
    whatever `done` says, then the codec at `CodecConfig()` dims in bf16 on
-   the first 42 frames mod 1,024; the lane runs 250 frames and 242, cut
+   the first 24 frames mod 1,024; the lane runs 250 frames and 242, cut
    here to keep the run's time: to 100 and 92 since the Orpheus phases
-   came, to 50 and 42 since phases 41-44), a warm-up
+   came, to 50 and 42 since phases 41-44, to 32 and 24 since phases
+   58-61), a warm-up
    then one timed run (best of 3 until the server phase came, of 2 until
    the cloning phases came; cut to keep the run's time): wall, ms a
    frame, xRT over 2 s, the prefill's and the codec's time, peak device
-   memory, and from one profiled chunk the kernels a frame, device time
-   and busy share against the frame's byte bound (1.72 ms). Then, after
+   memory, and from one profiled chunk of 4 frames (16 until phases
+   58-61) the kernels a frame, device time and busy share against the
+   frame's byte bound (1.72 ms). Then, after
    phase 21, the same model's affine codes converted in place to W8A8
    (`tree_to_i8_layout`, as bench.py:414-426), its audio logits on the
    prefill's last row against bf16 (relative Frobenius under 1e-1), and
@@ -264,11 +267,13 @@ the CUDA toolkit. Phases, each of which raises on failure:
    draws every floating leaf): bf16 against f32 on the lane's CFG prefill
    hidden rows and one head pass (relative Frobenius under 2e-2), then cast
    in place to bf16 and the lane's workload (bench.py:589-642: the stand-in
-   tokenizer, the +1e4 bias on SPEECH_DIFFUSION_ID, its text, 32 frames of
-   10 SDE steps at cfg_scale 3.0 (the lane's 64 cut for phases 41-44); a warm-up, then seed 1, the lane's seed
+   tokenizer, the +1e4 bias on SPEECH_DIFFUSION_ID, its text, 16 frames of
+   10 SDE steps at cfg_scale 3.0 (the lane's 64 cut to 32 for phases
+   41-44, to 16 for phases 58-61); a warm-up, then seed 1, the lane's seed
    2 cut to keep the run's time): wall, xRT over 4.27 s, ms a frame, the prefill's, frame loop's and
    VAE decode's seconds, peak device memory, and from one profiled chunk
-   of 4 frames the kernels a frame, device time and busy share against
+   of 2 frames (4 until phases 58-61) the kernels a frame, device time
+   and busy share against
    the frame's byte bound (bench.py:645-656). After phase 24, the same
    weights in W8A8 (the LM's affine codes through to_i8_layout, every
    prediction_head linear quantized and converted the same way, as
@@ -331,15 +336,16 @@ the CUDA toolkit. Phases, each of which raises on failure:
    would flip; the 10-s reference's encode and x-vector (cold, warm); the
    ICL prefill alone at its 512-row bucket (120-character stand-in texts);
    30 frames by ICL whole and streamed (50 until phases 41-44 came; time to
-   first audio), 30 by the
-   x-vector alone, and one `AudioServer` speech request with
+   first audio), 16 by the
+   x-vector alone (30 until phases 58-61 came), and one `AudioServer` speech request with
    ref_audio="voice:clone" from its voice library (serial path, no
    session; its WAV equal to generate()'s to 1 LSB). K2's launches each
    against the config's count (the prefill's 197, then 722 a frame), K1
    none; then K2, W8A8 and dense bf16 at the talker's shapes at M = 512.
 29. Sesame CSM-1B at `ModelConfig()` (bf16; its Mimi at mimi_202407(32) in
    f32; codebook 0's EOS row zeroed so that the frames run): a 10-s
-   reference segment, 16 frames (32 until phases 41-44 came) whole and
+   reference segment, 8 frames (32 until phases 41-44 came, 16 until
+   phases 58-61) whole and
    streamed every 0.5 s (the same
    frames; streamed audio within 1e-4 of whole): ms a frame, xRT, time to
    first audio, and from two profiled frames the kernels and device time
@@ -357,8 +363,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
 31. At full width, seeded random weights drawn on the card in f32, then
    cast to bf16 (the bf16 encoder against f32, relative Frobenius under
    2e-2; token agreement with f32 reported): Parakeet TDT 0.6B v2 (the
-   encoder's ms a 120-s window and its share of 989 TFLOP/s; 300 s (cut
-   from 600) in 120-s windows with a 15-s overlap, cold and warm: wall,
+   encoder's ms a 120-s window and its share of 989 TFLOP/s; 225 s (cut
+   from 600 to 300, then to 225 for phases 58-61) in 120-s windows with a
+   15-s overlap, cold and warm: wall,
    xRT, windows,
    joint steps, tokens, ms a joint step, reads; one 60-s request; kernels
    and busy share a joint step from a profiled decode, the encoder's
@@ -375,8 +382,9 @@ the CUDA toolkit. Phases, each of which raises on failure:
    tests/test_moshi.py (its Mimi: phase 27's), tests/test_mel_roformer.py
    and tests/test_deepfilternet.py at f32 from one seeded weight set,
    CUDA against the CPU: Moshi's 16 greedy LmGen steps (tokens equal) and
-   a greedy generate over a 0.5-s clip (500 steps of the tiny Mimi's 1-ms
-   frames; text tokens equal, audio within 1e-4); the same LM at widths
+   a greedy generate over a 0.25-s clip (250 steps of the tiny Mimi's 1-ms
+   frames, 500 until phases 58-61; text tokens equal, audio within 1e-4);
+   the same LM at widths
    group 64 divides, affine q8 through K2 against the same model through
    `qmatmul_reference` on the card (tokens equal, first-step logits within
    phase 8's 1e-4; K2's launches the config's count a step);
@@ -388,9 +396,10 @@ the CUDA toolkit. Phases, each of which raises on failure:
    subprocess (TF32 off) writing the WAV of in-process generate(), and one
    Mel-Band-RoFormer separation through `AudioServer` equal to separate().
 33. Moshi v0.1 (`config_v0_1()`, 7.69 B) drawn on the card in bf16 tensor
-   by tensor, its Mimi at mimi_202407(8) in f32: generate over 4 s of
-   seeded input (50 steps; 10 s until phases 41-44 came, 6 s until
-   phases 45-48) at the default temperatures, seed 0, after a
+   by tensor, its Mimi at mimi_202407(8) in f32: generate over 2 s of
+   seeded input (25 steps; 10 s until phases 41-44 came, 6 s until
+   phases 45-48, 4 s until phases 58-61) at the default temperatures,
+   seed 0, after a
    2-s warm-up: ms a step p50 and p95 against the 80-ms frame, wall,
    the steps' realtime factor, peak memory; kernels and device time a
    step from 4 profiled steps (8 until phases 45-48 came), and the busy
@@ -428,8 +437,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    B parameters) drawn on the card in f32 from seed 0, the token table's
    code and SOS rows scaled by 4 so that the tied head draws codes, cast
    to bf16; SNAC at hubertsiuzdak/snac_24khz's settings in f32: after a
-   32-token warm-up, one 128-token request (512 until phases 38-40 came,
-   256 until phases 41-44) streamed every 1.0 s (it also ran whole until
+   32-token warm-up, one 64-token request (512 until phases 38-40 came,
+   256 until phases 41-44, 128 until phases 58-61) streamed every 1.0 s (it also ran whole until
    phases 45-48 came; temperature 0.6, top_p 0.8, repetition penalty 1.3;
    time to first audio, ms a token p50 and p95 over its chunks, the share
    of tokens that are SNAC codes, at least 80%; wall, xRT, SNAC decode ms
@@ -467,7 +476,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    from seed 0 and cast to bf16, then packed in memory to MLX's 8-bit
    layout (group 64) and loaded through the pre-quantized path (every
    linear on K2, the tied table dense): each on 30 s of `randn * 0.1` at
-   seed 0, greedy, max_tokens 128 (256 until phases 41-44 came): encoder
+   seed 0, greedy, max_tokens 64 (256 until phases 41-44 came, 128
+   until phases 58-61): encoder
    ms, prefill ms at its bucket,
    ms a token p50 and p95, xRT, peak memory, 8 profiled steps (a 32-step
    chunk until phases 45-48 came; kernels, device ms and busy share a
@@ -502,7 +512,8 @@ the CUDA toolkit. Phases, each of which raises on failure:
    parameters) seeded on the card in bf16, then its projector and LM
    packed in memory to MLX's 8-bit layout (group 64; the tower dense) and
    loaded through the pre-quantized path: each on 30 s of `randn * 0.1`
-   at seed 0, greedy, max_tokens 128 (256 until phases 45-48 came): tower
+   at seed 0, greedy, max_tokens 64 (256 until phases 45-48 came, 128
+   until phases 58-61): tower
    ms, prefill ms, ms a token p50 and p95, xRT, peak memory, 8 profiled
    steps (a 32-step chunk until phases 45-48 came; kernels, device ms and
    busy share a token), bytes and bound a token; in q8, K2's launches a
@@ -514,7 +525,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    config.json (the same tower with a 2x pool, a 32 x d4096 Qwen2 LM with
    32 KV heads, q/k/v biases and 156,032 ids; 8.40 B parameters) seeded on
    the card in bf16 and packed in memory to MLX's 4-bit layout (group 64):
-   30 s, 128 tokens: ms a token p50, K2's launches a token from its
+   30 s, 64 tokens: ms a token p50, K2's launches a token from its
    counter against 32 x 7 + 1, bytes and bound a token (the f32 caches of
    32 KV heads included), peak memory, the first step's logits against
    bf16's (relative, under 0.5).
@@ -543,7 +554,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    32/8 of 64, FFN 8,192, RoPE theta 500,000 with llama3 scaling, tied
    head; OuteTTS-1.0's 134,400 ids; 1.24 B parameters) seeded on the card
    in bf16, its code rows scaled by 4, over descript's 24-kHz DAC in f32
-   (two of its 32 codebooks): a 128-token request at OuteTTS's sampling
+   (two of its 32 codebooks): a 64-token request at OuteTTS's sampling
    (ms a token p50 and p95, code share, wall, xRT, the DAC's ms), the
    same streamed every 0.5 s (first audio), 8 profiled steps (kernels,
    device ms and busy share a token), bytes and bound a token; then
@@ -584,7 +595,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    the 2-block d1,024 adaptor; Qwen3-0.6B, 28 layers at d1,024, GQA 16/8
    of 128, FFN 3,072, 151,936 ids, tied) seeded on the card in bf16, the
    tied table's EOS rows zeroed: on 30 s of randn x 0.1, the encoder and
-   adaptor's ms, a 128-token greedy transcription (ms a token p50 and
+   adaptor's ms, a 64-token greedy transcription (ms a token p50 and
    p95, xRT), a profiled 8-step chunk (kernels, device ms and busy share
    a token), bytes a token and their bound; then `llm.model` packed to
    MLX's 8-bit layout in memory and loaded through the pre-quantized
@@ -1079,15 +1090,16 @@ QWEN3_E2E_TOL = 1e-4
 Q8_PREFILL_TOL, Q8_PREFILL_CORR = 0.05, 0.999
 # (text ids, max_tokens) of phase 7: a short request and the JAX lane's
 # (bench.py:285) cut from 100 frames to 50 to keep the run's time, then to
-# 30 for phases 41-44; temperature 0.9, seed 0
-QWEN3_SEED, LANE_TOKENS = 0, 30
+# 30 for phases 41-44; the short request 30 frames (60 until phases 58-61);
+# temperature 0.9, seed 0
+QWEN3_SEED, LANE_TOKENS, SHORT_TOKENS = 0, 30, 30
 
 
 def qwen3_requests():
     import numpy as np
 
     rng = np.random.RandomState(1)
-    return ((rng.randint(0, 151936, 20), 60),
+    return ((rng.randint(0, 151936, 20), SHORT_TOKENS),
             (np.arange(100, 150), LANE_TOKENS))
 
 
@@ -1984,8 +1996,8 @@ WHISPER_TURBO = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280,
                      n_text_layer=4)
 # the JAX lane's workload (bench.py:898-905): randn * 0.1, seed 0, its
 # 600 s cut to 300 s to make room for phases 38-40, then to 180 s for
-# phases 41-44
-WHISPER_SECONDS = 180
+# phases 41-44 and to 90 s for phases 58-61
+WHISPER_SECONDS = 90
 WHISPER_KW = dict(language="en", temperature=0.0,
                   compression_ratio_threshold=None, logprob_threshold=None,
                   no_speech_threshold=None, return_timestamps=True,
@@ -2020,6 +2032,18 @@ def _whisper(dims: dict, device: str, like=None):
     if like is None:
         return model.init_params(seed=0)
     model.load_state_dict(like.state_dict())
+    return model
+
+
+def whisper_eval_small(device: str):
+    """WHISPER_SMALL at seed 0 with the end-of-text row of its tied token
+    table zeroed, so that a greedy decode writes text rather than ending
+    at once: the eval CLI's model (phase 61, tests/test_torch_stt_eval.py)."""
+    import torch
+
+    model = _whisper(WHISPER_SMALL, device)
+    with torch.no_grad():
+        model.decoder.token_embedding.weight[50257] = 0.0
     return model
 
 
@@ -3020,9 +3044,12 @@ HIGGS_FRAME_LINEARS = (2, 2, 2, 1)
 # temperature 0.7, top_p 0.95, RAS 7/2; frames in 16-frame chunks, then
 # the delayed frames less 8 mod 1,024 through the codec at CodecConfig()
 # dims in bf16. The lane runs 250 frames (10 s at 25 frames a second) and
-# 242 through the codec; here 50 and 42, to keep the run's time (100 and
-# 92 from the Orpheus phases to phases 41-44)
-HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 50, 25, 42
+# 242 through the codec; here 32 and 24, to keep the run's time (100 and
+# 92 from the Orpheus phases to phases 41-44, 50 and 42 until phases 58-61)
+HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 32, 25, 24
+# frames of the profiled chunk (16, a whole chunk, until phases 58-61: the
+# W8A8 lane's 4,500 kernels a frame took the profiler 20 s to gather)
+HIGGS_PROFILE_FRAMES = 4
 HIGGS_BF16_REL = 2e-2
 # W8A8 against bf16 audio logits on the prefill's last row (per-channel
 # int8 weights and per-token int8 activations, 28 layers deep)
@@ -3275,23 +3302,25 @@ def _higgs_run(model, emb, mask, sampling, cache_len: int):
 
 
 def _profile_chunk(model, emb, mask, sampling, cache_len: int) -> tuple:
-    """One 16-frame chunk under torch.profiler (the device's activity
-    alone: the host's op events of a W8A8 chunk take a minute to gather)
-    after a prefill. -> (kernels a frame, device ms a frame, wall ms a
-    frame unprofiled, busy share)."""
+    """A chunk of HIGGS_PROFILE_FRAMES frames under torch.profiler (the
+    device's activity alone: the host's op events of a W8A8 chunk take a
+    minute to gather) after a prefill and one such chunk unprofiled. ->
+    (kernels a frame, device ms a frame, wall ms a frame unprofiled, busy
+    share)."""
     import torch
 
+    n = HIGGS_PROFILE_FRAMES
     carry, _ = model.prefill(emb, mask, HIGGS_PLEN, cache_len, seed=0)
-    model.chunk(carry, sampling)
+    model.chunk(carry, sampling, n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.chunk(carry, sampling)
+    model.chunk(carry, sampling, n)
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / 16
-    kernels = _device_kernels(lambda: model.chunk(carry, sampling),
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = _device_kernels(lambda: model.chunk(carry, sampling, n),
                               cpu=False)
-    device = sum(_dev_us(e) for e in kernels) / 1e3 / 16
-    launches = sum(e.count for e in kernels) / 16
+    device = sum(_dev_us(e) for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in kernels) / n
     return launches, device, wall, device / wall
 
 
@@ -3639,8 +3668,9 @@ KUGEL_LANE = dict(
 KUGEL_TEXT = ("Machine learning systems now synthesize natural speech in "
               "real time on a single accelerator chip, streaming audio to "
               "listeners across the planet.")
-# the lane's 64 frames cut to 32 to make room for phases 41-44
-KUGEL_FRAMES, KUGEL_STEPS, KUGEL_CFG, KUGEL_HOP = 32, 10, 3.0, 3200
+# the lane's 64 frames cut to 32 to make room for phases 41-44, then to 16
+# for phases 58-61
+KUGEL_FRAMES, KUGEL_STEPS, KUGEL_CFG, KUGEL_HOP = 16, 10, 3.0, 3200
 # the timed seeds after the warm-up (the lane's 1 and 2, cut to 1 to keep
 # the run's time)
 KUGEL_SEEDS = (1,)
@@ -3671,8 +3701,9 @@ KUGEL_LONG_K = dict(
                                ddpm_num_inference_steps=4),
     acoustic_vae_dim=8, tie_word_embeddings=False)
 # frames of the profiled chunk (W8A8 launches about 8,600 kernels a frame;
-# the profiler's own cost grows with the events it records)
-KUGEL_PROFILE_FRAMES = 4
+# the profiler's own cost grows with the events it records; 4 until phases
+# 58-61)
+KUGEL_PROFILE_FRAMES = 2
 # phase 25: VibeVoice at ModelConfig() dims, 24 latents (48 until phases
 # 41-44 came) with the EOS
 # classifier biased off, cfg_scale 1.5 (its default); a request of one
@@ -4229,8 +4260,9 @@ def phase_vibevoice_full(card: str) -> dict:
 SERVER_TEXT = TEXTS[1]
 # Qwen3-TTS: concurrent streamed requests through the broker's session,
 # frames each (cut from 100 to 50 to keep the run's time, then to 20 with
-# the session's), streaming interval (the b = 8 session's, phase 11)
-SERVER_QWEN3_REQUESTS, SERVER_QWEN3_TOKENS = 8, 20
+# the session's, then to 12 for phases 58-61), streaming interval (the b = 8
+# session's, phase 11)
+SERVER_QWEN3_REQUESTS, SERVER_QWEN3_TOKENS = 8, 12
 SERVER_QWEN3_TEXT = ("Request {} of the burst: the server streams this "
                      "sentence as audio.")
 # Whisper turbo: seconds of seeded noise a transcription
@@ -4732,9 +4764,9 @@ SESAME_SMALL = dict(
 CLONE_REL = 1e-4
 # phase 28: a seeded 10-s reference clip and 120-character stand-in texts
 # (one id a character: a 512-row ICL prompt bucket); 30 frames whole and
-# streamed (50 until phases 41-44 came), as many for the x-vector and the
-# server's voice-library request
-ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 30, 30
+# streamed (50 until phases 41-44 came), 16 for the x-vector and the
+# server's voice-library request (30 until phases 58-61)
+ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 30, 16
 ICL_REF_TEXT = ("This reference clip was recorded for the voice cloning "
                 "check; its words are read back as the prompt's transcript.")
 ICL_TEXT = ("The cloned voice now reads a different sentence, long enough "
@@ -4743,9 +4775,10 @@ ICL_STREAM_INTERVAL = 2.0
 ICL_SEED = 5
 # the Mimi reference encoder's codes on a 2-s clip, card against CPU
 ICL_CHECK_SECONDS = 2
-# phase 29: Sesame CSM-1B, 16 frames (1.28 s) whole and streamed every 0.5 s
-# (cut from 64 to 32 to keep the run's time, then to 16 for phases 41-44)
-SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 16, 0.5, 3
+# phase 29: Sesame CSM-1B, 8 frames (0.64 s) whole and streamed every 0.5 s
+# (cut from 64 to 32 to keep the run's time, then to 16 for phases 41-44
+# and to 8 for phases 58-61)
+SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 8, 0.5, 3
 # frames under the profiler (about 9,000 kernels each)
 SESAME_PROFILE_FRAMES = 2
 SESAME_REF_TEXT = "A ten second reference segment for the cloned voice."
@@ -5232,10 +5265,11 @@ PARAKEET_FULL = dict(
     prediction=dict(pred_hidden=640, pred_rnn_layers=2),
     joint=dict(joint_hidden=640, num_classes=1030),
     durations=[0, 1, 2, 3, 4])
-# the long file: 300 s (cut from 600 to make room for phases 38-40) in
-# 120-s windows with a 15-s overlap (3 windows); one 60-s request without
-# windows; about 200 joint steps profiled
-PARAKEET_SECONDS, PARAKEET_WINDOW, PARAKEET_OVERLAP = 300, 120.0, 15.0
+# the long file: 225 s (cut from 600 to 300 to make room for phases 38-40,
+# then to 225 for phases 58-61) in 120-s windows with a 15-s overlap (2
+# windows); one 60-s request without windows; about 200 joint steps
+# profiled
+PARAKEET_SECONDS, PARAKEET_WINDOW, PARAKEET_OVERLAP = 225, 120.0, 15.0
 PARAKEET_SHORT, PARAKEET_PROFILE_FRAMES = 60, 300
 # the share of joint steps that emit a token, which the joints' blank bias
 # aims at on random weights (about English speech's rate), found by
@@ -5904,11 +5938,12 @@ DFN_SMALL = dict(sample_rate=16000, fft_size=96, hop_size=48, nb_erb=8,
 STS_REL = 1e-4
 MOSHI_GREEDY_STEPS = 16
 # the small Moshi's generate, CUDA against the CPU: 1,000 steps a second
-MOSHI_SMALL_SECONDS = 0.5
-# phase 33: Moshi v0.1 at full width, 4 s of input (50 steps at 12.5 Hz;
-# cut from 20 s to 10 to keep the run's time, then to 6 for phases 41-44
-# and to 4 for phases 45-48)
-MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 4, 4, 80.0
+# (0.5 s until phases 58-61)
+MOSHI_SMALL_SECONDS = 0.25
+# phase 33: Moshi v0.1 at full width, 2 s of input (25 steps at 12.5 Hz;
+# cut from 20 s to 10 to keep the run's time, then to 6 for phases 41-44,
+# to 4 for phases 45-48 and to 2 for phases 58-61)
+MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 2, 4, 80.0
 MOSHI_STEPS = int(MOSHI_SECONDS * 1000 / MOSHI_FRAME_MS)
 # the q8 model's first-step text logits against bf16's, relative Frobenius:
 # group-64 codes of 8 bits err by about 0.2% a weight, compounded over 32
@@ -6586,8 +6621,9 @@ ORPHEUS_REL = 1e-4                  # small configs, CUDA vs CPU, f32
 ORPHEUS_TEXT = ("The quick brown fox jumps over the lazy dog while the "
                 "speaker reads this sentence aloud for the first request.")
 # the whole request cut from 512 tokens to 256 to make room for phases
-# 38-40, then it and the streamed one from 256 to 128 for phases 41-44
-ORPHEUS_TOKENS, ORPHEUS_INTERVAL = 128, 1.0
+# 38-40, then it and the streamed one from 256 to 128 for phases 41-44, and
+# to 64 for phases 58-61
+ORPHEUS_TOKENS, ORPHEUS_INTERVAL = 64, 1.0
 # the token table's rows of the code ids and SOS scaled this many times, so
 # that the tied head draws codes from random weights
 ORPHEUS_CODE_SCALE = 4.0
@@ -7183,8 +7219,9 @@ VYVO_SMALL = dict(vocab_size=VYVO_VOCAB, hidden_size=64, intermediate_size=128,
 # random weights draws codes (phase 36's device); VyvoTTS's share of codes
 VYVO_CODE_SCALE, VYVO_CODE_SHARE = 4.0, 0.8
 # Qwen3-ASR at ModelConfig(): 30 s of randn * 0.1 at seed 0, greedy,
-# max_tokens 128 (256 until phases 41-44 came); a decode chunk profiled
-QWEN3_ASR_SECONDS, QWEN3_ASR_TOKENS = 30, 128
+# max_tokens 64 (256 until phases 41-44 came, 128 until phases 58-61); a
+# decode chunk profiled
+QWEN3_ASR_SECONDS, QWEN3_ASR_TOKENS = 30, 64
 ASR_REL = 1e-4                      # small configs, CUDA vs CPU, f32
 # the q8 model's first-step logits against bf16's (random 8-bit group-64
 # codes through 28 layers; unrelated logits read about 1.4)
@@ -7193,7 +7230,8 @@ ALIGN_TEXT = " ".join(["the", "aligner", "places", "every", "word", "of",
                        "this", "sentence", "in", "time"] * 6)
 VYVO_TEXT = ("VyvoTTS reads this sentence aloud, one SNAC frame of seven "
              "codes at a time.")
-# VyvoTTS's request 128 tokens (256 until phases 41-44 came)
+# VyvoTTS's request 128 tokens (256 until phases 41-44 came; at 64 its
+# stream every 0.5 s yields one chunk, and the phase checks several)
 VYVO_TOKENS, VYVO_INTERVAL = 128, 0.5
 
 
@@ -8152,9 +8190,9 @@ LLM_STT_TOKS = {
 LLM_STT_BITS = {"voxtral": 8, "qwen2_audio": 4}
 LLM_STT_TOKENS = 24
 # the full-width runs: 30 s of randn * 0.1 at seed 0, greedy; Voxtral's
-# request 128 tokens, Qwen2-Audio's 128; VibeVoice-ASR's encoders on 10
-# minutes at 24 kHz
-VOXTRAL_SECONDS, VOXTRAL_TOKENS, QWEN2_AUDIO_TOKENS = 30, 128, 128
+# request 64 tokens, Qwen2-Audio's 64 (128 each until phases 58-61);
+# VibeVoice-ASR's encoders on 10 minutes at 24 kHz
+VOXTRAL_SECONDS, VOXTRAL_TOKENS, QWEN2_AUDIO_TOKENS = 30, 64, 64
 VIBEVOICE_ASR_SECONDS = 600
 # the q8 and 4-bit models' first-step logits against bf16's (random codes
 # through 30 or 32 layers; unrelated logits read about 1.4)
@@ -8814,7 +8852,8 @@ DAC_24KHZ = dict(model_type="dac", encoder_dim=64, encoder_rates=[2, 4, 5, 8],
                  latent_dim=1024, decoder_dim=1536,
                  decoder_rates=[8, 5, 4, 2], n_codebooks=32,
                  codebook_size=1024, codebook_dim=8, sample_rate=24000)
-OUTE_TOKENS, OUTE_INTERVAL = 128, 0.5
+# the request 64 tokens (128 until phases 58-61)
+OUTE_TOKENS, OUTE_INTERVAL = 64, 0.5
 OUTE_LONG_TEXT = ("OuteTTS reads this sentence aloud on the card, two DAC "
                   "codebooks a frame, seventy five frames a second")
 # Pocket-TTS at the JAX package's ModelConfig() defaults (no published
@@ -9683,7 +9722,8 @@ MOSS_SMALL = dict(model_type="mossformer2_se", sample_rate=8000,
 # Qwen3-0.6B's text config)
 FUN_NANO = dict(model_type="fun_asr_nano", llm_config=dict(
     QWEN3_06B_TEXT, rope_theta=1000000.0))
-FUN_TOKENS, FUN_SECONDS = 128, 30
+# the request 64 tokens (128 until phases 58-61)
+FUN_TOKENS, FUN_SECONDS = 64, 30
 SV_SECONDS, FIRE_SECONDS, FIRE_STEPS = 30, 10, 64
 MOSS_CLIPS, FSMN_SECONDS = (10, 30), 60
 # card against CPU at f32 on the small configs: relative, as OUTE_REL
@@ -10070,7 +10110,7 @@ def phase_fun_asr_nano_full(card: str, recorder: K2Recorder) -> int:
     card in bf16, then its `llm.model` weights packed to MLX's 8-bit
     layout in memory and loaded through the pre-quantized path (every LM
     linear on K2, the tied table dense, the head one dense product): each
-    a 128-token greedy transcription of 30 s of randn * 0.1 (`_fun_run`);
+    a 64-token greedy transcription of 30 s of randn * 0.1 (`_fun_run`);
     the 196 LM linears alone at M = 1 against their byte bound; K2's
     launches a token read from its counter against 28 x 7; the first-step
     logits q8 against bf16. -> K2's launches, as its counter read them."""
@@ -10451,7 +10491,9 @@ LAST_STT_FULL = {
     "higgs_audio_3": dict(model_type="higgs_audio_3", vad_cut=False),
     "granite_speech_nar": dict(model_type="granite_speech_nar",
                                encoder_config=dict(num_layers=16))}
-LAST_STT_SECONDS, MUSIC_TOKENS, LAST_STT_TOKENS = 30, 128, 96
+# MOSS-Music's request 64 tokens, the others' 64 (128 and 96 until phases
+# 58-61)
+LAST_STT_SECONDS, MUSIC_TOKENS, LAST_STT_TOKENS = 30, 64, 64
 # the tokens of a warm-up request before a timed one
 WARM_TOKENS = 4
 
@@ -11528,6 +11570,911 @@ def phase_slice7a(card: str, recorder: K2Recorder) -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# DACVAE and SAM-Audio, the voice pipeline, the WER eval CLI (phases 58-61)
+# ---------------------------------------------------------------------------
+
+# tests/test_sam_audio.py:27-35: the small config of the card-against-CPU
+# checks, its DACVAE's among them (hop 8: 512 samples make 64 frames)
+SAM_SMALL = dict(
+    in_channels=48,
+    audio_codec=dict(encoder_dim=4, encoder_rates=[2, 4], latent_dim=16,
+                     decoder_dim=8, decoder_rates=[4, 2], codebook_dim=8,
+                     sample_rate=16000),
+    text_encoder=dict(vocab_size=64, d_model=16, d_kv=4, d_ff=32,
+                      num_layers=2, num_heads=4, dim=16),
+    transformer=dict(dim=32, n_heads=4, n_layers=2, context_dim=32,
+                     out_channels=16, ffn_exp=2, frequency_embedding_dim=16),
+    num_anchors=3, anchor_embedding_dim=8)
+# SAM-Audio at the JAX package's defaults, taken as the published
+# SAM-Audio-large (an assumption; only its config.json would confirm it):
+# the DiT 2,816 x 22, 22 heads, swiglu FFN 7,552, context 2,816, out 256,
+# in_channels 768; T5-base; DACVAE at 48 kHz (hop 1,920)
+SAM_FULL = {}
+SAM_TEXT = "a dog barking in the rain"
+SAM_SECONDS, SAM_LONG_SECONDS = 10, 30
+SAM_SMALL_ATOL = 1e-4              # small configs at f32: summation order
+# bf16 against f32 on one DiT evaluation (22 layers at d2,816), and the q8
+# model's against bf16's (random 8-bit group-64 codes), relative Frobenius
+SAM_BF16_REL, SAM_Q8_REL = 5e-2, 1e-1
+SAM_Q8 = {"quantization": {"group_size": MLX_GROUP, "bits": 8}}
+# the DiT's linears at the clip's rows a layer: self-attention's four and
+# cross-attention's query and output (d x d), the FFN's w1 and w3, its w2
+SAM_DIT_SHAPES = ((2816, 2816), (7552, 2816), (2816, 7552))
+SAM_DIT_PER_LAYER = (6, 2, 1)
+# the voice pipeline's turn: Silero at ModelConfig(), Smart Turn v2 at the
+# JAX defaults, Whisper large-v3-turbo, an LM at Llama-3.2-1B's dims
+# (meta-llama/Llama-3.2-1B's config.json: 16 x d2048, GQA 32/8 of 64, FFN
+# 8,192, 128,256 ids, tied, RoPE 500,000 with llama3 scaling of 32) with a
+# 32-token greedy reply, Kokoro-82M
+LLAMA_1B = dict(hidden_size=2048, num_hidden_layers=16, intermediate_size=8192,
+                num_attention_heads=32, num_key_value_heads=8, head_dim=64,
+                vocab_size=128256, rope_theta=500000.0, rms_norm_eps=1e-5,
+                tie_word_embeddings=True,
+                rope_scaling=dict(rope_type="llama3", factor=32.0,
+                                  low_freq_factor=1.0, high_freq_factor=4.0,
+                                  original_max_position_embeddings=8192))
+TURN_SPEECH_S, TURN_SILENCE_S, TURN_REPLY_TOKENS = 2.5, 1.5, 32
+# the stand-in speech probability's RMS gate (the speech's frames read
+# 0.1-0.5, the silence's 1e-3)
+TURN_RMS = 0.02
+TURN_WORDS = ("the", "voice", "answers", "you", "now", "with", "a", "short",
+              "reply", "about", "your", "day", "and", "weather", "here")
+# Whisper's greedy decode in the pipeline's STT (thresholds off: random
+# weights would fall back to sampling at every temperature)
+TURN_STT_KW = dict(language="en", temperature=0.0,
+                   compression_ratio_threshold=None, logprob_threshold=None,
+                   no_speech_threshold=None, return_timestamps=False,
+                   sample_len=32)
+EVAL_KW = {"temperature": 0.0, "return_timestamps": False}
+
+
+class SamTok:
+    """A stand-in T5 tokenizer: each character an id in 2..vocab-1, EOS
+    1, padding 0 to the longest (tests/test_sam_audio.py's FakeT5Tok at
+    any vocabulary)."""
+
+    def __init__(self, vocab: int = 64):
+        self.vocab = vocab
+
+    def __call__(self, texts, truncation=True, max_length=512,
+                 padding="longest", return_tensors="np"):
+        import numpy as np
+
+        ids = [[ord(c) % (self.vocab - 2) + 2 for c in t][:max_length - 1]
+               + [1] for t in texts]
+        n = max(len(i) for i in ids)
+        input_ids = np.zeros((len(ids), n), np.int64)
+        mask = np.zeros((len(ids), n), np.int64)
+        for r, row in enumerate(ids):
+            input_ids[r, :len(row)] = row
+            mask[r, :len(row)] = 1
+        return {"input_ids": input_ids, "attention_mask": mask}
+
+
+class WordTok:
+    """A stand-in LM tokenizer for the voice pipeline's reply: characters
+    in, ids out as words of TURN_WORDS (Kokoro can speak them); no EOS."""
+
+    eos_token_id = None
+
+    def encode(self, text):
+        return [ord(c) % 1000 + 1 for c in text]
+
+    def decode(self, ids):
+        return " ".join(TURN_WORDS[int(i) % len(TURN_WORDS)] for i in ids)
+
+
+def write_sam_checkpoint(model, path: Path, config: dict,
+                         quantization=None) -> None:
+    """`model` as a SAM-Audio directory: config.json (with a `quantization`
+    entry the loader quantizes the linears) and the JAX tree
+    (`model.jax_params`: WIO convs, pre-flipped transposed ones) in npz,
+    which `sanitize` reads by shape."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.model import jax_params
+
+    path.mkdir(parents=True, exist_ok=True)
+    cfg = dict(config, model_type="sam_audio")
+    if quantization:
+        cfg.update(quantization)
+    (path / "config.json").write_text(json.dumps(cfg))
+    np.savez(path / "model.npz", **{k: v.float().cpu().numpy()
+                                    for k, v in jax_params(model).items()})
+
+
+def _sam_small(device: str, like=None):
+    from mlx_audio_tpu_torch.sts.models.sam_audio import Model
+
+    m = Model(SAM_SMALL, device=device)
+    if like is None:
+        m.init_params(seed=0)
+    else:
+        m.load_state_dict(like.state_dict())
+    m.tokenizer = SamTok()
+    return m
+
+
+def _numpy_draws(model):
+    """`model` drawing its ODE noise from numpy (seeded by the chunk's
+    seed), so that the card and the CPU draw the same."""
+    import numpy as np
+    import torch
+
+    model._draw_noise = lambda shape, seed: torch.from_numpy(
+        np.random.RandomState(seed).randn(*shape).astype(np.float32)).to(
+        model.device)
+    return model
+
+
+def _sam_same(a, b, atol=SAM_SMALL_ATOL) -> float:
+    """The largest |difference| over two results' targets and residuals;
+    raises past `atol` or on a shape mismatch."""
+    import numpy as np
+
+    worst = 0.0
+    for x, y in zip(a.target + a.residual, b.target + b.residual):
+        if x.shape != y.shape or not np.isfinite(x).all():
+            raise AssertionError(f"SAM-Audio shapes {x.shape} vs {y.shape}")
+        worst = max(worst, float(np.abs(x - y).max()))
+    if worst > atol:
+        raise AssertionError(f"SAM-Audio max |diff| {worst:.3e} > {atol:g}")
+    return worst
+
+
+def phase_sam_reference(tmp: Path) -> int:
+    """Phase 58: the small configs at f32 from one seeded weight set, the
+    card against the CPU: DACVAE's encode, decode and chunked decode;
+    SAM-Audio's `separate` at 64 frames (euler and midpoint, an anchor),
+    `separate_long` in three chunks (numpy-seeded draws on both), each
+    within SAM_SMALL_ATOL; a q8 SAM-Audio directory at group 16 through the
+    STS loader (every Linear whose inputs the group divides on K2: equal
+    to the same model through `qmatmul_reference` and to the CPU's); tiny
+    directories through the `sts` and `codec` loaders and the top-level
+    `load_model` on the card; one `AudioServer` separation equal to
+    `separate_long`. -> K2's launches, as its counter read them."""
+    import asyncio
+    import base64
+    import io
+
+    import numpy as np
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch import load_model as route
+    from mlx_audio_tpu_torch.codec import utils as codec_utils
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.server import AudioServer
+    from mlx_audio_tpu_torch.sts import utils as sts_utils
+
+    t0 = time.perf_counter()
+    qmm_kernel.launches = 0
+    notes = []
+    cpu = _numpy_draws(_sam_small("cpu"))
+    card = _numpy_draws(_sam_small(DEVICE, like=cpu))
+    # DACVAE
+    wav = _clip_audio(58, 0.05, 16000)
+    z = np.random.RandomState(58).randn(1, 8, 64).astype(np.float32)
+    errs = []
+    for fn in (lambda m: m.encode(wav), lambda m: m.decode(z),
+               lambda m: m.decode(z, chunk_size=16)):
+        a, b = fn(cpu.audio_codec), fn(card.audio_codec).cpu()
+        errs.append(float((a - b).abs().max()))
+    if max(errs) > SAM_SMALL_ATOL:
+        raise AssertionError(f"DACVAE CUDA vs CPU: {errs}")
+    notes.append(f"DACVAE encode, decode and chunked decode "
+                 f"{max(errs):.1e}")
+    # SAM-Audio
+    audio = _clip_audio(58, 512 / 16000, 16000)[None, None]
+    noise = np.random.RandomState(5).randn(1, 64, 16).astype(np.float32)
+    err = 0.0
+    for method, step, anchors in (("euler", 0.5, None),
+                                  ("midpoint", 0.25, None),
+                                  ("euler", 0.5, [[("+", 0.0, 0.01)]])):
+        kw = dict(noise=noise, anchors=anchors,
+                  ode_opt={"step_size": step, "method": method})
+        err = max(err, _sam_same(card.separate(audio, [SAM_TEXT], **kw),
+                                 cpu.separate(audio, [SAM_TEXT], **kw)))
+    long_audio = _clip_audio(59, 1280 / 16000, 16000)
+    lkw = dict(chunk_seconds=512 / 16000, overlap_seconds=128 / 16000,
+               ode_opt={"step_size": 0.5, "method": "euler"}, seed=7)
+    err_l = _sam_same(card.separate_long(long_audio, [SAM_TEXT], **lkw),
+                      cpu.separate_long(long_audio, [SAM_TEXT], **lkw))
+    notes.append(f"SAM-Audio separate (euler, midpoint, an anchor) "
+                 f"{err:.1e}, separate_long {err_l:.1e}")
+    # the q8 directory on K2
+    d8 = tmp / "sam-q8"
+    write_sam_checkpoint(cpu, d8, SAM_SMALL,
+                         {"quantization": {"group_size": 16, "bits": 8}})
+    q8 = sts_utils.load_model(d8, device=DEVICE)
+    q8.tokenizer = SamTok()
+    held = sum(isinstance(m, QuantizedLinear) for m in q8.modules())
+    dense = [n for n, m in q8.named_modules() if isinstance(m, Linear)]
+    kw = dict(noise=noise, ode_opt={"step_size": 0.5, "method": "euler"})
+    k2 = qmm_kernel.launches
+    got = q8.separate(audio, [SAM_TEXT], **kw)
+    k2 = qmm_kernel.launches - k2
+    with K2AsReference():
+        ref = q8.separate(audio, [SAM_TEXT], **kw)
+    qc = sts_utils.load_model(d8, device="cpu")
+    qc.tokenizer = SamTok()
+    e_ref = _sam_same(got, ref)
+    e_cpu = _sam_same(got, qc.separate(audio, [SAM_TEXT], **kw))
+    if not (held == 44 and dense == ["embed_anchors.proj"] and k2):
+        raise AssertionError(f"q8 SAM-Audio: {held} quantized linears, "
+                             f"dense {dense}, {k2} K2 launches")
+    notes.append(f"q8 SAM-Audio: {held} linears on K2 ({k2} launches; the "
+                 f"anchors' 8-input proj dense), against the plain version "
+                 f"{e_ref:.1e}, the CPU {e_cpu:.1e}")
+    # the loaders on the card
+    d = tmp / "sam-tiny"
+    write_sam_checkpoint(cpu, d, SAM_SMALL)
+    want = card.separate(audio, [SAM_TEXT], **kw)
+    for loader in (sts_utils.load_model, route):
+        m = loader(d, device=DEVICE)
+        m.tokenizer = SamTok()
+        _sam_same(m.separate(audio, [SAM_TEXT], **kw), want, atol=0.0)
+    dv = tmp / "dacvae-tiny"
+    dv.mkdir()
+    (dv / "config.json").write_text(json.dumps(
+        dict(SAM_SMALL["audio_codec"], model_type="dacvae")))
+    with np.load(d / "model.npz") as tree:
+        np.savez(dv / "model.npz", **{k[len("audio_codec."):]: tree[k]
+                                      for k in tree.files
+                                      if k.startswith("audio_codec.")})
+    codec = codec_utils.load_model(dv, device=DEVICE)
+    if not bool((codec.decode(z) == card.audio_codec.decode(z)).all()):
+        raise AssertionError("the codec loader's DACVAE differs")
+    notes.append("sts.utils, the top-level load_model and codec.utils on "
+                 "the tiny directories, each as the card's model")
+    # the server's separation route
+    x = _clip_audio(60, 0.25, 16000)
+    buf = io.BytesIO()
+    audio_io.write(buf, x, 16000)
+
+    async def serve():
+        server = AudioServer(device=DEVICE)
+        server.provider._models["sam-small"] = card
+        try:
+            return await server.separate(
+                {"model": "sam-small", "description": SAM_TEXT, "steps": "2",
+                 "method": "euler"}, buf.getvalue())
+        finally:
+            server.close()
+
+    reply = asyncio.run(serve())
+    heard, _ = audio_io.read(io.BytesIO(buf.getvalue()), dtype="float32")
+    want = card.separate_long(heard[None, None], [SAM_TEXT],
+                              ode_opt={"step_size": 0.5, "method": "euler"}
+                              ).target[0].reshape(-1)
+    tgt, _ = audio_io.read(io.BytesIO(base64.b64decode(
+        reply.json["target"])), dtype="float32") if reply.status == 200 \
+        else (None, None)
+    if tgt is None or tgt.shape != want.shape or \
+            float(np.abs(tgt - want).max()) > 1 / 32767 + 1e-6:
+        raise AssertionError(f"the separation route: {reply.status}")
+    notes.append("AudioServer's separation route equal to separate_long")
+    log(f"[sam-audio small] small configs on the card against the CPU: "
+        f"{'; '.join(notes)} ({time.perf_counter() - t0:.1f} s)")
+    return qmm_kernel.launches
+
+
+def sam_dit_bound(model, m: int, text: int, q8: bool) -> tuple:
+    """The least time one DiT evaluation (the velocity: `proj`,
+    `memory_proj`, the DiT) could take at `m` audio rows and `text` text
+    rows, B = 1: the larger of its operations (each linear's 2 M out in at
+    its rows, the attention's products, the x_embedder's convs) over 989
+    TFLOP/s and its bytes (each weight once: bf16, or codes one a byte with
+    f32 scales and biases a group of 64 when `q8`; each linear's x in and
+    y out in bf16) over 3.35 TB/s. -> (ms, "operations" or "bytes", TFLOP,
+    GB)."""
+    cfg = model.config.dit_cfg
+    d = cfg.dim
+    ops = nbytes = 0.0
+    for name, mod in model.named_modules():
+        if not hasattr(mod, "in_features") or "text_encoder" in name \
+                or "embed_anchors" in name:
+            continue
+        n = (mod.weight.shape[0] if hasattr(mod, "weight") and
+             mod.weight is not None else mod.w_q.shape[0])
+        k = mod.in_features
+        if name.endswith("t_block") or "t_embedder" in name:
+            mm = 1
+        elif name == "memory_proj" or "y_embedder" in name or (
+                "cross_attention" in name and name.endswith(("wk", "wv"))):
+            mm = text
+        else:
+            mm = m
+        ops += 2 * mm * n * k
+        w = n * k + 2 * n * (k // QMM_GROUP) * 4 if q8 else 2 * n * k
+        nbytes += w + 2 * mm * (n + k)
+    ops += cfg.n_layers * 2 * 2 * m * (m + text) * d          # attention
+    ops += 2 * 2 * m * 3 * d * d                              # x_embedder
+    nbytes += 2 * 2 * 3 * d * d
+    by_ops, by_bytes = ops / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3
+    return (max(by_ops, by_bytes),
+            "operations" if by_ops >= by_bytes else "bytes", ops / 1e12,
+            nbytes / 1e9)
+
+
+def _sam_inputs(model, seconds: float):
+    """One DiT evaluation's inputs on `seconds` of seeded 48-kHz audio:
+    (noisy f32, the audio features, T5's features and mask, t, the
+    padding mask), in the model's dtype."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.dacvae import dacvae_encode
+
+    dev, dt = model.device, model.dtype
+    n = int(seconds * model.sample_rate)
+    wav = torch.from_numpy(_clip_audio(61, seconds, model.sample_rate)
+                           ).to(dev)[None, :, None]
+    feats = dacvae_encode(model.audio_codec, wav.to(dt)).transpose(1, 2)
+    feats = torch.cat([feats, feats], dim=2)
+    text, mask = model.encode_text([SAM_TEXT])
+    g = torch.Generator(device=dev).manual_seed(0)
+    noisy = torch.randn(feats.shape, generator=g, device=dev)
+    pad = torch.ones(feats.shape[:2], dtype=torch.bool, device=dev)
+    t = torch.tensor(0.25, device=dev)
+    assert feats.shape[1] == -(-n // model.hop_length)
+    return noisy, feats, text, mask, t, pad
+
+
+def _sam_eval(model, inputs):
+    """One DiT evaluation (`velocity`) on `_sam_inputs`' inputs."""
+    import torch
+
+    noisy, feats, text, mask, t, pad = inputs
+    with torch.inference_mode():
+        return model.velocity(noisy, feats.to(model.dtype),
+                              text.to(model.dtype), t, mask, None, None, pad)
+
+
+def _sam_run(model, label: str, card: str, base: int, long: bool) -> dict:
+    """One `separate` of SAM_SECONDS at the default ODE (midpoint, 16
+    steps) after a 2-step warm-up: wall, xRT, peak memory; the ms of the
+    encode, the T5 pass, one DiT evaluation (CUDA events, median of 5) and
+    the decode; one DiT evaluation profiled (kernels, device ms, busy
+    share) against its bound; with `long`, `separate_long` of
+    SAM_LONG_SECONDS too. -> the numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.dacvae import (dacvae_decode,
+                                                         dacvae_encode)
+
+    laps = Laps(f"sam-audio {label}")
+    sr = model.sample_rate
+    audio = _clip_audio(62, SAM_SECONDS, sr)
+    model.separate(audio, [SAM_TEXT], ode_opt={"step_size": 0.5})
+    laps("warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    res, wall = _sync_s(lambda: model.separate(audio, [SAM_TEXT], seed=1))
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    run = dict(model.last_run)
+    if not (run["evals"] == 32 and res.target[0].shape
+            == (SAM_SECONDS * sr, 1) and np.isfinite(res.target[0]).all()
+            and np.isfinite(res.residual[0]).all()):
+        raise AssertionError(f"SAM-Audio {label}: {run}")
+    laps("the separation")
+    inputs = _sam_inputs(model, SAM_SECONDS)
+    dev, dt = model.device, model.dtype
+    wav = torch.from_numpy(audio).to(dev)[None, :, None].to(dt)
+    gen = torch.randn(2, run["frames"], model.config.codec_cfg.codebook_dim,
+                      device=dev).to(dt)
+    with torch.inference_mode():
+        ms = {"encode": _time_ms(lambda: dacvae_encode(model.audio_codec,
+                                                       wav), 3),
+              "t5": _time_ms(lambda: model.encode_text([SAM_TEXT]), 5),
+              "dit": _time_ms(lambda: _sam_eval(model, inputs), 5),
+              "decode": _time_ms(lambda: dacvae_decode(model.audio_codec,
+                                                       gen), 3)}
+    prof = _device_kernels(lambda: _sam_eval(model, inputs), cpu=False)
+    dev_ms = sum(_dev_us(e) for e in prof) / 1e3
+    kernels = sum(e.count for e in prof)
+    laps("parts timed, one evaluation profiled")
+    q8 = any(type(m).__name__ == "QuantizedLinear" for m in model.modules())
+    bound, by, tflop, gb = sam_dit_bound(model, run["frames"],
+                                         run["text_len"], q8)
+    out = dict(wall=wall, xrt=SAM_SECONDS / wall, peak=peak, ms=ms,
+               dev_ms=dev_ms, kernels=kernels, busy=dev_ms / ms["dit"],
+               bound=bound, by=by, tflop=tflop, gb=gb, frames=run["frames"])
+    log(f"[sam-audio] {label}: separate of {SAM_SECONDS} s at 48 kHz "
+        f"({run['frames']} frames, a {run['text_len']}-token description, "
+        f"midpoint, 16 steps, 32 DiT evaluations): wall {wall:.3f} s, xRT "
+        f"{out['xrt']:.2f}, peak {peak:.2f} GB above the earlier phases'; "
+        f"encode {ms['encode']:.2f} ms, T5 {ms['t5']:.2f} ms, one DiT "
+        f"evaluation {ms['dit']:.2f} ms, decode of target and residual "
+        f"{ms['decode']:.2f} ms; the profiled evaluation: {kernels} kernels, "
+        f"{dev_ms:.3f} ms of device time ({100 * out['busy']:.1f}% of its "
+        f"{ms['dit']:.2f} ms busy); its bound {bound:.3f} ms ({by}: "
+        f"{tflop:.3f} TFLOP, {gb:.3f} GB; {100 * bound / ms['dit']:.1f}% of "
+        f"it reached) ({card})")
+    if long:
+        audio = _clip_audio(63, SAM_LONG_SECONDS, sr)
+        chunks, lwall = _sync_s(lambda: list(model.separate_streaming(
+            audio, [SAM_TEXT])))
+        total = sum(len(c[0]) for c in chunks)
+        if not (len(chunks) == 4 and total == SAM_LONG_SECONDS * sr
+                and all(np.isfinite(c[0]).all() for c in chunks)):
+            raise AssertionError(f"SAM-Audio long: {len(chunks)} chunks, "
+                                 f"{total} samples")
+        out.update(long_wall=lwall, long_xrt=SAM_LONG_SECONDS / lwall)
+        log(f"[sam-audio] {label}: separate_long of {SAM_LONG_SECONDS} s "
+            f"(10-s chunks, 3-s overlap, cosine crossfade; 4 chunks, seeds "
+            f"42-45): wall {lwall:.3f} s, xRT {out['long_xrt']:.2f} ({card})")
+        laps("the long separation")
+    laps.log()
+    return out
+
+
+def build_sam_full():
+    """SAM-Audio at SAM_FULL drawn on the card in f32 from seed 0, with the
+    stand-in tokenizer."""
+    import torch
+
+    from mlx_audio_tpu_torch.sts.models.sam_audio import Model
+
+    t0 = time.perf_counter()
+    meta = Model(SAM_FULL, device="meta")
+    parts = {n: sum(p.numel() for p in getattr(meta, n).parameters())
+             for n in ("transformer", "text_encoder", "audio_codec")}
+    model = Model(SAM_FULL, device=DEVICE).init_params(seed=0, on_device=True)
+    model.tokenizer = SamTok(model.config.t5_cfg.vocab_size)
+    torch.cuda.synchronize()
+    log(f"[sam-audio] SAM-Audio at the JAX defaults (DiT 2,816 x 22, 22 "
+        f"heads, FFN 7,552; T5-base 768 x 12; DACVAE 48 kHz, hop 1,920): "
+        f"{meta.num_params():,} params (counted on the meta device: DiT "
+        f"{parts['transformer']:,}, T5 {parts['text_encoder']:,}, DACVAE "
+        f"{parts['audio_codec']:,}) drawn on the card in f32 from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def phase_sam_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 59: SAM-Audio at SAM_FULL seeded on the card: bf16 against
+    f32 on one DiT evaluation of a 10-s clip; in bf16 one `separate` of
+    10 s (`_sam_run`) and `separate_long` of 30 s (four chunks); then
+    every Linear quantized to q8 on K2 (`apply_quantization`, group 64):
+    the separation again, K2's launches a DiT evaluation read from its
+    counter, q8 against bf16 on one evaluation, and the DiT's linears at
+    the clip's 250 rows on K2 against cuBLAS bf16 (`_linear_times`) with
+    their bound. -> K2's launches, as its counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import Linear, QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t_phase = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = build_sam_full()
+    inputs = _sam_inputs(model, SAM_SECONDS)
+    v32 = _sam_eval(model, inputs).float()
+    model.astype(torch.bfloat16)
+    torch.cuda.empty_cache()
+    inputs = _sam_inputs(model, SAM_SECONDS)
+    v16 = _sam_eval(model, inputs).float()
+    rel = float(torch.linalg.norm(v16 - v32) / torch.linalg.norm(v32))
+    del v32
+    if not (torch.isfinite(v16).all() and rel < SAM_BF16_REL):
+        raise AssertionError(f"SAM-Audio bf16 vs f32: {rel:.3e}")
+    log(f"[sam-audio] bf16 vs f32 on one DiT evaluation of the {SAM_SECONDS}"
+        f"-s clip ({inputs[1].shape[1]} rows): relative Frobenius "
+        f"{rel:.3e} (limit {SAM_BF16_REL:g}) ({card})")
+    bf16 = _sam_run(model, "bf16", card, base, long=True)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 SAM-Audio launched K1 or K2")
+    t1 = time.perf_counter()
+    apply_quantization(model, SAM_Q8)
+    torch.cuda.empty_cache()
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    dense = sum(isinstance(m, Linear) for m in model.modules())
+    log(f"[sam-audio] every linear quantized to 8 bits (group {MLX_GROUP}) "
+        f"on the card in {time.perf_counter() - t1:.2f} s: {held} on K2, "
+        f"{dense} dense; the tables, scale/shift tables and convs bf16")
+    qmm_kernel.launches = 0
+    with recorder:
+        k2 = qmm_kernel.launches
+        vq = _sam_eval(model, inputs).float()
+        per_eval = qmm_kernel.launches - k2
+        q8 = _sam_run(model, "q8 (K2)", card, base, long=False)
+    k2 = qmm_kernel.launches
+    relq = float(torch.linalg.norm(vq - v16) / torch.linalg.norm(v16))
+    # the layers' 11 each, the time and text embedders' 3 each, t_block,
+    # output, proj and memory_proj
+    layers = model.config.dit_cfg.n_layers
+    want = layers * 11 + 3 + 3 + 1 + 1 + 2
+    if dense or per_eval != want or not (torch.isfinite(vq).all()
+                                         and relq < SAM_Q8_REL):
+        raise AssertionError(f"q8 SAM-Audio: {dense} dense linears, "
+                             f"{per_eval} K2 launches a DiT evaluation (want "
+                             f"{want}), q8 vs bf16 {relq:.3e}")
+    sums = _linear_times(card, "sam-audio dit", SAM_DIT_SHAPES,
+                         SAM_DIT_PER_LAYER, layers, rows=(q8["frames"],))
+    pre = sums[q8["frames"]]
+    lb, lby = linears_bound(SAM_DIT_SHAPES, SAM_DIT_PER_LAYER, layers,
+                            q8["frames"])
+    log(f"[sam-audio] the DiT's {layers * sum(SAM_DIT_PER_LAYER)} linears at "
+        f"the clip's M = {q8['frames']} (an evaluation's but the text rows'"
+        f" and M = 1's): K2 (mma) {pre['K2']:.3f} ms against cuBLAS bf16 "
+        f"{pre['bf16']:.3f} ms ({pre['K2'] / pre['bf16']:.2f}x); bound "
+        f"{lb:.3f} ms ({lby}), {100 * lb / pre['K2']:.1f}% of it reached by "
+        f"K2, {100 * lb / pre['bf16']:.1f}% by cuBLAS ({card})")
+    log(f"[sam-audio] q8 against bf16 on this card: separate of "
+        f"{SAM_SECONDS} s {q8['wall']:.3f} vs {bf16['wall']:.3f} s (xRT "
+        f"{q8['xrt']:.2f} vs {bf16['xrt']:.2f}), one DiT evaluation "
+        f"{q8['ms']['dit']:.2f} vs {bf16['ms']['dit']:.2f} ms ({q8['kernels']}"
+        f" vs {bf16['kernels']} kernels, {q8['dev_ms']:.3f} vs "
+        f"{bf16['dev_ms']:.3f} ms of device time, bound {q8['bound']:.3f} vs "
+        f"{bf16['bound']:.3f} ms), peak {q8['peak']:.2f} vs "
+        f"{bf16['peak']:.2f} GB; K2 {per_eval} launches a DiT evaluation, "
+        f"{k2} in all; one evaluation q8 vs bf16 relative {relq:.3e} (limit "
+        f"{SAM_Q8_REL:g}) ({card})")
+    if snake_conv_kernel.launches != before[0]:
+        raise AssertionError("SAM-Audio launched K1")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 59 in {time.perf_counter() - t_phase:.1f} s")
+    return k2
+
+
+class K1Recorder:
+    """While active, keeps the arguments of K1's first launch at each (B,
+    T, C, k, dilation, path) through `adain_snake_conv1d`; `hold()` then
+    runs each again and against the plain version (launches made to
+    compare are taken back off the counters). -> the largest relative
+    error."""
+
+    def __enter__(self):
+        from mlx_audio_tpu_torch.ops import snake_conv
+
+        self.kernel, self.cases = snake_conv.snake_conv_kernel, {}
+        real = self.kernel
+
+        class Recording:
+            def __getattr__(self, name):
+                return getattr(real, name)
+
+            def __call__(inner, x, scale, shift, alpha, w, bias=None, *,
+                         dilation=1, valid_len=None, path=None):
+                key = (*x.shape, w.shape[1] if w.ndim == 5 else w.shape[0],
+                       dilation, path)
+                if key not in self.cases:
+                    self.cases[key] = tuple(
+                        None if a is None else a.clone() for a in
+                        (x, scale, shift, alpha, w, bias, valid_len))
+                return real(x, scale, shift, alpha, w, bias,
+                            dilation=dilation, valid_len=valid_len,
+                            path=path)
+
+        snake_conv.snake_conv_kernel = Recording()
+        return self
+
+    def __exit__(self, *exc):
+        from mlx_audio_tpu_torch.ops import snake_conv
+
+        snake_conv.snake_conv_kernel = self.kernel
+
+    def hold(self, tag: str) -> float:
+        import torch
+
+        from mlx_audio_tpu_torch.ops.snake_conv import (
+            adain_snake_conv1d_reference, unpack_weight)
+
+        k, worst = self.kernel, 0.0
+        launches, by_path = k.launches, dict(k.path_launches)
+        for (b, t, c, kk, dil, path), (x, scale, shift, alpha, w, bias,
+                                       vlen) in sorted(self.cases.items()):
+            got = k(x, scale, shift, alpha, w, bias, dilation=dil,
+                    valid_len=vlen, path=path)
+            wio = unpack_weight(w) if path == "wgmma" else w
+            want = adain_snake_conv1d_reference(x, scale, shift, alpha, wio,
+                                                bias, dilation=dil,
+                                                valid_len=vlen)
+            rel = rel_err(got, want)
+            name = str(x.dtype).split(".")[-1]
+            if not (torch.isfinite(got).all() and rel <= KERNEL_TOL[name]):
+                raise AssertionError(f"{tag}: K1 ({path}) B={b} T={t} C={c} "
+                                     f"k={kk} dil={dil}: rel {rel:.3e}")
+            worst = max(worst, rel)
+        k.launches, k.path_launches = launches, by_path
+        log(f"[{tag}] K1 at the {len(self.cases)} shapes the turn launched it "
+            f"with (B, T, C, k, dilation, path: "
+            f"{sorted({(c[1], c[2], c[3], c[4], c[5]) for c in self.cases})}"
+            f") against the plain version: rel <= {worst:.3e} (tol "
+            f"{KERNEL_TOL['bfloat16']:g})")
+        return worst
+
+
+class _Timed:
+    """A component with its `method` timed: `ms` holds each call's ms
+    (the card synchronised after); other attributes pass through."""
+
+    def __init__(self, inner, method: str, **call_kw):
+        self.inner, self.method, self.call_kw, self.ms = inner, method, \
+            call_kw, []
+
+    def __getattr__(self, name):
+        if name == self.__dict__.get("method"):
+            return self._call
+        return getattr(self.inner, name)
+
+    def _call(self, *args, **kwargs):
+        import types
+
+        import torch
+
+        t0 = time.perf_counter()
+        out = getattr(self.inner, self.method)(*args, **kwargs,
+                                               **self.call_kw)
+        if isinstance(out, types.GeneratorType):
+            out = list(out)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+class _EnergyGatedSilero:
+    """Silero's `feed` on every frame, timed (`ms`), its probability kept
+    (`probs`, on the card); the pipeline's detector reads a stand-in
+    instead: 0.9 where the frame's RMS is above TURN_RMS, else 0.1.
+    Random weights hold Silero's probability near 0.503 on speech and
+    silence alike (0.50303-0.50313 against 0.50312 on the CPU at seed 0),
+    so it cannot start or end a turn."""
+
+    def __init__(self, model):
+        self.model, self.ms, self.probs = model, [], []
+
+    def feed(self, frame, state):
+        import numpy as np
+        import torch
+
+        t0 = time.perf_counter()
+        prob, state = self.model.feed(frame, state)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.probs.append(prob.reshape(-1)[0])
+        loud = float(np.sqrt(np.mean(np.square(frame)))) > TURN_RMS
+        return np.asarray([[0.9 if loud else 0.1]]), state
+
+
+def build_turn_models(tmp: Path) -> dict:
+    """The voice pipeline's models on the card, each seeded there: Silero
+    at ModelConfig(), Smart Turn at the JAX defaults, Whisper
+    large-v3-turbo (its end-of-text row zeroed, bf16), the LM at
+    LLAMA_1B's dims (bf16), Kokoro-82M with a seeded voice pack."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.stt.models.whisper import Model as Whisper
+    from mlx_audio_tpu_torch.stt.models.whisper import ModelDimensions
+    from mlx_audio_tpu_torch.tts.models.kokoro import Model as Kokoro
+    from mlx_audio_tpu_torch.tts.models.llama import BackboneModel
+    from mlx_audio_tpu_torch.vad.models.silero_vad import Model as Silero
+    from mlx_audio_tpu_torch.vad.models.silero_vad import ModelConfig
+    from mlx_audio_tpu_torch.vad.models.smart_turn import Model as SmartTurn
+
+    t0 = time.perf_counter()
+    silero = Silero(ModelConfig(), device=DEVICE).init_params(seed=0)
+    turn = SmartTurn(SLICE7A_FULL["smart_turn"], device=DEVICE).init_params(
+        seed=0, on_device=True)
+    whisper = Whisper(ModelDimensions(**WHISPER_TURBO),
+                      device=DEVICE).init_params(seed=0, on_device=True)
+    with torch.no_grad():
+        whisper.decoder.token_embedding.weight[50257] = 0.0
+    whisper.astype(torch.bfloat16)
+    lm = BackboneModel(LLAMA_1B, device=DEVICE).init_params(seed=0,
+                                                            on_device=True)
+    lm.astype(torch.bfloat16)
+    kokoro = Kokoro(kokoro_config(), device=DEVICE).init_params(seed=0)
+    (tmp / "voices").mkdir(exist_ok=True)
+    np.save(tmp / "voices" / "af_smoke.npy",
+            (np.random.RandomState(0).randn(510, 1, 256) * 0.1)
+            .astype(np.float32))
+    kokoro.config.model_path = str(tmp)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    models = dict(silero=silero, turn=turn, whisper=whisper, lm=lm,
+                  kokoro=kokoro)
+    log(f"[voice pipeline] models on the card, seeded: Silero "
+        f"{silero.num_params():,}, Smart Turn {turn.num_params():,} (f32), "
+        f"Whisper large-v3-turbo {whisper.num_params():,} (bf16), the LM at "
+        f"Llama-3.2-1B's dims {lm.num_params():,} (bf16), Kokoro-82M "
+        f"{kokoro.num_params():,}; built in {time.perf_counter() - t0:.2f} s")
+    return models
+
+
+def phase_voice_pipeline(card: str, tmp: Path) -> int:
+    """Phase 60: one headless `VoicePipeline` turn on the card through
+    `build_turn_models`' models: TURN_SPEECH_S of seeded speech-like audio
+    then TURN_SILENCE_S of silence fed in 32-ms frames through Silero,
+    Smart Turn on the candidate pause, Whisper's greedy transcript, a
+    TURN_REPLY_TOKENS-token greedy reply, Kokoro's speech: the VAD's ms a
+    frame, the endpoint's, the STT's, the LM's and the TTS's ms, and the
+    time from the end of speech to the first audio chunk (the silence the
+    detector waited for, plus the turn's compute). Every K1 launch of the
+    turn is held against the plain version at its shapes. Silero's random
+    weights cannot tell speech from silence: the detector reads an RMS
+    stand-in (`_EnergyGatedSilero`) while Silero runs on every frame. ->
+    K1's launches in the turn."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.sts.voice_pipeline import (
+        LocalLLMResponseEngine, VadConfig, VoicePipeline)
+
+    t_phase = time.perf_counter()
+    models = build_turn_models(tmp)
+    rs = np.random.RandomState(60)
+    n_sp, n_si = int(TURN_SPEECH_S * 16000), int(TURN_SILENCE_S * 16000)
+    env = np.repeat(rs.rand(n_sp // 4000 + 1) > 0.2, 4000)[:n_sp] * 0.4 \
+        + 0.05
+    speech = (_clip_audio(60, TURN_SPEECH_S, 16000) + rs.randn(n_sp) * env
+              ).astype(np.float32)
+    silence = (rs.randn(n_si) * 1e-3).astype(np.float32)
+    audio = np.concatenate([speech, silence])
+    vad_cfg = VadConfig(min_silence_ms=480.0, candidate_silence_ms=240.0)
+    silero = _EnergyGatedSilero(models["silero"])
+    stt = _Timed(models["whisper"], "generate", **TURN_STT_KW)
+    turn = _Timed(models["turn"], "predict_endpoint")
+    tts = _Timed(models["kokoro"], "generate")
+    engine = LocalLLMResponseEngine(models["lm"], tokenizer=WordTok(),
+                                    max_tokens=TURN_REPLY_TOKENS,
+                                    temperature=0.0)
+    lm = _Timed(engine, "generate")
+    events, marks = [], {}
+    pipe = VoicePipeline(
+        vad_model=silero, stt_model=stt, llm_engine=lm, tts_model=tts,
+        tts_voice="af_smoke", smart_turn_model=turn, vad_config=vad_cfg,
+        on_event=lambda k, d: (events.append((k, d)), marks.setdefault(
+            k, (time.perf_counter(), pipe._input_ms))))
+    queue_audio = pipe.audio_output.queue_audio
+
+    def queued(samples):
+        marks.setdefault("first_audio", (time.perf_counter(),
+                                         pipe._input_ms))
+        queue_audio(samples)
+
+    pipe.audio_output.queue_audio = queued
+    k1, k2 = snake_conv_kernel.launches, qmm_kernel.launches
+    try:
+        with K1Recorder() as rec:
+            for i in range(0, len(audio), 512):
+                pipe.feed_audio(audio[i:i + 512])
+        chunks = []
+        while (c := pipe.fetch_speech()) is not None:
+            chunks.append(c)
+    finally:
+        pipe.shutdown()
+    k1 = snake_conv_kernel.launches - k1
+    kinds = [k for k, _ in events]
+    text = next((d["text"] for k, d in events if k == "transcription"), "")
+    reply = next((d["text"] for k, d in events if k == "response"), "")
+    if not ("speech_started" in kinds and "speech_stopped" in kinds and text
+            and reply and not reply.startswith("You said:") and chunks
+            and all(np.isfinite(c).all() for c in chunks) and k1
+            and qmm_kernel.launches == k2
+            and engine.last_run["tokens"] == TURN_REPLY_TOKENS):
+        raise AssertionError(f"the voice pipeline's turn: events {kinds}, "
+                             f"transcript {text!r}, reply {reply!r}, "
+                             f"{len(chunks)} chunks, {k1} K1 launches")
+    rec.hold("voice pipeline")
+    t_stop, in_stop = marks["speech_stopped"]
+    t_audio, _ = marks["first_audio"]
+    waited = in_stop - 1000.0 * n_sp / 16000
+    compute = (t_audio - t_stop) * 1e3
+    vad_ms = float(np.median(silero.ms))
+    early = next((d.get("early", False) for k, d in events
+                  if k == "speech_stopped"), False)
+    sil = np.asarray([float(p) for p in silero.probs])
+    log(f"[voice pipeline] one headless turn: {TURN_SPEECH_S} s of speech, "
+        f"{TURN_SILENCE_S} s of silence in 32-ms frames; Silero ran on all "
+        f"{len(sil)} frames (probabilities {sil.min():.5f}-{sil.max():.5f}: "
+        f"random weights), the detector read the stand-in (RMS above "
+        f"{TURN_RMS:g}: 0.9, else 0.1); events "
+        f"{[k for k in kinds]}; transcript {len(text)} characters, reply "
+        f"{len(reply.split())} words of {TURN_REPLY_TOKENS} greedy tokens in "
+        f"{engine.last_run['reads']} reads, {sum(len(c) for c in chunks)} "
+        f"samples of speech in {len(chunks)} chunks, {k1} K1 launches")
+    log(f"[voice pipeline] VAD {vad_ms:.3f} ms a frame (median of "
+        f"{len(silero.ms)}), endpoint {sum(turn.ms):.2f} ms over "
+        f"{len(turn.ms)} call(s), STT {sum(stt.ms):.2f} ms, LM "
+        f"{sum(lm.ms):.2f} ms, TTS {sum(tts.ms):.2f} ms; end of speech to "
+        f"the first audio chunk {waited + compute:.1f} ms = {waited:.0f} ms "
+        f"of silence heard before the turn ended ("
+        f"{'Smart Turn, early' if early else 'the VAD'}) + {compute:.1f} ms "
+        f"of compute ({card})")
+    del models
+    log(f"[time] phase 60 in {time.perf_counter() - t_phase:.1f} s")
+    return k1
+
+
+def phase_eval_cli(card: str, tmp: Path) -> None:
+    """Phase 61: `python -m mlx_audio_tpu_torch.stt.eval`'s `main` on the
+    card over a two-row local manifest of generated WAVs with a small
+    Whisper directory (`whisper_eval_small`): each hypothesis equal to the
+    CPU's `generate` of that file, the summary's WER to its records'."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from mlx_audio_tpu_torch import audio_io
+    from mlx_audio_tpu_torch.stt.eval.__main__ import main as eval_main
+    from mlx_audio_tpu_torch.stt.utils import load_model
+
+    t0 = time.perf_counter()
+    d = tmp / "whisper-eval"
+    write_whisper_checkpoint(whisper_eval_small("cpu"), d)
+    rows = (("a", "one two three", 1.0), ("b", "four five", 1.5))
+    for u, _, s in rows:
+        audio_io.write(str(tmp / f"{u}.wav"), _noise(61 + len(u), s), 16000)
+    man = tmp / "manifest.jsonl"
+    man.write_text("".join(json.dumps({"id": u, "audio": f"{u}.wav",
+                                       "text": t}) + "\n" for u, t, _ in rows))
+    out = tmp / "eval-out"
+    printed = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        eval_main(["--manifest", str(man), "--model", str(d), "--output-dir",
+                   str(out), "--gen-kwargs", json.dumps(EVAL_KW)])
+    wall = time.perf_counter() - t1
+    summary = json.loads(printed.getvalue())
+    recs = [json.loads(line) for line in
+            (out / "predictions.jsonl").read_text().splitlines()]
+    cpu = load_model(d, device="cpu")
+    for r in recs:
+        want = cpu.generate(r["audio_path"], **EVAL_KW).text.strip()
+        if r["hypothesis"] != want:
+            raise AssertionError(f"eval CLI on the card: {r['hypothesis']!r} "
+                                 f"vs the CPU's {want!r}")
+    edits = sum(r["edits"] for r in recs)
+    refs = sum(r["reference_tokens"] for r in recs)
+    if not (summary["num_samples"] == 2 and np.isclose(
+            summary["wer_micro"], edits / refs)):
+        raise AssertionError(f"eval CLI summary {summary}")
+    log(f"[stt eval] the WER CLI on the card over a two-row manifest (small "
+        f"Whisper, greedy): {wall:.2f} s, WER micro "
+        f"{summary['wer_micro']:.3f} ({edits} edits over {refs} words), "
+        f"RTF {summary['rtf']:.3f}; hypotheses equal to the CPU's; phase 61 "
+        f"in {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def phase_slice7b(card: str, recorder: K2Recorder) -> tuple:
+    """Phases 58-61; K2 only on the q8 SAM-Audio models, K1 only in the
+    voice pipeline's Kokoro. -> (K1's launches, K2's launches)."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_sam_reference(Path(tmp))
+        torch.cuda.empty_cache()
+        k2 += phase_sam_full(card, recorder)
+        if snake_conv_kernel.launches != k1:
+            raise AssertionError("phases 58-59 launched K1")
+        before = qmm_kernel.launches
+        k1_turn = phase_voice_pipeline(card, Path(tmp))
+        torch.cuda.empty_cache()
+        phase_eval_cli(card, Path(tmp))
+    if qmm_kernel.launches != before or \
+            snake_conv_kernel.launches != k1 + k1_turn:
+        raise AssertionError("phases 60-61 launched K2, or K1 beyond the "
+                             "turn's Kokoro")
+    log(f"[time] phases 58-61 in {time.perf_counter() - t0:.1f} s; K1 "
+        f"{k1_turn} launches (the turn's Kokoro), K2 {k2}")
+    return k1_turn, k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -11691,6 +12638,13 @@ def main() -> int:
     # Smart Turn, Sortformer and LFM2-Audio: K2 on the q8 LFM2-Audio models
     k2_launches += phase_slice7a(card, recorder)
     log(f"[time] phases 1-57 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # DACVAE and SAM-Audio (K2 on the q8 models), the voice pipeline (K1 on
+    # its Kokoro), the WER eval CLI
+    k1_turn, k2_sam = phase_slice7b(card, recorder)
+    k1_launches += k1_turn
+    k2_launches += k2_sam
+    log(f"[time] phases 1-61 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -24,8 +24,8 @@ from ..utils import (get_model_name_parts, is_converted, load_config,
 
 # codec families the port has, by model type
 MODEL_REMAPPING = {"snac": "snac", "dac": "descript", "descript": "descript",
-                   "encodec": "encodec"}
-PORTED = ("snac", "descript", "encodec")
+                   "encodec": "encodec", "dacvae": "dacvae"}
+PORTED = ("snac", "descript", "encodec", "dacvae")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",

@@ -36,9 +36,7 @@ Departures from the JAX server:
   with `ref_audio` never join a continuous-batching session, which would
   drop it;
 * the separation adapter takes any model with `separate(audio)` (the
-  port's Mel-Band-RoFormer); the JAX server's sam_audio branch is not
-  ported (SAM-Audio is not: its directory answers 404 with the loader's
-  message);
+  port's Mel-Band-RoFormer), besides SAM-Audio's text-guided branch;
 * `/v1/realtime` makes each turn's new streaming session with the same
   transcription delay as the first.
 """
@@ -226,7 +224,8 @@ class STTExecutionAdapter(BaseModelExecutionAdapter):
 
 
 class SeparationExecutionAdapter(BaseModelExecutionAdapter):
-    """Source separation on the broker thread, for any model exposing
+    """Source separation on the broker thread: SAM-Audio by its text
+    description (`_run_sam_audio`), or any model exposing
     `separate(audio)` -> result with `vocals` and `sample_rate`: target =
     the separated stem, residual = input - target."""
 
@@ -240,6 +239,10 @@ class SeparationExecutionAdapter(BaseModelExecutionAdapter):
         if not hasattr(model, "separate"):
             raise ValueError(
                 f"Model {request.model_name} has no separate() API")
+        if getattr(getattr(model, "config", None), "model_type", "") \
+                == "sam_audio":
+            self._run_sam_audio(request, model)
+            return
         audio, sr = request.payload
         target_sr = getattr(getattr(model, "config", None), "sample_rate",
                             sr)
@@ -262,6 +265,36 @@ class SeparationExecutionAdapter(BaseModelExecutionAdapter):
 
         request.emit_data({"target": b64(target), "residual": b64(residual),
                            "sample_rate": result.sample_rate})
+        request.emit_done()
+
+    def _run_sam_audio(self, request: InferenceRequest, model) -> None:
+        """Text-guided separation by SAM-Audio's `separate_long`: the
+        upload mixed to mono and resampled to the model's rate, `steps`
+        ODE steps by `method`, the request's `description` (the JAX
+        server's branch, mlx_audio_tpu/server.py:225-285)."""
+        audio, sr = request.payload
+        kw = request.normalized_kwargs
+        x = np.asarray(audio, np.float32)
+        if x.ndim > 1:
+            x = x.mean(axis=0)
+        target_sr = model.sample_rate
+        if sr != target_sr:
+            from .utils import resample_audio
+
+            x = np.asarray(resample_audio(x, sr, target_sr))
+        steps = max(int(kw.get("steps", 16)), 1)
+        res = model.separate_long(
+            x[None, None], [kw.get("description", "speech")],
+            ode_opt={"step_size": 1.0 / steps,
+                     "method": kw.get("method", "midpoint")})
+
+        def b64(a):
+            return base64.b64encode(_encode_wav(
+                np.asarray(a, np.float32).reshape(-1), target_sr)).decode()
+
+        request.emit_data({"target": b64(res.target[0]),
+                           "residual": b64(res.residual[0]),
+                           "sample_rate": target_sr})
         request.emit_done()
 
 

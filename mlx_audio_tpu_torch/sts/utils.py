@@ -1,8 +1,8 @@
 """STS loader of the port (counterpart of mlx_audio_tpu/sts/utils.py).
 
 `MODEL_REMAPPING` is the JAX package's registry of STS model types (its
-:14-23), kept whole so that a type the port does not have yet (SAM-Audio) is named as
-such; the families in `PORTED` are ported. `infer_model_type_from_config` guesses a family from a config's
+:14-23), kept whole; every family in it is in `PORTED`.
+`infer_model_type_from_config` guesses a family from a config's
 characteristic keys when it has no model_type (raw kyutai Moshi configs),
 as the JAX loader does before dispatch (:26-58).
 
@@ -49,8 +49,8 @@ MODEL_REMAPPING = {
 }
 
 # families of MODEL_REMAPPING's values that the port has
-PORTED = ("moshi", "mel_roformer", "deepfilternet", "mossformer2_se",
-          "lfm_audio")
+PORTED = ("sam_audio", "moshi", "mel_roformer", "deepfilternet",
+          "mossformer2_se", "lfm_audio")
 
 
 def infer_model_type_from_config(config: dict) -> Optional[str]:

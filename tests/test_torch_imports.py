@@ -1162,6 +1162,124 @@ def test_tiny_smart_turn_sortformer_lfm_audio_without_jax(tmp_path):
     assert out.strip() == "False []", out
 
 
+SLICE7B_SOURCES = (
+    "mlx_audio_tpu_torch/codec/models/dacvae/dacvae.py",
+    "mlx_audio_tpu_torch/sts/models/sam_audio/t5.py",
+    "mlx_audio_tpu_torch/sts/models/sam_audio/dit.py",
+    "mlx_audio_tpu_torch/sts/models/sam_audio/model.py",
+    "mlx_audio_tpu_torch/sts/voice_pipeline.py",
+    "mlx_audio_tpu_torch/sts/audio_player.py",
+    "mlx_audio_tpu_torch/tts/audio_player.py",
+    "mlx_audio_tpu_torch/stt/eval/wer.py",
+    "mlx_audio_tpu_torch/stt/eval/normalize.py",
+    "mlx_audio_tpu_torch/stt/eval/manifest.py",
+    "mlx_audio_tpu_torch/stt/eval/runner.py",
+    "mlx_audio_tpu_torch/stt/eval/cli.py")
+
+
+@pytest.mark.parametrize("path", SLICE7B_SOURCES)
+def test_slice7b_modules_are_checked_statically(path):
+    """DACVAE, SAM-Audio, the voice pipeline, the audio players and the
+    WER eval are among the sources whose imports
+    `test_source_imports_nothing_of_jax` checks."""
+    assert path in PORT_SOURCES
+
+
+def test_tiny_sam_audio_pipeline_and_eval_without_jax(tmp_path):
+    """On the CPU at a tiny size, with no jax in sys.modules: a q8
+    SAM-Audio directory (chip_smoke.py's small config, group 16) through
+    the STS loader separating 64 frames, its DACVAE through the codec
+    loader; a voice-pipeline turn (a scripted VAD, a tiny llama's greedy
+    reply, a scripted TTS) through the audio player; the WER eval CLI on a
+    one-row manifest with a tiny Whisper directory."""
+    out = _run("""
+        import contextlib, io, json, sys
+        from pathlib import Path
+        import numpy as np
+        import mlx_audio_tpu_torch
+        from mlx_audio_tpu_torch.codec.utils import load_model as codec_load
+        from mlx_audio_tpu_torch.nn import QuantizedLinear
+        from mlx_audio_tpu_torch.sts.voice_pipeline import (
+            LocalLLMResponseEngine, VadConfig, VoicePipeline)
+        from mlx_audio_tpu_torch.stt.eval.__main__ import main as eval_main
+        from mlx_audio_tpu_torch.tts.models.llama import BackboneModel
+        from chip_smoke import (SAM_SMALL, SamTok, WordTok, _sam_small,
+                                whisper_eval_small, write_sam_checkpoint,
+                                write_whisper_checkpoint)
+
+        tmp = Path(%r)
+        write_sam_checkpoint(_sam_small("cpu"), tmp / "sam",  SAM_SMALL,
+                             {"quantization": {"group_size": 16, "bits": 8}})
+        sam = mlx_audio_tpu_torch.load_model(tmp / "sam", device="cpu")
+        assert sum(isinstance(m, QuantizedLinear) for m in sam.modules()) == 44
+        sam.tokenizer = SamTok()
+        res = sam.separate(np.random.RandomState(0).randn(512) * 0.1,
+                           ["rain"], ode_opt={"step_size": 0.5})
+        assert res.target[0].shape == (512, 1)
+        assert np.isfinite(res.target[0]).all()
+        with np.load(tmp / "sam" / "model.npz") as tree:
+            (tmp / "codec").mkdir()
+            np.savez(tmp / "codec" / "model.npz",
+                     **{k[12:]: tree[k] for k in tree.files
+                        if k.startswith("audio_codec.")})
+        (tmp / "codec" / "config.json").write_text(json.dumps(
+            dict(SAM_SMALL["audio_codec"], model_type="dacvae")))
+        codec = codec_load(tmp / "codec", device="cpu")
+        assert codec.decode(np.zeros((1, 8, 4), np.float32)).shape == (1, 32, 1)
+
+        class Vad:
+            def __init__(self):
+                self.i = 0
+            def feed(self, frame, state):
+                self.i += 1
+                return np.asarray([[0.9 if 2 < self.i < 12 else 0.0]]), state
+
+        class Stt:
+            def generate(self, audio):
+                class Out:
+                    text = "hello there"
+                return Out()
+
+        class Tts:
+            sample_rate = 16000
+            def generate(self, text, **kw):
+                class R:
+                    audio = np.ones(2400, np.float32) * 0.1
+                yield R()
+
+        lm = BackboneModel(dict(hidden_size=32, num_hidden_layers=2,
+                                intermediate_size=64, num_attention_heads=4,
+                                num_key_value_heads=2, vocab_size=1100,
+                                head_dim=8), device="cpu").init_params(seed=7)
+        events = []
+        pipe = VoicePipeline(
+            vad_model=Vad(), stt_model=Stt(), tts_model=Tts(),
+            llm_engine=LocalLLMResponseEngine(lm, tokenizer=WordTok(),
+                                              max_tokens=8, temperature=0.0),
+            on_event=lambda k, d: events.append(k),
+            vad_config=VadConfig(min_silence_ms=300))
+        pipe.feed_audio(np.full(512 * 42, 0.1, np.float32))
+        assert "response" in events and len(pipe.fetch_speech()) == 2400
+        pipe.shutdown()
+
+        write_whisper_checkpoint(whisper_eval_small("cpu"), tmp / "whisper")
+        from mlx_audio_tpu_torch import audio_io
+        audio_io.write(str(tmp / "a.wav"),
+                       np.random.RandomState(1).randn(16000) * 0.1, 16000)
+        (tmp / "m.jsonl").write_text(json.dumps(
+            {"id": "a", "audio": "a.wav", "text": "one two"}) + "\\n")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            eval_main(["--manifest", str(tmp / "m.jsonl"), "--model",
+                       str(tmp / "whisper"), "--output-dir", str(tmp / "o"),
+                       "--device", "cpu", "--gen-kwargs",
+                       '{"temperature": 0.0, "return_timestamps": false}'])
+        assert json.loads(printed.getvalue())["num_samples"] == 1
+        print("jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "False []", out
+
+
 def test_every_module_imports_without_building():
     """Every module of the port imports on a machine without nvcc; the CUDA
     kernels are built only when first launched."""
@@ -1251,6 +1369,9 @@ def _entry_points():
 
     from mlx_audio_tpu_torch.sts.models import lfm_audio
     from mlx_audio_tpu_torch.vad.models import smart_turn, sortformer
+    from mlx_audio_tpu_torch.codec.models import dacvae
+    from mlx_audio_tpu_torch.sts.models import sam_audio
+    from mlx_audio_tpu_torch.stt.eval import runner
 
     last_stt = {f"{m.__name__.rsplit('.', 1)[-1]}.Model": (
         m.Model.__init__, lambda p, m=m: m.Model(m.ModelConfig()))
@@ -1264,6 +1385,13 @@ def _entry_points():
         lfm_audio.LFM2AudioProcessor.from_pretrained,
         lambda p: lfm_audio.LFM2AudioProcessor.from_pretrained(
             str(p), config=lfm_audio.ModelConfig()))
+    last_stt["sam_audio.Model"] = (sam_audio.Model.__init__,
+                                   lambda p: sam_audio.Model())
+    last_stt["dacvae.Model"] = (dacvae.Model.__init__, lambda p: dacvae.Model())
+    last_stt["stt.eval.run_stt_wer_eval"] = (
+        runner.run_stt_wer_eval,
+        lambda p: runner.run_stt_wer_eval(str(p), [], p.parent / "out",
+                                          dataset_name="t"))
     return last_stt | {
         "kokoro.Model": (kokoro.Model.__init__,
                          lambda p: kokoro.Model(kokoro.ModelConfig())),
@@ -1437,7 +1565,9 @@ def _entry_points():
                                   "sortformer.Model", "lfm_audio.Model",
                                   "lfm_audio.LFM2AudioDetokenizer",
                                   "lfm_audio.LFM2AudioProcessor."
-                                  "from_pretrained"])
+                                  "from_pretrained", "sam_audio.Model",
+                                  "dacvae.Model",
+                                  "stt.eval.run_stt_wer_eval"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

@@ -345,9 +345,9 @@ def test_wav2vec2_checkpoint_routes_by_its_name(name, want):
 def test_unported_category_and_family_are_named(tmp_path):
     from mlx_audio_tpu_torch import load_model
 
-    sts = _config_only(tmp_path / "a", model_type="sam_audio")
-    with pytest.raises(ValueError, match="'sam_audio'.*not ported"):
-        load_model(sts, device="cpu")
+    tts = _config_only(tmp_path / "a", model_type="soprano")
+    with pytest.raises(ValueError, match="'soprano'.*not ported"):
+        load_model(tts, device="cpu")
     lid = _write_ecapa(tmp_path / "b")
     assert type(load_model(lid, device="cpu")).__module__.endswith(
         "lid.models.ecapa_tdnn.ecapa_tdnn")

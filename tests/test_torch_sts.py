@@ -114,12 +114,13 @@ def test_raw_kyutai_config_is_inferred_as_moshi(tmp_path):
 
 @pytest.mark.parametrize("model_type,family", [
     ("sam_audio", "sam_audio"), ("lfm_audio", "lfm_audio"),
-    ("mossformer2", "mossformer2_se")])
+    ("mossformer2", "mossformer2_se"), ("kitten_tts", "kitten_tts")])
 def test_unported_sts_family_is_named(tmp_path, model_type, family):
-    """An unported STS family (SAM-Audio) is named; MossFormer2 and
-    LFM2-Audio are ported now, so their types resolve to `mossformer2_se`
-    and `lfm_audio` and a config-only directory reaches that loader, which
-    finds no weights."""
+    """No STS family is left unported: SAM-Audio, MossFormer2 and
+    LFM2-Audio resolve to `sam_audio`, `mossformer2_se` and `lfm_audio`,
+    and a config-only directory reaches that loader, which finds no
+    weights. A family the port still lacks (kitten_tts, a TTS family) is
+    named through the router."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.sts import utils
 
@@ -209,8 +210,8 @@ def test_cli_passes_on_only_what_generate_takes(monkeypatch, tmp_path):
 def test_separation_through_the_server(checkpoints):
     """POST /v1/audio/separations with a Mel-Band-RoFormer directory: 200,
     the target equal to separate() of the same WAV and the residual the
-    input less it; a SAM-Audio directory answers 404 with the loader's
-    message."""
+    input less it; a directory of a family the port lacks (kitten_tts)
+    answers 404 with the STS loader's message."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import audio_io
     from mlx_audio_tpu_torch.server import AudioServer
@@ -220,15 +221,16 @@ def test_separation_through_the_server(checkpoints):
     buf = io.BytesIO()
     audio_io.write(buf, stereo.T, 8000)
     wav = buf.getvalue()
-    sam = path.parent / "sam-audio-tiny"
-    sam.mkdir(exist_ok=True)
-    (sam / "config.json").write_text(json.dumps({"model_type": "sam_audio"}))
+    unported = path.parent / "kitten-tts-tiny"
+    unported.mkdir(exist_ok=True)
+    (unported / "config.json").write_text(json.dumps(
+        {"model_type": "kitten_tts"}))
 
     async def go():
         server = AudioServer(device="cpu")
         try:
             ok = await server.separate({"model": str(path)}, wav)
-            missing = await server.separate({"model": str(sam)}, wav)
+            missing = await server.separate({"model": str(unported)}, wav)
             return ok, missing
         finally:
             server.close()
@@ -247,5 +249,5 @@ def test_separation_through_the_server(checkpoints):
         ok.json["residual"])), dtype="float32")
     np.testing.assert_allclose(residual, x - want.vocals.T, atol=1e-4)
     assert missing.status == 404
-    assert "'sam_audio'" in missing.json["error"] \
+    assert "'kitten_tts'" in missing.json["error"] \
         and "not ported" in missing.json["error"]
