@@ -155,7 +155,7 @@ the CUDA toolkit. Phases, each of which raises on failure:
    to 90 s (300 until phases 41-44 came, 180 until phases 58-61;
    `randn * 0.1`, greedy, thresholds off, timestamps, `sample_len` 100;
    bench.py:898-905) cold then warm (wall, xRT, windows, segments, tokens,
-   decode steps, ms a step), and the streaming session over ten 1-s chunks
+   decode steps, ms a step), and the streaming session over six 1-s chunks
    then `close()` (step latency p50 and max; a final event must arrive).
    Neither K1 nor K2 may launch in phases 12-14 (phase 26 runs between
    16 and 17, and launches both).
@@ -1090,9 +1090,9 @@ QWEN3_E2E_TOL = 1e-4
 Q8_PREFILL_TOL, Q8_PREFILL_CORR = 0.05, 0.999
 # (text ids, max_tokens) of phase 7: a short request and the JAX lane's
 # (bench.py:285) cut from 100 frames to 50 to keep the run's time, then to
-# 30 for phases 41-44; the short request 30 frames (60 until phases 58-61);
-# temperature 0.9, seed 0
-QWEN3_SEED, LANE_TOKENS, SHORT_TOKENS = 0, 30, 30
+# 30 for phases 41-44; the short request 12 frames (60 until phases 58-61,
+# 30 until phases 62-66); temperature 0.9, seed 0
+QWEN3_SEED, LANE_TOKENS, SHORT_TOKENS = 0, 30, 12
 
 
 def qwen3_requests():
@@ -1998,6 +1998,8 @@ WHISPER_TURBO = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280,
 # 600 s cut to 300 s to make room for phases 38-40, then to 180 s for
 # phases 41-44 and to 90 s for phases 58-61
 WHISPER_SECONDS = 90
+# the streaming session's 1-s chunks (ten until phases 62-66)
+WHISPER_STREAM_CHUNKS = 6
 WHISPER_KW = dict(language="en", temperature=0.0,
                   compression_ratio_threshold=None, logprob_threshold=None,
                   no_speech_threshold=None, return_timestamps=True,
@@ -2124,7 +2126,7 @@ def phase_whisper_turbo(card: str) -> dict:
     """Whisper large-v3-turbo at full width on the card: the bf16 encoder
     against f32 on one window, the encoder's time per window, the JAX
     lane's transcription (cut to WHISPER_SECONDS) cold then warm, and the streaming
-    session over ten 1-s chunks."""
+    session over WHISPER_STREAM_CHUNKS 1-s chunks."""
     import numpy as np
     import torch
 
@@ -2189,10 +2191,11 @@ def phase_whisper_turbo(card: str) -> dict:
     if out["warm"][2].text != out["cold"][2].text:
         raise AssertionError("turbo: warm transcription differs from cold")
 
-    # the streaming session: ten 1-s chunks, then close()
+    # the streaming session: WHISPER_STREAM_CHUNKS 1-s chunks, then close()
     sess = model.create_streaming_session(language="en")
     lat, events = [], []
-    chunks = [audio[i * 16000:(i + 1) * 16000] for i in range(10)]
+    chunks = [audio[i * 16000:(i + 1) * 16000]
+              for i in range(WHISPER_STREAM_CHUNKS)]
     for chunk in chunks + [None]:
         if chunk is None:
             sess.close()
@@ -2210,7 +2213,8 @@ def phase_whisper_turbo(card: str) -> dict:
     if not events or events[-1].kind != "final":
         raise AssertionError(f"streaming session: no final event "
                              f"({[e.kind for e in events]})")
-    log(f"[whisper] streaming session, ten 1-s chunks then close(): "
+    log(f"[whisper] streaming session, {WHISPER_STREAM_CHUNKS} 1-s chunks "
+        f"then close(): "
         f"{len(lat)} steps, p50 {lat_ms[len(lat_ms) // 2]:.2f} ms, max "
         f"{lat_ms[-1]:.2f} ms a step; {len(events)} events, the last "
         f"'final' ({len(events[-1].text)} chars) ({card})")
@@ -2326,11 +2330,12 @@ VOXTRAL_SMALL = dict(
 # CUDA against the CPU at f32: adapter frames, relative error max|a-b|/max|b|
 VOXTRAL_REL = 1e-4
 # the JAX lane's workload (bench.py:708-747): 30 s of randn * 0.1 at seed
-# 0 after a 6-s warm drive, 1-s feeds each followed by step(16), then
-# close() and step(32) until done; then an offline generate() of 20 s, a
-# length in the band where the JAX package's 32-layer bucketed encoder
-# gives NaN
-VOXTRAL_SECONDS, VOXTRAL_WARM_SECONDS, VOXTRAL_OFFLINE_SECONDS = 30, 6, 20
+# 0 (cut to 20 for phases 62-66) after a 6-s warm drive, 1-s feeds each
+# followed by step(16), then close() and step(32) until done; then an
+# offline generate() of 20 s, a length in the band where the JAX package's
+# 32-layer bucketed encoder gives NaN
+VOXTRAL_RT_SECONDS, VOXTRAL_WARM_SECONDS, VOXTRAL_OFFLINE_SECONDS = \
+    20, 6, 20
 # the published consolidated checkpoint's prefixes (voxtral_realtime.py:609)
 VOXTRAL_ENC = "mm_streams_embeddings.embedding_module.whisper_encoder"
 VOXTRAL_AD = "mm_streams_embeddings.embedding_module"
@@ -2522,8 +2527,8 @@ def phase_voxtral_full(card: str, tmp: Path) -> dict:
         f"{n_params / 1e9:.3f} B parameters drawn on the card in f32 from "
         f"seed 0 ({time.perf_counter() - t0:.2f} s)")
     e = model.config.encoder_args
-    audio = (np.random.RandomState(0).randn(VOXTRAL_SECONDS * 16000) * 0.1
-             ).astype(np.float32)
+    audio = (np.random.RandomState(0).randn(VOXTRAL_RT_SECONDS * 16000)
+             * 0.1).astype(np.float32)
 
     # one ENC_CHUNK encoder step, bf16 against f32, on the conv stem's
     # frames of the workload's first 2 s
@@ -2585,13 +2590,14 @@ def phase_voxtral_full(card: str, tmp: Path) -> dict:
     drive(VOXTRAL_WARM_SECONDS)
     warm_s = time.perf_counter() - t1
     torch.cuda.reset_peak_memory_stats()
-    lat, eot, sess = drive(VOXTRAL_SECONDS)
+    lat, eot, sess = drive(VOXTRAL_RT_SECONDS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ls = sorted(lat)
     p50, p95 = ls[len(ls) // 2], ls[min(len(ls) - 1, int(len(ls) * 0.95))]
-    xrt = VOXTRAL_SECONDS / (sum(lat) + eot)
+    xrt = VOXTRAL_RT_SECONDS / (sum(lat) + eot)
     n_tok = len(sess.generated)
-    log(f"[voxtral] realtime_stt lane: {VOXTRAL_SECONDS} x 1-s feeds, each "
+    log(f"[voxtral] realtime_stt lane: {VOXTRAL_RT_SECONDS} x 1-s feeds, "
+        f"each "
         f"then step(16), after a {VOXTRAL_WARM_SECONDS}-s warm drive "
         f"({warm_s:.2f} s): step p50 {p50 * 1e3:.2f} ms, p95 "
         f"{p95 * 1e3:.2f} ms, max {ls[-1] * 1e3:.2f} ms; EOT to final "
@@ -3048,8 +3054,9 @@ HIGGS_FRAME_LINEARS = (2, 2, 2, 1)
 # 92 from the Orpheus phases to phases 41-44, 50 and 42 until phases 58-61)
 HIGGS_PLEN, HIGGS_FRAMES, HIGGS_FPS, HIGGS_CODEC_FRAMES = 480, 32, 25, 24
 # frames of the profiled chunk (16, a whole chunk, until phases 58-61: the
-# W8A8 lane's 4,500 kernels a frame took the profiler 20 s to gather)
-HIGGS_PROFILE_FRAMES = 4
+# W8A8 lane's 4,500 kernels a frame took the profiler 20 s to gather; 4
+# until phases 62-66)
+HIGGS_PROFILE_FRAMES = 2
 HIGGS_BF16_REL = 2e-2
 # W8A8 against bf16 audio logits on the prefill's last row (per-channel
 # int8 weights and per-token int8 activations, 28 layers deep)
@@ -3702,8 +3709,8 @@ KUGEL_LONG_K = dict(
     acoustic_vae_dim=8, tie_word_embeddings=False)
 # frames of the profiled chunk (W8A8 launches about 8,600 kernels a frame;
 # the profiler's own cost grows with the events it records; 4 until phases
-# 58-61)
-KUGEL_PROFILE_FRAMES = 2
+# 58-61, 2 until phases 62-66)
+KUGEL_PROFILE_FRAMES = 1
 # phase 25: VibeVoice at ModelConfig() dims, 24 latents (48 until phases
 # 41-44 came) with the EOS
 # classifier biased off, cfg_scale 1.5 (its default); a request of one
@@ -4763,15 +4770,16 @@ SESAME_SMALL = dict(
 # CUDA against the CPU at f32 on the small configs: summation order only
 CLONE_REL = 1e-4
 # phase 28: a seeded 10-s reference clip and 120-character stand-in texts
-# (one id a character: a 512-row ICL prompt bucket); 30 frames whole and
-# streamed (50 until phases 41-44 came), 16 for the x-vector and the
-# server's voice-library request (30 until phases 58-61)
-ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 30, 16
+# (one id a character: a 512-row ICL prompt bucket); 20 frames whole and
+# streamed every 1.0 s, two chunks (50 every 2.0 s until phases 41-44
+# came, 30 until phases 62-66), 16 for the x-vector and the server's
+# voice-library request (30 until phases 58-61)
+ICL_REF_SECONDS, ICL_FRAMES, ICL_SHORT_FRAMES = 10, 20, 16
 ICL_REF_TEXT = ("This reference clip was recorded for the voice cloning "
                 "check; its words are read back as the prompt's transcript.")
 ICL_TEXT = ("The cloned voice now reads a different sentence, long enough "
             "to fill the prompt bucket the chip run is meant to measure.")
-ICL_STREAM_INTERVAL = 2.0
+ICL_STREAM_INTERVAL = 1.0
 ICL_SEED = 5
 # the Mimi reference encoder's codes on a 2-s clip, card against CPU
 ICL_CHECK_SECONDS = 2
@@ -4779,8 +4787,9 @@ ICL_CHECK_SECONDS = 2
 # (cut from 64 to 32 to keep the run's time, then to 16 for phases 41-44
 # and to 8 for phases 58-61)
 SESAME_FRAMES, SESAME_INTERVAL, SESAME_SEED = 8, 0.5, 3
-# frames under the profiler (about 9,000 kernels each)
-SESAME_PROFILE_FRAMES = 2
+# frames under the profiler (about 9,000 kernels each; 2 until phases
+# 62-66)
+SESAME_PROFILE_FRAMES = 1
 SESAME_REF_TEXT = "A ten second reference segment for the cloned voice."
 SESAME_TEXT = "Sesame reads this sentence in the reference speaker's voice."
 
@@ -5938,12 +5947,12 @@ DFN_SMALL = dict(sample_rate=16000, fft_size=96, hop_size=48, nb_erb=8,
 STS_REL = 1e-4
 MOSHI_GREEDY_STEPS = 16
 # the small Moshi's generate, CUDA against the CPU: 1,000 steps a second
-# (0.5 s until phases 58-61)
-MOSHI_SMALL_SECONDS = 0.25
+# (0.5 s until phases 58-61, 0.25 s until phases 62-66)
+MOSHI_SMALL_SECONDS = 0.125
 # phase 33: Moshi v0.1 at full width, 2 s of input (25 steps at 12.5 Hz;
 # cut from 20 s to 10 to keep the run's time, then to 6 for phases 41-44,
 # to 4 for phases 45-48 and to 2 for phases 58-61)
-MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 2, 4, 80.0
+MOSHI_SECONDS, MOSHI_PROFILE_STEPS, MOSHI_FRAME_MS = 2, 2, 80.0
 MOSHI_STEPS = int(MOSHI_SECONDS * 1000 / MOSHI_FRAME_MS)
 # the q8 model's first-step text logits against bf16's, relative Frobenius:
 # group-64 codes of 8 bits err by about 0.2% a weight, compounded over 32
@@ -6949,7 +6958,7 @@ def _orpheus_profile(model) -> tuple:
     from mlx_audio_tpu_torch.tts.models.llama import orpheus
 
     ids = model.prepare_input_ids(ORPHEUS_TEXT, voice="tara")
-    logits, caches, _ = model.prefill(ids, 2 * orpheus.CHUNK)
+    logits, caches, _ = model.prefill(ids, 2 * PROFILE_STEPS)
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(0)
     state = {"logits": logits, "caches": caches,
@@ -6960,17 +6969,17 @@ def _orpheus_profile(model) -> tuple:
     stops = torch.tensor(model.stop_ids(), device=dev)
 
     def chunk():
-        model.chunk(state, orpheus.CHUNK,
+        model.chunk(state, PROFILE_STEPS,
                     lambda lg: sample(lg, 0.6, top_p=0.8, generator=gen),
                     stops, 1.3).cpu()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     chunk()
-    wall = (time.perf_counter() - t0) * 1e3 / orpheus.CHUNK
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     rows = _device_kernels(chunk, cpu=False)
-    device = sum(_dev_us(e) for e in rows) / 1e3 / orpheus.CHUNK
-    kernels = sum(e.count for e in rows) / orpheus.CHUNK
+    device = sum(_dev_us(e) for e in rows) / 1e3 / PROFILE_STEPS
+    kernels = sum(e.count for e in rows) / PROFILE_STEPS
     if not (kernels > 0 and device > 0):
         raise AssertionError("Orpheus: the profiler saw no kernel")
     return kernels, device, wall, device / wall
@@ -6988,7 +6997,7 @@ def _orpheus_run(model, label: str, card: str, base: int) -> dict:
     from mlx_audio_tpu_torch.tts.models.llama import orpheus
 
     kw = dict(voice="tara", temperature=0.6, top_p=0.8, seed=0)
-    list(model.generate(ORPHEUS_TEXT, max_tokens=orpheus.CHUNK, **kw))
+    list(model.generate(ORPHEUS_TEXT, max_tokens=WARM_STEPS, **kw))
     steps, prefills = model.last_run["steps"], 1
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -7023,7 +7032,7 @@ def _orpheus_run(model, label: str, card: str, base: int) -> dict:
     snac_ms = (time.perf_counter() - t1) * 1e3
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     kernels, dev_ms, prof_wall, busy = _orpheus_profile(model)
-    steps, prefills = steps + 2 * orpheus.CHUNK, prefills + 1
+    steps, prefills = steps + 2 * PROFILE_STEPS, prefills + 1
     cols = run["prompt_bucket"] + ORPHEUS_TOKENS / 2
     bound = orpheus_token_bytes(model, cols) / HBM_BPS * 1e3
     audio_s = samples / model.sample_rate
@@ -7766,8 +7775,13 @@ def _sync_ms(fn, reps: int = 3) -> float:
 
 
 # decode steps a profiled chunk of the LM decodes runs (a whole 32-step
-# chunk until phases 45-48 came)
-PROFILE_STEPS = 8
+# chunk until phases 45-48 came, 8 until phases 62-66: the profiler's
+# gathering of a stretch's kernel events takes about 0.18 ms an event);
+# LFM2-Audio's profile keeps the first 8 steps of its interleaved schedule
+PROFILE_STEPS = 2
+LFM_PROFILE_STEPS = 8
+# tokens of an LM run's warm-up (a whole 32-step chunk until phases 62-66)
+WARM_STEPS = 8
 
 
 class Laps:
@@ -7799,7 +7813,7 @@ def _asr_run(model, audio, label: str, card: str, base: int) -> dict:
     from mlx_audio_tpu_torch.stt.models.qwen3_lm import DEC_CHUNK
 
     laps = Laps(f"qwen3-asr {label}")
-    model.generate(audio, language="English", max_tokens=DEC_CHUNK)
+    model.generate(audio, language="English", max_tokens=WARM_STEPS)
     laps("warm-up")
     enc_ms = _sync_ms(lambda: model.encode(audio))
     feats, n_audio = model.encode(audio)
@@ -9304,7 +9318,7 @@ def _outetts_run(model, label: str, card: str, base: int,
 
     laps = Laps(f"outetts {label}")
     kw = dict(seed=0)
-    list(model.generate(OUTE_LONG_TEXT, max_tokens=orpheus.CHUNK, **kw))
+    list(model.generate(OUTE_LONG_TEXT, max_tokens=WARM_STEPS, **kw))
     steps, prefills = model.last_run["steps"], 1
     laps("warm-up")
     torch.cuda.reset_peak_memory_stats()
@@ -10040,7 +10054,7 @@ def _fun_run(model, audio, label: str, card: str, base: int) -> dict:
                                                          prompt_bucket)
 
     laps = Laps(f"fun-asr-nano {label}")
-    model.generate(audio, max_tokens=DEC_CHUNK)
+    model.generate(audio, max_tokens=WARM_STEPS)
     laps("warm-up")
     feats, _, fake_len = model._extract_features(audio)
     enc_ms = _sync_ms(lambda: model.get_audio_embeds(feats))
@@ -11332,7 +11346,7 @@ def _lfm_run(model, audio, label: str, card: str, base: int) -> dict:
     """One interleaved chat request of LFM_TOKENS greedy steps on
     `audio`: the ms to the first text token and the first audio frame,
     ms a step p50 over the decode's chunks after the first, peak memory;
-    then the first PROFILE_STEPS decode steps from one prefill (6 text
+    then the first LFM_PROFILE_STEPS decode steps from one prefill (6 text
     steps and 2 audio frames), timed, then profiled (kernels, device ms
     and busy share a step, K2's launches a step). -> the numbers."""
     import numpy as np
@@ -11367,9 +11381,9 @@ def _lfm_run(model, audio, label: str, card: str, base: int) -> dict:
 
     def decode():
         hidden, caches, off = model._prefill(toks, feats, None, mods,
-                                             PROFILE_STEPS)
+                                             LFM_PROFILE_STEPS)
         sched = _Interleaved(c.interleaved_n_text, c.interleaved_n_audio,
-                             PROFILE_STEPS)
+                             LFM_PROFILE_STEPS)
         return hidden, caches, off, sched
 
     def steps(state):
@@ -11380,27 +11394,27 @@ def _lfm_run(model, audio, label: str, card: str, base: int) -> dict:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     steps(state)
-    wall = (time.perf_counter() - t1) * 1e3 / PROFILE_STEPS
+    wall = (time.perf_counter() - t1) * 1e3 / LFM_PROFILE_STEPS
     state = decode()
     k2 = qmm_kernel.launches
     prof = _device_kernels(lambda: steps(state), cpu=False)
-    k2_step = (qmm_kernel.launches - k2) / PROFILE_STEPS
-    dev_ms = sum(_dev_us(e) for e in prof) / 1e3 / PROFILE_STEPS
-    kernels = sum(e.count for e in prof) / PROFILE_STEPS
+    k2_step = (qmm_kernel.launches - k2) / LFM_PROFILE_STEPS
+    dev_ms = sum(_dev_us(e) for e in prof) / 1e3 / LFM_PROFILE_STEPS
+    kernels = sum(e.count for e in prof) / LFM_PROFILE_STEPS
     laps("profiled steps")
     laps.log()
     if not (kernels > 0 and dev_ms > 0):
         raise AssertionError("LFM2-Audio: the profiler saw no kernel")
     # the bytes of the profiled steps (the plan of the schedule's first
-    # PROFILE_STEPS, no token changing it), over the card's memory rate
+    # LFM_PROFILE_STEPS, no token changing it), over the card's memory rate
     text_b, audio_b = lfm_step_bytes(model, run["prompt"]
-                                     + PROFILE_STEPS / 2)
+                                     + LFM_PROFILE_STEPS / 2)
     sched = _Interleaved(c.interleaved_n_text, c.interleaved_n_audio,
-                         PROFILE_STEPS)
+                         LFM_PROFILE_STEPS)
     n_audio = sum(m == 3 for m, _ in _plan(sched, sched.initial,
-                                            PROFILE_STEPS))
-    bound = ((PROFILE_STEPS - n_audio) * text_b + n_audio * audio_b) \
-        / PROFILE_STEPS / HBM_BPS * 1e3
+                                            LFM_PROFILE_STEPS))
+    bound = ((LFM_PROFILE_STEPS - n_audio) * text_b + n_audio * audio_b) \
+        / LFM_PROFILE_STEPS / HBM_BPS * 1e3
     res = dict(first_text=run["first_text_ms"],
                first_audio=run["first_audio_ms"],
                p50=float(np.percentile(per_step, 50)),
@@ -11416,7 +11430,7 @@ def _lfm_run(model, audio, label: str, card: str, base: int) -> dict:
         f"{res['samples']} samples): first text {res['first_text']:.1f} ms, "
         f"first audio {res['first_audio']:.1f} ms, {res['p50']:.2f} ms a "
         f"step p50, {res['p95']:.2f} p95, peak {peak:.2f} GB above the "
-        f"earlier phases'; the first {PROFILE_STEPS} decode steps: "
+        f"earlier phases'; the first {LFM_PROFILE_STEPS} decode steps: "
         f"{kernels:.0f} kernels and {dev_ms:.3f} ms of device time a step "
         f"against {wall:.2f} ms of wall ({100 * res['busy']:.1f}% busy), "
         f"{k2_step:.1f} K2 launches a step; bytes a text step "
@@ -12183,7 +12197,7 @@ class K1Recorder:
                                      f"k={kk} dil={dil}: rel {rel:.3e}")
             worst = max(worst, rel)
         k.launches, k.path_launches = launches, by_path
-        log(f"[{tag}] K1 at the {len(self.cases)} shapes the turn launched it "
+        log(f"[{tag}] K1 at the {len(self.cases)} shapes the run launched it "
             f"with (B, T, C, k, dilation, path: "
             f"{sorted({(c[1], c[2], c[3], c[4], c[5]) for c in self.cases})}"
             f") against the plain version: rel <= {worst:.3e} (tol "
@@ -12475,6 +12489,762 @@ def phase_slice7b(card: str, recorder: K2Recorder) -> tuple:
     return k1_turn, k2
 
 
+# ---------------------------------------------------------------------------
+# KittenTTS, Soprano, Voxtral-4B-TTS and OmniVoice (phases 62-66)
+# ---------------------------------------------------------------------------
+
+# the JAX tests' tiny configs: tests/test_model_families.py::TestKittenTTS
+# (its TINY_VOCAB; the generator 128 channels wide, where the JAX test's
+# 16 give legs of 8 and 4, narrower than K1's 32-channel chunks),
+# tests/test_soprano.py, tests/test_voxtral_tts.py and
+# tests/test_omnivoice.py; the small OmniVoice decodes through
+# HIGGS_CODEC_SMALL (4 books of 64)
+TINY_PHONEMES = "abcdefghijklmnopqrstuvwxyz ˈˌəɹʃʒðθæɑɔɛɜɪʊʌiuAIOWY.,!?"
+KITTEN_SMALL = dict(
+    istftnet=dict(resblock_kernel_sizes=[3], upsample_rates=[4, 4],
+                  upsample_initial_channel=128,
+                  resblock_dilation_sizes=[[1, 3, 5]],
+                  upsample_kernel_sizes=[8, 8], gen_istft_n_fft=12,
+                  gen_istft_hop_size=3),
+    hidden_dim=32, max_conv_dim=24, max_dur=50, n_layer=2, n_mels=20,
+    n_token=len(TINY_PHONEMES) + 1, style_dim=16,
+    text_encoder_kernel_size=5, asr_res_dim=8,
+    plbert=dict(num_hidden_layers=2, num_attention_heads=2, hidden_size=24,
+                intermediate_size=32, max_position_embeddings=128,
+                embedding_size=12, dropout=0.0),
+    vocab={c: i + 1 for i, c in enumerate(TINY_PHONEMES)},
+    speed_priors={"carol": 1.2}, compute_dtype="float32",
+    transfer_dtype="float32")
+SOPRANO_SMALL = dict(
+    hidden_size=16, num_hidden_layers=1, intermediate_size=32,
+    num_attention_heads=2, num_key_value_heads=2, head_dim=8, vocab_size=64,
+    sample_rate=16000,
+    decoder_config=dict(decoder_num_layers=1, decoder_dim=16,
+                        decoder_intermediate_dim=32, hop_length=64,
+                        n_fft=256, upscale=4, input_kernel=1, dw_kernel=3))
+# the JAX test's Voxtral-TTS with widths group 16 divides (the q8
+# directory: the LM, the head's and the codec's linears on K2)
+VOXTRAL_TTS_SMALL = dict(
+    dim=32, n_layers=2, head_dim=8, hidden_dim=64, n_heads=4, n_kv_heads=2,
+    vocab_size=128, semantic_codebook_size=64, acoustic_codebook_size=5,
+    n_acoustic_codebook=6, num_codebooks=7, acoustic_dim=32,
+    acoustic_n_layers=1, acoustic_head_dim=8, acoustic_hidden_dim=64,
+    acoustic_n_heads=4, acoustic_n_kv_heads=2, tokenizer_dim=16,
+    tokenizer_hidden_dim=32, tokenizer_n_heads=2, tokenizer_n_kv_heads=2,
+    tokenizer_head_dim=8, tokenizer_patch_size=4,
+    tokenizer_patch_proj_kernel_size=3, tokenizer_semantic_dim=8,
+    tokenizer_acoustic_dim=6,
+    tokenizer_decoder_transformer_lengths_str="1,1",
+    tokenizer_decoder_convs_kernels_str="3,4",
+    tokenizer_decoder_convs_strides_str="1,2")
+OMNI_SMALL = dict(
+    audio_vocab_size=17, audio_mask_id=16, num_audio_codebook=4,
+    llm_config=dict(hidden_size=32, num_hidden_layers=2,
+                    num_attention_heads=4, num_key_value_heads=2,
+                    intermediate_size=64, vocab_size=200, head_dim=8))
+SLICE8A_TEXT = "This is a long enough sentence to synthesize nicely."
+SLICE8A_ATOL = 1e-4               # small configs at f32: summation order
+# KittenTTS at the JAX ModelConfig's defaults (hidden 128, FFN convs 512,
+# asr-res 64, 178 ids, style 128); the dicts they leave empty filled with
+# Kokoro-82M's istftnet and PL-BERT (tests/real_configs.py:11-31), an
+# assumption; a 125-phoneme request as phase 4's
+KITTEN_FULL = dict(hidden_dim=128, max_conv_dim=512, max_dur=50, n_layer=3,
+                   n_mels=80, n_token=178, style_dim=128,
+                   text_encoder_kernel_size=5, asr_res_dim=64)
+# Soprano-1.1-80M at the JAX defaults (a Qwen3 LM 512 x 12, 4,096 ids;
+# Vocos 768 x 8, n_fft 2,048, hop 512, 32 kHz); 64 greedy tokens, the
+# [STOP] (pad) row zeroed so that the loop runs to its limit
+SOPRANO_TOKENS, SOPRANO_STOP = 64, 2
+# Voxtral-4B-TTS at the JAX defaults (a llama 3,072 x 26, 131,072 ids; an
+# acoustic head 3 x 3,072; the codec decoder 1,024 x 8 layers); one chunk
+# of 25 frames (2 s), the end-audio row of the semantic head zeroed
+VOXTRAL_TTS_FRAMES, VOXTRAL_TTS_STEP_FRAMES = 25, 8
+VOXTRAL_TTS_PROMPT = 64
+VOXTRAL_TTS_BF16_REL, VOXTRAL_TTS_Q8_REL = 5e-2, 1e-1
+# OmniVoice at the JAX defaults (a Qwen3 backbone 1,024 x 28, 151,676 ids,
+# 8 codebooks of 1,025) over the Higgs codec at CodecConfig(): one 10-s
+# request (250 target tokens, 32 steps, guidance 2.0) and a batch of 4
+OMNI_SECONDS, OMNI_STEPS, OMNI_BATCH = 10.0, 32, (2.0, 4.0, 6.0, 8.0)
+
+
+class SopranoTok:
+    """A stand-in Soprano tokenizer (tests/test_soprano.py's _FakeTok at
+    any vocabulary): each character an id below the vocabulary, the pad
+    id the stop."""
+
+    pad_token_id = SOPRANO_STOP
+
+    def __init__(self, vocab: int = 64, cap: int = 40):
+        self.vocab, self.cap = vocab, cap
+
+    def encode(self, text, add_special_tokens=False):
+        return [min(ord(c), self.vocab - 1) for c in text][:self.cap]
+
+
+class SpeechTok:
+    """A stand-in Voxtral-TTS tokenizer (tests/test_voxtral_tts.py's
+    FakeSpeechTok): BOS, characters, then `audio` AUDIO tokens and
+    BEGIN_AUDIO."""
+
+    def __init__(self, text_ids: int = 20, audio: int = 3):
+        self.text_ids, self.audio = text_ids, audio
+
+    def encode_speech(self, text, voice):
+        return ([1] + [5 + (ord(c) % 40) for c in text][:self.text_ids]
+                + [24] * self.audio + [25])
+
+
+class OmniTok:
+    """A stand-in OmniVoice text tokenizer (tests/test_omnivoice.py's
+    FakeTok): `tok(text).input_ids`, each character an id."""
+
+    class _R:
+        def __init__(self, ids):
+            self.input_ids = ids
+
+    def __init__(self, cap: int = 64):
+        self.cap = cap
+
+    def __call__(self, text, add_special_tokens=False, **kw):
+        return self._R([3 + (ord(c) % 40) for c in text][:self.cap])
+
+
+def write_slice8a_checkpoint(model, path: Path, config: dict,
+                             model_type: str, quantization=None,
+                             torch_layout: bool = False) -> None:
+    """`model` as a directory of its family: config.json (a `quantization`
+    entry quantizes the linears at load) and npz weights: the port's
+    torch-layout state (KittenTTS, as Kokoro's published checkpoint), else
+    the JAX tree (`model.jax_params`), which the family's `sanitize`
+    reads."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.model import jax_params
+
+    path.mkdir(parents=True, exist_ok=True)
+    cfg = dict(config, model_type=model_type)
+    if quantization:
+        cfg.update(quantization)
+    (path / "config.json").write_text(json.dumps(cfg))
+    state = model.state_dict() if torch_layout else jax_params(model)
+    np.savez(path / "model.npz", **{k: v.float().cpu().numpy()
+                                    for k, v in state.items()})
+
+
+def _numpy_frame_draws(model, seed: int):
+    """`model` drawing Voxtral-TTS's frame noise from numpy (one
+    RandomState per request), so that the card and the CPU draw the
+    same."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    model._draws = lambda generator: torch.from_numpy(rng.randn(
+        1, model.config.n_acoustic_codebook).astype(np.float32)).to(
+        model.device)
+    return model
+
+
+def _numpy_uniforms(model, seed: int):
+    """`model` drawing OmniVoice's Gumbel uniforms from numpy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    model._draws = lambda shape, generator: torch.from_numpy(
+        rng.rand(*shape).astype(np.float32)).to(model.device)
+    return model
+
+
+def _close(tag: str, a, b, atol: float = SLICE8A_ATOL) -> float:
+    """max |a - b| over max(1, max |b|) (a random generator's audio can
+    reach 1e6), within `atol`. -> that error."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise AssertionError(f"{tag}: shapes {a.shape} vs {b.shape}")
+    err = float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max())) \
+        if a.size else 0.0
+    if err > atol:
+        raise AssertionError(f"{tag}: max |diff| {err:.3e} of the peak")
+    return err
+
+
+def phase_slice8a_reference(tmp: Path) -> tuple:
+    """Phase 62: the small configs at f32 from one seeded weight set, each
+    through `load_model` on a written directory, the card against the CPU:
+    KittenTTS's synth (the generator's noise off) and a voices.npz request;
+    Soprano's greedy tokens and audio; Voxtral-TTS's frames (numpy draws)
+    and audio, whole and streamed; OmniVoice's revealed codes (numpy
+    uniforms) and audio through its `audio_tokenizer/` Higgs codec; then
+    a q8 Voxtral-TTS directory at group 16 on K2 against the same model
+    through the plain version and against the CPU. -> (K1's, K2's
+    launches, as the counters read them)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch import load_model as route
+    from mlx_audio_tpu_torch.codec.models.higgs_audio import Model as Codec
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.tts import utils as tts_utils
+    from mlx_audio_tpu_torch.tts.models import (kitten_tts, omnivoice,
+                                                soprano, voxtral_tts)
+
+    t0 = time.perf_counter()
+    k1, k2 = snake_conv_kernel.launches, qmm_kernel.launches
+    notes = []
+
+    def write(name, module, cfg, model_type, **kw):
+        d = tmp / name
+        src = module.Model(cfg, device="cpu").init_params(seed=0)
+        write_slice8a_checkpoint(src, d, cfg, model_type, **kw)
+        return d
+
+    def pair(d):
+        """The directory through the TTS loader on the CPU and the
+        top-level router on the card."""
+        return tts_utils.load_model(d, device="cpu"), route(d, device=DEVICE)
+
+    # KittenTTS: a voices.npz beside npz weights
+    d = write("kitten-small", kitten_tts, KITTEN_SMALL, "kitten",
+              torch_layout=True)
+    np.savez(d / "voices.npz", carol=np.random.RandomState(62).randn(
+        1, 32).astype(np.float32))
+    kc, kg = pair(d)
+    ps = "hɛlO wɜɹld"
+    ref = np.random.RandomState(1).randn(1, 32).astype(np.float32) * 0.1
+    a = kg(ps, ref, deterministic_noise=True)[0]
+    b = kc(ps, ref, deterministic_noise=True)[0]
+    e_kit = _close("KittenTTS synth", a, b)
+    res = list(kg.generate("Hello world.", voice="carol"))
+    if not (len(res) == 1 and res[0].samples > 0
+            and np.isfinite(res[0].audio).all()):
+        raise AssertionError("KittenTTS generate on the card")
+    notes.append(f"KittenTTS synth {e_kit:.1e} (K1 on the card)")
+    # Soprano
+    sc, sg = pair(write("soprano-1.1-small", soprano, SOPRANO_SMALL,
+                        "soprano"))
+    outs = []
+    for m in (sc, sg):
+        m._tokenizer, m._stop_token_id = SopranoTok(), None
+        outs.append((list(m.generate(SLICE8A_TEXT, max_tokens=40,
+                                     temperature=0.0))[0],
+                     dict(m.last_run)))
+    (rc, runc), (rg, rung) = outs
+    if runc != rung or rc.token_count != rg.token_count:
+        raise AssertionError(f"Soprano tokens: {runc} vs {rung}")
+    e_sop = _close("Soprano audio", rg.audio, rc.audio)
+    notes.append(f"Soprano {rg.token_count} greedy tokens equal, audio "
+                 f"{e_sop:.1e}")
+    # Voxtral-TTS
+    vc, vg = pair(write("voxtral-tts-small", voxtral_tts,
+                        VOXTRAL_TTS_SMALL, "voxtral_tts"))
+    errs, frames = [], []
+    for stream in (False, True):
+        got = []
+        for m in (vc, vg):
+            m.tokenizer = SpeechTok()
+            _numpy_frame_draws(m, 62)
+            rs = list(m.generate("hello there", max_tokens=30, seed=0,
+                                 stream=stream, streaming_interval=0.8))
+            got.append((np.concatenate([r.audio for r in rs]),
+                        m.last_run["frames"]))
+        if got[0][1] != got[1][1]:
+            raise AssertionError(f"Voxtral-TTS frames {got}")
+        frames.append(got[1][1])
+        errs.append(_close("Voxtral-TTS audio", got[1][0], got[0][0]))
+    notes.append(f"Voxtral-TTS {frames[0]} frames equal, audio whole "
+                 f"{errs[0]:.1e}, streamed {errs[1]:.1e}")
+    # q8 Voxtral-TTS on K2
+    d8 = tmp / "voxtral-tts-q8"
+    write_slice8a_checkpoint(vc, d8, VOXTRAL_TTS_SMALL, "voxtral_tts",
+                             {"quantization": {"group_size": 16,
+                                               "bits": 8}})
+    q8 = tts_utils.load_model(d8, device=DEVICE)
+    qc = tts_utils.load_model(d8, device="cpu")
+    held = sum(isinstance(m, QuantizedLinear) for m in q8.modules())
+    res = []
+    for m, ctx in ((q8, None), (q8, K2AsReference), (qc, None)):
+        m.tokenizer = SpeechTok()
+        _numpy_frame_draws(m, 63)
+        before = qmm_kernel.launches
+        if ctx is None:
+            out = list(m.generate("hello there", max_tokens=12, seed=0))[0]
+        else:
+            with ctx():
+                out = list(m.generate("hello there", max_tokens=12,
+                                      seed=0))[0]
+        res.append((out.audio, m.last_run["frames"],
+                    qmm_kernel.launches - before))
+    if not (held == 2 * 7 + 1 * 7 + 2 + 2 * 7 and res[0][2] > 0
+            and res[1][2] == 0 and res[0][1] == res[1][1] == res[2][1]):
+        raise AssertionError(f"q8 Voxtral-TTS: {held} quantized linears, "
+                             f"{[r[1:] for r in res]}")
+    e_ref = _close("q8 Voxtral-TTS vs plain", res[0][0], res[1][0])
+    e_cpu = _close("q8 Voxtral-TTS vs CPU", res[0][0], res[2][0])
+    notes.append(f"q8 Voxtral-TTS: {held} linears on K2 ({res[0][2]} "
+                 f"launches over {res[0][1]} frames), against the plain "
+                 f"version {e_ref:.1e}, the CPU {e_cpu:.1e}")
+    # OmniVoice, with its Higgs codec in audio_tokenizer/
+    d = write("omnivoice-small", omnivoice, OMNI_SMALL, "omnivoice")
+    codec = Codec(HIGGS_CODEC_SMALL, device="cpu").init_params(seed=1)
+    (d / "audio_tokenizer").mkdir()
+    (d / "audio_tokenizer" / "config.json").write_text(json.dumps(
+        dict(HIGGS_CODEC_SMALL, model_type="higgs_audio_v2_tokenizer")))
+    np.savez(d / "audio_tokenizer" / "model.npz",
+             **{k: v.numpy() for k, v in codec.state_dict().items()})
+    oc, og = pair(d)
+    outs = []
+    for m in (oc, og):
+        m.text_tokenizer = OmniTok()
+        _numpy_uniforms(m, 64)
+        outs.append(m.generate_batch(["hello world", "two words here"],
+                                     duration_s=[0.4, 0.8], num_steps=4,
+                                     class_temperature=1.0, seed=0))
+    errs = [_close("OmniVoice audio", g.audio, c.audio)
+            for g, c in zip(outs[1], outs[0])]
+    notes.append(f"OmniVoice a batch of 2 ({[r.token_count for r in outs[1]]}"
+                 f" tokens), audio {max(errs):.1e}")
+    log(f"[slice8a small] small configs through load_model on the card "
+        f"against the CPU: {'; '.join(notes)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return snake_conv_kernel.launches - k1, qmm_kernel.launches - k2
+
+
+def phase_kitten_full(card: str) -> int:
+    """Phase 63: KittenTTS at KITTEN_FULL with Kokoro-82M's istftnet and
+    PL-BERT, seeded on the card, bf16 decoder: a warm-up, then phase 4's
+    125-phoneme text (126 with the period KittenTTS adds) through
+    `generate` (wall, xRT, K1's launches and path), every leg K1
+    ran held against the plain version at the model's own shapes
+    (`K1Recorder`). -> K1's launches in the request."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.tts.models.kitten_tts import Model, ModelConfig
+
+    t0 = time.perf_counter()
+    kok = kokoro_config()
+    cfg = ModelConfig(**KITTEN_FULL, istftnet=kok.istftnet,
+                      plbert=kok.plbert, vocab=kok.vocab)
+    model = Model(cfg, device=DEVICE).init_params(seed=0)
+    model._voices = {"carol": (np.random.RandomState(63).randn(1, 256)
+                               * 0.1).astype(np.float32)}
+    list(model.generate(TEXTS[0], voice="carol"))
+    torch.cuda.synchronize()
+    before = snake_conv_kernel.launches
+    paths = dict(snake_conv_kernel.path_launches)
+    with K1Recorder() as rec:
+        res, wall = _sync_s(lambda: list(model.generate(TEXTS[2],
+                                                        voice="carol")))
+    launches = snake_conv_kernel.launches - before
+    (r,) = res
+    audio, n_ps = r.audio, r.token_count
+    by_path = {p: n - paths.get(p, 0)
+               for p, n in snake_conv_kernel.path_launches.items()
+               if n != paths.get(p, 0)}
+    audio_s = len(audio) / model.sample_rate
+    if not (np.isfinite(audio).all() and len(audio) > 0 and n_ps >= 120
+            and launches == 48 and by_path == {"wgmma": 48}):
+        raise AssertionError(f"KittenTTS: {launches} K1 launches "
+                             f"{by_path}, {len(audio)} samples")
+    rel = rec.hold("kitten")
+    log(f"[kitten] KittenTTS (hidden 128, decoder 512 / res 64, Kokoro-82M's "
+        f"generator and PL-BERT; {model.num_params():,} params, decoder "
+        f"bf16): {n_ps} phonemes -> {audio_s:.2f} s of audio in "
+        f"{wall * 1e3:.1f} ms (xRT {audio_s / wall:.1f}), K1 {launches} "
+        f"launches {by_path}, held against the plain version at rel "
+        f"<= {rel:.3e} ({card})")
+    del model
+    log(f"[time] phase 63 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_soprano_full(card: str) -> None:
+    """Phase 64: Soprano-1.1-80M at the JAX defaults, seeded on the card in
+    f32 then bf16, the stop row zeroed: a warm-up, then SOPRANO_TOKENS
+    greedy tokens (ms a token p50/p95 over the chunks, the vocoder's ms,
+    xRT), two decode steps profiled (kernels and device ms a token)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.soprano import Model
+    from mlx_audio_tpu_torch.tts.models.soprano.soprano import (
+        Decode, decode_hidden)
+
+    t0 = time.perf_counter()
+    model = Model(device=DEVICE).init_params(seed=0, on_device=True)
+    with torch.no_grad():
+        model.language_model.embed_tokens.weight[SOPRANO_STOP] = 0.0
+    model.astype(torch.bfloat16)
+    model._tokenizer = SopranoTok(model.config.vocab_size, cap=200)
+    model._stop_token_id = SOPRANO_STOP
+    text = ", ".join([SLICE8A_TEXT[:-1]] * 3) + "."
+    list(model.generate(text, max_tokens=8, temperature=0.0))
+    torch.cuda.synchronize()
+    res, wall = _sync_s(lambda: list(model.generate(
+        text, max_tokens=SOPRANO_TOKENS, temperature=0.0)))
+    run = dict(model.last_run)
+    (r,) = res
+    if not (r.token_count == SOPRANO_TOKENS and np.isfinite(r.audio).all()):
+        raise AssertionError(f"Soprano: {run}, {r.token_count} tokens")
+    dec = Decode(model, 0.0, 1.0, SOPRANO_STOP)
+    ids = model._tokenizer.encode(model.preprocess_text(text)[0])
+    state = dec.start(ids, 64, 0)
+    per_tok = [1e3 * _sync_s(lambda: dec.chunk(state, 16))[1] / 16
+               for _ in range(2)]
+    dev = model.device
+    rows = torch.randn(1, SOPRANO_TOKENS + 1, model.config.hidden_size,
+                       device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        voc = _time_ms(lambda: decode_hidden(model, rows), 3)
+    kern, dev_ms, step_ms, busy = _profile_steps(
+        lambda: dec.chunk(state, 2), 2)
+    audio_s = r.samples / model.sample_rate
+    log(f"[soprano] Soprano-1.1-80M ({model.num_params():,} params, bf16): "
+        f"{SOPRANO_TOKENS} greedy tokens ({run['prompt_len']}-token prompt, "
+        f"{run['chunks']} chunks) -> {audio_s:.2f} s of audio in "
+        f"{wall:.3f} s (xRT {audio_s / wall:.2f}); ms a token over 16-step "
+        f"chunks {np.percentile(per_tok, 50):.2f} p50, "
+        f"{np.percentile(per_tok, 95):.2f} p95; the vocoder (Vocos 768 x 8, "
+        f"ISTFT n_fft 2,048 hop 512) on {SOPRANO_TOKENS + 1} rows "
+        f"{voc:.2f} ms; profiled steps: {kern:.0f} kernels and "
+        f"{dev_ms:.3f} ms of device time a token against {step_ms:.2f} ms "
+        f"({100 * busy:.1f}% busy) ({card})")
+    del model, state
+    log(f"[time] phase 64 in {time.perf_counter() - t0:.1f} s")
+
+
+def voxtral_tts_frame_bound(model, cols: int) -> tuple:
+    """The least time one frame could take, B = 1: its bytes (the LM's
+    weights once, the acoustic head's linears once an Euler step (7), the
+    semantic head once, the 37 codebook rows, the K/V of `cols` cache
+    columns) over 3.35 TB/s, against its operations over 989 TFLOP/s.
+    -> (ms, "bytes" or "operations", GB)."""
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+
+    cfg = model.config
+
+    def weight_bytes(mods):
+        return sum(v.numel() * v.element_size() for m in mods
+                   for v in list(m.parameters(recurse=False))
+                   + list(m.buffers(recurse=False)))
+
+    lm = [m for n, m in model.language_model.named_modules()
+          if "embed_tokens" not in n]
+    head = model.acoustic_transformer
+    sem = [head.semantic_codebook_output]
+    rest = [m for m in head.modules() if m is not sem[0]]
+    steps = cfg.n_denoising_steps - 1
+    dt = model.language_model.model.embed_tokens.weight.element_size()
+    nbytes = (weight_bytes(lm) + steps * weight_bytes(rest)
+              + weight_bytes(sem) + cfg.num_codebooks * cfg.dim * dt
+              + 2 * cfg.n_layers * cols * cfg.n_kv_heads * cfg.head_dim * dt)
+    lin = [m for m in model.modules()
+           if isinstance(m, QuantizedLinear) or type(m).__name__ == "Linear"]
+    ops = 0.0
+    for m in lin:
+        rows = 6 if any(m is x for x in rest) else 1
+        n, k = (m.w_q.shape if isinstance(m, QuantizedLinear)
+                else m.weight.shape)
+        if any(m is x for x in lm) or any(m is x for x in head.modules()):
+            ops += 2 * rows * n * k * (steps if rows == 6 else 1)
+    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_BF16 * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes / 1e9)
+
+
+def _voxtral_tts_run(model, label: str, card: str, base: int,
+                     recorder) -> dict:
+    """A 4-frame warm-up; one request of VOXTRAL_TTS_FRAMES frames (one
+    chunk: wall, xRT, peak); VOXTRAL_TTS_STEP_FRAMES single-frame chunks
+    (ms a frame p50/p95, each with its read); the codec decode of the
+    request's frames (ms); a chunk of two frames profiled (kernels, device
+    ms, busy share a frame); K2's launches a frame by path. -> the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+
+    laps = Laps(f"voxtral-tts {label}")
+    text = " ".join([SLICE8A_TEXT] * 2)
+    list(model.generate(text, max_tokens=4, seed=0))
+    laps("warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    k2 = qmm_kernel.launches
+    with recorder:
+        paths0 = dict(recorder.paths)
+        res, wall = _sync_s(lambda: list(model.generate(
+            text, max_tokens=VOXTRAL_TTS_FRAMES, seed=1)))
+        paths = {p: n - paths0.get(p, 0) for p, n in recorder.paths.items()
+                 if n != paths0.get(p, 0)}
+    k2 = qmm_kernel.launches - k2
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    run = dict(model.last_run)
+    (r,) = res
+    spf = model.config.samples_per_frame
+    if not (run["frames"] == VOXTRAL_TTS_FRAMES and r.samples ==
+            VOXTRAL_TTS_FRAMES * spf and np.isfinite(r.audio).all()):
+        raise AssertionError(f"Voxtral-TTS {label}: {run}")
+    laps("the request")
+    ids = np.asarray(model._encode_text(text, "casual_male"))
+    state = model.start(model._build_input_embeddings(ids, "casual_male"),
+                        VOXTRAL_TTS_STEP_FRAMES + 8, 2)
+    per_frame = [1e3 * _sync_s(lambda: model.chunk(state, 1))[1]
+                 for _ in range(VOXTRAL_TTS_STEP_FRAMES)]
+    codes = np.full((VOXTRAL_TTS_FRAMES, model.config.num_codebooks), 3)
+    codec_ms = _time_ms(lambda: model.decode_audio_codes(codes), 3)
+    kern, dev_ms, step_ms, busy = _profile_steps(
+        lambda: model.chunk(state, 2), 2)
+    laps("frames timed, codec timed, a 2-frame chunk profiled")
+    cols = run["prompt_len"] + 1 + VOXTRAL_TTS_FRAMES / 2
+    bound, by, gb = voxtral_tts_frame_bound(model, int(cols))
+    out = dict(wall=wall, xrt=r.samples / model.sample_rate / wall,
+               p50=float(np.percentile(per_frame, 50)),
+               p95=float(np.percentile(per_frame, 95)), codec_ms=codec_ms,
+               kernels=kern, dev_ms=dev_ms, busy=busy, bound=bound, by=by,
+               gb=gb, peak=peak, k2=k2, paths=paths)
+    log(f"[voxtral-tts] {label}: {VOXTRAL_TTS_FRAMES} frames "
+        f"({run['prompt_len']}-token prompt, {run['chunks']} chunk) -> "
+        f"{r.samples / model.sample_rate:.2f} s of audio in {wall:.3f} s "
+        f"(xRT {out['xrt']:.3f}); single-frame chunks "
+        f"{out['p50']:.2f} ms a frame p50, {out['p95']:.2f} p95 (the frame "
+        f"is 80 ms); a profiled chunk of 2 frames: {kern:.0f} kernels, "
+        f"{dev_ms:.3f} ms of device time a frame against {step_ms:.2f} ms "
+        f"({100 * busy:.1f}% busy); "
+        f"bound {bound:.3f} ms a frame ({by}: {gb:.3f} GB), "
+        f"{100 * bound / out['p50']:.1f}% of it reached at p50; the codec "
+        f"decode of {VOXTRAL_TTS_FRAMES} frames {codec_ms:.2f} ms; K2 "
+        f"{k2} launches ({k2 / VOXTRAL_TTS_FRAMES:.1f} a frame, by path "
+        f"{paths}); peak {peak:.2f} GB above the earlier phases' ({card})")
+    laps.log()
+    return out
+
+
+def phase_voxtral_tts_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 65: Voxtral-4B-TTS at the JAX defaults, seeded on the card in
+    bf16, the semantic head's end-audio row zeroed: bf16 against f32 on
+    the acoustic head's Euler state of one frame; the request in bf16
+    (`_voxtral_tts_run`); then every Linear the group divides, but those
+    named like a table, quantized to q8 on K2: the run again, K2's
+    launches a frame against the config's (7 Euler steps x the head's 23
+    plus the LM's 182), q8 against bf16 on the same Euler state. -> K2's
+    launches, as its counter read them."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.tts.models.voxtral_tts import Model
+    from mlx_audio_tpu_torch.tts.models.voxtral_tts.voxtral_tts import \
+        acoustic_levels
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t0 = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = Model(device=DEVICE)
+    head = model.acoustic_transformer
+    model.astype(torch.bfloat16)
+    model.init_params(seed=0, on_device=True)
+    cfg = model.config
+    with torch.no_grad():
+        head.semantic_codebook_output.weight[1] = 0.0
+    model.tokenizer = SpeechTok(text_ids=VOXTRAL_TTS_PROMPT - 5)
+    log(f"[voxtral-tts] Voxtral-4B-TTS at the JAX defaults (llama 3,072 x "
+        f"26, acoustic head 3 x 3,072, codec decoder 1,024 x 8): "
+        f"{model.num_params():,} params drawn on the card in bf16 from seed "
+        f"0 in {time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=DEVICE).manual_seed(65)
+    h = torch.randn(1, cfg.dim, generator=g, device=DEVICE)
+    noise = torch.randn(1, cfg.n_acoustic_codebook, generator=g,
+                        device=DEVICE)
+    with torch.inference_mode():
+        x16 = acoustic_levels(head, cfg, h.to(torch.bfloat16), noise)
+        head.float()
+        x32 = acoustic_levels(head, cfg, h, noise)
+        head.to(torch.bfloat16)
+    rel = rel_err(x16, x32)
+    if not rel < VOXTRAL_TTS_BF16_REL:
+        raise AssertionError(f"Voxtral-TTS bf16 vs f32: {rel:.3e}")
+    bf16 = _voxtral_tts_run(model, "bf16", card, base, recorder)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 Voxtral-TTS launched K1 or K2")
+    t1 = time.perf_counter()
+    apply_quantization(model, {"quantization": {"group_size": MLX_GROUP,
+                                                "bits": 8}})
+    torch.cuda.empty_cache()
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    lm_q = 7 * cfg.n_layers
+    head_q = 7 * cfg.acoustic_n_layers + 2
+    want = cfg.n_denoising_steps - 1
+    want = want * head_q + lm_q
+    with torch.inference_mode():
+        xq = acoustic_levels(head, cfg, h.to(torch.bfloat16), noise)
+    relq = rel_err(xq, x16)
+    qmm_kernel.launches = 0
+    q8 = _voxtral_tts_run(model, "q8 (K2)", card, base, recorder)
+    k2 = qmm_kernel.launches
+    codec_q = 7 * sum(cfg.decoder_tf_lengths)
+    # the prefill's and the AUDIO step's LM passes, each frame's head and
+    # (but the last's) LM step, the codec decode's layers
+    request = 2 * lm_q + VOXTRAL_TTS_FRAMES * want - lm_q + codec_q
+    per_frame = want
+    if not (held == lm_q + head_q + codec_q and relq < VOXTRAL_TTS_Q8_REL
+            and q8["k2"] == request):
+        raise AssertionError(f"q8 Voxtral-TTS: {held} quantized linears, "
+                             f"{q8['k2']} K2 launches in the request (want "
+                             f"{request}: {want} a frame), q8 vs bf16 "
+                             f"{relq:.3e}")
+    log(f"[voxtral-tts] q8 (group {MLX_GROUP}, {held} linears on K2 in "
+        f"{time.perf_counter() - t1:.2f} s; input_projection and the two "
+        f"codebook heads dense) against bf16 on this card: "
+        f"{q8['p50']:.2f} vs {bf16['p50']:.2f} ms a frame p50, "
+        f"{q8['p95']:.2f} vs {bf16['p95']:.2f} p95, xRT {q8['xrt']:.3f} vs "
+        f"{bf16['xrt']:.3f}, {q8['kernels']:.0f} vs {bf16['kernels']:.0f} "
+        f"kernels and {q8['dev_ms']:.3f} vs {bf16['dev_ms']:.3f} ms of device "
+        f"time a frame, bound {q8['bound']:.3f} vs {bf16['bound']:.3f} ms, "
+        f"peak {q8['peak']:.2f} vs {bf16['peak']:.2f} GB; K2 {per_frame} "
+        f"launches a frame (7 x {head_q} + {lm_q}; {request} in the "
+        f"request with its prefill and codec), {k2} in all; "
+        f"the Euler state q8 vs bf16 rel {relq:.3e}, bf16 vs f32 {rel:.3e} "
+        f"(limits {VOXTRAL_TTS_Q8_REL:g}, {VOXTRAL_TTS_BF16_REL:g}) ({card})")
+    if snake_conv_kernel.launches != before[0]:
+        raise AssertionError("Voxtral-TTS launched K1")
+    del model, head
+    torch.cuda.empty_cache()
+    log(f"[time] phase 65 in {time.perf_counter() - t0:.1f} s")
+    return k2
+
+
+def omni_step_bound(model, rows: int, u: int) -> tuple:
+    """The least time one unmask step could take, B = 1: its operations
+    (each backbone linear's 2 M out in at the conditional pass's `rows`
+    and the unconditional one's `u`, the attention's products, the 8
+    heads at the 2 u target rows) over 989 TFLOP/s, against its bytes
+    (the backbone's and heads' weights twice, once a pass) over 3.35 TB/s.
+    -> (ms, "operations" or "bytes", TFLOP)."""
+    bc = model.config.backbone_config
+    lin = sum(m.weight.numel() for n, m in model.backbone.named_modules()
+              if type(m).__name__ == "Linear")
+    heads = sum(m.weight.numel() for m in model.audio_heads.modules()
+                if type(m).__name__ == "Linear")
+    ops = 2 * lin * (rows + u) + 2 * heads * 2 * u
+    ops += bc.num_hidden_layers * 4 * (rows * rows + u * u) * \
+        bc.num_attention_heads * bc.head_dim
+    dt = model.backbone.embed_tokens.weight.element_size()
+    nbytes = 2 * (lin + heads) * dt
+    by_ops, by_bytes = ops / PEAK_BF16 * 1e3, nbytes / HBM_BPS * 1e3
+    return (max(by_ops, by_bytes),
+            "operations" if by_ops >= by_bytes else "bytes", ops / 1e12)
+
+
+def phase_omnivoice_full(card: str) -> None:
+    """Phase 66: OmniVoice at the JAX defaults seeded on the card in bf16,
+    over the Higgs codec at CodecConfig() dims (f32): one request of
+    OMNI_SECONDS (250 target tokens, 32 steps, guidance 2.0: wall, xRT,
+    ms a step, the codec's ms), one step profiled (kernels, device ms,
+    busy share) against its bound; a batch of 4 mixed lengths (wall,
+    xRT)."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.codec.models.higgs_audio import Model as Codec
+    from mlx_audio_tpu_torch.tts.models.omnivoice import Model
+
+    t0 = time.perf_counter()
+    model = Model(device=DEVICE)
+    model.astype(torch.bfloat16)
+    model.init_params(seed=0, on_device=True)
+    model.audio_tokenizer = Codec(device=DEVICE).init_params(
+        seed=1, on_device=True)
+    model.text_tokenizer = OmniTok(cap=400)
+    text = " ".join([SLICE8A_TEXT] * 3)
+    model.generate_batch([text], duration_s=1.0, num_steps=2)
+    torch.cuda.synchronize()
+    (r,), wall = _sync_s(lambda: model.generate_batch(
+        [text], duration_s=OMNI_SECONDS, num_steps=OMNI_STEPS, seed=0))
+    run = dict(model.last_run)
+    if not (r.token_count == 250 and np.isfinite(r.audio).all()
+            and len(r.audio) == r.samples):
+        raise AssertionError(f"OmniVoice: {run}, {r.token_count} tokens, "
+                             f"{len(r.audio)} samples")
+    codes = np.zeros((250, 8), np.int64)
+    codec_ms = _time_ms(lambda: model.audio_tokenizer.decode(codes), 3)
+    # one step, profiled: both passes at the request's rows
+    rows = run["L"]
+    dev = model.device
+    ids = torch.full((1, rows, 8), model.config.audio_mask_id,
+                     dtype=torch.long, device=dev)
+    ids[0, :rows - 250] = 5
+    cond = torch.zeros((1, rows), dtype=torch.bool, device=dev)
+    cond[0, rows - 250:] = True
+    args = (ids, cond, torch.tensor([rows], device=dev),
+            torch.tensor([rows - 250], device=dev),
+            torch.tensor([250], device=dev),
+            torch.tensor([[250 * 8]], device=dev), 250, 2.0, 0.0, 5.0, 5.0,
+            torch.Generator(device=dev).manual_seed(0))
+    kern, dev_ms, step_ms, busy = _profile_steps(
+        lambda: model.unmask(*args), 1)
+    bound, by, tflop = omni_step_bound(model, rows, 250)
+    res, bwall = _sync_s(lambda: model.generate_batch(
+        [text] * len(OMNI_BATCH), duration_s=list(OMNI_BATCH),
+        num_steps=OMNI_STEPS, seed=1))
+    brun = dict(model.last_run)
+    if not [x.token_count for x in res] == [50, 100, 150, 200]:
+        raise AssertionError(f"OmniVoice batch: {brun}")
+    b_audio = sum(x.samples for x in res) / model.sample_rate
+    log(f"[omnivoice] OmniVoice (backbone 1,024 x 28, 8 codebooks of "
+        f"1,025; {model.num_params():,} params bf16; Higgs codec at "
+        f"CodecConfig() f32): {OMNI_SECONDS:g} s ({run['L']} rows, 250 "
+        f"target tokens, {OMNI_STEPS} steps, guidance 2.0) in {wall:.3f} s "
+        f"(xRT {OMNI_SECONDS / wall:.2f}), {1e3 * wall / OMNI_STEPS:.2f} ms "
+        f"a step with the codec's share; the codec decode of 250 frames "
+        f"{codec_ms:.2f} ms; one profiled step: {kern:.0f} kernels, "
+        f"{dev_ms:.3f} ms of device time against {step_ms:.2f} ms "
+        f"({100 * busy:.1f}% busy), bound {bound:.3f} ms ({by}: "
+        f"{tflop:.3f} TFLOP), {100 * bound / step_ms:.1f}% of it reached; a "
+        f"batch of {len(OMNI_BATCH)} ({[x.token_count for x in res]} target "
+        f"tokens, {brun['L']} rows padded and masked): {b_audio:.1f} s of "
+        f"audio in {bwall:.3f} s (xRT {b_audio / bwall:.2f}) ({card})")
+    del model
+    log(f"[time] phase 66 in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_slice8a(card: str, recorder: K2Recorder) -> tuple:
+    """Phases 62-66; K1 only on the KittenTTS models, K2 only on the q8
+    Voxtral-TTS models. -> (K1's launches, K2's launches)."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        k1, k2 = phase_slice8a_reference(Path(tmp))
+    torch.cuda.empty_cache()
+    k1 += phase_kitten_full(card)
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    phase_soprano_full(card)
+    torch.cuda.empty_cache()
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("Soprano launched K1 or K2")
+    k2 += phase_voxtral_tts_full(card, recorder)
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    phase_omnivoice_full(card)
+    torch.cuda.empty_cache()
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("OmniVoice launched K1 or K2")
+    log(f"[time] phases 62-66 in {time.perf_counter() - t0:.1f} s; K1 {k1} "
+        f"launches (the KittenTTS models), K2 {k2}")
+    return k1, k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -12645,6 +13415,13 @@ def main() -> int:
     k1_launches += k1_turn
     k2_launches += k2_sam
     log(f"[time] phases 1-61 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # KittenTTS (K1 on its generator's legs), Soprano, Voxtral-4B-TTS (K2
+    # on the q8 models) and OmniVoice
+    k1_kit, k2_vox = phase_slice8a(card, recorder)
+    k1_launches += k1_kit
+    k2_launches += k2_vox
+    log(f"[time] phases 1-66 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

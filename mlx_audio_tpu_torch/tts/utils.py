@@ -1,7 +1,11 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
 checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS,
-Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM, Orpheus, VyvoTTS), dense,
-pre-quantized (MLX-packed) or written by the convert CLI.
+Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM, Orpheus, VyvoTTS,
+OuteTTS, Pocket-TTS, KittenTTS, Soprano, Voxtral-4B-TTS, OmniVoice), dense,
+pre-quantized (MLX-packed) or written by the convert CLI. A family whose
+`Model.SANITIZE_GIVES_JAX_TREE` is set maps a checkpoint onto the JAX
+package's tree (as the JAX package's `sanitize` does), which
+`model.load_jax_params` binds.
 
 `MODEL_REMAPPING` is the JAX package's registry of TTS model types, kept
 whole so that a type the port does not have yet is named as such; the
@@ -92,7 +96,8 @@ MODEL_REMAPPING = {
 }
 # families of MODEL_REMAPPING's values that the port has
 PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice",
-          "sesame", "llama", "qwen3", "outetts", "pocket_tts")
+          "sesame", "llama", "qwen3", "outetts", "pocket_tts", "kitten_tts",
+          "soprano", "voxtral_tts", "omnivoice")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",
@@ -140,9 +145,14 @@ def _load_family(family: str, path: Path, config: dict, device,
                  weights: dict):
     import importlib
 
+    from ..model import load_jax_params
+
     module = importlib.import_module(f".models.{family}", __package__)
     model = module.Model(module.ModelConfig.from_dict(config), device=device)
-    bind_checkpoint(model, config, weights)
+    bind_checkpoint(model, config, weights,
+                    bind=(lambda w: load_jax_params(model, w))
+                    if getattr(model, "SANITIZE_GIVES_JAX_TREE", False)
+                    else None)
     post_load_hook = getattr(module.Model, "post_load_hook", None)
     return model if post_load_hook is None else post_load_hook(model, path)
 

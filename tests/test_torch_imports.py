@@ -1329,6 +1329,113 @@ def test_g2p_copy_matches_the_jax_package(text):
     assert g2p(text) == jax_g2p(text)
 
 
+SLICE8A_SOURCES = (
+    "mlx_audio_tpu_torch/tts/models/kitten_tts/kitten_tts.py",
+    "mlx_audio_tpu_torch/tts/models/soprano/soprano.py",
+    "mlx_audio_tpu_torch/tts/models/soprano/text.py",
+    "mlx_audio_tpu_torch/tts/models/voxtral_tts/voxtral_tts.py",
+    "mlx_audio_tpu_torch/tts/models/voxtral_tts/text_preprocess.py",
+    "mlx_audio_tpu_torch/tts/models/omnivoice/omnivoice.py",
+    "mlx_audio_tpu_torch/tts/models/omnivoice/duration.py",
+    "mlx_audio_tpu_torch/tts/models/omnivoice/utils.py")
+
+
+@pytest.mark.parametrize("path", SLICE8A_SOURCES)
+def test_slice8a_modules_are_checked_statically(path):
+    """KittenTTS, Soprano, Voxtral-4B-TTS and OmniVoice, the pure-Python
+    text copies among them, are among the sources whose imports
+    `test_source_imports_nothing_of_jax` checks."""
+    assert path in PORT_SOURCES
+
+
+@pytest.mark.parametrize("name,text", [
+    ("soprano.text.clean_text", "Dr. Smith paid $5.50 on the 3rd!!"),
+    ("soprano.text.clean_text", "21 items"),
+    ("voxtral_tts.text_preprocess.sanitize_tts_input_text_for_demo",
+     "# Title\n- a [x](http://u)"),
+    ("voxtral_tts.text_preprocess.verbalize_currency", "$1.50"),
+    ("voxtral_tts.text_preprocess.verbalize_number", "1985"),
+    ("omnivoice.omnivoice.combine_text", "你 好"),
+    ("omnivoice.duration.RuleDurationEstimator", "你好世界" * 8)])
+def test_slice8a_text_copies_equal_jax(name, text):
+    """The slice's pure-Python copies give their originals' outputs on the
+    JAX tests' strings (tests/test_soprano.py, test_voxtral_tts.py,
+    test_omnivoice.py)."""
+    import importlib
+
+    mod, attr = name.rsplit(".", 1)
+    got, want = (getattr(importlib.import_module(
+        f"{pkg}.tts.models.{mod}"), attr)
+        for pkg in ("mlx_audio_tpu_torch", "mlx_audio_tpu"))
+    if attr == "RuleDurationEstimator":
+        got = got().estimate_duration(text, "Nice to meet you.", 25)
+        want = want().estimate_duration(text, "Nice to meet you.", 25)
+        assert got == want > 0
+    else:
+        assert got(text) == want(text)
+
+
+def test_tiny_slice8a_families_without_jax(tmp_path):
+    """On the CPU at a tiny size, with no jax in sys.modules: chip_smoke.py
+    phase 62's small KittenTTS, Soprano, q8 Voxtral-TTS (group 16) and
+    OmniVoice (its Higgs codec in audio_tokenizer/) through the top-level
+    `load_model` on written directories, each generating finite audio."""
+    out = _run("""
+        import json, sys
+        from pathlib import Path
+        import numpy as np
+        import mlx_audio_tpu_torch
+        from mlx_audio_tpu_torch.codec.models.higgs_audio import Model as Codec
+        from mlx_audio_tpu_torch.nn import QuantizedLinear
+        from mlx_audio_tpu_torch.tts.models import (kitten_tts, omnivoice,
+                                                    soprano, voxtral_tts)
+        from chip_smoke import (HIGGS_CODEC_SMALL, KITTEN_SMALL, OMNI_SMALL,
+                                SOPRANO_SMALL, VOXTRAL_TTS_SMALL, OmniTok,
+                                SopranoTok, SpeechTok,
+                                write_slice8a_checkpoint)
+
+        tmp = Path(%r)
+        load = lambda d: mlx_audio_tpu_torch.load_model(d, device="cpu")
+        for name, mod, cfg, kind, kw in (
+                ("kitten", kitten_tts, KITTEN_SMALL, "kitten",
+                 {"torch_layout": True}),
+                ("soprano", soprano, SOPRANO_SMALL, "soprano", {}),
+                ("vox", voxtral_tts, VOXTRAL_TTS_SMALL, "voxtral_tts",
+                 {"quantization": {"quantization": {"group_size": 16,
+                                                    "bits": 8}}}),
+                ("omni", omnivoice, OMNI_SMALL, "omnivoice", {})):
+            write_slice8a_checkpoint(mod.Model(cfg, device="cpu")
+                                     .init_params(seed=0), tmp / name, cfg,
+                                     kind, **kw)
+        np.savez(tmp / "kitten" / "voices.npz",
+                 carol=np.ones((1, 32), np.float32) * 0.1)
+        (tmp / "omni" / "audio_tokenizer").mkdir()
+        (tmp / "omni" / "audio_tokenizer" / "config.json").write_text(
+            json.dumps(HIGGS_CODEC_SMALL))
+        np.savez(tmp / "omni" / "audio_tokenizer" / "model.npz",
+                 **{k: v.numpy() for k, v in Codec(
+                     HIGGS_CODEC_SMALL, device="cpu").init_params(
+                     seed=1).state_dict().items()})
+        out = []
+        kit = load(tmp / "kitten")
+        out += list(kit.generate("Hello world.", voice="carol"))
+        sop = load(tmp / "soprano")
+        sop._tokenizer, sop._stop_token_id = SopranoTok(), None
+        out += list(sop.generate("A long enough sentence to speak aloud.",
+                                 max_tokens=8, temperature=0.0))
+        vox = load(tmp / "vox")
+        assert any(isinstance(m, QuantizedLinear) for m in vox.modules())
+        vox.tokenizer = SpeechTok()
+        out += list(vox.generate("hello there", max_tokens=6))
+        omni = load(tmp / "omni")
+        omni.text_tokenizer = OmniTok()
+        out += list(omni.generate("hello", duration_s=0.4, num_steps=2))
+        assert all(r.audio.size and np.isfinite(r.audio).all() for r in out)
+        print(len(out), "jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "4 False []", out
+
+
 def _entry_points():
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import convert, server
@@ -1388,6 +1495,15 @@ def _entry_points():
     last_stt["sam_audio.Model"] = (sam_audio.Model.__init__,
                                    lambda p: sam_audio.Model())
     last_stt["dacvae.Model"] = (dacvae.Model.__init__, lambda p: dacvae.Model())
+    from mlx_audio_tpu_torch.tts.models import (kitten_tts, omnivoice, soprano,
+                                                voxtral_tts)
+
+    for m in (soprano, voxtral_tts, omnivoice):
+        last_stt[f"{m.__name__.rsplit('.', 1)[-1]}.Model"] = (
+            m.Model.__init__, lambda p, m=m: m.Model(m.ModelConfig()))
+    last_stt["kitten_tts.Model"] = (
+        kitten_tts.Model.__init__,
+        lambda p: kitten_tts.Model(kitten_tts.ModelConfig()))
     last_stt["stt.eval.run_stt_wer_eval"] = (
         runner.run_stt_wer_eval,
         lambda p: runner.run_stt_wer_eval(str(p), [], p.parent / "out",
@@ -1567,7 +1683,9 @@ def _entry_points():
                                   "lfm_audio.LFM2AudioProcessor."
                                   "from_pretrained", "sam_audio.Model",
                                   "dacvae.Model",
-                                  "stt.eval.run_stt_wer_eval"])
+                                  "stt.eval.run_stt_wer_eval",
+                                  "kitten_tts.Model", "soprano.Model",
+                                  "voxtral_tts.Model", "omnivoice.Model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

@@ -235,15 +235,18 @@ def test_llm_stt_families_reach_their_loaders(tmp_path, model_type, family):
 def test_voxtral_type_is_tts_in_the_router_and_stt_in_its_loader(tmp_path):
     """model_type "voxtral" is a TTS key too (Voxtral TTS), which JAX's
     router reads first: the top-level router sends it to the TTS loader,
-    which names the family it lacks, as JAX's does; the STT loader takes
-    it as offline Voxtral, ported now."""
+    where it is Voxtral-4B-TTS (ported now), which finds no weights, as
+    JAX's loader does; the STT loader takes it as offline Voxtral."""
     from mlx_audio_tpu.utils import get_model_category as jax_category
     from mlx_audio_tpu_torch import load_model
     from mlx_audio_tpu_torch.stt import utils as stt_utils
+    from mlx_audio_tpu_torch.tts import utils as tts_utils
 
     d = _config_only(tmp_path / "ckpt", model_type="voxtral")
     assert jax_category("voxtral", []) == "tts"
-    with pytest.raises(ValueError, match="voxtral_tts"):
+    assert tts_utils.MODEL_REMAPPING["voxtral"] == "voxtral_tts" \
+        and "voxtral_tts" in tts_utils.PORTED
+    with pytest.raises(FileNotFoundError, match="No weight files"):
         load_model(d, device="cpu")
     assert "voxtral" in stt_utils.PORTED
     with pytest.raises(FileNotFoundError, match="No weight files"):
@@ -345,8 +348,8 @@ def test_wav2vec2_checkpoint_routes_by_its_name(name, want):
 def test_unported_category_and_family_are_named(tmp_path):
     from mlx_audio_tpu_torch import load_model
 
-    tts = _config_only(tmp_path / "a", model_type="soprano")
-    with pytest.raises(ValueError, match="'soprano'.*not ported"):
+    tts = _config_only(tmp_path / "a", model_type="tada")
+    with pytest.raises(ValueError, match="'tada'.*not ported"):
         load_model(tts, device="cpu")
     lid = _write_ecapa(tmp_path / "b")
     assert type(load_model(lid, device="cpu")).__module__.endswith(

@@ -114,12 +114,12 @@ def test_raw_kyutai_config_is_inferred_as_moshi(tmp_path):
 
 @pytest.mark.parametrize("model_type,family", [
     ("sam_audio", "sam_audio"), ("lfm_audio", "lfm_audio"),
-    ("mossformer2", "mossformer2_se"), ("kitten_tts", "kitten_tts")])
+    ("mossformer2", "mossformer2_se"), ("zonos2", "zonos2")])
 def test_unported_sts_family_is_named(tmp_path, model_type, family):
     """No STS family is left unported: SAM-Audio, MossFormer2 and
     LFM2-Audio resolve to `sam_audio`, `mossformer2_se` and `lfm_audio`,
     and a config-only directory reaches that loader, which finds no
-    weights. A family the port still lacks (kitten_tts, a TTS family) is
+    weights. A family the port still lacks (zonos2, a TTS family) is
     named through the router."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch.sts import utils
@@ -210,7 +210,7 @@ def test_cli_passes_on_only_what_generate_takes(monkeypatch, tmp_path):
 def test_separation_through_the_server(checkpoints):
     """POST /v1/audio/separations with a Mel-Band-RoFormer directory: 200,
     the target equal to separate() of the same WAV and the residual the
-    input less it; a directory of a family the port lacks (kitten_tts)
+    input less it; a directory of a family the port lacks (zonos2)
     answers 404 with the STS loader's message."""
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import audio_io
@@ -221,10 +221,10 @@ def test_separation_through_the_server(checkpoints):
     buf = io.BytesIO()
     audio_io.write(buf, stereo.T, 8000)
     wav = buf.getvalue()
-    unported = path.parent / "kitten-tts-tiny"
+    unported = path.parent / "zonos2-tiny"
     unported.mkdir(exist_ok=True)
     (unported / "config.json").write_text(json.dumps(
-        {"model_type": "kitten_tts"}))
+        {"model_type": "zonos2"}))
 
     async def go():
         server = AudioServer(device="cpu")
@@ -249,5 +249,5 @@ def test_separation_through_the_server(checkpoints):
         ok.json["residual"])), dtype="float32")
     np.testing.assert_allclose(residual, x - want.vocals.T, atol=1e-4)
     assert missing.status == 404
-    assert "'kitten_tts'" in missing.json["error"] \
+    assert "'zonos2'" in missing.json["error"] \
         and "not ported" in missing.json["error"]
