@@ -618,6 +618,14 @@ the CUDA toolkit. Phases, each of which raises on failure:
    Fun-ASR-Nano models; their shapes join phase 8's final check, their
    launches the `kernels` line.
 
+Phases 53-66 (the last STT families, Smart Turn, Sortformer, LFM2-Audio,
+DACVAE, SAM-Audio, the voice pipeline, the WER CLI, KittenTTS, Soprano,
+Voxtral-4B-TTS, OmniVoice) are described by their functions' docstrings,
+and so are phases 67-70: TADA and MOSS-TTS's small configs through
+`load_model`, the card against the CPU (with q8 directories on K2);
+TADA-1B in bf16 and q8 (K2); MOSS-TTS's delay layout at the JAX defaults
+in bf16 and q8 (K2), and its v1.5 local layout in bf16.
+
 The last two lines of stdout are a JSON line about the kernels and the
 result line {"ok": true, "device": {...}}. Any failure exits non-zero
 before either is printed.
@@ -625,6 +633,7 @@ before either is printed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -13245,6 +13254,841 @@ def phase_slice8a(card: str, recorder: K2Recorder) -> tuple:
     return k1, k2
 
 
+# ---------------------------------------------------------------------------
+# TADA and MOSS-TTS (phases 67-70)
+# ---------------------------------------------------------------------------
+
+# the JAX tests' tiny configs: tests/test_tada.py, and tests/test_moss_tts.py's
+# three layouts with the pad code at 24, inside their 25-row channel tables
+TADA_SMALL = dict(
+    vocab_size=300, hidden_size=32, num_hidden_layers=2,
+    num_attention_heads=4, num_key_value_heads=2, head_dim=8,
+    intermediate_size=64, acoustic_dim=16, num_time_classes=16,
+    shift_acoustic=2, head_layers=2, head_ffn_ratio=2.0,
+    decoder_hidden_dim=24, decoder_d_model=4, decoder_embed_dim=16,
+    decoder_strides=[2, 2], decoder_num_attn_layers=1,
+    decoder_num_attn_heads=4, decoder_attn_dim_feedforward=48,
+    encoder_hidden_dim=24, encoder_embed_dim=16, encoder_strides=[2, 2],
+    encoder_num_attn_layers=1, encoder_num_attn_heads=4,
+    encoder_attn_dim_feedforward=48)
+MOSS_LANG_SMALL = dict(vocab_size=151700, hidden_size=32,
+                       intermediate_size=64, num_hidden_layers=2,
+                       num_attention_heads=4, num_key_value_heads=2,
+                       head_dim=8)
+_MOSS_TTS_BASE = dict(language_config=MOSS_LANG_SMALL, n_vq=4,
+                  audio_vocab_size=24, audio_pad_token_id=24)
+MOSS_TTS_SMALL = {
+    "delay": dict(_MOSS_TTS_BASE, model_type="moss_tts_delay"),
+    "v15": dict(_MOSS_TTS_BASE, model_type="moss_tts_local",
+                audio_codebook_sizes=[24] * 4,
+                gpt2_config=dict(vocab_size=64, n_embd=32, n_layer=1,
+                                 n_head=4, n_inner=64)),
+    "legacy": dict(_MOSS_TTS_BASE, model_type="moss_tts",
+                   additional_mlp_ffn_hidden_size=48,
+                   local_ffn_hidden_size=48, local_hidden_size=32,
+                   local_num_layers=1),
+}
+# TADA-1B at the JAX ModelConfig's defaults (Llama-3.2-1B: 2,048 x 16,
+# GQA 32/8, 128,256 ids; a head of 6 x 2,048; a codec decoder 1,024 wide,
+# strides [4, 4, 5, 6], 24 kHz): one request of TADA_STEPS steps, 20 flow
+# steps, CFG 1.6; the head's `final.linear` given a bias whose duration
+# outputs gray-code TADA_FRAMES frames a token (random weights give up
+# to 255, 5 s a token)
+TADA_STEPS, TADA_FM, TADA_CFG, TADA_FRAMES = 48, 20, 1.6, 6
+TADA_TIMED_STEPS = 4
+TADA_BF16_REL, TADA_Q8_REL = 5e-2, 1e-1
+TADA_TEXT = ("TADA speaks this sentence on the card, one latent a text "
+             "token, with durations between them.")
+# MOSS-TTS at the JAX defaults: Qwen3LMConfig() (2,048 x 28, GQA 16/8,
+# FFN 6,144, 151,936 ids, untied), 32 channels of 1,025 codes; the text
+# head given a bias that starts the audio and keeps its slot token, so the
+# decode stays in audio; the v1.5 GPT-2 one layer at the LM's width
+# (16 heads, n_inner 8,192: assumed dims)
+MOSS_FRAMES, MOSS_V15_FRAMES, MOSS_TIMED_FRAMES = 48, 24, 4
+MOSS_GPT2 = dict(n_embd=2048, n_head=16, n_inner=8192)
+MOSS_TEXT = "MOSS speaks this sentence on the card."
+MOSS_Q8_REL = 1e-1
+SLICE8B_ATOL = 1e-4               # small configs at f32: summation order
+
+
+class TadaTok:
+    """A stand-in TADA tokenizer: tests/test_tada.py's Tok (ids below 300)
+    for the small config, Llama-3's special ids for the full one; each
+    character one id."""
+
+    def __init__(self, small: bool):
+        self.small = small
+        self.bos_token_id = 1 if small else 128000
+        self.ids = ({"<|eot_id|>": 5, "<|start_header_id|>": 6,
+                     "<|end_header_id|>": 7, "<|finetune_right_pad_id|>": 8}
+                    if small else
+                    {"<|eot_id|>": 128009, "<|start_header_id|>": 128006,
+                     "<|end_header_id|>": 128007,
+                     "<|finetune_right_pad_id|>": 128004})
+
+    def encode(self, s, **kwargs):
+        return [10 + (ord(c) % 200) if self.small else 1000 + ord(c) % 5000
+                for c in s]
+
+    def convert_tokens_to_ids(self, t):
+        return self.ids.get(t, 9 if self.small else 128002)
+
+
+class MossTok:
+    """A stand-in MOSS-TTS tokenizer (tests/test_moss_tts.py's CharTok):
+    the MOSS special tokens by name, each other character one id."""
+
+    SPECIALS = {151643: "<pad>", 151644: "<|im_start|>", 151645: "<|im_end|>",
+                151652: "<audio_start>", 151653: "<audio_end>",
+                151654: "<u_slot>", 151656: "<a_slot>", 151662: "<d_slot>"}
+
+    def convert_ids_to_tokens(self, i):
+        return self.SPECIALS.get(i, f"<{i}>")
+
+    def encode(self, s, **kwargs):
+        rev = {v: k for k, v in self.SPECIALS.items()}
+        ids, i = [], 0
+        while i < len(s):
+            for tok_str, tid in rev.items():
+                if s.startswith(tok_str, i):
+                    ids.append(tid)
+                    i += len(tok_str)
+                    break
+            else:
+                ids.append(100 + (ord(s[i]) % 200))
+                i += 1
+        return ids
+
+
+class MossCodec:
+    """A stand-in MOSS audio tokenizer (the MOSS codec is not ported): codes
+    of an audio's 1,920-sample frames, and a sine a frame for codes."""
+
+    spf = 1920
+
+    def encode_audio(self, audio, sample_rate=None, num_quantizers=32):
+        import numpy as np
+
+        a = np.asarray(audio, np.float32).reshape(-1)
+        n = max(1, len(a) // self.spf)
+        x = np.resize(a, n * self.spf).reshape(n, self.spf)
+        return (np.abs(x[:, :7 * num_quantizers:7]) * 997).astype(
+            np.int64) % 24
+
+    def decode_audio_codes(self, codes, num_quantizers=32):
+        import numpy as np
+
+        c = np.asarray(codes, np.int64)
+        t = np.arange(self.spf)
+        return np.concatenate([0.1 * np.sin(t * 1e-3 * (1 + r.sum()))
+                               for r in c]).astype(np.float32)
+
+
+def write_slice8b_checkpoint(model, path: Path, config: dict,
+                             model_type: str, quantization=None) -> None:
+    """`model` as a directory of its family: config.json (a `quantization`
+    entry quantizes the linears at load) and the JAX tree in npz, a v1.5
+    MOSS-TTS's channel tables under their upstream per-channel names (its
+    `sanitize` stacks them)."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch.model import jax_params
+
+    path.mkdir(parents=True, exist_ok=True)
+    cfg = dict(config, model_type=model_type)
+    if quantization:
+        cfg.update(quantization)
+    (path / "config.json").write_text(json.dumps(cfg))
+    state = {k: v.float().cpu().numpy() for k, v in jax_params(model).items()}
+    if model_type == "moss_tts_local":
+        n_vq = model.config.n_vq
+        for name in ("audio_embeddings", "audio_lm_heads"):
+            w = state.pop(f"{name}.weight")
+            v = w.shape[0] // n_vq
+            state.update({f"{name}.{c}.weight": w[v * c:v * (c + 1)]
+                          for c in range(n_vq)})
+    np.savez(path / "model.npz", **state)
+
+
+def _tada_bias(model, frames: int, scale: float = 8.0):
+    """`final.linear` of TADA's head given a bias whose duration outputs
+    gray-code `frames` before and after each token (the acoustic outputs
+    0), `scale` over the latent's noise and velocity."""
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.tada.tada import int_to_gray_bits
+
+    cfg = model.config
+    lin = model.prediction_head.final.linear
+    dev = model.device
+    bits = int_to_gray_bits(frames, cfg.num_time_bits) * 2
+    b = torch.zeros(cfg.latent_size, device=dev)
+    b[cfg.acoustic_dim:] = torch.tensor(bits, device=dev) * scale
+    lin.bias = torch.nn.Parameter(b, requires_grad=False)
+    return model
+
+
+def _numpy_tada_draws(model, seed: int):
+    """`model` drawing TADA's step noise from numpy (one RandomState a
+    model), so that the card and the CPU draw the same."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    model._draws = lambda generator: torch.from_numpy(rng.randn(
+        1, model.config.latent_size).astype(np.float32)).to(model.device)
+    return model
+
+
+def _numpy_gumbel(model, seed: int):
+    """`model` drawing MOSS-TTS's Gumbel noise from numpy."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    model._gumbel = lambda kind, shape, generator: torch.from_numpy(
+        -np.log(-np.log(np.clip(rng.rand(*shape), 1e-20, 1.0))).astype(
+            np.float32)).to(model.device)
+    return model
+
+
+def _moss_text_bias(model, start: float, slot: float):
+    """MOSS-TTS's text head given a bias: `start` on <audio_start> (the
+    delay decode enters the audio at its first frame) and `slot` on the
+    generation slot token (it stays there: the v1.5 frame keeps choosing
+    it)."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+
+    cfg = model.config
+    lin = model.text_lm_head
+    b = torch.zeros(cfg.language_config.vocab_size, device=model.device)
+    b[cfg.audio_start_token_id] = start
+    b[cfg.audio_assistant_gen_slot_token_id] = slot
+    if isinstance(lin, QuantizedLinear):
+        lin.bias = b
+    else:
+        lin.bias = torch.nn.Parameter(b, requires_grad=False)
+    return model
+
+
+def phase_slice8b_reference(tmp: Path) -> int:
+    """Phase 67: the small configs at f32 from one seeded weight set, each
+    through `load_model` on a written directory, the card against the CPU:
+    TADA's zero-shot and cloned requests (numpy draws; the head's duration
+    bias of `_tada_bias`, the same codec encoder on both); MOSS-TTS's
+    three layouts: greedy and sampled (numpy Gumbel draws) continuations
+    through `generate` with the stand-in codec, the v1.5 one streamed too
+    (its text head's slot row biased by `_moss_text_bias`, so that its
+    frames go on);
+    then q8 directories at group 16 (TADA; MOSS-TTS delay and v1.5, whose
+    per-channel head rows run on K2) on K2 against the same model through
+    the plain version and against the CPU. -> K2's launches."""
+    import numpy as np
+
+    from mlx_audio_tpu_torch import load_model as route
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.tts import utils as tts_utils
+    from mlx_audio_tpu_torch.tts.models import moss_tts, tada
+    from mlx_audio_tpu_torch.tts.models.tada.tada import CodecEncoder
+
+    t0 = time.perf_counter()
+    k2 = qmm_kernel.launches
+    notes = []
+    ref = np.random.RandomState(67).randn(4800).astype(np.float32) * 0.1
+
+    def tada_out(m, **kw):
+        m._tokenizer = TadaTok(small=True)
+        _numpy_tada_draws(_tada_bias(m, 3), 67)
+        r = list(m.generate("hello there card", max_tokens=24,
+                            num_flow_matching_steps=4, **kw))[0]
+        return r, dict(m.last_run)
+
+    def check_tada(mc, mg, tag, **kw):
+        (rc, runc), (rg, rung) = tada_out(mc, **kw), tada_out(mg, **kw)
+        if rc.samples != rg.samples or runc["latent_rows"] != \
+                rung["latent_rows"]:
+            raise AssertionError(f"{tag}: {runc} vs {rung}")
+        return _close(tag, rg.audio, rc.audio, SLICE8B_ATOL), rung
+
+    d = tmp / "tada-small"
+    write_slice8b_checkpoint(tada.Model(TADA_SMALL, device="cpu")
+                             .init_params(seed=0), d, TADA_SMALL, "tada")
+    tc, tg = tts_utils.load_model(d, device="cpu"), route(d, device=DEVICE)
+    enc = tc.init_encoder_params(seed=1)
+    tg.set_encoder(CodecEncoder(tc.config, device=DEVICE))
+    tg.encoder.load_state_dict(enc.state_dict())
+    e_zero, run = check_tada(tc, tg, "TADA zero-shot")
+    e_clone, _ = check_tada(tc, tg, "TADA cloned", ref_audio=ref,
+                            ref_text="prev words")
+    notes.append(f"TADA {run['steps']} steps, {run['latent_rows']} latent "
+                 f"rows equal, audio zero-shot {e_zero:.1e}, cloned "
+                 f"{e_clone:.1e}")
+
+    codes = np.random.RandomState(68).randint(0, 24, size=(6, 4))
+
+    def moss_pair(layout, quantization=None):
+        d = tmp / f"moss-{layout}{'-q8' if quantization else ''}"
+        src = moss_tts.Model(MOSS_TTS_SMALL[layout], device="cpu").init_params(
+            seed=0)
+        write_slice8b_checkpoint(src, d, MOSS_TTS_SMALL[layout],
+                                 MOSS_TTS_SMALL[layout]["model_type"],
+                                 quantization)
+        out = []
+        for dev in ("cpu", DEVICE):
+            m = tts_utils.load_model(d, device=dev)
+            m.tokenizer, m.audio_tokenizer = MossTok(), MossCodec()
+            if layout == "v15":
+                _moss_text_bias(m, 0.0, 3.0)
+            out.append(m)
+        return out
+
+    def moss_audio(m, sampled: bool, stream: bool = False):
+        kw = dict(max_tokens=12, mode="continuation",
+                  prompt_audio_codes=codes, seed=0)
+        if not sampled:
+            kw.update(text_temperature=0.0, audio_temperature=0.0,
+                      do_sample=False)
+        else:
+            _numpy_gumbel(m, 68)
+        rs = list(m.generate("hello", stream=stream, **kw))
+        return np.concatenate([r.audio for r in rs]), \
+            [r.token_count for r in rs], dict(m.last_run)
+
+    for layout in ("delay", "v15", "legacy"):
+        mc, mg = moss_pair(layout)
+        runs = []
+        for sampled, stream in ((False, False), (True, False)) + (
+                ((False, True),) if layout == "v15" else ()):
+            (ac, nc, rc), (ag, ng, rg) = (moss_audio(m, sampled, stream)
+                                          for m in (mc, mg))
+            if nc != ng or rc["frames"] != rg["frames"] or \
+                    not np.array_equal(ac, ag):
+                raise AssertionError(f"MOSS-TTS {layout} sampled={sampled} "
+                                     f"stream={stream}: {rc} vs {rg}")
+            runs.append(f"{rg['frames']}{'s' if sampled else ''}"
+                        f"{' streamed' if stream else ''}")
+        notes.append(f"MOSS-TTS {layout} frames {', '.join(runs)} equal")
+
+    # q8 on K2
+    q = {"quantization": {"group_size": 16, "bits": 8}}
+    d8 = tmp / "tada-q8"
+    write_slice8b_checkpoint(tada.Model(TADA_SMALL, device="cpu")
+                             .init_params(seed=0), d8, TADA_SMALL, "tada", q)
+    tq, tqc = tts_utils.load_model(d8, device=DEVICE), \
+        tts_utils.load_model(d8, device="cpu")
+    held = sum(isinstance(m, QuantizedLinear) for m in tq.modules())
+    res = []
+    for m, ctx in ((tq, None), (tq, K2AsReference), (tqc, None)):
+        before = qmm_kernel.launches
+        with (ctx() if ctx else contextlib.nullcontext()):
+            r, run = tada_out(m)
+        res.append((r.audio, run["latent_rows"],
+                    qmm_kernel.launches - before))
+    if not (res[0][2] > 0 and res[1][2] == 0
+            and res[0][1] == res[1][1] == res[2][1]):
+        raise AssertionError(f"q8 TADA: {[r[1:] for r in res]}")
+    e_ref = _close("q8 TADA vs plain", res[0][0], res[1][0], SLICE8B_ATOL)
+    e_cpu = _close("q8 TADA vs CPU", res[0][0], res[2][0], SLICE8B_ATOL)
+    notes.append(f"q8 TADA: {held} linears on K2 ({res[0][2]} launches), "
+                 f"against the plain version {e_ref:.1e}, the CPU "
+                 f"{e_cpu:.1e}")
+    for layout in ("delay", "v15"):
+        mc, mg = moss_pair(layout, q)
+        held = sum(isinstance(m, QuantizedLinear) for m in mg.modules())
+        res = []
+        for m, ctx in ((mg, None), (mg, K2AsReference), (mc, None)):
+            before = qmm_kernel.launches
+            with (ctx() if ctx else contextlib.nullcontext()):
+                a, n, run = moss_audio(m, False)
+            res.append((a, run["frames"], qmm_kernel.launches - before))
+        if not (res[0][2] > 0 and res[1][2] == 0
+                and res[0][1] == res[1][1] == res[2][1]
+                and np.array_equal(res[0][0], res[1][0])
+                and np.array_equal(res[0][0], res[2][0])):
+            raise AssertionError(f"q8 MOSS-TTS {layout}: "
+                                 f"{[r[1:] for r in res]}")
+        notes.append(f"q8 MOSS-TTS {layout}: {held} linears on K2 "
+                     f"({res[0][2]} launches over {res[0][1]} frames), "
+                     f"frames equal to the plain version's and the CPU's")
+    log(f"[slice8b small] small configs through load_model on the card "
+        f"against the CPU: {'; '.join(notes)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return qmm_kernel.launches - k2
+
+
+def tada_step_bound(model, cols: int) -> tuple:
+    """The least time one TADA step could take (batch 2 under CFG): its
+    bytes (the llama's linears once, `acoustic_proj`, `cond_proj` and the
+    adaLN linears once, the head's other linears once an Euler step, the
+    five embedding rows of both streams, the K/V of `cols` cache columns)
+    over 3.35 TB/s, against its operations (2 M N K over those products:
+    M = 2 rows, 2 x flow steps for the adaLN) over 989 TFLOP/s.
+    -> (ms, "bytes" or "operations", GB)."""
+    cfg = model.config
+    p = model.prediction_head
+    steps = TADA_FM
+
+    def wbytes(mods):
+        return sum(v.numel() * v.element_size() for m in mods
+                   for v in list(m.parameters(recurse=False))
+                   + list(m.buffers(recurse=False)))
+
+    def lin(mods):
+        return [m for m in mods if hasattr(m, "in_features")]
+
+    llama = lin(m for n, m in model.model.named_modules()
+                if "embed_tokens" not in n)
+    once = lin([model.acoustic_proj, p.cond_proj, p.final.adaLN]
+               + [blk.adaLN for blk in p.layers.values()])
+    each = lin([p.noisy_images_proj, p.final.linear]
+               + [m for blk in p.layers.values()
+                  for m in blk.ffn.modules()])
+    dt = model.model.embed_tokens.weight.element_size()
+    lc = model.__dict__["_lm"].config
+    nbytes = (wbytes(llama) + wbytes(once) + steps * wbytes(each)
+              + 2 * 5 * cfg.hidden_size * dt
+              + 2 * 2 * lc.num_hidden_layers * cols
+              * lc.num_key_value_heads * lc.resolved_head_dim * dt)
+
+    def flops(mods, rows):
+        return sum(2 * rows * m.in_features
+                   * (m.w_q.shape[0] if hasattr(m, "w_q")
+                      else m.weight.shape[0]) for m in mods)
+
+    ops = (flops(llama, 2) + flops([model.acoustic_proj, p.cond_proj], 2)
+           + flops(once[2:], 2 * steps) + steps * flops(each, 2))
+    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_BF16 * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes / 1e9)
+
+
+def _tada_run(model, label: str, card: str, base: int, recorder) -> dict:
+    """A warm-up; one request of TADA_STEPS steps (wall, xRT, peak, K2's
+    launches by path); TADA_TIMED_STEPS steps timed one by one (ms a step
+    p50/p95); the codec decode of the request's latent rows (ms); one step
+    profiled (kernels, device ms, busy share); the step's bound. -> the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.tts.models.llama.llama import init_caches
+
+    laps = Laps(f"tada {label}")
+    kw = dict(num_flow_matching_steps=TADA_FM, acoustic_cfg_scale=TADA_CFG)
+    list(model.generate(TADA_TEXT, max_tokens=6, **kw))
+    laps("warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    k2 = qmm_kernel.launches
+    with recorder:
+        paths0 = dict(recorder.paths)
+        (r,), wall = _sync_s(lambda: list(model.generate(
+            TADA_TEXT, max_tokens=TADA_STEPS, seed=1, **kw)))
+        paths = {p: n - paths0.get(p, 0) for p, n in recorder.paths.items()
+                 if n != paths0.get(p, 0)}
+    k2 = qmm_kernel.launches - k2
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    run = dict(model.last_run)
+    if not (run["steps"] == TADA_STEPS and r.samples > 0
+            and np.isfinite(r.audio).all()):
+        raise AssertionError(f"TADA {label}: {run}, {r.samples} samples")
+    laps("the request")
+    dev = model.device
+    lc = model.__dict__["_lm"].config
+    plan = model.flow_plan(TADA_FM, TADA_CFG, 1.0, "cosine", "logsnr")
+    caches = init_caches(lc, 2, TADA_STEPS + TADA_TIMED_STEPS + 4,
+                         dtype=model.model.embed_tokens.weight.dtype,
+                         device=dev)
+    ids = torch.tensor([[1000], [128004]], device=dev)
+    ac = torch.zeros((1, 1, model.config.acoustic_dim), device=dev)
+    one = torch.ones((1, 1), dtype=torch.long, device=dev)
+    noise = torch.randn((1, model.config.latent_size), device=dev)
+
+    def step(i):
+        with torch.inference_mode():
+            return model.step(caches, i, ids, ac, one, one * 6, one * 6,
+                              noise, plan)
+
+    per_step = [1e3 * _sync_s(lambda i=i: step(i))[1]
+                for i in range(TADA_TIMED_STEPS)]
+    before = qmm_kernel.launches
+    step(TADA_TIMED_STEPS)
+    k2_step = qmm_kernel.launches - before
+    kern, dev_ms, step_ms, busy = _profile_steps(
+        lambda: step(TADA_TIMED_STEPS + 1), 1)
+    rows = int(run["latent_rows"])
+    lat = np.random.RandomState(0).randn(rows, model.config.acoustic_dim) \
+        .astype(np.float32)
+    codec_ms = _time_ms(lambda: model.decode_latents(
+        lat, np.ones(rows, np.int64)), 3)
+    laps("steps timed, one profiled, codec timed")
+    bound, by, gb = tada_step_bound(model, TADA_STEPS // 2)
+    out = dict(wall=wall, xrt=r.samples / model.sample_rate / wall,
+               p50=float(np.percentile(per_step, 50)),
+               p95=float(np.percentile(per_step, 95)), codec_ms=codec_ms,
+               kernels=kern, dev_ms=dev_ms, busy=busy, bound=bound, by=by,
+               gb=gb, peak=peak, k2=k2, k2_step=k2_step, paths=paths,
+               rows=rows)
+    log(f"[tada] {label}: {TADA_STEPS} steps ({TADA_FM} flow steps, CFG "
+        f"{TADA_CFG}) -> {rows} latent rows, "
+        f"{r.samples / model.sample_rate:.2f} s of audio in {wall:.3f} s (xRT {out['xrt']:.3f}); steps timed "
+        f"alone {out['p50']:.2f} ms p50, {out['p95']:.2f} p95; a profiled "
+        f"step: {kern:.0f} kernels, {dev_ms:.3f} ms of device time against "
+        f"{step_ms:.2f} ms ({100 * busy:.1f}% busy); bound {bound:.3f} ms a "
+        f"step ({by}: {gb:.3f} GB), {100 * bound / out['p50']:.1f}% of it "
+        f"reached at p50; the codec decode of {rows} rows {codec_ms:.2f} ms; "
+        f"K2 {k2} launches in the request ({k2_step} a step, by path "
+        f"{paths}); peak {peak:.2f} GB above the earlier phases' ({card})")
+    laps.log()
+    return out
+
+
+def phase_tada_full(card: str, recorder: K2Recorder) -> int:
+    """Phase 68: TADA-1B at the JAX defaults, seeded on the card in bf16,
+    the duration bias of `_tada_bias`: the head's velocity bf16 against
+    f32; the request in bf16 (`_tada_run`); then every Linear the group
+    divides quantized to q8 on K2 (`noisy_images_proj`, 528 wide, stays
+    dense): the run again, K2's launches a step against the config's (the
+    llama's 112, `acoustic_proj`, `cond_proj`, the 7 adaLN linears once,
+    20 flow steps x the head's 19 others), q8 against bf16 on the same
+    velocity. -> K2's launches."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.tts.models.tada import Model
+    from mlx_audio_tpu_torch.tts.models.tada.tada import \
+        diffusion_head_forward
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t0 = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = Model(device=DEVICE)
+    model.astype(torch.bfloat16)
+    model.init_params(seed=0, on_device=True)
+    _tada_bias(model, TADA_FRAMES)
+    model._tokenizer = TadaTok(small=False)
+    cfg = model.config
+    head = model.prediction_head
+    log(f"[tada] TADA-1B at the JAX defaults (llama 2,048 x 16, head 6 x "
+        f"2,048, codec decoder 1,024 with strides {cfg.decoder_strides}): "
+        f"{model.num_params():,} params drawn on the card in bf16 from seed 0"
+        f" in {time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=DEVICE).manual_seed(68)
+    x = torch.randn(2, cfg.latent_size, generator=g, device=DEVICE)
+    t = torch.rand(2, generator=g, device=DEVICE)
+    cond = torch.randn(2, cfg.hidden_size, generator=g, device=DEVICE)
+    with torch.inference_mode():
+        v16 = diffusion_head_forward(head, cfg, x, t, cond)
+        head.float()
+        v32 = diffusion_head_forward(head, cfg, x, t, cond)
+        head.to(torch.bfloat16)
+    rel = rel_err(v16, v32)
+    if not rel < TADA_BF16_REL:
+        raise AssertionError(f"TADA head bf16 vs f32: {rel:.3e}")
+    bf16 = _tada_run(model, "bf16", card, base, recorder)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 TADA launched K1 or K2")
+    t1 = time.perf_counter()
+    apply_quantization(model, {"quantization": {"group_size": MLX_GROUP,
+                                                "bits": 8}})
+    torch.cuda.empty_cache()
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    with torch.inference_mode():
+        vq = diffusion_head_forward(head, cfg, x, t, cond)
+    relq = rel_err(vq, v16)
+    q8 = _tada_run(model, "q8 (K2)", card, base, recorder)
+    # the llama, acoustic_proj; cond_proj and the adaLN linears once a step,
+    # the FFNs, final.linear (and noisy_images_proj where the group divides
+    # its width) once a flow step; t_embedder once a request; the codec's
+    # decoder_proj and attention linears
+    noisy = int(isinstance(head.noisy_images_proj, QuantizedLinear))
+    lm_q = 7 * cfg.num_hidden_layers
+    head_once = 1 + cfg.head_layers + 1
+    head_each = 3 * cfg.head_layers + 1 + noisy
+    want = lm_q + 1 + head_once + TADA_FM * head_each
+    codec_q = 1 + 4 * cfg.decoder_num_attn_layers
+    if not (q8["k2_step"] == want and relq < TADA_Q8_REL
+            and held == lm_q + 1 + head_once + head_each + 2 + codec_q
+            and q8["k2"] == TADA_STEPS * want + 2 + codec_q):
+        raise AssertionError(f"q8 TADA: {held} quantized linears, "
+                             f"{q8['k2_step']} K2 launches a step (want "
+                             f"{want}), {q8['k2']} in the request, q8 vs "
+                             f"bf16 {relq:.3e}")
+    log(f"[tada] q8 (group {MLX_GROUP}, {held} linears on K2 in "
+        f"{time.perf_counter() - t1:.2f} s; noisy_images_proj "
+        f"{'on K2' if noisy else 'dense'}) against "
+        f"bf16 on this card: {q8['p50']:.2f} vs {bf16['p50']:.2f} ms a step "
+        f"p50, {q8['p95']:.2f} vs {bf16['p95']:.2f} p95, xRT {q8['xrt']:.3f} "
+        f"vs {bf16['xrt']:.3f}, {q8['kernels']:.0f} vs {bf16['kernels']:.0f} "
+        f"kernels and {q8['dev_ms']:.3f} vs {bf16['dev_ms']:.3f} ms of device "
+        f"time a step, bound {q8['bound']:.3f} vs {bf16['bound']:.3f} ms, "
+        f"peak {q8['peak']:.2f} vs {bf16['peak']:.2f} GB; K2 {want} launches "
+        f"a step ({lm_q} + acoustic_proj + {head_once} once + {TADA_FM} x "
+        f"{head_each}; {q8['k2']} in the request); the velocity q8 vs bf16 "
+        f"rel {relq:.3e}, bf16 vs f32 "
+        f"{rel:.3e} (limits {TADA_Q8_REL:g}, {TADA_BF16_REL:g}) ({card})")
+    if snake_conv_kernel.launches != before[0]:
+        raise AssertionError("TADA launched K1")
+    k2 = qmm_kernel.launches - before[1]
+    del model, head
+    torch.cuda.empty_cache()
+    log(f"[time] phase 68 in {time.perf_counter() - t0:.1f} s")
+    return k2
+
+
+def moss_frame_bound(model, cols: int) -> tuple:
+    """The least time one MOSS-TTS frame could take, B = 1: its bytes (the
+    LM's linears once; the text head once; the audio heads once; the
+    v1.5 GPT-2's linears once for each of its n_vq + 1 positions; the
+    n_vq + 1 embedding rows; the f32 K/V of `cols` cache columns) over
+    3.35 TB/s, against its operations over 989 TFLOP/s. -> (ms, "bytes"
+    or "operations", GB)."""
+    cfg = model.config
+    lc = cfg.language_config
+    lm = model.lm()
+
+    def wbytes(mods):
+        return sum(v.numel() * v.element_size() for m in mods
+                   for v in list(m.parameters(recurse=False))
+                   + list(m.buffers(recurse=False)))
+
+    def lin(root):
+        return [m for m in root.modules() if hasattr(m, "in_features")]
+
+    def params(mods):
+        return sum((m.w_q.numel() if hasattr(m, "w_q")
+                    else m.weight.numel()) for m in mods)
+
+    lm_lin = lin(lm)
+    heads = [model.text_lm_head, model.audio_lm_heads]
+    passes = 1
+    local = []
+    if cfg.is_v15_local_transformer:
+        local = lin(model.local_transformer)
+        passes = cfg.n_vq + 1
+    dt = lm.embed_tokens.weight.element_size()
+    nbytes = (wbytes(lm_lin) + wbytes(heads) + passes * wbytes(local)
+              + (cfg.n_vq + 1) * lc.hidden_size * dt
+              + 2 * lc.num_hidden_layers * cols * lc.num_key_value_heads
+              * lc.head_dim * 4)
+    ops = 2 * (params(lm_lin) + params(heads) + passes * params(local))
+    by_bytes, by_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_BF16 * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes / 1e9)
+
+
+def _moss_run(model, label: str, card: str, base: int, recorder,
+              frames: int) -> dict:
+    """A warm-up; one request of `frames` frames through
+    `generate_*_ids` (wall, its frames, peak, K2's launches by path);
+    MOSS_TIMED_FRAMES single-frame chunks (ms a frame p50/p95, each with
+    its read); a chunk of 2 frames profiled (kernels, device ms and busy
+    share a frame); K2's launches a frame; the frame's bound. -> the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+
+    cfg = model.config
+    v15 = cfg.is_v15_local_transformer
+    laps = Laps(f"moss-tts {label}")
+    proc = model._processor()
+    rows = proc([[proc.build_user_message(text=MOSS_TEXT)]])["input_ids"]
+    ids = model.generate_v15_local_ids if v15 else \
+        model.generate_delay_pattern_ids
+    ids(rows, max_new_tokens=4)
+    laps("warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    k2 = qmm_kernel.launches
+    with recorder:
+        paths0 = dict(recorder.paths)
+        out, wall = _sync_s(lambda: ids(rows, max_new_tokens=frames, seed=1))
+        paths = {p: n - paths0.get(p, 0) for p, n in recorder.paths.items()
+                 if n != paths0.get(p, 0)}
+    k2 = qmm_kernel.launches - k2
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    run = dict(model.last_run)
+    gen = out[0][1]
+    if not (run["frames"] == frames and np.isfinite(gen).all()):
+        raise AssertionError(f"MOSS-TTS {label}: {run}")
+    if not v15 and not (gen[-frames + cfg.n_vq + 1:, 1:]
+                        != cfg.audio_pad_code).all():
+        raise AssertionError(f"MOSS-TTS {label}: the delay decode left the "
+                             f"audio: {gen[-frames:, 0]}")
+    laps("the request")
+    n = MOSS_TIMED_FRAMES + 4
+    if v15:
+        s = model.start_local(rows, n + 4, 2)
+        k = model.local_knobs()
+
+        def chunk(m):
+            with torch.inference_mode():
+                return torch.stack([torch.cat(model.v15_frame(s, k))
+                                    for _ in range(m)]).cpu()
+    else:
+        s = model.start_delay(rows, n + 4, 2)
+        k = model.delay_knobs()
+
+        def chunk(m):
+            return model.delay_chunk(s, k, m)
+
+    per = [1e3 * _sync_s(lambda: chunk(1))[1]
+           for _ in range(MOSS_TIMED_FRAMES)]
+    before = qmm_kernel.launches
+    chunk(1)
+    k2_frame = qmm_kernel.launches - before
+    kern, dev_ms, step_ms, busy = _profile_steps(lambda: chunk(1), 1)
+    laps("frames timed, one profiled")
+    bound, by, gb = moss_frame_bound(model, rows.shape[1] + frames // 2)
+    out = dict(wall=wall, p50=float(np.percentile(per, 50)),
+               p95=float(np.percentile(per, 95)), kernels=kern,
+               dev_ms=dev_ms, busy=busy, bound=bound, by=by, gb=gb, peak=peak,
+               k2=k2, k2_frame=k2_frame, paths=paths)
+    log(f"[moss-tts] {label}: {frames} frames ({rows.shape[1]}-row prompt, "
+        f"{run['chunks']} chunks) in {wall:.3f} s ({1e3 * wall / frames:.2f} "
+        f"ms a frame, {frames * 0.08 / wall:.3f} xRT of 80-ms frames); "
+        f"single-frame chunks {out['p50']:.2f} ms a frame p50, "
+        f"{out['p95']:.2f} p95 (the frame is 80 ms); a profiled frame: "
+        f"{kern:.0f} kernels, {dev_ms:.3f} ms of device time against "
+        f"{step_ms:.2f} ms ({100 * busy:.1f}% busy); bound {bound:.3f} ms a "
+        f"frame ({by}: {gb:.3f} GB), {100 * bound / out['p50']:.1f}% of it "
+        f"reached at p50; K2 {k2} launches in the request ({k2_frame} a "
+        f"frame, by path {paths}); peak {peak:.2f} GB above the earlier "
+        f"phases' ({card})")
+    laps.log()
+    return out
+
+
+def _build_moss(layout: str):
+    import torch
+
+    from mlx_audio_tpu_torch.tts.models.moss_tts import Model
+
+    cfg = {"model_type": "moss_tts_delay"} if layout == "delay" else \
+        {"model_type": "moss_tts_local", "gpt2_config": MOSS_GPT2}
+    model = Model(cfg, device=DEVICE)
+    model.astype(torch.bfloat16)
+    model.init_params(seed=0, on_device=True)
+    _moss_text_bias(model, 30.0, 20.0)
+    model.tokenizer, model.audio_tokenizer = MossTok(), MossCodec()
+    return model
+
+
+def phase_moss_full(card: str, recorder: K2Recorder) -> int:
+    """Phases 69-70: MOSS-TTS at the JAX defaults seeded on the card in
+    bf16, the text head's bias of `_moss_text_bias`: the delay layout's
+    request of MOSS_FRAMES frames in bf16, then every Linear the
+    predicate and the group pass quantized to q8 on K2 (K2's launches a
+    frame against the config's: the LM's 196, the text head and the
+    audio heads), q8 against bf16 on one step's logits; then the v1.5
+    layout's request of MOSS_V15_FRAMES frames in bf16. -> K2's
+    launches."""
+    import torch
+
+    from mlx_audio_tpu_torch.nn import QuantizedLinear
+    from mlx_audio_tpu_torch.ops.qmm import qmm_kernel
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+    from mlx_audio_tpu_torch.utils import apply_quantization
+
+    t0 = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = _build_moss("delay")
+    cfg = model.config
+    lc = cfg.language_config
+    log(f"[moss-tts] MOSS-TTS delay at the JAX defaults (Qwen3 LM "
+        f"{lc.hidden_size} x {lc.num_hidden_layers}, {lc.vocab_size:,} ids, {cfg.n_vq} "
+        f"channels of {cfg.audio_vocab_size + 1}): {model.num_params():,} "
+        f"params drawn on the card in bf16 from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    proc = model._processor()
+    rows = proc([[proc.build_user_message(text=MOSS_TEXT)]])["input_ids"]
+
+    def logits():
+        with torch.inference_mode():
+            s = model.start_delay(rows, 1)
+            h = model._lm_step(model._embed_rows_delay(s["row"]),
+                               s["caches"], s["offset"])
+            return torch.cat([model.text_lm_head(h),
+                              model.audio_lm_heads(h)], dim=-1)
+
+    l16 = logits()
+    bf16 = _moss_run(model, "delay bf16", card, base, recorder, MOSS_FRAMES)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 MOSS-TTS launched K1 or K2")
+    t1 = time.perf_counter()
+    apply_quantization(model, {"quantization": {"group_size": MLX_GROUP,
+                                                "bits": 8}},
+                       model.model_quant_predicate)
+    torch.cuda.empty_cache()
+    held = sum(isinstance(m, QuantizedLinear) for m in model.modules())
+    relq = rel_err(logits(), l16)
+    q8 = _moss_run(model, "delay q8 (K2)", card, base, recorder,
+                   MOSS_FRAMES)
+    want = 7 * lc.num_hidden_layers + 2
+    if not (held == want and q8["k2_frame"] == want
+            and relq < MOSS_Q8_REL):
+        raise AssertionError(f"q8 MOSS-TTS: {held} quantized linears, "
+                             f"{q8['k2_frame']} K2 launches a frame (want "
+                             f"{want}), q8 vs bf16 logits {relq:.3e}")
+    log(f"[moss-tts] delay q8 (group {MLX_GROUP}, {held} linears on K2 in "
+        f"{time.perf_counter() - t1:.2f} s; audio_embeddings dense) against "
+        f"bf16 on this card: {q8['p50']:.2f} vs {bf16['p50']:.2f} ms a frame "
+        f"p50, {q8['p95']:.2f} vs {bf16['p95']:.2f} p95, {q8['kernels']:.0f} "
+        f"vs {bf16['kernels']:.0f} kernels and {q8['dev_ms']:.3f} vs "
+        f"{bf16['dev_ms']:.3f} ms of device time a frame, bound "
+        f"{q8['bound']:.3f} vs {bf16['bound']:.3f} ms, peak {q8['peak']:.2f} "
+        f"vs {bf16['peak']:.2f} GB; K2 {want} launches a frame; one step's "
+        f"logits q8 vs bf16 rel {relq:.3e} (limit {MOSS_Q8_REL:g}) ({card})")
+    k2 = qmm_kernel.launches - before[1]
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 69 in {time.perf_counter() - t0:.1f} s")
+    t2 = time.perf_counter()
+    before = (snake_conv_kernel.launches, qmm_kernel.launches)
+    base = torch.cuda.memory_allocated()
+    model = _build_moss("v15")
+    g = model.local_transformer.cfg
+    log(f"[moss-tts] MOSS-TTS v1.5 local: the delay LM with a {g.n_layer}-"
+        f"layer GPT-2 {g.n_embd} wide, {g.n_head} heads, n_inner "
+        f"{g.n_inner}: {model.num_params():,} params in bf16")
+    _moss_run(model, "v1.5 bf16", card, base, recorder, MOSS_V15_FRAMES)
+    if (snake_conv_kernel.launches, qmm_kernel.launches) != before:
+        raise AssertionError("the bf16 v1.5 MOSS-TTS launched K1 or K2")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[time] phase 70 in {time.perf_counter() - t2:.1f} s")
+    return k2
+
+
+def phase_slice8b(card: str, recorder: K2Recorder) -> int:
+    """Phases 67-70; K2 only on the q8 models, K1 nowhere. -> K2's
+    launches."""
+    import torch
+
+    from mlx_audio_tpu_torch.ops.snake_conv import snake_conv_kernel
+
+    t0 = time.perf_counter()
+    k1 = snake_conv_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        k2 = phase_slice8b_reference(Path(tmp))
+    torch.cuda.empty_cache()
+    k2 += phase_tada_full(card, recorder)
+    k2 += phase_moss_full(card, recorder)
+    if snake_conv_kernel.launches != k1:
+        raise AssertionError("TADA or MOSS-TTS launched K1")
+    log(f"[time] phases 67-70 in {time.perf_counter() - t0:.1f} s; K2 {k2} "
+        f"launches (the q8 models)")
+    return k2
+
+
 def main() -> int:
     if not (ROOT / "mlx_audio_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -13422,6 +14266,10 @@ def main() -> int:
     k1_launches += k1_kit
     k2_launches += k2_vox
     log(f"[time] phases 1-66 in {time.perf_counter() - t_start:.1f} s "
+        f"({card})")
+    # TADA and MOSS-TTS: K2 on the q8 models
+    k2_launches += phase_slice8b(card, recorder)
+    log(f"[time] phases 1-70 in {time.perf_counter() - t_start:.1f} s "
         f"({card})")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -166,11 +166,13 @@ class QuantizedLinear(nn.Module):
     def from_params(cls, params) -> "QuantizedLinear":
         """A QuantizedLinear holding {w_q (out, in), scales, biases[, bias]}
         (quantize_weight's or unpack_mlx_quantized's layout) on their
-        device, with no dense weight in between."""
+        device, built there, with no dense weight or host copy in
+        between."""
         w_q = params["w_q"]
         out_f, in_f = w_q.shape
-        m = cls(in_f, out_f, in_f // params["scales"].shape[1],
-                bias=params.get("bias") is not None).to(w_q.device)
+        with torch.device(w_q.device):
+            m = cls(in_f, out_f, in_f // params["scales"].shape[1],
+                    bias=params.get("bias") is not None)
         for k in ("w_q", "scales", "biases", "bias"):
             if params.get(k) is not None:
                 getattr(m, k).copy_(params[k])

@@ -1,11 +1,18 @@
-"""MOSS-TTS (counterpart of mlx_audio_tpu/tts/models/moss_tts), only what
-the Qwen3 LM families need: `Qwen3LMConfig` and the Qwen3 LM it builds
-(`Qwen3LM`, `qwen3_lm_forward`), on which VyvoTTS and Qwen3-ASR run. The
-rest of MOSS-TTS (the delay-pattern and local-transformer heads, the
-processors, the model itself) is not ported yet."""
+"""MOSS-TTS (counterpart of mlx_audio_tpu/tts/models/moss_tts): the model
+in its delay, legacy local and v1.5 local layouts (`Model`,
+`ModelConfig`), its prompt processors and delay pattern, and the Qwen3 LM
+that the Qwen3 LM families share (`Qwen3LMConfig`, `Qwen3LM`,
+`qwen3_lm_forward`). The MOSS audio tokenizer codec is not ported: a
+caller binds its own as `model.audio_tokenizer`."""
 
-from .config import Qwen3LMConfig
-from .moss_tts import Qwen3LM, init_qwen3_lm, lm_logits, qwen3_lm_forward
+from .config import ModelConfig, Qwen3LMConfig
+from .moss_tts import Model, Qwen3LM, init_qwen3_lm, lm_logits, qwen3_lm_forward
+from .processor import (MossTTSDelayProcessor, MossTTSLocalProcessor,
+                        MossTTSLocalV15Processor, apply_de_delay_pattern,
+                        apply_delay_pattern)
 
-__all__ = ["Qwen3LMConfig", "Qwen3LM", "init_qwen3_lm", "qwen3_lm_forward",
-           "lm_logits"]
+__all__ = ["Model", "ModelConfig", "Qwen3LMConfig", "Qwen3LM",
+           "init_qwen3_lm", "qwen3_lm_forward", "lm_logits",
+           "MossTTSDelayProcessor", "MossTTSLocalProcessor",
+           "MossTTSLocalV15Processor", "apply_delay_pattern",
+           "apply_de_delay_pattern"]

@@ -1,7 +1,8 @@
 """TTS loader of the port (subset of mlx_audio_tpu/tts/utils.py): local
 checkpoint directories of the families ported so far (Kokoro, Qwen3-TTS,
 Higgs Audio v2, KugelAudio, VibeVoice, Sesame CSM, Orpheus, VyvoTTS,
-OuteTTS, Pocket-TTS, KittenTTS, Soprano, Voxtral-4B-TTS, OmniVoice), dense,
+OuteTTS, Pocket-TTS, KittenTTS, Soprano, Voxtral-4B-TTS, OmniVoice,
+TADA, MOSS-TTS with its aliases), dense,
 pre-quantized (MLX-packed) or written by the convert CLI. A family whose
 `Model.SANITIZE_GIVES_JAX_TREE` is set maps a checkpoint onto the JAX
 package's tree (as the JAX package's `sanitize` does), which
@@ -97,7 +98,8 @@ MODEL_REMAPPING = {
 # families of MODEL_REMAPPING's values that the port has
 PORTED = ("kokoro", "qwen3_tts", "higgs_audio", "kugelaudio", "vibevoice",
           "sesame", "llama", "qwen3", "outetts", "pocket_tts", "kitten_tts",
-          "soprano", "voxtral_tts", "omnivoice")
+          "soprano", "voxtral_tts", "omnivoice", "tada", "moss_tts",
+          "moss_tts_delay", "moss_tts_local")
 
 
 def load_model(model_path: Union[str, Path], device="cuda",

@@ -1436,6 +1436,155 @@ def test_tiny_slice8a_families_without_jax(tmp_path):
     assert out.strip() == "4 False []", out
 
 
+SLICE8B_SOURCES = (
+    "mlx_audio_tpu_torch/tts/models/tada/tada.py",
+    "mlx_audio_tpu_torch/tts/models/tada/codec.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts/moss_tts.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts/config.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts/processor.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts/text.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts_delay/__init__.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts_local/__init__.py",
+    "mlx_audio_tpu_torch/tts/models/moss_tts_nano/gpt2.py")
+
+
+@pytest.mark.parametrize("path", SLICE8B_SOURCES)
+def test_slice8b_modules_are_checked_statically(path):
+    """TADA, MOSS-TTS with its aliases and the GPT-2 local head, the
+    pure-Python host copies among them (`moss_tts/text.py`,
+    `processor.py`, TADA's text, gray-code and alignment helpers), are
+    among the sources whose imports `test_source_imports_nothing_of_jax`
+    checks."""
+    assert path in PORT_SOURCES
+
+
+@pytest.mark.parametrize("name,text", [
+    ("tada.tada.normalize_text", 'he said: "yes" -- ok…'),
+    ("tada.tada.normalize_text", "hi there"),
+    ("moss_tts.text.normalize_tts_text", "hello world"),
+    ("moss_tts.text.normalize_tts_text", "# T\n- see https://a.b/c ok!!"),
+    ("moss_tts.text.normalize_tts_text", "【标题】你好 world")])
+def test_slice8b_text_copies_equal_jax(name, text):
+    """The slice's text copies give their originals' outputs on the JAX
+    tests' strings (tests/test_tada.py, tests/test_moss_tts.py)."""
+    import importlib
+
+    mod, attr = name.rsplit(".", 1)
+    got, want = (getattr(importlib.import_module(
+        f"{pkg}.tts.models.{mod}"), attr)
+        for pkg in ("mlx_audio_tpu_torch", "mlx_audio_tpu"))
+    assert got(text) == want(text)
+
+
+@pytest.mark.parametrize("layout", ["delay", "v15", "legacy"])
+def test_slice8b_processor_copies_equal_jax(layout):
+    """The MOSS-TTS processor copies build JAX's rows for the JAX tests'
+    prompts (a text-only prompt, a cloned one, a continuation), and the
+    TADA gray code and alignment copies JAX's values."""
+    import numpy as np
+    from test_moss_tts import LANG, CharTok
+
+    from mlx_audio_tpu.tts.models import moss_tts as jm
+    from mlx_audio_tpu.tts.models.tada import tada as jt
+    from mlx_audio_tpu_torch.tts.models import moss_tts as pm
+    from mlx_audio_tpu_torch.tts.models.tada import tada as pt
+
+    extra = {"delay": dict(model_type="moss_tts_delay"),
+             "v15": dict(model_type="moss_tts_local",
+                         audio_codebook_sizes=[24] * 4,
+                         gpt2_config=dict(n_embd=32, n_head=4, n_inner=64)),
+             "legacy": dict(model_type="moss_tts",
+                            additional_mlp_ffn_hidden_size=48,
+                            local_ffn_hidden_size=48, local_hidden_size=32,
+                            local_num_layers=1)}[layout]
+    cfg = dict(language_config=LANG, n_vq=4, audio_vocab_size=24, **extra)
+    ref = np.random.RandomState(0).randint(0, 24, size=(6, 4))
+    rows = []
+    for pkg in (pm, jm):
+        c = pkg.ModelConfig.from_dict(cfg)
+        proc = {"delay": pkg.MossTTSDelayProcessor,
+                "v15": pkg.MossTTSLocalV15Processor,
+                "legacy": pkg.MossTTSLocalProcessor}[layout](CharTok(), c)
+        rows.append([proc([[proc.build_user_message(text="hello world")]]),
+                     proc([[proc.build_user_message(text="hi",
+                                                    reference=[ref])]]),
+                     proc([[proc.build_user_message(text="hi"),
+                            proc.build_assistant_message([ref])]],
+                          mode="continuation")])
+    for a, b in zip(*rows):
+        np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
+        np.testing.assert_array_equal(a["attention_mask"],
+                                      b["attention_mask"])
+    for n in (0, 5, 255):
+        assert pt.int_to_gray_bits(n, 8) == jt.int_to_gray_bits(n, 8)
+    logits = np.random.RandomState(1).randn(50, 30).astype(np.float32)
+    for x, y in zip(pt.align_text_tokens(logits, np.array([3, 7, 11]),
+                                         24000, 24000),
+                    jt.align_text_tokens(logits, np.array([3, 7, 11]),
+                                         24000, 24000)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_chip_smoke_defines_each_module_name_once():
+    """chip_smoke.py defines each module-level name once: a phase's config
+    of the same name as an earlier phase's (MOSS-TTS's and MossFormer2's
+    small configs) would replace it for every phase."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py"),
+                          encoding="utf-8").read())
+    names = []
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [n.id for t in node.targets for n in ast.walk(t)
+                      if isinstance(n, ast.Name)]
+    twice = sorted({n for n in names if names.count(n) > 1})
+    assert not twice, f"defined more than once: {twice}"
+
+
+def test_tiny_tada_and_moss_tts_without_jax(tmp_path):
+    """On the CPU at a tiny size, with no jax in sys.modules: chip_smoke.py
+    phase 67's small TADA and delay MOSS-TTS (a q8 directory at group 16)
+    through the top-level `load_model` on written directories, TADA
+    generating finite audio, MOSS-TTS a continuation of 6 frames through
+    the stand-in codec."""
+    out = _run("""
+        import sys
+        from pathlib import Path
+        import numpy as np
+        import mlx_audio_tpu_torch
+        from mlx_audio_tpu_torch.nn import QuantizedLinear
+        from mlx_audio_tpu_torch.tts.models import moss_tts, tada
+        from chip_smoke import (MOSS_TTS_SMALL, TADA_SMALL, MossCodec, MossTok,
+                                TadaTok, write_slice8b_checkpoint)
+
+        tmp = Path(%r)
+        load = lambda d: mlx_audio_tpu_torch.load_model(d, device="cpu")
+        write_slice8b_checkpoint(tada.Model(TADA_SMALL, device="cpu")
+                                 .init_params(seed=0), tmp / "tada",
+                                 TADA_SMALL, "tada")
+        write_slice8b_checkpoint(
+            moss_tts.Model(MOSS_TTS_SMALL["delay"], device="cpu").init_params(
+                seed=0), tmp / "moss", MOSS_TTS_SMALL["delay"],
+            "moss_tts_delay", {"quantization": {"group_size": 16,
+                                                "bits": 8}})
+        t = load(tmp / "tada")
+        t._tokenizer = TadaTok(small=True)
+        out = list(t.generate("hi there", max_tokens=12,
+                              num_flow_matching_steps=4))
+        m = load(tmp / "moss")
+        assert isinstance(m.audio_lm_heads, QuantizedLinear)
+        m.tokenizer, m.audio_tokenizer = MossTok(), MossCodec()
+        out += list(m.generate("hello", mode="continuation", max_tokens=6,
+                               prompt_audio_codes=np.ones((4, 4), np.int64),
+                               text_temperature=0.0, audio_temperature=0.0))
+        assert out[0].audio.size and m.last_run["frames"] == 6
+        assert all(np.isfinite(r.audio).all() for r in out)
+        print(len(out), "jax" in sys.modules, %s)
+    """ % (str(tmp_path), FORBIDDEN))
+    assert out.strip() == "2 False []", out
+
+
 def _entry_points():
     import mlx_audio_tpu_torch
     from mlx_audio_tpu_torch import convert, server
@@ -1499,6 +1648,12 @@ def _entry_points():
                                                 voxtral_tts)
 
     for m in (soprano, voxtral_tts, omnivoice):
+        last_stt[f"{m.__name__.rsplit('.', 1)[-1]}.Model"] = (
+            m.Model.__init__, lambda p, m=m: m.Model(m.ModelConfig()))
+    from mlx_audio_tpu_torch.tts.models import (moss_tts, moss_tts_delay,
+                                                moss_tts_local, tada)
+
+    for m in (tada, moss_tts, moss_tts_delay, moss_tts_local):
         last_stt[f"{m.__name__.rsplit('.', 1)[-1]}.Model"] = (
             m.Model.__init__, lambda p, m=m: m.Model(m.ModelConfig()))
     last_stt["kitten_tts.Model"] = (
@@ -1685,7 +1840,10 @@ def _entry_points():
                                   "dacvae.Model",
                                   "stt.eval.run_stt_wer_eval",
                                   "kitten_tts.Model", "soprano.Model",
-                                  "voxtral_tts.Model", "omnivoice.Model"])
+                                  "voxtral_tts.Model", "omnivoice.Model",
+                                  "tada.Model", "moss_tts.Model",
+                                  "moss_tts_delay.Model",
+                                  "moss_tts_local.Model"])
 def test_entry_point_defaults_to_cuda_and_raises_without_it(name, tmp_path,
                                                             monkeypatch):
     """Each entry point defaults to device="cuda"; on a machine without

@@ -297,18 +297,30 @@ def test_llama_types_reach_the_orpheus_loader(tmp_path, monkeypatch, how):
     assert seen == ["llama"]
 
 
-def test_llama_with_acoustic_dim_is_tada(tmp_path):
+def test_llama_with_acoustic_dim_is_tada(tmp_path, monkeypatch):
     """JAX's rule (mlx_audio_tpu/utils.py:339-341): a `llama` config that
-    carries `acoustic_dim` is TADA, which the port names as not ported."""
+    carries `acoustic_dim` is TADA. On a config-only directory the port's
+    loader reaches TADA and fails for want of weights, as JAX's loader
+    does."""
     from mlx_audio_tpu.utils import get_model_category as jax_category
+    from mlx_audio_tpu.utils import load_model as jax_load
     from mlx_audio_tpu_torch import load_model
+    from mlx_audio_tpu_torch.tts import utils as tts_utils
     from mlx_audio_tpu_torch.utils import get_model_category
 
     d = _config_only(tmp_path / "ckpt", model_type="llama", acoustic_dim=64)
     assert get_model_category("llama", []) == jax_category("llama", []) \
         == "tts"
-    with pytest.raises(ValueError, match="'tada'.*not ported"):
+    with pytest.raises(FileNotFoundError, match="No weight files"):
         load_model(d, device="cpu")
+    with pytest.raises(FileNotFoundError, match="No weight files"):
+        jax_load(str(d))
+    seen = []
+    monkeypatch.setattr(tts_utils, "load_weights", lambda path: {})
+    monkeypatch.setattr(tts_utils, "_load_family",
+                        lambda family, *a: seen.append(family))
+    load_model(d, device="cpu")
+    assert seen == ["tada"]
 
 
 def _write_ecapa(path):
@@ -348,8 +360,8 @@ def test_wav2vec2_checkpoint_routes_by_its_name(name, want):
 def test_unported_category_and_family_are_named(tmp_path):
     from mlx_audio_tpu_torch import load_model
 
-    tts = _config_only(tmp_path / "a", model_type="tada")
-    with pytest.raises(ValueError, match="'tada'.*not ported"):
+    tts = _config_only(tmp_path / "a", model_type="zonos2")
+    with pytest.raises(ValueError, match="'zonos2'.*not ported"):
         load_model(tts, device="cpu")
     lid = _write_ecapa(tmp_path / "b")
     assert type(load_model(lid, device="cpu")).__module__.endswith(
